@@ -1,0 +1,472 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA card and check it.
+
+  python3 chip_smoke.py            (from the repository root, one card)
+
+Phases, each raising on failure (the script then exits non-zero and
+prints no result line):
+
+1. device: a card must be present; TF32 is switched off for matmuls and
+   cuDNN, so fp32 comparisons are fp32.
+2. build: both CUDA kernels, one nvcc per source, started together.
+3. kernels: each kernel against its plain PyTorch version on the card, at
+   the main path's shapes and at the smoke shapes, with the tolerances
+   stated below, and the live-page bucket against the full width (bit
+   for bit); kernel, plain and library times (CUDA events).
+4. main path: llama3-8b at its published width (32 layers, bf16, seeded
+   random weights made on the card) served by the tiered engine; launch
+   counts are reset just before the run and read just after; tokens/s,
+   step times and the wall time by engine phase.
+5. dense against tiered at full width (2 layers, fp32, teacher-forced,
+   maintenance running): logits within 1e-3.
+
+Output, in order: phase lines, one JSON ``kernels`` line, the card's name
+and power limit as nvidia-smi reports them, and last
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
+FP32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+
+
+def _fail(msg: str):
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def _check(cond: bool, msg: str):
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def _time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+    """Median of per-call device times (CUDA events).  Before each call
+    the card is held busy (``torch.cuda._sleep``, about a millisecond)
+    while the host enqueues the call, so the events bracket the device's
+    work and not the host's dispatch; and a 128 MiB write leaves the
+    50 MB L2 cold, as the decode step finds it (each layer's pools follow
+    ~0.4 GB of weights)."""
+    import torch
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        flush.zero_()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[len(times) // 2]
+
+
+def _card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _fused_inputs(torch, dev, *, B, K, KV, G, hd, P, NP, F, n_pages, dtype,
+                  seed):
+    """Seeded inputs: ragged positions inside the bucket, the last lane
+    parked, entries mixing fast slots and slow homes.  Returns the inputs
+    (entries sliced to the ``n_pages`` bucket) and the full [B, NP]
+    entries."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)  # noqa
+    pos = torch.randint(0, n_pages * P - K, (B,), generator=g, device=dev,
+                        dtype=torch.int32)
+    pos[-1] = -1
+    slots = torch.randint(0, F, (B, NP), generator=g, device=dev,
+                          dtype=torch.int32)
+    fast = torch.rand((B, NP), generator=g, device=dev) < 0.15
+    table = torch.where(fast, slots, -1).to(torch.int32)
+    return dict(q=r(B, K, KV, G, hd), fast_k=r(F, KV, P, hd),
+                fast_v=r(F, KV, P, hd), slow_k=r(B * NP, KV, P, hd),
+                slow_v=r(B * NP, KV, P, hd), entries=table[:, :n_pages],
+                k_new=r(B, K, KV, hd), v_new=r(B, K, KV, hd), pos=pos), table
+
+
+def _fused_bound(d):
+    """Least time for this call on this data: every input byte it needs
+    read once (the live pages of live lanes; a parked lane's output is
+    never read, so its pages are not needed), the output written once;
+    fp32 flops of QK and PV over the attended columns."""
+    B, K, KV, G, hd = d["q"].shape
+    P = d["fast_k"].shape[2]
+    n_pages = d["entries"].shape[1]
+    item = d["q"].element_size()
+    pos = d["pos"].tolist()
+    pages = [min(n_pages, -(-(p + K) // P)) if p >= 0 else 0 for p in pos]
+    cols = sum(pages) * P
+    nbytes = (2 * d["q"].numel() * item                  # q in, out
+              + 2 * d["k_new"].numel() * item
+              + 2 * KV * cols * hd * item                # K and V tiles
+              + 4 * (sum(pages) + B))                    # entries, pos
+    flops = 2 * 2 * KV * K * G * cols * hd
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def _stored_rows(torch, d, table):
+    """The pool rows at each lane's position (K=1): overlaying these
+    instead of k_new/v_new is the fault of a dropped overlay row."""
+    B = d["pos"].shape[0]
+    P = d["fast_k"].shape[2]
+    NP = d["slow_k"].shape[0] // B
+    p = d["pos"].clamp(min=0).long()
+    j, r = p // P, p % P
+    b = torch.arange(B, device=p.device)
+    e = table[b, j].long()
+    fast = (e >= 0)[:, None, None]
+    return [torch.where(fast, f[e.clamp(min=0), :, r], sl[b * NP + j, :, r])
+            [:, None] for f, sl in ((d["fast_k"], d["slow_k"]),
+                                    (d["fast_v"], d["slow_v"]))]
+
+
+def kernel_phase(torch, dev):
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention.ref import (
+        bf16_tolerance, paged_attention_fused_ref)
+    from repro_torch.kernels.remap_gather import ops as rg_ops
+    from repro_torch.kernels.remap_gather.ref import remap_gather_ref
+
+    rows = {}
+    # paged_attention_fused at the main path's shapes: B=8, KV=8, G=4,
+    # hd=128, page=16, bf16, K=1, a 64-page live bucket of 128 pages,
+    # 144 fast slots.  Tolerance: two bf16 ulps of each value of the plain
+    # version computed in fp32 and cast to bf16 (both sides round an fp32
+    # sum of the same inputs); the same check must flag the fault of a
+    # dropped overlay row; the bucket must equal the full 128-page width
+    # bit for bit.
+    d, table = _fused_inputs(torch, dev, B=8, K=1, KV=8, G=4, hd=128, P=16,
+                             NP=128, F=144, n_pages=64,
+                             dtype=torch.bfloat16, seed=1)
+    live = d["pos"] >= 0
+    out = pa_ops.paged_attention_fused_op(**d)
+    full = pa_ops.paged_attention_fused_op(**{**d, "entries": table})
+    _check(torch.equal(out[live], full[live]),
+           "paged_attention_fused: the 64-page bucket differs from the full "
+           "width")
+    d32 = {k: (v.float() if v.is_floating_point() else v)
+           for k, v in d.items()}
+    ref = paged_attention_fused_ref(**d32).to(torch.bfloat16)[live].float()
+    tol = bf16_tolerance(ref)
+    diff = (out[live].float() - ref).abs()
+    err, ratio = diff.max().item(), (diff / tol).max().item()
+    _check(math.isfinite(err) and ratio <= 1.0,
+           f"paged_attention_fused bf16 error {err} over two ulps "
+           f"(error/limit {ratio:.3f})")
+    k_old, v_old = _stored_rows(torch, d32, table)
+    fault = (paged_attention_fused_ref(**{**d32, "k_new": k_old,
+                                          "v_new": v_old})
+             .to(torch.bfloat16)[live].float() - ref).abs()
+    caught = int(((fault > tol).flatten(1).any(1)).sum())
+    fault_ratio = (fault / tol).max().item()
+    _check(caught == int(live.sum()),
+           f"a dropped overlay row passes the bf16 limit on "
+           f"{int(live.sum()) - caught} lanes")
+    print(f"kernel paged_attention_fused bf16 limit: kernel error/limit "
+          f"{ratio:.3f} (max abs {err:.3e}, max |ref| "
+          f"{ref.abs().max().item():.3e}); a dropped overlay row: "
+          f"error/limit {fault_ratio:.2f} (max abs "
+          f"{fault.max().item():.3e}), caught on {caught} of "
+          f"{int(live.sum())} live lanes")
+    ms = _time_ms(lambda: pa_ops.paged_attention_fused_op(**d))
+    plain_ms = _time_ms(lambda: paged_attention_fused_ref(**d), reps=5)
+    bound_ms, bound_by = _fused_bound(d)
+    rows["paged_attention_fused"] = dict(
+        name="paged_attention_fused", route="cuda",
+        source="src/repro_torch/kernels/paged_attention/csrc/"
+               "paged_attention_fused.cu",
+        replaces="src/repro/kernels/paged_attention/paged_attention.py:259",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None)
+    print(f"kernel paged_attention_fused bf16 main shapes: max_abs_err "
+          f"{err:.3e} (two-ulp limit), {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by})")
+    # smoke shapes: fp32, hd=16, page=8, K=2; tolerance 1e-4 (online and
+    # full softmax sum in other orders)
+    for K in (1, 2):
+        d, _ = _fused_inputs(torch, dev, B=3, K=K, KV=2, G=2, hd=16, P=8,
+                             NP=8, F=6, n_pages=8 if K == 1 else 4,
+                             dtype=torch.float32, seed=2 + K)
+        live = d["pos"] >= 0
+        e = (pa_ops.paged_attention_fused_op(**d)[live]
+             - paged_attention_fused_ref(**d)[live]).abs().max().item()
+        _check(math.isfinite(e) and e <= 1e-4,
+               f"paged_attention_fused fp32 K={K} error {e} > 1e-4")
+        print(f"kernel paged_attention_fused fp32 smoke K={K}: max_abs_err "
+              f"{e:.3e} (tol 1e-4)")
+
+    # remap_gather at the main path's call: the [L*n, KV*P, hd] view of a
+    # 32-layer slow pool (n = 1024 homes, KV*P = 128 rows, hd = 128,
+    # bf16), one index per layer; byte-exact.  Called, and timed, as the
+    # maintenance pass calls it: with the pass's out-of-range flag, which
+    # is read once after the batch.
+    L, n = 32, 1024
+    pool = torch.randn((L * n, 128, 128), device=dev).to(torch.bfloat16)
+    idx = (torch.arange(L, device=dev, dtype=torch.int32) * n + 357)
+    flag = rg_ops.new_flag(dev)
+    got = rg_ops.remap_gather_op(pool, idx, flag)
+    _check(torch.equal(got, remap_gather_ref(pool, idx)),
+           "remap_gather bf16 differs from its plain version")
+    small = torch.randn((40, 16, 16), device=dev)
+    sidx = torch.tensor([3, 39, 0, 3], dtype=torch.int32, device=dev)
+    _check(torch.equal(rg_ops.remap_gather_op(small, sidx, flag),
+                       remap_gather_ref(small, sidx)),
+           "remap_gather fp32 differs from its plain version")
+    lidx = idx.long()
+    ms = _time_ms(lambda: rg_ops.remap_gather_op(pool, idx, flag))
+    rg_ops.check_flag(flag)
+    plain_ms = _time_ms(lambda: remap_gather_ref(pool, idx))
+    lib_ms = _time_ms(lambda: torch.index_select(pool, 0, lidx))
+    nbytes = 2 * L * pool[0].numel() * pool.element_size() + 4 * L
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    rows["remap_gather"] = dict(
+        name="remap_gather", route="cuda",
+        source="src/repro_torch/kernels/remap_gather/csrc/remap_gather.cu",
+        replaces="src/repro/kernels/remap_gather/remap_gather.py:24",
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by="bytes", library_ms=lib_ms)
+    print(f"kernel remap_gather bf16 main call: exact, {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, index_select {lib_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms (bytes)")
+    del pool, got
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path at full width
+# ---------------------------------------------------------------------------
+
+def main_path_engine(torch, dev):
+    """The main path's engine, weights and requests: llama3-8b as
+    published, seeded random weights made on the card, the tiered engine
+    with 1024 logical pages and 144 fast slots, 16 seeded requests
+    (prompts 100-900 tokens, max_new 32-96) already submitted."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve.engine import Engine, EngineConfig, Request
+
+    cfg = get_config("llama3-8b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, dev, seed=0)
+    torch.cuda.synchronize()
+    print(f"main: llama3-8b L={cfg.n_layers} d={cfg.d_model} "
+          f"H={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} ff={cfg.d_ff} "
+          f"V={cfg.vocab} {cfg.dtype}, params made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    ec = EngineConfig(batch=8, max_len=2048, backend="tiered",
+                      page_tokens=16, fast_data_slots=128, maintain_every=4)
+    eng = Engine(cfg, params, ec, device=dev)
+    t = eng.backend.tcfg
+    slow = cfg.n_layers * t.n_logical * t.page_bytes
+    print(f"main: {t.n_logical} logical pages, {t.fast_slots} fast slots, "
+          f"slow pools {slow / 2**30:.2f} GiB")
+    rng = np.random.default_rng(0)
+    for i in range(16):
+        n = int(rng.integers(100, 901))
+        eng.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab, n),
+                           max_new=int(rng.integers(32, 97))))
+    return cfg, eng
+
+
+def main_path_phase(torch, dev):
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.remap_gather import ops as rg_ops
+    from repro_torch.serve import engine as eng_mod
+
+    cfg, eng = main_path_engine(torch, dev)
+    spent: dict = {}              # phase -> host ms of each synchronised call
+    real = eng_mod.decode_step
+
+    def timed(phase, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent.setdefault(phase, []).append(
+                (time.perf_counter() - s) * 1e3)
+            return out
+        return run
+
+    eng_mod.decode_step = timed("decode step", real)
+    eng.prefill_lane = timed("prefill", eng.prefill_lane)
+    be = eng.backend
+    be.plan_maintain = timed("maintenance plan", be.plan_maintain)
+    be.apply_maintain = timed("maintenance apply", be.apply_maintain)
+    be.release = timed("release", be.release)
+    torch.cuda.reset_peak_memory_stats()
+    pa_ops.launches = 0
+    rg_ops.launches = 0
+    try:
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        eng_mod.decode_step = real
+    launches = {"paged_attention_fused": pa_ops.launches,
+                "remap_gather": rg_ops.launches}
+    peak = torch.cuda.max_memory_allocated()
+    c = eng.counters
+    n_tok = sum(len(r.tokens) for r in done)
+    _check(len(done) == 16 and all(r.done for r in done),
+           f"{len(done)} of 16 requests finished")
+    _check(all(0 <= x < cfg.vocab for r in done for x in r.tokens),
+           "a token outside the vocabulary")
+    _check(all(len(r.tokens) == r.max_new for r in done),
+           "a request stopped short of max_new")
+    _check(launches["paged_attention_fused"] == eng.steps * cfg.n_layers,
+           f"paged_attention_fused launches {launches} != steps "
+           f"{eng.steps} x {cfg.n_layers}")
+    _check(launches["remap_gather"] > 0, "remap_gather never launched")
+    _check(c["promo_bytes"] > 0, "no page was promoted")
+    _check(eng.releases >= 1, "no lane was released")
+    step_ms = sorted(spent["decode step"])
+    print(f"main: {len(done)} requests, {n_tok} tokens, {eng.steps} decode "
+          f"steps in {wall:.2f} s: {n_tok / wall:.1f} tokens/s end to end, "
+          f"decode step median {step_ms[len(step_ms) // 2]:.2f} ms (p90 "
+          f"{step_ms[int(len(step_ms) * 0.9)]:.2f} ms), "
+          f"{eng.releases} releases")
+    parts = [f"{k} {len(v)} x {sum(v) / len(v):.2f} ms = {sum(v) / 1e3:.2f} s"
+             for k, v in spent.items()]
+    rest = wall - sum(sum(v) for v in spent.values()) / 1e3
+    print(f"main: time by phase (host clock, synchronised calls): "
+          f"{'; '.join(parts)}; rest of the loop {rest:.2f} s")
+    lat = sorted(r.done_at - r.arrived for r in done)
+    ttft = sorted(r.first_token_at - r.arrived for r in done)
+    print(f"main: request latency p50 {lat[len(lat) // 2]:.2f} s, max "
+          f"{lat[-1]:.2f} s; time to first token p50 "
+          f"{ttft[len(ttft) // 2]:.2f} s, max {ttft[-1]:.2f} s (all 16 "
+          f"submitted at once)")
+    print(f"main: launches {json.dumps(launches)}")
+    totals = {k: v for k, v in c.items() if not k.startswith("epoch_")}
+    print(f"main: counters {json.dumps(totals)}")
+    print(f"main: peak device memory {peak / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated)")
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5: dense against tiered at full width
+# ---------------------------------------------------------------------------
+
+def dense_tiered_phase(torch, dev):
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import get_policy
+    from repro_torch.models import decode_step, forward, init_params
+    from repro_torch.models.kv_backend import DenseBackend, TieredBackend
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=2,
+                              dtype="float32")
+    params = init_params(cfg, dev, seed=1)
+    B, max_len = 4, 256
+    dense = DenseBackend(cfg, dev)
+    tiered = TieredBackend(cfg, B, max_len, page_tokens=16,
+                           fast_data_slots=8,
+                           policy=get_policy("threshold", epoch_len=2),
+                           device=dev)
+    sd, st = dense.init_state(B, max_len), tiered.init_state(B, max_len)
+    rng = np.random.default_rng(2)
+    with torch.inference_mode():
+        for lane, n in enumerate((37, 90, 5, 150)):
+            toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, n)),
+                                   device=dev)
+            _, _, (k, v) = forward(cfg, params, {"tokens": toks},
+                                   collect_cache=True)
+            sd = dense.write_prefill(sd, lane, k[:, 0], v[:, 0], n)
+            st = tiered.write_prefill(st, lane, k[:, 0], v[:, 0], n)
+        diffs, scale = [], 0.0
+        for i in range(24):
+            tok = torch.as_tensor(rng.integers(0, cfg.vocab, B),
+                                  dtype=torch.int32, device=dev)
+            ld, sd = decode_step(cfg, params, sd, tok, backend=dense)
+            lt, st = decode_step(cfg, params, st, tok, backend=tiered)
+            diffs.append((ld - lt).abs().max().item())
+            scale = max(scale, ld.abs().max().item())
+            if i % 3 == 2:
+                st = tiered.maintain(st)
+    worst = max(diffs)
+    c = st.caches
+    print(f"dense-vs-tiered: llama3-8b width, 2 layers, fp32, 24 steps, "
+          f"{int(c.migrations)} migrations: max |logit diff| {worst:.3e} "
+          f"(tol 1e-3; max |logit| {scale:.3f})")
+    _check(int(c.migrations) > 0, "no migration during the dense/tiered run")
+    _check(math.isfinite(worst) and worst <= 1e-3,
+           f"dense vs tiered logits differ by {worst} > 1e-3")
+    del params
+    torch.cuda.empty_cache()
+
+
+def main():
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        _fail("src/repro_torch not found beside chip_smoke.py")
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is false")
+    dev = torch.device("cuda", 0)
+    card = _card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    print(f"device: {torch.cuda.get_device_name(0)} ({card}); torch "
+          f"{torch.__version__} cuda {torch.version.cuda}; TF32 off for "
+          f"matmul and cuDNN")
+
+    from repro_torch.kernels import _build
+    secs = _build.build_all()
+    print(f"build: both kernels in {secs:.1f} s (nvcc, sm_90a)")
+    for name in _build.SOURCES:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"build: {name}: {line.strip()}")
+
+    rows = kernel_phase(torch, dev)
+    launches = main_path_phase(torch, dev)
+    dense_tiered_phase(torch, dev)
+    for name, n in launches.items():
+        rows[name]["launches"] = n
+    print(json.dumps({"kernels": [rows[k] for k in sorted(rows)]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

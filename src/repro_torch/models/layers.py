@@ -1,0 +1,53 @@
+"""Shared model building blocks (port of ``repro.models.layers``, dense
+family).  Parameters are nested dicts of tensors in the reference's
+layout, so the reference's ``init_params`` output converts leaf by leaf
+(``repro_torch.weights``)."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def rms_norm(x, weight, eps: float):
+    """RMSNorm in fp32, cast back to x's dtype BEFORE the weight multiply
+    (as the reference does)."""
+    dt = x.dtype
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(dt) * weight
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None):
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def rope_tables(positions, head_dim: int, theta: float):
+    """(cos, sin), each [..., S, 1, hd/2] fp32, for positions [..., S].
+    A decode step or a prefill computes them once and every layer's q
+    and k reuse them."""
+    freqs = rope_frequencies(head_dim, theta, positions.device)
+    angles = positions[..., None].float() * freqs          # [..., S, hd/2]
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def apply_rope(x, positions, theta: float, tables=None):
+    """x [..., S, H, hd]; positions [..., S] int.  Half-split rotation:
+    the first and second halves of hd form the rotated pairs.
+    ``tables`` are ``rope_tables(positions, hd, theta)`` if precomputed."""
+    cos, sin = tables if tables is not None \
+        else rope_tables(positions, x.shape[-1], theta)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def unembed(x, table):
+    """Logits in fp32: the [vocab, d] table is cast to fp32 on every call,
+    as the reference does (a known cost at full width)."""
+    return x.float() @ table.float().T

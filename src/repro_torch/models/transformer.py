@@ -1,0 +1,206 @@
+"""Dense decoder: parameters, full-sequence forward and the one-token
+decode step (port of the dense family of ``repro.models.transformer``).
+
+Parameters keep the reference's layout, a dict of layer-stacked tensors:
+``{"embed" [V,d], "blocks": {"norm1" [L,d], "attn": {"wq" [L,d,H,hd],
+"wk"/"wv" [L,d,KV,hd], "wo" [L,H,hd,d]}, "norm2" [L,d], "mlp":
+{"w_gate"/"w_up" [L,d,ff], "w_down" [L,ff,d]}}, "final_norm" [d],
+"unembed" [V,d]}``.  The reference's ``lax.scan`` over layers is a Python
+loop over views of the stacked tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device, torch_dtype
+
+from . import attention as attn
+from .layers import rms_norm, rope_tables, swiglu, unembed
+
+_FAMILIES = ("dense",)
+
+
+def _check_family(cfg: ArchConfig):
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(
+            f"the port runs the dense decoder family; got {cfg.family!r}")
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def _dense(g, shape, dt, device, scale):
+    """Truncated normal in [-2, 2] times ``scale``, drawn in fp32, stored
+    in ``dt``."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=g)
+    return (t * scale).to(dt)
+
+
+def init_params(cfg: ArchConfig, device=None, seed: int = 0) -> dict:
+    """Seeded random parameters in the reference's layout, made on
+    ``device`` (the card unless the caller asks for the CPU).
+
+    Every projection is scaled by 1/sqrt(fan-in) with the fan-in its
+    contracted input size (d for wq/wk/wv, H*hd for wo, the rows of the
+    MLP matrices).  The reference's ``dense_init`` takes ``shape[-2]``,
+    which for the [d, H, hd] projections is H: its q and k come out
+    sqrt(d/H) times larger and its attention nearly one-hot, so fp32
+    reassociation alone moves full-width logits by ~1e-3.  Parity tests
+    give both sides the same weights (``repro_torch.weights``)."""
+    _check_family(cfg)
+    device = resolve_device(device)
+    dt = torch_dtype(cfg.dtype)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    L, d, ff = cfg.n_layers, cfg.d_model, cfg.d_ff
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    def stacked(shape, fan_in):
+        out = torch.empty((L,) + shape, dtype=dt, device=device)
+        for i in range(L):
+            out[i] = _dense(g, shape, dt, device, 1.0 / np.sqrt(fan_in))
+        return out
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dt, device=device)
+
+    blocks = {
+        "norm1": ones(L, d),
+        "attn": {"wq": stacked((d, H, hd), d), "wk": stacked((d, KV, hd), d),
+                 "wv": stacked((d, KV, hd), d),
+                 "wo": stacked((H, hd, d), H * hd)},
+        "norm2": ones(L, d),
+        "mlp": {"w_gate": stacked((d, ff), d), "w_up": stacked((d, ff), d),
+                "w_down": stacked((ff, d), ff)},
+    }
+    params = {"embed": _dense(g, (cfg.vocab, d), dt, device, 0.02),
+              "blocks": blocks, "final_norm": ones(d)}
+    if not cfg.tie_embeddings:
+        params["unembed"] = _dense(g, (cfg.vocab, d), dt, device, 0.02)
+    return params
+
+
+def layer_params(tree, i: int):
+    """Layer ``i``'s slice (views) of a layer-stacked tree of dicts and
+    named tuples."""
+    if isinstance(tree, dict):
+        return {k: layer_params(v, i) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(layer_params(v, i) for v in tree))
+    return tree[i]
+
+
+def _table(cfg: ArchConfig, params):
+    return params["embed"] if cfg.tie_embeddings else params["unembed"]
+
+
+def _ffn(p, x, cfg: ArchConfig):
+    h2 = rms_norm(x, p["norm2"], cfg.rms_eps)
+    return x + swiglu(h2, p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                      p["mlp"]["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward (prefill)
+# ---------------------------------------------------------------------------
+
+def forward(cfg: ArchConfig, params, batch, *, collect_cache: bool = False):
+    """batch {"tokens" [B,S]} -> (logits [B,S,V] fp32, aux, caches); with
+    ``collect_cache`` caches = (k, v), each [L,B,S,KV,hd] post-RoPE."""
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    x = params["embed"][tokens.long()]
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    rope = rope_tables(positions, cfg.hd, cfg.rope_theta)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        p = layer_params(params["blocks"], i)
+        h = rms_norm(x, p["norm1"], cfg.rms_eps)
+        a, (k, v) = attn.self_attention(p["attn"], h, cfg,
+                                        positions=positions,
+                                        causal=cfg.causal,
+                                        window=cfg.sliding_window, rope=rope)
+        x = _ffn(p, x + a, cfg)
+        if collect_cache:
+            ks.append(k)
+            vs.append(v)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    logits = unembed(x, _table(cfg, params))
+    caches = (torch.stack(ks), torch.stack(vs)) if collect_cache else ()
+    return logits, torch.zeros((), device=x.device), caches
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+class DecodeState(NamedTuple):
+    pos: torch.Tensor         # [B] int32 per-lane length (< 0: idle lane)
+    caches: Any               # backend-owned, layer-stacked
+
+
+def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
+                      device=None) -> DecodeState:
+    """Dense caches {"k", "v"} [L, B, max_len, KV, hd], zeros."""
+    _check_family(cfg)
+    dt = torch_dtype(cfg.dtype)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    caches = {"k": torch.zeros(shape, dtype=dt, device=device),
+              "v": torch.zeros(shape, dtype=dt, device=device)}
+    return DecodeState(torch.zeros((batch,), dtype=torch.int32,
+                                   device=device), caches)
+
+
+def decode_step(cfg: ArchConfig, params, state: DecodeState, tokens,
+                backend=None, *, n_pages: int | None = None):
+    """tokens [B] int -> (logits [B, vocab] fp32, new state).
+
+    ``backend`` selects the KV storage (``models.kv_backend``): None /
+    ``DenseBackend`` keeps contiguous caches; ``TieredBackend`` runs the
+    fused path — ``begin_step`` once, one fused append+attend kernel per
+    layer, ``end_step`` once.  ``n_pages`` (tiered only) is the live-page
+    bucket; the caller guarantees it holds every live position plus this
+    step's append.  Caches update in place."""
+    _check_family(cfg)
+    if backend is None:
+        from .kv_backend import DenseBackend
+        backend = DenseBackend(cfg)
+    x = params["embed"][tokens.long()[:, None]]
+    pos = state.pos
+    rope = rope_tables(pos[:, None], cfg.hd, cfg.rope_theta)
+    if hasattr(backend, "begin_step"):
+        caches, aux = backend.begin_step(state.caches, pos, n_pages=n_pages)
+        ops = backend.scan_operands(caches)
+        ks, vs = [], []
+        for i in range(cfg.n_layers):
+            p = layer_params(params["blocks"], i)
+            h = rms_norm(x, p["norm1"], cfg.rms_eps)
+            a, (k, v) = attn.block_decode_attention_fused(
+                p["attn"], h, cfg, layer_params(ops, i), pos, backend,
+                aux=aux, rope=rope)
+            x = _ffn(p, x + a, cfg)
+            ks.append(k)
+            vs.append(v)
+        caches = backend.end_step(caches, (torch.stack(ks), torch.stack(vs)),
+                                  pos, aux)
+    else:
+        caches = state.caches
+        for i in range(cfg.n_layers):
+            p = layer_params(params["blocks"], i)
+            h = rms_norm(x, p["norm1"], cfg.rms_eps)
+            a, _ = attn.block_decode_attention(
+                p["attn"], h, cfg, layer_params(caches, i), pos, backend,
+                rope=rope)
+            x = _ffn(p, x + a, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    logits = unembed(x, _table(cfg, params))[:, 0]
+    return logits, DecodeState(pos + 1, caches)

@@ -1,0 +1,59 @@
+"""Parameters of the reference's ``repro.models.init_params`` -> the
+port's parameters.
+
+The caller passes the reference's tree with every leaf already a numpy
+array (this module imports no JAX); the layouts are the same, so each
+leaf becomes one tensor.  bfloat16 leaves (numpy's ``ml_dtypes``
+bfloat16) go through float32, which holds them exactly.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device, torch_dtype
+
+
+def _expected_shapes(cfg: ArchConfig) -> dict:
+    L, d, ff, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    shapes = {"embed": (V, d), "final_norm": (d,),
+              "blocks/norm1": (L, d), "blocks/norm2": (L, d),
+              "blocks/attn/wq": (L, d, H, hd),
+              "blocks/attn/wk": (L, d, KV, hd),
+              "blocks/attn/wv": (L, d, KV, hd),
+              "blocks/attn/wo": (L, H, hd, d),
+              "blocks/mlp/w_gate": (L, d, ff), "blocks/mlp/w_up": (L, d, ff),
+              "blocks/mlp/w_down": (L, ff, d)}
+    if not cfg.tie_embeddings:
+        shapes["unembed"] = (V, d)
+    return shapes
+
+
+def from_jax_params(tree, cfg: ArchConfig, device=None) -> dict:
+    """Nested dict of numpy arrays (the reference's parameter tree) ->
+    nested dict of tensors in ``cfg.dtype`` on ``device``.  Raises on a
+    leaf whose path or shape the dense decoder does not expect."""
+    device = resolve_device(device)
+    dt = torch_dtype(cfg.dtype)
+    expected = _expected_shapes(cfg)
+    seen = set()
+
+    def conv(node, path):
+        if isinstance(node, dict):
+            return {k: conv(v, f"{path}/{k}" if path else k)
+                    for k, v in node.items()}
+        arr = np.asarray(node)
+        if path not in expected or tuple(arr.shape) != expected[path]:
+            raise ValueError(f"unexpected parameter {path} {arr.shape}")
+        seen.add(path)
+        return torch.from_numpy(arr.astype(np.float32)).to(device=device,
+                                                           dtype=dt)
+
+    out = conv(tree, "")
+    missing = set(expected) - seen
+    if missing:
+        raise ValueError(f"missing parameters {sorted(missing)}")
+    return out

@@ -19,3 +19,9 @@ _FLAG = "--xla_cpu_use_thunk_runtime=false"
 if _FLAG not in os.environ.get("XLA_FLAGS", ""):
     os.environ["XLA_FLAGS"] = (
         os.environ.get("XLA_FLAGS", "") + " " + _FLAG).strip()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one (on the "
+        "card: python -m pytest -m cuda tests/test_torch_cuda.py)")

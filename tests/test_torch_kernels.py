@@ -1,0 +1,103 @@
+"""The two kernels of the port's decode path, on the CPU through their
+plain versions: held against the JAX reference oracles, and the port's
+own bucket contract.  The CUDA kernels themselves run only on a card
+(``tests/test_torch_cuda.py``, and ``chip_smoke.py`` at the main path's
+shapes)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.paged_attention.ref import \
+    paged_attention_fused_ref as j_fused_ref
+from repro.kernels.remap_gather.ref import remap_gather_ref as j_gather_ref
+from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.kernels.paged_attention.ref import paged_attention_fused_ref
+from repro_torch.kernels.remap_gather import ops as rg_ops
+from repro_torch.kernels.remap_gather.ref import remap_gather_ref
+
+
+def fused_inputs(B=3, K=2, KV=2, G=3, hd=16, P=8, NP=6, F=5, seed=0,
+                 dtype=np.float32):
+    """Ragged positions, one parked lane (the last), entries mixing fast
+    slots and slow homes."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.normal(size=s).astype(dtype)  # noqa: E731
+    pos = rng.integers(0, NP * P - K, B).astype(np.int32)
+    pos[-1] = -1
+    entries = np.where(rng.random((B, NP)) < 0.4,
+                       rng.integers(0, F, (B, NP)), -1).astype(np.int32)
+    return dict(q=f(B, K, KV, G, hd), fast_k=f(F, KV, P, hd),
+                fast_v=f(F, KV, P, hd), slow_k=f(B * NP, KV, P, hd),
+                slow_v=f(B * NP, KV, P, hd), entries=entries,
+                k_new=f(B, K, KV, hd), v_new=f(B, K, KV, hd), pos=pos)
+
+
+def _torch(d, device="cpu"):
+    return {k: torch.as_tensor(v, device=device) for k, v in d.items()}
+
+
+def _live(d):
+    return np.asarray(d["pos"]) >= 0
+
+
+@pytest.mark.parametrize("K", [1, 2])
+@pytest.mark.parametrize("bucket", [None, 4])
+def test_fused_plain_matches_reference(K, bucket):
+    """fp32, atol 1e-5: the two sum the softmax in different orders (the
+    port's plain version walks pages with an online softmax, as the
+    kernel does).  Parked lanes average stale bytes by definition and are
+    not compared."""
+    d = fused_inputs(K=K, seed=K)
+    if bucket is not None:
+        d["pos"][:-1] = np.minimum(d["pos"][:-1], bucket * 8 - K)
+        d["entries"] = d["entries"][:, :bucket]
+    want = np.asarray(j_fused_ref(**{k: jnp.asarray(v)
+                                     for k, v in d.items()}))
+    got = paged_attention_fused_ref(**_torch(d)).numpy()
+    live = _live(d)
+    np.testing.assert_allclose(got[live], want[live], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("K", [1, 2])
+def test_fused_bucket_equals_full_width_bitwise(K):
+    """The live-page bucket is bit-invisible on every live lane: the pages
+    it drops are fully masked and add exact zeros in page order."""
+    d = fused_inputs(K=K, seed=10 + K, NP=8)
+    d["pos"][:-1] = np.minimum(d["pos"][:-1], 3 * 8 - K)
+    full = paged_attention_fused_ref(**_torch(d)).numpy()
+    d["entries"] = d["entries"][:, :3]
+    bkt = paged_attention_fused_ref(**_torch(d)).numpy()
+    live = _live(d)
+    np.testing.assert_array_equal(full[live], bkt[live])
+
+
+def test_fused_op_on_cpu_is_the_plain_version():
+    d = _torch(fused_inputs(seed=3))
+    before = pa_ops.launches
+    out = pa_ops.paged_attention_fused_op(**d)
+    assert pa_ops.launches == before              # no kernel on the CPU
+    np.testing.assert_array_equal(out.numpy(),
+                                  paged_attention_fused_ref(**d).numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_remap_gather_plain_matches_reference(dtype):
+    """Byte-exact: ``out[i] = pool[idx[i]]``, the engine's layer-major
+    [L*n, KV*P, hd] layout with one index per layer."""
+    rng = np.random.default_rng(5)
+    pool = torch.as_tensor(rng.normal(size=(4 * 7, 16, 8)), dtype=dtype)
+    idx = (rng.integers(0, 7) + 7 * np.arange(4)).astype(np.int32)
+    got = rg_ops.remap_gather_op(pool, torch.as_tensor(idx),
+                                 rg_ops.new_flag(pool.device))
+    want = j_gather_ref(jnp.asarray(pool.float().numpy()), jnp.asarray(idx))
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want))
+    assert torch.equal(got, remap_gather_ref(pool, torch.as_tensor(idx)))
+
+
+def test_remap_gather_plain_rejects_out_of_range():
+    pool = torch.zeros(4, 2, 2)
+    with pytest.raises(IndexError):
+        rg_ops.remap_gather_op(pool, torch.tensor([1, 4], dtype=torch.int32),
+                               rg_ops.new_flag(pool.device))

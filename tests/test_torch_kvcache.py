@@ -1,0 +1,167 @@
+"""PyTorch port vs the JAX reference: the two-tier KV store.  After the
+same op sequence under every policy preset, every metadata field, every
+counter and every pool byte must be exactly equal (the port keeps one
+metadata copy for all layers, compared against the reference's layer
+0)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.policy import PRESETS
+from repro.core.policy import get_policy as j_get_policy
+from repro.tiered import kvcache as jk
+from repro_torch.core.policy import get_policy as t_get_policy
+from repro_torch.tiered import kvcache as tk
+
+
+def _jit(fn, **kw):
+    """The reference op under ``jax.jit`` with the config static (op by op
+    dispatch of its scans is far slower than one compile)."""
+    return jax.jit(fn, static_argnums=(0,), **kw)
+
+
+J_APPEND = _jit(jk.append_token)
+J_READS = _jit(jk.record_reads)
+J_TOUCH = _jit(jk.record_touches)
+J_SCHED = _jit(jk.run_scheduler, static_argnames=("max_moves",))
+J_MIGRATE = _jit(jk.migrate_one)
+J_DEMOTE = _jit(jk.demote_one)
+J_RELEASE = _jit(jk.release_seq)
+J_RELEASE_ST = _jit(jk.release_seq_stacked)
+J_PREFILL_ST = _jit(jk.prefill_tokens_stacked)
+J_PLAN = _jit(jk.plan_maintenance, static_argnames=("max_moves",))
+J_APPLY = _jit(jk.apply_maintenance_stacked_desc)
+
+GEOM = dict(n_seqs=2, max_pages_per_seq=64, page_tokens=8, n_kv_heads=2,
+            head_dim=16, fast_data_slots=4, dtype="float32")
+
+
+def _cfgs(preset):
+    return (jk.TieredConfig(policy=j_get_policy(preset, epoch_len=2), **GEOM),
+            tk.TieredConfig(policy=t_get_policy(preset, epoch_len=2), **GEOM))
+
+
+def _filled(jcfg, tcfg, seed, n_layers=None):
+    """Both stores with the same seeded slow pools."""
+    rng = np.random.default_rng(seed)
+    js = jk.init_state(jcfg)
+    ts = tk.init_state(tcfg, "cpu", n_layers=n_layers)
+    sk = rng.normal(size=ts.slow_k.shape).astype(np.float32)
+    sv = rng.normal(size=ts.slow_v.shape).astype(np.float32)
+    ts.slow_k.copy_(torch.from_numpy(sk))
+    ts.slow_v.copy_(torch.from_numpy(sv))
+    if n_layers is not None:
+        js = jax.tree.map(lambda x: jnp.broadcast_to(x, (n_layers,) + x.shape),
+                          js)
+    return js._replace(slow_k=jnp.asarray(sk), slow_v=jnp.asarray(sv)), ts
+
+
+def _assert_state_equal(js, ts, stacked=False, where=""):
+    for f in jk.TieredState._fields:
+        a = np.asarray(getattr(js, f))
+        if stacked and f not in tk.POOL_FIELDS:
+            a = a[0]
+        b = getattr(ts, f).numpy()
+        if a.dtype.kind == "f":
+            np.testing.assert_array_equal(a, b, f"{where} {f}")
+        else:
+            np.testing.assert_array_equal(a.astype(np.int64),
+                                          b.astype(np.int64), f"{where} {f}")
+
+
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_store_op_sequence_exact(preset):
+    """Appends at ragged positions, fused-path read accounting, scheduler
+    passes, a direct migrate and demote, and a lane release."""
+    jcfg, tcfg = _cfgs(preset)
+    js, ts = _filled(jcfg, tcfg, 0)
+    rng = np.random.default_rng(1)
+    seqs = np.arange(2, dtype=np.int32)
+    pos = np.array([5, 17], np.int32)
+    for step in range(14):
+        k = rng.normal(size=(2, 2, 16)).astype(np.float32)
+        v = rng.normal(size=(2, 2, 16)).astype(np.float32)
+        p = pos if step != 3 else np.array([-1, 17], np.int32)
+        js = J_APPEND(jcfg, js, jnp.asarray(seqs), jnp.asarray(k),
+                      jnp.asarray(v), jnp.asarray(p))
+        ts = tk.append_token(tcfg, ts, torch.from_numpy(seqs),
+                             torch.from_numpy(k), torch.from_numpy(v),
+                             torch.from_numpy(p))
+        ids = rng.integers(0, 24, (2, 4)) + seqs[:, None] * 64
+        ids = ids.reshape(-1).astype(np.int32)
+        lv = rng.random(8) < 0.8
+        js = J_READS(jcfg, js, jnp.asarray(ids), jnp.asarray(lv))
+        ts = tk.record_reads(tcfg, ts, torch.from_numpy(ids),
+                             torch.from_numpy(lv))
+        js = J_TOUCH(jcfg, js, jnp.asarray(ids), jnp.asarray(lv))
+        ts = tk.record_touches(tcfg, ts, torch.from_numpy(ids),
+                               torch.from_numpy(lv))
+        js = J_SCHED(jcfg, js, max_moves=3)
+        ts = tk.run_scheduler(tcfg, ts, max_moves=3)
+        if step == 4:
+            js = J_MIGRATE(jcfg, js, jnp.int32(70), jnp.bool_(True))
+            ts = tk.migrate_one(tcfg, ts, torch.tensor(70, dtype=torch.int32),
+                                torch.tensor(True))
+        if step == 6:
+            pid = int(np.asarray(js.slot_owner).max())
+            js = J_DEMOTE(jcfg, js, jnp.int32(pid), jnp.bool_(True))
+            ts = tk.demote_one(tcfg, ts, torch.tensor(pid, dtype=torch.int32),
+                               torch.tensor(True))
+        if step == 9:
+            js = J_RELEASE(jcfg, js, 1)
+            ts = tk.release_seq(tcfg, ts, 1)
+            pos = np.array([pos[0], 0], np.int32)
+        _assert_state_equal(js, ts, where=f"step {step}")
+        pos = pos + 1
+    assert int(ts.migrations) > 0
+
+
+@pytest.mark.parametrize("preset", ["threshold", "write_aware", "recency"])
+def test_stacked_maintenance_exact(preset):
+    """The engine's layer-stacked ops: prefill ingest, planned + applied
+    maintenance (copies replayed over two layers through the migration
+    gather), release — against the reference's stacked store."""
+    jcfg, tcfg = _cfgs(preset)
+    L = 2
+    js, ts = _filled(jcfg, tcfg, 2, n_layers=L)
+    rng = np.random.default_rng(3)
+    for step in range(8):
+        if step in (0, 5):
+            lane = step % 2
+            S = 21 + step
+            kp = rng.normal(size=(L, S, 2, 16)).astype(np.float32)
+            vp = rng.normal(size=(L, S, 2, 16)).astype(np.float32)
+            if step == 5:
+                js = J_RELEASE_ST(jcfg, js, lane)
+                ts = tk.release_seq_stacked(tcfg, ts, lane)
+            js = J_PREFILL_ST(jcfg, js, lane, jnp.asarray(kp),
+                              jnp.asarray(vp), S - 3)
+            ts = tk.prefill_tokens_stacked(tcfg, ts, lane,
+                                           torch.from_numpy(kp),
+                                           torch.from_numpy(vp),
+                                           length=S - 3)
+        ids = (rng.integers(0, 6, 6) + 64 * rng.integers(0, 2, 6)) \
+            .astype(np.int32)
+        lv = np.ones(6, bool)
+        j0 = J_TOUCH(jcfg, jax.tree.map(lambda x: x[0], js),
+                     jnp.asarray(ids), jnp.asarray(lv))
+        js = jk._restack(j0, jk._stacked_pools(js), L)
+        ts = tk.record_touches(tcfg, ts, torch.from_numpy(ids),
+                               torch.from_numpy(lv))
+        jp = J_PLAN(jcfg, js, max_moves=3)
+        tp = tk.plan_maintenance(tcfg, ts, max_moves=3)
+        for a, b in zip(jp, tp):
+            np.testing.assert_array_equal(np.asarray(a).astype(np.int64),
+                                          b.numpy().astype(np.int64))
+        js, jd, jpd = J_APPLY(jcfg, js, jp)
+        ts, td, tpd = tk.apply_maintenance_stacked_desc(tcfg, ts, tp)
+        for jdesc, tdesc in ((jd, td), (jpd, tpd)):
+            for key in jdesc:
+                np.testing.assert_array_equal(
+                    np.asarray(jdesc[key]).astype(np.int64),
+                    tdesc[key].numpy().astype(np.int64), key)
+        _assert_state_equal(js, ts, stacked=True, where=f"step {step}")
+    assert int(ts.migrations) > 0
