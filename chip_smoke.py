@@ -8,20 +8,33 @@ prints no result line):
 
 1. device: a card must be present; TF32 is switched off for matmuls and
    cuDNN, so fp32 comparisons are fp32.
-2. build: both CUDA kernels, one nvcc per source, started together.
+2. build: every CUDA kernel library, one nvcc per source, started
+   together.
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at the smoke shapes, with the tolerances
-   stated below, and the live-page bucket against the full width (bit
-   for bit); kernel, plain and library times (CUDA events).
+   its path's shapes and at the smoke shapes, with the tolerances stated
+   below; the live-page bucket against the full width and the split read
+   against the unified read of the concatenated pools (bit for bit);
+   kernel, plain and library times (CUDA events); an irt_lookup sweep
+   over N, kernel beside plain version.
 4. main path: llama3-8b at its published width (32 layers, bf16, seeded
    random weights made on the card) served by the tiered engine; launch
    counts are reset just before the run and read just after; tokens/s,
    step times and the wall time by engine phase.
 5. dense against tiered at full width (2 layers, fp32, teacher-forced,
    maintenance running): logits within 1e-3.
+6. tiered server: ``TieredServer`` over one store at llama3-8b's
+   per-layer KV widths (16 lanes of 4096 tokens), the same seeded inputs
+   through the zero-copy path (cached and uncached device table), the
+   legacy concat path and the fused path; launch counts reset before
+   each path and read after; zero-copy equal to concat bit for bit on
+   every live lane at every step, the cached path served from the device
+   table, a zero-copy step with no host wait.
 
-Output, in order: phase lines, one JSON ``kernels`` line, the card's name
-and power limit as nvidia-smi reports them, and last
+Output, in order: phase lines, one JSON ``kernels`` line (launches: the
+main path's for paged_attention_fused and remap_gather, the cached
+zero-copy server run's for irt_lookup and paged_attention_split, the
+concat server run's for paged_attention), the card's name and power
+limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -258,6 +271,179 @@ def kernel_phase(torch, dev):
           f"{bound_ms:.4f} ms (bytes)")
     del pool, got
     torch.cuda.empty_cache()
+    rows.update(irt_lookup_rows(torch, dev))
+    rows.update(paged_read_rows(torch, dev))
+    return rows
+
+
+def _irt_table(torch, dev, n_ids, seed):
+    """A seeded iRT over ``n_ids`` page ids with a fifth of them mapped to
+    fast slots (leaf 31 among the allocated leaves, so bit 31 is read)."""
+    from repro_torch.core.remap import irt
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    tab = irt.init_tables(n_ids, dev)
+    ids = torch.randperm(n_ids, generator=g, device=dev)[:n_ids // 5]
+    ids = torch.unique(torch.cat([ids, torch.tensor(
+        [31 * irt.E], device=dev)]).to(torch.int32) % n_ids)
+    slots = torch.randint(0, 512, ids.shape, generator=g, device=dev,
+                          dtype=torch.int32)
+    return irt.fill(tab, ids, slots, torch.ones_like(ids, dtype=torch.bool))
+
+
+def irt_lookup_rows(torch, dev):
+    """irt_lookup at the server's call (N = 4096 ids, the whole logical
+    table, home = INVALID as ``_translate`` walks it), exact against the
+    plain version; then a sweep over N, kernel beside plain version."""
+    from repro_torch.kernels.irt_lookup import ops as irt_ops
+    from repro_torch.kernels.irt_lookup.ref import irt_lookup_ref
+
+    def walk_inputs(N, seed):
+        tab = _irt_table(torch, dev, max(N, 4096), seed)
+        ids = torch.arange(N, dtype=torch.int32, device=dev)
+        home = torch.full_like(ids, -1)
+        return ids, home, tab["l1_bits"], tab["entries"]
+
+    args = walk_inputs(4096, 11)
+    out = irt_ops.irt_lookup_op(*args)
+    _check(torch.equal(out, irt_lookup_ref(*args)),
+           "irt_lookup differs from its plain version at N = 4096")
+    _check(bool((args[2] < 0).any()), "irt_lookup check never read bit 31")
+    ms = _time_ms(lambda: irt_ops.irt_lookup_op(*args))
+    plain_ms = _time_ms(lambda: irt_lookup_ref(*args))
+    N = args[0].numel()
+    bound_ms = (4 * 4 * N + 4 * args[2].numel()) / HBM_BYTES_PER_S * 1e3
+    print(f"kernel irt_lookup at the server's N = {N}: exact, {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms (bytes)")
+    sweep = []
+    for n in (256, 1024, 4096, 65536):
+        a = walk_inputs(n, 12 + n)
+        _check(torch.equal(irt_ops.irt_lookup_op(*a), irt_lookup_ref(*a)),
+               f"irt_lookup differs from its plain version at N = {n}")
+        k_ms = _time_ms(lambda: irt_ops.irt_lookup_op(*a))
+        p_ms = _time_ms(lambda: irt_lookup_ref(*a))
+        sweep.append(dict(N=n, kernel_ms=k_ms, plain_ms=p_ms))
+        print(f"kernel irt_lookup sweep N={n}: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms ({p_ms / k_ms:.2f}x), exact")
+    print(f"kernel irt_lookup sweep {json.dumps(sweep)}")
+    return {"irt_lookup": dict(
+        name="irt_lookup", route="cuda",
+        source="src/repro_torch/kernels/irt_lookup/csrc/irt_lookup.cu",
+        replaces="src/repro/kernels/irt_lookup/irt_lookup.py:50",
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by="bytes", library_ms=None)}
+
+
+def _read_inputs(torch, dev, *, B, KV, G, hd, P, NP, F, lens, dtype, seed):
+    """Seeded one-token read inputs: seq_lens drawn from ``lens`` (the
+    last lane idle), a unified-space page table with about 15 % of pages
+    on fast slots and the rest on their slow homes."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)  # noqa
+    seq = torch.randint(lens[0], lens[1] + 1, (B,), generator=g, device=dev,
+                        dtype=torch.int32)
+    seq[-1] = 0
+    homes = F + torch.arange(B * NP, dtype=torch.int32,
+                             device=dev).view(B, NP)
+    slots = torch.randint(0, F, (B, NP), generator=g, device=dev,
+                          dtype=torch.int32)
+    fast = torch.rand((B, NP), generator=g, device=dev) < 0.15
+    return dict(q=r(B, KV, G, hd), fast_k=r(F, KV, P, hd),
+                fast_v=r(F, KV, P, hd), slow_k=r(B * NP, KV, P, hd),
+                slow_v=r(B * NP, KV, P, hd),
+                page_table=torch.where(fast, slots, homes).to(torch.int32),
+                seq_lens=seq)
+
+
+def _read_bound(d):
+    """Least time for one read on this data: q in and out once, the live
+    pages of live lanes (K and V) and their page-table entries read once,
+    the seq_lens; fp32 flops of QK and PV over the attended columns."""
+    B, KV, G, hd = d["q"].shape
+    P = d["fast_k"].shape[2]
+    item = d["q"].element_size()
+    pages = sum(-(-max(int(n), 0) // P) for n in d["seq_lens"].tolist())
+    nbytes = (2 * d["q"].numel() * item + 2 * KV * pages * P * hd * item
+              + 4 * (pages + B))
+    flops = 2 * 2 * KV * G * pages * P * hd
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def paged_read_rows(torch, dev):
+    """paged_attention_split and paged_attention at the server's shapes
+    (B=16, KV=8, G=4, hd=128, page 16, bf16, 256 pages per lane, 576 fast
+    slots, 15 live lanes of 1024-3968 tokens, one idle): within two bf16
+    ulps of each value of the plain version (computed in fp32, cast to
+    bf16) on live lanes, split == unified over the concatenated pools bit
+    for bit, an idle lane zeros; at the smoke shapes (hd 16, page 8, fp32)
+    within 1e-4 (online and full softmax sum in other orders)."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention.ref import (
+        bf16_tolerance, paged_attention_ref, paged_attention_split_ref)
+
+    def unified(d):
+        return (d["q"], torch.cat([d["fast_k"], d["slow_k"]]),
+                torch.cat([d["fast_v"], d["slow_v"]]), d["page_table"],
+                d["seq_lens"])
+
+    rows = {}
+    d = _read_inputs(torch, dev, B=16, KV=8, G=4, hd=128, P=16, NP=256,
+                     F=576, lens=(1024, 3968), dtype=torch.bfloat16, seed=21)
+    u = unified(d)
+    live = d["seq_lens"] > 0
+    split = pa_ops.paged_attention_split_op(**d)
+    uni = pa_ops.paged_attention_op(*u)
+    _check(torch.equal(split, uni), "paged_attention_split differs from "
+           "paged_attention over the concatenated pools")
+    _check(bool((split[~live] == 0).all()), "an idle lane is not zeros")
+    d32 = {k: (v.float() if v.is_floating_point() else v)
+           for k, v in d.items()}
+    ref = paged_attention_split_ref(**d32).to(torch.bfloat16)[live].float()
+    diff = (split[live].float() - ref).abs()
+    err, ratio = diff.max().item(), (diff / bf16_tolerance(ref)).max().item()
+    _check(math.isfinite(err) and ratio <= 1.0,
+           f"paged_attention_split bf16 error {err} over two ulps "
+           f"(error/limit {ratio:.3f})")
+    bound_ms, bound_by = _read_bound(d)
+    split_ms = _time_ms(lambda: pa_ops.paged_attention_split_op(**d))
+    uni_ms = _time_ms(lambda: pa_ops.paged_attention_op(*u))
+    split_plain = _time_ms(lambda: paged_attention_split_ref(**d), reps=5)
+    uni_plain = _time_ms(lambda: paged_attention_ref(*u), reps=5)
+    cat_ms = _time_ms(lambda: unified(d))
+    print(f"kernel paged_attention_split/paged_attention bf16 server "
+          f"shapes: split == unified bit for bit; error/limit {ratio:.3f} "
+          f"(max abs {err:.3e}, max |ref| {ref.abs().max().item():.3e}); "
+          f"split {split_ms:.4f} ms (plain {split_plain:.3f}), unified "
+          f"{uni_ms:.4f} ms (plain {uni_plain:.3f}), the concat path's "
+          f"pool copy {cat_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+    for name, ms, plain_ms, line in (
+            ("paged_attention_split", split_ms, split_plain, 206),
+            ("paged_attention", uni_ms, uni_plain, 164)):
+        rows[name] = dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/paged_attention/csrc/"
+                   "paged_attention.cu",
+            replaces=f"src/repro/kernels/paged_attention/paged_attention.py"
+                     f":{line}",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None)
+    del d, u, d32, split, uni
+    torch.cuda.empty_cache()
+    d = _read_inputs(torch, dev, B=4, KV=2, G=2, hd=16, P=8, NP=8, F=6,
+                     lens=(1, 64), dtype=torch.float32, seed=22)
+    live = d["seq_lens"] > 0
+    want = paged_attention_split_ref(**d)[live]
+    for name, got in (
+            ("paged_attention_split", pa_ops.paged_attention_split_op(**d)),
+            ("paged_attention", pa_ops.paged_attention_op(*unified(d)))):
+        e = (got[live] - want).abs().max().item()
+        _check(math.isfinite(e) and e <= 1e-4,
+               f"{name} fp32 smoke error {e} > 1e-4")
+        print(f"kernel {name} fp32 smoke: max_abs_err {e:.3e} (tol 1e-4)")
     return rows
 
 
@@ -432,6 +618,209 @@ def dense_tiered_phase(torch, dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the single-store tiered server
+# ---------------------------------------------------------------------------
+
+SERVER_PATHS = (               # (label, decode path, cache_device_table)
+    ("zero_copy", "zero_copy", True),
+    ("split_pool_uncached", "zero_copy", False),
+    ("concat", "concat", False),
+    ("fused", "fused", True),
+)
+SERVER_STEPS = 64
+RELEASE_STEP = 32
+
+
+def server_inputs(torch, dev):
+    """The server's store geometry and seeded inputs: llama3-8b's
+    per-layer KV widths (KV 8, G 4, hd 128, bf16, page 16), 16 lanes x 256
+    pages (4096 logical pages, 64 iRT leaves), 512 fast data slots (576
+    fast slots), the default policy; 15 lanes start at seeded positions
+    in 1024-3968, the last is idle; q, k, v for every step."""
+    from repro_torch.tiered import kvcache as tk
+
+    tcfg = tk.TieredConfig(n_seqs=16, max_pages_per_seq=256, page_tokens=16,
+                           n_kv_heads=8, head_dim=128, fast_data_slots=512,
+                           dtype="bfloat16")
+    B, KV, G, hd = tcfg.n_seqs, tcfg.n_kv_heads, 4, tcfg.head_dim
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    pos0 = torch.randint(1024, 3969, (B,), generator=g, device=dev,
+                         dtype=torch.int32)
+    pos0[-1] = -1
+    r = lambda *s: torch.randn(s, generator=g, device=dev).to(  # noqa: E731
+        torch.bfloat16)
+    return dict(tcfg=tcfg, pos0=pos0, q=r(SERVER_STEPS, B, KV, G, hd),
+                k=r(SERVER_STEPS, B, KV, hd), v=r(SERVER_STEPS, B, KV, hd))
+
+
+def make_server(torch, dev, tcfg, path):
+    """A ``TieredServer`` whose slow pools hold seeded bytes (the same for
+    every path)."""
+    from repro_torch.serve.engine import TieredServer
+    srv = TieredServer(tcfg, path=path, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    for pool in (srv.state.slow_k, srv.state.slow_v):
+        pool.copy_(torch.randn(pool.shape, generator=g, device=dev))
+    return srv
+
+
+def server_run(torch, dev, path, cached, inputs, *, check_waits=False):
+    """One ``TieredServer`` run over the seeded inputs: 64 steps,
+    ``maintain()`` every 4 steps, lane 0 released before step 32 and
+    restarted at position 0.  Launch counts are reset just before the run
+    and read just after."""
+    import dataclasses as dc
+
+    from repro_torch.core.remap.irt import INVALID
+    from repro_torch.kernels.irt_lookup import ops as irt_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.remap_gather import ops as rg_ops
+
+    tcfg = dc.replace(inputs["tcfg"], cache_device_table=cached)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    srv = make_server(torch, dev, tcfg, path)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()        # after the seeding's temps
+    pos = inputs["pos0"].clone()
+    outs, lives, step_ms, maint_ms = [], [], [], []
+    released_clean = None
+    pa_ops.launches = pa_ops.split_launches = pa_ops.unified_launches = 0
+    irt_ops.launches = rg_ops.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(SERVER_STEPS):
+        if i == RELEASE_STEP:
+            srv.release(0)
+            released_clean = bool(
+                (srv.state.leaf_table[:tcfg.max_pages_per_seq]
+                 == INVALID).all())
+            pos[0] = 0
+        lives.append(pos >= 0)
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        if check_waits and i == 1:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = srv.step(inputs["q"][i], inputs["k"][i],
+                               inputs["v"][i], pos)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        else:
+            out = srv.step(inputs["q"][i], inputs["k"][i], inputs["v"][i],
+                           pos)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - s) * 1e3)
+        outs.append(out.reshape(inputs["q"][i].shape))
+        pos = torch.where(pos >= 0, pos + 1, pos)
+        if i % 4 == 3:
+            s = time.perf_counter()
+            srv.maintain()
+            torch.cuda.synchronize()
+            maint_ms.append((time.perf_counter() - s) * 1e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_attention_fused": pa_ops.launches,
+                "remap_gather": rg_ops.launches,
+                "irt_lookup": irt_ops.launches,
+                "paged_attention_split": pa_ops.split_launches,
+                "paged_attention": pa_ops.unified_launches}
+    c = srv.counters
+    pool_bytes = sum(getattr(srv.state, f).numel()
+                     * getattr(srv.state, f).element_size()
+                     for f in ("fast_k", "fast_v", "slow_k", "slow_v"))
+    copied = c["promo_bytes"] + c["demo_bytes"]
+    if path == "concat":
+        copied += SERVER_STEPS * pool_bytes     # unified_pools every step
+    res = dict(outs=outs, lives=lives, counters=c, launches=launches,
+               wall=wall, step_ms=sorted(step_ms), maint_ms=maint_ms,
+               copied=copied, peak=torch.cuda.max_memory_allocated() - base,
+               released_clean=released_clean, n_logical=tcfg.n_logical)
+    del srv
+    torch.cuda.empty_cache()
+    return res
+
+
+def server_phase(torch, dev):
+    """``TieredServer`` over one store (one attention layer's worth) at
+    ``server_inputs``' geometry: slow pools 2 x 128 MiB, fast pools 2 x 18
+    MiB; every path sees the same seeded inputs."""
+    from repro_torch.kernels.paged_attention.ref import bf16_tolerance
+
+    inputs = server_inputs(torch, dev)
+    tcfg = inputs["tcfg"]
+    print(f"server: {tcfg.n_logical} logical pages, {tcfg.n_leaf} iRT "
+          f"leaves, {tcfg.fast_slots} fast slots, slow pools 2 x "
+          f"{tcfg.n_logical * tcfg.page_bytes // 2 / 2**20:.0f} MiB, fast "
+          f"pools 2 x {tcfg.fast_slots * tcfg.page_bytes // 2 / 2**20:.0f} "
+          f"MiB; {SERVER_STEPS} steps, maintain every 4, lane 0 released "
+          f"at step {RELEASE_STEP}")
+    runs = {}
+    for label, path, cached in SERVER_PATHS:
+        runs[label] = res = server_run(torch, dev, path, cached, inputs,
+                                       check_waits=label == "zero_copy")
+        n = SERVER_STEPS
+        sm = res["step_ms"]
+        c = res["counters"]
+        print(f"server {label}: {n / res['wall']:.1f} steps/s "
+              f"({res['wall'] * 1e3 / n:.3f} ms per step with maintenance), "
+              f"synchronised step median {sm[n // 2]:.3f} ms (p90 "
+              f"{sm[int(n * 0.9)]:.3f}), "
+              f"maintain {sum(res['maint_ms']) / len(res['maint_ms']):.3f} "
+              f"ms x {len(res['maint_ms'])}; translated pages per step "
+              f"{c['lookups'] / n:.1f}; pool bytes copied per step "
+              f"{res['copied'] / n:.0f}; launches "
+              f"{json.dumps(res['launches'])}; peak memory "
+              f"{res['peak'] / 2**20:.1f} MiB above the run's start (the "
+              f"store's pools included); "
+              f"counters {json.dumps(c)}")
+    zc = runs["zero_copy"]
+    worst = 0.0
+    for i in range(SERVER_STEPS):
+        live = zc["lives"][i]
+        a = zc["outs"][i][live]
+        for label in ("split_pool_uncached", "concat"):
+            _check(torch.equal(a, runs[label]["outs"][i][live]),
+                   f"server step {i}: zero_copy differs from {label} on a "
+                   f"live lane")
+        f = runs["fused"]["outs"][i][live]
+        if not torch.equal(a, f):
+            lim = bf16_tolerance(f)
+            worst = max(worst, ((a.float() - f.float()).abs()
+                                / lim).max().item())
+    _check(worst <= 1.0, f"server: zero_copy vs fused at {worst:.3f} of the "
+           f"bf16 limit")
+    print("server: zero_copy == split_pool_uncached == concat bit for bit on "
+          "every live lane at every step; zero_copy vs fused: "
+          + ("bit for bit" if worst == 0.0 else
+             f"error/limit {worst:.3f} (bf16 two ulps)"))
+    c = zc["counters"]
+    _check(c["dev_hits"] > 0, "the cached path never hit the device table")
+    _check(c["lookups"] < SERVER_STEPS * zc["n_logical"] / 4,
+           f"the cached path translated {c['lookups']} pages in "
+           f"{SERVER_STEPS} steps")
+    for label, res in runs.items():
+        _check(res["released_clean"], f"server {label}: the released lane "
+               f"kept a leaf entry")
+        rc = res["counters"]
+        _check(rc["migrations"] + rc["demotions"] > 0,
+               f"server {label}: no page moved")
+    launches = {k: runs["zero_copy"]["launches"][k]
+                for k in ("irt_lookup", "paged_attention_split")}
+    launches["paged_attention"] = runs["concat"]["launches"]["paged_attention"]
+    total = {k: sum(r["launches"][k] for r in runs.values())
+             for k in runs["zero_copy"]["launches"]}
+    for k in ("irt_lookup", "paged_attention_split", "paged_attention",
+              "remap_gather", "paged_attention_fused"):
+        _check(total[k] > 0, f"server phase: {k} never launched")
+    print(f"server: a zero-copy step ran with no host wait (sync debug mode "
+          f"'error'); launches over the phase {json.dumps(total)}")
+    return launches
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         _fail("src/repro_torch not found beside chip_smoke.py")
@@ -450,7 +839,8 @@ def main():
 
     from repro_torch.kernels import _build
     secs = _build.build_all()
-    print(f"build: both kernels in {secs:.1f} s (nvcc, sm_90a)")
+    print(f"build: {len(_build.SOURCES)} kernel libraries in {secs:.1f} s "
+          f"(nvcc, sm_90a, one process per source)")
     for name in _build.SOURCES:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
@@ -459,6 +849,7 @@ def main():
     rows = kernel_phase(torch, dev)
     launches = main_path_phase(torch, dev)
     dense_tiered_phase(torch, dev)
+    launches.update(server_phase(torch, dev))
     for name, n in launches.items():
         rows[name]["launches"] = n
     print(json.dumps({"kernels": [rows[k] for k in sorted(rows)]}))

@@ -4,7 +4,8 @@ reproduced on torch tensors.
 * ``drop_set`` / ``drop_add`` / ``drop_set_`` reproduce ``x.at[idx]
   .set/add(v, mode="drop")``: negative indices in ``[-n, 0)`` wrap, and
   a lane whose index is out of range in ANY indexed dimension writes
-  nothing (torch's ``index_put_`` would raise instead).  Nothing waits
+  nothing (torch's ``index_put_`` would raise instead), and of lanes with
+  one target the last writes (JAX's order on the CPU).  Nothing waits
   for the card (no ``nonzero``): the functional forms write into a copy
   with one scratch slot past the end, where every dropped lane lands;
   ``drop_add`` sums duplicate indices.  ``drop_set_`` writes in place
@@ -54,9 +55,24 @@ def _flat_index(x: torch.Tensor, index: tuple):
     return torch.where(ok, lin, m), m
 
 
+def _last_writer(lin: torch.Tensor, m: int) -> torch.Tensor:
+    """``lin`` with every lane but the last (in row-major lane order) of
+    each target moved to the scratch slot ``m``: JAX's last-write-wins
+    for duplicate indices, which a CUDA ``index_put_`` does not promise
+    (two scatters of one batch, a tag and its value, could keep
+    different lanes)."""
+    flat = lin.reshape(-1)
+    lane = torch.arange(flat.numel(), device=lin.device)
+    win = torch.full((m + 1,), -1, dtype=torch.long, device=lin.device)
+    win.scatter_reduce_(0, flat, lane, reduce="amax")
+    return torch.where(win[flat] == lane, flat, m).view(lin.shape)
+
+
 def _into_scratch_copy(x: torch.Tensor, index, val, accumulate: bool):
     index = index if isinstance(index, tuple) else (index,)
     lin, m = _flat_index(x, index)
+    if not accumulate and lin.numel() > 1:
+        lin = _last_writer(lin, m)
     rest = tuple(x.shape[len(index):])
     buf = x.new_empty((m + 1,) + rest)
     buf[:m] = x.reshape((m,) + rest)

@@ -1,8 +1,8 @@
-"""core/remap: the Trimma metadata engine (iRT maintenance + iRC), port of
+"""core/remap: the Trimma metadata engine (iRT + iRC), port of
 ``repro.core.remap``."""
 
-from .irt import E, INVALID, init_tables, pack_alloc_bits
+from .irt import E, INVALID, init_tables, pack_alloc_bits, walk
 from .rcache import IDENTITY, RemapCacheGeometry
 
 __all__ = ["E", "INVALID", "IDENTITY", "RemapCacheGeometry", "init_tables",
-           "pack_alloc_bits"]
+           "pack_alloc_bits", "walk"]

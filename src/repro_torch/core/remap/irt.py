@@ -7,11 +7,14 @@ The table is a dict of three int32 tensors:
     l1_bits [n_words]    : 1 bit per leaf, "is the leaf allocated?"
     leaf_cnt [n_leaf]    : live entries per leaf
 
-``fill`` / ``invalidate`` maintain entries + leaf counts and re-derive the
-level-1 words covering the touched leaves from ``leaf_cnt > 0``.  Ops are
-functional (state in, new tensors out), like the reference.  ``walk``
-(and its ``irt_lookup`` kernel) is not on the fused decode path, whose
-leaf entries are the translation; it is still to be ported.
+``walk`` probes both levels in parallel and falls back to the identity
+mapping (``home``) when the leaf is unallocated or the entry invalid; a
+two-level walk of tensors on a card runs the ``irt_lookup`` kernel at
+every batch size (the reference's TPU cutoff ``KERNEL_MIN_BATCH`` is not
+carried over).  ``fill`` / ``invalidate`` maintain entries + leaf counts
+and re-derive the level-1 words covering the touched leaves from
+``leaf_cnt > 0``.  Ops are functional (state in, new tensors out), like
+the reference.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 
 from repro_torch._scatter import (drop_add, drop_set, pack_u32,
                                   u32_to_i32)
+from repro_torch.kernels.irt_lookup.ops import irt_lookup_op
 
 INVALID = -1
 E = 64                     # entries per leaf block (256 B / 4 B, Section 3.2)
@@ -47,6 +51,20 @@ def pack_alloc_bits(leaf_cnt: torch.Tensor) -> torch.Tensor:
     alloc = torch.zeros((nw * 32,), dtype=torch.bool, device=leaf_cnt.device)
     alloc[:nl] = leaf_cnt > 0
     return u32_to_i32(pack_u32(alloc.reshape(nw, 32)))
+
+
+def walk(ids: torch.Tensor, home: torch.Tensor, l1_bits, entries, *,
+         levels: int = 2) -> torch.Tensor:
+    """Translate ids [N] -> device slots [N] int32, defaulting to ``home``.
+
+    ``levels == 1`` models a linear (always-allocated) table: only the
+    entry's validity is checked.  ``levels == 2`` is the iRT walk
+    (``kernels/irt_lookup``: the kernel on a card, its plain version on
+    the CPU)."""
+    if levels == 1:
+        e = entries[ids.long()]
+        return torch.where(e != INVALID, e, home).to(torch.int32)
+    return irt_lookup_op(ids, home, l1_bits, entries)
 
 
 def _refresh_words(l1_bits, leaf_cnt, leaves, enable):

@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C interface, compiled
-by ``nvcc`` for ``sm_90a`` into a shared library under
-``src/repro_torch/build/`` (listed in ``.gitignore``) at first use, and
-loaded with ``ctypes``.  Nothing is built at import time: the CPU tests
-import every module on a machine without ``nvcc``.  ``build_all`` starts
-one ``nvcc`` per source, all at once.
+Each kernel library is one ``csrc/<name>.cu`` with a plain C interface
+(it may include ``.cuh`` headers beside it), compiled by ``nvcc`` for
+``sm_90a`` into a shared library under ``src/repro_torch/build/``
+(listed in ``.gitignore``) at first use, and loaded with ``ctypes``.
+Nothing is built at import time: the CPU tests import every module on a
+machine without ``nvcc``.  ``build_all`` starts one ``nvcc`` per source,
+all at once.
 """
 
 from __future__ import annotations
@@ -23,6 +24,9 @@ SOURCES = {
     "remap_gather": _PKG / "kernels/remap_gather/csrc/remap_gather.cu",
     "paged_attention_fused":
         _PKG / "kernels/paged_attention/csrc/paged_attention_fused.cu",
+    "irt_lookup": _PKG / "kernels/irt_lookup/csrc/irt_lookup.cu",
+    "paged_attention":
+        _PKG / "kernels/paged_attention/csrc/paged_attention.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -43,9 +47,14 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """Missing, or older than its source or a header beside it."""
     lib = _lib_path(name)
-    return (not lib.exists()
-            or lib.stat().st_mtime < SOURCES[name].stat().st_mtime)
+    if not lib.exists():
+        return True
+    src = SOURCES[name]
+    newest = max(p.stat().st_mtime
+                 for p in [src, *src.parent.glob("*.cuh")])
+    return lib.stat().st_mtime < newest
 
 
 def build_all(names=None) -> float:

@@ -1,10 +1,14 @@
-"""Public wrapper for the fused k-token paged append+attend.
+"""Public wrappers for paged decode attention: the fused k-token
+append+attend (``paged_attention_fused_op``), the one-token read over two
+pools in place (``paged_attention_split_op``, the zero-copy path) and over
+one unified pool (``paged_attention_op``, the legacy concat path).
 
-Tensors on the CPU go to the plain version (``ref.py``); tensors on a
-card launch the hand-written kernel (``csrc/paged_attention_fused.cu``)
-or raise on what it does not take.  ``launches`` counts the calls that
-launched the kernel (its split pass and the merge that follows it);
-reset it by assignment.
+Tensors on the CPU go to the plain versions (``ref.py``); tensors on a
+card launch the hand-written kernels (``csrc/paged_attention_fused.cu``,
+``csrc/paged_attention.cu``) or raise on what they do not take.
+``launches``, ``split_launches`` and ``unified_launches`` count the calls
+that launched each kernel (its split pass and the merge that follows
+it); reset them by assignment.
 """
 
 from __future__ import annotations
@@ -15,9 +19,12 @@ import torch
 
 from repro_torch.kernels import _build
 
-from .ref import paged_attention_fused_ref
+from .ref import (paged_attention_fused_ref, paged_attention_ref,
+                  paged_attention_split_ref)
 
 launches = 0
+split_launches = 0
+unified_launches = 0
 
 HEAD_DIMS = (16, 32, 64, 128)
 PAGE_TOKENS = (8, 16, 32, 64, 128)
@@ -124,4 +131,136 @@ def paged_attention_fused_op(q, fast_k, fast_v, slow_k, slow_v, entries,
         raise RuntimeError(f"paged_attention_fused launch failed: "
                            f"cudaError {rc}")
     launches += 1
+    return out
+
+
+def _bind_paged(lib):
+    """(split entry, unified entry, scratch-size query)."""
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    split = lib.paged_attention_split
+    split.argtypes = [vp, vp, vp, vp, vp, vp, i64, vp, vp, vp,
+                      i32, i32, i32, i32, i32, i32, i32, i32, vp]
+    split.restype = ctypes.c_int
+    unified = lib.paged_attention_unified
+    unified.argtypes = [vp, vp, vp, vp, i64, vp, vp, vp,
+                        i32, i32, i32, i32, i32, i32, i32, vp]
+    unified.restype = ctypes.c_int
+    size = lib.paged_attention_scratch_floats
+    size.argtypes = [i32] * 5
+    size.restype = ctypes.c_longlong
+    return split, unified, size
+
+
+def _check_read(name, q, pool_pairs, page_table, seq_lens):
+    """What the one-token kernels take: q [B,KV,G,hd] and [n,KV,P,hd]
+    pools of one dtype on q's card, contiguous and 16-byte aligned;
+    page_table [B,npages] int32 with unit column stride; seq_lens [B]
+    int32.  Returns the page size P."""
+    if q.dim() != 4:
+        raise ValueError(f"{name}: q must be [B, KV, G, hd]")
+    B, KV, G, hd = q.shape
+    dev, dt = q.device, q.dtype
+    if dt not in _DTYPE_CODE:
+        raise ValueError(f"{name}: dtype {dt} unsupported")
+    P = pool_pairs[0][0].shape[2] if pool_pairs[0][0].dim() == 4 else -1
+    for label, t in (("q", q),) + tuple(
+            (f"pool {i}", t) for i, pr in enumerate(pool_pairs) for t in pr):
+        if t.device != dev or t.dtype != dt:
+            raise ValueError(f"{name}: {label} must be {dt} on {dev}, got "
+                             f"{t.dtype} on {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {label} must be contiguous and "
+                             f"16-byte aligned")
+    for k, v in pool_pairs:
+        if k.dim() != 4 or tuple(k.shape[1:]) != (KV, P, hd) \
+                or k.shape != v.shape:
+            raise ValueError(f"{name}: K/V pools must be matching "
+                             f"[n, {KV}, page, {hd}] tensors")
+    if hd not in HEAD_DIMS or P not in PAGE_TOKENS:
+        raise ValueError(f"{name}: hd={hd} page={P} outside {HEAD_DIMS} x "
+                         f"{PAGE_TOKENS}")
+    for label, t in (("page_table", page_table), ("seq_lens", seq_lens)):
+        if t.device != dev or t.dtype != torch.int32:
+            raise ValueError(f"{name}: {label} must be int32 on {dev}, got "
+                             f"{t.dtype} on {t.device}")
+    if page_table.dim() != 2 or page_table.shape[0] != B \
+            or page_table.stride(1) != 1:
+        raise ValueError(f"{name}: page_table must be [{B}, npages] with "
+                         f"unit column stride")
+    if tuple(seq_lens.shape) != (B,) or not seq_lens.is_contiguous():
+        raise ValueError(f"{name}: seq_lens must be [{B}]")
+    if _smem_bytes(1, G, hd, P, q.element_size()) > _SMEM_LIMIT:
+        raise ValueError(f"{name}: G rows need more shared memory than one "
+                         f"block has")
+    return P
+
+
+def _scratch(size, q, page_table):
+    """The fp32 split scratch of one read (the caller holds it until the
+    launch is enqueued)."""
+    B, KV, G, hd = q.shape
+    return torch.empty((size(B, KV, G, hd, page_table.shape[1]),),
+                       dtype=torch.float32, device=q.device)
+
+
+def paged_attention_split_op(q, fast_k, fast_v, slow_k, slow_v, page_table,
+                             seq_lens):
+    """The zero-copy decode read: q [B,KV,G,hd] -> [B,KV,G,hd].  The fast
+    [F,KV,P,hd] and slow pools stay separate; ``page_table`` [B,npages]
+    speaks the unified index space (slot < F reads fast row slot, else
+    slow row slot - F); row b sees columns below ``seq_lens[b]``.  Equal
+    bit for bit to ``paged_attention_op`` over the concatenated pools.  A
+    lane with seq_len <= 0 yields zeros on a card (the plain version's
+    uniform average there is never read)."""
+    global split_launches
+    if q.device.type == "cpu":
+        return paged_attention_split_ref(q, fast_k, fast_v, slow_k, slow_v,
+                                         page_table, seq_lens)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention_split: unsupported device "
+                         f"{q.device}")
+    P = _check_read("paged_attention_split", q,
+                    ((fast_k, fast_v), (slow_k, slow_v)), page_table,
+                    seq_lens)
+    B, KV, G, hd = q.shape
+    split, _, size = _build.load("paged_attention", _bind_paged)
+    out = torch.empty_like(q)
+    scratch = _scratch(size, q, page_table)
+    rc = split(_build.ptr(q), _build.ptr(fast_k), _build.ptr(fast_v),
+               _build.ptr(slow_k), _build.ptr(slow_v), _build.ptr(page_table),
+               page_table.stride(0), _build.ptr(seq_lens), _build.ptr(out),
+               _build.ptr(scratch), B, KV, G, hd, P,
+               page_table.shape[1], fast_k.shape[0], _DTYPE_CODE[q.dtype],
+               _build.stream_ptr(q.device))
+    if rc != 0:
+        raise RuntimeError(f"paged_attention_split launch failed: "
+                           f"cudaError {rc}")
+    split_launches += 1
+    return out
+
+
+def paged_attention_op(q, k_pool, v_pool, page_table, seq_lens):
+    """The legacy decode read over one unified pool [n_slots,KV,P,hd]:
+    q [B,KV,G,hd] -> [B,KV,G,hd]; page j of lane b is pool row
+    ``page_table[b, j]``; row b sees columns below ``seq_lens[b]``."""
+    global unified_launches
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, k_pool, v_pool, page_table, seq_lens)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention: unsupported device {q.device}")
+    P = _check_read("paged_attention", q, ((k_pool, v_pool),), page_table,
+                    seq_lens)
+    B, KV, G, hd = q.shape
+    _, unified, size = _build.load("paged_attention", _bind_paged)
+    out = torch.empty_like(q)
+    scratch = _scratch(size, q, page_table)
+    rc = unified(_build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
+                 _build.ptr(page_table), page_table.stride(0),
+                 _build.ptr(seq_lens), _build.ptr(out),
+                 _build.ptr(scratch), B, KV, G, hd, P,
+                 page_table.shape[1], _DTYPE_CODE[q.dtype],
+                 _build.stream_ptr(q.device))
+    if rc != 0:
+        raise RuntimeError(f"paged_attention launch failed: cudaError {rc}")
+    unified_launches += 1
     return out

@@ -1,13 +1,19 @@
-"""Plain PyTorch version of the fused k-token paged append+attend.
+"""Plain PyTorch versions of paged decode attention.
 
-It computes what ``repro.kernels.paged_attention.ref
-.paged_attention_fused_ref`` computes, walking the pages in order with an
-fp32 online softmax as the CUDA kernel does.  Page order is what keeps
-the live-page bucket exact: a page every row masks adds m unchanged,
-p = exp(-1e30 - m) = 0, corr = 1 and a zero product (the pools are
-zero-initialised, so they never hold non-finite bytes), so attending a
-bucket of the first ``n`` pages equals attending the full width bit for
-bit for every live lane.
+``paged_attention_ref`` (one unified pool) and ``paged_attention_split_ref``
+(fast and slow pools read in place, each page routed by ``slot <
+fast_slots``) are the port of ``repro.kernels.paged_attention.ref``: two
+gather front ends over one ``_attend_pages`` tail, so a split read equals
+a unified read of the concatenated pools bit for bit by construction.
+
+``paged_attention_fused_ref`` computes what
+``repro.kernels.paged_attention.ref.paged_attention_fused_ref`` computes,
+walking the pages in order with an fp32 online softmax as the CUDA
+kernel does.  Page order is what keeps the live-page bucket exact: a
+page every row masks adds m unchanged, p = exp(-1e30 - m) = 0, corr = 1
+and a zero product (the pools are zero-initialised, so they never hold
+non-finite bytes), so attending a bucket of the first ``n`` pages equals
+attending the full width bit for bit for every live lane.
 """
 
 from __future__ import annotations
@@ -17,6 +23,58 @@ import math
 import torch
 
 NEG_INF = -1e30
+
+
+def _attend_pages(q, k, v, seq_lens):
+    """q [B,KV,G,hd]; gathered k/v [B,KV,T,hd]; seq_lens [B]: full fp32
+    softmax over the columns below ``seq_lens[b]``."""
+    hd = q.shape[-1]
+    s = torch.einsum("bkgh,bkth->bkgt", q.float(), k.float()) / (hd ** 0.5)
+    col = torch.arange(k.shape[2], device=q.device)
+    s = torch.where(col < seq_lens[:, None, None, None], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgt,bkth->bkgh", w, v.float()).to(q.dtype)
+
+
+def _flatten_pages(x):
+    """[B,npages,KV,page,hd] -> [B,KV,npages*page,hd]."""
+    B, npages, KV, page, hd = x.shape
+    return x.transpose(1, 2).reshape(B, KV, npages * page, hd)
+
+
+def paged_attention_ref(q, k_pool, v_pool, page_table, seq_lens):
+    """q [B,KV,G,hd]; pools [n_slots,KV,page,hd]; page_table [B,npages]
+    int32 slots; seq_lens [B] -> [B,KV,G,hd]."""
+    B, npages = page_table.shape
+    flat = page_table.reshape(-1).long()
+
+    def pick(pool):
+        x = pool.index_select(0, flat)
+        return _flatten_pages(x.view(B, npages, *pool.shape[1:]))
+
+    return _attend_pages(q, pick(k_pool), pick(v_pool), seq_lens)
+
+
+def paged_attention_split_ref(q, fast_k, fast_v, slow_k, slow_v,
+                              page_table, seq_lens):
+    """The unified read with the pools kept apart: slot < fast_slots reads
+    the fast pool, else the slow pool at ``slot - fast_slots``; no
+    concatenated copy is made."""
+    B, npages = page_table.shape
+    fast_slots = fast_k.shape[0]
+    flat = page_table.reshape(-1).long()
+    is_fast = flat < fast_slots
+    fidx = torch.where(is_fast, flat, 0)
+    sidx = torch.where(is_fast, 0, flat - fast_slots)
+    sel = is_fast[:, None, None, None]
+
+    def pick(fast, slow):
+        x = torch.where(sel, fast.index_select(0, fidx),
+                        slow.index_select(0, sidx))
+        return _flatten_pages(x.view(B, npages, *x.shape[1:]))
+
+    return _attend_pages(q, pick(fast_k, slow_k), pick(fast_v, slow_v),
+                         seq_lens)
 
 
 def paged_attention_fused_ref(q, fast_k, fast_v, slow_k, slow_v, entries,

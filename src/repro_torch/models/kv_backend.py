@@ -132,6 +132,33 @@ class TieredBackend:
             torch.zeros((batch,), dtype=torch.int32, device=self.device),
             tk.init_state(self.tcfg, self.device, n_layers=self.n_layers))
 
+    # -- one layer's store (unstacked), the reference's scan slice -------
+
+    def append(self, cache, k, v, pos, *, ring: bool = False):
+        """Write one token per lane (k, v [B, KV, hd]) into ONE layer's
+        unstacked ``TieredState``; idle lanes write nothing."""
+        if ring:
+            raise NotImplementedError(
+                "TieredBackend cannot ring-wrap appends: a paged store has "
+                "no modular position axis")
+        from repro_torch.tiered import kvcache as tk
+        return tk.append_token(self.tcfg, cache, self._seq_ids, k, v, pos)
+
+    def attend(self, cache, q, pos, *, window=0, ring: bool = False):
+        """The zero-copy read of ONE layer's unstacked store: q
+        [B, KV, G, hd] attends positions <= pos per lane -> (out, cache)."""
+        if ring:
+            raise NotImplementedError(
+                "TieredBackend cannot ring-read: a paged store has no "
+                "modular position axis")
+        if not isinstance(window, int) or window != 0:
+            raise NotImplementedError(
+                "TieredBackend has no sliding-window semantics (the paged "
+                "kernel reads every live page)")
+        from repro_torch.serve import tiered as srv
+        seq_lens = torch.clamp(pos.to(torch.int32) + 1, min=0)
+        return srv.attend(self.tcfg, cache, q, seq_lens.contiguous())
+
     # -- fused decode step ------------------------------------------------
 
     def begin_step(self, caches, pos, n_pages: int | None = None):

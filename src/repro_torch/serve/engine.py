@@ -1,5 +1,6 @@
-"""Batched greedy-decode serving engine (port of ``repro.serve.engine``:
-``Engine``, ``EngineConfig``, ``Request`` and ``padded_len``).
+"""Serving drivers (port of ``repro.serve.engine``): ``TieredServer``, the
+single-store decode driver, and the batched greedy-decode ``Engine`` with
+``EngineConfig``, ``Request`` and ``padded_len``.
 
 Continuous batching over a fixed-width batch: finished lanes release
 their tiered metadata and refill from the queue with a one-shot prefill;
@@ -58,6 +59,61 @@ class EngineConfig:
     page_bucket: bool = True      # attend only the power-of-two live-page
                                   # prefix covering every lane
     scheduler: str = "greedy"
+
+
+class TieredServer:
+    """Continuous tiered-KV decode driver over ONE Trimma-managed two-tier
+    store (a single attention layer's worth; ``Engine`` serves a model
+    through ``TieredBackend``), on ``device`` (the card unless the caller
+    asks for the CPU).
+
+    ``step`` is one decode token for every lane through
+    ``serve.decode.make_tiered_decode_step`` (``path``: "zero_copy",
+    "concat" or "fused"); ``maintain`` runs one migration-scheduler pass
+    between steps; ``release`` recycles a lane, dropping its pages from
+    the iRT, the iRC and the device table in one batched pass.  The pools
+    update in place."""
+
+    def __init__(self, tcfg, *, path: str = "zero_copy", device=None):
+        from repro_torch.serve.decode import make_tiered_decode_step
+        from repro_torch.tiered import kvcache as tk
+        self.cfg = tcfg
+        self.device = resolve_device(device)
+        self.state = tk.init_state(tcfg, self.device)
+        self._step = make_tiered_decode_step(tcfg, path=path)
+        self.steps = 0
+
+    def step(self, q, k_new, v_new, pos):
+        """One decode token per lane: q [B, KV, G, hd], k_new/v_new
+        [B, KV, hd], ``pos`` a Python int or an int tensor on the
+        server's device, scalar or [B] (< 0 idles a lane).  Returns
+        [B, KV, G, hd]; nothing waits for the card."""
+        out, self.state = self._step(self.state, q, k_new, v_new, pos)
+        self.steps += 1
+        return out
+
+    def maintain(self):
+        from repro_torch.serve import tiered as srv
+        self.state = srv.maintain(self.cfg, self.state)
+
+    def release(self, seq: int):
+        from repro_torch.serve import tiered as srv
+        self.state = srv.release(self.cfg, self.state, seq)
+
+    @property
+    def metrics(self) -> dict:
+        """Canonical telemetry of the store (counters as exact ints, the
+        ratio gauges as floats)."""
+        from repro_torch.models.kv_backend import _host_num
+        from repro_torch.serve import tiered as srv
+        return {k: _host_num(v)
+                for k, v in srv.metrics(self.cfg, self.state).items()}
+
+    @property
+    def counters(self) -> dict:
+        """Legacy short-key counters, re-derived from the canonical view."""
+        from repro_torch.obs.metrics import legacy_counters
+        return legacy_counters(self.metrics)
 
 
 def padded_len(ctx: int, max_len: int) -> int:

@@ -66,6 +66,10 @@ class TieredConfig:
     id_sets: int = 8
     id_ways: int = 16
     dtype: str = "bfloat16"
+    # keep the translated device table in state and re-translate only
+    # rows whose mapping changed (False: the legacy re-walk of every row
+    # per lookup, the baseline of the concat path)
+    cache_device_table: bool = True
 
     @property
     def n_logical(self) -> int:
@@ -214,6 +218,77 @@ def logical_page(cfg: TieredConfig, seq, j):
 
 
 # ---------------------------------------------------------------------------
+# lookup: logical page table -> device page table (the zero-copy and
+# concat read paths)
+# ---------------------------------------------------------------------------
+
+def _translate(cfg: TieredConfig, st: TieredState, ids, enable):
+    """The metadata path for page ids [N]: iRC probe, then the parallel
+    two-level iRT walk (``irt.walk``: the ``irt_lookup`` kernel on a
+    card).  iRC fills and counters are masked by ``enable``.  Returns
+    (device slots [N], meaningful on enabled lanes; state)."""
+    rcg = cfg.rc_geometry
+    hit, val, id_hit = rc_ops.probe(rcg, _rc_view(st), ids)
+    home = cfg.fast_slots + ids
+    walked = irt_ops.walk(ids, torch.full_like(ids, INVALID), st.l1_bits,
+                          st.leaf_table)
+    dev_walk = torch.where(walked == INVALID, home, walked)
+    dev_irc = torch.where(id_hit, home, val)
+    dev = torch.where(hit, dev_irc, dev_walk)
+    st = st._replace(**rc_ops.fill(rcg, _rc_view(st), ids, walked,
+                                   st.leaf_table, enable & ~hit))
+    st = st._replace(
+        lookups=st.lookups + enable.sum(dtype=I32),
+        irc_hits=st.irc_hits + (enable & hit).sum(dtype=I32),
+        irc_id_hits=st.irc_id_hits + (enable & id_hit).sum(dtype=I32))
+    return dev, st
+
+
+def lookup(cfg: TieredConfig, st: TieredState, page_ids, live=None):
+    """page_ids [B, npages] logical -> (device table [B, npages] int32,
+    state).  Slots index the unified space: < fast_slots the fast pool,
+    else fast_slots + home.  ``live`` [B, npages] bool masks the pages
+    that hold context: dead ones are neither translated nor counted and
+    resolve to their identity home.
+
+    With ``cfg.cache_device_table`` valid ``dev_table`` rows are served
+    directly and only live rows not yet cached are translated.  The
+    reference skips that miss branch with ``lax.cond(need.any(), ...)``;
+    here it always runs, because reading ``need.any()`` would make the
+    host wait for the card every step.  Every write in it is masked by
+    ``need`` (iRC fills and FIFO advances, the drop-mode ``dev_table``
+    scatters, masked counter sums), so with ``need`` all false the state
+    is exactly the reference's.  Hotness is recorded for every live page
+    either way."""
+    B, NP = page_ids.shape
+    ids = page_ids.reshape(-1)
+    lv = (torch.ones(ids.shape, dtype=torch.bool, device=ids.device)
+          if live is None else live.reshape(-1))
+    home = cfg.fast_slots + ids
+    if not cfg.cache_device_table:
+        dev, st = _translate(cfg, st, ids, lv)
+        dev = torch.where(lv, dev, home)
+    else:
+        need = lv & ~st.dev_valid[ids.long()]
+        dev, st = _translate(cfg, st, ids, need)
+        idx = torch.where(need, ids, cfg.n_logical)
+        st = st._replace(
+            dev_table=drop_set(st.dev_table, idx, dev),
+            dev_valid=drop_set(st.dev_valid, idx, True),
+            dev_hits=st.dev_hits + (lv & ~need).sum(dtype=I32))
+        dev = torch.where(lv, st.dev_table[ids.long()], home)
+    st = record_touches(cfg, st, ids, lv)
+    return dev.to(I32).reshape(B, NP), st
+
+
+def unified_pools(st: TieredState):
+    """LEGACY: the concatenated (fast | slow) pools, a full copy of the KV
+    store; only the concat baseline path reads it."""
+    return (torch.cat([st.fast_k, st.slow_k], dim=0),
+            torch.cat([st.fast_v, st.slow_v], dim=0))
+
+
+# ---------------------------------------------------------------------------
 # read-side accounting (the fused decode path's leaf entries are the
 # translation: no walk runs)
 # ---------------------------------------------------------------------------
@@ -230,7 +305,11 @@ def record_reads(cfg: TieredConfig, st: TieredState, ids,
                  lv) -> TieredState:
     """A live page whose ``dev_table`` row is not cached counts one
     translation (the leaf entry is the translation) and caches its row; a
-    cached one counts one ``dev_table`` hit.  ``ids``/``lv`` are flat."""
+    cached one counts one ``dev_table`` hit.  Without
+    ``cfg.cache_device_table`` every live page counts a translation.
+    ``ids``/``lv`` are flat."""
+    if not cfg.cache_device_table:
+        return st._replace(lookups=st.lookups + lv.sum(dtype=I32))
     valid = st.dev_valid[ids.long()]
     cold = lv & ~valid
     entry = st.leaf_table[ids.long()]
@@ -496,21 +575,21 @@ def _stack_descs(descs):
     return {k: torch.stack([d[k] for d in descs]) for k in descs[0]}
 
 
-def _apply_plan(cfg: TieredConfig, st: TieredState, p, now,
-                apply_pools: bool = True):
+def _apply_plan(cfg: TieredConfig, st: TieredState, p, now):
     """Demotions, then promotions, then tracker forget/decay and the epoch
-    advance.  Returns ``(state, demote_descs, promote_descs)``: the copy
-    descriptors each move recorded, stacked move-major."""
+    advance, on the metadata only.  Returns ``(state, demote_descs,
+    promote_descs)``: the copy descriptors each move recorded, stacked
+    move-major, for ``_replay_descs``."""
     pol = cfg.pol
     n = cfg.n_logical
     ddescs, pdescs = [], []
     for i in range(p.demote_ids.shape[0]):
         st, d = _demote_one_desc(cfg, st, p.demote_ids[i], p.demote_en[i],
-                                 apply_pools=apply_pools)
+                                 apply_pools=False)
         ddescs.append(d)
     for i in range(p.promote_ids.shape[0]):
         st, d = _migrate_one_desc(cfg, st, p.promote_ids[i], p.promote_en[i],
-                                  apply_pools=apply_pools)
+                                  apply_pools=False)
         pdescs.append(d)
     # demoted pages restart cold; promoted pages keep their score
     tr = pol_track.forget(pol, _tr_view(cfg, st), p.demote_ids, p.demote_en)
@@ -526,13 +605,12 @@ def _apply_plan(cfg: TieredConfig, st: TieredState, p, now,
 def run_scheduler(cfg: TieredConfig, st: TieredState,
                   max_moves: int | None = None) -> TieredState:
     """One maintenance pass on a single-layer store: score, plan bounded
-    promotion + demotion queues, apply them, advance the epoch."""
-    pol = cfg.pol
-    mm = pol.max_moves if max_moves is None else int(max_moves)
-    sc, resident, now = _plan_inputs(cfg, st)
-    st, _, _ = _apply_plan(cfg, st, pol_sched.plan(pol, sc, resident, mm),
-                           now)
-    return st
+    promotion + demotion queues, apply them, advance the epoch.  The page
+    copies replay as on a one-layer stack (``run_scheduler_stacked``), so
+    the pass reads its out-of-range flag once, not once per copy."""
+    one = st._replace(**{f: getattr(st, f)[None] for f in POOL_FIELDS})
+    one = run_scheduler_stacked(cfg, one, max_moves)
+    return one._replace(**{f: getattr(st, f) for f in POOL_FIELDS})
 
 
 # ---------------------------------------------------------------------------
@@ -607,8 +685,7 @@ def apply_maintenance_stacked_desc(cfg: TieredConfig, sts: TieredState, p):
     """Apply a Plan to a stacked store: the metadata pass runs once with
     pool copies recorded, then the copies replay over the [L, ...] pools
     (in place).  Returns ``(state, ddesc, pdesc)``."""
-    sts, ddesc, pdesc = _apply_plan(cfg, sts, p, _now(cfg, sts),
-                                    apply_pools=False)
+    sts, ddesc, pdesc = _apply_plan(cfg, sts, p, _now(cfg, sts))
     _replay_descs(_stacked_pools(sts), ddesc, pdesc)
     return sts, ddesc, pdesc
 

@@ -11,7 +11,7 @@ import torch
 from repro_torch import _scatter
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import (
-    bf16_tolerance, paged_attention_fused_ref)
+    bf16_tolerance, paged_attention_fused_ref, paged_attention_split_ref)
 from repro_torch.kernels.remap_gather import ops as rg_ops
 from repro_torch.kernels.remap_gather.ref import remap_gather_ref
 
@@ -160,3 +160,257 @@ def test_drop_scatters_never_wait_for_the_card(cuda):
         torch.cuda.set_sync_debug_mode("default")
     for w, o in zip(want, got):
         assert torch.equal(o.cpu(), w)
+
+
+# ---------------------------------------------------------------------------
+# the zero-copy serving path: irt_lookup, paged_attention_split and
+# paged_attention
+# ---------------------------------------------------------------------------
+
+def _irt_inputs(device, n_ids, N, seed):
+    """A seeded iRT over ``n_ids`` ids (leaf 31 allocated, so bit 31 of a
+    word is set) and N ids to walk."""
+    from repro_torch.core.remap import irt
+    g = torch.Generator().manual_seed(seed)
+    tab = irt.init_tables(n_ids)
+    nl = tab["leaf_cnt"].shape[0]
+    ids = torch.randint(0, nl * irt.E, (max(N // 2, 1),), generator=g,
+                        dtype=torch.int32)
+    ids = torch.cat([ids, torch.arange(31 * irt.E, 32 * irt.E,
+                                       dtype=torch.int32)]) % (nl * irt.E)
+    slots = torch.randint(0, 500, ids.shape, generator=g, dtype=torch.int32)
+    tab = irt.fill(tab, ids.unique(), slots[:ids.unique().numel()],
+                   torch.ones(ids.unique().numel(), dtype=torch.bool))
+    q = torch.randint(0, nl * irt.E, (N,), generator=g, dtype=torch.int32)
+    home = torch.randint(1000, 2000, (N,), generator=g, dtype=torch.int32)
+    return [t.to(device) for t in (q, home, tab["l1_bits"],
+                                   tab["entries"])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 255, 4096, 5001])
+def test_irt_lookup_kernel_exact(cuda, N):
+    """Any N (nothing padded), random tables with leaf 31 allocated: the
+    kernel equals the plain version exactly."""
+    from repro_torch.kernels.irt_lookup import ops as irt_ops
+    from repro_torch.kernels.irt_lookup.ref import irt_lookup_ref
+    ids, home, l1, leaf = _irt_inputs(cuda, 4096, N, seed=N)
+    before = irt_ops.launches
+    out = irt_ops.irt_lookup_op(ids, home, l1, leaf)
+    assert irt_ops.launches == before + 1
+    assert torch.equal(out, irt_lookup_ref(ids, home, l1, leaf))
+    assert (l1 < 0).any()                       # bit 31 is exercised
+
+
+@pytest.mark.cuda
+def test_irt_lookup_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels.irt_lookup import ops as irt_ops
+    ids, home, l1, leaf = _irt_inputs(cuda, 256, 64, seed=1)
+    with pytest.raises(ValueError):
+        irt_ops.irt_lookup_op(ids.long(), home, l1, leaf)
+    with pytest.raises(ValueError):
+        irt_ops.irt_lookup_op(ids, home[:-1], l1, leaf)
+    with pytest.raises(ValueError):
+        irt_ops.irt_lookup_op(ids, home.cpu(), l1, leaf)
+    with pytest.raises(ValueError):
+        irt_ops.irt_lookup_op(ids[::2], home[::2], l1, leaf)
+
+
+def _read_inputs(device, B=4, KV=2, G=3, hd=16, P=8, NP=6, F=7, seed=0,
+                 dtype=torch.float32, distinct=False):
+    """Seeded split-pool read inputs: ragged seq_lens (the last lane
+    idle), a unified-space page table mixing fast slots and slow homes
+    (``distinct``: no two pages share a fast slot; needs F >= B*NP)."""
+    g = torch.Generator().manual_seed(seed)
+    f = lambda *s: torch.randn(s, generator=g).to(device, dtype)  # noqa: E731
+    seq = torch.randint(1, NP * P + 1, (B,), generator=g, dtype=torch.int32)
+    seq[-1] = 0
+    homes = F + torch.arange(B * NP, dtype=torch.int32).view(B, NP)
+    if distinct:
+        fast = torch.randperm(F, generator=g)[:B * NP].view(B, NP).to(
+            torch.int32)
+    else:
+        fast = torch.randint(0, F, (B, NP), generator=g, dtype=torch.int32)
+    table = torch.where(torch.rand((B, NP), generator=g) < 0.4, fast, homes)
+    return dict(q=f(B, KV, G, hd), fast_k=f(F, KV, P, hd),
+                fast_v=f(F, KV, P, hd), slow_k=f(B * NP, KV, P, hd),
+                slow_v=f(B * NP, KV, P, hd), page_table=table.to(device),
+                seq_lens=seq.to(device))
+
+
+def _unified(d):
+    return dict(q=d["q"], k_pool=torch.cat([d["fast_k"], d["slow_k"]]),
+                v_pool=torch.cat([d["fast_v"], d["slow_v"]]),
+                page_table=d["page_table"], seq_lens=d["seq_lens"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("P", [8, 16, 32, 64, 128])
+def test_split_and_unified_kernels_match_plain(cuda, P, hd, dtype):
+    """Every supported (hd, page) pair: fp32 atol 1e-4 (online and full
+    softmax sum in other orders), bf16 two ulps of each reference value
+    against the plain version in fp32 cast to bf16; split == unified over
+    the concatenated pools bit for bit; idle lanes are zeros."""
+    d = _read_inputs(cuda, hd=hd, P=P, NP=3, seed=hd + P, dtype=dtype)
+    b0, u0 = pa_ops.split_launches, pa_ops.unified_launches
+    out = pa_ops.paged_attention_split_op(**d)
+    uni = pa_ops.paged_attention_op(**_unified(d))
+    assert (pa_ops.split_launches, pa_ops.unified_launches) == (b0 + 1,
+                                                                u0 + 1)
+    assert torch.equal(out, uni)
+    ref = paged_attention_split_ref(
+        **{k: (v.float() if v.is_floating_point() else v)
+           for k, v in d.items()}).to(dtype).float()
+    live = d["seq_lens"] > 0
+    tol = 1e-4 if dtype == torch.float32 else bf16_tolerance(ref[live])
+    assert ((out.float()[live] - ref[live]).abs() <= tol).all()
+    assert torch.equal(out[~live], torch.zeros_like(out[~live]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_read_equals_fused_step_bitwise(cuda, dtype):
+    """A one-token fused step (new row overlaid) and the split read of the
+    store the row was appended to run one body: equal bit for bit."""
+    B, KV, G, hd, P, NP, F = 4, 2, 4, 64, 16, 8, 40
+    d = _read_inputs(cuda, B=B, KV=KV, G=G, hd=hd, P=P, NP=NP, F=F, seed=9,
+                     dtype=dtype, distinct=True)
+    pos = (d["seq_lens"] - 1).to(torch.int32)        # idle lane: -1
+    table = d["page_table"]
+    entries = torch.where(table < F, table, -1).to(torch.int32)
+    k_new = torch.randn(B, 1, KV, hd, device=cuda).to(dtype)
+    v_new = torch.randn(B, 1, KV, hd, device=cuda).to(dtype)
+    fused = pa_ops.paged_attention_fused_op(
+        d["q"][:, None], d["fast_k"], d["fast_v"], d["slow_k"], d["slow_v"],
+        entries, k_new, v_new, pos)[:, 0]
+    for b in range(B - 1):                           # append, then read
+        p = int(pos[b])
+        j, r = p // P, p % P
+        slot = int(table[b, j])
+        for pool_f, pool_s, new in ((d["fast_k"], d["slow_k"], k_new),
+                                    (d["fast_v"], d["slow_v"], v_new)):
+            dst = pool_f[slot] if slot < F else pool_s[slot - F]
+            dst[:, r] = new[b, 0]
+    split = pa_ops.paged_attention_split_op(**d)
+    assert torch.equal(split, fused)
+
+
+@pytest.mark.cuda
+def test_split_and_unified_reject_what_they_do_not_take(cuda):
+    d = _read_inputs(cuda)
+    bad = [dict(seq_lens=d["seq_lens"].long()),
+           dict(seq_lens=d["seq_lens"][:-1]),
+           dict(page_table=d["page_table"].long()),
+           dict(page_table=d["page_table"][:-1]),
+           dict(q=d["q"][:, :, :, :8].contiguous()),
+           dict(q=d["q"].double()),
+           dict(slow_k=d["slow_k"][:, :1].contiguous())]
+    for kw in bad:
+        with pytest.raises(ValueError):
+            pa_ops.paged_attention_split_op(**{**d, **kw})
+    u = _unified(d)
+    with pytest.raises(ValueError):
+        pa_ops.paged_attention_op(**{**u, "seq_lens": u["seq_lens"].cpu()})
+    with pytest.raises(ValueError):
+        pa_ops.paged_attention_op(**{**u, "k_pool": u["k_pool"][:, :, :4]})
+
+
+def _server_cfg(**kw):
+    from repro_torch.core.policy import get_policy
+    from repro_torch.tiered import kvcache as tk
+    base = dict(n_seqs=3, max_pages_per_seq=32, page_tokens=16,
+                n_kv_heads=2, head_dim=64, fast_data_slots=6,
+                policy=get_policy("threshold", epoch_len=2),
+                dtype="bfloat16")
+    base.update(kw)
+    return tk.TieredConfig(**base)
+
+
+def _server(cuda, cfg, path):
+    from repro_torch.serve.engine import TieredServer
+    srv = TieredServer(cfg, path=path, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for pool in (srv.state.slow_k, srv.state.slow_v):
+        pool.copy_(torch.randn(pool.shape, generator=g, device=cuda))
+    return srv
+
+
+@pytest.mark.cuda
+def test_server_zero_copy_step_never_waits_for_the_card(cuda):
+    """A zero-copy step (append, cached lookup with its iRC probe and iRT
+    walk, split read) runs under sync debug mode "error": the host never
+    waits for the card."""
+    cfg = _server_cfg()
+    srv = _server(cuda, cfg, "zero_copy")
+    q = torch.randn(3, 2, 4, 64, device=cuda).to(torch.bfloat16)
+    kv = torch.randn(3, 2, 64, device=cuda).to(torch.bfloat16)
+    pos = torch.tensor([100, 7, -1], dtype=torch.int32, device=cuda)
+    srv.step(q, kv, kv, pos)                         # builds and loads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = srv.step(q, kv, kv, pos + 1)
+        out = srv.step(q, kv, kv, 120)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(out.float()).all()
+
+
+@pytest.mark.cuda
+def test_server_zero_copy_equals_concat_and_fused(cuda):
+    """The reference's golden equality on the card: zero-copy (cached)
+    equals concat (uncached) bit for bit on live lanes at every step,
+    with maintenance and a release between steps; the fused path runs
+    the same body and equals them too."""
+    import dataclasses
+    cfg = _server_cfg()
+    paths = {"zero_copy": _server(cuda, cfg, "zero_copy"),
+             "concat": _server(cuda, dataclasses.replace(
+                 cfg, cache_device_table=False), "concat"),
+             "fused": _server(cuda, cfg, "fused")}
+    g = torch.Generator(device=cuda).manual_seed(1)
+    pos = torch.tensor([300, 40, -1], dtype=torch.int32, device=cuda)
+    for step in range(12):
+        q = torch.randn(3, 2, 4, 64, generator=g, device=cuda).to(
+            torch.bfloat16)
+        kv = torch.randn(3, 2, 64, generator=g, device=cuda).to(
+            torch.bfloat16)
+        outs = {k: s.step(q, kv, kv, pos) for k, s in paths.items()}
+        live = pos >= 0
+        assert torch.equal(outs["zero_copy"][live], outs["concat"][live])
+        assert torch.equal(outs["zero_copy"][live],
+                           outs["fused"][:, 0][live])
+        pos = torch.where(live, pos + 1, pos)
+        if step % 3 == 2:
+            for s in paths.values():
+                s.maintain()
+        if step == 6:
+            for s in paths.values():
+                s.release(1)
+            pos[1] = 0
+    c = paths["zero_copy"].counters
+    assert c["dev_hits"] > 0 and c["migrations"] > 0
+
+
+@pytest.mark.cuda
+def test_drop_set_duplicate_lanes_keep_the_last_lane_on_the_card(cuda):
+    """Many lanes of one batch on one cell, as the iRC fill's lanes of one
+    set are: the last lane's tag and its value land together, as on the
+    CPU (a CUDA ``index_put_`` alone may keep any lane, and two scatters
+    of one batch different lanes)."""
+    g = torch.Generator().manual_seed(11)
+    n = 4096
+    sets = torch.randint(0, 8, (n,), generator=g, dtype=torch.int32)
+    ways = torch.randint(0, 3, (n,), generator=g, dtype=torch.int32)
+    ids = torch.randperm(n, generator=g).to(torch.int32)
+    tag = torch.full((8, 3), -1, dtype=torch.int32)
+    want_t = _scatter.drop_set(tag, (sets, ways), ids)
+    want_v = _scatter.drop_set(tag, (sets, ways), ids * 2 + 1)
+    dev = [t.to(cuda) for t in (tag, sets, ways, ids)]
+    got_t = _scatter.drop_set(dev[0], (dev[1], dev[2]), dev[3])
+    got_v = _scatter.drop_set(dev[0], (dev[1], dev[2]), dev[3] * 2 + 1)
+    assert torch.equal(got_t.cpu(), want_t)
+    assert torch.equal(got_v.cpu(), want_v)
+    assert torch.equal(got_v, got_t * 2 + 1)

@@ -1,6 +1,6 @@
-"""The two kernels of the port's decode path, on the CPU through their
-plain versions: held against the JAX reference oracles, and the port's
-own bucket contract.  The CUDA kernels themselves run only on a card
+"""The port's kernels on the CPU through their plain versions: held
+against the JAX reference oracles, and the port's own contracts (the
+live-page bucket, split == unified bit for bit).  The CUDA kernels themselves run only on a card
 (``tests/test_torch_cuda.py``, and ``chip_smoke.py`` at the main path's
 shapes)."""
 
@@ -11,9 +11,14 @@ import torch
 
 from repro.kernels.paged_attention.ref import \
     paged_attention_fused_ref as j_fused_ref
+from repro.kernels.paged_attention.ref import \
+    paged_attention_ref as j_paged_ref
+from repro.kernels.paged_attention.ref import \
+    paged_attention_split_ref as j_split_ref
 from repro.kernels.remap_gather.ref import remap_gather_ref as j_gather_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
-from repro_torch.kernels.paged_attention.ref import paged_attention_fused_ref
+from repro_torch.kernels.paged_attention.ref import (
+    paged_attention_fused_ref, paged_attention_ref, paged_attention_split_ref)
 from repro_torch.kernels.remap_gather import ops as rg_ops
 from repro_torch.kernels.remap_gather.ref import remap_gather_ref
 
@@ -101,3 +106,72 @@ def test_remap_gather_plain_rejects_out_of_range():
     with pytest.raises(IndexError):
         rg_ops.remap_gather_op(pool, torch.tensor([1, 4], dtype=torch.int32),
                                rg_ops.new_flag(pool.device))
+
+
+def read_inputs(B=4, KV=2, G=3, hd=16, P=8, NP=6, F=7, seed=0):
+    """One-token read inputs: ragged seq_lens (the last lane idle), a
+    unified-space page table mixing fast slots (< F) and slow homes."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+    seq = rng.integers(1, NP * P + 1, B).astype(np.int32)
+    seq[-1] = 0
+    homes = F + np.arange(B * NP).reshape(B, NP)
+    table = np.where(rng.random((B, NP)) < 0.4,
+                     rng.integers(0, F, (B, NP)), homes).astype(np.int32)
+    return dict(q=f(B, KV, G, hd), fast_k=f(F, KV, P, hd),
+                fast_v=f(F, KV, P, hd), slow_k=f(B * NP, KV, P, hd),
+                slow_v=f(B * NP, KV, P, hd), page_table=table,
+                seq_lens=seq)
+
+
+def _unified(d):
+    return dict(q=d["q"],
+                k_pool=np.concatenate([d["fast_k"], d["slow_k"]]),
+                v_pool=np.concatenate([d["fast_v"], d["slow_v"]]),
+                page_table=d["page_table"], seq_lens=d["seq_lens"])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_split_and_unified_plain_match_reference(seed):
+    """fp32, atol 1e-5 on live lanes against the JAX oracles (two softmax
+    implementations); the idle lane averages stale bytes by definition
+    and is not compared."""
+    d = read_inputs(seed=seed, hd=16 * (seed + 1), P=8 << seed)
+    live = d["seq_lens"] > 0
+    jd = {k: jnp.asarray(v) for k, v in d.items()}
+    want = np.asarray(j_split_ref(**jd))
+    got = paged_attention_split_ref(**_torch(d)).numpy()
+    np.testing.assert_allclose(got[live], want[live], rtol=0, atol=1e-5)
+    u = _unified(d)
+    want_u = np.asarray(j_paged_ref(**{k: jnp.asarray(v)
+                                       for k, v in u.items()}))
+    got_u = paged_attention_ref(**_torch(u)).numpy()
+    np.testing.assert_allclose(got_u[live], want_u[live], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_equals_unified_bitwise(dtype):
+    """One attention tail behind two gathers: the split read equals the
+    unified read of the concatenated pools bit for bit, idle lane
+    included."""
+    d = read_inputs(seed=4)
+    t = {k: (v.to(dtype) if v.is_floating_point() else v)
+         for k, v in _torch(d).items()}
+    split = paged_attention_split_ref(**t)
+    uni = paged_attention_ref(t["q"], torch.cat([t["fast_k"], t["slow_k"]]),
+                              torch.cat([t["fast_v"], t["slow_v"]]),
+                              t["page_table"], t["seq_lens"])
+    assert split.dtype == dtype
+    assert torch.equal(split, uni)
+
+
+def test_read_ops_on_cpu_are_the_plain_versions():
+    d = _torch(read_inputs(seed=5))
+    u = _torch(_unified(read_inputs(seed=5)))
+    before = (pa_ops.split_launches, pa_ops.unified_launches)
+    split = pa_ops.paged_attention_split_op(**d)
+    uni = pa_ops.paged_attention_op(**u)
+    assert (pa_ops.split_launches, pa_ops.unified_launches) == before
+    assert torch.equal(split, paged_attention_split_ref(**d))
+    assert torch.equal(uni, paged_attention_ref(**u))
+    assert torch.equal(split, uni)

@@ -254,3 +254,79 @@ def test_plan_tie_heavy_needs_stable_top_k():
     p_key = torch.where(~_t(resident), _t(score) + 1, 0)
     _, naive = torch.topk(p_key, 6)
     assert naive.tolist() != np.asarray(jp.promote_ids).tolist()
+
+
+# ---------------------------------------------------------------------------
+# the iRT walk (irt_lookup's plain version on the CPU)
+# ---------------------------------------------------------------------------
+
+def _walk_inputs(seed, n_ids, N):
+    """Random fills over ``n_ids`` ids with leaf 31 always allocated (bit
+    31 of word 0, the int32 sign bit), then N ids and homes to walk."""
+    rng = np.random.default_rng(seed)
+    jt = j_irt.init_tables(n_ids)
+    nl = jt["leaf_cnt"].shape[0]
+    ids = np.unique(np.concatenate([
+        rng.choice(nl * j_irt.E, n_ids // 5, replace=False),
+        [31 * j_irt.E + 7]])).astype(np.int32)
+    slots = rng.integers(0, 300, ids.size).astype(np.int32)
+    jt = j_irt.fill(jt, jnp.asarray(ids), jnp.asarray(slots),
+                    jnp.ones(ids.size, bool))
+    q = np.concatenate([rng.integers(0, nl * j_irt.E, N - 2),
+                        [31 * j_irt.E + 7, 31 * j_irt.E + 8]]) \
+        .astype(np.int32)
+    home = rng.integers(1000, 2000, N).astype(np.int32)
+    return jt, q, home
+
+
+@pytest.mark.parametrize("n_ids,N", [(2048, 7), (2048, 1024), (4096, 4096)])
+@pytest.mark.parametrize("levels", [1, 2])
+def test_walk_matches_reference(n_ids, N, levels):
+    """Random tables, a leaf at bit 31, one- and two-level walks: exact
+    against the reference walk and (two levels) against the plain
+    ``irt_lookup_ref``."""
+    from repro.kernels.irt_lookup.ref import irt_lookup_ref as j_lookup_ref
+    from repro_torch.kernels.irt_lookup.ref import irt_lookup_ref
+    jt, q, home = _walk_inputs(n_ids + N, n_ids, N)
+    assert int(np.asarray(jt["l1_bits"])[0]) < 0     # bit 31 is set
+    want = j_irt.walk(jnp.asarray(q), jnp.asarray(home), jt["l1_bits"],
+                      jt["entries"], levels=levels, impl="ref")
+    tt = {k: _t(np.array(v)) for k, v in jt.items()}
+    got = t_irt.walk(_t(q), _t(home), tt["l1_bits"], tt["entries"],
+                     levels=levels)
+    assert got.dtype == torch.int32
+    _eq(want, got, "walk")
+    if levels == 2:
+        _eq(j_lookup_ref(jnp.asarray(q), jnp.asarray(home), jt["l1_bits"],
+                         jt["entries"]),
+            irt_lookup_ref(_t(q), _t(home), tt["l1_bits"], tt["entries"]),
+            "irt_lookup_ref")
+
+
+def test_walk_unallocated_leaf_ignores_stale_entries():
+    """A leaf whose l1 bit is clear resolves to home even where its entry
+    holds a slot: the walk trusts the bit vector."""
+    tt = t_irt.init_tables(256)
+    tt["entries"][70] = 5                       # leaf 1, bit clear
+    ids = torch.tensor([70, 3], dtype=torch.int32)
+    home = torch.tensor([900, 901], dtype=torch.int32)
+    got = t_irt.walk(ids, home, tt["l1_bits"], tt["entries"])
+    assert got.tolist() == [900, 901]
+    tt["l1_bits"][0] = 2
+    got = t_irt.walk(ids, home, tt["l1_bits"], tt["entries"])
+    assert got.tolist() == [5, 901]
+
+
+def test_drop_set_duplicate_lanes_last_writer_wins():
+    """Lanes of one batch that hit the same cell: the last lane's value
+    lands in every scatter of the batch (a tag and its value stay one
+    lane's), as in JAX."""
+    x = np.zeros((4, 3), np.int32)
+    rows = np.array([1, 1, 2, 1, 9], np.int32)
+    cols = np.array([0, 0, 2, 0, 0], np.int32)
+    vals = np.array([10, 20, 30, 40, 50], np.int32)
+    want = jnp.asarray(x).at[jnp.asarray(rows), jnp.asarray(cols)].set(
+        jnp.asarray(vals), mode="drop")
+    got = _scatter.drop_set(_t(x), (_t(rows), _t(cols)), _t(vals))
+    _eq(want, got)
+    assert int(got[1, 0]) == 40
