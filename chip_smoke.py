@@ -14,12 +14,16 @@ prints no result line):
    its path's shapes and at the smoke shapes, with the tolerances stated
    below; the live-page bucket against the full width and the split read
    against the unified read of the concatenated pools (bit for bit);
-   kernel, plain and library times (CUDA events); an irt_lookup sweep
-   over N, kernel beside plain version.
+   flash attention's rows independent of the call around them (chunk
+   calls at page-aligned offsets equal the one-shot call's rows, masked
+   extra keys change nothing, bit for bit); kernel, plain and library
+   times (CUDA events); an irt_lookup sweep over N, kernel beside plain
+   version.
 4. main path: llama3-8b at its published width (32 layers, bf16, seeded
-   random weights made on the card) served by the tiered engine; launch
-   counts are reset just before the run and read just after; tokens/s,
-   step times and the wall time by engine phase.
+   random weights made on the card) served by the tiered engine (its
+   one-shot prefill runs the flash kernel); launch counts are reset just
+   before the run and read just after; tokens/s, step times and the wall
+   time by engine phase.
 5. dense against tiered at full width (2 layers, fp32, teacher-forced,
    maintenance running): logits within 1e-3.
 6. tiered server: ``TieredServer`` over one store at llama3-8b's
@@ -29,13 +33,24 @@ prints no result line):
    each path and read after; zero-copy equal to concat bit for bit on
    every live lane at every step, the cached path served from the device
    table, a zero-copy step with no host wait.
+7. chunked prefill + multi-tenant QoS at full width: phase 4's weights
+   served by ``Engine(scheduler="chunked", prefill_chunk=256, tenants=
+   (interactive: weight 2, on-demand; batch: weight 1))``, 16 requests of
+   200-1900 prompt tokens; every request finished, released metadata
+   back to identity, 8 finished per tenant, direct-to-fast pages for the
+   on-demand tenant, migrations; launch counts reset before the run and
+   read after; tokens/s, TTFT and latency per tenant, wall time by phase.
+8. chunked == one-shot prefill at full width: a 1500-token prompt's K/V
+   ingested chunk by chunk against the one-shot ``forward``'s rows, and
+   the final chunk's last-row logits; bit for bit, or else within the
+   bf16 limit with the measured gap printed.
 
 Output, in order: phase lines, one JSON ``kernels`` line (launches: the
 main path's for paged_attention_fused and remap_gather, the cached
 zero-copy server run's for irt_lookup and paged_attention_split, the
-concat server run's for paged_attention), the card's name and power
-limit as nvidia-smi reports them, and last
-``{"ok": true, "device": {...}}``.
+concat server run's for paged_attention, the chunked run's for
+flash_attention), the card's name and power limit as nvidia-smi reports
+them, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -51,6 +66,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
 
 
 def _fail(msg: str):
@@ -273,6 +289,7 @@ def kernel_phase(torch, dev):
     torch.cuda.empty_cache()
     rows.update(irt_lookup_rows(torch, dev))
     rows.update(paged_read_rows(torch, dev))
+    rows.update(flash_rows(torch, dev))
     return rows
 
 
@@ -447,20 +464,135 @@ def paged_read_rows(torch, dev):
     return rows
 
 
+def _flash_plain(q, k, v, **kw):
+    """``attention_ref`` in fp32 on model-layout tensors."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    return attention_ref(q.transpose(1, 2).float(), k.transpose(1, 2).float(),
+                         v.transpose(1, 2).float(), **kw).transpose(1, 2)
+
+
+def _flash_bound(S, T, H, KV, hd, q_offset, item):
+    """Least time for one causal call: 4*hd flops per unmasked (query,
+    key) pair and head at the bf16 tensor-core peak, against Q, O and the
+    K/V rows any query sees, each moved once, at HBM bandwidth."""
+    pos = range(q_offset, q_offset + S)
+    pairs = sum(min(p + 1, T) for p in pos)
+    keys = min(q_offset + S, T)
+    nbytes = item * (2 * S * H * hd + 2 * keys * KV * hd)
+    t_ops = 4 * hd * H * pairs / BF16_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def flash_rows(torch, dev):
+    """flash_attention at the main path's shapes (B=1, H=32, KV=8, hd=128,
+    bf16): the one-shot causal prefill S = T = 2048, and a 256-row chunk at
+    q_offset 1792 over T = 2048, as phase 7's chunked ingest runs it;
+    within two bf16 ulps of each value of the plain version (fp32 scores
+    and a full softmax, cast to bf16).  Rows independent of the call, bit
+    for bit: the chunk call at page-aligned offsets equals the one-shot
+    call's rows, and a call over 2T keys whose extra keys are causally
+    masked equals the call over T.  Smoke shapes in fp32 (window > 0, not
+    causal, a q_offset) within 1e-4 (online and full softmax sum in other
+    orders).  Kernel, plain and ``scaled_dot_product_attention`` times."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention.ref import bf16_tolerance
+
+    B, H, KV, hd, T, C = 1, 32, 8, 128, 2048, 256
+    g = torch.Generator(device=dev)
+    g.manual_seed(31)
+    r = lambda *s: torch.randn(s, generator=g, device=dev).to(  # noqa: E731
+        torch.bfloat16)
+    q, k, v = r(B, T, H, hd), r(B, T, KV, hd), r(B, T, KV, hd)
+    op = fa_ops.flash_attention_op
+    full = op(q, k, v)
+    shapes = {"one-shot": (q, 0), "chunk": (q[:, T - C:].contiguous(), T - C)}
+    res = {}
+    for label, (qq, off) in shapes.items():
+        out = op(qq, k, v, q_offset=off)
+        ref = _flash_plain(qq, k, v, q_offset=off).to(torch.bfloat16).float()
+        diff = (out.float() - ref).abs()
+        err = diff.max().item()
+        ratio = (diff / bf16_tolerance(ref)).max().item()
+        _check(math.isfinite(err) and ratio <= 1.0,
+               f"flash_attention {label} bf16 error {err} over two ulps "
+               f"(error/limit {ratio:.3f})")
+        # the library call, on [B, H, S, hd] copies made beforehand
+        lq, lk, lv = (t.transpose(1, 2).contiguous() for t in (qq, k, v))
+        if off == 0:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                lq, lk, lv, is_causal=True, enable_gqa=True)
+        else:
+            mask = (torch.arange(T, device=dev)[None, :]
+                    <= torch.arange(off, off + qq.shape[1],
+                                    device=dev)[:, None])
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                lq, lk, lv, attn_mask=mask, enable_gqa=True)
+        lib_err = (lib().transpose(1, 2).float() - ref).abs().max().item()
+        ms = _time_ms(lambda: op(qq, k, v, q_offset=off))
+        plain_ms = _time_ms(lambda: _flash_plain(qq, k, v, q_offset=off),
+                            reps=5)
+        lib_ms = _time_ms(lib)
+        bound_ms, bound_by = _flash_bound(qq.shape[1], T, H, KV, hd, off, 2)
+        res[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=lib_ms)
+        print(f"kernel flash_attention bf16 {label} (S={qq.shape[1]}, "
+              f"q_offset={off}, T={T}, H={H}/{KV}, hd={hd}, causal): "
+              f"error/limit {ratio:.3f} (max abs {err:.3e}), "
+              f"{ms:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms (its max abs "
+              f"err {lib_err:.3e}), bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{ms / bound_ms:.1f}x the bound")
+    starts = (0, 16, 272, 1008, 1536, 1792)
+    for s in starts:
+        part = op(q[:, s:s + C], k, v, q_offset=s)
+        _check(torch.equal(part, full[:, s:s + C]),
+               f"flash_attention: the chunk at q_offset {s} differs from the "
+               f"one-shot call's rows")
+    k2, v2 = (torch.cat([t, r(*t.shape)], dim=1) for t in (k, v))
+    _check(torch.equal(op(q, k2, v2), full),
+           "flash_attention: masked extra keys changed a row")
+    print(f"kernel flash_attention rows independent of the call, bit for "
+          f"bit: {C}-row chunks at q_offset {list(starts)} equal the "
+          f"one-shot rows; T = {2 * T} with causally masked extra keys equals "
+          f"T = {T}")
+    del k2, v2, full
+    gs = torch.Generator(device=dev)
+    gs.manual_seed(32)
+    for causal, window, off in ((True, 24, 0), (False, 0, 0), (True, 40, 32),
+                                (False, 16, 64)):
+        sq, sk, sv = (torch.randn(s, generator=gs, device=dev) for s in
+                      ((2, 80, 4, 16), (2, 150, 2, 16), (2, 150, 2, 16)))
+        kw = dict(causal=causal, window=window, q_offset=off)
+        e = (op(sq, sk, sv, **kw) - _flash_plain(sq, sk, sv, **kw)) \
+            .abs().max().item()
+        _check(math.isfinite(e) and e <= 1e-4,
+               f"flash_attention fp32 smoke {kw} error {e} > 1e-4")
+        print(f"kernel flash_attention fp32 smoke {kw}: max_abs_err {e:.3e} "
+              f"(tol 1e-4)")
+    torch.cuda.empty_cache()
+    row = dict(name="flash_attention", route="cuda",
+               source="src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention/flash_attention.py"
+                        ":70", **res["chunk"])
+    row["one_shot"] = res["one-shot"]
+    return {"flash_attention": row}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path at full width
 # ---------------------------------------------------------------------------
 
-def main_path_engine(torch, dev):
-    """The main path's engine, weights and requests: llama3-8b as
-    published, seeded random weights made on the card, the tiered engine
-    with 1024 logical pages and 144 fast slots, 16 seeded requests
-    (prompts 100-900 tokens, max_new 32-96) already submitted."""
-    import numpy as np
-
+def main_model(torch, dev):
+    """llama3-8b as published, seeded random weights made on the card
+    (shared by phases 4, 7 and 8)."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
-    from repro_torch.serve.engine import Engine, EngineConfig, Request
 
     cfg = get_config("llama3-8b")
     t0 = time.perf_counter()
@@ -470,6 +602,17 @@ def main_path_engine(torch, dev):
           f"H={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} ff={cfg.d_ff} "
           f"V={cfg.vocab} {cfg.dtype}, params made in "
           f"{time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def main_path_engine(torch, dev, cfg, params):
+    """The main path's engine and requests: the tiered engine with 1024
+    logical pages and 144 fast slots, 16 seeded requests (prompts 100-900
+    tokens, max_new 32-96) already submitted."""
+    import numpy as np
+
+    from repro_torch.serve.engine import Engine, EngineConfig, Request
+
     ec = EngineConfig(batch=8, max_len=2048, backend="tiered",
                       page_tokens=16, fast_data_slots=128, maintain_every=4)
     eng = Engine(cfg, params, ec, device=dev)
@@ -482,15 +625,16 @@ def main_path_engine(torch, dev):
         n = int(rng.integers(100, 901))
         eng.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab, n),
                            max_new=int(rng.integers(32, 97))))
-    return cfg, eng
+    return eng
 
 
-def main_path_phase(torch, dev):
+def main_path_phase(torch, dev, cfg, params):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.remap_gather import ops as rg_ops
     from repro_torch.serve import engine as eng_mod
 
-    cfg, eng = main_path_engine(torch, dev)
+    eng = main_path_engine(torch, dev, cfg, params)
     spent: dict = {}              # phase -> host ms of each synchronised call
     real = eng_mod.decode_step
 
@@ -514,6 +658,7 @@ def main_path_phase(torch, dev):
     torch.cuda.reset_peak_memory_stats()
     pa_ops.launches = 0
     rg_ops.launches = 0
+    fa_ops.launches = 0
     try:
         t0 = time.perf_counter()
         done = eng.run()
@@ -523,6 +668,7 @@ def main_path_phase(torch, dev):
         eng_mod.decode_step = real
     launches = {"paged_attention_fused": pa_ops.launches,
                 "remap_gather": rg_ops.launches}
+    prefill_flash = fa_ops.launches
     peak = torch.cuda.max_memory_allocated()
     c = eng.counters
     n_tok = sum(len(r.tokens) for r in done)
@@ -536,6 +682,8 @@ def main_path_phase(torch, dev):
            f"paged_attention_fused launches {launches} != steps "
            f"{eng.steps} x {cfg.n_layers}")
     _check(launches["remap_gather"] > 0, "remap_gather never launched")
+    _check(prefill_flash == len(spent["prefill"]) * cfg.n_layers,
+           f"flash_attention launches {prefill_flash} != prefills x layers")
     _check(c["promo_bytes"] > 0, "no page was promoted")
     _check(eng.releases >= 1, "no lane was released")
     step_ms = sorted(spent["decode step"])
@@ -555,7 +703,8 @@ def main_path_phase(torch, dev):
           f"{lat[-1]:.2f} s; time to first token p50 "
           f"{ttft[len(ttft) // 2]:.2f} s, max {ttft[-1]:.2f} s (all 16 "
           f"submitted at once)")
-    print(f"main: launches {json.dumps(launches)}")
+    print(f"main: launches {json.dumps(launches)}; flash_attention "
+          f"{prefill_flash} (the one-shot prefills)")
     totals = {k: v for k, v in c.items() if not k.startswith("epoch_")}
     print(f"main: counters {json.dumps(totals)}")
     print(f"main: peak device memory {peak / 2**30:.2f} GiB "
@@ -821,6 +970,195 @@ def server_phase(torch, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: chunked prefill + multi-tenant QoS at full width
+# ---------------------------------------------------------------------------
+
+def chunked_qos_phase(torch, dev, cfg, params):
+    """Phase 4's weights served by the chunked scheduler with two
+    tenants: 256-token chunks, one per engine step; the interactive
+    tenant (weight 2, on-demand decider) admits its prompts' first two
+    pages straight into the fast pool; maintenance runs the per-tenant
+    pass.  16 seeded requests alternate tenants, prompts 200-1900 tokens
+    (padded lengths <= 2048: 1-8 chunks each), max_new 32-64."""
+    import numpy as np
+
+    from repro_torch.core.remap.irt import INVALID
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.remap_gather import ops as rg_ops
+    from repro_torch.serve import engine as eng_mod
+    from repro_torch.serve.engine import Engine, EngineConfig, Request
+    from repro_torch.serve.sched import TenantConfig
+
+    ec = EngineConfig(batch=8, max_len=2048, backend="tiered",
+                      page_tokens=16, fast_data_slots=128, maintain_every=4,
+                      scheduler="chunked", prefill_chunk=256, admit_pages=2,
+                      tenants=(TenantConfig("interactive", weight=2,
+                                            policy="on_demand"),
+                               TenantConfig("batch", weight=1)))
+    eng = Engine(cfg, params, ec, device=dev)
+    rng = np.random.default_rng(7)
+    for i in range(16):
+        eng.submit(Request(rid=i, prompt=rng.integers(
+            0, cfg.vocab, int(rng.integers(200, 1901))),
+            max_new=int(rng.integers(32, 65)),
+            tenant_id=("interactive", "batch")[i % 2]))
+    spent: dict = {}
+
+    def timed(phase, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent.setdefault(phase, []).append(
+                (time.perf_counter() - s) * 1e3)
+            return out
+        return run
+
+    real_step, chunk_fwd, write_chunk = (eng_mod.decode_step, eng.chunk_fwd,
+                                         eng.write_chunk)
+    eng_mod.decode_step = timed("decode step", real_step)
+    eng.chunk_fwd = lambda logits=False: timed(
+        "chunk forward", chunk_fwd(logits=logits))
+    eng.write_chunk = timed("chunk write", write_chunk)
+    eng.admit_fast = timed("admission", eng.admit_fast)
+    eng.prefill_lane = timed("one-shot prefill", eng.prefill_lane)
+    be = eng.backend
+    be.maintain_tenants = timed("maintenance", be.maintain_tenants)
+    be.release = timed("release", be.release)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.launches = pa_ops.launches = rg_ops.launches = 0
+    try:
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        eng_mod.decode_step = real_step
+    launches = {"flash_attention": fa_ops.launches,
+                "paged_attention_fused": pa_ops.launches,
+                "remap_gather": rg_ops.launches}
+    peak = torch.cuda.max_memory_allocated()
+    stats = eng.request_stats(done)
+    fair = stats["fairness"]
+    c = eng.counters
+    st = eng.final_state.caches
+    n_tok = sum(len(r.tokens) for r in done)
+    _check(len(done) == 16 and all(r.done for r in done),
+           f"chunked: {len(done)} of 16 requests finished")
+    _check(all(0 <= x < cfg.vocab for r in done for x in r.tokens),
+           "chunked: a token outside the vocabulary")
+    _check(all(len(r.tokens) == r.max_new for r in done),
+           "chunked: a request stopped short of max_new")
+    _check(eng.releases == 16, f"chunked: {eng.releases} releases, not 16")
+    _check(bool((st.leaf_table == INVALID).all())
+           and bool((st.slot_owner == INVALID).all()),
+           "chunked: released metadata is not back to identity")
+    _check(fair["interactive"]["finished"] == 8
+           and fair["batch"]["finished"] == 8,
+           f"chunked: finished per tenant {fair}")
+    _check(fair["interactive"]["admitted_fast_pages"] > 0,
+           "chunked: no page admitted straight to the fast pool")
+    _check(c["migrations"] > 0, "chunked: no migration")
+    for k, n in launches.items():
+        _check(n > 0, f"chunked: {k} never launched")
+    _check(launches["flash_attention"]
+           == (len(spent.get("chunk forward", []))
+               + len(spent.get("one-shot prefill", []))) * cfg.n_layers,
+           f"chunked: flash_attention launches {launches['flash_attention']}"
+           f" != chunks x layers")
+    print(f"chunked: {len(done)} requests, {n_tok} tokens, {eng.steps} "
+          f"engine steps in {wall:.2f} s: {n_tok / wall:.1f} tokens/s end to "
+          f"end; {eng.releases} releases, released metadata back to "
+          f"identity")
+    for t in ("interactive", "batch"):
+        b = stats["tenants"][t]
+        print(f"chunked: tenant {t}: TTFT p50 {b['ttft_ms']['p50']:.1f} ms, "
+              f"max {b['ttft_ms']['max']:.1f} ms; latency p50 "
+              f"{b['latency_ms']['p50']:.1f} ms, max "
+              f"{b['latency_ms']['max']:.1f} ms; queue wait p50 "
+              f"{b['queue_wait_ms']['p50']:.1f} ms; books "
+              f"{json.dumps(fair[t])}")
+    parts = [f"{k} {len(v)} x {sum(v) / len(v):.2f} ms = {sum(v) / 1e3:.2f} s"
+             for k, v in spent.items()]
+    rest = wall - sum(sum(v) for v in spent.values()) / 1e3
+    print(f"chunked: time by phase (host clock, synchronised calls): "
+          f"{'; '.join(parts)}; rest of the loop {rest:.2f} s")
+    totals = {k: v for k, v in c.items() if not k.startswith("epoch_")}
+    print(f"chunked: launches {json.dumps(launches)}; counters "
+          f"{json.dumps(totals)}; peak device memory {peak / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated)")
+    del eng
+    torch.cuda.empty_cache()
+    return {"flash_attention": launches["flash_attention"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: chunked == one-shot prefill at full width
+# ---------------------------------------------------------------------------
+
+def chunk_equivalence_phase(torch, dev, cfg, params):
+    """One 1500-token prompt (padded to 2048) through the one-shot
+    ``forward(collect_cache=True)`` and through ``forward_chunk`` in
+    256-token chunks as the scheduler runs them: every layer's K/V rows
+    below 1500 and the final chunk's last-row logits, bit for bit; if
+    not, within the bf16 limit (two bf16 ulps of each one-shot value; the
+    logits against the same limit on the one-shot logits), the gap
+    printed."""
+    import numpy as np
+
+    from repro_torch.kernels.paged_attention.ref import bf16_tolerance
+    from repro_torch.models import forward, forward_chunk, init_chunk_buffers
+
+    n, P, C = 1500, 2048, 256
+    tokens = np.zeros((1, P), np.int64)
+    tokens[0, :n] = np.random.default_rng(8).integers(0, cfg.vocab, n)
+    t = torch.as_tensor(tokens, device=dev)
+    with torch.inference_mode():
+        logits, _, (k_ref, v_ref) = forward(cfg, params, {"tokens": t},
+                                            collect_cache=True)
+        last_ref = logits[0, n - 1].clone()
+        del logits
+        bk, bv = init_chunk_buffers(cfg, P, device=dev)
+        for start in range(0, n, C):
+            start = min(start, P - C)
+            final = start + C >= n
+            out = forward_chunk(cfg, params, t[:, start:start + C], bk, bv,
+                                start, return_logits=final)
+            if final:
+                last = out[2][0, n - 1 - start]
+    pairs = (("K", k_ref[:, 0, :n], bk[:, 0, :n]),
+             ("V", v_ref[:, 0, :n], bv[:, 0, :n]),
+             ("last-row logits", last_ref, last))
+    same = all(torch.equal(a, b) for _, a, b in pairs)
+    if same:
+        print(f"chunked-vs-one-shot: {n}-token prompt, {P} padded, "
+              f"{-(-n // C)} chunks of {C}, {cfg.n_layers} layers: K, V and "
+              f"the last-row logits equal bit for bit")
+    else:
+        worst = 0.0
+        for name, a, b in pairs:
+            diff = (a.float() - b.float()).abs()
+            ratio = (diff / bf16_tolerance(a.float())).max().item()
+            worst = max(worst, ratio)
+            layers = [i for i in range(a.shape[0]) if not torch.equal(
+                a[i], b[i])] if name != "last-row logits" else []
+            print(f"chunked-vs-one-shot: {name}: max |delta| "
+                  f"{diff.max().item():.3e}, error/limit {ratio:.3f}, "
+                  f"{int((diff > 0).sum())} of {diff.numel()} values differ"
+                  + (f"; first differing layer {layers[0]}" if layers
+                     else ""))
+        _check(worst <= 1.0, f"chunked vs one-shot at {worst:.3f} of the "
+               f"bf16 limit")
+        print(f"chunked-vs-one-shot: not bit for bit; within the bf16 limit "
+              f"(worst error/limit {worst:.3f})")
+    del k_ref, v_ref, bk, bv
+    torch.cuda.empty_cache()
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         _fail("src/repro_torch not found beside chip_smoke.py")
@@ -847,9 +1185,13 @@ def main():
                 print(f"build: {name}: {line.strip()}")
 
     rows = kernel_phase(torch, dev)
-    launches = main_path_phase(torch, dev)
+    cfg, params = main_model(torch, dev)
+    launches = main_path_phase(torch, dev, cfg, params)
     dense_tiered_phase(torch, dev)
     launches.update(server_phase(torch, dev))
+    launches.update(chunked_qos_phase(torch, dev, cfg, params))
+    chunk_equivalence_phase(torch, dev, cfg, params)
+    del params
     for name, n in launches.items():
         rows[name]["launches"] = n
     print(json.dumps({"kernels": [rows[k] for k in sorted(rows)]}))

@@ -1,6 +1,6 @@
 """Migration scheduler: bounded promotion and demotion queues per epoch
-(port of ``repro.core.policy.scheduler.plan``; ``plan_tenants`` comes
-with the QoS scheduler).
+(port of ``repro.core.policy.scheduler``: ``plan`` and the per-tenant
+``plan_tenants``).
 
 Both queues rank with ``_scatter.top_k``, whose ties break by lowest id
 as ``jax.lax.top_k``'s do: ``torch.topk`` may order tied lanes
@@ -19,7 +19,7 @@ from repro_torch._scatter import top_k
 from . import deciders
 from .config import PolicyConfig
 
-__all__ = ["Plan", "plan"]
+__all__ = ["Plan", "plan", "plan_tenants"]
 
 _SCORE_CAP = 1 << 20       # demotion ranking headroom (scores clip here)
 
@@ -66,3 +66,26 @@ def plan(pol: PolicyConfig, score, resident, max_moves: int,
     else:
         d_en &= (lanes + p_en.sum()) < max_moves
     return Plan(p_ids.to(torch.int32), p_en, d_ids.to(torch.int32), d_en)
+
+
+def plan_tenants(pols, score, resident, group, quotas,
+                 demote_key=None) -> Plan:
+    """One bounded ``plan`` per tenant over its own blocks, concatenated.
+    ``pols``/``quotas``: per-tenant policies (their own thresholds and
+    ``max_moves``) and fast-slot quotas; ``group`` [n] int32 is each
+    block's tenant (< 0: moves for nobody).  A tenant's enabled
+    promotions are capped at its quota minus its residents."""
+    if len(pols) != len(quotas) or not pols:
+        raise ValueError("plan_tenants: one policy and one quota per tenant")
+    plans = []
+    for t, (pol, quota) in enumerate(zip(pols, quotas)):
+        mine = group == t
+        p = plan(pol, score, resident, pol.max_moves, demote_key=demote_key,
+                 member=mine)
+        res_t = (resident & mine).sum(dtype=torch.int32)
+        room = torch.clamp(quota - res_t, min=0)
+        k = p.promote_en.shape[0]
+        lanes = torch.arange(k, device=score.device)
+        plans.append(p._replace(promote_en=p.promote_en & (lanes < room)))
+    return Plan(*(torch.cat([getattr(p, f) for p in plans])
+                  for f in Plan._fields))

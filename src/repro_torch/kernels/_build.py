@@ -27,6 +27,8 @@ SOURCES = {
     "irt_lookup": _PKG / "kernels/irt_lookup/csrc/irt_lookup.cu",
     "paged_attention":
         _PKG / "kernels/paged_attention/csrc/paged_attention.cu",
+    "flash_attention":
+        _PKG / "kernels/flash_attention/csrc/flash_attention.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -1,8 +1,12 @@
 """GQA self-attention for prefill and one-token decode against a KV
 backend (port of ``repro.models.attention``, dense family).
 
-Prefill attention is plain PyTorch (``sdpa_auto``): the reference runs
-no Pallas kernel there either.
+Prefill attention (``sdpa_auto``, for the one-shot forward and each
+chunk of a chunked prefill) launches the flash kernel on a card
+(``kernels/flash_attention``), whose rows are bit for bit independent of
+the call around them, so chunked prefill equals one-shot prefill there
+too.  On the CPU it keeps the reference's plain paths: ``_sdpa`` with a
+mask up to ``CHUNKED_THRESHOLD``, ``chunked_sdpa`` above it.
 """
 
 from __future__ import annotations
@@ -10,6 +14,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from repro_torch.kernels.flash_attention.ops import flash_attention_op
 
 from .layers import apply_rope
 
@@ -116,12 +122,20 @@ def chunked_sdpa(q, k, v, *, causal: bool, window: int = 0,
     return torch.cat(outs, dim=1).reshape(B, S, H, hd)
 
 
-def sdpa_auto(q, k, v, *, causal: bool, window: int = 0):
+def sdpa_auto(q, k, v, *, causal: bool, window: int = 0, q_offset: int = 0):
+    """q [B,S,H,hd] at absolute positions ``q_offset``.. (a Python int);
+    k,v [B,T,KV,hd] -> [B,S,H,hd].  A card runs the flash kernel at every
+    length; the CPU runs the reference's paths."""
+    if q.device.type == "cuda":
+        return flash_attention_op(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset)
     S = q.shape[1]
     if S > CHUNKED_THRESHOLD:
+        if q_offset:
+            raise ValueError("chunked_sdpa takes no q_offset")
         return chunked_sdpa(q, k, v, causal=causal, window=window)
     mask = make_mask(S, k.shape[1], causal=causal, window=window,
-                     device=q.device)
+                     q_offset=q_offset, device=q.device)
     return _sdpa(q, k, v, mask)
 
 

@@ -11,6 +11,11 @@
                  and persists every layer's new rows in four stacked
                  scatters (``end_step``).
 
+Both take a prompt in one shot (``write_prefill``) or chunk by chunk
+(``write_prefill_chunk``); the tiered backend also admits a prompt's
+first pages straight into the fast pool (``admit_prefix``) and runs the
+multi-tenant maintenance pass (``maintain_tenants``).
+
 ``pos`` is per lane ([B] int32); a negative position marks an idle lane,
 whose append is dropped and whose read sees nothing.  Caches and pools
 update in place.
@@ -80,6 +85,17 @@ class DenseBackend:
         pos = state.pos.clone()
         pos[lane] = length
         return state._replace(pos=pos)
+
+    def write_prefill_chunk(self, state, lane: int, k_layers, v_layers,
+                            start: int, length):
+        """Chunked prompt ingest: rows [start, start + C) of one lane's
+        prompt K/V (k/v [L, C, KV, hd]).  ``pos`` is untouched: the
+        scheduler sets it when the last chunk lands."""
+        c = state.caches
+        C = k_layers.shape[1]
+        c["k"][:, lane, start:start + C] = k_layers.to(c["k"].dtype)
+        c["v"][:, lane, start:start + C] = v_layers.to(c["v"].dtype)
+        return state
 
 
 class PoolOperands(NamedTuple):
@@ -256,6 +272,37 @@ class TieredBackend:
         pos = state.pos.clone()
         pos[lane] = length
         return state._replace(pos=pos, caches=caches)
+
+    def write_prefill_chunk(self, state, lane: int, k_layers, v_layers,
+                            start: int, length):
+        """Chunked prompt ingest, one page-aligned chunk: rows
+        [start, start + C) of each layer's prompt K/V land in each page's
+        current tier (``prefill_chunk_stacked``: a page admitted to the
+        fast pool takes its fast copy).  ``pos`` untouched."""
+        from repro_torch.tiered import kvcache as tk
+        return state._replace(caches=tk.prefill_chunk_stacked(
+            self.tcfg, state.caches, lane, k_layers, v_layers, start,
+            length))
+
+    def admit_prefix(self, state, lane: int, length, n_pages: int):
+        """Direct-to-fast admission at ingest: promote the first
+        ``n_pages`` prompt pages of ``lane`` into the fast pool of every
+        layer now (``admit_pages_stacked``)."""
+        from repro_torch.tiered import kvcache as tk
+        return state._replace(caches=tk.admit_pages_stacked(
+            self.tcfg, state.caches, lane, length, n_pages))
+
+    def maintain_tenants(self, state, lane_tenant, pols, quotas):
+        """Multi-tenant maintenance: one ``run_scheduler_tenants_stacked``
+        pass (always synchronous).  ``lane_tenant`` [B] maps each lane to
+        its tenant (< 0: idle, its pages move for nobody); ``pols`` and
+        ``quotas`` are the per-tenant policies and fast-slot partition."""
+        from repro_torch.tiered import kvcache as tk
+        page_tenant = torch.as_tensor(
+            lane_tenant, dtype=torch.int32,
+            device=self.device).repeat_interleave(self.tcfg.max_pages_per_seq)
+        return state._replace(caches=tk.run_scheduler_tenants_stacked(
+            self.tcfg, state.caches, page_tenant, pols, quotas))
 
     def metrics(self, state) -> dict:
         """Canonical telemetry, with counts summed over the layers the

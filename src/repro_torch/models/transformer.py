@@ -1,5 +1,6 @@
-"""Dense decoder: parameters, full-sequence forward and the one-token
-decode step (port of the dense family of ``repro.models.transformer``).
+"""Dense decoder: parameters, full-sequence forward, the chunked-prefill
+forward and the one-token decode step (port of the dense family of
+``repro.models.transformer``).
 
 Parameters keep the reference's layout, a dict of layer-stacked tensors:
 ``{"embed" [V,d], "blocks": {"norm1" [L,d], "attn": {"wq" [L,d,H,hd],
@@ -137,6 +138,80 @@ def forward(cfg: ArchConfig, params, batch, *, collect_cache: bool = False):
     logits = unembed(x, _table(cfg, params))
     caches = (torch.stack(ks), torch.stack(vs)) if collect_cache else ()
     return logits, torch.zeros((), device=x.device), caches
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill: one chunk of prompt K/V against a full-length key buffer
+# ---------------------------------------------------------------------------
+
+_CHUNK_FAMILIES = ("dense",)
+
+
+def forward_chunk(cfg: ArchConfig, params, tokens, buf_k, buf_v, start: int,
+                  *, return_logits: bool = False):
+    """One chunked-prefill step: prompt tokens [B, C] at absolute
+    positions ``start..start+C-1`` (a Python int, page aligned by the
+    caller) attend the previous chunks' K/V.
+
+    ``buf_k``/``buf_v`` [L, B, P, KV, hd]: rows below ``start`` hold the
+    earlier chunks' K/V, later rows are masked garbage (finite: zeros or
+    earlier rows).  ``P`` must be the padded length the one-shot
+    ``forward`` would run at.  Rows ``[start, start+C)`` of each layer are
+    written IN PLACE before that layer's attention; the same buffers are
+    returned, with the chunk's logits [B, C, vocab] fp32 when
+    ``return_logits``.
+
+    Each chunk's queries score against a key axis of the same length P as
+    the one-shot forward, at the same absolute positions, so every row
+    equals the matching row of ``forward(collect_cache=True)``: bit for
+    bit on the CPU (``_sdpa`` with the one-shot mask's rows); on a card
+    the flash kernel's rows are independent of the call around them, and
+    the whole chunk equals the one-shot rows as long as cuBLAS's products
+    are row-independent too (``chip_smoke.py`` phase 8 checks it).  Only
+    the dense family is ported."""
+    if cfg.family not in _CHUNK_FAMILIES:
+        raise NotImplementedError(
+            f"forward_chunk supports plain-KV decoder families "
+            f"{_CHUNK_FAMILIES}; got {cfg.family!r}")
+    B, C = tokens.shape
+    P = buf_k.shape[2]
+    if P > attn.CHUNKED_THRESHOLD:
+        # above the threshold the one-shot forward's CPU path switches to
+        # chunked_sdpa, whose accumulation order differs; the scheduler
+        # falls back to one-shot prefill there
+        raise NotImplementedError(
+            f"forward_chunk is bit-identical to the one-shot forward only "
+            f"below sdpa_auto's CHUNKED_THRESHOLD "
+            f"({attn.CHUNKED_THRESHOLD}); padded length {P} exceeds it")
+    start = int(start)
+    x = params["embed"][tokens.long()]
+    positions = (start + torch.arange(C, dtype=torch.int32,
+                                      device=x.device)).expand(B, C)
+    rope = rope_tables(positions, cfg.hd, cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        p = layer_params(params["blocks"], i)
+        h = rms_norm(x, p["norm1"], cfg.rms_eps)
+        q, k, v = attn._qkv(p["attn"], h, cfg, positions, rope)
+        buf_k[i, :, start:start + C] = k.to(buf_k.dtype)
+        buf_v[i, :, start:start + C] = v.to(buf_v.dtype)
+        out = attn.sdpa_auto(q, buf_k[i], buf_v[i], causal=cfg.causal,
+                             window=cfg.sliding_window, q_offset=start)
+        x = _ffn(p, x + attn._out(out, p["attn"]["wo"]), cfg)
+    if not return_logits:
+        return buf_k, buf_v
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return buf_k, buf_v, unembed(x, _table(cfg, params))
+
+
+def init_chunk_buffers(cfg: ArchConfig, P: int, batch: int = 1,
+                       device=None):
+    """Fresh chunked-prefill K/V buffers [L, batch, P, KV, hd], zeros, in
+    the dtype ``forward`` collects its cache in, on ``device`` (the card
+    unless the caller asks for the CPU)."""
+    shape = (cfg.n_layers, batch, P, cfg.n_kv_heads, cfg.hd)
+    dt, dev = torch_dtype(cfg.dtype), resolve_device(device)
+    return (torch.zeros(shape, dtype=dt, device=dev),
+            torch.zeros(shape, dtype=dt, device=dev))
 
 
 # ---------------------------------------------------------------------------

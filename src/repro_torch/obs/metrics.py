@@ -1,11 +1,23 @@
 """Canonical metric view of a tiered store's in-graph counters (the
 ``tiered_metrics`` tap and the legacy short-key counters of
-``repro.obs.metrics``; the rest of the reference's telemetry is still to
-be ported)."""
+``repro.obs.metrics``) and the latency histogram geometry
+(``HIST_EDGES_MS``, a copy of the reference's); the rest of the
+reference's telemetry is still to be ported."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+# log2 latency buckets from 0.25 ms: [.25, .5), [.5, 1), ..., [>= 512)
+HIST_EDGES_MS = tuple(0.25 * 2 ** i for i in range(12))
+HIST_BUCKETS = len(HIST_EDGES_MS) + 1
+
+
+def bucket_index(value_ms: float) -> int:
+    """Bucket of a latency in ms; an edge opens its bucket (0.25 -> 1)."""
+    return int(np.searchsorted(np.asarray(HIST_EDGES_MS), value_ms,
+                               side="right"))
 
 # TieredState counter field -> canonical metric name
 TIERED_FIELDS = {

@@ -1,6 +1,7 @@
-"""Serving decode steps against one tiered KV store (the part of
-``repro.serve.decode`` the port needs: ``make_tiered_decode_step``).
-PyTorch runs eagerly, so there is no jit and no sharding here."""
+"""Serving steps (the part of ``repro.serve.decode`` the port needs:
+``make_tiered_decode_step`` against one tiered KV store, and
+``make_chunk_prefill_fn`` for chunked prefill).  PyTorch runs eagerly,
+so there is no jit and no sharding here."""
 
 from __future__ import annotations
 
@@ -56,5 +57,22 @@ def make_tiered_decode_step(tcfg: tk.TieredConfig, *,
         st = tk.append_token(tcfg, st, seqs, k_new, v_new, pos)
         seq_lens = torch.clamp(pos + 1, min=0).expand(tcfg.n_seqs)
         return read(tcfg, st, q, seq_lens.contiguous())
+
+    return step
+
+
+def make_chunk_prefill_fn(cfg, *, logits: bool = False):
+    """One chunked-prefill step (DESIGN.md §9): step(params, chunk_tokens
+    [B, C] (array or tensor), buf_k, buf_v, start) -> (buf_k, buf_v),
+    plus the chunk's logits [B, C, vocab] with ``logits=True``.  The
+    buffers [L, B, P, KV, hd] (``models.init_chunk_buffers``) are padded
+    to the length P the one-shot prefill would run at, and rows
+    [start, start + C) are written in place (``models.forward_chunk``)."""
+    from repro_torch.models.transformer import forward_chunk
+
+    def step(params, chunk_tokens, buf_k, buf_v, start):
+        tokens = torch.as_tensor(chunk_tokens, device=buf_k.device)
+        return forward_chunk(cfg, params, tokens, buf_k, buf_v, start,
+                             return_logits=logits)
 
     return step

@@ -3,17 +3,19 @@ single-store decode driver, and the batched greedy-decode ``Engine`` with
 ``EngineConfig``, ``Request`` and ``padded_len``.
 
 Continuous batching over a fixed-width batch: finished lanes release
-their tiered metadata and refill from the queue with a one-shot prefill;
-idle lanes sit at pos = -1; with ``backend="tiered"`` every decode step is
-the fused path (``begin_step`` -> one kernel per layer -> ``end_step``)
-over the live-page bucket, and a migration-scheduler pass runs every
+their tiered metadata and refill from the queue through the scheduler
+(``serve/sched``: greedy one-shot prefill, or chunked prefill with
+multi-tenant QoS admission and direct-to-fast ingest); idle lanes sit at
+pos = -1; with ``backend="tiered"`` every decode step is the fused path
+(``begin_step`` -> one kernel per layer -> ``end_step``) over the
+live-page bucket, and a migration-scheduler pass runs every
 ``maintain_every`` steps, double-buffered (``overlap_maintain``: plan at
-the hook, apply before the next step, flushed before any release).
+the hook, apply before the next step, flushed before any release) except
+the multi-tenant pass, which is always synchronous.
 
 Left out of the port so far: the observability hub, tracer, flight
-recorder, SLO monitor and HTTP endpoints, and the chunked and QoS
-schedulers.  ``jax.jit`` state donation has no counterpart: the pools
-update in place.
+recorder, SLO monitor and HTTP endpoints.  ``jax.jit`` state donation
+has no counterpart: the pools update in place.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import decode_step, forward
 from repro_torch.models.kv_backend import TieredBackend, make_backend
+from repro_torch.obs import metrics as obs_metrics
 
 
 @dataclasses.dataclass
@@ -36,12 +39,28 @@ class Request:
     rid: int
     prompt: np.ndarray            # [S] int32
     max_new: int
+    tenant_id: str = "default"    # QoS tenant (serve/sched/qos)
     arrived: float = 0.0          # enqueue time (stamped by submit)
     admitted_at: float = 0.0      # lane assignment time
     first_token_at: float = 0.0   # first decoded token
     done_at: float = 0.0          # wall time the last token was decoded
     tokens: list = dataclasses.field(default_factory=list)
+    token_times: list = dataclasses.field(default_factory=list)
     done: bool = False
+
+    @property
+    def latency(self) -> float:
+        """End-to-end latency from the request's own enqueue time."""
+        return self.done_at - self.arrived
+
+    @property
+    def ttft(self) -> float:
+        """Time to first token, from enqueue."""
+        return self.first_token_at - self.arrived
+
+    @property
+    def queue_wait(self) -> float:
+        return self.admitted_at - self.arrived
 
 
 @dataclasses.dataclass
@@ -58,7 +77,15 @@ class EngineConfig:
                                   # next decode step
     page_bucket: bool = True      # attend only the power-of-two live-page
                                   # prefix covering every lane
-    scheduler: str = "greedy"
+    scheduler: str = "greedy"     # "greedy" | "chunked" ("wave": a
+                                  # deprecated greedy alias)
+    prefill_chunk: int = 0        # chunked: prompt tokens ingested per
+                                  # engine step (0: one-shot prefill)
+    admit_pages: int = 2          # direct-to-fast pages per ingest when a
+                                  # tenant's decider is on-demand
+    tenants: tuple = ()           # TenantConfig per tenant (empty: one
+                                  # default tenant)
+    starvation_bound: int = 8     # QoS: most admission skips in a row
 
 
 class TieredServer:
@@ -151,6 +178,7 @@ class Engine:
             self.backend = make_backend(cfg, ec.backend, ec.batch,
                                         ec.max_len, device=self.device, **kw)
         self._tiered = isinstance(self.backend, TieredBackend)
+        self._maintain_tenants = None  # bound by a multi-tenant scheduler
         self._pending_plan = None
         self.maintain_overlaps = 0
         self.releases = 0
@@ -216,6 +244,59 @@ class Engine:
         idle = torch.as_tensor(idle, device=self.device)
         return state._replace(pos=torch.where(idle, -1, state.pos))
 
+    def set_pos(self, state, lane: int, pos: int):
+        p = state.pos.clone()
+        p[lane] = pos
+        return state._replace(pos=p)
+
+    def chunk_buffers(self, P: int):
+        """Fresh chunked-prefill K/V buffers for a padded length P."""
+        from repro_torch.models import init_chunk_buffers
+        return init_chunk_buffers(self.cfg, P, device=self.device)
+
+    def chunk_fwd(self, *, logits: bool = False) -> Callable:
+        """The chunked-prefill forward (``serve.decode
+        .make_chunk_prefill_fn``): (params, chunk_tokens [1, C], buf_k,
+        buf_v, start) -> the buffers with rows [start, start+C) written in
+        place, plus the chunk's logits [1, C, vocab] with ``logits``."""
+        from repro_torch.serve.decode import make_chunk_prefill_fn
+        return make_chunk_prefill_fn(self.cfg, logits=logits)
+
+    def write_chunk(self, state, lane: int, bk, bv, start: int, C: int,
+                    length: int):
+        """Chunk ingest: rows [start, start+C) of the accumulated buffers
+        through ``backend.write_prefill_chunk`` (tiered: routed page
+        stores)."""
+        return self.backend.write_prefill_chunk(
+            state, lane, bk[:, 0, start:start + C], bv[:, 0, start:start + C],
+            start, length)
+
+    def admit_fast(self, state, lane: int, length: int, n_pages: int):
+        """Direct-to-fast admission: promote the first ``n_pages`` prompt
+        pages of ``lane`` into every layer's fast pool (tiered only)."""
+        return self.backend.admit_prefix(state, lane, length, n_pages)
+
+    def build_maintain_tenants(self, pols: tuple, quotas: tuple):
+        """Bind the multi-tenant maintenance pass to a fixed tenant
+        partition (called once by the QoS scheduler at bind)."""
+        self._maintain_tenants = lambda s, lt: self.backend.maintain_tenants(
+            s, lt, pols, quotas)
+
+    def note_token(self, req: Request, tok: int, pos: int,
+                   now: float | None = None):
+        """Book one decoded token of ``req``; ``pos`` is its lane's
+        position after the token.  The harvest loop books each decode
+        step's tokens here, and the chunked scheduler the first token it
+        takes off the final chunk's last prompt row."""
+        now = time.time() if now is None else now
+        if not req.tokens:
+            req.first_token_at = now
+        req.tokens.append(int(tok))
+        req.token_times.append(now)
+        if len(req.tokens) >= req.max_new or pos >= self.ec.max_len - 1:
+            req.done = True
+            req.done_at = now
+
     def prefill_lane(self, state, lane: int, req: Request):
         """One-shot prefill of ``req``'s prompt into ``lane``; returns
         (state, the token the first decode step consumes)."""
@@ -264,7 +345,9 @@ class Engine:
             tokens = torch.argmax(logits, dim=-1).to(torch.int32)
             self.steps += 1
             if self._tiered and self.steps % ec.maintain_every == 0:
-                if ec.overlap_maintain:
+                # the multi-tenant pass stays synchronous: the lane ->
+                # tenant map can go stale across a deferral
+                if ec.overlap_maintain and self._maintain_tenants is None:
                     self._pending_plan = self.backend.plan_maintain(state)
                 else:
                     state = sched.maintain(state)
@@ -275,13 +358,7 @@ class Engine:
             for i, r in enumerate(lanes):
                 if r is None or r.done or not sched.is_decoding(i):
                     continue
-                if not r.tokens:
-                    r.first_token_at = now
-                r.tokens.append(int(nxt[i]))
-                if len(r.tokens) >= r.max_new \
-                        or int(pos[i]) >= ec.max_len - 1:
-                    r.done = True
-                    r.done_at = now
+                self.note_token(r, int(nxt[i]), int(pos[i]), now)
             if self.steps % 16 == 0:
                 log(f"[engine] step {self.steps}, queue={len(self.queue)}, "
                     f"done={len(finished)}")
@@ -306,4 +383,48 @@ class Engine:
                 (b - a) * pb for a, b in zip([0] + promo[:-1], promo)]
             out["epoch_demo_bytes"] = [
                 (b - a) * pb for a, b in zip([0] + demo[:-1], demo)]
+        return out
+
+    def request_stats(self, requests: list[Request]) -> dict:
+        """Latency statistics of finished requests: aggregate and
+        per-tenant percentiles (ms) of latency, time to first token and
+        queue wait, a log2-bucketed histogram of inter-token gaps, and the
+        scheduler's fairness counters (chunked scheduler)."""
+        def _ms(xs):
+            xs = np.asarray(sorted(xs), np.float64) * 1e3
+            if not xs.size:
+                return {}
+            return dict(n=int(xs.size), mean=float(xs.mean()),
+                        p50=float(np.percentile(xs, 50)),
+                        p99=float(np.percentile(xs, 99)),
+                        max=float(xs.max()))
+
+        def _hist(gaps_ms):
+            counts = [0] * obs_metrics.HIST_BUCKETS
+            for g in gaps_ms:
+                counts[obs_metrics.bucket_index(g)] += 1
+            return dict(edges_ms=list(obs_metrics.HIST_EDGES_MS),
+                        counts=counts)
+
+        def _block(rs):
+            gaps = []                       # one latency per decoded token
+            for r in rs:
+                ts = [r.admitted_at] + list(r.token_times)
+                gaps += [1e3 * (b - a) for a, b in zip(ts, ts[1:])]
+            return dict(
+                latency_ms=_ms([r.latency for r in rs]),
+                ttft_ms=_ms([r.ttft for r in rs]),
+                queue_wait_ms=_ms([r.queue_wait for r in rs]),
+                tokens=sum(len(r.tokens) for r in rs),
+                token_latency_hist=_hist(gaps))
+
+        out = {"aggregate": _block(requests)}
+        tenants = sorted({r.tenant_id for r in requests})
+        if len(tenants) > 1:
+            out["tenants"] = {
+                t: _block([r for r in requests if r.tenant_id == t])
+                for t in tenants}
+        book = getattr(self.scheduler, "book", None)
+        if book is not None:
+            out["fairness"] = book.fairness()
         return out

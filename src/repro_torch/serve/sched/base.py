@@ -1,9 +1,10 @@
 """Scheduler protocol: the seam between the engine's primitives and the
 request-level decisions above them (port of
-``repro.serve.sched.base``; the chunked and QoS schedulers come later)."""
+``repro.serve.sched.base``)."""
 
 from __future__ import annotations
 
+import warnings
 from typing import Protocol, runtime_checkable
 
 
@@ -21,8 +22,9 @@ class Scheduler(Protocol):
     def pending(self) -> int: ...
 
     def refill(self, state, tokens, lanes, finished):
-        """Recycle finished lanes, admit queued requests to free lanes,
-        park idle lanes at pos = -1; returns the new (state, tokens)."""
+        """Recycle finished lanes, advance chunked prefills within the
+        chunk budget, admit queued requests to free lanes, park idle lanes
+        at pos = -1; returns the new (state, tokens)."""
         ...
 
     def maintain(self, state): ...
@@ -31,9 +33,22 @@ class Scheduler(Protocol):
 
 
 def make_scheduler(ec) -> "Scheduler":
-    """Resolve ``EngineConfig.scheduler``: only "greedy" is ported."""
+    """Resolve ``EngineConfig.scheduler``: "greedy" (the default),
+    "chunked" (chunked prefill + multi-tenant QoS), or the deprecated
+    alias "wave" -> greedy."""
+    from .chunked import ChunkedScheduler
     from .greedy import GreedyScheduler
-    if ec.scheduler == "greedy":
+    kind = ec.scheduler
+    if kind == "wave":
+        warnings.warn(
+            "EngineConfig(scheduler=\"wave\") is a deprecated alias of the "
+            "implicit wave-refill path; use scheduler=\"greedy\" (same "
+            "behaviour) or \"chunked\" (chunked prefill + QoS admission)",
+            FutureWarning, stacklevel=2)
+        kind = "greedy"
+    if kind == "greedy":
         return GreedyScheduler(ec)
-    raise ValueError(f"unknown scheduler {ec.scheduler!r} (the port has "
-                     f"greedy only)")
+    if kind == "chunked":
+        return ChunkedScheduler(ec)
+    raise ValueError(
+        f"unknown scheduler {ec.scheduler!r} (want greedy|chunked)")

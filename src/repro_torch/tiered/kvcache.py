@@ -572,6 +572,8 @@ def _plan_inputs(cfg: TieredConfig, st: TieredState):
 
 
 def _stack_descs(descs):
+    if not descs:
+        return None
     return {k: torch.stack([d[k] for d in descs]) for k in descs[0]}
 
 
@@ -602,15 +604,32 @@ def _apply_plan(cfg: TieredConfig, st: TieredState, p, now):
     return st, _stack_descs(ddescs), _stack_descs(pdescs)
 
 
+def _one_layer(st: TieredState) -> TieredState:
+    """A single-layer store as a one-layer stack: views of its pools, so
+    the stacked ops' in-place pool writes land in ``st``."""
+    return st._replace(**{f: getattr(st, f)[None] for f in POOL_FIELDS})
+
+
+def _unstack(one: TieredState, st: TieredState) -> TieredState:
+    return one._replace(**{f: getattr(st, f) for f in POOL_FIELDS})
+
+
 def run_scheduler(cfg: TieredConfig, st: TieredState,
                   max_moves: int | None = None) -> TieredState:
     """One maintenance pass on a single-layer store: score, plan bounded
     promotion + demotion queues, apply them, advance the epoch.  The page
     copies replay as on a one-layer stack (``run_scheduler_stacked``), so
     the pass reads its out-of-range flag once, not once per copy."""
-    one = st._replace(**{f: getattr(st, f)[None] for f in POOL_FIELDS})
-    one = run_scheduler_stacked(cfg, one, max_moves)
-    return one._replace(**{f: getattr(st, f) for f in POOL_FIELDS})
+    return _unstack(run_scheduler_stacked(cfg, _one_layer(st), max_moves),
+                    st)
+
+
+def run_scheduler_tenants(cfg: TieredConfig, st: TieredState, page_tenant,
+                          pols, quotas) -> TieredState:
+    """The multi-tenant maintenance pass on a single-layer store (see
+    ``run_scheduler_tenants_stacked``)."""
+    return _unstack(run_scheduler_tenants_stacked(
+        cfg, _one_layer(st), page_tenant, pols, quotas), st)
 
 
 # ---------------------------------------------------------------------------
@@ -702,6 +721,21 @@ def run_scheduler_stacked(cfg: TieredConfig, sts: TieredState,
                                      plan_maintenance(cfg, sts, max_moves))
 
 
+def run_scheduler_tenants_stacked(cfg: TieredConfig, sts: TieredState,
+                                  page_tenant, pols, quotas) -> TieredState:
+    """The multi-tenant maintenance pass (DESIGN.md §9) over a stacked
+    store: ``run_scheduler``'s scoring and apply, with the move queues of
+    ``core/policy.plan_tenants``: one bounded plan per tenant over its own
+    pages (``page_tenant`` [n_logical] int32, < 0: moves for nobody), each
+    with its tenant's policy (``pols``) and fast-slot quota
+    (``quotas``).  Always synchronous: the engine never defers it."""
+    sc, resident, now = _plan_inputs(cfg, sts)
+    p = pol_sched.plan_tenants(pols, sc, resident, page_tenant, quotas)
+    sts, ddesc, pdesc = _apply_plan(cfg, sts, p, now)
+    _replay_descs(_stacked_pools(sts), ddesc, pdesc)
+    return sts
+
+
 def _paged(cfg: TieredConfig, x, dt):
     """[..., S, KV, hd] rows -> [..., npages, KV, P, hd] pages (zero pad)."""
     S, KV, hd = x.shape[-3:]
@@ -733,3 +767,79 @@ def prefill_tokens_stacked(cfg: TieredConfig, sts: TieredState, seq, k, v,
     drop_set_(sts.slow_k, (slice(None), rows), pk)
     drop_set_(sts.slow_v, (slice(None), rows), pv)
     return sts
+
+
+def prefill_chunk_stacked(cfg: TieredConfig, sts: TieredState, seq, k, v,
+                          start: int, length) -> TieredState:
+    """Chunked prompt ingest (DESIGN.md §9): tokens ``[start, start + C)``
+    of sequence ``seq`` in every layer (k, v [L, C, KV, hd]; ``start`` a
+    page-aligned Python int; every chunk but the last covers whole
+    pages).  Unlike ``prefill_tokens_stacked`` each page goes to its
+    current tier: the fast copy of a resident page (admitted at ingest or
+    promoted mid-ingest), else the slow home, as appends do.  Pages at or
+    past ``length`` are skipped.  Pools update in place."""
+    dt = sts.slow_k.dtype
+    pk, pv = _paged(cfg, k, dt), _paged(cfg, v, dt)
+    dev = sts.slow_k.device
+    j = int(start) // cfg.page_tokens + torch.arange(
+        pk.shape[1], dtype=I32, device=dev)
+    ok = (j * cfg.page_tokens < on_device(length, I32, dev)) \
+        & (j < cfg.max_pages_per_seq)
+    ids = logical_page(cfg, int(seq), j.clamp(0, cfg.max_pages_per_seq - 1))
+    entry = sts.leaf_table[ids.long()]
+    in_fast = entry != INVALID
+    fast_idx = torch.where(ok & in_fast, entry, cfg.fast_slots)
+    slow_idx = torch.where(ok & ~in_fast, ids, cfg.n_logical)
+    for pool, pages, idx in ((sts.fast_k, pk, fast_idx),
+                             (sts.fast_v, pv, fast_idx),
+                             (sts.slow_k, pk, slow_idx),
+                             (sts.slow_v, pv, slow_idx)):
+        drop_set_(pool, (slice(None), idx), pages)
+    return sts
+
+
+def prefill_chunk(cfg: TieredConfig, st: TieredState, seq, k, v, start: int,
+                  length) -> TieredState:
+    """``prefill_chunk_stacked`` on a single-layer store (k, v
+    [C, KV, hd])."""
+    prefill_chunk_stacked(cfg, _one_layer(st), seq, k[None], v[None], start,
+                          length)
+    return st
+
+
+def admit_pages_stacked_desc(cfg: TieredConfig, sts: TieredState, seq,
+                             length, n_pages: int):
+    """Direct-to-fast admission at ingest (DESIGN.md §9): promote the
+    first ``n_pages`` pages of sequence ``seq`` that hold tokens below
+    ``length`` into the fast pool now, with one tracker touch each (the
+    install touch, so a maintenance pass mid-ingest does not demote them
+    straight back).  The moves run once on the metadata, in page order;
+    their install copies replay over the [L, ...] pools.  Returns
+    ``(state, pdesc)``, the moves' copy descriptors."""
+    dev = sts.leaf_table.device
+    mpp = cfg.max_pages_per_seq
+    j = torch.arange(int(n_pages), dtype=I32, device=dev)
+    en = (j * cfg.page_tokens < on_device(length, I32, dev)) & (j < mpp)
+    ids = logical_page(cfg, int(seq), j.clamp(0, mpp - 1))
+    descs = []
+    for i in range(int(n_pages)):
+        sts, d = _migrate_one_desc(cfg, sts, ids[i], en[i],
+                                   apply_pools=False)
+        descs.append(d)
+    sts = _tr_replace(sts, pol_track.record(cfg.pol, _tr_view(cfg, sts), ids,
+                                            now=_now(cfg, sts), enable=en))
+    pdesc = _stack_descs(descs)
+    _replay_descs(_stacked_pools(sts), None, pdesc)
+    return sts, pdesc
+
+
+def admit_pages_stacked(cfg: TieredConfig, sts: TieredState, seq, length,
+                        n_pages: int) -> TieredState:
+    return admit_pages_stacked_desc(cfg, sts, seq, length, n_pages)[0]
+
+
+def admit_pages(cfg: TieredConfig, st: TieredState, seq, length,
+                n_pages: int) -> TieredState:
+    """``admit_pages_stacked`` on a single-layer store."""
+    return _unstack(admit_pages_stacked(cfg, _one_layer(st), seq, length,
+                                        n_pages), st)

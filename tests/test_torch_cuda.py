@@ -9,6 +9,8 @@ import pytest
 import torch
 
 from repro_torch import _scatter
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import (
     bf16_tolerance, paged_attention_fused_ref, paged_attention_split_ref)
@@ -414,3 +416,85 @@ def test_drop_set_duplicate_lanes_keep_the_last_lane_on_the_card(cuda):
     assert torch.equal(got_t.cpu(), want_t)
     assert torch.equal(got_v.cpu(), want_v)
     assert torch.equal(got_v, got_t * 2 + 1)
+
+
+def _flash_inputs(device, B=2, S=96, T=None, H=4, KV=2, hd=16, seed=0,
+                  dtype=torch.float32):
+    """Seeded model-layout inputs: q [B,S,H,hd], k/v [B,T,KV,hd]."""
+    g = torch.Generator().manual_seed(seed)
+    T = S if T is None else T
+    f = lambda *s: torch.randn(s, generator=g).to(device, dtype)  # noqa: E731
+    return f(B, S, H, hd), f(B, T, KV, hd), f(B, T, KV, hd)
+
+
+def _flash_plain(q, k, v, **kw):
+    return attention_ref(q.transpose(1, 2).float(), k.transpose(1, 2).float(),
+                         v.transpose(1, 2).float(), **kw).transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal,window,q_offset", [
+    (True, 0, 0), (True, 24, 0), (False, 0, 0), (True, 0, 64),
+    (True, 40, 32)])
+def test_flash_kernel_matches_plain(cuda, causal, window, q_offset, hd,
+                                    dtype):
+    """The flash kernel against ``attention_ref`` on the card, GQA group 2,
+    a ragged query tile and a ragged key block (S = 80 rows after
+    ``q_offset`` over T = 150 keys): fp32 within 1e-4 (online and full
+    softmax sum in other orders), bf16 within two bf16 ulps of each value
+    of the plain version computed in fp32 and cast to bf16."""
+    q, k, v = _flash_inputs(cuda, S=80, T=150, hd=hd, dtype=dtype,
+                            seed=hd + q_offset)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = fa_ops.flash_attention_op(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = _flash_plain(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-4
+    else:
+        want = want.to(torch.bfloat16).float()
+        assert ((got.float() - want).abs() <= bf16_tolerance(want)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 48])
+def test_flash_kernel_rows_are_independent_bitwise(cuda, dtype, window):
+    """A query row's output is bit for bit the same whatever the call
+    around it: rows [s, s+C) of the one-shot call equal the chunk call at
+    ``q_offset = s`` for page-aligned (not tile-aligned) s, and a call
+    over 2T keys whose extra keys are causally masked equals the call
+    over T on every row (chunked prefill == one-shot prefill)."""
+    S, C = 256, 48
+    q, k, v = _flash_inputs(cuda, B=1, S=S, H=8, KV=2, hd=64, dtype=dtype,
+                            seed=5)
+    full = fa_ops.flash_attention_op(q, k, v, window=window)
+    for s in (0, 16, 48, 112, 208):
+        part = fa_ops.flash_attention_op(q[:, s:s + C], k, v, window=window,
+                                         q_offset=s)
+        assert torch.equal(part, full[:, s:s + C]), s
+    k2, v2 = (torch.cat([t, torch.randn_like(t)], dim=1) for t in (k, v))
+    wide = fa_ops.flash_attention_op(q, k2, v2, window=window)
+    assert torch.equal(wide, full)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_never_reaches_the_plain_version(cuda, monkeypatch):
+    """A CUDA tensor launches the kernel (the counter moves) and never
+    calls ``attention_ref``; the wrapper raises on what the kernel does
+    not take."""
+    def boom(*a, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(fa_ops, "attention_ref", boom)
+    q, k, v = _flash_inputs(cuda)
+    before = fa_ops.launches
+    fa_ops.flash_attention_op(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    with pytest.raises(ValueError, match="hd"):
+        fa_ops.flash_attention_op(*_flash_inputs(cuda, hd=24))
+    with pytest.raises(ValueError, match="dtype"):
+        fa_ops.flash_attention_op(*(t.half() for t in (q, k, v)))

@@ -1,6 +1,7 @@
 """The port's kernels on the CPU through their plain versions: held
-against the JAX reference oracles, and the port's own contracts (the
-live-page bucket, split == unified bit for bit).  The CUDA kernels themselves run only on a card
+against the JAX reference oracles (and, for flash attention, the Pallas
+kernel in interpret mode), and the port's own contracts (the live-page
+bucket, split == unified bit for bit).  The CUDA kernels themselves run only on a card
 (``tests/test_torch_cuda.py``, and ``chip_smoke.py`` at the main path's
 shapes)."""
 
@@ -8,7 +9,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
+from repro.kernels.flash_attention.flash_attention import \
+    flash_attention as j_flash
+from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
 from repro.kernels.paged_attention.ref import \
     paged_attention_fused_ref as j_fused_ref
 from repro.kernels.paged_attention.ref import \
@@ -16,6 +21,10 @@ from repro.kernels.paged_attention.ref import \
 from repro.kernels.paged_attention.ref import \
     paged_attention_split_ref as j_split_ref
 from repro.kernels.remap_gather.ref import remap_gather_ref as j_gather_ref
+from repro.models.attention import _sdpa as j_sdpa
+from repro.models.attention import make_mask as j_make_mask
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_fused_ref, paged_attention_ref, paged_attention_split_ref)
@@ -175,3 +184,96 @@ def test_read_ops_on_cpu_are_the_plain_versions():
     assert torch.equal(split, paged_attention_split_ref(**d))
     assert torch.equal(uni, paged_attention_ref(**u))
     assert torch.equal(split, uni)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+def _flash_tol(dtype):
+    """The reference's own tolerances (``tests/test_kernels.py::_tol``):
+    fp32 sums in other orders; bf16 outputs round at another place."""
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" \
+        else dict(rtol=1e-5, atol=1e-5)
+
+
+def _flash_inputs(B, H, KV, S, hd, seed, T=None):
+    """Seeded fp32 q [B,H,S,hd], k/v [B,KV,T,hd] (the kernel layout)."""
+    rng = np.random.default_rng(seed)
+    T = S if T is None else T
+    return (rng.normal(size=(B, H, S, hd)).astype(np.float32),
+            rng.normal(size=(B, KV, T, hd)).astype(np.float32),
+            rng.normal(size=(B, KV, T, hd)).astype(np.float32))
+
+
+@pytest.fixture
+def pallas_interpret(monkeypatch):
+    """The Pallas flash kernel as the reference's tests run it on the CPU
+    (``interpret=True``).  Newer jax names the compiler-params class
+    ``CompilerParams``; where ``TPUCompilerParams`` is gone it is aliased
+    for this test only, and the reference package is not touched."""
+    if not hasattr(pltpu, "TPUCompilerParams"):
+        monkeypatch.setattr(pltpu, "TPUCompilerParams",
+                            pltpu.CompilerParams, raising=False)
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd", [
+    (1, 4, 2, 128, 64),
+    (2, 8, 8, 256, 64),     # MHA
+    (1, 8, 2, 128, 128),    # GQA group 4
+    (2, 2, 1, 192, 64),     # MQA, non-pow2 seq blocks
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0)])
+def test_flash_plain_matches_reference_and_pallas(pallas_interpret, B, H, KV,
+                                                  S, hd, dtype, causal,
+                                                  window):
+    """The port's ``attention_ref`` against the reference's oracle and
+    against the Pallas kernel in interpret mode, over the shapes of the
+    reference's sweep (``tests/test_kernels.py``), inputs from one numpy
+    seed cast to ``dtype`` on both sides."""
+    q, k, v = _flash_inputs(B, H, KV, S, hd, seed=S + H + hd)
+    jq, jk, jv = (jnp.asarray(x).astype(dtype) for x in (q, k, v))
+    tdt = getattr(torch, dtype)
+    got = attention_ref(*(torch.from_numpy(x).to(tdt) for x in (q, k, v)),
+                        causal=causal, window=window)
+    assert got.dtype == tdt
+    got = got.float().numpy()
+    want = j_attention_ref(jq, jk, jv, causal=causal, window=window)
+    np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                               **_flash_tol(dtype))
+    pallas = j_flash(jq, jk, jv, causal=causal, window=window, block_q=64,
+                     block_k=64, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas, np.float32),
+                               **_flash_tol(dtype))
+
+
+@pytest.mark.parametrize("q_offset,window", [(0, 0), (48, 0), (96, 40)])
+def test_flash_op_q_offset_matches_reference_mask(q_offset, window):
+    """``flash_attention_op`` rows at ``q_offset`` (model layout) against
+    the reference model's chunk attention: ``make_mask(q_offset=)`` and
+    ``_sdpa``, fp32 within 1e-5 (both sum fp32 in other orders)."""
+    B, H, KV, S, T, hd = 2, 4, 2, 32, 160, 16
+    q, k, v = _flash_inputs(B, H, KV, S, hd, seed=q_offset, T=T)
+    q, k, v = (x.transpose(0, 2, 1, 3).copy() for x in (q, k, v))
+    got = fa_ops.flash_attention_op(
+        *(torch.from_numpy(x) for x in (q, k, v)), causal=True,
+        window=window, q_offset=q_offset)
+    want = j_sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  j_make_mask(S, T, causal=True, window=window,
+                              q_offset=q_offset))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_flash_op_on_cpu_is_the_plain_version():
+    """A CPU tensor takes ``attention_ref`` (model layout in and out), and
+    the launch counter stays put."""
+    q, k, v = (torch.from_numpy(x.transpose(0, 2, 1, 3).copy())
+               for x in _flash_inputs(1, 4, 2, 64, 16, seed=9))
+    before = fa_ops.launches
+    got = fa_ops.flash_attention_op(q, k, v, window=24, q_offset=0)
+    assert fa_ops.launches == before
+    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), window=24).transpose(1, 2)
+    assert got.shape == q.shape and torch.equal(got, want)

@@ -2,7 +2,8 @@
 same op sequence under every policy preset, every metadata field, every
 counter and every pool byte must be exactly equal (the port keeps one
 metadata copy for all layers, compared against the reference's layer
-0)."""
+0).  Covers the serving path's ops and chunked ingest, direct-to-fast
+admission and the multi-tenant maintenance pass."""
 
 import jax
 import jax.numpy as jnp
@@ -225,3 +226,149 @@ def test_unified_pools_concatenate_fast_then_slow():
     js, ts = _filled(jcfg, tcfg, 6)
     for a, b in zip(jk.unified_pools(js), tk.unified_pools(ts)):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+# ---------------------------------------------------------------------------
+# chunked ingest, direct-to-fast admission, multi-tenant maintenance
+# ---------------------------------------------------------------------------
+
+J_PCHUNK = _jit(jk.prefill_chunk)
+J_PCHUNK_ST = _jit(jk.prefill_chunk_stacked)
+J_ADMIT = _jit(jk.admit_pages, static_argnames=("n_pages",))
+J_ADMIT_ST = _jit(jk.admit_pages_stacked, static_argnames=("n_pages",))
+J_TENANTS = _jit(jk.run_scheduler_tenants,
+                 static_argnames=("pols", "quotas"))
+J_TENANTS_ST = _jit(jk.run_scheduler_tenants_stacked,
+                    static_argnames=("pols", "quotas"))
+J_LOOKUP1 = _jit(jk.lookup)
+
+
+def _tenant_pols(preset):
+    """Tenant 0 the preset, tenant 1 the same tracker with a smaller move
+    budget; quotas (3, 1) of the 4 fast data slots."""
+    return ((j_get_policy(preset, epoch_len=2),
+             j_get_policy(preset, epoch_len=2, max_moves=2)),
+            (t_get_policy(preset, epoch_len=2),
+             t_get_policy(preset, epoch_len=2, max_moves=2)), (3, 1))
+
+
+def _chunks(rng, L, S, C):
+    """(start, k, v) chunks of one prompt, the last one ragged."""
+    lead = () if L is None else (L,)
+    k = rng.normal(size=lead + (S, 2, 16)).astype(np.float32)
+    v = rng.normal(size=k.shape).astype(np.float32)
+    return [(st, k[..., st:st + C, :, :], v[..., st:st + C, :, :])
+            for st in range(0, S, C)]
+
+
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_chunked_ingest_admission_tenants_exact(preset):
+    """Direct-to-fast admission of lane 0's first pages, both lanes'
+    prompts ingested chunk by chunk (routed to the admitted fast copies),
+    then touches and multi-tenant maintenance passes with a mid-run
+    re-admission: every field and pool byte exact after every op."""
+    jcfg, tcfg = _cfgs(preset)
+    js, ts = _filled(jcfg, tcfg, 7)
+    jpols, tpols, quotas = _tenant_pols(preset)
+    page_tenant = np.repeat(np.array([0, 1], np.int32), 64)
+    rng = np.random.default_rng(8)
+
+    def admit(js, ts, seq, length, n):
+        js = J_ADMIT(jcfg, js, seq, length, n_pages=n)
+        ts = tk.admit_pages(tcfg, ts, seq, length, n)
+        _assert_state_equal(js, ts, where=f"admit seq {seq}")
+        return js, ts
+
+    js, ts = admit(js, ts, 0, 44, 2)
+    for seq, S in ((0, 44), (1, 37)):
+        for start, k, v in _chunks(rng, None, S, 16):
+            js = J_PCHUNK(jcfg, js, seq, jnp.asarray(k), jnp.asarray(v),
+                          start, S)
+            ts = tk.prefill_chunk(tcfg, ts, seq, torch.from_numpy(k),
+                                  torch.from_numpy(v), start, S)
+            _assert_state_equal(js, ts, where=f"seq {seq} chunk {start}")
+    for step in range(6):
+        ids = rng.integers(0, 128, (1, 12)).astype(np.int32)
+        _, js = J_LOOKUP1(jcfg, js, jnp.asarray(ids))
+        _, ts = tk.lookup(tcfg, ts, torch.from_numpy(ids))
+        js = J_TENANTS(jcfg, js, jnp.asarray(page_tenant), pols=jpols,
+                       quotas=quotas)
+        ts = tk.run_scheduler_tenants(tcfg, ts, torch.from_numpy(page_tenant),
+                                      tpols, quotas)
+        _assert_state_equal(js, ts, where=f"tenants step {step}")
+        if step == 2:
+            js, ts = J_RELEASE(jcfg, js, 1), tk.release_seq(tcfg, ts, 1)
+            js, ts = admit(js, ts, 1, 20, 3)
+    assert int(ts.migrations) > 2
+
+
+@pytest.mark.parametrize("preset", ["threshold", "on_demand", "write_aware"])
+def test_stacked_chunked_ingest_admission_tenants_exact(preset):
+    """The engine's stacked forms over two layers: admission (copies
+    replayed through the migration gather), routed chunk writes and the
+    multi-tenant pass, against the reference's stacked store."""
+    jcfg, tcfg = _cfgs(preset)
+    L = 2
+    js, ts = _filled(jcfg, tcfg, 9, n_layers=L)
+    jpols, tpols, quotas = _tenant_pols(preset)
+    page_tenant = np.repeat(np.array([1, 0], np.int32), 64)
+    rng = np.random.default_rng(10)
+    js = J_ADMIT_ST(jcfg, js, 1, 30, n_pages=3)
+    ts = tk.admit_pages_stacked(tcfg, ts, 1, 30, 3)
+    _assert_state_equal(js, ts, stacked=True, where="admit")
+    for start, k, v in _chunks(rng, L, 30, 8):
+        js = J_PCHUNK_ST(jcfg, js, 1, jnp.asarray(k), jnp.asarray(v), start,
+                         30)
+        ts = tk.prefill_chunk_stacked(tcfg, ts, 1, torch.from_numpy(k),
+                                      torch.from_numpy(v), start, 30)
+        _assert_state_equal(js, ts, stacked=True, where=f"chunk {start}")
+    for step in range(4):
+        ids = (rng.integers(0, 6, 8) + 64 * rng.integers(0, 2, 8)) \
+            .astype(np.int32)
+        lv = np.ones(8, bool)
+        j0 = J_TOUCH(jcfg, jax.tree.map(lambda x: x[0], js),
+                     jnp.asarray(ids), jnp.asarray(lv))
+        js = jk._restack(j0, jk._stacked_pools(js), L)
+        ts = tk.record_touches(tcfg, ts, torch.from_numpy(ids),
+                               torch.from_numpy(lv))
+        js = J_TENANTS_ST(jcfg, js, jnp.asarray(page_tenant), pols=jpols,
+                          quotas=quotas)
+        ts = tk.run_scheduler_tenants_stacked(
+            tcfg, ts, torch.from_numpy(page_tenant), tpols, quotas)
+        _assert_state_equal(js, ts, stacked=True, where=f"step {step}")
+    assert int(ts.migrations) >= 3
+
+
+def test_chunk_ingest_after_admission_routes_to_fast():
+    """Admission, then chunked ingest (``tests/test_sched.py``'s case):
+    the chunk writes land in the admitted pages' fast copies, reads equal
+    those of the same prompt ingested with nothing resident, bit for bit,
+    and the whole sequence equals the reference's exactly."""
+    from repro_torch.serve import tiered as srv
+    jcfg, tcfg = _cfgs("threshold")
+    P = tcfg.page_tokens
+    S = 4 * P
+    rng = np.random.default_rng(2)
+    k = rng.normal(size=(S, 2, 16)).astype(np.float32)
+    v = rng.normal(size=(S, 2, 16)).astype(np.float32)
+    tk_, tv_ = torch.from_numpy(k), torch.from_numpy(v)
+    ref = tk.prefill_chunk(tcfg, tk.init_state(tcfg, "cpu"), 0, tk_, tv_, 0,
+                           S)
+    st = tk.admit_pages(tcfg, tk.init_state(tcfg, "cpu"), 0, S, 2)
+    js = J_ADMIT(jcfg, jk.init_state(jcfg), 0, S, n_pages=2)
+    assert int(st.migrations) == 2
+    assert (st.leaf_table[:2] != tk.INVALID).all()
+    assert (st.touch[:2] > 0).all(), "no install touch"
+    for start in range(0, S, P):
+        st = tk.prefill_chunk(tcfg, st, 0, tk_[start:start + P],
+                              tv_[start:start + P], start, S)
+        js = J_PCHUNK(jcfg, js, 0, jnp.asarray(k[start:start + P]),
+                      jnp.asarray(v[start:start + P]), start, S)
+    _assert_state_equal(js, st, where="admitted ingest")
+    slot0 = int(st.leaf_table[0])
+    assert torch.equal(st.fast_k[slot0], ref.slow_k[0])
+    q = torch.from_numpy(rng.normal(size=(2, 2, 2, 16)).astype(np.float32))
+    sl = torch.tensor([S, 0], dtype=torch.int32)
+    out_ref, _ = srv.attend(tcfg, ref, q, sl)
+    out_adm, _ = srv.attend(tcfg, st, q, sl)
+    assert torch.equal(out_ref, out_adm)

@@ -3,7 +3,8 @@ against the JAX reference on the fp32 smoke llama3-8b, teacher-forced
 over 24 steps with prefill, ragged lanes, synchronous and overlapped
 maintenance and a mid-stream release.  Logits agree within 1e-4 (fp32
 matmuls reduce in another order); the tiered metadata is exactly equal.
-Plus the port's own contracts, torch against torch."""
+The chunked-prefill forward against the reference's.  Plus the port's
+own contracts, torch against torch."""
 
 import functools
 
@@ -18,11 +19,13 @@ from repro.configs import reduce_for_smoke as j_reduce
 from repro.core.policy import get_policy as j_get_policy
 from repro.models import decode_step as j_decode_step
 from repro.models import forward as j_forward
+from repro.models import forward_chunk as j_forward_chunk
 from repro.models import init_params as j_init_params
 from repro.models.kv_backend import TieredBackend as JTiered
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.core.policy import get_policy
-from repro_torch.models import decode_step, forward
+from repro_torch.models import (decode_step, forward, forward_chunk,
+                                init_chunk_buffers, init_params)
 from repro_torch.models.kv_backend import DenseBackend, TieredBackend
 from repro_torch.tiered import kvcache as tk
 from repro_torch.weights import from_jax_params
@@ -168,3 +171,90 @@ def test_port_dense_equals_tiered():
     tiered, st = _run_port(_tiered(), lambda st: None)
     np.testing.assert_allclose(dense, tiered, rtol=0, atol=1e-5)
     assert int(st.caches.migrations) > 0
+
+
+# (padded length P, real prompt tokens, chunk C): C divides P, and not
+CHUNK_CASES = [(32, 27, 8), (64, 50, 24)]
+
+
+def _chunk_starts(P, C):
+    """The scheduler's chunk starts: the last chunk back-aligned."""
+    return [min(s, P - C) for s in range(0, P, C)]
+
+
+@functools.lru_cache(maxsize=1)
+def _port_seeded_models():
+    """The port's seeded weights (projections scaled by their contracted
+    fan-in) in both packages' layouts: the reference's ``dense_init``
+    scales q and k by sqrt(d/H) more, so its K rows reach ~14 and one
+    fp32 ulp there is ~1e-6."""
+    jcfg = j_reduce(j_get_config("llama3-8b"))
+    cfg = reduce_for_smoke(get_config("llama3-8b"))
+    params = init_params(cfg, "cpu", seed=2)
+    like = lambda t, x: {k: like(v, x[k]) for k, v in t.items()} \
+        if isinstance(t, dict) else jnp.asarray(x.float().numpy())  # noqa
+    jparams = like(j_init_params(jcfg, jax.random.key(0)), params)
+    return jcfg, jparams, cfg, params
+
+
+@pytest.mark.parametrize("P,ctx,C", CHUNK_CASES)
+def test_forward_chunk_matches_reference(P, ctx, C):
+    """``forward_chunk`` over a prompt's chunks against the reference's,
+    the same seeded weights and tokens: the K/V buffers after every chunk
+    and each chunk's logits within 1e-5 in fp32 (matmuls reduce in
+    another order)."""
+    jcfg, jparams, cfg, params = _port_seeded_models()
+    rng = np.random.default_rng(P + C)
+    tokens = np.zeros((1, P), np.int32)
+    tokens[0, :ctx] = rng.integers(0, cfg.vocab, ctx)
+    jfc = jax.jit(lambda p, t, a, b, s: j_forward_chunk(
+        jcfg, p, t, a, b, s, return_logits=True))
+    jbk = jnp.zeros((cfg.n_layers, 1, P, cfg.n_kv_heads, cfg.hd))
+    jbv = jnp.zeros_like(jbk)
+    bk, bv = init_chunk_buffers(cfg, P, device="cpu")
+    for start in _chunk_starts(P, C):
+        chunk = tokens[:, start:start + C]
+        jbk, jbv, jl = jfc(jparams, jnp.asarray(chunk), jbk, jbv, start)
+        bk, bv, tl = forward_chunk(cfg, params, torch.from_numpy(chunk), bk,
+                                   bv, start, return_logits=True)
+        for got, want in ((bk, jbk), (bv, jbv), (tl, jl)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=0, atol=1e-5,
+                                       err_msg=f"start {start}")
+
+
+@pytest.mark.parametrize("P,ctx,C", CHUNK_CASES)
+def test_forward_chunk_bitwise_equals_forward(P, ctx, C):
+    """The port's chunk forward over all chunks reproduces its one-shot
+    ``forward(collect_cache=True)`` bit for bit: every real K/V row, and
+    the final chunk's logits rows (DESIGN.md §9)."""
+    _, _, cfg, params = _models()
+    rng = np.random.default_rng(P)
+    tokens = np.zeros((1, P), np.int32)
+    tokens[0, :ctx] = rng.integers(0, cfg.vocab, ctx)
+    t = torch.from_numpy(tokens)
+    logits, _, (k_ref, v_ref) = forward(cfg, params, {"tokens": t},
+                                        collect_cache=True)
+    bk, bv = init_chunk_buffers(cfg, P, device="cpu")
+    for start in _chunk_starts(P, C):
+        bk, bv, lg = forward_chunk(cfg, params, t[:, start:start + C], bk,
+                                   bv, start, return_logits=True)
+    assert torch.equal(k_ref[:, :, :ctx], bk[:, :, :ctx])
+    assert torch.equal(v_ref[:, :, :ctx], bv[:, :, :ctx])
+    assert torch.equal(logits[:, P - C:], lg)
+
+
+def test_forward_chunk_refuses_what_the_reference_refuses():
+    """A padded length above ``CHUNKED_THRESHOLD`` and a family that is not
+    ported raise, as the reference's do (the scheduler then prefills in
+    one shot)."""
+    import dataclasses
+    _, _, cfg, params = _models()
+    big = torch.zeros((cfg.n_layers, 1, 4097, cfg.n_kv_heads, cfg.hd))
+    with pytest.raises(NotImplementedError, match="CHUNKED_THRESHOLD"):
+        forward_chunk(cfg, params, torch.zeros((1, 8), dtype=torch.int32),
+                      big, big, 0)
+    with pytest.raises(NotImplementedError, match="families"):
+        forward_chunk(dataclasses.replace(cfg, family="moe"), params,
+                      torch.zeros((1, 8), dtype=torch.int32), big[:, :, :8],
+                      big[:, :, :8], 0)
