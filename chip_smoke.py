@@ -12,13 +12,16 @@ prints no result line):
    together.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    its path's shapes and at the smoke shapes, with the tolerances stated
-   below; the live-page bucket against the full width and the split read
-   against the unified read of the concatenated pools (bit for bit);
+   below; the live-page buckets (64 and 61 pages) against the full width,
+   and the split read against the unified read of the concatenated pools
+   and the one-token fused step over the same store (bit for bit);
    flash attention's rows independent of the call around them (chunk
    calls at page-aligned offsets equal the one-shot call's rows, masked
    extra keys change nothing, bit for bit); kernel, plain and library
-   times (CUDA events); an irt_lookup sweep over N, kernel beside plain
-   version.
+   times (CUDA events), each kernel's share of its bound, its achieved
+   GB/s or TFLOP/s and the earlier time PERF.md's table gives for the
+   same call (a constant); an
+   irt_lookup sweep over N, kernel beside plain version.
 4. main path: llama3-8b at its published width (32 layers, bf16, seeded
    random weights made on the card) served by the tiered engine (its
    one-shot prefill runs the flash kernel); launch counts are reset just
@@ -67,6 +70,13 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
+# Each kernel's earlier device time (ms) at this script's shapes, before
+# the tensor-core flash kernel and the pipelined paged core, from
+# PERF.md's table (NVIDIA H100 80GB HBM3, 700 W); printed beside this run's
+EARLIER_MS = {"paged_attention_fused": 0.0755, "remap_gather": 0.0073,
+              "irt_lookup": 0.0061, "paged_attention_split": 0.3142,
+              "paged_attention": 0.3080, "flash_attention chunk": 0.6031,
+              "flash_attention one-shot": 1.8568}
 
 
 def _fail(msg: str):
@@ -102,6 +112,16 @@ def _time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return sorted(times)[len(times) // 2]
+
+
+def _vs_bound(name, ms, bound_ms, *, nbytes=None, flops=None):
+    """The share of the bound a kernel reached, its achieved rate, and
+    its earlier time for the same call (a constant from PERF.md)."""
+    rate = (f", {nbytes / ms / 1e6:.1f} GB/s" if nbytes is not None else "") \
+        + (f", {flops / ms / 1e9:.1f} TFLOP/s" if flops is not None else "")
+    return (f"{name}: bound/time {bound_ms / ms:.3f}{rate}; {ms:.4f} ms "
+            f"against {EARLIER_MS[name]:.4f} ms earlier (PERF.md constant, "
+            f"{EARLIER_MS[name] / ms:.2f}x)")
 
 
 def _card_line() -> str:
@@ -158,7 +178,7 @@ def _fused_bound(d):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations")
+                                 "operations"), nbytes
 
 
 def _stored_rows(torch, d, table):
@@ -227,7 +247,7 @@ def kernel_phase(torch, dev):
           f"{int(live.sum())} live lanes")
     ms = _time_ms(lambda: pa_ops.paged_attention_fused_op(**d))
     plain_ms = _time_ms(lambda: paged_attention_fused_ref(**d), reps=5)
-    bound_ms, bound_by = _fused_bound(d)
+    bound_ms, bound_by, nbytes = _fused_bound(d)
     rows["paged_attention_fused"] = dict(
         name="paged_attention_fused", route="cuda",
         source="src/repro_torch/kernels/paged_attention/csrc/"
@@ -238,6 +258,20 @@ def kernel_phase(torch, dev):
     print(f"kernel paged_attention_fused bf16 main shapes: max_abs_err "
           f"{err:.3e} (two-ulp limit), {ms:.4f} ms, plain {plain_ms:.3f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by})")
+    print("kernel " + _vs_bound("paged_attention_fused", ms, bound_ms,
+                                nbytes=nbytes))
+    # a live bucket that is no multiple of the split width (8 pages) or
+    # the ring depth (2): 61 pages, positions clamped inside it
+    d61 = {**d, "pos": torch.where(d["pos"] >= 0,
+                                   d["pos"].clamp(max=61 * 16 - 2),
+                                   d["pos"]).to(torch.int32)}
+    _check(torch.equal(
+        pa_ops.paged_attention_fused_op(**{**d61, "entries": table[:, :61]})
+        [live], pa_ops.paged_attention_fused_op(**{**d61, "entries": table})
+        [live]), "paged_attention_fused: the 61-page bucket differs from "
+        "the full width")
+    print("kernel paged_attention_fused: the 64- and 61-page buckets equal "
+          "the full 128-page width bit for bit")
     # smoke shapes: fp32, hd=16, page=8, K=2; tolerance 1e-4 (online and
     # full softmax sum in other orders)
     for K in (1, 2):
@@ -285,6 +319,7 @@ def kernel_phase(torch, dev):
     print(f"kernel remap_gather bf16 main call: exact, {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, index_select {lib_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms (bytes)")
+    print("kernel " + _vs_bound("remap_gather", ms, bound_ms, nbytes=nbytes))
     del pool, got
     torch.cuda.empty_cache()
     rows.update(irt_lookup_rows(torch, dev))
@@ -332,6 +367,8 @@ def irt_lookup_rows(torch, dev):
     bound_ms = (4 * 4 * N + 4 * args[2].numel()) / HBM_BYTES_PER_S * 1e3
     print(f"kernel irt_lookup at the server's N = {N}: exact, {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms (bytes)")
+    print("kernel " + _vs_bound("irt_lookup", ms, bound_ms,
+                                nbytes=bound_ms * HBM_BYTES_PER_S / 1e3))
     sweep = []
     for n in (256, 1024, 4096, 65536):
         a = walk_inputs(n, 12 + n)
@@ -387,7 +424,30 @@ def _read_bound(d):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations")
+                                 "operations"), nbytes
+
+
+def _as_fused(torch, d):
+    """A one-token read's inputs as the fused step over the same store:
+    entries from the page table (slow homes are identity rows), pos the
+    last stored row, and as the step's new rows the rows already stored
+    there, so the overlay rewrites the same bytes."""
+    B = d["q"].shape[0]
+    F, P = d["fast_k"].shape[0], d["fast_k"].shape[2]
+    table = d["page_table"]
+    pos = (d["seq_lens"] - 1).to(torch.int32)
+    p = pos.clamp(min=0).long()
+    j, r = p // P, p % P
+    slot = table[torch.arange(B, device=p.device), j].long()
+    fast = (slot < F)[:, None, None]
+    new = [torch.where(fast, f[slot.clamp(max=F - 1), :, r],
+                       sl[(slot - F).clamp(min=0), :, r])[:, None]
+           for f, sl in ((d["fast_k"], d["slow_k"]),
+                         (d["fast_v"], d["slow_v"]))]
+    return dict(q=d["q"][:, None], fast_k=d["fast_k"], fast_v=d["fast_v"],
+                slow_k=d["slow_k"], slow_v=d["slow_v"],
+                entries=torch.where(table < F, table, -1).to(torch.int32),
+                k_new=new[0], v_new=new[1], pos=pos)
 
 
 def paged_read_rows(torch, dev):
@@ -417,6 +477,9 @@ def paged_read_rows(torch, dev):
     _check(torch.equal(split, uni), "paged_attention_split differs from "
            "paged_attention over the concatenated pools")
     _check(bool((split[~live] == 0).all()), "an idle lane is not zeros")
+    fused = pa_ops.paged_attention_fused_op(**_as_fused(torch, d))[:, 0]
+    _check(torch.equal(fused[live], split[live]), "paged_attention_split "
+           "differs from the fused step over the same store")
     d32 = {k: (v.float() if v.is_floating_point() else v)
            for k, v in d.items()}
     ref = paged_attention_split_ref(**d32).to(torch.bfloat16)[live].float()
@@ -425,7 +488,7 @@ def paged_read_rows(torch, dev):
     _check(math.isfinite(err) and ratio <= 1.0,
            f"paged_attention_split bf16 error {err} over two ulps "
            f"(error/limit {ratio:.3f})")
-    bound_ms, bound_by = _read_bound(d)
+    bound_ms, bound_by, nbytes = _read_bound(d)
     split_ms = _time_ms(lambda: pa_ops.paged_attention_split_op(**d))
     uni_ms = _time_ms(lambda: pa_ops.paged_attention_op(*u))
     split_plain = _time_ms(lambda: paged_attention_split_ref(**d), reps=5)
@@ -436,7 +499,11 @@ def paged_read_rows(torch, dev):
           f"(max abs {err:.3e}, max |ref| {ref.abs().max().item():.3e}); "
           f"split {split_ms:.4f} ms (plain {split_plain:.3f}), unified "
           f"{uni_ms:.4f} ms (plain {uni_plain:.3f}), the concat path's "
-          f"pool copy {cat_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+          f"pool copy {cat_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}); "
+          f"split == unified == fused (one token) bit for bit")
+    for name, ms in (("paged_attention_split", split_ms),
+                     ("paged_attention", uni_ms)):
+        print("kernel " + _vs_bound(name, ms, bound_ms, nbytes=nbytes))
     for name, ms, plain_ms, line in (
             ("paged_attention_split", split_ms, split_plain, 206),
             ("paged_attention", uni_ms, uni_plain, 164)):
@@ -448,7 +515,7 @@ def paged_read_rows(torch, dev):
                      f":{line}",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, library_ms=None)
-    del d, u, d32, split, uni
+    del d, u, d32, split, uni, fused
     torch.cuda.empty_cache()
     d = _read_inputs(torch, dev, B=4, KV=2, G=2, hd=16, P=8, NP=8, F=6,
                      lens=(1, 64), dtype=torch.float32, seed=22)
@@ -479,10 +546,11 @@ def _flash_bound(S, T, H, KV, hd, q_offset, item):
     pairs = sum(min(p + 1, T) for p in pos)
     keys = min(q_offset + S, T)
     nbytes = item * (2 * S * H * hd + 2 * keys * KV * hd)
-    t_ops = 4 * hd * H * pairs / BF16_FLOP_PER_S * 1e3
+    flops = 4 * hd * H * pairs
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
+                                 else "bytes"), flops
 
 
 def flash_rows(torch, dev):
@@ -536,7 +604,8 @@ def flash_rows(torch, dev):
         plain_ms = _time_ms(lambda: _flash_plain(qq, k, v, q_offset=off),
                             reps=5)
         lib_ms = _time_ms(lib)
-        bound_ms, bound_by = _flash_bound(qq.shape[1], T, H, KV, hd, off, 2)
+        bound_ms, bound_by, flops = _flash_bound(qq.shape[1], T, H, KV, hd,
+                                                 off, 2)
         res[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=lib_ms)
@@ -547,6 +616,8 @@ def flash_rows(torch, dev):
               f"scaled_dot_product_attention {lib_ms:.4f} ms (its max abs "
               f"err {lib_err:.3e}), bound {bound_ms:.4f} ms ({bound_by}), "
               f"{ms / bound_ms:.1f}x the bound")
+        print("kernel " + _vs_bound(f"flash_attention {label}", ms, bound_ms,
+                                    flops=flops))
     starts = (0, 16, 272, 1008, 1536, 1792)
     for s in starts:
         part = op(q[:, s:s + C], k, v, q_offset=s)

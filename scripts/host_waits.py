@@ -34,7 +34,9 @@ def main():
         raise SystemExit("host_waits: needs a CUDA card")
     print(f"card: {chip_smoke._card_line()}")
     _build.build_all()
-    _, eng = chip_smoke.main_path_engine(torch, torch.device("cuda", 0))
+    dev = torch.device("cuda", 0)
+    cfg, params = chip_smoke.main_model(torch, dev)
+    eng = chip_smoke.main_path_engine(torch, dev, cfg, params)
     sites = collections.Counter()
 
     def record(message, category, filename, lineno, file=None, line=None):

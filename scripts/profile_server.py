@@ -24,8 +24,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
-CLASSES = (("paged attention", ("paged_attention", "partial_kernel",
-                                "combine_kernel")),
+CLASSES = (("paged attention", ("paged_attention", "paged_kernel")),
            ("irt_lookup", ("irt_lookup",)),
            ("remap_gather", ("remap_gather",)),
            ("copy/cast", ("copy", "cast", "fill", "memcpy", "memset",

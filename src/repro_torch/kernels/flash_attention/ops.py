@@ -70,6 +70,10 @@ def flash_attention_op(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check(q, k, v, q_offset)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if k.data_ptr() % 16 or v.data_ptr() % 16 or q.data_ptr() % 4:
+        raise ValueError("flash_attention: k and v must be 16-byte aligned "
+                         "and q 4-byte aligned (the kernel copies 16-byte "
+                         "rows of K and V)")
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q)

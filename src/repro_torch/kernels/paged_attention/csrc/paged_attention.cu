@@ -21,11 +21,11 @@
 // is (q + live lanes' K/V pages + their page-table entries + out) / 3.35
 // TB/s.
 //
-// Design: the split-over-pages walk and ordered merge of
-// paged_attention_core.cuh (the fused kernel's body), with K = 1 and no
-// overlay.  The split route picks the tier BEFORE the load: one tier's
-// tiles are read per page, where the Pallas index maps fetch both and
-// select.  The split and unified entry points share every instruction
+// Design: the page walk, cp.async ring and ordered merges of
+// paged_attention_core.cuh (the fused kernel's body, one launch), with
+// K = 1 and no overlay.  The split route picks the tier BEFORE the load:
+// one tier's tiles are read per page, where the Pallas index maps fetch
+// both and select.  The split and unified entry points share every instruction
 // after the tile pointers, so a split read equals a unified read of the
 // concatenated pools bit for bit.  A lane stops at page
 // ceil(seq_len / P); seq_lens are read on the card.  A lane with
@@ -44,7 +44,10 @@ struct SeqLenMask {
   __device__ int lane(int b) const { return seq_lens[b]; }
   __device__ int visible(int n) const { return n; }
   __device__ int limit(int n, int, int) const { return n; }
-  __device__ void overlay(T*, T*, int, int, int, int) const {}
+  __device__ int fresh(int, int, int) const { return -1; }
+  __device__ void fresh_rows(int, int, int, const T** k, const T** v) const {
+    *k = *v = nullptr;
+  }
 };
 
 template <typename T>
@@ -88,74 +91,79 @@ struct UnifiedRoute : SeqLenMask<T> {
 template <typename T>
 int run_split(const void* q, const void* fk, const void* fv, const void* sk,
               const void* sv, const void* table, long long es,
-              const void* seq_lens, void* out, void* scratch, int B, int KV,
-              int G, int hd, int P, int npages, int fast_slots,
-              cudaStream_t stream) {
+              const void* seq_lens, void* out, void* scratch,
+              void* counters, int B, int KV, int G, int hd, int P, int npages,
+              int fast_slots, cudaStream_t stream) {
   const SplitRoute<T> route{
       {static_cast<const int32_t*>(seq_lens)}, static_cast<const T*>(fk),
       static_cast<const T*>(fv), static_cast<const T*>(sk),
       static_cast<const T*>(sv), static_cast<const int32_t*>(table), es,
       fast_slots, KV, P, hd};
   return pa::launch<T>(static_cast<const T*>(q), route, static_cast<T*>(out),
-                       static_cast<float*>(scratch), B, 1, KV, G, hd, P,
-                       npages, stream);
+                       static_cast<float*>(scratch),
+                       static_cast<unsigned int*>(counters), B, 1, KV, G, hd,
+                       P, npages, stream);
 }
 
 template <typename T>
 int run_unified(const void* q, const void* pk, const void* pv,
                 const void* table, long long es, const void* seq_lens,
-                void* out, void* scratch, int B, int KV, int G, int hd, int P,
-                int npages, cudaStream_t stream) {
+                void* out, void* scratch, void* counters, int B, int KV,
+                int G, int hd, int P, int npages, cudaStream_t stream) {
   const UnifiedRoute<T> route{
       {static_cast<const int32_t*>(seq_lens)}, static_cast<const T*>(pk),
       static_cast<const T*>(pv), static_cast<const int32_t*>(table), es, KV,
       P, hd};
   return pa::launch<T>(static_cast<const T*>(q), route, static_cast<T*>(out),
-                       static_cast<float*>(scratch), B, 1, KV, G, hd, P,
-                       npages, stream);
+                       static_cast<float*>(scratch),
+                       static_cast<unsigned int*>(counters), B, 1, KV, G, hd,
+                       P, npages, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  `scratch` holds
-// paged_attention_scratch_floats(...) floats.  Each returns
-// cudaGetLastError() after its launches (0 on success).
+// paged_attention_scratch_floats(...) floats, `counters` B*KV unsigned
+// ints, zero before the first call (each call leaves them zero).  Each
+// returns cudaGetLastError() after its launch (0 on success).
 extern "C" int paged_attention_split(
     const void* q, const void* fast_k, const void* fast_v,
     const void* slow_k, const void* slow_v, const void* page_table,
     long long table_stride, const void* seq_lens, void* out, void* scratch,
-    int B, int KV, int G, int hd, int P, int npages, int fast_slots,
-    int dtype, void* stream) {
+    void* counters, int B, int KV, int G, int hd, int P, int npages,
+    int fast_slots, int dtype, void* stream) {
   if (B <= 0 || KV <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return run_split<float>(q, fast_k, fast_v, slow_k, slow_v, page_table,
-                            table_stride, seq_lens, out, scratch, B, KV, G,
-                            hd, P, npages, fast_slots, s);
+                            table_stride, seq_lens, out, scratch, counters, B,
+                            KV, G, hd, P, npages, fast_slots, s);
   return run_split<__nv_bfloat16>(q, fast_k, fast_v, slow_k, slow_v,
                                   page_table, table_stride, seq_lens, out,
-                                  scratch, B, KV, G, hd, P, npages,
+                                  scratch, counters, B, KV, G, hd, P, npages,
                                   fast_slots, s);
 }
 
 extern "C" int paged_attention_unified(
     const void* q, const void* pool_k, const void* pool_v,
     const void* page_table, long long table_stride, const void* seq_lens,
-    void* out, void* scratch, int B, int KV, int G, int hd, int P,
-    int npages, int dtype, void* stream) {
+    void* out, void* scratch, void* counters, int B, int KV, int G, int hd,
+    int P, int npages, int dtype, void* stream) {
   if (B <= 0 || KV <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return run_unified<float>(q, pool_k, pool_v, page_table, table_stride,
-                              seq_lens, out, scratch, B, KV, G, hd, P,
-                              npages, s);
+                              seq_lens, out, scratch, counters, B, KV, G, hd,
+                              P, npages, s);
   return run_unified<__nv_bfloat16>(q, pool_k, pool_v, page_table,
-                                    table_stride, seq_lens, out, scratch, B,
-                                    KV, G, hd, P, npages, s);
+                                    table_stride, seq_lens, out, scratch,
+                                    counters, B, KV, G, hd, P, npages, s);
 }
 
-// Floats of fp32 split scratch one call needs: m, l and acc per split.
+// Floats of fp32 split scratch one call needs (m, l and acc per split),
+// or -1 if the shape does not fit a block.
 extern "C" long long paged_attention_scratch_floats(int B, int KV, int G,
-                                                    int hd, int npages) {
-  return pa::scratch_floats(B, 1, KV, G, hd, npages);
+                                                    int hd, int P, int dtype,
+                                                    int npages) {
+  return pa::scratch_floats(B, 1, KV, G, hd, P, dtype == 0 ? 4 : 2, npages);
 }

@@ -19,13 +19,17 @@
 // under the ~295 flops per byte where the tensor cores would bind.  The
 // least time is (q + live lanes' K/V pages + new rows + out) / 3.35 TB/s.
 //
-// Design: the split-over-pages walk and ordered merge of
-// paged_attention_core.cuh, routed by leaf entry: per page the block reads
-// entries[b,j] first and loads the K and V tiles from that one tier only,
-// then overlays, in shared memory, the step's new rows that fall in the
-// page.  A live lane stops at its first page past pos+K-1; a parked lane
-// reads no page and its output is zeros (the reference's uniform average
-// there is never read: the engine drops a parked lane's logits).
+// Design: the page walk, cp.async ring and ordered merges of
+// paged_attention_core.cuh (one launch, merge folded in), routed by leaf
+// entry: per page the warp reads entries[b,j] first and copies the K and
+// V tiles from that one tier only; once a tile has landed in shared
+// memory, the lanes that copied the chunks of the step's new rows that
+// fall in the page overwrite them with k_new/v_new.  A live lane stops at
+// its first page past pos+K-1; a parked lane reads no page and its output
+// is zeros (the reference's uniform average there is never read: the
+// engine drops a parked lane's logits).  At the main path's call (B=8,
+// KV=8, G=4, hd=128, page 16, bf16, a 64-page bucket) that is 8 splits of
+// 8 pages per (lane, kv head), 4 warps a block, 64 KB of ring.
 
 #include "paged_attention_core.cuh"
 
@@ -58,28 +62,26 @@ struct FusedRoute {
     *k = (ent >= 0 ? fast_k : slow_k) + off;
     *v = (ent >= 0 ? fast_v : slow_v) + off;
   }
-  // this step's rows that land in page j replace the staged pool rows
-  __device__ void overlay(T* kt, T* vt, int b, int h, int j, int p0) const {
-    for (int t = 0; t < K; ++t) {
-      const int pg = p0 + t;
-      if (pg / P != j) continue;
-      const int row = pg % P;
-      const int64_t src = (((int64_t)b * K + t) * KV + h) * hd;
-      for (int d = threadIdx.x; d < hd; d += blockDim.x) {
-        kt[row * hd + d] = k_new[src + d];
-        vt[row * hd + d] = v_new[src + d];
-      }
-    }
-    __syncthreads();
+  // the step's token whose new row is row `row` of page j, if any: it
+  // replaces the staged pool row once the tile has landed
+  __device__ int fresh(int j, int p0, int row) const {
+    const int t = j * P + row - p0;
+    return p0 >= 0 && t >= 0 && t < K ? t : -1;
+  }
+  __device__ void fresh_rows(int b, int h, int t, const T** k,
+                             const T** v) const {
+    const int64_t src = (((int64_t)b * K + t) * KV + h) * hd;
+    *k = k_new + src;
+    *v = v_new + src;
   }
 };
 
 template <typename T>
 int run(const void* q, const void* fk, const void* fv, const void* sk,
         const void* sv, const void* entries, long long es, const void* kn,
-        const void* vn, const void* pos, void* out, void* scratch, int B,
-        int K, int KV, int G, int hd, int P, int npages, int NP,
-        cudaStream_t stream) {
+        const void* vn, const void* pos, void* out, void* scratch,
+        void* counters, int B, int K, int KV, int G, int hd, int P,
+        int npages, int NP, cudaStream_t stream) {
   const FusedRoute<T> route{
       static_cast<const T*>(fk), static_cast<const T*>(fv),
       static_cast<const T*>(sk), static_cast<const T*>(sv),
@@ -87,34 +89,38 @@ int run(const void* q, const void* fk, const void* fv, const void* sk,
       static_cast<const T*>(vn), static_cast<const int32_t*>(pos), KV, P, hd,
       K, NP};
   return pa::launch<T>(static_cast<const T*>(q), route, static_cast<T*>(out),
-                       static_cast<float*>(scratch), B, K, KV, G, hd, P,
-                       npages, stream);
+                       static_cast<float*>(scratch),
+                       static_cast<unsigned int*>(counters), B, K, KV, G, hd,
+                       P, npages, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  `scratch` holds
-// paged_attention_fused_scratch_floats(...) floats.  Returns
-// cudaGetLastError() after the launches (0 on success).
+// paged_attention_fused_scratch_floats(...) floats, `counters` B*KV
+// unsigned ints, zero before the first call (each call leaves them zero).
+// Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int paged_attention_fused(
     const void* q, const void* fast_k, const void* fast_v,
     const void* slow_k, const void* slow_v, const void* entries,
     long long entries_stride, const void* k_new, const void* v_new,
-    const void* pos, void* out, void* scratch, int B, int K, int KV, int G,
-    int hd, int P, int npages, int NP, int dtype, void* stream) {
+    const void* pos, void* out, void* scratch, void* counters, int B, int K,
+    int KV, int G, int hd, int P, int npages, int NP, int dtype,
+    void* stream) {
   if (B <= 0 || KV <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return run<float>(q, fast_k, fast_v, slow_k, slow_v, entries,
-                      entries_stride, k_new, v_new, pos, out, scratch, B, K,
-                      KV, G, hd, P, npages, NP, s);
+                      entries_stride, k_new, v_new, pos, out, scratch,
+                      counters, B, K, KV, G, hd, P, npages, NP, s);
   return run<__nv_bfloat16>(q, fast_k, fast_v, slow_k, slow_v, entries,
                             entries_stride, k_new, v_new, pos, out, scratch,
-                            B, K, KV, G, hd, P, npages, NP, s);
+                            counters, B, K, KV, G, hd, P, npages, NP, s);
 }
 
-// Floats of fp32 split scratch one call needs: m, l and acc per split.
+// Floats of fp32 split scratch one call needs (m, l and acc per split),
+// or -1 if the shape does not fit a block.
 extern "C" long long paged_attention_fused_scratch_floats(
-    int B, int K, int KV, int G, int hd, int npages) {
-  return pa::scratch_floats(B, K, KV, G, hd, npages);
+    int B, int K, int KV, int G, int hd, int P, int dtype, int npages) {
+  return pa::scratch_floats(B, K, KV, G, hd, P, dtype == 0 ? 4 : 2, npages);
 }

@@ -7,8 +7,8 @@ Tensors on the CPU go to the plain versions (``ref.py``); tensors on a
 card launch the hand-written kernels (``csrc/paged_attention_fused.cu``,
 ``csrc/paged_attention.cu``) or raise on what they do not take.
 ``launches``, ``split_launches`` and ``unified_launches`` count the calls
-that launched each kernel (its split pass and the merge that follows
-it); reset them by assignment.
+that launched each kernel (one launch each: the split pass with its merge
+folded in); reset them by assignment.
 """
 
 from __future__ import annotations
@@ -29,7 +29,29 @@ unified_launches = 0
 HEAD_DIMS = (16, 32, 64, 128)
 PAGE_TOKENS = (8, 16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_SMEM_LIMIT = 227 * 1024
+
+_counters: dict = {}
+
+
+def _counters_for(device, n):
+    """``n`` int32 arrival counters, one per (lane, kv head): the last
+    block of each merges its splits and sets it back to zero, so one
+    zeroed buffer per (card, stream) serves every later call."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
+
+
+def _scratch(name, floats, device):
+    """The fp32 split scratch of one call (the caller holds it until the
+    launch is enqueued); ``floats`` < 0: the rows do not fit one block."""
+    if floats < 0:
+        raise ValueError(f"{name}: K*G rows or the page tiles need more "
+                         f"shared memory than one block has")
+    return torch.empty((floats,), dtype=torch.float32, device=device)
 
 
 def _bind(lib):
@@ -37,17 +59,13 @@ def _bind(lib):
     fn = lib.paged_attention_fused
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp, vp, vp, vp, vp, vp, ctypes.c_longlong, vp, vp, vp,
-                   vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, vp]
+                   vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32,
+                   vp]
     fn.restype = ctypes.c_int
     size = lib.paged_attention_fused_scratch_floats
-    size.argtypes = [i32] * 6
+    size.argtypes = [i32] * 8
     size.restype = ctypes.c_longlong
     return fn, size
-
-
-def _smem_bytes(K, G, hd, P, itemsize):
-    R = K * G
-    return 2 * P * hd * itemsize + 4 * (2 * R * hd + R * P + 3 * R)
 
 
 def _check(q, fast_k, fast_v, slow_k, slow_v, entries, k_new, v_new, pos):
@@ -89,9 +107,6 @@ def _check(q, fast_k, fast_v, slow_k, slow_v, entries, k_new, v_new, pos):
                          "with unit column stride")
     if tuple(pos.shape) != (B,) or not pos.is_contiguous():
         raise ValueError(f"paged_attention_fused: pos must be [{B}]")
-    if _smem_bytes(K, G, hd, P, q.element_size()) > _SMEM_LIMIT:
-        raise ValueError("paged_attention_fused: K*G rows need more shared "
-                         "memory than one block has")
 
 
 def paged_attention_fused_op(q, fast_k, fast_v, slow_k, slow_v, entries,
@@ -118,14 +133,16 @@ def paged_attention_fused_op(q, fast_k, fast_v, slow_k, slow_v, entries,
     NP = slow_k.shape[0] // B
     npages = min(entries.shape[1], NP)
     fn, size = _build.load("paged_attention_fused", _bind)
+    code = _DTYPE_CODE[q.dtype]
+    scratch = _scratch("paged_attention_fused",
+                       size(B, K, KV, G, hd, P, code, npages), q.device)
+    counters = _counters_for(q.device, B * KV)
     out = torch.empty_like(q)
-    scratch = torch.empty((size(B, K, KV, G, hd, npages),),
-                          dtype=torch.float32, device=q.device)
     rc = fn(_build.ptr(q), _build.ptr(fast_k), _build.ptr(fast_v),
             _build.ptr(slow_k), _build.ptr(slow_v), _build.ptr(entries),
             entries.stride(0), _build.ptr(k_new), _build.ptr(v_new),
-            _build.ptr(pos), _build.ptr(out), _build.ptr(scratch), B, K, KV,
-            G, hd, P, npages, NP, _DTYPE_CODE[q.dtype],
+            _build.ptr(pos), _build.ptr(out), _build.ptr(scratch),
+            _build.ptr(counters), B, K, KV, G, hd, P, npages, NP, code,
             _build.stream_ptr(q.device))
     if rc != 0:
         raise RuntimeError(f"paged_attention_fused launch failed: "
@@ -138,15 +155,15 @@ def _bind_paged(lib):
     """(split entry, unified entry, scratch-size query)."""
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     split = lib.paged_attention_split
-    split.argtypes = [vp, vp, vp, vp, vp, vp, i64, vp, vp, vp,
+    split.argtypes = [vp, vp, vp, vp, vp, vp, i64, vp, vp, vp, vp,
                       i32, i32, i32, i32, i32, i32, i32, i32, vp]
     split.restype = ctypes.c_int
     unified = lib.paged_attention_unified
-    unified.argtypes = [vp, vp, vp, vp, i64, vp, vp, vp,
+    unified.argtypes = [vp, vp, vp, vp, i64, vp, vp, vp, vp,
                         i32, i32, i32, i32, i32, i32, i32, vp]
     unified.restype = ctypes.c_int
     size = lib.paged_attention_scratch_floats
-    size.argtypes = [i32] * 5
+    size.argtypes = [i32] * 7
     size.restype = ctypes.c_longlong
     return split, unified, size
 
@@ -189,18 +206,13 @@ def _check_read(name, q, pool_pairs, page_table, seq_lens):
                          f"unit column stride")
     if tuple(seq_lens.shape) != (B,) or not seq_lens.is_contiguous():
         raise ValueError(f"{name}: seq_lens must be [{B}]")
-    if _smem_bytes(1, G, hd, P, q.element_size()) > _SMEM_LIMIT:
-        raise ValueError(f"{name}: G rows need more shared memory than one "
-                         f"block has")
     return P
 
 
-def _scratch(size, q, page_table):
-    """The fp32 split scratch of one read (the caller holds it until the
-    launch is enqueued)."""
+def _read_scratch(size, name, q, P, page_table):
     B, KV, G, hd = q.shape
-    return torch.empty((size(B, KV, G, hd, page_table.shape[1]),),
-                       dtype=torch.float32, device=q.device)
+    return _scratch(name, size(B, KV, G, hd, P, _DTYPE_CODE[q.dtype],
+                               page_table.shape[1]), q.device)
 
 
 def paged_attention_split_op(q, fast_k, fast_v, slow_k, slow_v, page_table,
@@ -224,12 +236,13 @@ def paged_attention_split_op(q, fast_k, fast_v, slow_k, slow_v, page_table,
                     seq_lens)
     B, KV, G, hd = q.shape
     split, _, size = _build.load("paged_attention", _bind_paged)
+    scratch = _read_scratch(size, "paged_attention_split", q, P, page_table)
+    counters = _counters_for(q.device, B * KV)
     out = torch.empty_like(q)
-    scratch = _scratch(size, q, page_table)
     rc = split(_build.ptr(q), _build.ptr(fast_k), _build.ptr(fast_v),
                _build.ptr(slow_k), _build.ptr(slow_v), _build.ptr(page_table),
                page_table.stride(0), _build.ptr(seq_lens), _build.ptr(out),
-               _build.ptr(scratch), B, KV, G, hd, P,
+               _build.ptr(scratch), _build.ptr(counters), B, KV, G, hd, P,
                page_table.shape[1], fast_k.shape[0], _DTYPE_CODE[q.dtype],
                _build.stream_ptr(q.device))
     if rc != 0:
@@ -252,13 +265,14 @@ def paged_attention_op(q, k_pool, v_pool, page_table, seq_lens):
                     seq_lens)
     B, KV, G, hd = q.shape
     _, unified, size = _build.load("paged_attention", _bind_paged)
+    scratch = _read_scratch(size, "paged_attention", q, P, page_table)
+    counters = _counters_for(q.device, B * KV)
     out = torch.empty_like(q)
-    scratch = _scratch(size, q, page_table)
     rc = unified(_build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
                  _build.ptr(page_table), page_table.stride(0),
-                 _build.ptr(seq_lens), _build.ptr(out),
-                 _build.ptr(scratch), B, KV, G, hd, P,
-                 page_table.shape[1], _DTYPE_CODE[q.dtype],
+                 _build.ptr(seq_lens), _build.ptr(out), _build.ptr(scratch),
+                 _build.ptr(counters), B, KV, G, hd, P, page_table.shape[1],
+                 _DTYPE_CODE[q.dtype],
                  _build.stream_ptr(q.device))
     if rc != 0:
         raise RuntimeError(f"paged_attention launch failed: cudaError {rc}")

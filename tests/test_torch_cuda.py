@@ -498,3 +498,123 @@ def test_flash_kernel_never_reaches_the_plain_version(cuda, monkeypatch):
         fa_ops.flash_attention_op(*_flash_inputs(cuda, hd=24))
     with pytest.raises(ValueError, match="dtype"):
         fa_ops.flash_attention_op(*(t.half() for t in (q, k, v)))
+
+
+# ---------------------------------------------------------------------------
+# the redesigned kernels: flash attention on the tensor cores, the paged
+# core's page ring and folded merge
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", [1, 4, 8])
+def test_flash_kernel_gqa_groups(cuda, G, hd, dtype):
+    """GQA groups 1, 4 and 8 (the bf16 kernel puts up to 4 heads of a
+    group on one K/V tile, and 16-row tiles per head to fill 4 warps),
+    causal at q_offset 16 over a ragged key block: bf16 within two ulps
+    of each plain value, fp32 (the CUDA-core body) within 1e-4."""
+    q, k, v = _flash_inputs(cuda, B=2, S=80, T=150, H=8, KV=8 // G, hd=hd,
+                            dtype=dtype, seed=G * hd)
+    got = fa_ops.flash_attention_op(q, k, v, q_offset=16)
+    want = _flash_plain(q, k, v, q_offset=16)
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-4
+    else:
+        want = want.to(torch.bfloat16).float()
+        assert ((got.float() - want).abs() <= bf16_tolerance(want)).all()
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rows_independent_at_main_width(cuda):
+    """llama3-8b's attention widths (H 32/8, hd 128, bf16): 256-row chunks
+    at q_offsets 16, 272 and 1008 equal the one-shot call's rows bit for
+    bit, and causally masked extra keys change no row."""
+    S, C = 1280, 256
+    q, k, v = _flash_inputs(cuda, B=1, S=S, H=32, KV=8, hd=128,
+                            dtype=torch.bfloat16, seed=14)
+    full = fa_ops.flash_attention_op(q, k, v)
+    for s in (16, 272, 1008):
+        part = fa_ops.flash_attention_op(q[:, s:s + C].contiguous(), k, v,
+                                         q_offset=s)
+        assert torch.equal(part, full[:, s:s + C]), s
+    k2, v2 = (torch.cat([t, torch.randn_like(t)], dim=1) for t in (k, v))
+    assert torch.equal(fa_ops.flash_attention_op(q, k2, v2), full)
+
+
+def _fused_from_read(d):
+    """The one-token read's store as a fused step: entries from the page
+    table (identity slow homes), pos the last stored row, the step's new
+    rows the rows already stored there."""
+    B, F, P = d["q"].shape[0], d["fast_k"].shape[0], d["fast_k"].shape[2]
+    table = d["page_table"]
+    pos = (d["seq_lens"] - 1).to(torch.int32)
+    p = pos.clamp(min=0).long()
+    j, r = p // P, p % P
+    slot = table[torch.arange(B, device=p.device), j].long()
+    fast = (slot < F)[:, None, None]
+    new = [torch.where(fast, f[slot.clamp(max=F - 1), :, r],
+                       s[(slot - F).clamp(min=0), :, r])[:, None]
+           for f, s in ((d["fast_k"], d["slow_k"]),
+                        (d["fast_v"], d["slow_v"]))]
+    return dict(q=d["q"][:, None], fast_k=d["fast_k"], fast_v=d["fast_v"],
+                slow_k=d["slow_k"], slow_v=d["slow_v"],
+                entries=torch.where(table < F, table, -1).to(torch.int32),
+                k_new=new[0], v_new=new[1], pos=pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_unified_fused_bitwise_at_main_widths(cuda, dtype):
+    """KV 8, G 4, hd 128, page 16 over 40 pages a lane: the split read,
+    the unified read of the concatenated pools and the one-token fused
+    step run one body and agree bit for bit; the idle lane is zeros."""
+    d = _read_inputs(cuda, B=4, KV=8, G=4, hd=128, P=16, NP=40, F=48,
+                     seed=15, dtype=dtype)
+    split = pa_ops.paged_attention_split_op(**d)
+    uni = pa_ops.paged_attention_op(**_unified(d))
+    fused = pa_ops.paged_attention_fused_op(**_fused_from_read(d))[:, 0]
+    live = d["seq_lens"] > 0
+    assert torch.equal(split, uni)
+    assert torch.equal(fused[live], split[live])
+    assert torch.equal(fused[~live], torch.zeros_like(fused[~live]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [1, 2])
+def test_fused_bucket_not_a_multiple_of_split_or_ring(cuda, K, dtype):
+    """13 live pages (no multiple of the 8-page split or the 2-stage
+    ring) against a 40-page table: the bucket equals the full width bit
+    for bit; one lane ends on the ring's last stage (its last live page is
+    page 7, the second page of the split's last warp); the parked lane
+    is zeros; live lanes match the plain version."""
+    P = 16
+    d = _inputs(cuda, B=4, K=K, KV=2, G=4, hd=128, P=P, NP=40, F=6,
+                seed=16 + K, dtype=dtype, live_pages=13)
+    d["pos"][0] = 8 * P - K                # rows end at column 8P-1
+    full = pa_ops.paged_attention_fused_op(**d)
+    bucket = pa_ops.paged_attention_fused_op(
+        **{**d, "entries": d["entries"][:, :13]})
+    live = d["pos"] >= 0
+    assert torch.equal(bucket[live], full[live])
+    assert torch.equal(full[~live], torch.zeros_like(full[~live]))
+    ref = paged_attention_fused_ref(
+        **{k: (v.float() if v.is_floating_point() else v)
+           for k, v in d.items()}).to(dtype).float()
+    tol = 1e-4 if dtype == torch.float32 else bf16_tolerance(ref[live])
+    assert ((full.float()[live] - ref[live]).abs() <= tol).all()
+
+
+@pytest.mark.cuda
+def test_split_read_bucket_equals_full_width(cuda):
+    """The split read over the first 13 table columns (every lane's live
+    pages fit) equals the read over all 40 bit for bit."""
+    d = _read_inputs(cuda, B=4, KV=2, G=4, hd=128, P=16, NP=40, F=48,
+                     seed=17, dtype=torch.bfloat16)
+    d["seq_lens"] = d["seq_lens"].clamp(max=13 * 16)
+    d["seq_lens"][1] = 8 * 16              # the ring's last stage
+    full = pa_ops.paged_attention_split_op(**d)
+    bucket = pa_ops.paged_attention_split_op(
+        **{**d, "page_table": d["page_table"][:, :13]})
+    assert torch.equal(bucket, full)

@@ -27,7 +27,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import (
-    paged_attention_fused_ref, paged_attention_ref, paged_attention_split_ref)
+    bf16_tolerance, paged_attention_fused_ref, paged_attention_ref,
+    paged_attention_split_ref)
 from repro_torch.kernels.remap_gather import ops as rg_ops
 from repro_torch.kernels.remap_gather.ref import remap_gather_ref
 
@@ -277,3 +278,95 @@ def test_flash_op_on_cpu_is_the_plain_version():
     want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                          v.transpose(1, 2), window=24).transpose(1, 2)
     assert got.shape == q.shape and torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the numeric design of the tensor-core flash kernel, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+_EMU_BK = 64          # the kernel's key block, aligned to absolute key 0
+
+
+def _flash_emulate(q, k, v, q_offset, p_terms=2):
+    """The bf16 flash kernel's rounding in plain torch (causal): fp32
+    scores, fixed absolute 64-key blocks under an online softmax, l summed
+    from the fp32 p, P entering P.V as ``p_terms`` bf16 terms (the kernel:
+    hi = bf16(p), lo = bf16(p - hi)), fp32 accumulation, the output
+    rounded to bf16.  q [H,S,hd], k/v [KV,T,hd] fp32 holding bf16 values.
+    Every reduction is per row, so a row's result leans on nothing else."""
+    H, S, hd = q.shape
+    KV, T = k.shape[0], k.shape[1]
+    pos = torch.arange(S) + q_offset
+    n_blk = -(-min(T, q_offset + S) // _EMU_BK)
+    out = torch.empty(H, S, hd)
+    for h in range(H):
+        kk, vv = k[h // (H // KV)], v[h // (H // KV)]
+        m = torch.full((S,), -1e30)
+        l = torch.zeros(S)
+        acc = torch.zeros(S, hd)
+        for blk in range(n_blk):
+            k0 = blk * _EMU_BK
+            n = min(_EMU_BK, T - k0)
+            kb, vb = torch.zeros(_EMU_BK, hd), torch.zeros(_EMU_BK, hd)
+            kb[:n], vb[:n] = kk[k0:k0 + n], vv[k0:k0 + n]
+            s = (q[h][:, None, :] * kb[None]).sum(-1) / hd ** 0.5
+            key = torch.arange(k0, k0 + _EMU_BK)[None]
+            s = torch.where((key < T) & (key <= pos[:, None]), s, -1e30)
+            m_new = torch.maximum(m, s.max(-1).values)
+            p = torch.exp(s - m_new[:, None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[:, None]
+            hi = p.to(torch.bfloat16).float()
+            for term in (hi, (p - hi).to(torch.bfloat16).float())[:p_terms]:
+                acc = acc + (term[:, :, None] * vb[None]).sum(1)
+            m = m_new
+        out[h] = acc / l.clamp_min(1e-30)[:, None]
+    return out.to(torch.bfloat16)
+
+
+def _emu_inputs(S, T, seed, H=8, KV=2, hd=128):
+    """GQA group 4 at hd 128, bf16 values from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.normal(size=s).astype(np.float32)).to(torch.bfloat16).float()
+    return f(H, S, hd), f(KV, T, hd), f(KV, T, hd)
+
+
+def _emu_ratio(q, k, v, q_offset, p_terms):
+    """The emulation's worst error against ``attention_ref`` (fp32, cast
+    to bf16), as a share of the two-ulp bf16 limit."""
+    ref = attention_ref(q[None], k[None], v[None], q_offset=q_offset)[0]
+    ref = ref.to(torch.bfloat16).float()
+    got = _flash_emulate(q, k, v, q_offset, p_terms).float()
+    return ((got - ref).abs() / bf16_tolerance(ref)).max().item()
+
+
+@pytest.mark.parametrize("S,q_offset", [(256, 0), (64, 16), (64, 192)])
+def test_flash_emulated_rounding_within_bf16_limit(S, q_offset):
+    """The kernel's numeric design (P as two bf16 terms) holds the
+    two-ulp limit at S = T = 256 and for 64-row chunks at q_offset 16 and
+    192 over T = 256."""
+    q, k, v = _emu_inputs(256, 256, seed=S + q_offset)
+    q = q[:, q_offset:q_offset + S]
+    assert _emu_ratio(q, k, v, q_offset, p_terms=2) <= 1.0
+
+
+def test_flash_emulated_single_rounding_of_p_breaks_the_limit():
+    """Why P takes two bf16 terms: rounded once, the rows that see few
+    keys carry weights near 1/8 whose rounding is far over the limit on
+    outputs near zero."""
+    q, k, v = _emu_inputs(256, 256, seed=256)
+    assert _emu_ratio(q, k, v, 0, p_terms=1) > 10.0
+
+
+@pytest.mark.parametrize("q_offset", [16, 192])
+def test_flash_emulated_chunk_rows_equal_one_shot_bitwise(q_offset):
+    """The design's rows are a function of the row and the keys alone: a
+    64-row chunk at a page-aligned q_offset equals the one-shot rows bit
+    for bit."""
+    q, k, v = _emu_inputs(256, 256, seed=7)
+    full = _flash_emulate(q, k, v, 0)
+    part = _flash_emulate(q[:, q_offset:q_offset + 64].contiguous(), k, v,
+                          q_offset)
+    assert torch.equal(part, full[:, q_offset:q_offset + 64])
