@@ -21,39 +21,50 @@ prints no result line):
    times (CUDA events), each kernel's share of its bound, its achieved
    GB/s or TFLOP/s and the earlier time PERF.md's table gives for the
    same call (a constant); an
-   irt_lookup sweep over N, kernel beside plain version.
+   irt_lookup sweep over N, kernel beside plain version; the replay of a
+   recorded maintenance pass in one launch (remap_replay) at the main
+   path's pools, bit for bit against the plain per-record replay and
+   timed beside the per-copy chain of launches it replaces, then at the
+   smoke and odd slab sizes; the walk to both homes with the iRC probe
+   folded in (irt_walk2), exact, timed beside the chain it replaces.
 4. main path: llama3-8b at its published width (32 layers, bf16, seeded
    random weights made on the card) served by the tiered engine (its
    one-shot prefill runs the flash kernel); launch counts are reset just
-   before the run and read just after; tokens/s, step times and the wall
-   time by engine phase.
+   before the run and read just after, one copy-engine launch per
+   maintenance pass; tokens/s, step times and the wall time by engine
+   phase.
 5. dense against tiered at full width (2 layers, fp32, teacher-forced,
    maintenance running): logits within 1e-3.
 6. tiered server: ``TieredServer`` over one store at llama3-8b's
    per-layer KV widths (16 lanes of 4096 tokens), the same seeded inputs
    through the zero-copy path (cached and uncached device table), the
    legacy concat path and the fused path; launch counts reset before
-   each path and read after; zero-copy equal to concat bit for bit on
-   every live lane at every step, the cached path served from the device
-   table, a zero-copy step with no host wait.
+   each path and read after (one copy-engine launch per ``maintain()``,
+   the kernel launches of one more zero-copy pass counted by the
+   profiler); zero-copy equal to concat bit for bit on every live lane at
+   every step, the cached path served from the device table, a zero-copy
+   step with no host wait.
 7. chunked prefill + multi-tenant QoS at full width: phase 4's weights
    served by ``Engine(scheduler="chunked", prefill_chunk=256, tenants=
    (interactive: weight 2, on-demand; batch: weight 1))``, 16 requests of
    200-1900 prompt tokens; every request finished, released metadata
    back to identity, 8 finished per tenant, direct-to-fast pages for the
    on-demand tenant, migrations; launch counts reset before the run and
-   read after; tokens/s, TTFT and latency per tenant, wall time by phase.
+   read after, one copy-engine launch per maintenance pass and per
+   admission; tokens/s, TTFT and latency per tenant, wall time by phase.
 8. chunked == one-shot prefill at full width: a 1500-token prompt's K/V
    ingested chunk by chunk against the one-shot ``forward``'s rows, and
    the final chunk's last-row logits; bit for bit, or else within the
    bf16 limit with the measured gap printed.
 
 Output, in order: phase lines, one JSON ``kernels`` line (launches: the
-main path's for paged_attention_fused and remap_gather, the cached
-zero-copy server run's for irt_lookup and paged_attention_split, the
-concat server run's for paged_attention, the chunked run's for
-flash_attention), the card's name and power limit as nvidia-smi reports
-them, and last ``{"ok": true, "device": {...}}``.
+main path's for paged_attention_fused, remap_gather (every launch of the
+copy engine, whose two entries share one copy body) and remap_replay,
+the cached zero-copy server run's for irt_lookup (every launch of the
+walk, whose two entries share one body), irt_walk2 and
+paged_attention_split, the concat server run's for paged_attention, the
+chunked run's for flash_attention), the card's name and power limit as
+nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -71,12 +82,14 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
 # Each kernel's earlier device time (ms) at this script's shapes, before
-# the tensor-core flash kernel and the pipelined paged core, from
-# PERF.md's table (NVIDIA H100 80GB HBM3, 700 W); printed beside this run's
-EARLIER_MS = {"paged_attention_fused": 0.0755, "remap_gather": 0.0073,
-              "irt_lookup": 0.0061, "paged_attention_split": 0.3142,
-              "paged_attention": 0.3080, "flash_attention chunk": 0.6031,
-              "flash_attention one-shot": 1.8568}
+# the one-launch pass replay and the two-home walk, from PERF.md's table
+# (NVIDIA H100 80GB HBM3, 700 W); printed beside this run's.  The replay
+# and the two-home walk have none: each is printed beside the chain of
+# launches it replaces, timed in the same run.
+EARLIER_MS = {"paged_attention_fused": 0.0318, "remap_gather": 0.0070,
+              "irt_lookup": 0.0059, "paged_attention_split": 0.1361,
+              "paged_attention": 0.1352, "flash_attention chunk": 0.0778,
+              "flash_attention one-shot": 0.2596}
 
 
 def _fail(msg: str):
@@ -116,12 +129,15 @@ def _time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
 
 def _vs_bound(name, ms, bound_ms, *, nbytes=None, flops=None):
     """The share of the bound a kernel reached, its achieved rate, and
-    its earlier time for the same call (a constant from PERF.md)."""
+    its earlier time for the same call (a constant from PERF.md), where
+    there is one."""
     rate = (f", {nbytes / ms / 1e6:.1f} GB/s" if nbytes is not None else "") \
         + (f", {flops / ms / 1e9:.1f} TFLOP/s" if flops is not None else "")
-    return (f"{name}: bound/time {bound_ms / ms:.3f}{rate}; {ms:.4f} ms "
-            f"against {EARLIER_MS[name]:.4f} ms earlier (PERF.md constant, "
-            f"{EARLIER_MS[name] / ms:.2f}x)")
+    line = f"{name}: bound/time {bound_ms / ms:.3f}{rate}; {ms:.4f} ms"
+    if name in EARLIER_MS:
+        line += (f" against {EARLIER_MS[name]:.4f} ms earlier (PERF.md "
+                 f"constant, {EARLIER_MS[name] / ms:.2f}x)")
+    return line
 
 
 def _card_line() -> str:
@@ -322,10 +338,150 @@ def kernel_phase(torch, dev):
     print("kernel " + _vs_bound("remap_gather", ms, bound_ms, nbytes=nbytes))
     del pool, got
     torch.cuda.empty_cache()
+    rows.update(replay_rows(torch, dev))
     rows.update(irt_lookup_rows(torch, dev))
     rows.update(paged_read_rows(torch, dev))
     rows.update(flash_rows(torch, dev))
     return rows
+
+
+def _main_pass_records(torch, dev):
+    """A recorded main-path pass, every record enabled: 4 demote
+    copy-backs, then 4 promotions as cb1 -> install -> cb2 (rows (dir,
+    src, dst, en); 144 fast slots, 1024 slow homes), with aliasing chains:
+    promotion 0 installs into the slot the first demotion emptied,
+    promotion 1 re-installs the page promotion 0 copied back, promotion
+    2's cb2 copies back the slot it just installed (so the second window
+    of 8 records runs record by record)."""
+    from repro_torch.kernels.remap_gather.ref import FAST_TO_SLOW, SLOW_TO_FAST
+    recs = [[FAST_TO_SLOW, s, h, 1] for s, h in
+            ((3, 100), (17, 205), (40, 311), (77, 412))]
+    for cb1, ins, cb2 in (((90, 500), (600, 3), (128, 700)),
+                          ((91, 501), (500, 90), (129, 701)),
+                          ((92, 502), (602, 92), (92, 702)),
+                          ((93, 503), (603, 93), (130, 703))):
+        recs += [[FAST_TO_SLOW, *cb1, 1], [SLOW_TO_FAST, *ins, 1],
+                 [FAST_TO_SLOW, *cb2, 1]]
+    return torch.tensor(recs, dtype=torch.int32, device=dev)
+
+
+def _per_copy_chain(torch, rg_ops, pools, recs, err):
+    """The replay the way the pass ran it before the replay kernel: per
+    record and pool one gather launch of the page's rows on every layer,
+    then a masked ``index_copy_`` (a disabled record rewrites the row's
+    own bytes), src, dst and en read on the card.  Timed beside the one
+    launch that replaces it."""
+    from repro_torch.kernels.remap_gather.ref import FAST_TO_SLOW
+    fk, fv, sk, sv = pools
+    L = fk.shape[0]
+    layer = torch.arange(L, dtype=torch.int32, device=fk.device)
+    dirs = [r[0] for r in recs.tolist()]
+
+    def run():
+        for i, d in enumerate(dirs):
+            s, t, en = recs[i, 1], recs[i, 2], recs[i, 3] != 0
+            for fast, slow in ((fk, sk), (fv, sv)):
+                src, dst = (fast, slow) if d == FAST_TO_SLOW else (slow, fast)
+                n = src.shape[1]
+                pages = rg_ops.remap_gather_op(
+                    src.view(L * n, -1, src.shape[-1]),
+                    (torch.where(en, s, 0) + layer * n).to(torch.int32),
+                    err).view((L,) + tuple(src.shape[2:]))
+                di = torch.where(en, t, 0).reshape(1).long()
+                cur = dst.index_select(1, di)[:, 0]
+                dst.index_copy_(1, di, torch.where(en, pages, cur)[:, None])
+    return run
+
+
+def replay_rows(torch, dev):
+    """remap_replay, the maintenance pass's copies in one launch, at the
+    main path's shapes: llama3-8b's stacked bf16 pools (32 layers, 144
+    fast slots and 1024 slow homes of KV 8 x page 16 x hd 128) and a
+    recorded pass of 4 demotions and 4 promotions, every record enabled,
+    with aliasing chains: bit for bit against the plain per-record replay;
+    kernel, plain, bound and per-copy-chain times.  Then bit for bit at
+    the smoke slab (fp32, KV 2 x page 8 x hd 16) and at odd slabs (60
+    and 30 bytes: the 4- and 1-byte word paths) over 600 aliasing records
+    on 3 layers; an enabled record outside its pool writes nothing and
+    raises the flag, a disabled one with garbage indices is never read."""
+    from repro_torch.kernels.remap_gather import ops as rg_ops
+    from repro_torch.kernels.remap_gather.ref import remap_replay_ref
+
+    L, F, S = 32, 144, 1024
+    g = torch.Generator(device=dev)
+    g.manual_seed(21)
+    pools = [torch.randn((L, n, 8, 16, 128), generator=g,
+                         device=dev).to(torch.bfloat16) for n in (F, F, S, S)]
+    recs = _main_pass_records(torch, dev)
+    kern = [x.clone() for x in pools]
+    err = rg_ops.new_flag(dev)
+    rg_ops.remap_replay_op(kern, recs, err)
+    rg_ops.check_flag(err)
+    remap_replay_ref(pools, recs)
+    _check(all(torch.equal(a, b) for a, b in zip(kern, pools)),
+           "remap_replay differs from its plain version at the main path's "
+           "shapes")
+    del kern
+    torch.cuda.empty_cache()
+    ms = _time_ms(lambda: rg_ops.remap_replay_op(pools, recs, err))
+    plain_ms = _time_ms(lambda: remap_replay_ref(pools, recs), reps=5)
+    chain_ms = _time_ms(_per_copy_chain(torch, rg_ops, pools, recs, err),
+                        reps=5)
+    rg_ops.check_flag(err)
+    n_en = int(recs[:, 3].sum())
+    slab = pools[0][0, 0].numel() * pools[0].element_size()
+    nbytes = n_en * 2 * L * slab * 2 + recs.numel() * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"kernel remap_replay bf16 main pass ({recs.shape[0]} records, "
+          f"{n_en} enabled, L={L}, {slab // 1024} KiB slabs): exact, one "
+          f"launch {ms:.4f} ms, plain per-record version {plain_ms:.4f} ms, "
+          f"per-copy chain ({2 * recs.shape[0]} gathers with their "
+          f"index_copy_) {chain_ms:.4f} ms ({chain_ms / ms:.1f}x), bound "
+          f"{bound_ms:.4f} ms (bytes, {nbytes / 2**20:.0f} MiB)")
+    print("kernel " + _vs_bound("remap_replay", ms, bound_ms, nbytes=nbytes))
+    del pools
+    torch.cuda.empty_cache()
+
+    rng = torch.Generator().manual_seed(22)
+    n = 600
+    d = torch.randint(0, 2, (n,), generator=rng, dtype=torch.int32)
+    src = torch.where(d == 0, torch.randint(0, 5, (n,), generator=rng),
+                      torch.randint(0, 9, (n,), generator=rng))
+    dst = torch.where(d == 0, torch.randint(0, 9, (n,), generator=rng),
+                      torch.randint(0, 5, (n,), generator=rng))
+    en = torch.rand((n,), generator=rng) < 0.8
+    small = torch.stack([d, torch.where(en, src, -(1 << 30)).int(),
+                         torch.where(en, dst, (1 << 30) + 5).int(),
+                         en.int()], 1).contiguous().to(dev)
+    for dtype, page in ((torch.float32, (2, 8, 16)),
+                        (torch.float32, (1, 3, 5)),
+                        (torch.bfloat16, (1, 3, 5))):
+        p = [torch.randn((3, m) + page, generator=g, device=dev).to(dtype)
+             for m in (5, 5, 9, 9)]
+        kern = [x.clone() for x in p]
+        rg_ops.remap_replay_op(kern, small, err)
+        rg_ops.check_flag(err)
+        remap_replay_ref(p, small)
+        _check(all(torch.equal(a, b) for a, b in zip(kern, p)),
+               f"remap_replay differs from its plain version at {dtype} "
+               f"page {page}")
+    before = [x.clone() for x in kern]
+    rg_ops.remap_replay_op(kern, torch.tensor(
+        [[0, 0, 9, 1], [1, 1 << 30, -5, 0]], dtype=torch.int32, device=dev),
+        err)
+    _check(bool(err.item()) and all(torch.equal(a, b)
+                                    for a, b in zip(kern, before)),
+           "remap_replay: an enabled record outside its pool wrote or was "
+           "not flagged")
+    print(f"kernel remap_replay smoke and odd slabs (1024, 60, 30 bytes; "
+          f"{n} records, {int(en.sum())} enabled, 3 layers): exact; an "
+          f"out-of-range record flagged and dropped")
+    return {"remap_replay": dict(
+        name="remap_replay", route="cuda",
+        source="src/repro_torch/kernels/remap_gather/csrc/remap_gather.cu",
+        replaces="src/repro/kernels/remap_gather/remap_gather.py:24",
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by="bytes", library_ms=None)}
 
 
 def _irt_table(torch, dev, n_ids, seed):
@@ -380,8 +536,70 @@ def irt_lookup_rows(torch, dev):
         print(f"kernel irt_lookup sweep N={n}: kernel {k_ms:.4f} ms, plain "
               f"{p_ms:.4f} ms ({p_ms / k_ms:.2f}x), exact")
     print(f"kernel irt_lookup sweep {json.dumps(sweep)}")
-    return {"irt_lookup": dict(
+    rows = {"irt_lookup": dict(
         name="irt_lookup", route="cuda",
+        source="src/repro_torch/kernels/irt_lookup/csrc/irt_lookup.cu",
+        replaces="src/repro/kernels/irt_lookup/irt_lookup.py:50",
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by="bytes", library_ms=None)}
+    rows.update(walk2_rows(torch, dev, walk_inputs))
+    return rows
+
+
+def walk2_rows(torch, dev, walk_inputs):
+    """irt_walk2 (the walk to both homes with the iRC probe folded in) at
+    the server's call (N = 4096, base 576 fast slots, a seeded probe with
+    half the ids hit), exact against its plain version; beside it the
+    chain it replaces in the translation (the one-home kernel to INVALID,
+    then the comparison and three ``where``s); exact at N = 1 and
+    65536."""
+    from repro_torch.kernels.irt_lookup import ops as irt_ops
+    from repro_torch.kernels.irt_lookup.ref import irt_walk2_ref
+
+    def inputs(N, seed):
+        ids, _, l1, ent = walk_inputs(N, seed)
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        hit = torch.rand(N, generator=g, device=dev) < 0.5
+        probe = (hit, torch.randint(0, 576, (N,), generator=g, device=dev,
+                                    dtype=torch.int32),
+                 hit & (torch.rand(N, generator=g, device=dev) < 0.5))
+        return ids, l1, ent, probe
+
+    base = 576
+    for N in (1, 65536, 4096):
+        ids, l1, ent, probe = inputs(N, 30 + N)   # the last: timed below
+        for pr in (None, probe):
+            got = irt_ops.irt_walk2_op(ids, base, l1, ent, pr)
+            want = irt_walk2_ref(ids, base, l1, ent, pr)
+            _check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                   f"irt_walk2 differs from its plain version at N = {N}")
+
+    def chain():
+        walked = irt_ops.irt_lookup_op(ids, torch.full_like(ids, -1), l1, ent)
+        home = base + ids
+        dev_walk = torch.where(walked == -1, home, walked)
+        hit, val, id_hit = probe
+        return walked, torch.where(hit, torch.where(id_hit, home, val),
+                                   dev_walk)
+
+    _check(all(torch.equal(a, b) for a, b in zip(
+        chain(), irt_ops.irt_walk2_op(ids, base, l1, ent, probe))),
+        "irt_walk2 differs from the chain it replaces")
+    ms = _time_ms(lambda: irt_ops.irt_walk2_op(ids, base, l1, ent, probe))
+    plain_ms = _time_ms(lambda: irt_walk2_ref(ids, base, l1, ent, probe))
+    chain_ms = _time_ms(chain)
+    N = ids.numel()
+    nbytes = (4 + 4 + 1 + 4 + 1 + 2 * 4) * N + 4 * l1.numel()
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"kernel irt_walk2 at the server's N = {N} (probe folded in): "
+          f"exact (and at N = 1, 65536, with and without the probe), "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, the chain it replaces "
+          f"(one-home kernel + 5 launches) {chain_ms:.4f} ms "
+          f"({chain_ms / ms:.2f}x), bound {bound_ms:.6f} ms (bytes)")
+    print("kernel " + _vs_bound("irt_walk2", ms, bound_ms, nbytes=nbytes))
+    return {"irt_walk2": dict(
+        name="irt_walk2", route="cuda",
         source="src/repro_torch/kernels/irt_lookup/csrc/irt_lookup.cu",
         replaces="src/repro/kernels/irt_lookup/irt_lookup.py:50",
         max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -728,7 +946,7 @@ def main_path_phase(torch, dev, cfg, params):
     be.release = timed("release", be.release)
     torch.cuda.reset_peak_memory_stats()
     pa_ops.launches = 0
-    rg_ops.launches = 0
+    rg_ops.launches = rg_ops.replay_launches = 0
     fa_ops.launches = 0
     try:
         t0 = time.perf_counter()
@@ -738,8 +956,10 @@ def main_path_phase(torch, dev, cfg, params):
     finally:
         eng_mod.decode_step = real
     launches = {"paged_attention_fused": pa_ops.launches,
-                "remap_gather": rg_ops.launches}
+                "remap_gather": rg_ops.launches,
+                "remap_replay": rg_ops.replay_launches}
     prefill_flash = fa_ops.launches
+    passes = len(spent.get("maintenance apply", []))
     peak = torch.cuda.max_memory_allocated()
     c = eng.counters
     n_tok = sum(len(r.tokens) for r in done)
@@ -752,7 +972,10 @@ def main_path_phase(torch, dev, cfg, params):
     _check(launches["paged_attention_fused"] == eng.steps * cfg.n_layers,
            f"paged_attention_fused launches {launches} != steps "
            f"{eng.steps} x {cfg.n_layers}")
-    _check(launches["remap_gather"] > 0, "remap_gather never launched")
+    _check(passes > 0 and launches["remap_replay"] == passes
+           and launches["remap_gather"] == passes,
+           f"copy-engine launches {launches} != one replay per maintenance "
+           f"pass ({passes})")
     _check(prefill_flash == len(spent["prefill"]) * cfg.n_layers,
            f"flash_attention launches {prefill_flash} != prefills x layers")
     _check(c["promo_bytes"] > 0, "no page was promoted")
@@ -774,7 +997,8 @@ def main_path_phase(torch, dev, cfg, params):
           f"{lat[-1]:.2f} s; time to first token p50 "
           f"{ttft[len(ttft) // 2]:.2f} s, max {ttft[-1]:.2f} s (all 16 "
           f"submitted at once)")
-    print(f"main: launches {json.dumps(launches)}; flash_attention "
+    print(f"main: launches {json.dumps(launches)} (one replay per "
+          f"maintenance pass, {passes} passes); flash_attention "
           f"{prefill_flash} (the one-shot prefills)")
     totals = {k: v for k, v in c.items() if not k.startswith("epoch_")}
     print(f"main: counters {json.dumps(totals)}")
@@ -887,11 +1111,13 @@ def make_server(torch, dev, tcfg, path):
     return srv
 
 
-def server_run(torch, dev, path, cached, inputs, *, check_waits=False):
+def server_run(torch, dev, path, cached, inputs, *, check_waits=False,
+               count_pass=False):
     """One ``TieredServer`` run over the seeded inputs: 64 steps,
     ``maintain()`` every 4 steps, lane 0 released before step 32 and
     restarted at position 0.  Launch counts are reset just before the run
-    and read just after."""
+    and read just after.  ``count_pass``: after the run, one more
+    ``maintain()`` under the profiler, counting its kernel launches."""
     import dataclasses as dc
 
     from repro_torch.core.remap.irt import INVALID
@@ -909,7 +1135,8 @@ def server_run(torch, dev, path, cached, inputs, *, check_waits=False):
     outs, lives, step_ms, maint_ms = [], [], [], []
     released_clean = None
     pa_ops.launches = pa_ops.split_launches = pa_ops.unified_launches = 0
-    irt_ops.launches = rg_ops.launches = 0
+    irt_ops.launches = irt_ops.walk2_launches = 0
+    rg_ops.launches = rg_ops.replay_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(SERVER_STEPS):
@@ -945,10 +1172,21 @@ def server_run(torch, dev, path, cached, inputs, *, check_waits=False):
     wall = time.perf_counter() - t0
     launches = {"paged_attention_fused": pa_ops.launches,
                 "remap_gather": rg_ops.launches,
+                "remap_replay": rg_ops.replay_launches,
                 "irt_lookup": irt_ops.launches,
+                "irt_walk2": irt_ops.walk2_launches,
                 "paged_attention_split": pa_ops.split_launches,
                 "paged_attention": pa_ops.unified_launches}
     c = srv.counters
+    pass_launches = None
+    if count_pass:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            srv.maintain()
+            torch.cuda.synchronize()
+        pass_launches = sum(1 for e in prof.events()
+                            if "LaunchKernel" in e.name)
     pool_bytes = sum(getattr(srv.state, f).numel()
                      * getattr(srv.state, f).element_size()
                      for f in ("fast_k", "fast_v", "slow_k", "slow_v"))
@@ -958,7 +1196,8 @@ def server_run(torch, dev, path, cached, inputs, *, check_waits=False):
     res = dict(outs=outs, lives=lives, counters=c, launches=launches,
                wall=wall, step_ms=sorted(step_ms), maint_ms=maint_ms,
                copied=copied, peak=torch.cuda.max_memory_allocated() - base,
-               released_clean=released_clean, n_logical=tcfg.n_logical)
+               released_clean=released_clean, n_logical=tcfg.n_logical,
+               pass_launches=pass_launches)
     del srv
     torch.cuda.empty_cache()
     return res
@@ -981,7 +1220,8 @@ def server_phase(torch, dev):
     runs = {}
     for label, path, cached in SERVER_PATHS:
         runs[label] = res = server_run(torch, dev, path, cached, inputs,
-                                       check_waits=label == "zero_copy")
+                                       check_waits=label == "zero_copy",
+                                       count_pass=label == "zero_copy")
         n = SERVER_STEPS
         sm = res["step_ms"]
         c = res["counters"]
@@ -1028,13 +1268,25 @@ def server_phase(torch, dev):
         rc = res["counters"]
         _check(rc["migrations"] + rc["demotions"] > 0,
                f"server {label}: no page moved")
+        n_pass = len(res["maint_ms"])
+        _check(res["launches"]["remap_replay"] == n_pass
+               and res["launches"]["remap_gather"] == n_pass,
+               f"server {label}: copy-engine launches {res['launches']} != "
+               f"one replay per maintenance pass ({n_pass})")
+    _check(zc["launches"]["irt_walk2"] == zc["launches"]["irt_lookup"] > 0,
+           f"server zero_copy: walk launches {zc['launches']}")
+    print(f"server: one copy-engine launch per maintain() pass on every "
+          f"path; a zero_copy maintain() pass makes "
+          f"{zc['pass_launches']} kernel launches (torch.profiler)")
     launches = {k: runs["zero_copy"]["launches"][k]
-                for k in ("irt_lookup", "paged_attention_split")}
+                for k in ("irt_lookup", "irt_walk2",
+                          "paged_attention_split")}
     launches["paged_attention"] = runs["concat"]["launches"]["paged_attention"]
     total = {k: sum(r["launches"][k] for r in runs.values())
              for k in runs["zero_copy"]["launches"]}
-    for k in ("irt_lookup", "paged_attention_split", "paged_attention",
-              "remap_gather", "paged_attention_fused"):
+    for k in ("irt_lookup", "irt_walk2", "paged_attention_split",
+              "paged_attention", "remap_gather", "remap_replay",
+              "paged_attention_fused"):
         _check(total[k] > 0, f"server phase: {k} never launched")
     print(f"server: a zero-copy step ran with no host wait (sync debug mode "
           f"'error'); launches over the phase {json.dumps(total)}")
@@ -1102,6 +1354,7 @@ def chunked_qos_phase(torch, dev, cfg, params):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa_ops.launches = pa_ops.launches = rg_ops.launches = 0
+    rg_ops.replay_launches = 0
     try:
         t0 = time.perf_counter()
         done = eng.run()
@@ -1111,7 +1364,10 @@ def chunked_qos_phase(torch, dev, cfg, params):
         eng_mod.decode_step = real_step
     launches = {"flash_attention": fa_ops.launches,
                 "paged_attention_fused": pa_ops.launches,
-                "remap_gather": rg_ops.launches}
+                "remap_gather": rg_ops.launches,
+                "remap_replay": rg_ops.replay_launches}
+    copies = len(spent.get("maintenance", [])) \
+        + len(spent.get("admission", []))
     peak = torch.cuda.max_memory_allocated()
     stats = eng.request_stats(done)
     fair = stats["fairness"]
@@ -1141,6 +1397,9 @@ def chunked_qos_phase(torch, dev, cfg, params):
                + len(spent.get("one-shot prefill", []))) * cfg.n_layers,
            f"chunked: flash_attention launches {launches['flash_attention']}"
            f" != chunks x layers")
+    _check(launches["remap_replay"] == launches["remap_gather"] == copies,
+           f"chunked: copy-engine launches {launches} != one replay per "
+           f"maintenance pass and admission ({copies})")
     print(f"chunked: {len(done)} requests, {n_tok} tokens, {eng.steps} "
           f"engine steps in {wall:.2f} s: {n_tok / wall:.1f} tokens/s end to "
           f"end; {eng.releases} releases, released metadata back to "

@@ -31,7 +31,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 CLASSES = (("paged_attention_fused", ("paged_attention", "paged_kernel")),
            ("flash_attention", ("flash",)),
-           ("remap_gather", ("remap_gather",)),
+           ("remap_gather", ("remap_gather", "remap_replay")),
            ("matmul", ("gemm", "gemv", "nvjet", "xmma", "cutlass",
                        "splitk")),
            ("copy/cast", ("copy", "cast", "fill", "memcpy", "memset")),

@@ -25,8 +25,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 CLASSES = (("paged attention", ("paged_attention", "paged_kernel")),
-           ("irt_lookup", ("irt_lookup",)),
-           ("remap_gather", ("remap_gather",)),
+           ("irt_lookup", ("irt_lookup", "irt_walk2")),
+           ("remap_gather", ("remap_gather", "remap_replay")),
            ("copy/cast", ("copy", "cast", "fill", "memcpy", "memset",
                           "cat")),
            ("index/scatter", ("index", "scatter", "gather")),

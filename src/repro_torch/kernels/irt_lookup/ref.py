@@ -1,5 +1,5 @@
-"""Plain PyTorch version of the two-level iRT walk (port of
-``repro.kernels.irt_lookup.ref``)."""
+"""Plain PyTorch versions of the two-level iRT walk (port of
+``repro.kernels.irt_lookup.ref``) and of the walk with both homes."""
 
 from __future__ import annotations
 
@@ -22,3 +22,18 @@ def irt_lookup_ref(ids, home, l1_bits, leaf_table):
     entries = leaf_table[i]
     return torch.where(allocated & (entries != INVALID), entries,
                        home).to(torch.int32)
+
+
+def irt_walk2_ref(ids, base: int, l1_bits, leaf_table, probe=None):
+    """The walk with both homes at once: (walked, dev), each [N] int32.
+    ``walked`` defaults to INVALID, ``dev`` to ``base + id``; with the iRC
+    probe's ``(hit, val, id_hit)`` ``dev`` is the whole translation: a hit
+    takes ``val`` (``base + id`` on an identity hit), a miss the walk."""
+    walked = irt_lookup_ref(ids, torch.full_like(ids, INVALID), l1_bits,
+                            leaf_table)
+    home = base + ids
+    dev = torch.where(walked == INVALID, home, walked)
+    if probe is not None:
+        hit, val, id_hit = probe
+        dev = torch.where(hit, torch.where(id_hit, home, val), dev)
+    return walked, dev.to(torch.int32)

@@ -25,8 +25,11 @@ Differences from the reference, all invisible to its results:
   holding non-finite bytes (a NaN behind a masked column would reach the
   output through ``0 * NaN``).
 
-Page copies go through the migration gather (``kernels/remap_gather``);
-the scatter half is a masked ``index_copy_``.
+A maintenance pass's or an admission's page copies are recorded by the
+metadata moves and replayed over the [L, ...] pools in one launch of the
+copy engine (``kernels/remap_gather``, ``remap_replay_op``); the
+unstacked ``migrate_one`` / ``demote_one`` gather one page at a time
+(``remap_gather_op``).
 """
 
 from __future__ import annotations
@@ -46,7 +49,9 @@ from repro_torch.core.remap import rcache as rc_ops
 from repro_torch.core.remap.irt import E, INVALID
 from repro_torch.core.remap.rcache import RemapCacheGeometry
 from repro_torch.device import torch_dtype
+from repro_torch.kernels.irt_lookup.ops import irt_walk2_op
 from repro_torch.kernels.remap_gather import ops as rg_ops
+from repro_torch.kernels.remap_gather.ref import FAST_TO_SLOW, SLOW_TO_FAST
 
 I32 = torch.int32
 
@@ -224,17 +229,15 @@ def logical_page(cfg: TieredConfig, seq, j):
 
 def _translate(cfg: TieredConfig, st: TieredState, ids, enable):
     """The metadata path for page ids [N]: iRC probe, then the parallel
-    two-level iRT walk (``irt.walk``: the ``irt_lookup`` kernel on a
-    card).  iRC fills and counters are masked by ``enable``.  Returns
-    (device slots [N], meaningful on enabled lanes; state)."""
+    two-level iRT walk to both homes with the probe folded in
+    (``irt_walk2_op``: one kernel launch on a card; the reference
+    walks to INVALID and selects with ``where``s, the same values).  iRC
+    fills and counters are masked by ``enable``.  Returns (device slots
+    [N], meaningful on enabled lanes; state)."""
     rcg = cfg.rc_geometry
     hit, val, id_hit = rc_ops.probe(rcg, _rc_view(st), ids)
-    home = cfg.fast_slots + ids
-    walked = irt_ops.walk(ids, torch.full_like(ids, INVALID), st.l1_bits,
-                          st.leaf_table)
-    dev_walk = torch.where(walked == INVALID, home, walked)
-    dev_irc = torch.where(id_hit, home, val)
-    dev = torch.where(hit, dev_irc, dev_walk)
+    walked, dev = irt_walk2_op(ids, cfg.fast_slots, st.l1_bits,
+                               st.leaf_table, probe=(hit, val, id_hit))
     st = st._replace(**rc_ops.fill(rcg, _rc_view(st), ids, walked,
                                    st.leaf_table, enable & ~hit))
     st = st._replace(
@@ -636,52 +639,36 @@ def run_scheduler_tenants(cfg: TieredConfig, st: TieredState, page_tenant,
 # layer-stacked maintenance: metadata once, copies replayed over [L, ...]
 # ---------------------------------------------------------------------------
 
-def _copy_page_stacked(dst_pool, src_pool, src, dst, en, err):
-    """Replay one recorded page copy on every layer of a [L, n, KV, P, hd]
-    pool pair: gather row ``src`` of each layer through the migration
-    kernel (``err``: the pass's out-of-range flag), write it to row
-    ``dst`` (a masked ``index_copy_``: a disabled copy writes the row's own
-    bytes back)."""
-    L, n_src = src_pool.shape[:2]
-    KV, P, hd = src_pool.shape[2:]
-    rows = (torch.where(en, src, 0)
-            + torch.arange(L, dtype=I32, device=src_pool.device) * n_src)
-    pages = rg_ops.remap_gather_op(src_pool.view(L * n_src, KV * P, hd),
-                                   rows.to(I32), err).view(L, KV, P, hd)
-    d = torch.where(en, dst, 0).reshape(1).long()
-    cur = dst_pool.index_select(1, d)[:, 0]
-    dst_pool.index_copy_(1, d, torch.where(en, pages, cur)[:, None])
+def _pass_records(ddesc, pdesc):
+    """A pass's recorded copies as one int32 table [n_rec, 4] of (dir,
+    src, dst, en) rows, built on the device in the order the metadata pass
+    recorded them: all demote copy-backs, then per promotion victim
+    copy-back -> install -> forced-evict copy-back.  None: no copies."""
+    def rows(direction, desc, kind):
+        src = desc[kind + "_src"].to(I32)
+        return [torch.full_like(src, direction), src,
+                desc[kind + "_dst"].to(I32), desc[kind + "_en"].to(I32)]
+
+    parts = []
+    if ddesc is not None:
+        parts.append(torch.stack(rows(FAST_TO_SLOW, ddesc, "cb1"), -1))
+    if pdesc is not None:
+        parts.append(torch.stack(
+            rows(FAST_TO_SLOW, pdesc, "cb1") + rows(SLOW_TO_FAST, pdesc, "in")
+            + rows(FAST_TO_SLOW, pdesc, "cb2"), -1).view(-1, 4))
+    return torch.cat(parts) if parts else None
 
 
 def _replay_descs(pools, ddesc, pdesc):
     """Apply recorded maintenance copies to the stacked pools in exactly
-    the order the metadata pass recorded them: all demote copy-backs, then
-    per promotion victim copy-back -> install -> forced-evict copy-back.
-    Moves replay one after another; layers replay together.  Every gather
-    of the pass raises one shared out-of-range flag, read once at the
-    end."""
-    fk, fv, sk, sv = pools
-    err = rg_ops.new_flag(fk.device)
-    if ddesc is not None:
-        for i in range(ddesc["cb1_en"].shape[0]):
-            for dst, src in ((sk, fk), (sv, fv)):
-                _copy_page_stacked(dst, src, ddesc["cb1_src"][i],
-                                   ddesc["cb1_dst"][i], ddesc["cb1_en"][i],
-                                   err)
-    if pdesc is not None:
-        for i in range(pdesc["in_en"].shape[0]):
-            for dst, src in ((sk, fk), (sv, fv)):
-                _copy_page_stacked(dst, src, pdesc["cb1_src"][i],
-                                   pdesc["cb1_dst"][i], pdesc["cb1_en"][i],
-                                   err)
-            for dst, src in ((fk, sk), (fv, sv)):
-                _copy_page_stacked(dst, src, pdesc["in_src"][i],
-                                   pdesc["in_dst"][i], pdesc["in_en"][i],
-                                   err)
-            for dst, src in ((sk, fk), (sv, fv)):
-                _copy_page_stacked(dst, src, pdesc["cb2_src"][i],
-                                   pdesc["cb2_dst"][i], pdesc["cb2_en"][i],
-                                   err)
+    the order the metadata pass recorded them (``_pass_records``), every
+    layer alike, in one launch of the copy engine's replay
+    (``remap_replay_op``); its out-of-range flag is read once."""
+    recs = _pass_records(ddesc, pdesc)
+    if recs is None:
+        return
+    err = rg_ops.new_flag(pools[0].device)
+    rg_ops.remap_replay_op(pools, recs, err)
     rg_ops.check_flag(err)
 
 

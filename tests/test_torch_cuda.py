@@ -15,7 +15,9 @@ from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import (
     bf16_tolerance, paged_attention_fused_ref, paged_attention_split_ref)
 from repro_torch.kernels.remap_gather import ops as rg_ops
-from repro_torch.kernels.remap_gather.ref import remap_gather_ref
+from repro_torch.kernels.remap_gather.ref import (FAST_TO_SLOW, SLOW_TO_FAST,
+                                                  remap_gather_ref,
+                                                  remap_replay_ref)
 
 
 @pytest.fixture
@@ -129,6 +131,143 @@ def test_remap_gather_kernel_exact_and_checked(cuda):
     assert np.isfinite(pool.float().cpu().numpy()).all()
 
 
+def _replay_pools(device, L, n_fast, n_slow, page, dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn((L, n) + page, generator=g, device=device).to(dtype)
+            for n in (n_fast, n_fast, n_slow, n_slow)]
+
+
+def _main_pass_records(device):
+    """A recorded main-path pass, every record enabled: 4 demote
+    copy-backs, then 4 promotions as cb1 -> install -> cb2, with aliasing
+    chains: promotion 0 installs into the slot the first demotion emptied,
+    promotion 1 re-installs the page promotion 0 copied back, promotion 2's
+    cb2 copies back the slot it just installed (144 fast slots, 1024 slow
+    homes)."""
+    recs = [[FAST_TO_SLOW, s, h, 1] for s, h in
+            ((3, 100), (17, 205), (40, 311), (77, 412))]
+    for cb1, ins, cb2 in (((90, 500), (600, 3), (128, 700)),
+                          ((91, 501), (500, 90), (129, 701)),
+                          ((92, 502), (602, 92), (92, 702)),
+                          ((93, 503), (603, 93), (130, 703))):
+        recs += [[FAST_TO_SLOW, *cb1, 1], [SLOW_TO_FAST, *ins, 1],
+                 [FAST_TO_SLOW, *cb2, 1]]
+    return torch.tensor(recs, dtype=torch.int32, device=device)
+
+
+def _random_records(device, n, n_fast, n_slow, seed):
+    """``n`` records over small pools (aliasing everywhere), a fifth
+    disabled with garbage indices."""
+    g = torch.Generator().manual_seed(seed)
+    d = torch.randint(0, 2, (n,), generator=g, dtype=torch.int32)
+    src = torch.where(d == FAST_TO_SLOW,
+                      torch.randint(0, n_fast, (n,), generator=g),
+                      torch.randint(0, n_slow, (n,), generator=g))
+    dst = torch.where(d == FAST_TO_SLOW,
+                      torch.randint(0, n_slow, (n,), generator=g),
+                      torch.randint(0, n_fast, (n,), generator=g))
+    en = torch.rand((n,), generator=g) < 0.8
+    src = torch.where(en, src, -(1 << 30))
+    dst = torch.where(en, dst, (1 << 30) + 5)
+    return torch.stack([d, src.int(), dst.int(), en.int()], 1) \
+        .contiguous().to(device)
+
+
+def _replay_both(pools, recs):
+    """(kernel result, plain result) from the same pools; the kernel's
+    flag must stay clear."""
+    kern = [x.clone() for x in pools]
+    plain = [x.clone() for x in pools]
+    err = rg_ops.new_flag(pools[0].device)
+    before = rg_ops.replay_launches
+    rg_ops.remap_replay_op(kern, recs, err)
+    assert rg_ops.replay_launches == before + 1
+    rg_ops.check_flag(err)
+    remap_replay_ref(plain, recs)
+    return kern, plain
+
+
+@pytest.mark.cuda
+def test_remap_replay_kernel_bitwise_at_main_shapes(cuda):
+    """One launch replays a recorded main-path pass over llama3-8b's
+    stacked bf16 pools (32 layers, 144 fast slots, 1024 slow homes, KV 8 x
+    page 16 x hd 128): every pool equals the plain per-record replay bit
+    for bit, aliasing chains included."""
+    pools = _replay_pools(cuda, 32, 144, 1024, (8, 16, 128), torch.bfloat16,
+                          seed=0)
+    kern, plain = _replay_both(pools, _main_pass_records(cuda))
+    for a, b in zip(kern, plain):
+        assert torch.equal(a, b)
+    assert not torch.equal(kern[0], pools[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,page", [
+    (torch.float32, (2, 8, 16)),            # 1024-byte slabs: 16-byte words
+    (torch.float32, (1, 3, 5)),             # 60 bytes: 4-byte words
+    (torch.bfloat16, (1, 3, 5)),            # 30 bytes: 1-byte words
+    (torch.bfloat16, (8, 16, 128))])
+def test_remap_replay_kernel_word_paths_and_chains(cuda, dtype, page):
+    """Every word path at the smoke and odd slab sizes, over 600 records
+    on 5 fast and 9 slow pages (aliasing chains within and across windows,
+    and records in three shared-memory segments), on 3 layers: bit for bit
+    against the plain replay."""
+    pools = _replay_pools(cuda, 3, 5, 9, page, dtype, seed=1)
+    kern, plain = _replay_both(pools, _random_records(cuda, 600, 5, 9, 2))
+    for a, b in zip(kern, plain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_remap_replay_kernel_flags_out_of_range_and_skips_disabled(cuda):
+    """An enabled record outside its pools writes nothing and sets the
+    flag; the records around it still apply; a disabled record's indices
+    are never read or checked."""
+    pools = _replay_pools(cuda, 2, 4, 6, (2, 8, 16), torch.float32, seed=3)
+    before = [x.clone() for x in pools]
+    recs = torch.tensor([[FAST_TO_SLOW, 1, 2, 1],
+                         [FAST_TO_SLOW, 0, 6, 1],        # dst outside
+                         [SLOW_TO_FAST, 9, 0, 1],        # src outside
+                         [5, 0, 0, 1],                   # no such direction
+                         [SLOW_TO_FAST, 1 << 30, -(1 << 30), 0],
+                         [SLOW_TO_FAST, 3, 3, 1]], dtype=torch.int32,
+                        device=cuda)
+    err = rg_ops.new_flag(cuda)
+    rg_ops.remap_replay_op(pools, recs, err)
+    with pytest.raises(IndexError):
+        rg_ops.check_flag(err)
+    want = [x.clone() for x in before]
+    remap_replay_ref(want, recs[[0, 5]])
+    for a, b in zip(pools, want):
+        assert torch.equal(a, b)
+    err = rg_ops.new_flag(cuda)
+    rg_ops.remap_replay_op(pools, recs[[4]], err)
+    rg_ops.check_flag(err)                        # a disabled one: clear
+    for a, b in zip(pools, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_remap_replay_rejects_what_it_does_not_take(cuda):
+    pools = _replay_pools(cuda, 2, 4, 6, (2, 8, 16), torch.float32, seed=4)
+    recs = torch.tensor([[FAST_TO_SLOW, 1, 2, 1]], dtype=torch.int32,
+                        device=cuda)
+    err = rg_ops.new_flag(cuda)
+    with pytest.raises(ValueError):
+        rg_ops.remap_replay_op(pools, recs.long(), err)
+    with pytest.raises(ValueError):
+        rg_ops.remap_replay_op(pools, recs[:, :3].contiguous(), err)
+    with pytest.raises(ValueError):
+        rg_ops.remap_replay_op(pools, recs.view(-1)[1:].view(1, 3), err)
+    with pytest.raises(ValueError):
+        rg_ops.remap_replay_op(pools[:3] + [pools[3].half()], recs, err)
+    with pytest.raises(ValueError):
+        rg_ops.remap_replay_op(pools[:2] + [pools[2][:, :, :1]] * 2, recs,
+                               err)
+    with pytest.raises(ValueError):
+        rg_ops.remap_replay_op(pools, recs.cpu(), err)
+
+
 @pytest.mark.cuda
 def test_drop_scatters_never_wait_for_the_card(cuda):
     """The drop-mode scatters of the decode step and the maintenance pass
@@ -216,6 +355,51 @@ def test_irt_lookup_rejects_what_it_does_not_take(cuda):
         irt_ops.irt_lookup_op(ids, home.cpu(), l1, leaf)
     with pytest.raises(ValueError):
         irt_ops.irt_lookup_op(ids[::2], home[::2], l1, leaf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe", [False, True])
+@pytest.mark.parametrize("N", [1, 4096, 65536])
+def test_irt_walk2_kernel_exact(cuda, N, probe):
+    """The walk to both homes in one pass, with and without the iRC probe
+    folded in, equals its plain version exactly at any N (leaf 31
+    allocated)."""
+    from repro_torch.kernels.irt_lookup import ops as irt_ops
+    from repro_torch.kernels.irt_lookup.ref import irt_walk2_ref
+    ids, _, l1, leaf = _irt_inputs(cuda, max(N, 4096), N, seed=N)
+    pr = None
+    if probe:
+        g = torch.Generator().manual_seed(N)
+        hit = torch.rand(N, generator=g) < 0.5
+        pr = tuple(t.to(cuda) for t in (
+            hit, torch.randint(0, 500, (N,), generator=g, dtype=torch.int32),
+            hit & (torch.rand(N, generator=g) < 0.5)))
+    before = (irt_ops.launches, irt_ops.walk2_launches)
+    got = irt_ops.irt_walk2_op(ids, 576, l1, leaf, pr)
+    assert (irt_ops.launches, irt_ops.walk2_launches) == \
+        (before[0] + 1, before[1] + 1)
+    for a, b in zip(got, irt_walk2_ref(ids, 576, l1, leaf, pr)):
+        assert torch.equal(a, b)
+    assert (l1 < 0).any()
+
+
+@pytest.mark.cuda
+def test_irt_walk2_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels.irt_lookup import ops as irt_ops
+    ids, _, l1, leaf = _irt_inputs(cuda, 256, 64, seed=1)
+    hit = torch.zeros(64, dtype=torch.bool, device=cuda)
+    val = torch.zeros(64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        irt_ops.irt_walk2_op(ids.long(), 7, l1, leaf)
+    with pytest.raises(ValueError):
+        irt_ops.irt_walk2_op(ids[::2], 7, l1, leaf)
+    with pytest.raises(ValueError):
+        irt_ops.irt_walk2_op(ids, 7, l1, leaf, (hit.int(), val, hit))
+    with pytest.raises(ValueError):
+        irt_ops.irt_walk2_op(ids, 7, l1, leaf, (hit[:-1], val[:-1],
+                                                 hit[:-1]))
+    with pytest.raises(ValueError):
+        irt_ops.irt_walk2_op(ids, 1 << 31, l1, leaf)
 
 
 def _read_inputs(device, B=4, KV=2, G=3, hd=16, P=8, NP=6, F=7, seed=0,

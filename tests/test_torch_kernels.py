@@ -1,9 +1,10 @@
 """The port's kernels on the CPU through their plain versions: held
 against the JAX reference oracles (and, for flash attention, the Pallas
-kernel in interpret mode), and the port's own contracts (the live-page
-bucket, split == unified bit for bit).  The CUDA kernels themselves run only on a card
-(``tests/test_torch_cuda.py``, and ``chip_smoke.py`` at the main path's
-shapes)."""
+kernel in interpret mode; for the pass replay, the reference's
+``_replay_descs``), and the port's own contracts (the live-page bucket,
+split == unified bit for bit).  The CUDA kernels themselves run only on
+a card (``tests/test_torch_cuda.py``, and ``chip_smoke.py`` at the main
+path's shapes)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +23,7 @@ from repro.kernels.paged_attention.ref import \
     paged_attention_split_ref as j_split_ref
 from repro.kernels.remap_gather.ref import remap_gather_ref as j_gather_ref
 from repro.models.attention import _sdpa as j_sdpa
+from repro.tiered import kvcache as j_kvcache
 from repro.models.attention import make_mask as j_make_mask
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -30,7 +32,10 @@ from repro_torch.kernels.paged_attention.ref import (
     bf16_tolerance, paged_attention_fused_ref, paged_attention_ref,
     paged_attention_split_ref)
 from repro_torch.kernels.remap_gather import ops as rg_ops
-from repro_torch.kernels.remap_gather.ref import remap_gather_ref
+from repro_torch.kernels.remap_gather.ref import (FAST_TO_SLOW, SLOW_TO_FAST,
+                                                  remap_gather_ref,
+                                                  remap_replay_ref)
+from repro_torch.tiered import kvcache as t_kvcache
 
 
 def fused_inputs(B=3, K=2, KV=2, G=3, hd=16, P=8, NP=6, F=5, seed=0,
@@ -116,6 +121,134 @@ def test_remap_gather_plain_rejects_out_of_range():
     with pytest.raises(IndexError):
         rg_ops.remap_gather_op(pool, torch.tensor([1, 4], dtype=torch.int32),
                                rg_ops.new_flag(pool.device))
+
+
+def replay_descs(case, seed, n_d=3, n_p=3, n_fast=6, n_slow=12):
+    """A maintenance pass's copy descriptors (numpy, the reference's
+    layout): random in-range copies, about a third disabled with garbage
+    indices, and per ``case`` an aliasing chain:
+    ``install_into_emptied_slot`` (promotion 0 installs into the fast slot
+    the first demotion just copied back), ``cb2_reads_fresh_install``
+    (promotion 1's cb2 copies back the slot it just installed), ``chain``
+    (both, and promotion 2 re-installs a page promotion 0 just copied
+    back)."""
+    rng = np.random.default_rng(seed)
+    i32 = lambda a: np.asarray(a, np.int32)  # noqa: E731
+    garbage = lambda n: rng.choice([-7, 1 << 30, -(1 << 31), 99], n)  # noqa
+
+    def copies(n, n_src, n_dst):
+        en = rng.random(n) < 0.7
+        return (i32(np.where(en, rng.integers(0, n_src, n), garbage(n))),
+                i32(np.where(en, rng.integers(0, n_dst, n), garbage(n))), en)
+
+    d = dict(zip(("cb1_src", "cb1_dst", "cb1_en"),
+                 copies(n_d, n_fast, n_slow)))
+    p = {}
+    for kind, (n_src, n_dst) in (("cb1", (n_fast, n_slow)),
+                                 ("in", (n_slow, n_fast)),
+                                 ("cb2", (n_fast, n_slow))):
+        p.update(zip((kind + "_src", kind + "_dst", kind + "_en"),
+                     copies(n_p, n_src, n_dst)))
+    def enable(desc, kind, i, src, dst):
+        desc[kind + "_en"][i] = True
+        desc[kind + "_src"][i], desc[kind + "_dst"][i] = src, dst
+
+    if case in ("install_into_emptied_slot", "chain"):
+        enable(d, "cb1", 0, 4, 10)
+        enable(p, "in", 0, 11, 4)
+    if case in ("cb2_reads_fresh_install", "chain"):
+        enable(p, "in", 1, 3, 2)
+        enable(p, "cb2", 1, 2, 7)
+    if case == "chain":
+        enable(p, "cb1", 0, 5, 9)
+        enable(p, "in", 2, 9, 1)
+    return d, p
+
+
+def _replay_pools(seed, dtype=np.float32, L=2, n_fast=6, n_slow=12, KV=2,
+                  P=8, hd=16):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(L, n, KV, P, hd)).astype(dtype)
+            for n in (n_fast, n_fast, n_slow, n_slow)]
+
+
+@pytest.mark.parametrize("case", ["garbage", "install_into_emptied_slot",
+                                  "cb2_reads_fresh_install", "chain"])
+def test_remap_replay_plain_matches_reference_replay(case):
+    """The pass replay (the record table built from the descriptors, then
+    the plain replay) against the reference's ``_replay_descs`` on the
+    same pools and descriptors: every pool byte-exact, disabled records
+    with garbage indices skipped, aliasing chains in recorded order."""
+    d, p = replay_descs(case, seed=len(case))
+    pools = _replay_pools(seed=len(case) + 1)
+    jcfg = j_kvcache.TieredConfig(n_seqs=2, max_pages_per_seq=6,
+                                  page_tokens=8, n_kv_heads=2, head_dim=16,
+                                  fast_data_slots=4, dtype="float32")
+    want = j_kvcache._replay_descs(
+        jcfg, tuple(jnp.asarray(x) for x in pools),
+        {k: jnp.asarray(v) for k, v in d.items()},
+        {k: jnp.asarray(v) for k, v in p.items()})
+    got = [torch.from_numpy(x.copy()) for x in pools]
+    t_kvcache._replay_descs(got, {k: torch.as_tensor(v) for k, v in d.items()},
+                            {k: torch.as_tensor(v) for k, v in p.items()})
+    for w, g, x in zip(want, got, pools):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())
+    assert any(not np.array_equal(np.asarray(w), x)
+               for w, x in zip(want, pools))            # something moved
+
+
+def test_remap_replay_records_in_recorded_order():
+    """The record table: demote copy-backs first, then per promotion
+    cb1 -> install -> cb2, with their directions."""
+    d, p = replay_descs("garbage", seed=3, n_d=2, n_p=2)
+    recs = t_kvcache._pass_records(
+        {k: torch.as_tensor(v) for k, v in d.items()},
+        {k: torch.as_tensor(v) for k, v in p.items()})
+    want = [(FAST_TO_SLOW, d["cb1_src"][i], d["cb1_dst"][i], d["cb1_en"][i])
+            for i in range(2)]
+    for i in range(2):
+        for direction, kind in ((FAST_TO_SLOW, "cb1"), (SLOW_TO_FAST, "in"),
+                                (FAST_TO_SLOW, "cb2")):
+            want.append((direction, p[kind + "_src"][i],
+                         p[kind + "_dst"][i], p[kind + "_en"][i]))
+    assert recs.dtype == torch.int32
+    assert recs.tolist() == [[int(x) for x in r] for r in want]
+
+
+def test_remap_replay_plain_rejects_out_of_range_before_writing():
+    """An enabled record outside its pools raises ``IndexError`` and
+    nothing is written; a disabled one is never checked."""
+    pools = [torch.from_numpy(x) for x in _replay_pools(seed=4)]
+    before = [x.clone() for x in pools]
+    ok = [FAST_TO_SLOW, 1, 2, 1]
+    for bad in ([FAST_TO_SLOW, 6, 0, 1], [SLOW_TO_FAST, 0, 6, 1],
+                [2, 0, 0, 1], [FAST_TO_SLOW, -1, 0, 1]):
+        with pytest.raises(IndexError):
+            rg_ops.remap_replay_op(pools, torch.tensor([ok, bad],
+                                                       dtype=torch.int32),
+                                   rg_ops.new_flag("cpu"))
+        for x, y in zip(pools, before):
+            assert torch.equal(x, y)
+    rg_ops.remap_replay_op(
+        pools, torch.tensor([[7, -1, 1 << 30, 0], ok], dtype=torch.int32),
+        rg_ops.new_flag("cpu"))
+    assert torch.equal(pools[2][:, 2], before[0][:, 1])
+    assert torch.equal(pools[3][:, 2], before[1][:, 1])
+    assert rg_ops.replay_launches == 0              # no kernel on the CPU
+
+
+def test_remap_replay_plain_version_is_in_record_order():
+    """``remap_replay_ref`` directly: a copy-back, then an install into
+    the slot it emptied, then a copy-back of the fresh install."""
+    pools = [torch.from_numpy(x) for x in _replay_pools(seed=5)]
+    fk0, sk0 = pools[0].clone(), pools[2].clone()
+    remap_replay_ref(pools, torch.tensor([[FAST_TO_SLOW, 3, 5, 1],
+                                          [SLOW_TO_FAST, 7, 3, 1],
+                                          [FAST_TO_SLOW, 3, 8, 1]],
+                                         dtype=torch.int32))
+    assert torch.equal(pools[2][:, 5], fk0[:, 3])
+    assert torch.equal(pools[0][:, 3], sk0[:, 7])
+    assert torch.equal(pools[2][:, 8], sk0[:, 7])
 
 
 def read_inputs(B=4, KV=2, G=3, hd=16, P=8, NP=6, F=7, seed=0):

@@ -303,6 +303,57 @@ def test_walk_matches_reference(n_ids, N, levels):
             "irt_lookup_ref")
 
 
+@pytest.mark.parametrize("n_ids,N", [(2048, 7), (2048, 1024), (4096, 4096)])
+def test_walk2_matches_two_reference_walks(n_ids, N):
+    """The walk to both homes in one pass against two reference walks,
+    one to INVALID and one to ``fast_slots + ids``: exact, with a leaf at
+    bit 31."""
+    from repro_torch.kernels.irt_lookup.ops import irt_walk2_op
+    from repro_torch.kernels.irt_lookup.ref import irt_walk2_ref
+    jt, q, _ = _walk_inputs(n_ids + N, n_ids, N)
+    assert int(np.asarray(jt["l1_bits"])[0]) < 0     # bit 31 is set
+    base = 576
+    want_walked = j_irt.walk(jnp.asarray(q),
+                             jnp.full(q.shape, j_irt.INVALID, jnp.int32),
+                             jt["l1_bits"], jt["entries"], impl="ref")
+    want_dev = j_irt.walk(jnp.asarray(q), jnp.asarray(base + q),
+                          jt["l1_bits"], jt["entries"], impl="ref")
+    tt = {k: _t(np.array(v)) for k, v in jt.items()}
+    walked, dev = irt_walk2_op(_t(q), base, tt["l1_bits"], tt["entries"])
+    assert walked.dtype == dev.dtype == torch.int32
+    _eq(want_walked, walked, "walked")
+    _eq(want_dev, dev, "dev")
+    for got in zip(irt_walk2_ref(_t(q), base, tt["l1_bits"], tt["entries"]),
+                   (walked, dev)):
+        assert torch.equal(*got)
+
+
+def test_walk2_folds_the_irc_probe_as_the_reference_translates():
+    """With the iRC probe's (hit, val, id_hit) the walk's ``dev`` is the
+    reference translation's select chain (``_translate``): a hit takes the
+    cached value, an identity hit the home, a miss the walk."""
+    from repro_torch.kernels.irt_lookup.ops import irt_walk2_op
+    jt, q, _ = _walk_inputs(4096 + 512, 4096, 512)
+    rng = np.random.default_rng(9)
+    hit = rng.random(q.size) < 0.5
+    id_hit = hit & (rng.random(q.size) < 0.5)
+    val = rng.integers(0, 300, q.size).astype(np.int32)
+    base = 600
+    walked = np.asarray(j_irt.walk(
+        jnp.asarray(q), jnp.full(q.shape, j_irt.INVALID, jnp.int32),
+        jt["l1_bits"], jt["entries"], impl="ref"))
+    home = base + q
+    want = np.where(hit, np.where(id_hit, home, val),
+                    np.where(walked == j_irt.INVALID, home, walked))
+    tt = {k: _t(np.array(v)) for k, v in jt.items()}
+    got_walked, dev = irt_walk2_op(_t(q), base, tt["l1_bits"],
+                                   tt["entries"],
+                                   probe=(_t(hit), _t(val), _t(id_hit)))
+    _eq(walked, got_walked, "walked")
+    _eq(want, dev, "dev")
+    assert ((walked != j_irt.INVALID) & ~hit).any()      # walks that hit
+
+
 def test_walk_unallocated_leaf_ignores_stale_entries():
     """A leaf whose l1 bit is clear resolves to home even where its entry
     holds a slot: the walk trusts the bit vector."""
