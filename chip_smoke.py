@@ -56,6 +56,16 @@ prints no result line):
    ingested chunk by chunk against the one-shot ``forward``'s rows, and
    the final chunk's last-row logits; bit for bit, or else within the
    bf16 limit with the measured gap printed.
+9. telemetry at full width: phase 4's engine and first 8 requests under
+   write_aware with ``demote_threshold`` 32, served with telemetry off,
+   on, on, off (hub samples with Prometheus, JSONL and trace files, a
+   flight ring, an SLO, the live endpoints scraped once mid-run); launch
+   counts reset before each run and read after; equal tokens and
+   counters, demotions counted and flight-recorded, the ring's kinds
+   equal to what the counters imply, the exposition and trace parsed,
+   the endpoints answering 200; tokens/s, ms per engine step, launches
+   per loop iteration, host waits per step and maintenance ms per pass,
+   off against on.
 
 Output, in order: phase lines, one JSON ``kernels`` line (launches: the
 main path's for paged_attention_fused, remap_gather (every launch of the
@@ -894,26 +904,37 @@ def main_model(torch, dev):
     return cfg, params
 
 
+# the main path's engine geometry: 1024 logical pages, 144 fast slots
+MAIN_EC = dict(batch=8, max_len=2048, backend="tiered", page_tokens=16,
+               fast_data_slots=128, maintain_every=4)
+
+
+def main_requests(cfg, n: int = 16):
+    """The main path's seeded request mix, (prompt, max_new) each: prompts
+    100-900 tokens, max_new 32-96 (phase 9 serves the first 8)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(n):
+        size = int(rng.integers(100, 901))
+        out.append((rng.integers(0, cfg.vocab, size),
+                    int(rng.integers(32, 97))))
+    return out
+
+
 def main_path_engine(torch, dev, cfg, params):
     """The main path's engine and requests: the tiered engine with 1024
     logical pages and 144 fast slots, 16 seeded requests (prompts 100-900
     tokens, max_new 32-96) already submitted."""
-    import numpy as np
-
     from repro_torch.serve.engine import Engine, EngineConfig, Request
 
-    ec = EngineConfig(batch=8, max_len=2048, backend="tiered",
-                      page_tokens=16, fast_data_slots=128, maintain_every=4)
-    eng = Engine(cfg, params, ec, device=dev)
+    eng = Engine(cfg, params, EngineConfig(**MAIN_EC), device=dev)
     t = eng.backend.tcfg
     slow = cfg.n_layers * t.n_logical * t.page_bytes
     print(f"main: {t.n_logical} logical pages, {t.fast_slots} fast slots, "
           f"slow pools {slow / 2**30:.2f} GiB")
-    rng = np.random.default_rng(0)
-    for i in range(16):
-        n = int(rng.integers(100, 901))
-        eng.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab, n),
-                           max_new=int(rng.integers(32, 97))))
+    for i, (prompt, max_new) in enumerate(main_requests(cfg)):
+        eng.submit(Request(rid=i, prompt=prompt, max_new=max_new))
     return eng
 
 
@@ -1489,6 +1510,330 @@ def chunk_equivalence_phase(torch, dev, cfg, params):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the served path with telemetry on, at full width
+# ---------------------------------------------------------------------------
+
+TELEMETRY_REQUESTS = 8
+# every policy preset keeps demote_threshold 0, and a live lane touches
+# each of its live pages every step, so no preset demotes in serving; at
+# this threshold write_aware demotes at the main path's geometry
+TELEMETRY_POLICY = dict(demote_threshold=32)
+# the profiled loop iterations (first, count): one maintenance plan, one
+# apply and one sample fall in every 4 iterations
+TELEMETRY_WINDOW = (40, 8)
+# the Prometheus families a served, flight-recorded run must export
+PROM_FAMILIES = (
+    "trimma_translated_pages_total", "trimma_irc_hits_total",
+    "trimma_irc_misses_total", "trimma_irt_walks_total",
+    "trimma_dev_table_hits_total", "trimma_migrations_total",
+    "trimma_demotions_total", "trimma_promoted_bytes_total",
+    "trimma_demoted_bytes_total", "trimma_fast_resident_pages",
+    "trimma_metadata_pages", "trimma_metadata_bytes",
+    "trimma_identity_entry_ratio", "trimma_irt_leaf_occupancy",
+    "trimma_flight_events_total", "trimma_flight_kind_events_total",
+    "trimma_flight_pingpong_total", "engine_steps_total",
+    "engine_tokens_total", "engine_finished_requests_total",
+    "engine_releases_total", "engine_request_latency_ms",
+    "engine_token_latency_ms", "engine_slo_burn_rate")
+
+
+def flight_identity(counters, by_kind, n_layers, page_bytes) -> dict:
+    """What the counters imply for the flight ring's kinds when every
+    pass is recorded (the counters sum over layers, one event stands for
+    its move on every layer): promotes + installs = migrations, demotes =
+    demotions, evicts = copy-backs (demoted bytes / page bytes) that were
+    not demotions.  Returns {name: (from the ring, from the counters)}."""
+    L = n_layers
+    copy_backs = counters["demo_bytes"] // page_bytes
+    return {"promote+install": (by_kind["promote"] + by_kind["install"],
+                                counters["migrations"] // L),
+            "demote": (by_kind["demote"], counters["demotions"] // L),
+            "evict": (by_kind["evict"],
+                      (copy_backs - counters["demotions"]) // L)}
+
+
+def _telemetry_run(torch, dev, cfg, params, tmp, telemetry: bool):
+    """Phase 4's engine and first requests under a demoting write_aware
+    policy, telemetry off or on; the host waits counted (sync debug mode
+    "warn", the main thread's), maintenance timed per pass (host clock:
+    the plan, and the flush that applies it and reads its counters), the
+    kernel launches of a window of loop iterations counted by
+    ``torch.profiler`` (whose time the caller leaves out) and, with
+    telemetry on, the host time spent inside the telemetry calls."""
+    import threading
+    import urllib.request
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.remap_gather import ops as rg_ops
+    from repro_torch.models.kv_backend import TieredBackend
+    from repro_torch.obs import FlightConfig, ObsConfig, parse_slos
+    from repro_torch.serve import engine as eng_mod
+    from repro_torch.serve.engine import Engine, EngineConfig, Request
+
+    tel = {}
+    if telemetry:
+        tel = dict(obs=ObsConfig(sample_every=4,
+                                 prom_path=str(tmp / "metrics.prom"),
+                                 jsonl_path=str(tmp / "metrics.jsonl"),
+                                 trace_path=str(tmp / "trace.json"),
+                                 http_port=0),
+                   flight=FlightConfig(capacity=4096),
+                   slos=parse_slos("*:latency:60000:0.9:64"))
+    ec = EngineConfig(**MAIN_EC, **tel)
+    backend = TieredBackend(
+        cfg, ec.batch, ec.max_len, page_tokens=ec.page_tokens,
+        fast_data_slots=ec.fast_data_slots,
+        policy=get_policy("write_aware", **TELEMETRY_POLICY), device=dev)
+    eng = Engine(cfg, params, ec, backend=backend, device=dev)
+    for i, (prompt, max_new) in enumerate(
+            main_requests(cfg)[:TELEMETRY_REQUESTS]):
+        eng.submit(Request(rid=i, prompt=prompt, max_new=max_new))
+
+    # waits count outside the profiled window; window_s and
+    # window_tokens hold its start until it closes
+    book = {"plan_ms": [], "apply_ms": [], "prefills": 0, "waits": 0,
+            "steps": 0, "counting": True, "window_s": 0.0,
+            "window_tokens": 0, "fetched": {},
+            "host_ms": {"sample": 0.0, "record": 0.0, "export": 0.0}}
+    first, count = TELEMETRY_WINDOW
+    real_step = eng_mod.decode_step
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def step(*a, **kw):
+        i = book["steps"]
+        if i == first:
+            book["counting"] = False
+            book["window_s"] = time.perf_counter()
+            book["window_tokens"] = eng._tokens_out
+            prof.start()
+        elif i == first + count:
+            prof.stop()
+            book["window_s"] = time.perf_counter() - book["window_s"]
+            book["window_tokens"] = eng._tokens_out - book["window_tokens"]
+            book["counting"] = True
+        book["steps"] += 1
+        return real_step(*a, **kw)
+
+    plan, flush, prefill = (backend.plan_maintain, eng._flush_maintain,
+                            eng.prefill_lane)
+
+    def timed_plan(*a, **kw):
+        s = time.perf_counter()
+        out = plan(*a, **kw)
+        book["plan_ms"].append((time.perf_counter() - s) * 1e3)
+        return out
+
+    def timed_flush(state, **kw):
+        if eng._pending_plan is None:
+            return flush(state, **kw)
+        s = time.perf_counter()
+        out = flush(state, **kw)
+        book["apply_ms"].append((time.perf_counter() - s) * 1e3)
+        return out
+
+    def counted_prefill(*a, **kw):
+        book["prefills"] += 1
+        return prefill(*a, **kw)
+
+    def host_timed(key, fn):
+        def call(*a, **kw):
+            s = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                book["host_ms"][key] += (time.perf_counter() - s) * 1e3
+        return call
+
+    backend.plan_maintain = timed_plan
+    eng._flush_maintain = timed_flush
+    eng.prefill_lane = counted_prefill
+    if telemetry:   # the export at the end holds the last sample
+        eng._sample = host_timed("sample", eng._sample)
+        eng._record = host_timed("record", eng._record)
+        eng._finalize_obs = host_timed("export", eng._finalize_obs)
+    main_thread = threading.get_ident()
+
+    def on_warning(message, category, filename, lineno, file=None,
+                   line=None):
+        if book["counting"] and threading.get_ident() == main_thread \
+                and "synchroniz" in str(message):
+            book["waits"] += 1
+
+    fetched = book["fetched"]
+
+    def fetch():
+        while eng.steps < 24 and not fetched.get("stop"):
+            time.sleep(0.005)
+        fetched["at_step"] = eng.steps
+        for route in ("/metrics", "/healthz", "/debug/state"):
+            with urllib.request.urlopen(eng.obs_server.url + route,
+                                        timeout=60) as r:
+                fetched[route] = (r.status, r.read())
+
+    fetcher = None
+    if eng.obs_server is not None:
+        fetcher = threading.Thread(target=fetch, name="phase9-scrape",
+                                   daemon=True)
+        fetcher.start()
+    torch.cuda.synchronize()
+    pa_ops.launches = fa_ops.launches = 0
+    rg_ops.launches = rg_ops.replay_launches = 0
+    eng_mod.decode_step = step
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = on_warning
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                done = eng.run()
+                torch.cuda.synchronize()
+                book["wall"] = time.perf_counter() - t0
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        eng_mod.decode_step = real_step
+        fetched["stop"] = True
+        if fetcher is not None:
+            fetcher.join(timeout=120)
+        if eng.obs_server is not None:
+            eng.obs_server.close()
+    launches = {"paged_attention_fused": pa_ops.launches,
+                "flash_attention": fa_ops.launches,
+                "remap_gather": rg_ops.launches,
+                "remap_replay": rg_ops.replay_launches}
+    name = "on" if telemetry else "off"
+    book["launches"] = sum(e.count for e in prof.key_averages()
+                           if "LaunchKernel" in e.key) / count
+    _check(book["window_s"] > 0 and book["counting"]
+           and book["launches"] > 0,
+           f"telemetry {name}: the profiled window did not close or "
+           f"counted no launch")
+    passes = len(book["apply_ms"])
+    _check(len(done) == TELEMETRY_REQUESTS and all(
+        len(r.tokens) == r.max_new for r in done),
+        f"telemetry {name}: a request did not finish")
+    _check(launches["paged_attention_fused"] == eng.steps * cfg.n_layers,
+           f"telemetry {name}: paged_attention_fused launches {launches} != "
+           f"steps {eng.steps} x {cfg.n_layers}")
+    _check(launches["flash_attention"] == book["prefills"] * cfg.n_layers,
+           f"telemetry {name}: flash_attention launches {launches} != "
+           f"prefills x layers")
+    _check(passes > 0 and launches["remap_replay"] == passes
+           == launches["remap_gather"],
+           f"telemetry {name}: copy-engine launches {launches} != one "
+           f"replay per maintenance pass ({passes})")
+    if fetcher is not None:
+        _check(not fetcher.is_alive(), "telemetry: the scrape never ended")
+    return eng, done, book
+
+
+def telemetry_phase(torch, dev, cfg, params):
+    """Phase 4's weights and first 8 requests served twice through the
+    tiered engine under a demoting write_aware policy, telemetry off, then
+    on: hub samples every 4 steps with Prometheus, JSONL and trace files,
+    a 4096-event flight ring, one SLO and the live endpoints scraped once
+    mid-run from a thread.  Gates: equal tokens and counters, demotions
+    counted and recorded, the ring's kinds equal to what the counters
+    imply, the exposition parsing back with every family, the trace
+    holding the decode and maintenance spans, the three endpoints
+    answering 200 mid-run."""
+    import tempfile
+
+    from repro_torch.obs import parse_prometheus
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="phase9_") as d:
+        tmp = Path(d)
+        off, off_done, off_book = _telemetry_run(torch, dev, cfg, params,
+                                                 tmp, False)
+        torch.cuda.empty_cache()
+        eng, done, book = _telemetry_run(torch, dev, cfg, params, tmp, True)
+        prom = parse_prometheus((tmp / "metrics.prom").read_text())
+        spans = {e["name"] for e in json.loads(
+            (tmp / "trace.json").read_text())["traceEvents"]
+            if e["ph"] == "X"}
+        n_rows = len((tmp / "metrics.jsonl").read_text().splitlines())
+    _check({"decode_step", "maintain", "prefill", "release"} <= spans,
+           f"telemetry: trace spans {sorted(spans)}")
+    _check({r.rid: r.tokens for r in done}
+           == {r.rid: r.tokens for r in off_done},
+           "telemetry: tokens differ between off and on")
+    _check(eng.counters == off.counters,
+           "telemetry: counters differ between off and on")
+    fetched = book["fetched"]
+    codes = {k: v[0] for k, v in fetched.items() if k.startswith("/")}
+    _check(codes == {"/metrics": 200, "/healthz": 200, "/debug/state": 200},
+           f"telemetry: endpoints answered {codes}")
+    _check(fetched["at_step"] < eng.steps,
+           "telemetry: the endpoints were not scraped mid-run")
+    parse_prometheus(fetched["/metrics"][1].decode())
+    json.loads(fetched["/debug/state"][1])
+    c = eng.counters
+    fs = eng.flight_stats()
+    _check(c["demotions"] > 0 and fs["by_kind"]["demote"] > 0,
+           f"telemetry: no demotion (counters {c['demotions']}, flight "
+           f"{fs['by_kind']})")
+    ident = flight_identity(c, fs["by_kind"], cfg.n_layers,
+                            eng.backend.tcfg.page_bytes)
+    _check(all(a == b for a, b in ident.values()),
+           f"telemetry: flight kinds differ from the counters {ident}")
+    missing = [f for f in PROM_FAMILIES if f not in prom["families"]]
+    _check(not missing, f"telemetry: exposition lacks {missing}")
+    _check(prom["samples"]["engine_steps_total"] == eng.steps,
+           "telemetry: engine_steps_total differs from the run's steps")
+    parts = []
+    for name, (e, dn, bk) in (("off", (off, off_done, off_book)),
+                              ("on", (eng, done, book))):
+        steps = e.steps - TELEMETRY_WINDOW[1]
+        rest = bk["wall"] - bk["window_s"]
+        tokens = sum(len(r.tokens) for r in dn) - bk["window_tokens"]
+        maint = sum(bk["plan_ms"] + bk["apply_ms"])
+        parts.append(
+            f"{name}: {tokens / rest:.1f} tokens/s, "
+            f"{1e3 * rest / steps:.2f} ms per engine step, "
+            f"{bk['launches']:.1f} launches per step, "
+            f"{bk['waits'] / steps:.3f} host waits per step, maintenance "
+            f"{maint / len(bk['apply_ms']):.2f} ms per pass")
+    host = book["host_ms"]
+    print(f"telemetry: {TELEMETRY_REQUESTS} requests, write_aware with "
+          f"demote_threshold {TELEMETRY_POLICY['demote_threshold']}, "
+          f"{eng.steps} engine steps and {len(book['apply_ms'])} "
+          f"maintenance passes a run, tokens and counters equal off and "
+          f"on; {'; '.join(parts)} (each run counts the launches of a "
+          f"profiled window of {TELEMETRY_WINDOW[1]} loop iterations and "
+          f"leaves it out of its other numbers; host waits: sync debug "
+          f"mode 'warn'); host ms inside the telemetry calls of the on "
+          f"run: samples {host['sample']:.2f}, flight records "
+          f"{host['record']:.2f}, export at the end {host['export']:.2f}, "
+          f"of {1e3 * book['wall']:.1f} ms; card {_card_line()}")
+    print(f"telemetry: flight {fs['total_events']} events, "
+          f"{fs['dropped']} dropped, by kind {json.dumps(fs['by_kind'])}, "
+          f"ping-pong {fs['pingpong']['events']} re-promotions within "
+          f"{fs['pingpong']['window_steps']} steps; the counters imply "
+          f"{json.dumps({k: b for k, (_, b) in ident.items()})}; "
+          f"demotions {c['demotions']} over {cfg.n_layers} layers")
+    series = [r["metrics"] for r in eng.hub.series]
+    peak = max(series, key=lambda m: m["trimma_metadata_pages"])
+    final = prom["samples"]
+    print(f"telemetry: trimma_metadata_pages {final['trimma_metadata_pages']:g}"
+          f" and trimma_identity_entry_ratio "
+          f"{final['trimma_identity_entry_ratio']:.6f} at the end (every "
+          f"lane released), {peak['trimma_metadata_pages']:g} and "
+          f"{peak['trimma_identity_entry_ratio']:.6f} at the largest "
+          f"footprint sampled; {len(prom['families'])} families, {n_rows} "
+          f"JSONL rows; endpoints 200 at step {fetched['at_step']}; phase 9 "
+          f"took {time.perf_counter() - t0:.1f} s")
+    del eng, off, done, off_done
+    torch.cuda.empty_cache()
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         _fail("src/repro_torch not found beside chip_smoke.py")
@@ -1521,6 +1866,7 @@ def main():
     launches.update(server_phase(torch, dev))
     launches.update(chunked_qos_phase(torch, dev, cfg, params))
     chunk_equivalence_phase(torch, dev, cfg, params)
+    telemetry_phase(torch, dev, cfg, params)
     del params
     for name, n in launches.items():
         rows[name]["launches"] = n

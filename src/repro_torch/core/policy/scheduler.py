@@ -15,9 +15,26 @@ from typing import NamedTuple
 import torch
 
 from repro_torch._scatter import top_k
+from repro_torch.obs.registry import MetricSpec, register
 
 from . import deciders
 from .config import PolicyConfig
+
+# canonical metric names for the moves this module plans (DESIGN.md §10);
+# the copy sites in tiered/kvcache account them
+register(
+    MetricSpec("trimma_migrations_total", "counter",
+               "pages promoted into the fast tier (installs)"),
+    MetricSpec("trimma_demotions_total", "counter",
+               "scheduler demotions back to the slow home"),
+    MetricSpec("trimma_forced_evictions_total", "counter",
+               "metadata-priority forced evictions (Section 3.3)"),
+    MetricSpec("trimma_promoted_bytes_total", "counter",
+               "slow->fast migration bandwidth", unit="bytes"),
+    MetricSpec("trimma_demoted_bytes_total", "counter",
+               "fast->slow copy-back bandwidth (demotions + victim and "
+               "forced evictions)", unit="bytes"),
+)
 
 __all__ = ["Plan", "plan", "plan_tenants"]
 

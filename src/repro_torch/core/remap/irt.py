@@ -24,6 +24,20 @@ import torch
 from repro_torch._scatter import (drop_add, drop_set, pack_u32,
                                   u32_to_i32)
 from repro_torch.kernels.irt_lookup.ops import irt_lookup_op
+from repro_torch.obs.registry import MetricSpec, register
+
+# canonical metric names for the walk path (DESIGN.md §10): translated
+# pages are the lookup lanes the metadata engine actually resolved; a
+# walk is one parallel two-level probe
+register(
+    MetricSpec("trimma_translated_pages_total", "counter",
+               "logical pages translated by the metadata engine (iRC "
+               "probe + iRT walk; cached device-table rows never reach "
+               "it)"),
+    MetricSpec("trimma_irt_walks_total", "counter",
+               "two-level iRT walks (one per iRC miss; each walk "
+               "touches both levels in parallel)"),
+)
 
 INVALID = -1
 E = 64                     # entries per leaf block (256 B / 4 B, Section 3.2)

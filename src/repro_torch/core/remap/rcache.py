@@ -19,6 +19,19 @@ import torch
 
 from repro_torch._scatter import (U32, drop_add, drop_set, first_true,
                                   mul_u32, on_device, pack_u32)
+from repro_torch.obs.registry import MetricSpec, register
+
+# canonical metric names for the counters this module's probes feed
+# (accumulated in TieredState; read out by the obs taps, DESIGN.md §10)
+register(
+    MetricSpec("trimma_irc_hits_total", "counter",
+               "iRC hits (NonIdCache + IdCache) on the serving lookup "
+               "path"),
+    MetricSpec("trimma_irc_id_hits_total", "counter",
+               "iRC IdCache (identity sector-vector) hits"),
+    MetricSpec("trimma_irc_misses_total", "counter",
+               "iRC misses — each one walks the iRT"),
+)
 
 IDENTITY = -1
 _HASH_MULT = 2654435761  # Knuth multiplicative hash

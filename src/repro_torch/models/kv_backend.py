@@ -257,6 +257,16 @@ class TieredBackend:
         return state._replace(caches=tk.apply_maintenance_stacked(
             self.tcfg, state.caches, plan))
 
+    def apply_maintain_desc(self, state, plan):
+        """``apply_maintain`` that also returns the (ddesc, pdesc) move
+        descriptors, what each plan entry actually did, for the flight
+        recorder.  The same pass (one replay launch); the descriptors are
+        the ones its copy table was built from."""
+        from repro_torch.tiered import kvcache as tk
+        caches, ddesc, pdesc = tk.apply_maintenance_stacked_desc(
+            self.tcfg, state.caches, plan)
+        return state._replace(caches=caches), ddesc, pdesc
+
     def release(self, state, lane: int):
         """Drop one lane's pages from the metadata (pos untouched)."""
         from repro_torch.tiered import kvcache as tk
@@ -291,6 +301,14 @@ class TieredBackend:
         from repro_torch.tiered import kvcache as tk
         return state._replace(caches=tk.admit_pages_stacked(
             self.tcfg, state.caches, lane, length, n_pages))
+
+    def admit_prefix_desc(self, state, lane: int, length, n_pages: int):
+        """``admit_prefix`` that also returns the install descriptors
+        (flight-recorder install and admission-eviction events)."""
+        from repro_torch.tiered import kvcache as tk
+        caches, pdesc = tk.admit_pages_stacked_desc(
+            self.tcfg, state.caches, lane, length, n_pages)
+        return state._replace(caches=caches), pdesc
 
     def maintain_tenants(self, state, lane_tenant, pols, quotas):
         """Multi-tenant maintenance: one ``run_scheduler_tenants_stacked``

@@ -5,9 +5,8 @@ weighted admission (DESIGN.md §9).
 Each tenant brings a weight (its share of ``fast_data_slots`` and of
 admission) and optionally its own ``core/policy`` preset (decider
 thresholds and ``max_moves``; the hotness tracker is shared state).
-Admission is weighted deficit round-robin with a hard starvation bound.
-The reference's ``TenantBook.metrics`` (the telemetry registry's
-per-tenant samples) waits for the telemetry slice.
+Admission is weighted deficit round-robin with a hard starvation bound;
+``TenantBook.metrics`` exports the books as labelled hub samples.
 """
 
 from __future__ import annotations
@@ -17,6 +16,31 @@ from collections import deque
 from typing import Optional, Union
 
 from repro_torch.core.policy import PolicyConfig, get_policy
+from repro_torch.obs.registry import MetricSpec, register
+
+# canonical per-tenant fairness metrics (DESIGN.md §10; one sample per
+# tenant, labelled {tenant="..."}: ``TenantBook.metrics`` exports them)
+register(
+    MetricSpec("engine_tenant_submitted_total", "counter",
+               "requests submitted, per tenant"),
+    MetricSpec("engine_tenant_admitted_total", "counter",
+               "requests admitted to a lane, per tenant"),
+    MetricSpec("engine_tenant_finished_total", "counter",
+               "requests finished, per tenant"),
+    MetricSpec("engine_tenant_tokens_total", "counter",
+               "tokens decoded, per tenant"),
+    MetricSpec("engine_tenant_max_skips", "gauge",
+               "worst consecutive admission skips observed, per tenant "
+               "(must stay <= the starvation bound)"),
+)
+
+_TENANT_METRIC_KEYS = {
+    "submitted": "engine_tenant_submitted_total",
+    "admitted": "engine_tenant_admitted_total",
+    "finished": "engine_tenant_finished_total",
+    "tokens": "engine_tenant_tokens_total",
+    "max_skips": "engine_tenant_max_skips",
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,3 +169,10 @@ class TenantBook:
         """Per-tenant fairness counters (``Engine.request_stats``)."""
         return {t.name: dict(weight=t.weight, **s)
                 for t, s in zip(self.tenants, self.stats)}
+
+    def metrics(self) -> list:
+        """Canonical per-tenant metric samples for the hub:
+        ``(name, value, {"tenant": ...})`` triples (DESIGN.md §10)."""
+        return [(canon, s[key], {"tenant": t.name})
+                for t, s in zip(self.tenants, self.stats)
+                for key, canon in _TENANT_METRIC_KEYS.items()]

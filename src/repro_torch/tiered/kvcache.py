@@ -52,8 +52,32 @@ from repro_torch.device import torch_dtype
 from repro_torch.kernels.irt_lookup.ops import irt_walk2_op
 from repro_torch.kernels.remap_gather import ops as rg_ops
 from repro_torch.kernels.remap_gather.ref import FAST_TO_SLOW, SLOW_TO_FAST
+from repro_torch.obs.registry import MetricSpec, register
 
 I32 = torch.int32
+
+# canonical metric names for the counters this store accumulates beyond
+# the iRC/iRT/migration families its building blocks declare
+# (DESIGN.md §10; obs.metrics.tiered_metrics is the tap)
+register(
+    MetricSpec("trimma_dev_table_hits_total", "counter",
+               "live lookup lanes served from the cached device page "
+               "table (zero iRC probes, zero iRT walks)"),
+    MetricSpec("trimma_fast_resident_pages", "gauge",
+               "pages currently resident in the fast pool"),
+    MetricSpec("trimma_metadata_pages", "gauge",
+               "allocated iRT leaf blocks (saved-space metadata "
+               "footprint, Figure 9 analogue)"),
+    MetricSpec("trimma_identity_entry_ratio", "gauge",
+               "fraction of logical pages holding NO remap entry "
+               "(identity-mapped — the saved-metadata story, live)"),
+    MetricSpec("trimma_irt_leaf_occupancy", "gauge",
+               "allocated iRT leaf blocks / provisioned leaf slots "
+               "(leaf-level table occupancy)"),
+    MetricSpec("trimma_metadata_bytes", "gauge",
+               "bytes of allocated iRT leaf metadata (E entries x 4 "
+               "bytes per allocated leaf)", unit="bytes"),
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -625,6 +649,20 @@ def run_scheduler(cfg: TieredConfig, st: TieredState,
     the pass reads its out-of-range flag once, not once per copy."""
     return _unstack(run_scheduler_stacked(cfg, _one_layer(st), max_moves),
                     st)
+
+
+def migrate_hot(cfg: TieredConfig, st: TieredState,
+                max_moves: int = 4) -> TieredState:
+    """DEPRECATED shim: the inlined top-k promotion pass is now the policy
+    scheduler (``run_scheduler``), which adds demotion and epoch decay."""
+    return run_scheduler(cfg, st, max_moves=max_moves)
+
+
+def metadata_pages(cfg: TieredConfig, st: TieredState) -> torch.Tensor:
+    """Current metadata footprint in pages (allocated leaves), against
+    the linear-table equivalent ``n_leaf`` (Figure 9 analogue for
+    serving); a 0-d tensor on the store's device."""
+    return (st.leaf_cnt > 0).sum()
 
 
 def run_scheduler_tenants(cfg: TieredConfig, st: TieredState, page_tenant,

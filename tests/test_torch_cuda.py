@@ -4,6 +4,8 @@ This file imports neither JAX nor the reference package, so it runs on
 the card's machine:  PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_cuda.py.  Without a card every test skips."""
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -802,3 +804,199 @@ def test_split_read_bucket_equals_full_width(cuda):
     bucket = pa_ops.paged_attention_split_op(
         **{**d, "page_table": d["page_table"][:, :13]})
     assert torch.equal(bucket, full)
+
+
+# ---------------------------------------------------------------------------
+# telemetry on the card (the engine at the smoke size: 2 layers)
+# ---------------------------------------------------------------------------
+
+# tests/test_flight.py's trace, under a write_aware policy that demotes
+# on it (every preset keeps demote_threshold 0)
+TRACE = dict(batch=2, max_len=64, backend="tiered", page_tokens=8,
+             fast_data_slots=4, maintain_every=2)
+
+
+def _card_engine(cuda, **ec_kw):
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.core.policy import get_policy
+    from repro_torch.models import init_params
+    from repro_torch.models.kv_backend import TieredBackend
+    from repro_torch.serve.engine import Engine, EngineConfig, Request
+    cfg = reduce_for_smoke(get_config("llama3-8b"))
+    params = init_params(cfg, cuda, seed=2)
+    ec = EngineConfig(**TRACE, **ec_kw)
+    be = TieredBackend(cfg, ec.batch, ec.max_len, page_tokens=8,
+                       fast_data_slots=4,
+                       policy=get_policy("write_aware", demote_threshold=16),
+                       device=cuda)
+    eng = Engine(cfg, params, ec, backend=be, device=cuda)
+    rng = np.random.default_rng(3)
+    for rid in range(4):
+        eng.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab, 4),
+                           max_new=8))
+    return eng
+
+
+@pytest.mark.cuda
+def test_sample_and_flight_record_never_wait_for_the_card(cuda):
+    """A hub sample (the tap's device copies) and the flight record of a
+    maintenance pass's descriptors run under sync debug mode "error"."""
+    from repro_torch.obs import FlightConfig, ObsConfig
+    from repro_torch.obs import flight as fl
+    from repro_torch.serve.engine import Request
+    eng = _card_engine(cuda, obs=ObsConfig(sample_every=2),
+                       flight=FlightConfig(capacity=8))
+    state = eng.backend.init_state(2, 64)
+    req = Request(rid=0, prompt=np.arange(20) % 512, max_new=4)
+    state, tok = eng.prefill_lane(state, 0, req)
+    for lane, r in ((1, Request(rid=1, prompt=np.arange(9), max_new=4)),):
+        state, _ = eng.prefill_lane(state, lane, r)
+    for _ in range(6):                  # touches: the pages turn hot
+        state = eng.backend.maintain(state)
+        state = state._replace(caches=eng.backend.begin_step(
+            state.caches, state.pos)[0])
+    plan = eng.backend.plan_maintain(state)
+    touch = state.caches.touch
+    state, ddesc, pdesc = eng.backend.apply_maintain_desc(state, plan)
+    batches = [(fl.K_DEMOTE, fl.C_PLAN_DEMOTE, ddesc["cb1_dst"],
+                ddesc["cb1_en"]),
+               (fl.K_PROMOTE, fl.C_PLAN_PROMOTE, pdesc["in_src"],
+                pdesc["in_en"])]
+    eng._lanes_ref = [req, None]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._sample(state, eng._lanes_ref, 0)
+        eng._record(batches, 7, touch)
+        eng._record(batches, 8, touch)  # the cached kind/cause columns
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    stats = eng.flight_stats()
+    assert stats["total_events"] == 2 * int(
+        pdesc["in_en"].sum() + ddesc["cb1_en"].sum())
+    assert stats["total_events"] > 0
+    eng._drain_samples()
+    assert eng.hub.series[-1]["metrics"]["trimma_migrations_total"] > 0
+
+
+@pytest.mark.cuda
+def test_overlapped_flight_stream_equals_sync_on_the_card(cuda):
+    """On the card at 2 layers: the overlapped maintenance records the
+    synchronous pass's stream (``score`` aside), the trace demotes, and
+    tokens equal a telemetry-off run's."""
+    from repro_torch.obs import FlightConfig
+    from repro_torch.obs import flight as fl
+    streams, tokens = {}, {}
+    for overlap in (False, True):
+        eng = _card_engine(cuda, flight=FlightConfig(capacity=512),
+                           overlap_maintain=overlap)
+        tokens[overlap] = [r.tokens for r in eng.run()]
+        ev = fl.drain(eng._fl)
+        streams[overlap] = {k: ev[k].tolist() for k in fl.FIELDS[:-1]}
+        if not overlap:
+            assert eng.flight_stats()["by_kind"]["demote"] > 0
+    off = _card_engine(cuda)
+    assert tokens[True] == tokens[False] == [r.tokens for r in off.run()]
+    assert streams[True] == streams[False]
+
+
+@pytest.mark.cuda
+def test_profiler_trace_names_the_fused_kernel(cuda, tmp_path):
+    """``ObsConfig.profiler_dir`` wraps the run in ``torch.profiler``: the
+    Chrome trace holds the hand-written fused decode kernel."""
+    from repro_torch.obs import ObsConfig
+    eng = _card_engine(cuda, obs=ObsConfig(profiler_dir=str(tmp_path)))
+    eng.run()
+    doc = json.loads((tmp_path / "trace.json").read_text())
+    kernels = {e["name"] for e in doc["traceEvents"]
+               if e.get("cat") == "kernel"}
+    assert any("paged_kernel" in k for k in kernels), sorted(kernels)[:20]
+
+
+class _ParentLoop:
+    """The engine loop as it was before telemetry: ``run`` and the
+    methods it reaches through the greedy scheduler, on an engine's
+    backend and scheduler."""
+
+    def __init__(self, eng):
+        self.eng = eng
+
+    @torch.inference_mode()
+    def run(self):
+        import time as _t
+
+        from repro_torch.models import decode_step
+        eng, ec = self.eng, self.eng.ec
+        sched = eng.scheduler
+        lanes = [None] * ec.batch
+        state = eng.backend.init_state(ec.batch, ec.max_len)
+        tokens = torch.zeros((ec.batch,), dtype=torch.int32,
+                             device=eng.device)
+        finished = []
+        eng._pending_plan = None
+        eng._flush_maintain = self.flush
+        eng.release_lane = self.release_lane
+        state, tokens = sched.refill(state, tokens, lanes, finished)
+        while any(lane is not None for lane in lanes):
+            state = self.flush(state)
+            n_pages = eng._live_bucket(state.pos.cpu().numpy())
+            logits, state = decode_step(eng.cfg, eng.params, state, tokens,
+                                        backend=eng.backend, n_pages=n_pages)
+            tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+            eng.steps += 1
+            if eng.steps % ec.maintain_every == 0:
+                eng._pending_plan = eng.backend.plan_maintain(state)
+            nxt = tokens.cpu().numpy()
+            pos = state.pos.cpu().numpy()
+            now = _t.time()
+            for i, r in enumerate(lanes):
+                if r is None or r.done:
+                    continue
+                if not r.tokens:
+                    r.first_token_at = now
+                r.tokens.append(int(nxt[i]))
+                if len(r.tokens) >= r.max_new or pos[i] >= ec.max_len - 1:
+                    r.done = True
+            state, tokens = sched.refill(state, tokens, lanes, finished)
+        self.flush(state)
+        return finished
+
+    def flush(self, state, **_):
+        eng = self.eng
+        if eng._pending_plan is None:
+            return state
+        state = eng.backend.apply_maintain(state, eng._pending_plan)
+        eng._pending_plan = None
+        L = eng.backend.n_layers
+        eng._bw_log.append((int(state.caches.promo_pages) * L,
+                            int(state.caches.demo_pages) * L))
+        return state
+
+    def release_lane(self, state, lane):
+        state = self.flush(state)
+        return self.eng.backend.release(state, lane)
+
+
+@pytest.mark.cuda
+def test_telemetry_off_launches_what_the_loop_without_telemetry_did(cuda):
+    """With obs, flight and SLOs off the engine launches exactly the
+    kernels of the loop without telemetry, over a whole run (greedy
+    scheduler, overlapped maintenance, releases and prefills included),
+    and decodes the same tokens."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def launches(run):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            done = run()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if "LaunchKernel" in e.key)
+        return n, [r.tokens for r in done]
+
+    _card_engine(cuda).run()                         # builds and loads
+    eng_n, eng_tokens = launches(_card_engine(cuda).run)
+    loop_n, loop_tokens = launches(_ParentLoop(_card_engine(cuda)).run)
+    assert eng_tokens == loop_tokens
+    assert eng_n == loop_n > 0
