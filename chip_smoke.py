@@ -66,6 +66,20 @@ prints no result line):
    the endpoints answering 200; tokens/s, ms per engine step, launches
    per loop iteration, host waits per step and maintenance ms per pass,
    off against on.
+10. the paper-evaluation simulator: (a) the kernel (``sim_scan``, every
+   access of every trace of a sweep in one launch) reproduces
+   ``tests/golden/sim_counters.json`` for its 7 schemes; (b) kernel ==
+   plain loop on the card, counters and every key of the end state, for
+   every table scheme and remap-cache kind, every preset at 32-access
+   epochs, dealloc hints and the tag-matching entry (4 traces x 256
+   accesses); (c) the paper's Figure 7 sweep at its size (14 workloads x
+   49,152 accesses, 2048 fast blocks, 32:1) for 8 schemes, one
+   ``run_many`` launch each, launch counts reset before and read after,
+   counters equal to the JAX reference's
+   (``tests/golden/sim_fig7_counters.json``), wall ms and ns per access
+   cold and warm, the headline ratios; (d) the plain loop's time per
+   access step beside the kernel's, and the kernels line's call
+   (Trimma-C's first 512 accesses of the sweep, kernel and plain loop).
 
 Output, in order: phase lines, one JSON ``kernels`` line (launches: the
 main path's for paged_attention_fused, remap_gather (every launch of the
@@ -73,7 +87,8 @@ copy engine, whose two entries share one copy body) and remap_replay,
 the cached zero-copy server run's for irt_lookup (every launch of the
 walk, whose two entries share one body), irt_walk2 and
 paged_attention_split, the concat server run's for paged_attention, the
-chunked run's for flash_attention), the card's name and power limit as
+chunked run's for flash_attention, the Figure 7 sweep's for sim_scan),
+the card's name and power limit as
 nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -112,21 +127,26 @@ def _check(cond: bool, msg: str):
         raise RuntimeError(msg)
 
 
-def _time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+def _time_ms(fn, reps: int = 30, warmup: int = 3, setup=None) -> float:
     """Median of per-call device times (CUDA events).  Before each call
     the card is held busy (``torch.cuda._sleep``, about a millisecond)
     while the host enqueues the call, so the events bracket the device's
     work and not the host's dispatch; and a 128 MiB write leaves the
     50 MB L2 cold, as the decode step finds it (each layer's pools follow
-    ~0.4 GB of weights)."""
+    ~0.4 GB of weights).  ``setup``, where given, runs before each call,
+    outside the timed window."""
     import torch
     flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
     for _ in range(warmup):
+        if setup is not None:
+            setup()
         fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if setup is not None:
+            setup()
         torch.cuda._sleep(2_000_000)
         flush.zero_()
         a.record()
@@ -1834,6 +1854,305 @@ def telemetry_phase(torch, dev, cfg, params):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the paper-evaluation simulator
+# ---------------------------------------------------------------------------
+
+SIM_GOLDEN = ROOT / "tests" / "golden" / "sim_counters.json"
+SIM_FIG7 = ROOT / "tests" / "golden" / "sim_fig7_counters.json"
+# the recipe of tests/golden/gen_golden.py
+SIM_SMALL = dict(fast_total_blocks=512, ratio=8, n_sets=4)
+# phase 10(b): kernel against the plain loop, T = 4 traces
+SIM_CHECK_GEOM = dict(fast_total_blocks=256, ratio=8, n_sets=4)
+SIM_CHECK_LEN = 256
+SIM_CHECK_WLS = ("pr", "xz", "lbm", "ycsb_a")
+# the kernels line's call: the first accesses of Trimma-C's sweep, kernel
+# and plain loop over the same range of the same full-size inputs
+SIM_ROW_SCHEME, SIM_ROW_LEN = "trimma_c", 512
+
+
+def _sim_golden_configs(P):
+    s = SIM_SMALL
+    return {"trimma_c": P.trimma_cache(**s), "trimma_f": P.trimma_flat(**s),
+            "linear_c": P.linear_cache(**s), "mempod": P.mempod(**s),
+            "alloy": P.alloy(**{**s, "n_sets": 1}),
+            "lohhill": P.lohhill(**{**s, "n_sets": 1}),
+            "ideal_c": P.ideal("cache", **s)}
+
+
+def _sim_check_cases(P):
+    """(label, SimConfig): every table scheme and remap-cache kind at its
+    default policy, every PRESETS policy at 32-access epochs on Trimma-C
+    and Trimma-F, dealloc hints on both, and the tag-matching entry
+    (Alloy, Loh-Hill, 64 ways)."""
+    g = SIM_CHECK_GEOM
+    table = {"trimma_c": ("cache", "irt", "irc"),
+             "trimma_f": ("flat", "irt", "irc"),
+             "linear_c": ("cache", "linear", "conventional"),
+             "mempod": ("flat", "linear", "conventional"),
+             "irt_c_none": ("cache", "irt", "none"),
+             "ideal_c": ("cache", "ideal", "ideal"),
+             "ideal_f": ("flat", "ideal", "ideal")}
+
+    def mk(name, **kw):
+        m, me, rc = table[name]
+        return P.SimConfig(**g, mode=m, meta=me, remap_cache=rc,
+                           **kw).validate()
+    cases = [(name, mk(name)) for name in table]
+    for preset in sorted(P.PRESETS):
+        for name in ("trimma_c", "trimma_f"):
+            cases.append((f"{name}/{preset}", mk(
+                name, policy=P.get_policy(preset, decay_shift=5))))
+    for name in ("trimma_c", "trimma_f"):
+        cases.append((f"{name}/dealloc", mk(
+            name, dealloc_hints=True,
+            policy=P.get_policy("mea", decay_shift=5))))
+    for meta, ways in (("alloy", 0), ("lohhill", 0), ("lohhill", 64)):
+        cases.append((f"{meta}/{ways}", P.SimConfig(
+            **{**g, "n_sets": 1}, mode="cache", meta=meta,
+            remap_cache="none", tag_ways=ways).validate()))
+    return cases
+
+
+def _sim_traces(P, cfg, wls, length, seed, dealloc=False):
+    bs, ws = [], []
+    for wl in wls:
+        b, w = P.generate_trace(P.WORKLOADS[wl], cfg.slow_blocks, length,
+                                seed)
+        bs.append(P.relabel_first_touch(b) if cfg.mode == "flat" else b)
+        ws.append(w)
+    d = [P.with_deallocs(b, 0.05, seed=i) if dealloc
+         else [False] * length for i, b in enumerate(bs)]
+    return bs, ws, d
+
+
+def _sim_pair(torch, cfg, b, w, d, start=0, end=None):
+    """One kernel launch and the plain loop over the same fresh state and
+    range: (the kernel's end state, the keys where the two differ,
+    kernel ms, plain ms), times on the host clock around synchronised
+    calls."""
+    from repro_torch.core import HBM3_DDR5
+    from repro_torch.core import simulator as sim
+    from repro_torch.kernels.sim_scan import ops as ss_ops
+    from repro_torch.kernels.sim_scan.ref import sim_scan_ref
+    g = None if cfg.meta in ("alloy", "lohhill") else sim.make_geometry(cfg)
+    kern = sim.init_state(cfg, g, b.shape[0], b.device)
+    plain = {k: v.clone() for k, v in kern.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ss_ops.sim_scan_op(cfg, HBM3_DDR5, kern, b, w, d, start, end)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sim_scan_ref(cfg, HBM3_DDR5, plain, b, w, d, start, end)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    bad = [k for k in plain if not torch.equal(kern[k], plain[k])]
+    return kern, bad, 1e3 * (t1 - t0), 1e3 * (t2 - t1)
+
+
+def _sim_row_bytes(np, before: dict, after: dict, blocks, n_phys: int):
+    """Bytes a range of accesses must move, on this range's data: the
+    range's trace (block, write and dealloc flags) read once; the small
+    per-trace state (every array not n_phys long) read and written once;
+    of the n_phys-long arrays, the 128 B line of the remap table around
+    every block the range touches (a cold remap cache walks each line at
+    least once and the IdCache fill reads all of it), the 32 B sector of
+    each tracker entry the range touches, read once, and the 32 B sector
+    of every entry that changed, written once.  Returns (bytes, the
+    parts as text)."""
+    T, n = blocks.shape
+    trace = T * n * (4 + 1 + 1)
+    small = sum(2 * v.nbytes for k, v in after.items()
+                if v.shape[-1:] != (n_phys,))
+    big = [k for k, v in after.items() if v.shape[-1:] == (n_phys,)]
+    lines = sum(len(np.unique(blocks[t] // 32)) for t in range(T)) * 128
+    trackers = (len(big) - 1) * sum(len(np.unique(blocks[t] // 8))
+                                    for t in range(T)) * 32
+    written = sum(len(np.unique(np.nonzero(after[k][t] != before[k][t])[0]
+                                // 8)) * 32
+                  for k in big for t in range(T))
+    parts = (f"trace {trace}, small state in and out {small}, remap lines "
+             f"{lines}, tracker sectors {trackers}, changed sectors "
+             f"{written}")
+    return trace + small + lines + trackers + written, parts
+
+
+def _geomean(xs):
+    return math.exp(sum(math.log(x) for x in xs) / len(xs))
+
+
+def sim_phase(torch, dev):
+    """(a) the golden counters through the kernel; (b) kernel against the
+    plain loop on the card, every scheme, preset and entry, counters and
+    the whole end state exact; (c) the paper's Figure 7 sweep at full
+    size, one run_many launch per scheme, counters exact against the JAX
+    reference's JSON, timed cold and warm, with the headline ratios; (d)
+    the plain loop's time per access beside the kernel's.  Returns the
+    kernels line's row and the sweep's launch count."""
+    import numpy as np
+
+    from repro_torch import core as P
+    from repro_torch.core import simulator as sim
+    from repro_torch.kernels.sim_scan import ops as ss_ops
+
+    t_phase = time.perf_counter()
+    # (a) golden: SMALL geometry, pr, 4096 accesses, seed 0
+    want = json.loads(SIM_GOLDEN.read_text())
+    for name, cfg in _sim_golden_configs(P).items():
+        blocks, writes = P.generate_trace(P.WORKLOADS["pr"],
+                                          cfg.slow_blocks, 4096, 0)
+        if cfg.mode == "flat":
+            blocks = P.relabel_first_touch(blocks)
+        out = P.run(cfg, P.HBM3_DDR5, blocks, writes, device=dev)
+        got = {k: int(out[k]) for k in want[name]}
+        _check(got == want[name], f"sim: golden {name} differs: "
+               f"{ {k: (v, got[k]) for k, v in want[name].items() if got[k] != v} }")
+    print(f"sim (a): the kernel reproduces tests/golden/sim_counters.json "
+          f"exactly for {len(want)} schemes (4096 accesses each)")
+
+    # (b) kernel against the plain loop on the card
+    k_ms = p_ms = 0.0
+    n_acc = 0
+    cases = _sim_check_cases(P)
+    for label, cfg in cases:
+        bs, ws, ds = _sim_traces(P, cfg, SIM_CHECK_WLS, SIM_CHECK_LEN, 1,
+                                 dealloc=cfg.dealloc_hints)
+        b = torch.as_tensor(np.stack(bs).astype(np.int32), device=dev)
+        w = torch.as_tensor(np.stack(ws), device=dev)
+        d = torch.as_tensor(np.stack(ds), device=dev)
+        kern, bad, km, pm = _sim_pair(torch, cfg, b, w, d)
+        _check(not bad, f"sim (b): {label}: kernel differs from the plain "
+               f"loop in {bad}")
+        _check(int(kern["counters"][:, 0].sum()) > 0, f"sim (b): {label}: "
+               "no access counted")
+        k_ms, p_ms, n_acc = k_ms + km, p_ms + pm, n_acc + SIM_CHECK_LEN
+    print(f"sim (b): kernel == plain loop on the card, counters and every "
+          f"key of the end state, {len(cases)} cases (every table scheme "
+          f"and remap-cache kind, {len(P.PRESETS)} presets x cache/flat at "
+          f"32-access epochs, dealloc hints, Alloy / Loh-Hill / 64 ways), "
+          f"{len(SIM_CHECK_WLS)} traces x {SIM_CHECK_LEN} accesses each")
+
+    # (c) the Figure 7 sweep at the paper's size
+    data = json.loads(SIM_FIG7.read_text())
+    wls, L = data["workloads"], data["trace_len"]
+    tm = P.TIMINGS[data["timing"]]
+    cfgs = {n: P.SimConfig(**kw).validate()
+            for n, kw in data["configs"].items()}
+    t0 = time.perf_counter()
+    n_phys = next(iter(cfgs.values())).slow_blocks
+    traces = {}
+    for wl in wls:
+        b, w = P.generate_trace(P.WORKLOADS[wl], n_phys, L, data["seed"])
+        traces[wl] = (b, P.relabel_first_touch(b), w)
+    gen_s = time.perf_counter() - t0
+    stack = {flat: (np.stack([traces[wl][1 if flat else 0] for wl in wls]),
+                    np.stack([traces[wl][2] for wl in wls]))
+             for flat in (False, True)}
+    ss_ops.launches = 0                      # the main path's run
+    results, wall = {}, {}
+    for name, cfg in cfgs.items():
+        blocks, writes = stack[cfg.mode == "flat"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = P.run_many(cfg, tm, blocks, writes, device=dev)
+        wall[name] = [1e3 * (time.perf_counter() - t0)]
+        results[name] = outs
+        for wl, o in zip(wls, outs):
+            got = {k: int(o[k]) for k in data["counters"][name][wl]}
+            _check(got == data["counters"][name][wl],
+                   f"sim (c): {name} {wl} differs from the JAX reference")
+    launches = ss_ops.launches
+    _check(launches == len(cfgs), f"sim (c): {launches} sim_scan launches "
+           f"for {len(cfgs)} run_many calls")
+    for name, cfg in cfgs.items():            # warm: the same calls again
+        blocks, writes = stack[cfg.mode == "flat"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        P.run_many(cfg, tm, blocks, writes, device=dev)
+        wall[name].append(1e3 * (time.perf_counter() - t0))
+    n_sweep = len(wls) * L
+    print(f"sim (c): Figure 7 sweep at the paper's size: {len(wls)} "
+          f"workloads x {L} accesses, seed {data['seed']}, "
+          f"{data['timing']}, fast_total_blocks "
+          f"{cfgs['trimma_c'].fast_total_blocks}, {cfgs['trimma_c'].ratio}:1; "
+          f"counters and metadata_blocks equal the JAX reference "
+          f"(tests/golden/sim_fig7_counters.json) for all {len(cfgs)} "
+          f"schemes; {launches} sim_scan launches for {len(cfgs)} run_many "
+          f"calls; traces generated in {gen_s:.2f} s")
+    for name in cfgs:
+        cold, warm = wall[name]
+        print(f"sim (c): {name}: run_many wall {cold:.1f} ms cold, "
+              f"{warm:.1f} ms warm; {1e6 * cold / n_sweep:.1f} / "
+              f"{1e6 * warm / n_sweep:.1f} ns per access")
+    tot_c = sum(v[0] for v in wall.values())
+    tot_w = sum(v[1] for v in wall.values())
+    print(f"sim (c): all {len(cfgs)} schemes {tot_c:.1f} ms cold, "
+          f"{tot_w:.1f} ms warm; {1e6 * tot_w / (n_sweep * len(cfgs)):.1f} "
+          f"ns per access warm; card {_card_line()}")
+    r = results
+    alloy_c = _geomean([a["t_total"] / t["t_total"]
+                        for a, t in zip(r["alloy"], r["trimma_c"])])
+    mempod_f = _geomean([m["t_total"] / f["t_total"]
+                         for m, f in zip(r["mempod"], r["trimma_f"])])
+    saving = sum(1 - f["metadata_blocks"] / m["metadata_blocks"]
+                 for m, f in zip(r["mempod"], r["trimma_f"])) / len(wls)
+    print(f"sim (c): headline ({data['timing']}, geomean over {len(wls)} "
+          f"workloads): Alloy / Trimma-C t_total {alloy_c:.3f}x (paper avg "
+          f"1.33x), MemPod / Trimma-F {mempod_f:.3f}x (paper avg 1.32x, "
+          f"on DDR5+NVM), Trimma-F's metadata saving against MemPod "
+          f"{100 * saving:.1f} % (mean; paper avg 43 %)")
+
+    # the kernels line's call: Trimma-C's first SIM_ROW_LEN accesses of
+    # the sweep, full-size state, kernel and plain loop on the same range
+    cfg = cfgs[SIM_ROW_SCHEME]
+    blocks, writes = stack[False]
+    b = torch.as_tensor(blocks.astype(np.int32), device=dev)
+    w = torch.as_tensor(writes, device=dev)
+    d = torch.zeros_like(w)
+    g = sim.make_geometry(cfg)
+    state = sim.init_state(cfg, g, b.shape[0], dev)
+    fresh = {k: v.clone() for k, v in state.items()}
+
+    def reset():
+        for k, v in fresh.items():
+            state[k].copy_(v)
+
+    saved = ss_ops.launches
+    ms = _time_ms(lambda: ss_ops.sim_scan_op(cfg, tm, state, b, w, d, 0,
+                                             SIM_ROW_LEN),
+                  reps=5, warmup=1, setup=reset)
+    kern, bad, _, plain_ms = _sim_pair(torch, cfg, b, w, d, 0, SIM_ROW_LEN)
+    ss_ops.launches = saved
+    _check(not bad, f"sim: the row's call differs from the plain loop in "
+           f"{bad}")
+    nbytes, parts = _sim_row_bytes(
+        np, {k: v.cpu().numpy() for k, v in fresh.items()},
+        {k: v.cpu().numpy() for k, v in kern.items()},
+        blocks[:, :SIM_ROW_LEN], cfg.n_phys)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    acc = b.shape[0] * SIM_ROW_LEN
+    print(f"sim (d): plain loop on the card {p_ms / n_acc:.3f} ms per "
+          f"access step ({len(SIM_CHECK_WLS)} traces at once; kernel "
+          f"{p_ms / k_ms:.0f}x faster: {1e3 * k_ms / n_acc:.3f} us per step, "
+          f"host clock, launch included) over "
+          f"phase (b)'s {len(cases)} cases; the row's call ({SIM_ROW_SCHEME}, "
+          f"{b.shape[0]} traces x accesses [0, {SIM_ROW_LEN}) at full size): "
+          f"kernel {ms:.4f} ms (CUDA events, state reset outside the "
+          f"window), plain {plain_ms:.1f} ms, {plain_ms / ms:.0f}x; "
+          f"{1e6 * ms / SIM_ROW_LEN:.0f} ns per access step, "
+          f"{1e6 * ms / acc:.1f} ns per access; bound {bound_ms:.6f} ms, "
+          f"{nbytes} B this range needs ({parts}); "
+          f"{_vs_bound('sim_scan', ms, bound_ms, nbytes=nbytes)}; phase 10 "
+          f"took {time.perf_counter() - t_phase:.1f} s")
+    row = dict(name="sim_scan", route="cuda",
+               source="src/repro_torch/kernels/sim_scan/csrc/sim_scan.cu",
+               replaces="src/repro/core/simulator.py:442 (jax.lax.scan; "
+                        "no Pallas kernel)",
+               max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by="bytes", library_ms=None)
+    return row, launches
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         _fail("src/repro_torch not found beside chip_smoke.py")
@@ -1868,6 +2187,8 @@ def main():
     chunk_equivalence_phase(torch, dev, cfg, params)
     telemetry_phase(torch, dev, cfg, params)
     del params
+    torch.cuda.empty_cache()
+    rows["sim_scan"], launches["sim_scan"] = sim_phase(torch, dev)
     for name, n in launches.items():
         rows[name]["launches"] = n
     print(json.dumps({"kernels": [rows[k] for k in sorted(rows)]}))

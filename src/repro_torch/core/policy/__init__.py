@@ -1,7 +1,8 @@
 """core/policy: hotness tracking + migration scheduling (port of
-``repro.core.policy``; ``config.py`` is a copy of the reference's)."""
+``repro.core.policy``; ``config.py`` is a copy of the reference's;
+``access`` is the per-access gate the trace simulator scans over)."""
 
-from . import deciders, scheduler, trackers
+from . import access, deciders, scheduler, trackers
 from .config import (DECIDERS, PRESETS, TRACKERS, PolicyConfig, get_policy,
                      mea_policy, on_demand_policy, recency_policy,
                      threshold_policy, topk_policy, write_aware_policy)
@@ -12,4 +13,5 @@ __all__ = [
     "threshold_policy", "mea_policy", "on_demand_policy",
     "write_aware_policy", "topk_policy", "recency_policy",
     "Plan", "plan", "plan_tenants", "trackers", "deciders", "scheduler",
+    "access",
 ]

@@ -94,6 +94,12 @@ class PolicyConfig:
         (freeing fast slots before pulling new pages in)."""
         return self.decider == "write_aware"
 
+    def threshold_for(self, mode: str) -> int:
+        """The simulator's gate threshold: install in cache mode, promote
+        in flat mode."""
+        return self.install_threshold if mode == "cache" \
+            else self.promote_threshold
+
 
 # ---------------------------------------------------------------------------
 # presets — the sweepable family (each maps to a scheme in the literature)

@@ -29,6 +29,7 @@ SOURCES = {
         _PKG / "kernels/paged_attention/csrc/paged_attention.cu",
     "flash_attention":
         _PKG / "kernels/flash_attention/csrc/flash_attention.cu",
+    "sim_scan": _PKG / "kernels/sim_scan/csrc/sim_scan.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

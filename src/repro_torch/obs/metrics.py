@@ -17,6 +17,8 @@
   counter and occupancy tensors (a few device copies, no host read; the
   KV pools are never touched).  ``stashed_metrics`` derives the metrics
   of a whole batch of stashes after one transfer to the host.
+* ``sim_metrics`` maps the simulator's counters onto their canonical
+  ``sim_*`` names.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 
 from repro_torch._scatter import drop_add
 
-from .registry import LEGACY_TIERED, TIERED_FIELDS
+from .registry import LEGACY_TIERED, TIERED_FIELDS, sim_export
 
 # one log2 histogram geometry for every latency histogram in the repo:
 # buckets [0, .25), [.25, .5), ..., [256, 512), [512, inf) ms
@@ -178,3 +180,13 @@ def legacy_counters(metrics: dict) -> dict:
     """Canonical metric dict -> the legacy short-key counters dict."""
     return {short: metrics[canon] for short, canon in LEGACY_TIERED.items()
             if canon in metrics}
+
+
+def sim_metrics(counters: dict) -> dict:
+    """Simulator counters (``core/simulator.run`` output) under canonical
+    ``sim_*`` names, plus the derived remap-cache miss count."""
+    out = sim_export(counters)
+    if {"sim_accesses_total", "sim_rc_hits_total"} <= out.keys():
+        out["sim_rc_misses_total"] = (out["sim_accesses_total"]
+                                      - out["sim_rc_hits_total"])
+    return out

@@ -5,6 +5,7 @@ the card's machine:  PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_cuda.py.  Without a card every test skips."""
 
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -1000,3 +1001,172 @@ def test_telemetry_off_launches_what_the_loop_without_telemetry_did(cuda):
     loop_n, loop_tokens = launches(_ParentLoop(_card_engine(cuda)).run)
     assert eng_tokens == loop_tokens
     assert eng_n == loop_n > 0
+
+
+# ---------------------------------------------------------------------------
+# the simulator's scan (sim_scan): kernel against the plain loop, exact
+# ---------------------------------------------------------------------------
+
+SIM_GEOM = dict(fast_total_blocks=256, ratio=8, n_sets=4)
+
+
+def _sim_cases():
+    """(label, SimConfig keywords, policy preset or None, policy
+    overrides, dealloc hints): both entries, every table scheme and
+    remap-cache kind, every preset at short epochs, dealloc hints."""
+    table = {
+        "trimma_c": ("cache", "irt", "irc"), "trimma_f": ("flat", "irt", "irc"),
+        "linear_c": ("cache", "linear", "conventional"),
+        "mempod": ("flat", "linear", "conventional"),
+        "irt_c_none": ("cache", "irt", "none"),
+        "irt_f_ideal": ("flat", "irt", "ideal"),
+        "ideal_c": ("cache", "ideal", "ideal"),
+    }
+    cases = [(name, dict(SIM_GEOM, mode=m, meta=me, remap_cache=rc), None,
+              {}, False) for name, (m, me, rc) in table.items()]
+    for preset in ("threshold", "mea", "on_demand", "write_aware", "topk",
+                   "recency"):
+        for name in ("trimma_c", "trimma_f"):
+            m, me, rc = table[name]
+            cases.append((f"{name}/{preset}",
+                          dict(SIM_GEOM, mode=m, meta=me, remap_cache=rc),
+                          preset, dict(decay_shift=5), False))
+    for name in ("trimma_c", "trimma_f"):
+        m, me, rc = table[name]
+        cases.append((f"{name}/dealloc", dict(SIM_GEOM, mode=m, meta=me,
+                                              remap_cache=rc,
+                                              dealloc_hints=True),
+                      "mea", dict(decay_shift=5), True))
+    for meta, ways in (("alloy", 0), ("lohhill", 0), ("lohhill", 64)):
+        cases.append((f"{meta}/{ways}", dict(SIM_GEOM, mode="cache",
+                                             meta=meta, remap_cache="none",
+                                             n_sets=1, tag_ways=ways),
+                      None, {}, False))
+    # remap caches wider than a warp, and a fast tier whose slot arrays
+    # need more than 48 KB of shared memory
+    wide = dict(rc_ways=40, nid_ways=40, id_ways=36)
+    cases.append(("trimma_f/wide", dict(SIM_GEOM, mode="flat", meta="irt",
+                                        remap_cache="irc", **wide),
+                  "on_demand", {}, False))
+    cases.append(("linear_c/wide", dict(SIM_GEOM, mode="cache",
+                                        meta="linear",
+                                        remap_cache="conventional", **wide),
+                  None, {}, False))
+    cases.append(("trimma_c/large", dict(fast_total_blocks=16384, ratio=2,
+                                         n_sets=4, mode="cache", meta="irt",
+                                         remap_cache="irc"),
+                  None, {}, False))
+    return cases
+
+
+def _sim_inputs(cuda, label, kw, preset, over, dealloc, length=320):
+    from repro_torch import core as P
+    if preset is not None:
+        kw = dict(kw, policy=P.get_policy(preset, **over))
+    cfg = P.SimConfig(**kw).validate()
+    bs, ws = [], []
+    for wl in ("pr", "xz", "lbm"):
+        b, w = P.generate_trace(P.WORKLOADS[wl], cfg.slow_blocks, length, 1)
+        bs.append(P.relabel_first_touch(b) if cfg.mode == "flat" else b)
+        ws.append(w)
+    blocks = torch.as_tensor(np.stack(bs).astype(np.int32), device=cuda)
+    writes = torch.as_tensor(np.stack(ws), device=cuda)
+    deallocs = torch.as_tensor(
+        np.stack([P.with_deallocs(b, 0.05, seed=i) for i, b in enumerate(bs)])
+        if dealloc else np.zeros((3, length), bool), device=cuda)
+    return cfg, blocks, writes, deallocs
+
+
+def _sim_state(cfg, T, cuda):
+    from repro_torch.core import simulator as sim
+    g = None if cfg.meta in ("alloy", "lohhill") else sim.make_geometry(cfg)
+    return sim.init_state(cfg, g, T, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _sim_cases(), ids=lambda c: c[0])
+def test_sim_scan_kernel_matches_plain(cuda, case):
+    """Every key of the end state (remap, slots, leaves, FIFO pointers,
+    remap cache, trackers, counters) equal to the plain loop's on the
+    card, three traces of 320 accesses in one launch."""
+    from repro_torch.core import HBM3_DDR5
+    from repro_torch.kernels.sim_scan import ops as ss_ops
+    from repro_torch.kernels.sim_scan.ref import sim_scan_ref
+    cfg, b, w, d = _sim_inputs(cuda, *case)
+    kern = _sim_state(cfg, 3, cuda)
+    plain = {k: v.clone() for k, v in kern.items()}
+    before = ss_ops.launches
+    ss_ops.sim_scan_op(cfg, HBM3_DDR5, kern, b, w, d)
+    assert ss_ops.launches == before + 1
+    sim_scan_ref(cfg, HBM3_DDR5, plain, b, w, d)
+    torch.cuda.synchronize()
+    for k in plain:
+        assert torch.equal(kern[k], plain[k]), k
+    assert int(kern["counters"][:, 0].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["trimma_c/topk", "trimma_f/mea",
+                                   "lohhill/64"])
+def test_sim_scan_ranges_equal_one_launch(cuda, label):
+    """[0, 97) then [97, 320) in two launches == [0, 320) in one, an
+    epoch edge inside each range."""
+    from repro_torch.core import HBM3_DDR5
+    from repro_torch.kernels.sim_scan import ops as ss_ops
+    case = next(c for c in _sim_cases() if c[0] == label)
+    cfg, b, w, d = _sim_inputs(cuda, *case)
+    one = _sim_state(cfg, 3, cuda)
+    two = {k: v.clone() for k, v in one.items()}
+    ss_ops.sim_scan_op(cfg, HBM3_DDR5, one, b, w, d)
+    ss_ops.sim_scan_op(cfg, HBM3_DDR5, two, b, w, d, 0, 97)
+    ss_ops.sim_scan_op(cfg, HBM3_DDR5, two, b, w, d, 97, 320)
+    for k in one:
+        assert torch.equal(one[k], two[k]), k
+
+
+@pytest.mark.cuda
+def test_sim_scan_reproduces_golden_counters(cuda):
+    """tests/golden/sim_counters.json through run on the card."""
+    from repro_torch import core as P
+    with open(Path(__file__).parent / "golden" / "sim_counters.json") as f:
+        want = json.load(f)
+    small = dict(fast_total_blocks=512, ratio=8, n_sets=4)
+    schemes = {
+        "trimma_c": P.trimma_cache(**small), "trimma_f": P.trimma_flat(**small),
+        "linear_c": P.linear_cache(**small), "mempod": P.mempod(**small),
+        "alloy": P.alloy(**{**small, "n_sets": 1}),
+        "lohhill": P.lohhill(**{**small, "n_sets": 1}),
+        "ideal_c": P.ideal("cache", **small)}
+    for name, cfg in schemes.items():
+        blocks, writes = P.generate_trace(P.WORKLOADS["pr"],
+                                          cfg.slow_blocks, 4096, 0)
+        if cfg.mode == "flat":
+            blocks = P.relabel_first_touch(blocks)
+        out = P.run(cfg, P.HBM3_DDR5, blocks, writes, device=cuda)
+        got = {k: int(out[k]) for k in want[name]}
+        assert got == want[name], name
+
+
+@pytest.mark.cuda
+def test_sim_scan_rejects_what_it_does_not_take(cuda):
+    from repro_torch.core import HBM3_DDR5
+    from repro_torch.kernels.sim_scan import ops as ss_ops
+    case = next(c for c in _sim_cases() if c[0] == "trimma_c")
+    cfg, b, w, d = _sim_inputs(cuda, *case)
+    st = _sim_state(cfg, 3, cuda)
+    with pytest.raises(ValueError, match="blocks"):
+        ss_ops.sim_scan_op(cfg, HBM3_DDR5, st, b.long(), w, d)
+    with pytest.raises(ValueError, match="writes"):
+        ss_ops.sim_scan_op(cfg, HBM3_DDR5, st, b, w.int(), d)
+    with pytest.raises(ValueError, match="remap"):
+        ss_ops.sim_scan_op(cfg, HBM3_DDR5, {**st, "remap": st["remap"].cpu()},
+                           b, w, d)
+    with pytest.raises(ValueError, match="remap"):
+        ss_ops.sim_scan_op(cfg, HBM3_DDR5, {**st, "remap": st["remap"][:2]},
+                           b, w, d)
+    with pytest.raises(ValueError, match="keys"):
+        ss_ops.sim_scan_op(cfg, HBM3_DDR5,
+                           {k: v for k, v in st.items() if k != "step"},
+                           b, w, d)
+    with pytest.raises(ValueError, match="range"):
+        ss_ops.sim_scan_op(cfg, HBM3_DDR5, st, b, w, d, 10, 5)
