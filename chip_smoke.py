@@ -27,6 +27,13 @@ prints no result line):
    timed beside the per-copy chain of launches it replaces, then at the
    smoke and odd slab sizes; the walk to both homes with the iRC probe
    folded in (irt_walk2), exact, timed beside the chain it replaces.
+   Then the same checks and times at the other families' shapes (rows
+   under ``shapes`` in the kernels line): the fused read at granite's
+   (KV 8, G 3, hd 64), qwen2-7b's (KV 4, G 7) and codeqwen's (KV 32,
+   G 1); flash one-shot and chunk at granite's (H 24/8, hd 64) and
+   qwen2-7b's (H 28/4) heads, one-shot at mixtral's (H 48/8, a
+   4096-token window over 4608 keys); the pass replay over granite's and
+   qwen2-7b's stacked pools (32 and 28 layers).
 4. main path: llama3-8b at its published width (32 layers, bf16, seeded
    random weights made on the card) served by the tiered engine (its
    one-shot prefill runs the flash kernel); launch counts are reset just
@@ -80,6 +87,20 @@ prints no result line):
    cold and warm, the headline ratios; (d) the plain loop's time per
    access step beside the kernel's, and the kernels line's call
    (Trimma-C's first 512 accesses of the sweep, kernel and plain loop).
+11. the other families at full width: qwen2-7b (random non-zero QKV
+   biases) and granite-moe-3b at their published widths and depths,
+   seeded weights made on the card, served by the tiered engine on phase
+   4's store with phase 4's first 8 requests: every request finished and
+   released to identity, launch counts as in phase 4; tokens/s, ms per
+   decode step, maintenance ms per pass, the kernel launches and device
+   time of a decode step (``torch.profiler``), launches per kind and,
+   for granite, the routed choices dropped for capacity; each then dense
+   against tiered on 2 layers in fp32 as phase 5.  mixtral-8x22b at full
+   width on 2 of its 56 layers, fp32, dense backend: a 4,600-token
+   prompt through flash with the 4096-token window, 16 teacher-forced
+   decode steps each within 1e-3 of the one-shot forward, and a window-0
+   control that matches its own forward and differs from the windowed
+   one.
 
 Output, in order: phase lines, one JSON ``kernels`` line (launches: the
 main path's for paged_attention_fused, remap_gather (every launch of the
@@ -87,7 +108,8 @@ copy engine, whose two entries share one copy body) and remap_replay,
 the cached zero-copy server run's for irt_lookup (every launch of the
 walk, whose two entries share one body), irt_walk2 and
 paged_attention_split, the concat server run's for paged_attention, the
-chunked run's for flash_attention, the Figure 7 sweep's for sim_scan),
+chunked run's for flash_attention, the Figure 7 sweep's for sim_scan;
+a row at another family's shape counts phase 11's run of that family),
 the card's name and power limit as
 nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 """
@@ -331,6 +353,8 @@ def kernel_phase(torch, dev):
                f"paged_attention_fused fp32 K={K} error {e} > 1e-4")
         print(f"kernel paged_attention_fused fp32 smoke K={K}: max_abs_err "
               f"{e:.3e} (tol 1e-4)")
+    rows["paged_attention_fused"]["shapes"] = fused_family_rows(
+        torch, dev, rows["paged_attention_fused"])
 
     # remap_gather at the main path's call: the [L*n, KV*P, hd] view of a
     # 32-layer slow pool (n = 1024 homes, KV*P = 128 rows, hd = 128,
@@ -373,6 +397,62 @@ def kernel_phase(torch, dev):
     rows.update(paged_read_rows(torch, dev))
     rows.update(flash_rows(torch, dev))
     return rows
+
+
+# the other families' fused-read shapes (arch, KV heads, group, head dim),
+# otherwise the main path's row: B=8, K=1, page 16, bf16, a 64-page
+# bucket of 128 pages, 144 fast slots
+FAMILY_FUSED = (("granite-moe-3b-a800m", 8, 3, 64), ("qwen2-7b", 4, 7, 128),
+                ("codeqwen1.5-7b", 32, 1, 128))
+
+
+def _shape_row(base, arch, shape, **numbers):
+    """A kernel row at another family's shape: the base row's name,
+    route, source and what it replaces, this shape's numbers; launches
+    are those of phase 11's run of ``arch`` (0 where it serves none)."""
+    keys = ("name", "route", "source", "replaces")
+    return {**{k: base[k] for k in keys}, "arch": arch, "shape": shape,
+            "launches": 0, **numbers}
+
+
+def fused_family_rows(torch, dev, base):
+    """paged_attention_fused at the other families' shapes, checked and
+    timed as the main path's row: within two bf16 ulps of each value of
+    the plain version, kernel, plain and bound times."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention.ref import (
+        bf16_tolerance, paged_attention_fused_ref)
+
+    out_rows = []
+    for i, (arch, KV, G, hd) in enumerate(FAMILY_FUSED):
+        d, _ = _fused_inputs(torch, dev, B=8, K=1, KV=KV, G=G, hd=hd, P=16,
+                             NP=128, F=144, n_pages=64,
+                             dtype=torch.bfloat16, seed=40 + i)
+        live = d["pos"] >= 0
+        out = pa_ops.paged_attention_fused_op(**d)
+        d32 = {k: (v.float() if v.is_floating_point() else v)
+               for k, v in d.items()}
+        ref = paged_attention_fused_ref(**d32).to(torch.bfloat16)[live] \
+            .float()
+        diff = (out[live].float() - ref).abs()
+        err = diff.max().item()
+        ratio = (diff / bf16_tolerance(ref)).max().item()
+        shape = f"B 8, K 1, KV {KV}, G {G}, hd {hd}, page 16, bf16"
+        _check(math.isfinite(err) and ratio <= 1.0,
+               f"paged_attention_fused at {arch}'s shape ({shape}): error "
+               f"{err} over two bf16 ulps (error/limit {ratio:.3f})")
+        ms = _time_ms(lambda: pa_ops.paged_attention_fused_op(**d))
+        plain_ms = _time_ms(lambda: paged_attention_fused_ref(**d), reps=5)
+        bound_ms, bound_by, nbytes = _fused_bound(d)
+        out_rows.append(_shape_row(
+            base, arch, shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+        print(f"kernel paged_attention_fused at {arch}'s shape ({shape}): "
+              f"error/limit {ratio:.3f} (max abs {err:.3e}), {ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by}), {ms / bound_ms:.1f}x the bound, "
+              f"{nbytes / ms / 1e6:.1f} GB/s")
+    return out_rows
 
 
 def _main_pass_records(torch, dev):
@@ -437,31 +517,14 @@ def replay_rows(torch, dev):
     from repro_torch.kernels.remap_gather import ops as rg_ops
     from repro_torch.kernels.remap_gather.ref import remap_replay_ref
 
-    L, F, S = 32, 144, 1024
-    g = torch.Generator(device=dev)
-    g.manual_seed(21)
-    pools = [torch.randn((L, n, 8, 16, 128), generator=g,
-                         device=dev).to(torch.bfloat16) for n in (F, F, S, S)]
-    recs = _main_pass_records(torch, dev)
-    kern = [x.clone() for x in pools]
-    err = rg_ops.new_flag(dev)
-    rg_ops.remap_replay_op(kern, recs, err)
-    rg_ops.check_flag(err)
-    remap_replay_ref(pools, recs)
-    _check(all(torch.equal(a, b) for a, b in zip(kern, pools)),
-           "remap_replay differs from its plain version at the main path's "
-           "shapes")
-    del kern
-    torch.cuda.empty_cache()
-    ms = _time_ms(lambda: rg_ops.remap_replay_op(pools, recs, err))
-    plain_ms = _time_ms(lambda: remap_replay_ref(pools, recs), reps=5)
+    L = 32
+    pools, recs, err, ms, plain_ms, bound_ms, nbytes = _replay_pass(
+        torch, dev, L=L, KV=8, hd=128, seed=21)
     chain_ms = _time_ms(_per_copy_chain(torch, rg_ops, pools, recs, err),
                         reps=5)
     rg_ops.check_flag(err)
     n_en = int(recs[:, 3].sum())
     slab = pools[0][0, 0].numel() * pools[0].element_size()
-    nbytes = n_en * 2 * L * slab * 2 + recs.numel() * 4
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     print(f"kernel remap_replay bf16 main pass ({recs.shape[0]} records, "
           f"{n_en} enabled, L={L}, {slab // 1024} KiB slabs): exact, one "
           f"launch {ms:.4f} ms, plain per-record version {plain_ms:.4f} ms, "
@@ -471,6 +534,8 @@ def replay_rows(torch, dev):
     print("kernel " + _vs_bound("remap_replay", ms, bound_ms, nbytes=nbytes))
     del pools
     torch.cuda.empty_cache()
+    g = torch.Generator(device=dev)
+    g.manual_seed(23)
 
     rng = torch.Generator().manual_seed(22)
     n = 600
@@ -506,12 +571,68 @@ def replay_rows(torch, dev):
     print(f"kernel remap_replay smoke and odd slabs (1024, 60, 30 bytes; "
           f"{n} records, {int(en.sum())} enabled, 3 layers): exact; an "
           f"out-of-range record flagged and dropped")
-    return {"remap_replay": dict(
+    row = dict(
         name="remap_replay", route="cuda",
         source="src/repro_torch/kernels/remap_gather/csrc/remap_gather.cu",
         replaces="src/repro/kernels/remap_gather/remap_gather.py:24",
         max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by="bytes", library_ms=None)}
+        bound_by="bytes", library_ms=None)
+    row["shapes"] = []
+    for arch, L, KV, hd in FAMILY_POOLS:
+        pools, recs, err, ms, plain_ms, bound_ms, nbytes = _replay_pass(
+            torch, dev, L=L, KV=KV, hd=hd, seed=24 + L)
+        shape = f"L {L}, KV {KV}, page 16, hd {hd}, bf16"
+        row["shapes"].append(_shape_row(
+            row, arch, shape, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by="bytes", library_ms=None))
+        print(f"kernel remap_replay over {arch}'s stacked pools ({shape}; "
+              f"the main pass's {recs.shape[0]} records): exact, {ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"(bytes, {nbytes / 2**20:.0f} MiB), {ms / bound_ms:.2f}x "
+              f"the bound")
+        del pools
+        torch.cuda.empty_cache()
+    return {"remap_replay": row}
+
+
+# the other families' stacked pools (arch, layers, KV heads, head dim) at
+# the main path's store: 144 fast slots, 1024 slow homes, page 16, bf16
+FAMILY_POOLS = (("granite-moe-3b-a800m", 32, 8, 64), ("qwen2-7b", 28, 4, 128))
+
+
+def _replay_pass(torch, dev, *, L, KV, hd, seed):
+    """The recorded main-path pass replayed over seeded stacked bf16
+    pools of L layers (144 fast slots, 1024 slow homes of KV x page 16 x
+    hd): the kernel bit for bit against the plain per-record replay, then
+    kernel and plain times and the byte bound.  Returns (pools, records,
+    flag, ms, plain_ms, bound_ms, bytes)."""
+    from repro_torch.kernels.remap_gather import ops as rg_ops
+    from repro_torch.kernels.remap_gather.ref import remap_replay_ref
+
+    F, S = 144, 1024
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    pools = [torch.randn((L, n, KV, 16, hd), generator=g,
+                         device=dev).to(torch.bfloat16) for n in (F, F, S, S)]
+    recs = _main_pass_records(torch, dev)
+    kern = [x.clone() for x in pools]
+    err = rg_ops.new_flag(dev)
+    rg_ops.remap_replay_op(kern, recs, err)
+    rg_ops.check_flag(err)
+    remap_replay_ref(pools, recs)
+    _check(all(torch.equal(a, b) for a, b in zip(kern, pools)),
+           f"remap_replay differs from its plain version over L={L}, "
+           f"KV={KV}, hd={hd} pools")
+    del kern
+    torch.cuda.empty_cache()
+    ms = _time_ms(lambda: rg_ops.remap_replay_op(pools, recs, err))
+    plain_ms = _time_ms(lambda: remap_replay_ref(pools, recs), reps=5)
+    rg_ops.check_flag(err)
+    n_en = int(recs[:, 3].sum())
+    slab = pools[0][0, 0].numel() * pools[0].element_size()
+    nbytes = n_en * 2 * L * slab * 2 + recs.numel() * 4
+    return (pools, recs, err, ms, plain_ms,
+            nbytes / HBM_BYTES_PER_S * 1e3, nbytes)
 
 
 def _irt_table(torch, dev, n_ids, seed):
@@ -786,19 +907,84 @@ def _flash_plain(q, k, v, **kw):
                          v.transpose(1, 2).float(), **kw).transpose(1, 2)
 
 
-def _flash_bound(S, T, H, KV, hd, q_offset, item):
+def _flash_bound(S, T, H, KV, hd, q_offset, item, window=0):
     """Least time for one causal call: 4*hd flops per unmasked (query,
     key) pair and head at the bf16 tensor-core peak, against Q, O and the
-    K/V rows any query sees, each moved once, at HBM bandwidth."""
+    K/V rows any query sees (those inside the sliding window, where
+    there is one), each moved once, at HBM bandwidth."""
     pos = range(q_offset, q_offset + S)
-    pairs = sum(min(p + 1, T) for p in pos)
-    keys = min(q_offset + S, T)
+    low = (lambda p: max(0, p - window + 1)) if window else (lambda p: 0)
+    pairs = sum(min(p + 1, T) - low(p) for p in pos)
+    keys = min(q_offset + S, T) - low(q_offset)
     nbytes = item * (2 * S * H * hd + 2 * keys * KV * hd)
     flops = 4 * hd * H * pairs
     t_ops = flops / BF16_FLOP_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes"), flops
+
+
+def _flash_case(torch, dev, q, k, v, off, label, window=0):
+    """One bf16 flash call checked and timed: within two bf16 ulps of
+    each value of the plain version; kernel, plain and
+    ``scaled_dot_product_attention`` times (the library on [B, H, S, hd]
+    copies made beforehand, causal and windowed by a boolean mask where
+    ``is_causal`` does not say it) and the bound.  Returns the row's
+    numbers."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention.ref import bf16_tolerance
+
+    op = fa_ops.flash_attention_op
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    kw = dict(q_offset=off, window=window)
+    out = op(q, k, v, **kw)
+    ref = _flash_plain(q, k, v, **kw).to(torch.bfloat16).float()
+    diff = (out.float() - ref).abs()
+    err = diff.max().item()
+    ratio = (diff / bf16_tolerance(ref)).max().item()
+    _check(math.isfinite(err) and ratio <= 1.0,
+           f"flash_attention {label} bf16 error {err} over two ulps "
+           f"(error/limit {ratio:.3f})")
+    lq, lk, lv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if off == 0 and window == 0:
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            lq, lk, lv, is_causal=True, enable_gqa=True)
+    else:
+        kpos = torch.arange(T, device=dev)[None, :]
+        qpos = torch.arange(off, off + S, device=dev)[:, None]
+        mask = kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            lq, lk, lv, attn_mask=mask, enable_gqa=True)
+    lib_err = (lib().transpose(1, 2).float() - ref).abs().max().item()
+    ms = _time_ms(lambda: op(q, k, v, **kw))
+    plain_ms = _time_ms(lambda: _flash_plain(q, k, v, **kw), reps=5)
+    lib_ms = _time_ms(lib)
+    bound_ms, bound_by, flops = _flash_bound(S, T, H, KV, hd, off, 2,
+                                             window)
+    print(f"kernel flash_attention bf16 {label} (S={S}, q_offset={off}, "
+          f"T={T}, H={H}/{KV}, hd={hd}, causal"
+          f"{f', window {window}' if window else ''}): error/limit "
+          f"{ratio:.3f} (max abs {err:.3e}), {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, scaled_dot_product_attention {lib_ms:.4f} ms "
+          f"(its max abs err {lib_err:.3e}), bound {bound_ms:.4f} ms "
+          f"({bound_by}), {ms / bound_ms:.1f}x the bound")
+    print("kernel " + _vs_bound(f"flash_attention {label}", ms, bound_ms,
+                                flops=flops))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms)
+
+
+# the other families' prefill shapes (arch, H, KV, hd, T, window): the
+# one-shot call over T, and for the unwindowed ones the 256-row chunk at
+# q_offset T - 256 too
+FAMILY_FLASH = (("granite-moe-3b-a800m", 24, 8, 64, 2048, 0),
+                ("qwen2-7b", 28, 4, 128, 2048, 0),
+                ("mixtral-8x22b", 48, 8, 128, 4608, 4096))
 
 
 def flash_rows(torch, dev):
@@ -811,11 +997,10 @@ def flash_rows(torch, dev):
     call's rows, and a call over 2T keys whose extra keys are causally
     masked equals the call over T.  Smoke shapes in fp32 (window > 0, not
     causal, a q_offset) within 1e-4 (online and full softmax sum in other
-    orders).  Kernel, plain and ``scaled_dot_product_attention`` times."""
-    import torch.nn.functional as F
-
+    orders).  Kernel, plain and ``scaled_dot_product_attention`` times.
+    Then the same checks and times at the other families' shapes
+    (``FAMILY_FLASH``)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.paged_attention.ref import bf16_tolerance
 
     B, H, KV, hd, T, C = 1, 32, 8, 128, 2048, 256
     g = torch.Generator(device=dev)
@@ -826,46 +1011,8 @@ def flash_rows(torch, dev):
     op = fa_ops.flash_attention_op
     full = op(q, k, v)
     shapes = {"one-shot": (q, 0), "chunk": (q[:, T - C:].contiguous(), T - C)}
-    res = {}
-    for label, (qq, off) in shapes.items():
-        out = op(qq, k, v, q_offset=off)
-        ref = _flash_plain(qq, k, v, q_offset=off).to(torch.bfloat16).float()
-        diff = (out.float() - ref).abs()
-        err = diff.max().item()
-        ratio = (diff / bf16_tolerance(ref)).max().item()
-        _check(math.isfinite(err) and ratio <= 1.0,
-               f"flash_attention {label} bf16 error {err} over two ulps "
-               f"(error/limit {ratio:.3f})")
-        # the library call, on [B, H, S, hd] copies made beforehand
-        lq, lk, lv = (t.transpose(1, 2).contiguous() for t in (qq, k, v))
-        if off == 0:
-            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                lq, lk, lv, is_causal=True, enable_gqa=True)
-        else:
-            mask = (torch.arange(T, device=dev)[None, :]
-                    <= torch.arange(off, off + qq.shape[1],
-                                    device=dev)[:, None])
-            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                lq, lk, lv, attn_mask=mask, enable_gqa=True)
-        lib_err = (lib().transpose(1, 2).float() - ref).abs().max().item()
-        ms = _time_ms(lambda: op(qq, k, v, q_offset=off))
-        plain_ms = _time_ms(lambda: _flash_plain(qq, k, v, q_offset=off),
-                            reps=5)
-        lib_ms = _time_ms(lib)
-        bound_ms, bound_by, flops = _flash_bound(qq.shape[1], T, H, KV, hd,
-                                                 off, 2)
-        res[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=lib_ms)
-        print(f"kernel flash_attention bf16 {label} (S={qq.shape[1]}, "
-              f"q_offset={off}, T={T}, H={H}/{KV}, hd={hd}, causal): "
-              f"error/limit {ratio:.3f} (max abs {err:.3e}), "
-              f"{ms:.4f} ms, plain {plain_ms:.3f} ms, "
-              f"scaled_dot_product_attention {lib_ms:.4f} ms (its max abs "
-              f"err {lib_err:.3e}), bound {bound_ms:.4f} ms ({bound_by}), "
-              f"{ms / bound_ms:.1f}x the bound")
-        print("kernel " + _vs_bound(f"flash_attention {label}", ms, bound_ms,
-                                    flops=flops))
+    res = {label: _flash_case(torch, dev, qq, k, v, off, label)
+           for label, (qq, off) in shapes.items()}
     starts = (0, 16, 272, 1008, 1536, 1792)
     for s in starts:
         part = op(q[:, s:s + C], k, v, q_offset=s)
@@ -900,6 +1047,20 @@ def flash_rows(torch, dev):
                replaces="src/repro/kernels/flash_attention/flash_attention.py"
                         ":70", **res["chunk"])
     row["one_shot"] = res["one-shot"]
+    row["shapes"] = []
+    for i, (arch, H, KV, hd, T, window) in enumerate(FAMILY_FLASH):
+        g.manual_seed(33 + i)
+        q, k, v = r(B, T, H, hd), r(B, T, KV, hd), r(B, T, KV, hd)
+        cases = [("one-shot", q, 0)] if window else [
+            ("one-shot", q, 0), ("chunk", q[:, T - C:].contiguous(), T - C)]
+        for label, qq, off in cases:
+            shape = (f"{label}, S {qq.shape[1]}, q_offset {off}, T {T}, "
+                     f"H {H}/{KV}, hd {hd}, window {window}, bf16")
+            row["shapes"].append(_shape_row(row, arch, shape, **_flash_case(
+                torch, dev, qq, k, v, off, f"{label} at {arch}'s shape",
+                window)))
+        del q, k, v
+        torch.cuda.empty_cache()
     return {"flash_attention": row}
 
 
@@ -1054,7 +1215,10 @@ def main_path_phase(torch, dev, cfg, params):
 # phase 5: dense against tiered at full width
 # ---------------------------------------------------------------------------
 
-def dense_tiered_phase(torch, dev):
+def dense_tiered_phase(torch, dev, arch="llama3-8b"):
+    """``arch`` at its published width, 2 layers, fp32 (random non-zero
+    QKV biases where it has them), teacher-forced through the dense and
+    the tiered backend with maintenance running: logits within 1e-3."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1062,9 +1226,10 @@ def dense_tiered_phase(torch, dev):
     from repro_torch.models import decode_step, forward, init_params
     from repro_torch.models.kv_backend import DenseBackend, TieredBackend
 
-    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=2,
-                              dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
     params = init_params(cfg, dev, seed=1)
+    if cfg.qkv_bias:
+        _seed_biases(torch, dev, params, seed=6)
     B, max_len = 4, 256
     dense = DenseBackend(cfg, dev)
     tiered = TieredBackend(cfg, B, max_len, page_tokens=16,
@@ -1093,14 +1258,25 @@ def dense_tiered_phase(torch, dev):
                 st = tiered.maintain(st)
     worst = max(diffs)
     c = st.caches
-    print(f"dense-vs-tiered: llama3-8b width, 2 layers, fp32, 24 steps, "
+    print(f"dense-vs-tiered: {arch} width, 2 layers, fp32, 24 steps, "
           f"{int(c.migrations)} migrations: max |logit diff| {worst:.3e} "
           f"(tol 1e-3; max |logit| {scale:.3f})")
-    _check(int(c.migrations) > 0, "no migration during the dense/tiered run")
+    _check(int(c.migrations) > 0,
+           f"{arch}: no migration during the dense/tiered run")
     _check(math.isfinite(worst) and worst <= 1e-3,
-           f"dense vs tiered logits differ by {worst} > 1e-3")
+           f"{arch}: dense vs tiered logits differ by {worst} > 1e-3")
     del params
     torch.cuda.empty_cache()
+
+
+def _seed_biases(torch, dev, params, seed):
+    """Seeded random QKV biases, std 0.5, in place: the published init
+    starts them at zero, which would leave the bias adds untested."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    for name in ("bq", "bk", "bv"):
+        b = params["blocks"]["attn"][name]
+        b.copy_(torch.randn(b.shape, generator=g, device=dev) * 0.5)
 
 
 # ---------------------------------------------------------------------------
@@ -2153,6 +2329,333 @@ def sim_phase(torch, dev):
     return row, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the other families at full width
+# ---------------------------------------------------------------------------
+
+FAMILY_REQUESTS = 8
+FAMILY_ARCHS = ("qwen2-7b", "granite-moe-3b-a800m")
+# decode steps profiled for their kernel launches (first, count); their
+# time and tokens are left out of the run's other numbers
+FAMILY_PROFILED = (24, 4)
+MIXTRAL_PROMPT, MIXTRAL_STEPS = 4600, 16
+
+
+def _count_drops(torch, moe_mod, dev):
+    """Wrap ``moe.dispatch`` so that every call adds its dropped choices
+    to a counter on the card (nothing waits for it).  Returns (counter,
+    calls, restore)."""
+    real = moe_mod.dispatch
+    dropped = torch.zeros((), dtype=torch.int64, device=dev)
+    calls = [0, 0]                      # dispatches, choices routed
+
+    def counted(eidx, n_experts, cap):
+        slot, keep = real(eidx, n_experts, cap)
+        dropped.add_((~keep).sum())
+        calls[0] += 1
+        calls[1] += keep.numel()
+        return slot, keep
+
+    moe_mod.dispatch = counted
+    return dropped, calls, lambda: setattr(moe_mod, "dispatch", real)
+
+
+def family_serve(torch, dev, arch):
+    """``arch`` at its published width and depth, seeded weights made on
+    the card (random non-zero QKV biases where it has them), served by the
+    tiered engine on phase 4's store (``MAIN_EC``) with phase 4's first 8
+    requests.  Gates: every request finished and released, the metadata
+    back to identity, one fused launch per layer and decode step, one
+    flash launch per layer and prefill, one copy-engine launch per
+    maintenance pass.  Prints tokens/s, ms per decode step (median, p90),
+    maintenance ms per pass, the kernel launches of a decode step
+    (``torch.profiler`` over ``FAMILY_PROFILED`` steps), the launches per
+    kind, the device's busy time in the profiled steps (their kernels'
+    device time) against the median step and, for MoE, the choices
+    dropped for capacity.  Returns the launches per kind."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.remap.irt import INVALID
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.remap_gather import ops as rg_ops
+    from repro_torch.models import init_params, moe
+    from repro_torch.serve import engine as eng_mod
+    from repro_torch.serve.engine import Engine, EngineConfig, Request
+
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, dev, seed=0)
+    if cfg.qkv_bias:
+        _seed_biases(torch, dev, params, seed=7)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"families {arch}: L={cfg.n_layers} d={cfg.d_model} "
+          f"H={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} ff={cfg.d_ff} "
+          f"V={cfg.vocab}"
+          f"{f' E={cfg.n_experts} top-{cfg.top_k}' if cfg.n_experts else ''}"
+          f"{' qkv_bias' if cfg.qkv_bias else ''} {cfg.dtype}, "
+          f"{n_params / 1e9:.3f} B parameters made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    eng = Engine(cfg, params, EngineConfig(**MAIN_EC), device=dev)
+    for i, (prompt, max_new) in enumerate(
+            main_requests(cfg)[:FAMILY_REQUESTS]):
+        eng.submit(Request(rid=i, prompt=prompt, max_new=max_new))
+    spent: dict = {}
+    book = {"step": 0, "launches": [], "busy_ms": [], "window_s": 0.0,
+            "window_tok": 0}
+    real = eng_mod.decode_step
+    first, count = FAMILY_PROFILED
+
+    def timed(phase, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent.setdefault(phase, []).append(
+                (time.perf_counter() - s) * 1e3)
+            return out
+        return run
+
+    step_timed = timed("decode step", real)
+
+    def step(cfg_, params_, state, tokens, **kw):
+        i = book["step"]
+        book["step"] += 1
+        if not first <= i < first + count:
+            return step_timed(cfg_, params_, state, tokens, **kw)
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        book["window_tok"] += int((state.pos >= 0).sum())
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = real(cfg_, params_, state, tokens, **kw)
+            torch.cuda.synchronize()
+        book["launches"].append(sum(e.count for e in prof.key_averages()
+                                    if "LaunchKernel" in e.key))
+        book["busy_ms"].append(sum(
+            e.time_range.elapsed_us() for e in prof.events()
+            if e.device_type == DeviceType.CUDA) / 1e3)
+        book["window_s"] += time.perf_counter() - s
+        return out
+
+    eng_mod.decode_step = step
+    eng.prefill_lane = timed("prefill", eng.prefill_lane)
+    be = eng.backend
+    be.plan_maintain = timed("maintenance plan", be.plan_maintain)
+    be.apply_maintain = timed("maintenance apply", be.apply_maintain)
+    dropped, calls, restore = _count_drops(torch, moe, dev)
+    pa_ops.launches = fa_ops.launches = 0
+    rg_ops.launches = rg_ops.replay_launches = 0
+    try:
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        eng_mod.decode_step = real
+        restore()
+    launches = {"paged_attention_fused": pa_ops.launches,
+                "flash_attention": fa_ops.launches,
+                "remap_gather": rg_ops.launches,
+                "remap_replay": rg_ops.replay_launches}
+    passes = len(spent.get("maintenance apply", []))
+    prefills = len(spent.get("prefill", []))
+    st = eng.final_state.caches
+    c = eng.counters
+    n = FAMILY_REQUESTS
+    _check(len(done) == n and all(len(r.tokens) == r.max_new for r in done),
+           f"{arch}: {len(done)} of {n} requests finished to max_new")
+    _check(all(0 <= x < cfg.vocab for r in done for x in r.tokens),
+           f"{arch}: a token outside the vocabulary")
+    _check(eng.releases == n, f"{arch}: {eng.releases} releases, not {n}")
+    _check(bool((st.leaf_table == INVALID).all())
+           and bool((st.slot_owner == INVALID).all()),
+           f"{arch}: released metadata is not back to identity")
+    _check(launches["paged_attention_fused"] == eng.steps * cfg.n_layers,
+           f"{arch}: paged_attention_fused launches {launches} != steps "
+           f"{eng.steps} x {cfg.n_layers}")
+    _check(launches["flash_attention"] == prefills * cfg.n_layers,
+           f"{arch}: flash_attention launches {launches} != prefills "
+           f"{prefills} x layers")
+    _check(passes > 0 and launches["remap_replay"] == passes
+           == launches["remap_gather"],
+           f"{arch}: copy-engine launches {launches} != one replay per "
+           f"maintenance pass ({passes})")
+    _check(len(book["launches"]) == count and min(book["launches"]) > 0,
+           f"{arch}: the profiled steps counted no launch")
+    steps = sorted(spent["decode step"])
+    n_tok = sum(len(r.tokens) for r in done)
+    maint = (sum(spent["maintenance plan"])
+             + sum(spent["maintenance apply"])) / passes
+    per_step = sum(book["launches"]) / count
+    busy = sum(book["busy_ms"]) / count
+    median = steps[len(steps) // 2]
+    drops = ""
+    if cfg.family == "moe":
+        drops = (f"; MoE dispatches {calls[0]}, {int(dropped)} of "
+                 f"{calls[1]} routed choices dropped for capacity")
+    print(f"families {arch}: {n} requests, {n_tok} tokens, {eng.steps} "
+          f"decode steps, {prefills} prefills, {passes} maintenance passes "
+          f"in {wall:.2f} s: "
+          f"{(n_tok - book['window_tok']) / (wall - book['window_s']):.1f} "
+          f"tokens/s end to end (the {count} profiled steps left out), "
+          f"decode step median {median:.2f} ms (p90 "
+          f"{steps[int(len(steps) * 0.9)]:.2f} ms), maintenance "
+          f"{maint:.2f} ms per pass (plan + apply), prefill "
+          f"{sum(spent['prefill']) / prefills:.2f} ms each; "
+          f"{per_step:.1f} kernel launches and {busy:.2f} ms of device "
+          f"time per decode step (torch.profiler, steps {first}-"
+          f"{first + count - 1}): the device idle "
+          f"{100 * (1 - busy / median):.1f} % of the median step{drops}")
+    print(f"families {arch}: launches {json.dumps(launches)}; every request "
+          f"finished, {eng.releases} releases, released metadata back to "
+          f"identity; counters "
+          f"{json.dumps({k: v for k, v in c.items() if not k.startswith('epoch_')})}"
+          f"; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card "
+          f"{_card_line()}")
+    del eng, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def mixtral_window_phase(torch, dev):
+    """mixtral-8x22b at its published width, 2 of its 56 layers, fp32,
+    the dense backend.  A 4,600-token prompt prefilled through flash with
+    the 4096-token window, then 16 teacher-forced decode steps past
+    position 4096: each step's logits within 1e-3 of the one-shot
+    ``forward`` over the same 4,616 tokens.  Control: the same run with
+    window 0 matches its own one-shot forward and differs from the
+    windowed one by more than 1e-2, so the window took effect in both
+    paths.  The capacity factor is E/K (an expert's capacity is the
+    call's token count): the prefill and the one-shot forward route
+    different token counts, so a drop at the published 1.25 would part
+    them; the drops the published factor makes on the same forward are
+    counted and printed.  Returns the flash launches of the run."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import decode_step, forward, init_params, moe
+    from repro_torch.models.kv_backend import DenseBackend
+
+    pub = get_config("mixtral-8x22b")
+    cfg = dataclasses.replace(pub, n_layers=2, dtype="float32",
+                              capacity_factor=pub.n_experts / pub.top_k)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, dev, seed=4)
+    torch.cuda.synchronize()
+    print(f"families mixtral-8x22b: 2 of {pub.n_layers} layers, "
+          f"d={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} "
+          f"ff={cfg.d_ff} E={cfg.n_experts} top-{cfg.top_k} "
+          f"window {cfg.sliding_window} V={cfg.vocab} fp32, "
+          f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B "
+          f"parameters made in {time.perf_counter() - t0:.1f} s")
+    n, steps = MIXTRAL_PROMPT, MIXTRAL_STEPS
+    seq = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab, (1, n + steps)), dtype=torch.int32, device=dev)
+    dropped, calls, restore = _count_drops(torch, moe, dev)
+    fa_ops.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with torch.inference_mode():
+            out = {}
+            for window in (cfg.sliding_window, 0):
+                c = dataclasses.replace(cfg, sliding_window=window)
+                backend = DenseBackend(c, dev)
+                st = backend.init_state(1, n + steps)
+                _, _, (k, v) = forward(c, params, {"tokens": seq[:, :n]},
+                                       collect_cache=True)
+                st = backend.write_prefill(st, 0, k[:, 0], v[:, 0], n)
+                del k, v
+                rows = []
+                for i in range(steps):
+                    lg, st = decode_step(c, params, st, seq[:, n + i],
+                                         backend=backend)
+                    rows.append(lg[0])
+                one = forward(c, params, {"tokens": seq})[0][0, n:]
+                out[window] = (torch.stack(rows), one)
+            ours_drops = int(dropped)
+            pub_c = dataclasses.replace(cfg, capacity_factor=1.25)
+            dropped.zero_()
+            forward(pub_c, params, {"tokens": seq})
+            pub_drops, pub_choices = int(dropped), (n + steps) * cfg.top_k
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    win = cfg.sliding_window
+    (dec, one), (dec0, one0) = out[win], out[0]
+    err = (dec - one).abs().max().item()
+    err0 = (dec0 - one0).abs().max().item()
+    moved = (dec0 - one).abs().max().item()
+    scale = one.abs().max().item()
+    _check(ours_drops == 0, f"mixtral: {ours_drops} choices dropped at "
+           f"capacity factor {cfg.capacity_factor}")
+    _check(math.isfinite(err) and err <= 1e-3,
+           f"mixtral: windowed decode differs from the windowed one-shot "
+           f"forward by {err} > 1e-3")
+    _check(math.isfinite(err0) and err0 <= 1e-3,
+           f"mixtral: window-0 decode differs from its one-shot forward by "
+           f"{err0} > 1e-3")
+    _check(moved > 1e-2, f"mixtral: the window moved the logits by only "
+           f"{moved} (control)")
+    _check(fa_ops.launches == 5 * cfg.n_layers,
+           f"mixtral: flash_attention launches {fa_ops.launches} != 5 "
+           f"forwards x {cfg.n_layers} layers")
+    print(f"families mixtral-8x22b: a {n}-token prompt through flash with "
+          f"window {win}, then {steps} teacher-forced decode steps at "
+          f"positions {n}-{n + steps - 1} (dense backend): max |decode - "
+          f"one-shot forward| {err:.3e} (tol 1e-3; max |logit| "
+          f"{scale:.3f}); control with window 0: {err0:.3e} against its own "
+          f"forward, {moved:.3e} from the windowed forward (must exceed "
+          f"1e-2); 0 choices dropped at capacity factor "
+          f"{cfg.capacity_factor:g}, {pub_drops} of {pub_choices} at the "
+          f"published 1.25 on the same {n + steps}-token forward; "
+          f"{fa_ops.launches} flash launches (fp32), {secs:.1f} s; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB")
+    launches = fa_ops.launches
+    del params, out, dec, one, dec0, one0
+    torch.cuda.empty_cache()
+    return launches
+
+
+def families_phase(torch, dev, rows):
+    """Phase 11: qwen2-7b and granite-moe-3b served at full width and
+    depth by the tiered engine, each then dense against tiered at full
+    width on 2 layers; mixtral-8x22b's window at full width on 2 layers.
+    Fills in the launches of phase 3's rows at these families' shapes."""
+    t0 = time.perf_counter()
+    runs = {}
+    for arch in FAMILY_ARCHS:
+        runs[arch] = family_serve(torch, dev, arch)
+        dense_tiered_phase(torch, dev, arch)
+    runs["mixtral-8x22b"] = {"flash_attention": mixtral_window_phase(
+        torch, dev)}
+    for name in ("paged_attention_fused", "remap_replay", "flash_attention"):
+        for shape in rows[name]["shapes"]:
+            run = runs.get(shape["arch"], {})
+            if name != "flash_attention" or shape["shape"].startswith(
+                    "one-shot"):
+                shape["launches"] = run.get(name, 0)
+    print(f"families: phase 11 took {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         _fail("src/repro_torch not found beside chip_smoke.py")
@@ -2189,6 +2692,7 @@ def main():
     del params
     torch.cuda.empty_cache()
     rows["sim_scan"], launches["sim_scan"] = sim_phase(torch, dev)
+    families_phase(torch, dev, rows)
     for name, n in launches.items():
         rows[name]["launches"] = n
     print(json.dumps({"kernels": [rows[k] for k in sorted(rows)]}))

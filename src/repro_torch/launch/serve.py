@@ -4,7 +4,10 @@
       --backend tiered
 
 runs on the card; ``--device cpu --smoke`` runs the plain versions on a
-tiny same-family model.  ``--scheduler chunked`` ingests prompts in
+tiny same-family model.  ``--arch`` takes every config the port
+registers: the dense llama3-8b, qwen2-7b, qwen2-72b and codeqwen1.5-7b,
+and the MoE granite-moe-3b-a800m and mixtral-8x22b (whose sliding window
+only ``--backend dense`` serves).  ``--scheduler chunked`` ingests prompts in
 ``--prefill-chunk``-token chunks and, with ``--tenants``, admits requests
 by multi-tenant QoS with per-tenant fast-slot quotas and direct-to-fast
 ingest for on-demand tenants (``--admit-pages``).  Telemetry:
@@ -41,8 +44,9 @@ def _parse_tenants(spec: str):
 
 
 def main(argv=None):
+    from repro_torch.configs import ALL_ARCHS
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=ALL_ARCHS)
     ap.add_argument("--smoke", action="store_true",
                     help="tiny same-family config (configs.reduce_for_smoke)")
     ap.add_argument("--requests", type=int, default=8)

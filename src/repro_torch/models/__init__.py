@@ -1,5 +1,5 @@
-"""Dense decoder, its attention and the KV backends (port of
-``repro.models``, dense family)."""
+"""Decoders of the dense and MoE families, their attention, the MoE FFN
+and the KV backends (port of ``repro.models``)."""
 
 from .transformer import (DecodeState, decode_step, forward, forward_chunk,
                           init_chunk_buffers, init_decode_state, init_params)

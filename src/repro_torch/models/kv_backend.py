@@ -64,12 +64,18 @@ class DenseBackend:
         drop_set_(cv, (lane, write), v)
         return cache
 
-    def attend(self, cache, q, pos):
-        """q [B, KV, G, hd] attends positions <= pos per lane."""
+    def attend(self, cache, q, pos, *, window: int = 0):
+        """q [B, KV, G, hd] attends positions <= pos per lane, and with
+        ``window`` > 0 only those > pos - window (the reference's sliding
+        window mask).  The cache keeps every position: the reference's
+        ring cache of the window (``REPRO_WINDOW_CACHE``) is not ported."""
         B, KV, G, hd = q.shape
         ck, cv = cache["k"], cache["v"]
         S = ck.shape[1]
-        ok = torch.arange(S, device=q.device)[None, :] <= pos[:, None]
+        ki = torch.arange(S, device=q.device)[None, :]
+        ok = ki <= pos[:, None]
+        if window > 0:
+            ok &= ki > pos[:, None] - window
         mask = torch.where(ok, 0.0, attn.NEG_INF).float()
         out = attn._sdpa(q.reshape(B, 1, KV * G, hd), ck.to(q.dtype),
                          cv.to(q.dtype), mask[:, None, None, None, :])
@@ -119,9 +125,9 @@ class TieredBackend:
                  page_tokens: int = 16, fast_data_slots: int = 16,
                  policy=None, device=None):
         from repro_torch.tiered import kvcache as tk
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"TieredBackend supports the dense decoder family; got "
+                f"TieredBackend supports plain-KV decoder families; got "
                 f"family={cfg.family!r}")
         if cfg.sliding_window:
             raise NotImplementedError(

@@ -1,12 +1,30 @@
-"""Shared model building blocks (port of ``repro.models.layers``, dense
-family).  Parameters are nested dicts of tensors in the reference's
-layout, so the reference's ``init_params`` output converts leaf by leaf
-(``repro_torch.weights``)."""
+"""Shared model building blocks (port of ``repro.models.layers``) and the
+seeded initialisers of the port's parameters.  Parameters are nested
+dicts of tensors in the reference's layout, so the reference's
+``init_params`` output converts leaf by leaf (``repro_torch.weights``)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def dense_init(g, shape, dt, device, scale):
+    """Truncated normal in [-2, 2] times ``scale``, drawn in fp32 from the
+    generator ``g``, stored in ``dt``."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=g)
+    return (t * scale).to(dt)
+
+
+def stacked_init(g, n_layers: int, shape, dt, device, fan_in: int):
+    """[n_layers, *shape] of ``dense_init`` draws scaled by
+    1/sqrt(``fan_in``), one layer at a time."""
+    out = torch.empty((n_layers,) + tuple(shape), dtype=dt, device=device)
+    for i in range(n_layers):
+        out[i] = dense_init(g, shape, dt, device, 1.0 / np.sqrt(fan_in))
+    return out
 
 
 def rms_norm(x, weight, eps: float):

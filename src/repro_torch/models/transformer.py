@@ -1,48 +1,47 @@
-"""Dense decoder: parameters, full-sequence forward, the chunked-prefill
-forward and the one-token decode step (port of the dense family of
-``repro.models.transformer``).
+"""Decoders of the dense and MoE families: parameters, full-sequence
+forward, the chunked-prefill forward and the one-token decode step (port
+of those families of ``repro.models.transformer``).
 
 Parameters keep the reference's layout, a dict of layer-stacked tensors:
 ``{"embed" [V,d], "blocks": {"norm1" [L,d], "attn": {"wq" [L,d,H,hd],
-"wk"/"wv" [L,d,KV,hd], "wo" [L,H,hd,d]}, "norm2" [L,d], "mlp":
-{"w_gate"/"w_up" [L,d,ff], "w_down" [L,ff,d]}}, "final_norm" [d],
-"unembed" [V,d]}``.  The reference's ``lax.scan`` over layers is a Python
-loop over views of the stacked tensors.
+"wk"/"wv" [L,d,KV,hd], "wo" [L,H,hd,d], with ``qkv_bias`` "bq" [L,H,hd],
+"bk"/"bv" [L,KV,hd]}, "norm2" [L,d], and either "mlp": {"w_gate"/"w_up"
+[L,d,ff], "w_down" [L,ff,d]} (dense) or "moe": {"router" [L,d,E] fp32,
+"w_gate"/"w_up" [L,E,d,ff], "w_down" [L,E,ff,d]} (moe)}, "final_norm"
+[d], "unembed" [V,d]}``.  The reference's ``lax.scan`` over layers is a
+Python loop over views of the stacked tensors.
 """
 
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
-import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device, torch_dtype
 
 from . import attention as attn
-from .layers import rms_norm, rope_tables, swiglu, unembed
+from . import moe as moe_mod
+from .layers import (dense_init, rms_norm, rope_tables, stacked_init, swiglu,
+                     unembed)
 
-_FAMILIES = ("dense",)
+_FAMILIES = ("dense", "moe")
 
 
-def _check_family(cfg: ArchConfig):
+def check_family(cfg: ArchConfig):
+    """Raise on a family the port's decoder does not run: the plain-KV
+    families, whose every entry point (forward, decode, chunked prefill,
+    the engine) the port serves."""
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
-            f"the port runs the dense decoder family; got {cfg.family!r}")
+            f"the port runs the decoder families {_FAMILIES}; got "
+            f"{cfg.family!r}")
 
 
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
-
-def _dense(g, shape, dt, device, scale):
-    """Truncated normal in [-2, 2] times ``scale``, drawn in fp32, stored
-    in ``dt``."""
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=g)
-    return (t * scale).to(dt)
-
 
 def init_params(cfg: ArchConfig, device=None, seed: int = 0) -> dict:
     """Seeded random parameters in the reference's layout, made on
@@ -54,8 +53,10 @@ def init_params(cfg: ArchConfig, device=None, seed: int = 0) -> dict:
     which for the [d, H, hd] projections is H: its q and k come out
     sqrt(d/H) times larger and its attention nearly one-hot, so fp32
     reassociation alone moves full-width logits by ~1e-3.  Parity tests
-    give both sides the same weights (``repro_torch.weights``)."""
-    _check_family(cfg)
+    give both sides the same weights (``repro_torch.weights``).  The QKV
+    biases start at zero, as the reference's do; the MoE family's experts
+    come from ``moe.moe_init``."""
+    check_family(cfg)
     device = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
     g = torch.Generator(device=device)
@@ -64,27 +65,28 @@ def init_params(cfg: ArchConfig, device=None, seed: int = 0) -> dict:
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
 
     def stacked(shape, fan_in):
-        out = torch.empty((L,) + shape, dtype=dt, device=device)
-        for i in range(L):
-            out[i] = _dense(g, shape, dt, device, 1.0 / np.sqrt(fan_in))
-        return out
+        return stacked_init(g, L, shape, dt, device, fan_in)
 
-    def ones(*shape):
-        return torch.ones(shape, dtype=dt, device=device)
+    def filled(fill, *shape):
+        return torch.full(shape, fill, dtype=dt, device=device)
 
-    blocks = {
-        "norm1": ones(L, d),
-        "attn": {"wq": stacked((d, H, hd), d), "wk": stacked((d, KV, hd), d),
-                 "wv": stacked((d, KV, hd), d),
-                 "wo": stacked((H, hd, d), H * hd)},
-        "norm2": ones(L, d),
-        "mlp": {"w_gate": stacked((d, ff), d), "w_up": stacked((d, ff), d),
-                "w_down": stacked((ff, d), ff)},
-    }
-    params = {"embed": _dense(g, (cfg.vocab, d), dt, device, 0.02),
-              "blocks": blocks, "final_norm": ones(d)}
+    attn_p = {"wq": stacked((d, H, hd), d), "wk": stacked((d, KV, hd), d),
+              "wv": stacked((d, KV, hd), d), "wo": stacked((H, hd, d), H * hd)}
+    if cfg.qkv_bias:
+        attn_p.update(bq=filled(0, L, H, hd), bk=filled(0, L, KV, hd),
+                      bv=filled(0, L, KV, hd))
+    blocks = {"norm1": filled(1, L, d), "attn": attn_p,
+              "norm2": filled(1, L, d)}
+    if cfg.family == "moe":
+        blocks["moe"] = moe_mod.moe_init(g, cfg, device)
+    else:
+        blocks["mlp"] = {"w_gate": stacked((d, ff), d),
+                         "w_up": stacked((d, ff), d),
+                         "w_down": stacked((ff, d), ff)}
+    params = {"embed": dense_init(g, (cfg.vocab, d), dt, device, 0.02),
+              "blocks": blocks, "final_norm": filled(1, d)}
     if not cfg.tie_embeddings:
-        params["unembed"] = _dense(g, (cfg.vocab, d), dt, device, 0.02)
+        params["unembed"] = dense_init(g, (cfg.vocab, d), dt, device, 0.02)
     return params
 
 
@@ -103,9 +105,14 @@ def _table(cfg: ArchConfig, params):
 
 
 def _ffn(p, x, cfg: ArchConfig):
+    """The block's second half: x + FFN(norm2(x)) -> (x, aux), where aux
+    is the MoE load-balancing loss (a 0-d fp32 tensor) or None."""
     h2 = rms_norm(x, p["norm2"], cfg.rms_eps)
+    if cfg.family == "moe":
+        y, aux = moe_mod.moe_ffn(p["moe"], h2, cfg)
+        return x + y, aux
     return x + swiglu(h2, p["mlp"]["w_gate"], p["mlp"]["w_up"],
-                      p["mlp"]["w_down"])
+                      p["mlp"]["w_down"]), None
 
 
 # ---------------------------------------------------------------------------
@@ -113,9 +120,10 @@ def _ffn(p, x, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 def forward(cfg: ArchConfig, params, batch, *, collect_cache: bool = False):
-    """batch {"tokens" [B,S]} -> (logits [B,S,V] fp32, aux, caches); with
-    ``collect_cache`` caches = (k, v), each [L,B,S,KV,hd] post-RoPE."""
-    _check_family(cfg)
+    """batch {"tokens" [B,S]} -> (logits [B,S,V] fp32, aux, caches): aux
+    the MoE load-balancing loss summed over layers (0 for dense), and
+    with ``collect_cache`` caches = (k, v), each [L,B,S,KV,hd] post-RoPE."""
+    check_family(cfg)
     tokens = batch["tokens"]
     x = params["embed"][tokens.long()]
     B, S = x.shape[:2]
@@ -123,6 +131,7 @@ def forward(cfg: ArchConfig, params, batch, *, collect_cache: bool = False):
                              device=x.device).expand(B, S)
     rope = rope_tables(positions, cfg.hd, cfg.rope_theta)
     ks, vs = [], []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         p = layer_params(params["blocks"], i)
         h = rms_norm(x, p["norm1"], cfg.rms_eps)
@@ -130,22 +139,21 @@ def forward(cfg: ArchConfig, params, batch, *, collect_cache: bool = False):
                                         positions=positions,
                                         causal=cfg.causal,
                                         window=cfg.sliding_window, rope=rope)
-        x = _ffn(p, x + a, cfg)
+        x, aux_l = _ffn(p, x + a, cfg)
+        if aux_l is not None:
+            aux = aux + aux_l
         if collect_cache:
             ks.append(k)
             vs.append(v)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = unembed(x, _table(cfg, params))
     caches = (torch.stack(ks), torch.stack(vs)) if collect_cache else ()
-    return logits, torch.zeros((), device=x.device), caches
+    return logits, aux, caches
 
 
 # ---------------------------------------------------------------------------
 # chunked prefill: one chunk of prompt K/V against a full-length key buffer
 # ---------------------------------------------------------------------------
-
-_CHUNK_FAMILIES = ("dense",)
-
 
 def forward_chunk(cfg: ArchConfig, params, tokens, buf_k, buf_v, start: int,
                   *, return_logits: bool = False):
@@ -167,12 +175,11 @@ def forward_chunk(cfg: ArchConfig, params, tokens, buf_k, buf_v, start: int,
     bit on the CPU (``_sdpa`` with the one-shot mask's rows); on a card
     the flash kernel's rows are independent of the call around them, and
     the whole chunk equals the one-shot rows as long as cuBLAS's products
-    are row-independent too (``chip_smoke.py`` phase 8 checks it).  Only
-    the dense family is ported."""
-    if cfg.family not in _CHUNK_FAMILIES:
-        raise NotImplementedError(
-            f"forward_chunk supports plain-KV decoder families "
-            f"{_CHUNK_FAMILIES}; got {cfg.family!r}")
+    are row-independent too (``chip_smoke.py`` phase 8 checks it).  For
+    the MoE family this holds while no token is dropped: a chunk routes
+    fewer tokens, so its capacity, and which tokens it drops, differ
+    from the one-shot call's."""
+    check_family(cfg)
     B, C = tokens.shape
     P = buf_k.shape[2]
     if P > attn.CHUNKED_THRESHOLD:
@@ -196,7 +203,7 @@ def forward_chunk(cfg: ArchConfig, params, tokens, buf_k, buf_v, start: int,
         buf_v[i, :, start:start + C] = v.to(buf_v.dtype)
         out = attn.sdpa_auto(q, buf_k[i], buf_v[i], causal=cfg.causal,
                              window=cfg.sliding_window, q_offset=start)
-        x = _ffn(p, x + attn._out(out, p["attn"]["wo"]), cfg)
+        x, _ = _ffn(p, x + attn._out(out, p["attn"]["wo"]), cfg)
     if not return_logits:
         return buf_k, buf_v
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
@@ -226,7 +233,7 @@ class DecodeState(NamedTuple):
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       device=None) -> DecodeState:
     """Dense caches {"k", "v"} [L, B, max_len, KV, hd], zeros."""
-    _check_family(cfg)
+    check_family(cfg)
     dt = torch_dtype(cfg.dtype)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
     caches = {"k": torch.zeros(shape, dtype=dt, device=device),
@@ -245,7 +252,7 @@ def decode_step(cfg: ArchConfig, params, state: DecodeState, tokens,
     layer, ``end_step`` once.  ``n_pages`` (tiered only) is the live-page
     bucket; the caller guarantees it holds every live position plus this
     step's append.  Caches update in place."""
-    _check_family(cfg)
+    check_family(cfg)
     if backend is None:
         from .kv_backend import DenseBackend
         backend = DenseBackend(cfg)
@@ -262,7 +269,7 @@ def decode_step(cfg: ArchConfig, params, state: DecodeState, tokens,
             a, (k, v) = attn.block_decode_attention_fused(
                 p["attn"], h, cfg, layer_params(ops, i), pos, backend,
                 aux=aux, rope=rope)
-            x = _ffn(p, x + a, cfg)
+            x, _ = _ffn(p, x + a, cfg)
             ks.append(k)
             vs.append(v)
         caches = backend.end_step(caches, (torch.stack(ks), torch.stack(vs)),
@@ -275,7 +282,7 @@ def decode_step(cfg: ArchConfig, params, state: DecodeState, tokens,
             a, _ = attn.block_decode_attention(
                 p["attn"], h, cfg, layer_params(caches, i), pos, backend,
                 rope=rope)
-            x = _ffn(p, x + a, cfg)
+            x, _ = _ffn(p, x + a, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = unembed(x, _table(cfg, params))[:, 0]
     return logits, DecodeState(pos + 1, caches)

@@ -42,6 +42,7 @@ from repro_torch.core.remap.irt import E, INVALID
 from repro_torch.device import resolve_device
 from repro_torch.models import decode_step, forward
 from repro_torch.models.kv_backend import TieredBackend, make_backend
+from repro_torch.models.transformer import check_family
 from repro_torch.obs import NULL_TRACER, MetricsHub, ObsConfig, StepTracer
 from repro_torch.obs import flight as obs_flight
 from repro_torch.obs import metrics as obs_metrics
@@ -207,10 +208,7 @@ class Engine:
 
     def __init__(self, cfg: ArchConfig, params, ec: EngineConfig,
                  backend=None, scheduler=None, *, device=None):
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"Engine serves the dense decoder family; got "
-                f"{cfg.family!r}")
+        check_family(cfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "

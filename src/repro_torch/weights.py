@@ -16,29 +16,44 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device, torch_dtype
 
 
-def _expected_shapes(cfg: ArchConfig) -> dict:
+def _expected_leaves(cfg: ArchConfig) -> dict:
+    """path -> (shape, dtype) of every parameter of ``cfg``'s decoder: the
+    reference's dtype per leaf, ``cfg.dtype`` except the fp32 router."""
     L, d, ff, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    H, KV, hd, E = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.n_experts
     shapes = {"embed": (V, d), "final_norm": (d,),
               "blocks/norm1": (L, d), "blocks/norm2": (L, d),
               "blocks/attn/wq": (L, d, H, hd),
               "blocks/attn/wk": (L, d, KV, hd),
               "blocks/attn/wv": (L, d, KV, hd),
-              "blocks/attn/wo": (L, H, hd, d),
-              "blocks/mlp/w_gate": (L, d, ff), "blocks/mlp/w_up": (L, d, ff),
-              "blocks/mlp/w_down": (L, ff, d)}
+              "blocks/attn/wo": (L, H, hd, d)}
+    if cfg.qkv_bias:
+        shapes.update({"blocks/attn/bq": (L, H, hd),
+                       "blocks/attn/bk": (L, KV, hd),
+                       "blocks/attn/bv": (L, KV, hd)})
+    if cfg.family == "moe":
+        shapes.update({"blocks/moe/router": (L, d, E),
+                       "blocks/moe/w_gate": (L, E, d, ff),
+                       "blocks/moe/w_up": (L, E, d, ff),
+                       "blocks/moe/w_down": (L, E, ff, d)})
+    else:
+        shapes.update({"blocks/mlp/w_gate": (L, d, ff),
+                       "blocks/mlp/w_up": (L, d, ff),
+                       "blocks/mlp/w_down": (L, ff, d)})
     if not cfg.tie_embeddings:
         shapes["unembed"] = (V, d)
-    return shapes
+    dt = torch_dtype(cfg.dtype)
+    return {k: (s, torch.float32 if k == "blocks/moe/router" else dt)
+            for k, s in shapes.items()}
 
 
 def from_jax_params(tree, cfg: ArchConfig, device=None) -> dict:
     """Nested dict of numpy arrays (the reference's parameter tree) ->
-    nested dict of tensors in ``cfg.dtype`` on ``device``.  Raises on a
-    leaf whose path or shape the dense decoder does not expect."""
+    nested dict of tensors on ``device``, each leaf in the reference's
+    dtype (``cfg.dtype``; the MoE router in fp32).  Raises on a leaf
+    whose path or shape ``cfg``'s decoder does not expect."""
     device = resolve_device(device)
-    dt = torch_dtype(cfg.dtype)
-    expected = _expected_shapes(cfg)
+    expected = _expected_leaves(cfg)
     seen = set()
 
     def conv(node, path):
@@ -46,11 +61,11 @@ def from_jax_params(tree, cfg: ArchConfig, device=None) -> dict:
             return {k: conv(v, f"{path}/{k}" if path else k)
                     for k, v in node.items()}
         arr = np.asarray(node)
-        if path not in expected or tuple(arr.shape) != expected[path]:
+        if path not in expected or tuple(arr.shape) != expected[path][0]:
             raise ValueError(f"unexpected parameter {path} {arr.shape}")
         seen.add(path)
-        return torch.from_numpy(arr.astype(np.float32)).to(device=device,
-                                                           dtype=dt)
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=expected[path][1])
 
     out = conv(tree, "")
     missing = set(expected) - seen

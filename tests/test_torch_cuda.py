@@ -1170,3 +1170,167 @@ def test_sim_scan_rejects_what_it_does_not_take(cuda):
                            b, w, d)
     with pytest.raises(ValueError, match="range"):
         ss_ops.sim_scan_op(cfg, HBM3_DDR5, st, b, w, d, 10, 5)
+
+
+# ---------------------------------------------------------------------------
+# the other decoder families (QKV-bias dense, MoE, the sliding window) on
+# the card: their group sizes through the kernels, and the smoke configs
+# with their real group sizes through the decoder and the engine
+# ---------------------------------------------------------------------------
+
+FAMILY_GROUPS = {"qwen2-7b": 7, "granite-moe-3b-a800m": 3,
+                 "mixtral-8x22b": 6, "codeqwen1.5-7b": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("KV,G,hd", [(8, 3, 64), (4, 7, 128), (32, 1, 128),
+                                     (8, 6, 128)])
+def test_fused_kernel_family_groups(cuda, KV, G, hd, dtype):
+    """The fused read at the families' (KV, G, hd), K=1, page 16: fp32
+    within 1e-4, bf16 within two ulps of each plain value."""
+    d = _inputs(cuda, B=4, K=1, KV=KV, G=G, hd=hd, P=16, NP=4, F=6,
+                seed=KV * G + hd, dtype=dtype)
+    out = pa_ops.paged_attention_fused_op(**d).float()
+    ref = paged_attention_fused_ref(
+        **{k: (v.float() if v.is_floating_point() else v)
+           for k, v in d.items()}).to(dtype).float()
+    live = d["pos"] >= 0
+    tol = 1e-4 if dtype == torch.float32 else bf16_tolerance(ref[live])
+    assert ((out[live] - ref[live]).abs() <= tol).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,hd,window", [(24, 8, 64, 0), (28, 4, 128, 0),
+                                             (48, 8, 128, 64)])
+def test_flash_kernel_family_groups(cuda, H, KV, hd, window, dtype):
+    """Flash at the families' head layouts (G 3, 7 and 6, mixtral's with
+    a window shorter than the keys), causal at q_offset 16 over a ragged
+    key block: fp32 within 1e-4, bf16 within two ulps."""
+    q, k, v = _flash_inputs(cuda, B=1, S=80, T=150, H=H, KV=KV, hd=hd,
+                            dtype=dtype, seed=H + hd)
+    kw = dict(q_offset=16, window=window)
+    got = fa_ops.flash_attention_op(q, k, v, **kw)
+    want = _flash_plain(q, k, v, **kw)
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-4
+    else:
+        want = want.to(torch.bfloat16).float()
+        assert ((got.float() - want).abs() <= bf16_tolerance(want)).all()
+
+
+def _family_models(arch, device):
+    """The fp32 smoke config of ``arch`` with its real group size, seeded
+    weights (random non-zero QKV biases where it has them) on ``device``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import init_params
+    cfg = reduce_for_smoke(get_config(arch))
+    cfg = dataclasses.replace(
+        cfg, n_heads=cfg.n_kv_heads * FAMILY_GROUPS[arch])
+    params = init_params(cfg, "cpu", seed=5)
+    if cfg.qkv_bias:
+        g = torch.Generator().manual_seed(6)
+        for name in ("bq", "bk", "bv"):
+            b = params["blocks"]["attn"][name]
+            b.copy_(torch.randn(b.shape, generator=g) * 0.5)
+    return cfg, _to(params, device)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(FAMILY_GROUPS))
+def test_family_decode_card_equals_plain(cuda, arch):
+    """Prefill two lanes, park a third, 12 teacher-forced decode steps
+    (tiered with maintenance; mixtral, windowed, dense) on the card and on
+    the CPU from the same weights: logits within 1e-4 (the kernels and
+    the plain versions sum in other orders)."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.models import decode_step, forward
+    from repro_torch.models.kv_backend import DenseBackend, TieredBackend
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        cfg, params = _family_models(arch, dev)
+        be = DenseBackend(cfg, dev) if cfg.sliding_window else TieredBackend(
+            cfg, 3, 64, page_tokens=8, fast_data_slots=4,
+            policy=get_policy("threshold", epoch_len=2), device=dev)
+        st = be.init_state(3, 64)
+        rng = np.random.default_rng(7)
+        for lane, n in ((0, 13), (1, 21)):
+            toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, n)),
+                                   device=dev)
+            _, _, (k, v) = forward(cfg, params, {"tokens": toks},
+                                   collect_cache=True)
+            st = be.write_prefill(st, lane, k[:, 0], v[:, 0], n)
+        rows = []
+        for i in range(12):
+            st = st._replace(pos=torch.where(
+                torch.arange(3, device=dev) == 2, -1, st.pos))
+            tok = torch.as_tensor(rng.integers(0, cfg.vocab, 3),
+                                  dtype=torch.int32, device=dev)
+            lg, st = decode_step(cfg, params, st, tok, backend=be)
+            rows.append(lg[:2].cpu())
+            if i % 3 == 2 and not cfg.sliding_window:
+                st = be.maintain(st)
+        out.append(torch.stack(rows))
+    assert (out[0] - out[1]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-7b", "granite-moe-3b-a800m"])
+def test_family_engine_serves_on_the_card(cuda, arch):
+    """The tiered engine serves 4 requests of the family's smoke config on
+    the card: every request finished, one fused launch per layer and
+    decode step, the metadata back to identity."""
+    from repro_torch.core.remap.irt import INVALID
+    from repro_torch.serve.engine import Engine, EngineConfig, Request
+    cfg, params = _family_models(arch, cuda)
+    eng = Engine(cfg, params, EngineConfig(**TRACE), device=cuda)
+    rng = np.random.default_rng(8)
+    for rid in range(4):
+        eng.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab, 9),
+                           max_new=8))
+    before = pa_ops.launches
+    done = eng.run()
+    assert len(done) == 4 and all(len(r.tokens) == 8 for r in done)
+    assert pa_ops.launches - before == eng.steps * cfg.n_layers
+    st = eng.final_state.caches
+    assert bool((st.leaf_table == INVALID).all())
+
+
+@pytest.mark.cuda
+def test_moe_ffn_never_waits_for_the_card(cuda):
+    """The MoE FFN (routing, dispatch, the scatter into the expert buffers
+    with drops, the expert products, the combine) runs with no host
+    synchronisation (sync debug mode raises on one) and equals the plain
+    run on the CPU: routing exactly, y within 1e-5 (fp32)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import init_params, moe
+    cfg = dataclasses.replace(reduce_for_smoke(get_config(
+        "granite-moe-3b-a800m")), n_experts=8, top_k=2)
+    p = init_params(cfg, "cpu", seed=4)["blocks"]["moe"]
+    p = {k: v[0] for k, v in p.items()}
+    x = torch.randn(3, 16, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(5))
+    want, want_aux = moe.moe_ffn(p, x, cfg)
+    pc, xc = _to(p, cuda), x.to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, aux = moe.moe_ffn(pc, xc, cfg)
+        _, eidx, _ = moe.route(pc, xc.reshape(-1, cfg.d_model), cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _, want_eidx, _ = moe.route(p, x.reshape(-1, cfg.d_model), cfg)
+    assert torch.equal(eidx.cpu(), want_eidx)
+    assert (got.cpu() - want).abs().max().item() <= 1e-5
+    assert abs(aux.item() - want_aux.item()) <= 1e-6

@@ -255,6 +255,6 @@ def test_forward_chunk_refuses_what_the_reference_refuses():
         forward_chunk(cfg, params, torch.zeros((1, 8), dtype=torch.int32),
                       big, big, 0)
     with pytest.raises(NotImplementedError, match="families"):
-        forward_chunk(dataclasses.replace(cfg, family="moe"), params,
+        forward_chunk(dataclasses.replace(cfg, family="ssm"), params,
                       torch.zeros((1, 8), dtype=torch.int32), big[:, :, :8],
                       big[:, :, :8], 0)
