@@ -32,7 +32,8 @@ prints no result line):
    (KV 8, G 3, hd 64), qwen2-7b's (KV 4, G 7) and codeqwen's (KV 32,
    G 1); flash one-shot and chunk at granite's (H 24/8, hd 64) and
    qwen2-7b's (H 28/4) heads, one-shot at mixtral's (H 48/8, a
-   4096-token window over 4608 keys); the pass replay over granite's and
+   4096-token window over 4608 keys) and hymba's (H 25/5, hd 64, a
+   1024-token window over 2048 keys); the pass replay over granite's and
    qwen2-7b's stacked pools (32 and 28 layers).
 4. main path: llama3-8b at its published width (32 layers, bf16, seeded
    random weights made on the card) served by the tiered engine (its
@@ -101,6 +102,24 @@ prints no result line):
    decode steps each within 1e-3 of the one-shot forward, and a window-0
    control that matches its own forward and differs from the windowed
    one.
+12. the recurrent families at full width: (a) hymba-1.5b (attention and
+   Mamba heads in parallel, window 1024 except on the global layers 0,
+   8, 16, 24) and (c) xlstm-125m (mLSTM, sLSTM every 4th layer) at their
+   published widths and depths, bf16, seeded weights made on the card:
+   ``prefill`` of 2 lanes of 2048-token prompts, then 64 greedy
+   ``decode_step``s over the dense backend from the cold state the
+   reference's prefill returns; launch counts set to 0 before the
+   measured prefill and read after the decode (hymba: flash once a layer
+   in prefill, nothing else; xlstm: no kernel); prefill ms, decode ms a
+   step, tokens/s, launches and device ms of a decode step
+   (``torch.profiler``), peak memory.  (b) hymba's per-layer window on 2
+   layers in fp32 (layer 0 global, layer 1 windowed): a 2048-token
+   prompt replayed token by token through ``decode_step`` within 1e-3 of
+   ``forward`` over the last 64 positions, a window-0 control more than
+   1e-2 away.  (d) ``ssm_step``, ``mlstm_step`` (from m = -1e30) and
+   ``slstm_step`` x 64 against ``ssm_scan``, ``mlstm_parallel`` and
+   ``slstm_scan`` at full width in fp32, and each plain scan's and
+   step's time per call at (a)'s and (c)'s call.
 
 Output, in order: phase lines, one JSON ``kernels`` line (launches: the
 main path's for paged_attention_fused, remap_gather (every launch of the
@@ -109,7 +128,8 @@ the cached zero-copy server run's for irt_lookup (every launch of the
 walk, whose two entries share one body), irt_walk2 and
 paged_attention_split, the concat server run's for paged_attention, the
 chunked run's for flash_attention, the Figure 7 sweep's for sim_scan;
-a row at another family's shape counts phase 11's run of that family),
+a row at another family's shape counts phase 11's or phase 12's run of
+that family),
 the card's name and power limit as
 nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 """
@@ -117,6 +137,7 @@ nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -409,7 +430,8 @@ FAMILY_FUSED = (("granite-moe-3b-a800m", 8, 3, 64), ("qwen2-7b", 4, 7, 128),
 def _shape_row(base, arch, shape, **numbers):
     """A kernel row at another family's shape: the base row's name,
     route, source and what it replaces, this shape's numbers; launches
-    are those of phase 11's run of ``arch`` (0 where it serves none)."""
+    are those of phase 11's or 12's run of ``arch`` (0 where it serves
+    none)."""
     keys = ("name", "route", "source", "replaces")
     return {**{k: base[k] for k in keys}, "arch": arch, "shape": shape,
             "launches": 0, **numbers}
@@ -984,7 +1006,8 @@ def _flash_case(torch, dev, q, k, v, off, label, window=0):
 # q_offset T - 256 too
 FAMILY_FLASH = (("granite-moe-3b-a800m", 24, 8, 64, 2048, 0),
                 ("qwen2-7b", 28, 4, 128, 2048, 0),
-                ("mixtral-8x22b", 48, 8, 128, 4608, 4096))
+                ("mixtral-8x22b", 48, 8, 128, 4608, 4096),
+                ("hymba-1.5b", 25, 5, 64, 2048, 1024))
 
 
 def flash_rows(torch, dev):
@@ -2647,14 +2670,360 @@ def families_phase(torch, dev, rows):
         dense_tiered_phase(torch, dev, arch)
     runs["mixtral-8x22b"] = {"flash_attention": mixtral_window_phase(
         torch, dev)}
-    for name in ("paged_attention_fused", "remap_replay", "flash_attention"):
-        for shape in rows[name]["shapes"]:
-            run = runs.get(shape["arch"], {})
-            if name != "flash_attention" or shape["shape"].startswith(
-                    "one-shot"):
-                shape["launches"] = run.get(name, 0)
+    _fill_shape_launches(rows, runs)
     print(f"families: phase 11 took {time.perf_counter() - t0:.1f} s")
 
+
+def _fill_shape_launches(rows, runs):
+    """Phase 3's rows at the shape of an arch in ``runs`` take that arch's
+    run's launches (a flash row only if it is a one-shot call: no family
+    run chunks its prompts)."""
+    for name in ("paged_attention_fused", "remap_replay", "flash_attention"):
+        for shape in rows[name]["shapes"]:
+            if shape["arch"] in runs and (name != "flash_attention"
+                                          or shape["shape"].startswith(
+                                              "one-shot")):
+                shape["launches"] = runs[shape["arch"]].get(name, 0)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the recurrent families at full width
+# ---------------------------------------------------------------------------
+
+RECURRENT_ARCHS = ("hymba-1.5b", "xlstm-125m")
+RECURRENT_LANES, RECURRENT_PROMPT, RECURRENT_STEPS = 2, 2048, 64
+# decode steps profiled for their launches and device time (first, count);
+# their time and tokens are left out of the run's other numbers
+RECURRENT_PROFILED = (24, 4)
+# the window gate's last positions, the identities' steps
+GATE_ROWS, IDENTITY_STEPS = 64, 64
+
+
+# (name in the kernels line, kernel package, counter) of every wrapper
+KERNEL_COUNTERS = (
+    ("flash_attention", "flash_attention", "launches"),
+    ("paged_attention_fused", "paged_attention", "launches"),
+    ("paged_attention_split", "paged_attention", "split_launches"),
+    ("paged_attention", "paged_attention", "unified_launches"),
+    ("remap_gather", "remap_gather", "launches"),
+    ("remap_replay", "remap_gather", "replay_launches"),
+    ("irt_lookup", "irt_lookup", "launches"),
+    ("sim_scan", "sim_scan", "launches"))
+
+
+def _counts(zero: bool = False) -> dict:
+    """Every kernel wrapper's launch count by name; with ``zero``, each
+    is set to 0 after it is read."""
+    import importlib
+
+    import repro_torch.core  # noqa: F401  (sim_scan.ops imports it first)
+    out = {}
+    for name, pkg, attr in KERNEL_COUNTERS:
+        mod = importlib.import_module(f"repro_torch.kernels.{pkg}.ops")
+        out[name] = getattr(mod, attr)
+        if zero:
+            setattr(mod, attr, 0)
+    return out
+
+
+def recurrent_serve(torch, dev, arch):
+    """12(a) and (c): ``arch`` at its published width and depth, bf16,
+    seeded weights made on the card: ``prefill`` of 2 lanes of 2048-token
+    prompts (a warm-up call, then the measured one), then 64 greedy
+    ``decode_step``s over the dense backend from the cold state prefill
+    returns (the reference's recurrent prefill).  Launch counts are set
+    to 0 just before the measured prefill and read after the decode:
+    hymba's prefill launches flash once a layer, its decode and all of
+    xlstm's run no kernel of the six.  Gates: finite logits of the right
+    shapes, greedy tokens inside the vocabulary, ``pos`` advanced by the
+    step count.  Prints prefill ms, decode ms a step (median, p90),
+    tokens/s, the kernel launches and device ms of a decode step
+    (``torch.profiler``, 4 steps) and peak memory.  Returns the launch
+    counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, layer_flags
+    from repro_torch.models import prefill as prefill_fn
+    from repro_torch.models.kv_backend import DenseBackend
+
+    cfg = get_config(arch)
+    gc.collect()                  # earlier phases' engines hold cycles
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_params(cfg, dev, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    flagged = [int(i) for i in layer_flags(cfg).nonzero()[0]]
+    extra = (f"state {cfg.ssm_state}, window {cfg.sliding_window}, global "
+             f"layers {flagged}" if cfg.family == "hybrid"
+             else f"sLSTM layers {flagged}")
+    print(f"recurrent {arch}: L={cfg.n_layers} d={cfg.d_model} "
+          f"H={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} ff={cfg.d_ff} "
+          f"V={cfg.vocab} {cfg.dtype}, {extra}; {n_params / 1e9:.3f} B "
+          f"parameters made in {time.perf_counter() - t0:.1f} s")
+    B, S, n = RECURRENT_LANES, RECURRENT_PROMPT, RECURRENT_STEPS
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g,
+                                     device=dev, dtype=torch.int32)}
+    backend = DenseBackend(cfg, dev)
+    first, count = RECURRENT_PROFILED
+    steps, book = [], {"launches": [], "busy_ms": []}
+    with torch.inference_mode():
+        prefill_fn(cfg, params, batch, max_len=S + n)
+        torch.cuda.synchronize()
+        _counts(zero=True)
+        t0 = time.perf_counter()
+        logits, st = prefill_fn(cfg, params, batch, max_len=S + n)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        after_prefill = _counts()
+        _check(tuple(logits.shape) == (B, S, cfg.vocab)
+               and bool(logits.isfinite().all()),
+               f"{arch}: prefill logits {tuple(logits.shape)} not finite or "
+               f"not [{B}, {S}, {cfg.vocab}]")
+        _check(not bool(st.pos.any()),
+               f"{arch}: prefill's state is not the cold state (pos 0)")
+        tok = logits[:, -1].argmax(-1).int()
+        del logits
+        out = []
+        for i in range(n):
+            if first <= i < first + count:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    lg, st = decode_step(cfg, params, st, tok,
+                                         backend=backend)
+                    torch.cuda.synchronize()
+                book["launches"].append(sum(
+                    e.count for e in prof.key_averages()
+                    if "LaunchKernel" in e.key))
+                book["busy_ms"].append(sum(
+                    e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == DeviceType.CUDA) / 1e3)
+            else:
+                torch.cuda.synchronize()
+                s = time.perf_counter()
+                lg, st = decode_step(cfg, params, st, tok, backend=backend)
+                torch.cuda.synchronize()
+                steps.append((time.perf_counter() - s) * 1e3)
+            _check(tuple(lg.shape) == (B, cfg.vocab)
+                   and bool(lg.isfinite().all()),
+                   f"{arch}: decode step {i} logits not finite or not "
+                   f"[{B}, {cfg.vocab}]")
+            tok = lg.argmax(-1).int()
+            out.append(tok)
+        toks = torch.stack(out, 1)
+    launches = _counts()
+    _check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+           f"{arch}: a token outside the vocabulary")
+    _check(st.pos.tolist() == [n] * B,
+           f"{arch}: pos {st.pos.tolist()} after {n} steps from 0")
+    want = {k: 0 for k in launches}
+    if cfg.family == "hybrid":
+        want["flash_attention"] = cfg.n_layers
+    _check(after_prefill == want and launches == want,
+           f"{arch}: launches after prefill {after_prefill}, after decode "
+           f"{launches}; want {want} (flash once a layer in hymba's "
+           f"prefill, nothing else)")
+    _check(len(book["launches"]) == count and min(book["launches"]) > 0,
+           f"{arch}: the profiled steps counted no launch")
+    steps.sort()
+    median = steps[len(steps) // 2]
+    busy = sum(book["busy_ms"]) / count
+    print(f"recurrent {arch}: prefill of {B} x {S} tokens {prefill_ms:.2f} "
+          f"ms ({B * S / prefill_ms * 1e3:.0f} tokens/s, warm); {n} greedy "
+          f"decode steps over the dense backend: median {median:.2f} ms "
+          f"(p90 {steps[int(len(steps) * 0.9)]:.2f} ms), "
+          f"{B * len(steps) / sum(steps) * 1e3:.1f} tokens/s (the {count} "
+          f"profiled steps left out); "
+          f"{sum(book['launches']) / count:.1f} kernel launches and "
+          f"{busy:.2f} ms of device time per decode step (torch.profiler, "
+          f"steps {first}-{first + count - 1}): the device idle "
+          f"{100 * (1 - busy / median):.1f} % of the median step; launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB ({held / 2**30:.2f} GiB of it allocated before the run); "
+          f"card {_card_line()}")
+    del params, st
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hymba_window_gate(torch, dev):
+    """12(b): hymba-1.5b at its published width, fp32, cut to 2 layers
+    (layer 0 global, layer 1 windowed: ``layer_flags`` of the first two).
+    A 2048-token prompt through ``forward`` (flash, window 1024 on layer
+    1), then the same prompt replayed token by token through
+    ``decode_step`` from the cold state over the dense backend: the last
+    64 positions' logits within 1e-3 of the forward's rows.  Control: the
+    same with window 0 matches its own forward and differs from the
+    windowed one by more than 1e-2, so the window bit in both paths."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import (decode_step, forward, init_decode_state,
+                                    init_params, layer_flags)
+    from repro_torch.models.kv_backend import DenseBackend
+
+    pub = get_config("hymba-1.5b")
+    cfg = dataclasses.replace(pub, n_layers=2, dtype="float32")
+    params = init_params(cfg, dev, seed=2)
+    S, R = RECURRENT_PROMPT, GATE_ROWS
+    seq = torch.as_tensor(np.random.default_rng(13).integers(
+        0, cfg.vocab, (1, S)), dtype=torch.int32, device=dev)
+    fa_ops.launches = 0
+    t0 = time.perf_counter()
+    out = {}
+    with torch.inference_mode():
+        for window in (cfg.sliding_window, 0):
+            c = dataclasses.replace(cfg, sliding_window=window)
+            one = forward(c, params, {"tokens": seq})[0][0, S - R:]
+            st = init_decode_state(c, 1, S, dev)
+            backend = DenseBackend(c, dev)
+            rows = []
+            for t in range(S):
+                lg, st = decode_step(c, params, st, seq[:, t],
+                                     backend=backend)
+                if t >= S - R:
+                    rows.append(lg[0])
+            out[window] = (torch.stack(rows), one)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    win = cfg.sliding_window
+    (dec, one), (dec0, one0) = out[win], out[0]
+    err = (dec - one).abs().max().item()
+    err0 = (dec0 - one0).abs().max().item()
+    moved = (dec0 - one).abs().max().item()
+    _check(math.isfinite(err) and err <= 1e-3,
+           f"hymba: windowed decode differs from the windowed forward by "
+           f"{err} > 1e-3")
+    _check(math.isfinite(err0) and err0 <= 1e-3,
+           f"hymba: window-0 decode differs from its forward by {err0} > "
+           f"1e-3")
+    _check(moved > 1e-2, f"hymba: the window moved the logits by only "
+           f"{moved} (control)")
+    _check(fa_ops.launches == 2 * cfg.n_layers,
+           f"hymba: flash launches {fa_ops.launches} != 2 forwards x "
+           f"{cfg.n_layers} layers")
+    print(f"recurrent hymba-1.5b window gate: 2 of {pub.n_layers} layers "
+          f"(flags {layer_flags(cfg).tolist()}: layer 0 global, layer 1 "
+          f"window {win}), fp32, a {S}-token prompt through forward and "
+          f"replayed token by token through decode_step from the cold "
+          f"state: max |decode - forward| over the last {R} positions "
+          f"{err:.3e} (tol 1e-3; max |logit| {one.abs().max().item():.3f}); "
+          f"control with window 0: {err0:.3e} against its own forward, "
+          f"{moved:.3e} from the windowed forward (must exceed 1e-2); "
+          f"{fa_ops.launches} flash launches (fp32); {secs:.1f} s")
+    del params, out, dec, one, dec0, one0
+    torch.cuda.empty_cache()
+
+
+def recurrent_identities(torch, dev):
+    """12(d): the recurrent forms against the parallel ones at full width
+    in fp32, 64 steps from the parallel form's start, at the tolerances
+    the reference's tests hold its own to (``test_chunked_equivalence.
+    py``): hymba's ``ssm_step`` against ``ssm_scan`` within 2e-3,
+    ``mlstm_step`` from m = -1e30 against ``mlstm_parallel`` within 2e-3;
+    and ``slstm_step`` against ``slstm_scan`` within 1e-4 (the same cell;
+    cuBLAS may sum the W x product over 64 rows and over one in other
+    orders).  Then each plain scan's and step's time per call (CUDA
+    events, cold L2) at phase 12's call: 2 lanes of 2048 tokens (a step:
+    one token), bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm, xlstm
+
+    hy, xl = get_config("hymba-1.5b"), get_config("xlstm-125m")
+    T, B, S = IDENTITY_STEPS, RECURRENT_LANES, RECURRENT_PROMPT
+    H = xl.n_heads
+    hd = xl.d_model // H
+    g = torch.Generator(device=dev)
+    g.manual_seed(20)
+
+    def layer0(init, cfg):
+        return {k: v[0] for k, v in init(
+            g, dataclasses.replace(cfg, n_layers=1), dev).items()}
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    def m_state(m0):
+        return {"C": torch.zeros((B, H, hd, hd), device=dev),
+                "n": torch.zeros((B, H, hd), device=dev),
+                "m": torch.full((B, H), m0, device=dev)}
+
+    def stepped(step, p, x, st, *cfg):
+        outs = []
+        for t in range(x.shape[1]):
+            o, st = step(p, x[:, t:t + 1], st, *cfg)
+            outs.append(o)
+        return torch.cat(outs, 1)
+
+    with torch.inference_mode():
+        h32 = dataclasses.replace(hy, dtype="float32")
+        x32 = dataclasses.replace(xl, dtype="float32")
+        ps, px = layer0(ssm.ssm_init, h32), layer0(xlstm.xlstm_init, x32)
+        xz = randn(B, T, 2 * hy.d_model, scale=0.3)
+        xm, xs = randn(B, T, xl.d_model, scale=0.1), randn(B, T, xl.d_model)
+        pairs = {
+            "ssm": (stepped(ssm.ssm_step, ps, xz,
+                            ssm.ssm_state_init(h32, B, dev), h32),
+                    ssm.ssm_scan(ps, xz, h32)),
+            "mlstm": (stepped(xlstm.mlstm_step, px, xm, m_state(-1e30)),
+                      xlstm.mlstm_parallel(px, xm)),
+            "slstm": (stepped(xlstm.slstm_step, px, xs,
+                              xlstm.slstm_state_init(B, H, hd, dev)),
+                      xlstm.slstm_scan(px, xs))}
+        err = {k: (a - b).abs().max().item() for k, (a, b) in pairs.items()}
+        ps, px = layer0(ssm.ssm_init, hy), layer0(xlstm.xlstm_init, xl)
+        xz = randn(B, S, 2 * hy.d_model, scale=0.3).bfloat16()
+        x = randn(B, S, xl.d_model, scale=0.3).bfloat16()
+        hst = ssm.ssm_state_init(hy, B, dev)
+        mst, sst = m_state(0.0), xlstm.slstm_state_init(B, H, hd, dev)
+        times = {
+            "ssm_scan": _time_ms(lambda: ssm.ssm_scan(ps, xz, hy), reps=5),
+            "ssm_step": _time_ms(lambda: ssm.ssm_step(ps, xz[:, :1], hst,
+                                                      hy)),
+            "mlstm_parallel": _time_ms(lambda: xlstm.mlstm_parallel(px, x),
+                                       reps=5),
+            "mlstm_step": _time_ms(lambda: xlstm.mlstm_step(px, x[:, :1],
+                                                            mst)),
+            "slstm_scan": _time_ms(lambda: xlstm.slstm_scan(px, x), reps=3,
+                                   warmup=1),
+            "slstm_step": _time_ms(lambda: xlstm.slstm_step(px, x[:, :1],
+                                                            sst))}
+    tol = {"ssm": 2e-3, "mlstm": 2e-3, "slstm": 1e-4}
+    for k, e in err.items():
+        _check(math.isfinite(e) and e <= tol[k],
+               f"recurrent identity {k}: recurrent against parallel {e} > "
+               f"{tol[k]}")
+    print(f"recurrent identities at full width, fp32, {T} steps (max abs "
+          f"err, tolerance): "
+          + ", ".join(f"{k} {e:.3e} ({tol[k]:g})" for k, e in err.items()))
+    print(f"recurrent plain scans, ms per call (CUDA events, cold L2; {B} "
+          f"lanes of {S} tokens or one step, bf16; hymba d {hy.d_model} "
+          f"state {hy.ssm_state}, xlstm d {xl.d_model} H {H}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+          + f"; card {_card_line()}")
+
+
+def recurrent_phase(torch, dev, rows):
+    """Phase 12: hymba-1.5b and xlstm-125m served at full width and depth
+    (prefill, then decode), hymba's per-layer window against its forward
+    on 2 layers, the recurrent identities and the plain scans' times.
+    Fills in the launches of phase 3's flash row at hymba's shape."""
+    t0 = time.perf_counter()
+    runs = {arch: recurrent_serve(torch, dev, arch)
+            for arch in RECURRENT_ARCHS}
+    hymba_window_gate(torch, dev)
+    recurrent_identities(torch, dev)
+    _fill_shape_launches(rows, runs)
+    print(f"recurrent: phase 12 took {time.perf_counter() - t0:.1f} s")
 
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -2693,6 +3062,7 @@ def main():
     torch.cuda.empty_cache()
     rows["sim_scan"], launches["sim_scan"] = sim_phase(torch, dev)
     families_phase(torch, dev, rows)
+    recurrent_phase(torch, dev, rows)
     for name, n in launches.items():
         rows[name]["launches"] = n
     print(json.dumps({"kernels": [rows[k] for k in sorted(rows)]}))

@@ -7,7 +7,10 @@ runs on the card; ``--device cpu --smoke`` runs the plain versions on a
 tiny same-family model.  ``--arch`` takes every config the port
 registers: the dense llama3-8b, qwen2-7b, qwen2-72b and codeqwen1.5-7b,
 and the MoE granite-moe-3b-a800m and mixtral-8x22b (whose sliding window
-only ``--backend dense`` serves).  ``--scheduler chunked`` ingests prompts in
+only ``--backend dense`` serves); the engine refuses the recurrent
+hymba-1.5b and xlstm-125m, as the reference's does (the launcher exits
+with its message; ``models.prefill`` and ``models.decode_step`` serve
+them).  ``--scheduler chunked`` ingests prompts in
 ``--prefill-chunk``-token chunks and, with ``--tenants``, admits requests
 by multi-tenant QoS with per-tenant fast-slot quotas and direct-to-fast
 ingest for on-demand tenants (``--admit-pages``).  Telemetry:
@@ -130,12 +133,15 @@ def main(argv=None):
     if args.slo:
         from repro_torch.obs import parse_slos
         slos = parse_slos(args.slo)
-    eng = Engine(cfg, params, EngineConfig(
-        batch=args.batch, max_len=args.max_len, backend=args.backend,
-        policy=args.policy, scheduler=args.scheduler,
-        prefill_chunk=args.prefill_chunk, tenants=tenants,
-        admit_pages=args.admit_pages, obs=obs, flight=flight, slos=slos),
-        device=device)
+    try:
+        eng = Engine(cfg, params, EngineConfig(
+            batch=args.batch, max_len=args.max_len, backend=args.backend,
+            policy=args.policy, scheduler=args.scheduler,
+            prefill_chunk=args.prefill_chunk, tenants=tenants,
+            admit_pages=args.admit_pages, obs=obs, flight=flight,
+            slos=slos), device=device)
+    except NotImplementedError as e:
+        raise SystemExit(f"{cfg.name}: {e}")
     if eng.obs_server is not None:
         print(f"obs: live endpoints at {eng.obs_server.url} "
               f"(/metrics /healthz /debug/state)")

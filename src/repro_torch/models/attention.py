@@ -1,6 +1,7 @@
 """GQA self-attention for prefill and one-token decode against a KV
 backend (port of ``repro.models.attention``: causal and sliding-window
-self-attention; the VLM's cross-attention is not ported).
+self-attention, the window fixed per model or, in the hybrid family, per
+layer; the VLM's cross-attention is not ported).
 
 Prefill attention (``sdpa_auto``, for the one-shot forward and each
 chunk of a chunked prefill) launches the flash kernel on a card
@@ -147,17 +148,19 @@ def self_attention(p, x, cfg, *, positions, causal: bool, window: int = 0,
     return _out(out, p["wo"]), (k, v)
 
 
-def block_decode_attention(p, x, cfg, cache, pos, backend, *, rope=None):
+def block_decode_attention(p, x, cfg, cache, pos, backend, *, window: int = 0,
+                           rope=None):
     """One block's decode attention through a backend's per-layer
     ``append``/``attend`` pair (the dense path).  x [B,1,d]; pos [B]
-    (negative: idle lane); the read keeps the keys of ``cfg``'s sliding
-    window.  Returns (y [B,1,d], cache)."""
+    (negative: idle lane); ``window`` > 0 keeps only the keys inside this
+    layer's sliding window (the hybrid family's global layers pass 0).
+    Returns (y [B,1,d], cache)."""
     q, k, v = _qkv(p, x, cfg, pos[:, None], rope)
     B, _, H, hd = q.shape
     KV = k.shape[2]
     cache = backend.append(cache, k[:, 0], v[:, 0], pos)
     out, cache = backend.attend(cache, q.reshape(B, KV, H // KV, hd), pos,
-                                window=cfg.sliding_window)
+                                window=window)
     return _out(out.reshape(B, 1, H, hd), p["wo"]), cache
 
 

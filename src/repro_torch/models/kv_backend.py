@@ -1,8 +1,9 @@
 """KV-cache backends for the decode loop (port of
 ``repro.models.kv_backend``).
 
-  DenseBackend   contiguous [L, B, max_len, KV, hd] caches, per-layer
-                 ``append`` then ``attend``;
+  DenseBackend   contiguous [L, B, max_len, KV, hd] caches (and the
+                 recurrent states of the hybrid and ssm families),
+                 per-layer ``append`` then ``attend``;
   TieredBackend  one Trimma-managed two-tier store for all layers: pools
                  stacked [L, ...] under one shared copy of the metadata
                  (``tiered.kvcache``).  A decode step routes its append
@@ -41,8 +42,13 @@ def _host_num(v):
 
 
 class DenseBackend:
-    """Contiguous per-layer caches, dict ``{"k", "v"}`` of
-    [L, B, max_len, KV, hd]."""
+    """Contiguous per-layer caches (``transformer.init_decode_state``):
+    ``{"k", "v"}`` [L, B, max_len, KV, hd], for the hybrid family with
+    the Mamba state ``"ssm"`` beside them; the ssm family's caches are
+    its recurrent states only.  ``append`` and ``attend`` take one
+    layer's slice (views) and touch only its "k" and "v"; the decode
+    step writes a layer's recurrent states into their slices in place,
+    as ``append`` writes the KV rows."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         self.cfg = cfg

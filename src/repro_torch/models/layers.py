@@ -18,12 +18,14 @@ def dense_init(g, shape, dt, device, scale):
     return (t * scale).to(dt)
 
 
-def stacked_init(g, n_layers: int, shape, dt, device, fan_in: int):
-    """[n_layers, *shape] of ``dense_init`` draws scaled by
-    1/sqrt(``fan_in``), one layer at a time."""
+def stacked_init(g, n_layers: int, shape, dt, device, fan_in: int = 0, *,
+                 scale: float | None = None):
+    """[n_layers, *shape] of ``dense_init`` draws scaled by ``scale``,
+    by default 1/sqrt(``fan_in``), one layer at a time."""
+    scale = 1.0 / np.sqrt(fan_in) if scale is None else scale
     out = torch.empty((n_layers,) + tuple(shape), dtype=dt, device=device)
     for i in range(n_layers):
-        out[i] = dense_init(g, shape, dt, device, 1.0 / np.sqrt(fan_in))
+        out[i] = dense_init(g, shape, dt, device, scale)
     return out
 
 

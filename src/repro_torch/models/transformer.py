@@ -1,21 +1,34 @@
-"""Decoders of the dense and MoE families: parameters, full-sequence
-forward, the chunked-prefill forward and the one-token decode step (port
-of those families of ``repro.models.transformer``).
+"""Decoders of the dense, MoE, hybrid and ssm families: parameters,
+full-sequence forward, prefill, the chunked-prefill forward and the
+one-token decode step (port of those families of
+``repro.models.transformer``).
 
 Parameters keep the reference's layout, a dict of layer-stacked tensors:
-``{"embed" [V,d], "blocks": {"norm1" [L,d], "attn": {"wq" [L,d,H,hd],
-"wk"/"wv" [L,d,KV,hd], "wo" [L,H,hd,d], with ``qkv_bias`` "bq" [L,H,hd],
-"bk"/"bv" [L,KV,hd]}, "norm2" [L,d], and either "mlp": {"w_gate"/"w_up"
-[L,d,ff], "w_down" [L,ff,d]} (dense) or "moe": {"router" [L,d,E] fp32,
-"w_gate"/"w_up" [L,E,d,ff], "w_down" [L,E,ff,d]} (moe)}, "final_norm"
-[d], "unembed" [V,d]}``.  The reference's ``lax.scan`` over layers is a
-Python loop over views of the stacked tensors.
+``{"embed" [V,d], "blocks": {...}, "final_norm" [d], "unembed" [V,d]}``.
+The blocks hold "norm1" [L,d] and, by family:
+
+  dense   "attn": {"wq" [L,d,H,hd], "wk"/"wv" [L,d,KV,hd], "wo"
+          [L,H,hd,d], with ``qkv_bias`` "bq" [L,H,hd], "bk"/"bv"
+          [L,KV,hd]}, "norm2" [L,d], "mlp": {"w_gate"/"w_up" [L,d,ff],
+          "w_down" [L,ff,d]};
+  moe     the same with "moe": {"router" [L,d,E] fp32, "w_gate"/"w_up"
+          [L,E,d,ff], "w_down" [L,E,ff,d]} in place of "mlp";
+  hybrid  the dense blocks plus "ssm" (``ssm.ssm_init``),
+          "norm_attn_out" and "norm_ssm_out" [L,d]: attention and the
+          Mamba branch run in parallel on norm1's output;
+  ssm     norm1 and both xLSTM branch sets (``xlstm.xlstm_init``); no
+          norm2 or FFN.
+
+The reference's ``lax.scan`` over layers is a Python loop over views of
+the stacked tensors; its scanned per-layer flags (``layer_flags``) are
+Python bools here.
 """
 
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
@@ -23,20 +36,45 @@ from repro_torch.device import resolve_device, torch_dtype
 
 from . import attention as attn
 from . import moe as moe_mod
+from . import ssm as ssm_mod
+from . import xlstm as xlstm_mod
 from .layers import (dense_init, rms_norm, rope_tables, stacked_init, swiglu,
                      unembed)
 
-_FAMILIES = ("dense", "moe")
+_FAMILIES = ("dense", "moe", "hybrid", "ssm")
+_KV_FAMILIES = ("dense", "moe")
 
 
 def check_family(cfg: ArchConfig):
-    """Raise on a family the port's decoder does not run: the plain-KV
-    families, whose every entry point (forward, decode, chunked prefill,
-    the engine) the port serves."""
+    """Raise on a family the port's decoder does not run (audio, vlm):
+    ``init_params``, ``forward``, ``prefill``, ``init_decode_state`` and
+    the dense-backend ``decode_step`` take the other four.  The
+    chunked-prefill forward, the tiered decode branch and the engine take
+    only the plain-KV families, each with its own refusal."""
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"the port runs the decoder families {_FAMILIES}; got "
             f"{cfg.family!r}")
+
+
+def layer_flags(cfg: ArchConfig) -> np.ndarray:
+    """[L] bool per-layer flags: hybrid, the global-attention layers
+    (every ``global_attn_every``-th from layer 0); ssm, the sLSTM layers
+    (every ``slstm_every``-th, the last of each group); else all False."""
+    L = cfg.n_layers
+    if cfg.family == "hybrid" and cfg.global_attn_every:
+        return np.arange(L) % cfg.global_attn_every == 0
+    if cfg.family == "ssm":
+        every = max(cfg.slstm_every, 1)
+        return np.arange(L) % every == every - 1
+    return np.zeros((L,), bool)
+
+
+def _window(cfg: ArchConfig, flag) -> int:
+    """A hybrid layer's attention window: 0 on its global layers."""
+    if cfg.family == "hybrid":
+        return 0 if flag else cfg.sliding_window
+    return cfg.sliding_window
 
 
 # ---------------------------------------------------------------------------
@@ -55,7 +93,8 @@ def init_params(cfg: ArchConfig, device=None, seed: int = 0) -> dict:
     reassociation alone moves full-width logits by ~1e-3.  Parity tests
     give both sides the same weights (``repro_torch.weights``).  The QKV
     biases start at zero, as the reference's do; the MoE family's experts
-    come from ``moe.moe_init``."""
+    come from ``moe.moe_init``, the Mamba branch from ``ssm.ssm_init``,
+    the xLSTM branches from ``xlstm.xlstm_init``."""
     check_family(cfg)
     device = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
@@ -70,19 +109,28 @@ def init_params(cfg: ArchConfig, device=None, seed: int = 0) -> dict:
     def filled(fill, *shape):
         return torch.full(shape, fill, dtype=dt, device=device)
 
-    attn_p = {"wq": stacked((d, H, hd), d), "wk": stacked((d, KV, hd), d),
-              "wv": stacked((d, KV, hd), d), "wo": stacked((H, hd, d), H * hd)}
-    if cfg.qkv_bias:
-        attn_p.update(bq=filled(0, L, H, hd), bk=filled(0, L, KV, hd),
-                      bv=filled(0, L, KV, hd))
-    blocks = {"norm1": filled(1, L, d), "attn": attn_p,
-              "norm2": filled(1, L, d)}
-    if cfg.family == "moe":
-        blocks["moe"] = moe_mod.moe_init(g, cfg, device)
+    blocks = {"norm1": filled(1, L, d)}
+    if cfg.family == "ssm":
+        blocks.update(xlstm_mod.xlstm_init(g, cfg, device))
     else:
-        blocks["mlp"] = {"w_gate": stacked((d, ff), d),
-                         "w_up": stacked((d, ff), d),
-                         "w_down": stacked((ff, d), ff)}
+        attn_p = {"wq": stacked((d, H, hd), d),
+                  "wk": stacked((d, KV, hd), d),
+                  "wv": stacked((d, KV, hd), d),
+                  "wo": stacked((H, hd, d), H * hd)}
+        if cfg.qkv_bias:
+            attn_p.update(bq=filled(0, L, H, hd), bk=filled(0, L, KV, hd),
+                          bv=filled(0, L, KV, hd))
+        blocks.update(attn=attn_p, norm2=filled(1, L, d))
+        if cfg.family == "hybrid":
+            blocks.update(ssm=ssm_mod.ssm_init(g, cfg, device),
+                          norm_attn_out=filled(1, L, d),
+                          norm_ssm_out=filled(1, L, d))
+        if cfg.family == "moe":
+            blocks["moe"] = moe_mod.moe_init(g, cfg, device)
+        else:
+            blocks["mlp"] = {"w_gate": stacked((d, ff), d),
+                             "w_up": stacked((d, ff), d),
+                             "w_down": stacked((ff, d), ff)}
     params = {"embed": dense_init(g, (cfg.vocab, d), dt, device, 0.02),
               "blocks": blocks, "final_norm": filled(1, d)}
     if not cfg.tie_embeddings:
@@ -119,10 +167,38 @@ def _ffn(p, x, cfg: ArchConfig):
 # full-sequence forward (prefill)
 # ---------------------------------------------------------------------------
 
+def _block_fwd(cfg: ArchConfig, p, x, positions, rope, flag):
+    """One block over the whole sequence -> (x, aux, (k, v) or None): aux
+    the MoE load-balancing loss or None, k/v the attention's post-RoPE
+    keys and values (None for the ssm family)."""
+    h = rms_norm(x, p["norm1"], cfg.rms_eps)
+    if cfg.family == "ssm":
+        branch = xlstm_mod.slstm_scan if flag else xlstm_mod.mlstm_parallel
+        return x + branch(p, h), None, None
+    if cfg.family == "hybrid":
+        q, k, v = attn._qkv(p["attn"], h, cfg, positions, rope)
+        out = attn.sdpa_auto(q, k, v, causal=True,
+                             window=_window(cfg, flag))
+        a = attn._out(out, p["attn"]["wo"])
+        xz = h @ p["ssm"]["in_proj"].to(h.dtype)
+        s = ssm_mod.ssm_scan(p["ssm"], xz, cfg)
+        x = x + rms_norm(a, p["norm_attn_out"], cfg.rms_eps) \
+            + rms_norm(s, p["norm_ssm_out"], cfg.rms_eps)
+    else:
+        a, (k, v) = attn.self_attention(p["attn"], h, cfg,
+                                        positions=positions,
+                                        causal=cfg.causal,
+                                        window=cfg.sliding_window, rope=rope)
+        x = x + a
+    x, aux = _ffn(p, x, cfg)
+    return x, aux, (k, v)
+
+
 def forward(cfg: ArchConfig, params, batch, *, collect_cache: bool = False):
     """batch {"tokens" [B,S]} -> (logits [B,S,V] fp32, aux, caches): aux
-    the MoE load-balancing loss summed over layers (0 for dense), and
-    with ``collect_cache`` caches = (k, v), each [L,B,S,KV,hd] post-RoPE."""
+    the MoE load-balancing loss summed over layers (0 for the others),
+    and with ``collect_cache`` caches = (k, v), each [L,B,S,KV,hd]
+    post-RoPE, for the attention families (() for ssm)."""
     check_family(cfg)
     tokens = batch["tokens"]
     x = params["embed"][tokens.long()]
@@ -132,23 +208,43 @@ def forward(cfg: ArchConfig, params, batch, *, collect_cache: bool = False):
     rope = rope_tables(positions, cfg.hd, cfg.rope_theta)
     ks, vs = [], []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
+    for i, flag in enumerate(layer_flags(cfg)):
         p = layer_params(params["blocks"], i)
-        h = rms_norm(x, p["norm1"], cfg.rms_eps)
-        a, (k, v) = attn.self_attention(p["attn"], h, cfg,
-                                        positions=positions,
-                                        causal=cfg.causal,
-                                        window=cfg.sliding_window, rope=rope)
-        x, aux_l = _ffn(p, x + a, cfg)
+        x, aux_l, kv = _block_fwd(cfg, p, x, positions, rope, bool(flag))
         if aux_l is not None:
             aux = aux + aux_l
-        if collect_cache:
-            ks.append(k)
-            vs.append(v)
+        if collect_cache and kv is not None:
+            ks.append(kv[0])
+            vs.append(kv[1])
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = unembed(x, _table(cfg, params))
-    caches = (torch.stack(ks), torch.stack(vs)) if collect_cache else ()
+    caches = (torch.stack(ks), torch.stack(vs)) if ks else ()
     return logits, aux, caches
+
+
+def prefill(cfg: ArchConfig, params, batch, max_len: int | None = None):
+    """Run the prompt, return (logits [B,S,V], DecodeState) for decode,
+    on the tokens' device.
+
+    dense/moe: the caches ``forward`` collects, padded to ``max_len``
+    (default: the prompt length), ``pos`` = S on every lane.
+    hybrid/ssm: as the reference does, ``forward``'s logits and a COLD
+    decode state (zero recurrent state, empty KV cache, ``pos`` 0): a
+    decode after it does not see the prompt.  The reference documents
+    this as a simplification (a warm-state prefill would be a feature it
+    lacks)."""
+    check_family(cfg)
+    B, S = batch["tokens"].shape
+    device = batch["tokens"].device
+    if cfg.family in ("ssm", "hybrid"):
+        logits = forward(cfg, params, batch)[0]
+        return logits, init_decode_state(cfg, B, max_len or S, device)
+    logits, _, (k, v) = forward(cfg, params, batch, collect_cache=True)
+    state = init_decode_state(cfg, B, max_len or S, device)
+    state.caches["k"][:, :, :S] = k.to(state.caches["k"].dtype)
+    state.caches["v"][:, :, :S] = v.to(state.caches["v"].dtype)
+    return logits, state._replace(pos=torch.full(
+        (B,), S, dtype=torch.int32, device=device))
 
 
 # ---------------------------------------------------------------------------
@@ -178,8 +274,12 @@ def forward_chunk(cfg: ArchConfig, params, tokens, buf_k, buf_v, start: int,
     are row-independent too (``chip_smoke.py`` phase 8 checks it).  For
     the MoE family this holds while no token is dropped: a chunk routes
     fewer tokens, so its capacity, and which tokens it drops, differ
-    from the one-shot call's."""
-    check_family(cfg)
+    from the one-shot call's.  Only the plain-KV families qualify, as in
+    the reference."""
+    if cfg.family not in _KV_FAMILIES:
+        raise NotImplementedError(
+            f"forward_chunk supports plain-KV decoder families "
+            f"{_KV_FAMILIES}; got {cfg.family!r}")
     B, C = tokens.shape
     P = buf_k.shape[2]
     if P > attn.CHUNKED_THRESHOLD:
@@ -232,14 +332,71 @@ class DecodeState(NamedTuple):
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       device=None) -> DecodeState:
-    """Dense caches {"k", "v"} [L, B, max_len, KV, hd], zeros."""
+    """Zero decode state on ``device`` (the card unless the caller asks
+    for the CPU), caches layer-stacked [L, ...]: dense/moe {"k", "v"}
+    [L, B, max_len, KV, hd]; hybrid the same plus "ssm" {"h" [L,B,di,
+    state] fp32, "conv" [L,B,K-1,di]}; ssm {"mC" [L,B,H,hd,hd], "mn"
+    [L,B,H,hd], "mm" [L,B,H], "s": {"h", "c", "n", "m"} [L,B,H,hd]}, all
+    fp32, ``mm`` 0 as in the reference (its parallel form starts the
+    stabiliser at -1e30)."""
     check_family(cfg)
-    dt = torch_dtype(cfg.dtype)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    caches = {"k": torch.zeros(shape, dtype=dt, device=device),
-              "v": torch.zeros(shape, dtype=dt, device=device)}
+    device = resolve_device(device)
+    dt, L = torch_dtype(cfg.dtype), cfg.n_layers
+
+    def stack(tree):
+        if isinstance(tree, dict):
+            return {k: stack(v) for k, v in tree.items()}
+        return tree.expand((L,) + tree.shape).contiguous()
+
+    if cfg.family == "ssm":
+        caches = stack(xlstm_mod.xlstm_state_init(cfg, batch, device))
+    else:
+        shape = (L, batch, max_len, cfg.n_kv_heads, cfg.hd)
+        caches = {"k": torch.zeros(shape, dtype=dt, device=device),
+                  "v": torch.zeros(shape, dtype=dt, device=device)}
+        if cfg.family == "hybrid":
+            caches["ssm"] = stack(ssm_mod.ssm_state_init(cfg, batch, device))
     return DecodeState(torch.zeros((batch,), dtype=torch.int32,
                                    device=device), caches)
+
+
+def _store_(dst: dict, src: dict):
+    """Write a layer's new recurrent state into its slice of the stacked
+    caches, in place."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _store_(dst[k], v)
+        else:
+            dst[k].copy_(v)
+
+
+def _block_decode(cfg: ArchConfig, p, x, cache, pos, flag, backend, rope):
+    """One block, one token per lane, over the dense path: ``cache`` is
+    this layer's slice of the caches (views), updated in place.  The
+    recurrent states advance on every lane, parked ones included, as in
+    the reference."""
+    h = rms_norm(x, p["norm1"], cfg.rms_eps)
+    if cfg.family == "ssm":
+        if flag:
+            out, st = xlstm_mod.slstm_step(p, h, cache["s"])
+            _store_(cache["s"], st)
+        else:
+            out, st = xlstm_mod.mlstm_step(
+                p, h, {"C": cache["mC"], "n": cache["mn"], "m": cache["mm"]})
+            _store_(cache, {"mC": st["C"], "mn": st["n"], "mm": st["m"]})
+        return x + out
+    a, _ = attn.block_decode_attention(p["attn"], h, cfg, cache, pos,
+                                       backend, window=_window(cfg, flag),
+                                       rope=rope)
+    if cfg.family == "hybrid":
+        xz = h @ p["ssm"]["in_proj"].to(h.dtype)
+        s_out, st = ssm_mod.ssm_step(p["ssm"], xz, cache["ssm"], cfg)
+        _store_(cache["ssm"], st)
+        x = x + rms_norm(a, p["norm_attn_out"], cfg.rms_eps) \
+            + rms_norm(s_out, p["norm_ssm_out"], cfg.rms_eps)
+    else:
+        x = x + a
+    return _ffn(p, x, cfg)[0]
 
 
 def decode_step(cfg: ArchConfig, params, state: DecodeState, tokens,
@@ -247,19 +404,24 @@ def decode_step(cfg: ArchConfig, params, state: DecodeState, tokens,
     """tokens [B] int -> (logits [B, vocab] fp32, new state).
 
     ``backend`` selects the KV storage (``models.kv_backend``): None /
-    ``DenseBackend`` keeps contiguous caches; ``TieredBackend`` runs the
-    fused path — ``begin_step`` once, one fused append+attend kernel per
-    layer, ``end_step`` once.  ``n_pages`` (tiered only) is the live-page
+    ``DenseBackend`` keeps contiguous caches (every family the port
+    runs); ``TieredBackend`` runs the fused path (dense/moe only) —
+    ``begin_step`` once, one fused append+attend kernel per layer,
+    ``end_step`` once.  ``n_pages`` (tiered only) is the live-page
     bucket; the caller guarantees it holds every live position plus this
     step's append.  Caches update in place."""
     check_family(cfg)
     if backend is None:
         from .kv_backend import DenseBackend
-        backend = DenseBackend(cfg)
+        backend = DenseBackend(cfg, state.pos.device)
     x = params["embed"][tokens.long()[:, None]]
     pos = state.pos
     rope = rope_tables(pos[:, None], cfg.hd, cfg.rope_theta)
     if hasattr(backend, "begin_step"):
+        if cfg.family not in _KV_FAMILIES:
+            raise NotImplementedError(
+                f"the fused tiered decode supports plain-KV decoder "
+                f"families {_KV_FAMILIES}; got {cfg.family!r}")
         caches, aux = backend.begin_step(state.caches, pos, n_pages=n_pages)
         ops = backend.scan_operands(caches)
         ks, vs = [], []
@@ -276,13 +438,10 @@ def decode_step(cfg: ArchConfig, params, state: DecodeState, tokens,
                                   pos, aux)
     else:
         caches = state.caches
-        for i in range(cfg.n_layers):
-            p = layer_params(params["blocks"], i)
-            h = rms_norm(x, p["norm1"], cfg.rms_eps)
-            a, _ = attn.block_decode_attention(
-                p["attn"], h, cfg, layer_params(caches, i), pos, backend,
-                rope=rope)
-            x, _ = _ffn(p, x + a, cfg)
+        for i, flag in enumerate(layer_flags(cfg)):
+            x = _block_decode(cfg, layer_params(params["blocks"], i), x,
+                              layer_params(caches, i), pos, bool(flag),
+                              backend, rope)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = unembed(x, _table(cfg, params))[:, 0]
     return logits, DecodeState(pos + 1, caches)

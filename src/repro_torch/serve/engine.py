@@ -42,7 +42,6 @@ from repro_torch.core.remap.irt import E, INVALID
 from repro_torch.device import resolve_device
 from repro_torch.models import decode_step, forward
 from repro_torch.models.kv_backend import TieredBackend, make_backend
-from repro_torch.models.transformer import check_family
 from repro_torch.obs import NULL_TRACER, MetricsHub, ObsConfig, StepTracer
 from repro_torch.obs import flight as obs_flight
 from repro_torch.obs import metrics as obs_metrics
@@ -195,6 +194,9 @@ class TieredServer:
         return legacy_counters(self.metrics)
 
 
+_PREFILL_FAMILIES = ("dense", "moe")
+
+
 def padded_len(ctx: int, max_len: int) -> int:
     """Prefill padding: the context pads to a power of two, clamped to the
     cache capacity."""
@@ -208,7 +210,10 @@ class Engine:
 
     def __init__(self, cfg: ArchConfig, params, ec: EngineConfig,
                  backend=None, scheduler=None, *, device=None):
-        check_family(cfg)
+        if cfg.family not in _PREFILL_FAMILIES:
+            raise NotImplementedError(
+                f"Engine prefill supports KV-cache families "
+                f"{_PREFILL_FAMILIES}; got {cfg.family!r}")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "

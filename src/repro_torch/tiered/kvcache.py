@@ -48,7 +48,7 @@ from repro_torch.core.remap import irt as irt_ops
 from repro_torch.core.remap import rcache as rc_ops
 from repro_torch.core.remap.irt import E, INVALID
 from repro_torch.core.remap.rcache import RemapCacheGeometry
-from repro_torch.device import torch_dtype
+from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.kernels.irt_lookup.ops import irt_walk2_op
 from repro_torch.kernels.remap_gather import ops as rg_ops
 from repro_torch.kernels.remap_gather.ref import FAST_TO_SLOW, SLOW_TO_FAST
@@ -210,7 +210,9 @@ def _irt_replace(st: TieredState, tab: dict) -> TieredState:
 
 def init_state(cfg: TieredConfig, device=None,
                n_layers: int | None = None) -> TieredState:
-    """Fresh store; ``n_layers`` stacks the pools (one shared metadata)."""
+    """Fresh store on ``device`` (the card unless the caller asks for the
+    CPU); ``n_layers`` stacks the pools (one shared metadata)."""
+    device = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
     lead = () if n_layers is None else (n_layers,)
     KV, P, hd = cfg.n_kv_heads, cfg.page_tokens, cfg.head_dim

@@ -1334,3 +1334,83 @@ def test_moe_ffn_never_waits_for_the_card(cuda):
     assert torch.equal(eidx.cpu(), want_eidx)
     assert (got.cpu() - want).abs().max().item() <= 1e-5
     assert abs(aux.item() - want_aux.item()) <= 1e-6
+
+
+RECURRENT = ("hymba-1.5b", "xlstm-125m")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_forward_and_decode_card_equals_plain(cuda, arch):
+    """The fp32 smoke config (hymba: windowed and global layers, flash in
+    prefill; xlstm: mLSTM and sLSTM) on the card and on the CPU from the
+    same weights: ``forward`` over 2 lanes of 40 tokens, then 8 decode
+    steps over the dense backend from the cold prefill state, lane 1
+    parked; logits within 1e-4 (the kernel and the plain versions, cuBLAS
+    and the CPU sum in other orders)."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models.kv_backend import DenseBackend
+    cfg = reduce_for_smoke(get_config(arch))
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 40)), dtype=torch.int32)
+    before = fa_ops.launches
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        params = _to(init_params(cfg, "cpu", seed=4), dev)
+        logits, st = prefill(cfg, params, {"tokens": toks.to(dev)},
+                             max_len=48)
+        be, rows = DenseBackend(cfg, dev), [logits.cpu()]
+        for i in range(8):
+            st = st._replace(pos=torch.where(
+                torch.arange(2, device=dev) == 1, -1, st.pos))
+            lg, st = decode_step(cfg, params, st, toks[:, i].to(dev),
+                                 backend=be)
+            rows.append(lg[:1].cpu())
+        out.append(rows)
+    if cfg.family == "hybrid":
+        assert fa_ops.launches - before == cfg.n_layers
+    for got, want in zip(*out):
+        assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["ssm", "mlstm", "slstm"])
+def test_recurrent_identities_on_the_card(cuda, form):
+    """The recurrent form against the parallel one on the card at smoke
+    size, fp32, 24 steps: ``ssm_step`` against ``ssm_scan`` and
+    ``mlstm_step`` from m = -1e30 against ``mlstm_parallel`` within 2e-3
+    (the reference's tolerances), ``slstm_step`` against ``slstm_scan``
+    within 1e-4; and each parallel form on the card within 1e-4 of the
+    CPU's."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import ssm, xlstm
+    arch = "hymba-1.5b" if form == "ssm" else "xlstm-125m"
+    cfg = reduce_for_smoke(get_config(arch))
+    g = torch.Generator().manual_seed(9)
+    init = ssm.ssm_init if form == "ssm" else xlstm.xlstm_init
+    p = {k: v[0].to(cuda) for k, v in init(g, cfg, "cpu").items()}
+    width = 2 * cfg.d_model if form == "ssm" else cfg.d_model
+    x = (torch.randn((2, 24, width), generator=g) * 0.3).to(cuda)
+    H = cfg.n_heads
+    hd = cfg.d_model // H
+    if form == "ssm":
+        par, step = (lambda p, x: ssm.ssm_scan(p, x, cfg)), ssm.ssm_step
+        st, extra, tol = ssm.ssm_state_init(cfg, 2, cuda), (cfg,), 2e-3
+    elif form == "mlstm":
+        par, step, extra, tol = xlstm.mlstm_parallel, xlstm.mlstm_step, (), \
+            2e-3
+        st = {"C": torch.zeros((2, H, hd, hd), device=cuda),
+              "n": torch.zeros((2, H, hd), device=cuda),
+              "m": torch.full((2, H), -1e30, device=cuda)}
+    else:
+        par, step, extra, tol = xlstm.slstm_scan, xlstm.slstm_step, (), 1e-4
+        st = xlstm.slstm_state_init(2, H, hd, cuda)
+    full = par(p, x)
+    outs = []
+    for t in range(x.shape[1]):
+        o, st = step(p, x[:, t:t + 1], st, *extra)
+        outs.append(o)
+    assert (torch.cat(outs, 1) - full).abs().max().item() <= tol
+    cpu = par({k: v.cpu() for k, v in p.items()}, x.cpu())
+    assert (full.cpu() - cpu).abs().max().item() <= 1e-4
