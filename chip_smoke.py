@@ -120,6 +120,28 @@ prints no result line):
    ``slstm_step`` x 64 against ``ssm_scan``, ``mlstm_parallel`` and
    ``slstm_scan`` at full width in fp32, and each plain scan's and
    step's time per call at (a)'s and (c)'s call.
+13. the vlm and audio families: (a) llama-3.2-vision-90b at its
+   published widths (d 8192, 64/8 heads of 128, ff 28672, vocab 128256,
+   1,601 image tokens), depth reduced from 100 to 20 layers (4 of its 20
+   super-blocks of 4 self + 1 cross layer), bf16, seeded weights made on
+   the card with every cross gate at 1 (the reference's 0 hides the
+   branch): ``prefill`` of 2 lanes of 512 prompt tokens, then 32 greedy
+   ``decode_step``s over the dense backend; launch counts set to 0
+   before the measured prefill and read after it and after the decode
+   (flash 16 + 4 in prefill, 4 a decode step, nothing else; the cross
+   layers' flash launches counted apart from the self layers'); prefill ms,
+   decode ms a step, tokens/s, launches and device ms of a decode step
+   (``torch.profiler``), peak memory.  (b) one super-block at published
+   widths in fp32: the last 16 of 512 prompt tokens teacher-forced
+   through ``decode_step`` after a ``prefill`` of the rest, within 1e-3
+   of ``forward``; other image embeddings more than 1e-2 away.  (c)
+   hubert-xlarge at its published widths and depth (48 layers, d 1280,
+   16 heads of 80, non-causal), bf16: ``forward`` of 4 lanes of 1,500
+   frames, flash once a layer; forward ms, frames/s, peak memory.  (d)
+   flash at their shapes, as phase 3's rows: the vlm's self one-shot (S
+   = T = 512), cross prefill (S = 512 over T = 1,601) and cross decode
+   (S = 1), hubert's (S = T = 1,500, hd 80) in bf16 and fp32; rows
+   independent of the call over the image keys, bit for bit.
 
 Output, in order: phase lines, one JSON ``kernels`` line (launches: the
 main path's for paged_attention_fused, remap_gather (every launch of the
@@ -128,7 +150,7 @@ the cached zero-copy server run's for irt_lookup (every launch of the
 walk, whose two entries share one body), irt_walk2 and
 paged_attention_split, the concat server run's for paged_attention, the
 chunked run's for flash_attention, the Figure 7 sweep's for sim_scan;
-a row at another family's shape counts phase 11's or phase 12's run of
+a row at another family's shape counts phase 11's, 12's or 13's run of
 that family),
 the card's name and power limit as
 nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
@@ -430,8 +452,8 @@ FAMILY_FUSED = (("granite-moe-3b-a800m", 8, 3, 64), ("qwen2-7b", 4, 7, 128),
 def _shape_row(base, arch, shape, **numbers):
     """A kernel row at another family's shape: the base row's name,
     route, source and what it replaces, this shape's numbers; launches
-    are those of phase 11's or 12's run of ``arch`` (0 where it serves
-    none)."""
+    are those of phase 11's, 12's or 13's run of ``arch`` (0 where it
+    serves none)."""
     keys = ("name", "route", "source", "replaces")
     return {**{k: base[k] for k in keys}, "arch": arch, "shape": shape,
             "launches": 0, **numbers}
@@ -929,30 +951,37 @@ def _flash_plain(q, k, v, **kw):
                          v.transpose(1, 2).float(), **kw).transpose(1, 2)
 
 
-def _flash_bound(S, T, H, KV, hd, q_offset, item, window=0):
-    """Least time for one causal call: 4*hd flops per unmasked (query,
-    key) pair and head at the bf16 tensor-core peak, against Q, O and the
-    K/V rows any query sees (those inside the sliding window, where
-    there is one), each moved once, at HBM bandwidth."""
-    pos = range(q_offset, q_offset + S)
-    low = (lambda p: max(0, p - window + 1)) if window else (lambda p: 0)
-    pairs = sum(min(p + 1, T) - low(p) for p in pos)
-    keys = min(q_offset + S, T) - low(q_offset)
-    nbytes = item * (2 * S * H * hd + 2 * keys * KV * hd)
-    flops = 4 * hd * H * pairs
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+def _flash_bound(S, T, H, KV, hd, q_offset, item, window=0, causal=True,
+                 B=1):
+    """Least time for one call over B lanes: 4*hd flops per unmasked
+    (query, key) pair and head at the peak for the inputs' type (bf16:
+    the tensor cores; fp32: the CUDA cores, where the fp32 kernel runs),
+    against Q, O and the K/V rows any query sees (those inside the
+    sliding window, where there is one; all T when not causal), each
+    moved once, at HBM bandwidth."""
+    if causal:
+        pos = range(q_offset, q_offset + S)
+        low = (lambda p: max(0, p - window + 1)) if window else (lambda p: 0)
+        pairs = sum(min(p + 1, T) - low(p) for p in pos)
+        keys = min(q_offset + S, T) - low(q_offset)
+    else:
+        pairs, keys = S * T, T
+    nbytes = B * item * (2 * S * H * hd + 2 * keys * KV * hd)
+    flops = B * 4 * hd * H * pairs
+    rate = BF16_FLOP_PER_S if item == 2 else FP32_FLOP_PER_S
+    t_ops = flops / rate * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes"), flops
 
 
-def _flash_case(torch, dev, q, k, v, off, label, window=0):
-    """One bf16 flash call checked and timed: within two bf16 ulps of
-    each value of the plain version; kernel, plain and
+def _flash_case(torch, dev, q, k, v, off, label, window=0, causal=True):
+    """One flash call checked and timed: bf16 within two bf16 ulps of
+    each value of the plain version, fp32 within 1e-4; kernel, plain and
     ``scaled_dot_product_attention`` times (the library on [B, H, S, hd]
     copies made beforehand, causal and windowed by a boolean mask where
-    ``is_causal`` does not say it) and the bound.  Returns the row's
-    numbers."""
+    ``is_causal`` does not say it, unmasked when not causal) and the
+    bound.  Returns the row's numbers."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -961,19 +990,20 @@ def _flash_case(torch, dev, q, k, v, off, label, window=0):
     op = fa_ops.flash_attention_op
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
-    kw = dict(q_offset=off, window=window)
+    bf16 = q.dtype == torch.bfloat16
+    kw = dict(q_offset=off, window=window, causal=causal)
     out = op(q, k, v, **kw)
-    ref = _flash_plain(q, k, v, **kw).to(torch.bfloat16).float()
+    ref = _flash_plain(q, k, v, **kw).to(q.dtype).float()
     diff = (out.float() - ref).abs()
     err = diff.max().item()
-    ratio = (diff / bf16_tolerance(ref)).max().item()
+    ratio = (diff / (bf16_tolerance(ref) if bf16 else 1e-4)).max().item()
     _check(math.isfinite(err) and ratio <= 1.0,
-           f"flash_attention {label} bf16 error {err} over two ulps "
-           f"(error/limit {ratio:.3f})")
+           f"flash_attention {label} {q.dtype} error {err} over its limit "
+           f"(two bf16 ulps, fp32 1e-4; error/limit {ratio:.3f})")
     lq, lk, lv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    if off == 0 and window == 0:
+    if not causal or (off == 0 and window == 0):
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            lq, lk, lv, is_causal=True, enable_gqa=True)
+            lq, lk, lv, is_causal=causal, enable_gqa=True)
     else:
         kpos = torch.arange(T, device=dev)[None, :]
         qpos = torch.arange(off, off + S, device=dev)[:, None]
@@ -986,10 +1016,12 @@ def _flash_case(torch, dev, q, k, v, off, label, window=0):
     ms = _time_ms(lambda: op(q, k, v, **kw))
     plain_ms = _time_ms(lambda: _flash_plain(q, k, v, **kw), reps=5)
     lib_ms = _time_ms(lib)
-    bound_ms, bound_by, flops = _flash_bound(S, T, H, KV, hd, off, 2,
-                                             window)
-    print(f"kernel flash_attention bf16 {label} (S={S}, q_offset={off}, "
-          f"T={T}, H={H}/{KV}, hd={hd}, causal"
+    bound_ms, bound_by, flops = _flash_bound(S, T, H, KV, hd, off,
+                                             q.element_size(), window, causal,
+                                             B)
+    print(f"kernel flash_attention {'bf16' if bf16 else 'fp32'} {label} "
+          f"(B={B}, S={S}, q_offset={off}, T={T}, H={H}/{KV}, hd={hd}, "
+          f"{'causal' if causal else 'non-causal'}"
           f"{f', window {window}' if window else ''}): error/limit "
           f"{ratio:.3f} (max abs {err:.3e}), {ms:.4f} ms, plain "
           f"{plain_ms:.3f} ms, scaled_dot_product_attention {lib_ms:.4f} ms "
@@ -2676,14 +2708,22 @@ def families_phase(torch, dev, rows):
 
 def _fill_shape_launches(rows, runs):
     """Phase 3's rows at the shape of an arch in ``runs`` take that arch's
-    run's launches (a flash row only if it is a one-shot call: no family
-    run chunks its prompts)."""
+    run's launches.  A run's count of a kernel is one number, which a
+    flash row takes only if it is a one-shot call (no family run of
+    phases 11-12 chunks its prompts), or a dict of the counts measured
+    apart by the row's label (its shape's text before the first comma),
+    which only a row of that label takes."""
     for name in ("paged_attention_fused", "remap_replay", "flash_attention"):
         for shape in rows[name]["shapes"]:
-            if shape["arch"] in runs and (name != "flash_attention"
-                                          or shape["shape"].startswith(
-                                              "one-shot")):
-                shape["launches"] = runs[shape["arch"]].get(name, 0)
+            if shape["arch"] not in runs:
+                continue
+            got = runs[shape["arch"]].get(name, 0)
+            label = shape["shape"].split(",")[0]
+            if isinstance(got, dict):
+                if label in got:
+                    shape["launches"] = got[label]
+            elif name != "flash_attention" or label.startswith("one-shot"):
+                shape["launches"] = got
 
 
 # ---------------------------------------------------------------------------
@@ -3025,6 +3065,428 @@ def recurrent_phase(torch, dev, rows):
     _fill_shape_launches(rows, runs)
     print(f"recurrent: phase 12 took {time.perf_counter() - t0:.1f} s")
 
+
+# ---------------------------------------------------------------------------
+# phase 13: the vlm and audio families at published widths
+# ---------------------------------------------------------------------------
+
+VLM_ARCH, AUDIO_ARCH = "llama-3.2-vision-90b", "hubert-xlarge"
+VLM_LAYERS = 20               # of 100: 4 super-blocks of 4 self + 1 cross
+VLM_LANES, VLM_PROMPT, VLM_STEPS = 2, 512, 32
+# decode steps profiled for their launches and device time (first, count);
+# their time and tokens are left out of the run's other numbers
+VLM_PROFILED = (8, 4)
+# the cross layers' gate: tanh(1) = 0.76; the reference's 0 hides the branch
+VLM_GATE = 1.0
+VLM_GATE_ROWS = 16            # 13(b): teacher-forced positions
+AUDIO_LANES, AUDIO_FRAMES = 4, 1500   # 30 s of audio at 50 frames/s
+
+
+def _vlm_model(torch, dev, cfg, seed):
+    """Seeded weights on the card with every cross gate at ``VLM_GATE``,
+    and seeded image embeddings [lanes, n_image_tokens, d] in the
+    model's dtype (the card's cross-attention takes no other)."""
+    from repro_torch.device import torch_dtype
+    from repro_torch.models import init_params
+    params = init_params(cfg, dev, seed=seed)
+    params["blocks"]["cross"]["attn"]["gate"].fill_(VLM_GATE)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 100)
+    img = torch.randn((VLM_LANES, cfg.n_image_tokens, cfg.d_model),
+                      generator=g, device=dev).to(torch_dtype(cfg.dtype))
+    return params, img, g
+
+
+class _CrossTap:
+    """While open, the model's ``attention.cross_attention`` is wrapped
+    to add to ``launches`` the flash launches that the wrapper's own
+    counter counts during each call: the cross layers' share of a run's
+    flash launches, the rest being the self layers'.  Counts nothing
+    else; the function is put back on exit."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        from repro_torch.models import attention
+
+        self._mod, self._real = attention, attention.cross_attention
+
+        def tapped(*args, **kwargs):
+            before = fa_ops.launches
+            out = self._real(*args, **kwargs)
+            self.launches += fa_ops.launches - before
+            return out
+        attention.cross_attention = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.cross_attention = self._real
+        return False
+
+
+def vlm_serve(torch, dev):
+    """13(a): llama-3.2-vision-90b at its published widths, depth cut to
+    ``VLM_LAYERS`` (printed as ``reduced``), bf16, seeded weights made
+    on the card: ``prefill`` of 2 lanes of 512 prompt tokens over 1,601
+    image tokens (a warm-up call, then the measured one), then 32 greedy
+    ``decode_step``s over the dense backend.  Launch counts are set to 0
+    just before the measured prefill and read after it and after the
+    decode, the cross layers' flash launches apart (``_CrossTap``):
+    flash once a self and once a cross layer in prefill, once a cross
+    layer a decode step, nothing else.  Gates: finite logits of
+    the right shapes, tokens inside the vocabulary, ``pos`` advanced by
+    the step count, the image K/V untouched by decode.  Prints prefill
+    ms, decode ms a step, tokens/s, the launches and device ms of a
+    decode step (``torch.profiler``) and peak memory.  Returns the run's
+    launch counts, flash's as a dict by the labels of 13(d)'s rows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step
+    from repro_torch.models import prefill as prefill_fn
+    from repro_torch.models.kv_backend import DenseBackend
+
+    pub = get_config(VLM_ARCH)
+    cfg = dataclasses.replace(pub, n_layers=VLM_LAYERS)
+    ns, inner = cfg.vlm_dims
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params, img, g = _vlm_model(torch, dev, cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"vlm {VLM_ARCH}: reduced: {cfg.n_layers} of {pub.n_layers} "
+          f"layers ({ns} of {pub.n_layers // pub.cross_attn_every} "
+          f"super-blocks of {inner} self + 1 cross layer); published widths "
+          f"d={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} "
+          f"ff={cfg.d_ff} V={cfg.vocab}, {cfg.n_image_tokens} image tokens, "
+          f"{cfg.dtype}; {n_params / 1e9:.3f} B parameters made in "
+          f"{time.perf_counter() - t0:.1f} s; cross gate {VLM_GATE} (tanh "
+          f"{math.tanh(VLM_GATE):.3f})")
+    B, S, n = VLM_LANES, VLM_PROMPT, VLM_STEPS
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g,
+                                     device=dev, dtype=torch.int32),
+             "image_embeds": img}
+    backend = DenseBackend(cfg, dev)
+    first, count = VLM_PROFILED
+    steps, book = [], {"launches": [], "busy_ms": []}
+    with torch.inference_mode():
+        prefill_fn(cfg, params, batch, max_len=S + n)
+        torch.cuda.synchronize()
+        tap = _CrossTap().__enter__()
+        _counts(zero=True)
+        t0 = time.perf_counter()
+        logits, st = prefill_fn(cfg, params, batch, max_len=S + n)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        after_prefill = _counts()
+        cross_prefill = tap.launches
+        _check(tuple(logits.shape) == (B, S, cfg.vocab)
+               and bool(logits.isfinite().all()),
+               f"vlm: prefill logits {tuple(logits.shape)} not finite or not "
+               f"[{B}, {S}, {cfg.vocab}]")
+        _check(st.pos.tolist() == [S] * B, f"vlm: prefill pos {st.pos}")
+        ik0 = st.caches["ik"].clone()
+        tok = logits[:, -1].argmax(-1).int()
+        del logits
+        out = []
+        for i in range(n):
+            if first <= i < first + count:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    lg, st = decode_step(cfg, params, st, tok,
+                                         backend=backend)
+                    torch.cuda.synchronize()
+                book["launches"].append(sum(
+                    e.count for e in prof.key_averages()
+                    if "LaunchKernel" in e.key))
+                book["busy_ms"].append(sum(
+                    e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == DeviceType.CUDA) / 1e3)
+            else:
+                torch.cuda.synchronize()
+                s = time.perf_counter()
+                lg, st = decode_step(cfg, params, st, tok, backend=backend)
+                torch.cuda.synchronize()
+                steps.append((time.perf_counter() - s) * 1e3)
+            _check(tuple(lg.shape) == (B, cfg.vocab)
+                   and bool(lg.isfinite().all()),
+                   f"vlm: decode step {i} logits not finite or not "
+                   f"[{B}, {cfg.vocab}]")
+            tok = lg.argmax(-1).int()
+            out.append(tok)
+        toks = torch.stack(out, 1)
+    launches = _counts()
+    tap.__exit__()
+    flash = {"self one-shot": after_prefill["flash_attention"]
+             - cross_prefill,
+             "cross prefill": cross_prefill,
+             "cross decode": tap.launches - cross_prefill}
+    self_decode = (launches["flash_attention"]
+                   - after_prefill["flash_attention"] - flash["cross decode"])
+    _check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+           "vlm: a token outside the vocabulary")
+    _check(st.pos.tolist() == [S + n] * B,
+           f"vlm: pos {st.pos.tolist()} after {n} steps from {S}")
+    _check(torch.equal(st.caches["ik"], ik0),
+           "vlm: decode wrote the image K/V")
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = ns * inner + ns
+    _check(after_prefill == want,
+           f"vlm: launches after prefill {after_prefill}; want {want} (flash "
+           f"once a self and once a cross layer)")
+    want["flash_attention"] += ns * n
+    _check(launches == want,
+           f"vlm: launches after decode {launches}; want {want} (flash once "
+           f"a cross layer a step)")
+    split = {"self one-shot": ns * inner, "cross prefill": ns,
+             "cross decode": ns * n}
+    _check(flash == split and self_decode == 0,
+           f"vlm: flash launches by layer kind {flash}, {self_decode} by self "
+           f"layers in decode; want {split}, 0")
+    _check(len(book["launches"]) == count and min(book["launches"]) > 0,
+           "vlm: the profiled steps counted no launch")
+    steps.sort()
+    median = steps[len(steps) // 2]
+    busy = sum(book["busy_ms"]) / count
+    print(f"vlm {VLM_ARCH}: prefill of {B} x {S} tokens over "
+          f"{cfg.n_image_tokens} image tokens {prefill_ms:.2f} ms "
+          f"({B * S / prefill_ms * 1e3:.0f} tokens/s, warm); {n} greedy "
+          f"decode steps over the dense backend: median {median:.2f} ms "
+          f"(p90 {steps[int(len(steps) * 0.9)]:.2f} ms), "
+          f"{B * len(steps) / sum(steps) * 1e3:.1f} tokens/s (the {count} "
+          f"profiled steps left out); "
+          f"{sum(book['launches']) / count:.1f} kernel launches and "
+          f"{busy:.2f} ms of device time per decode step (torch.profiler, "
+          f"steps {first}-{first + count - 1}): the device idle "
+          f"{100 * (1 - busy / median):.1f} % of the median step; flash "
+          f"launches {after_prefill['flash_attention']} in prefill "
+          f"({flash['self one-shot']} self, {flash['cross prefill']} cross, "
+          f"counted apart) and "
+          f"{launches['flash_attention'] - after_prefill['flash_attention']}"
+          f" in decode ({flash['cross decode']} cross, {self_decode} self); "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"({held / 2**30:.2f} GiB of it allocated before the run); card "
+          f"{_card_line()}")
+    del params, st, img, batch, ik0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**launches, "flash_attention": flash}
+
+
+def vlm_gate(torch, dev):
+    """13(b): llama-3.2-vision-90b at its published widths in fp32, one
+    super-block (4 self + 1 cross layer).  A 512-token prompt through
+    ``forward``; the same prompt's first 496 tokens through ``prefill``,
+    then its last 16 teacher-forced through ``decode_step`` over the
+    dense backend: their logits within 1e-3 of the forward's rows.
+    Control: the forward with other image embeddings moves those rows by
+    more than 1e-2, so the cross branch is live in both paths."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import decode_step, forward, prefill
+    from repro_torch.models.kv_backend import DenseBackend
+
+    pub = get_config(VLM_ARCH)
+    cfg = dataclasses.replace(pub, n_layers=pub.cross_attn_every,
+                              dtype="float32")
+    params, img, g = _vlm_model(torch, dev, cfg, seed=1)
+    img2 = torch.randn(img.shape, generator=g, device=dev)
+    S, R = VLM_PROMPT, VLM_GATE_ROWS
+    seq = torch.randint(0, cfg.vocab, (VLM_LANES, S), generator=g,
+                        device=dev, dtype=torch.int32)
+    fa_ops.launches = 0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        one = forward(cfg, params, {"tokens": seq,
+                                    "image_embeds": img})[0][:, S - R:]
+        _, st = prefill(cfg, params, {"tokens": seq[:, :S - R],
+                                      "image_embeds": img}, max_len=S)
+        backend = DenseBackend(cfg, dev)
+        rows = []
+        for t in range(S - R, S):
+            lg, st = decode_step(cfg, params, st, seq[:, t], backend=backend)
+            rows.append(lg)
+        dec = torch.stack(rows, 1)
+        other = forward(cfg, params, {"tokens": seq,
+                                      "image_embeds": img2})[0][:, S - R:]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    err = (dec - one).abs().max().item()
+    moved = (other - one).abs().max().item()
+    _check(math.isfinite(err) and err <= 1e-3,
+           f"vlm: teacher-forced decode differs from forward by {err} > 1e-3")
+    _check(moved > 1e-2, f"vlm: other image embeddings moved the logits by "
+           f"only {moved} (control)")
+    want = 3 * cfg.n_layers + R
+    _check(fa_ops.launches == want,
+           f"vlm gate: flash launches {fa_ops.launches} != {want} (3 "
+           f"passes of {cfg.n_layers} layers, {R} cross decode reads)")
+    print(f"vlm gate: 1 super-block ({cfg.n_layers} of {pub.n_layers} "
+          f"layers) at "
+          f"published widths, fp32, {VLM_LANES} lanes: a {S}-token prompt "
+          f"through forward, its last {R} tokens teacher-forced through "
+          f"decode_step after a prefill of the rest: max |decode - forward| "
+          f"{err:.3e} (tol 1e-3; max |logit| {one.abs().max().item():.3f}); "
+          f"control with other image embeddings {moved:.3e} away (must "
+          f"exceed 1e-2); {fa_ops.launches} flash launches (fp32); "
+          f"{secs:.1f} s")
+    del params, img, img2, one, dec, other, st
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def audio_forward(torch, dev):
+    """13(c): hubert-xlarge at its published widths and depth, bf16,
+    seeded weights made on the card: ``forward`` of 4 lanes of 1,500
+    frames (a warm-up call, then the measured one); launch counts set to
+    0 just before the measured call and read after: flash once a layer,
+    nothing else.  Gates: finite logits [4, 1500, 504].  Prints forward
+    ms, frames/s and peak memory.  Returns the flash launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params
+
+    cfg = get_config(AUDIO_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_params(cfg, dev, seed=0)
+    g = torch.Generator(device=dev)
+    g.manual_seed(15)
+    for k in ("b_in", "b_out"):
+        b = params["blocks"]["mlp"][k]
+        b.copy_(torch.randn(b.shape, generator=g, device=dev) * 0.1)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    B, S = AUDIO_LANES, AUDIO_FRAMES
+    emb = torch.randn((B, S, cfg.d_model), generator=g,
+                      device=dev).bfloat16()
+    print(f"audio {AUDIO_ARCH}: L={cfg.n_layers} d={cfg.d_model} "
+          f"H={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} ff={cfg.d_ff} "
+          f"V={cfg.vocab} {cfg.dtype}, non-causal, no RoPE, MLP biases "
+          f"random (std 0.1); {n_params / 1e9:.3f} B parameters made in "
+          f"{time.perf_counter() - t0:.1f} s; not cut")
+    with torch.inference_mode():
+        forward(cfg, params, {"embeds": emb})
+        torch.cuda.synchronize()
+        _counts(zero=True)
+        t0 = time.perf_counter()
+        logits = forward(cfg, params, {"embeds": emb})[0]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    launches = _counts()
+    _check(tuple(logits.shape) == (B, S, cfg.vocab)
+           and bool(logits.isfinite().all()),
+           f"audio: logits {tuple(logits.shape)} not finite or not "
+           f"[{B}, {S}, {cfg.vocab}]")
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = cfg.n_layers
+    _check(launches == want, f"audio: launches {launches}; want {want}")
+    print(f"audio {AUDIO_ARCH}: forward of {B} x {S} frames {ms:.2f} ms "
+          f"({B * S / ms * 1e3:.0f} frames/s, warm); flash launches "
+          f"{launches['flash_attention']} (one a layer); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"({held / 2**30:.2f} GiB of it allocated before the run); card "
+          f"{_card_line()}")
+    del params, emb, logits
+    torch.cuda.empty_cache()
+    return launches["flash_attention"]
+
+
+def vlm_audio_flash_rows(torch, dev, base):
+    """13(d): flash at the vlm's and hubert's shapes, checked and timed
+    as phase 3's rows (bf16 within two ulps of each plain value, fp32
+    within 1e-4; kernel, plain and library times; the bound): the vlm's
+    self-attention one-shot (S = T = 512, causal), its cross-attention
+    in prefill (S = 512 over T = 1,601 image keys) and in decode (S = 1),
+    non-causal, H 64/8, hd 128, 2 lanes; hubert's (S = T = 1,500, H
+    16/16, hd 80, non-causal, 4 lanes) in bf16 and in fp32.  Then rows
+    independent of the call, bit for bit, over the image keys: single
+    rows at their own positions equal the prefill call's rows, and a
+    causal decode row at q_offset 1,600 over keys padded to 3,202 (the
+    extra ones masked) equals the non-causal call over the 1,601.
+    Returns the rows; their launches are filled in from phase 13's
+    runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    op = fa_ops.flash_attention_op
+    vlm, aud = get_config(VLM_ARCH), get_config(AUDIO_ARCH)
+    g = torch.Generator(device=dev)
+    g.manual_seed(34)
+
+    def r(*s, dtype=torch.bfloat16):
+        return torch.randn(s, generator=g, device=dev).to(dtype)
+
+    B, S, T = VLM_LANES, VLM_PROMPT, vlm.n_image_tokens
+    H, KV, hd = vlm.n_heads, vlm.n_kv_heads, vlm.hd
+    q, k, v = r(B, S, H, hd), r(B, S, KV, hd), r(B, S, KV, hd)
+    ik, iv = r(B, T, KV, hd), r(B, T, KV, hd)
+    qa, ka, va = (r(AUDIO_LANES, AUDIO_FRAMES, h, aud.hd, dtype=torch.float32)
+                  for h in (aud.n_heads, aud.n_kv_heads, aud.n_kv_heads))
+    cases = (
+        (VLM_ARCH, "self one-shot", q, k, v, True),
+        (VLM_ARCH, "cross prefill", q, ik, iv, False),
+        (VLM_ARCH, "cross decode", q[:, -1:].contiguous(), ik, iv, False),
+        (AUDIO_ARCH, "one-shot", qa.bfloat16(), ka.bfloat16(), va.bfloat16(),
+         False),
+        (AUDIO_ARCH, "one-shot fp32", qa, ka, va, False))
+    rows = []
+    for arch, label, qq, kk, vv, causal in cases:
+        shape = (f"{label}, B {qq.shape[0]}, S {qq.shape[1]}, T "
+                 f"{kk.shape[1]}, H {qq.shape[2]}/{kk.shape[2]}, hd "
+                 f"{qq.shape[3]}, {'causal' if causal else 'non-causal'}, "
+                 f"{'bf16' if qq.dtype == torch.bfloat16 else 'fp32'}")
+        rows.append(_shape_row(base, arch, shape, **_flash_case(
+            torch, dev, qq, kk, vv, 0, f"{label} at {arch}'s shape",
+            causal=causal)))
+    full = op(q, ik, iv, causal=False)
+    starts = (0, 17, 255, 511)
+    for i in starts:
+        one = op(q[:, i:i + 1].contiguous(), ik, iv, causal=False, q_offset=i)
+        _check(torch.equal(one, full[:, i:i + 1]),
+               f"flash_attention: cross row {i} alone differs from the "
+               f"prefill call's row")
+    ik2, iv2 = (torch.cat([t, r(*t.shape)], dim=1) for t in (ik, iv))
+    dec = q[:, :1].contiguous()
+    _check(torch.equal(op(dec, ik2, iv2, causal=True, q_offset=T - 1),
+                       op(dec, ik, iv, causal=False)),
+           "flash_attention: masked extra image keys changed a row")
+    print(f"kernel flash_attention rows independent of the call over "
+          f"{T} image keys, bit for bit: rows {list(starts)} alone equal the "
+          f"{S}-row cross call's; a causal row at q_offset {T - 1} over "
+          f"{2 * T} keys (the extra ones masked) equals the non-causal row "
+          f"over {T}")
+    del q, k, v, ik, iv, qa, ka, va, full, ik2, iv2
+    torch.cuda.empty_cache()
+    return rows
+
+
+def vlm_audio_phase(torch, dev, rows):
+    """Phase 13: llama-3.2-vision-90b (depth cut) served, its fp32
+    super-block's decode against its forward, hubert-xlarge's forward
+    at full width and depth, and flash at their shapes (rows added under
+    phase 3's flash row)."""
+    t0 = time.perf_counter()
+    runs = {VLM_ARCH: vlm_serve(torch, dev)}
+    vlm_gate(torch, dev)
+    runs[AUDIO_ARCH] = {"flash_attention": {"one-shot": audio_forward(
+        torch, dev)}}
+    rows["flash_attention"]["shapes"] += vlm_audio_flash_rows(
+        torch, dev, rows["flash_attention"])
+    _fill_shape_launches(rows, runs)
+    print(f"vlm/audio: phase 13 took {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         _fail("src/repro_torch not found beside chip_smoke.py")
@@ -3063,6 +3525,7 @@ def main():
     rows["sim_scan"], launches["sim_scan"] = sim_phase(torch, dev)
     families_phase(torch, dev, rows)
     recurrent_phase(torch, dev, rows)
+    vlm_audio_phase(torch, dev, rows)
     for name, n in launches.items():
         rows[name]["launches"] = n
     print(json.dumps({"kernels": [rows[k] for k in sorted(rows)]}))

@@ -61,6 +61,14 @@ class ArchConfig:
         return self.head_dim or self.d_model // self.n_heads
 
     @property
+    def vlm_dims(self) -> tuple[int, int]:
+        """(super-blocks, self layers in each) of a vlm config: each
+        super-block is ``cross_attn_every - 1`` self layers and one cross
+        layer."""
+        return (self.n_layers // self.cross_attn_every,
+                self.cross_attn_every - 1)
+
+    @property
     def is_encoder(self) -> bool:
         return not self.causal
 

@@ -67,6 +67,14 @@
 // fp32 shared memory holds the Q tile, one K or V block (V overwrites K
 // once the scores are taken) and the block's probabilities, with a
 // one-float row pad so the 16 lanes of a row group read 16 banks.
+//
+// Head dims 16, 32, 64, 80 (the audio encoder's) and 128.  80 is the one
+// that is not a power of two; nothing here needs one: the bf16 body takes
+// HD/16 = 5 k-steps of Q K^T, HD/8 = 10 output n-tiles in ldmatrix pairs
+// and HD/8 = 10 16-byte cp.async chunks a row, and its 176-byte padded
+// rows put an ldmatrix phase's 8 rows on 8 distinct 4-bank groups
+// (44-word stride: offsets 0, 12, 24, 4, 16, 28, 8, 20 mod 32); the fp32
+// body gives each lane HD/16 = 5 output columns.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -249,6 +257,8 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
     case 32: return launch<T, 32>(q, k, v, out, B, S, T_len, H, KV, q_offset,
                                   causal, window, stream);
     case 64: return launch<T, 64>(q, k, v, out, B, S, T_len, H, KV, q_offset,
+                                  causal, window, stream);
+    case 80: return launch<T, 80>(q, k, v, out, B, S, T_len, H, KV, q_offset,
                                   causal, window, stream);
     case 128: return launch<T, 128>(q, k, v, out, B, S, T_len, H, KV,
                                     q_offset, causal, window, stream);
@@ -582,6 +592,8 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
     case 32: return launch<32>(q, k, v, out, B, S, T_len, H, KV, q_offset,
                                causal, window, stream);
     case 64: return launch<64>(q, k, v, out, B, S, T_len, H, KV, q_offset,
+                               causal, window, stream);
+    case 80: return launch<80>(q, k, v, out, B, S, T_len, H, KV, q_offset,
                                causal, window, stream);
     case 128: return launch<128>(q, k, v, out, B, S, T_len, H, KV, q_offset,
                                  causal, window, stream);

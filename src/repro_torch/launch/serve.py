@@ -8,12 +8,14 @@ tiny same-family model.  ``--arch`` takes every config the port
 registers: the dense llama3-8b, qwen2-7b, qwen2-72b and codeqwen1.5-7b,
 and the MoE granite-moe-3b-a800m and mixtral-8x22b (whose sliding window
 only ``--backend dense`` serves); the engine refuses the recurrent
-hymba-1.5b and xlstm-125m, as the reference's does (the launcher exits
-with its message; ``models.prefill`` and ``models.decode_step`` serve
-them).  ``--scheduler chunked`` ingests prompts in
-``--prefill-chunk``-token chunks and, with ``--tenants``, admits requests
-by multi-tenant QoS with per-tenant fast-slot quotas and direct-to-fast
-ingest for on-demand tenants (``--admit-pages``).  Telemetry:
+hymba-1.5b and xlstm-125m and the vlm llama-3.2-vision-90b, as the
+reference's does (the launcher exits with its message;
+``models.prefill`` and ``models.decode_step`` serve them), and the
+launcher refuses the encoder hubert-xlarge before it builds anything.
+``--scheduler chunked`` ingests prompts in ``--prefill-chunk``-token
+chunks and, with ``--tenants``, admits requests by multi-tenant QoS with
+per-tenant fast-slot quotas and direct-to-fast ingest for on-demand
+tenants (``--admit-pages``).  Telemetry:
 ``--prom-out`` / ``--metrics-jsonl`` / ``--trace-out`` write the
 Prometheus exposition, the sample series and the phase trace
 (``--obs-every`` steps between samples), ``--flight`` records page
@@ -116,6 +118,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduce_for_smoke(cfg)
+    if cfg.is_encoder:
+        raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
     tenants = _parse_tenants(args.tenants) if args.tenants else ()
     params = init_params(cfg, device, seed=0)
     obs = None

@@ -1,6 +1,7 @@
-"""Decoders of the dense, MoE, hybrid and ssm families, their attention,
-the MoE FFN, the Mamba and xLSTM branches and the KV backends (port of
-``repro.models``)."""
+"""Every model family of ``repro.models``: the dense, MoE, hybrid, ssm
+and vlm decoders and the audio encoder, their attention (the vlm's
+gated cross-attention included), the MoE FFN, the Mamba and xLSTM
+branches and the KV backends."""
 
 from .transformer import (DecodeState, decode_step, forward, forward_chunk,
                           init_chunk_buffers, init_decode_state, init_params,

@@ -1,14 +1,17 @@
-"""GQA self-attention for prefill and one-token decode against a KV
-backend (port of ``repro.models.attention``: causal and sliding-window
+"""GQA attention for prefill and one-token decode against a KV backend
+(port of ``repro.models.attention``): causal and sliding-window
 self-attention, the window fixed per model or, in the hybrid family, per
-layer; the VLM's cross-attention is not ported).
+layer; bidirectional self-attention without RoPE (the audio encoder);
+the vlm family's gated cross-attention to image K/V.
 
 Prefill attention (``sdpa_auto``, for the one-shot forward and each
-chunk of a chunked prefill) launches the flash kernel on a card
-(``kernels/flash_attention``), whose rows are bit for bit independent of
-the call around them, so chunked prefill equals one-shot prefill there
-too.  On the CPU it keeps the reference's plain paths: ``_sdpa`` with a
-mask up to ``CHUNKED_THRESHOLD``, ``chunked_sdpa`` above it.
+chunk of a chunked prefill) and every cross-attention call, prefill and
+decode, launch the flash kernel on a card (``kernels/flash_attention``),
+whose rows are bit for bit independent of the call around them, so
+chunked prefill equals one-shot prefill there too.  On the CPU they keep
+the reference's plain paths: ``_sdpa`` with a mask up to
+``CHUNKED_THRESHOLD``, ``chunked_sdpa`` above it, ``_sdpa`` unmasked for
+cross-attention.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
 
-from .layers import apply_rope
+from .layers import apply_rope, rms_norm
 
 NEG_INF = -1e30
 CHUNKED_THRESHOLD = 4096  # plain quadratic path at or below this length
@@ -66,11 +69,13 @@ def _out(o, wo):
 
 def _sdpa(q, k, v, mask):
     """q [B,S,H,hd]; k,v [B,T,KV,hd]; GQA by head grouping.  Scores are
-    taken in the input dtype, then softmaxed in fp32."""
+    taken in q's and k's promoted dtype (as the reference's einsum
+    promotes), then softmaxed in fp32; out in v's dtype."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
-    q = q.reshape(B, S, KV, G, hd)
+    ct = torch.promote_types(q.dtype, k.dtype)
+    q, k = q.to(ct).reshape(B, S, KV, G, hd), k.to(ct)
     scores = torch.einsum("bskgh,btkh->bkgst", q, k).float()
     scores = scores / math.sqrt(hd)
     if mask is not None:
@@ -146,6 +151,35 @@ def self_attention(p, x, cfg, *, positions, causal: bool, window: int = 0,
     q, k, v = _qkv(p, x, cfg, positions, rope)
     out = sdpa_auto(q, k, v, causal=causal, window=window)
     return _out(out, p["wo"]), (k, v)
+
+
+def cross_attention(p, x, image_kv, cfg):
+    """x [B,S,d] attends the image K/V ([B,T,KV,hd] each, from
+    ``image_kv``) with no mask; q is RMS-normed over the head dim and
+    the output scaled by tanh(gate).  On a card the core is the flash
+    kernel, non-causal, which takes K/V only in q's dtype (it raises on
+    fp32 image K/V under a bf16 model); the CPU follows the reference's
+    dtype promotion."""
+    q = _proj(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    q = rms_norm(q, p["q_norm"], cfg.rms_eps)
+    k, v = image_kv
+    if q.device.type == "cuda":
+        out = flash_attention_op(q, k, v, causal=False, window=0, q_offset=0)
+    else:
+        out = _sdpa(q, k, v, None)
+    return torch.tanh(p["gate"]).to(x.dtype) * _out(out, p["wo"])
+
+
+def image_kv(p, img_embeds, cfg):
+    """The cross-attention K/V [B,T,KV,hd] from projected image embeddings
+    [B,T,d], in the embeddings' dtype (the weights are cast to it, as the
+    reference does); k RMS-normed over the head dim."""
+    k, v = _proj(img_embeds, p["wk"]), _proj(img_embeds, p["wv"])
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    return rms_norm(k, p["k_norm"], cfg.rms_eps), v
 
 
 def block_decode_attention(p, x, cfg, cache, pos, backend, *, window: int = 0,

@@ -44,11 +44,13 @@ def _host_num(v):
 class DenseBackend:
     """Contiguous per-layer caches (``transformer.init_decode_state``):
     ``{"k", "v"}`` [L, B, max_len, KV, hd], for the hybrid family with
-    the Mamba state ``"ssm"`` beside them; the ssm family's caches are
-    its recurrent states only.  ``append`` and ``attend`` take one
-    layer's slice (views) and touch only its "k" and "v"; the decode
-    step writes a layer's recurrent states into their slices in place,
-    as ``append`` writes the KV rows."""
+    the Mamba state ``"ssm"`` beside them, for the vlm family stacked
+    [ns, inner, ...] with the image K/V ``"ik"``, ``"iv"`` beside them;
+    the ssm family's caches are its recurrent states only.  ``append``
+    and ``attend`` take one layer's [B, max_len, KV, hd] slice (views)
+    and touch only its "k" and "v"; the decode step writes a layer's
+    recurrent states into their slices in place, as ``append`` writes
+    the KV rows."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         self.cfg = cfg

@@ -42,6 +42,12 @@ def swiglu(x, w_gate, w_up, w_down):
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
+def gelu_mlp(x, w_in, b_in, w_out, b_out):
+    """The audio family's MLP with biases.  GELU in its tanh form, which
+    ``jax.nn.gelu`` computes by default (the erf form differs by ~1e-3)."""
+    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out
+
+
 def rope_frequencies(head_dim: int, theta: float, device=None):
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
                                          device=device) / head_dim))

@@ -1,11 +1,12 @@
-"""Decoders of the dense, MoE, hybrid and ssm families: parameters,
+"""Every model family of ``repro.models.transformer``: the dense, MoE,
+hybrid, ssm and vlm decoders and the audio encoder.  Parameters,
 full-sequence forward, prefill, the chunked-prefill forward and the
-one-token decode step (port of those families of
-``repro.models.transformer``).
+one-token decode step.
 
 Parameters keep the reference's layout, a dict of layer-stacked tensors:
-``{"embed" [V,d], "blocks": {...}, "final_norm" [d], "unembed" [V,d]}``.
-The blocks hold "norm1" [L,d] and, by family:
+``{"embed" [V,d], "blocks": {...}, "final_norm" [d], "unembed" [V,d]}``
+(no "embed" where ``cfg.embed_inputs``: the audio encoder takes frame
+embeddings).  The blocks hold "norm1" [L,d] and, by family:
 
   dense   "attn": {"wq" [L,d,H,hd], "wk"/"wv" [L,d,KV,hd], "wo"
           [L,H,hd,d], with ``qkv_bias`` "bq" [L,H,hd], "bk"/"bv"
@@ -17,7 +18,15 @@ The blocks hold "norm1" [L,d] and, by family:
           "norm_attn_out" and "norm_ssm_out" [L,d]: attention and the
           Mamba branch run in parallel on norm1's output;
   ssm     norm1 and both xLSTM branch sets (``xlstm.xlstm_init``); no
-          norm2 or FFN.
+          norm2 or FFN;
+  audio   the dense blocks with "mlp": {"w_in" [L,d,ff], "b_in" [L,ff],
+          "w_out" [L,ff,d], "b_out" [L,d]} (a GELU MLP with biases);
+          attention is bidirectional (``cfg.causal`` False), without RoPE;
+  vlm     {"self": the dense blocks stacked [ns, inner, ...], "cross":
+          the dense blocks stacked [ns, ...] whose "attn" also holds
+          "gate" [ns] fp32, "q_norm" and "k_norm" [ns,hd]}: ns
+          super-blocks of ``inner`` = cross_attn_every - 1 self layers
+          and one gated cross-attention layer to the image K/V.
 
 The reference's ``lax.scan`` over layers is a Python loop over views of
 the stacked tensors; its scanned per-layer flags (``layer_flags``) are
@@ -38,22 +47,22 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from . import xlstm as xlstm_mod
-from .layers import (dense_init, rms_norm, rope_tables, stacked_init, swiglu,
-                     unembed)
+from .layers import (dense_init, gelu_mlp, rms_norm, rope_tables, stacked_init,
+                     swiglu, unembed)
 
-_FAMILIES = ("dense", "moe", "hybrid", "ssm")
+_FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
 _KV_FAMILIES = ("dense", "moe")
 
 
 def check_family(cfg: ArchConfig):
-    """Raise on a family the port's decoder does not run (audio, vlm):
-    ``init_params``, ``forward``, ``prefill``, ``init_decode_state`` and
-    the dense-backend ``decode_step`` take the other four.  The
-    chunked-prefill forward, the tiered decode branch and the engine take
-    only the plain-KV families, each with its own refusal."""
+    """Raise on a family the port does not know: ``init_params``,
+    ``forward``, ``prefill``, ``init_decode_state`` and the dense-backend
+    ``decode_step`` take all six (``decode_step`` refuses the encoder).
+    The chunked-prefill forward, the tiered decode branch and the engine
+    take only the plain-KV families, each with its own refusal."""
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
-            f"the port runs the decoder families {_FAMILIES}; got "
+            f"the port runs the model families {_FAMILIES}; got "
             f"{cfg.family!r}")
 
 
@@ -94,48 +103,82 @@ def init_params(cfg: ArchConfig, device=None, seed: int = 0) -> dict:
     give both sides the same weights (``repro_torch.weights``).  The QKV
     biases start at zero, as the reference's do; the MoE family's experts
     come from ``moe.moe_init``, the Mamba branch from ``ssm.ssm_init``,
-    the xLSTM branches from ``xlstm.xlstm_init``."""
+    the xLSTM branches from ``xlstm.xlstm_init``.  The audio MLP's biases
+    start at zero and the vlm cross layers' ``gate`` at 0, so tanh(gate)
+    = 0 and the cross branch adds nothing until the gate is set, as in
+    the reference."""
     check_family(cfg)
     device = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
-    L, d, ff = cfg.n_layers, cfg.d_model, cfg.d_ff
+    if cfg.family == "vlm":
+        ns, inner = cfg.vlm_dims
+        self_blocks = _blocks_init(cfg, g, ns * inner, dt, device)
+        blocks = {"self": _map(lambda t: t.reshape((ns, inner) + t.shape[1:]),
+                               self_blocks),
+                  "cross": _blocks_init(cfg, g, ns, dt, device, cross=True)}
+    else:
+        blocks = _blocks_init(cfg, g, cfg.n_layers, dt, device)
+    d = cfg.d_model
+    params = {} if cfg.embed_inputs else {
+        "embed": dense_init(g, (cfg.vocab, d), dt, device, 0.02)}
+    params.update(blocks=blocks,
+                  final_norm=torch.ones(d, dtype=dt, device=device))
+    if not cfg.tie_embeddings:
+        params["unembed"] = dense_init(g, (cfg.vocab, d), dt, device, 0.02)
+    return params
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _blocks_init(cfg: ArchConfig, g, n: int, dt, device, *,
+                 cross: bool = False) -> dict:
+    """``n`` layers' blocks stacked on a leading [n] axis; ``cross`` adds
+    the gated cross-attention's "gate", "q_norm" and "k_norm"."""
+    d, ff = cfg.d_model, cfg.d_ff
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
 
     def stacked(shape, fan_in):
-        return stacked_init(g, L, shape, dt, device, fan_in)
+        return stacked_init(g, n, shape, dt, device, fan_in)
 
     def filled(fill, *shape):
         return torch.full(shape, fill, dtype=dt, device=device)
 
-    blocks = {"norm1": filled(1, L, d)}
+    blocks = {"norm1": filled(1, n, d)}
     if cfg.family == "ssm":
         blocks.update(xlstm_mod.xlstm_init(g, cfg, device))
+        return blocks
+    attn_p = {"wq": stacked((d, H, hd), d),
+              "wk": stacked((d, KV, hd), d),
+              "wv": stacked((d, KV, hd), d),
+              "wo": stacked((H, hd, d), H * hd)}
+    if cfg.qkv_bias:
+        attn_p.update(bq=filled(0, n, H, hd), bk=filled(0, n, KV, hd),
+                      bv=filled(0, n, KV, hd))
+    if cross:
+        attn_p.update(gate=torch.zeros(n, dtype=torch.float32, device=device),
+                      q_norm=filled(1, n, hd), k_norm=filled(1, n, hd))
+    blocks.update(attn=attn_p, norm2=filled(1, n, d))
+    if cfg.family == "hybrid":
+        blocks.update(ssm=ssm_mod.ssm_init(g, cfg, device),
+                      norm_attn_out=filled(1, n, d),
+                      norm_ssm_out=filled(1, n, d))
+    if cfg.family == "moe":
+        blocks["moe"] = moe_mod.moe_init(g, cfg, device)
+    elif cfg.family == "audio":
+        blocks["mlp"] = {"w_in": stacked((d, ff), d), "b_in": filled(0, n, ff),
+                         "w_out": stacked((ff, d), ff),
+                         "b_out": filled(0, n, d)}
     else:
-        attn_p = {"wq": stacked((d, H, hd), d),
-                  "wk": stacked((d, KV, hd), d),
-                  "wv": stacked((d, KV, hd), d),
-                  "wo": stacked((H, hd, d), H * hd)}
-        if cfg.qkv_bias:
-            attn_p.update(bq=filled(0, L, H, hd), bk=filled(0, L, KV, hd),
-                          bv=filled(0, L, KV, hd))
-        blocks.update(attn=attn_p, norm2=filled(1, L, d))
-        if cfg.family == "hybrid":
-            blocks.update(ssm=ssm_mod.ssm_init(g, cfg, device),
-                          norm_attn_out=filled(1, L, d),
-                          norm_ssm_out=filled(1, L, d))
-        if cfg.family == "moe":
-            blocks["moe"] = moe_mod.moe_init(g, cfg, device)
-        else:
-            blocks["mlp"] = {"w_gate": stacked((d, ff), d),
-                             "w_up": stacked((d, ff), d),
-                             "w_down": stacked((ff, d), ff)}
-    params = {"embed": dense_init(g, (cfg.vocab, d), dt, device, 0.02),
-              "blocks": blocks, "final_norm": filled(1, d)}
-    if not cfg.tie_embeddings:
-        params["unembed"] = dense_init(g, (cfg.vocab, d), dt, device, 0.02)
-    return params
+        blocks["mlp"] = {"w_gate": stacked((d, ff), d),
+                         "w_up": stacked((d, ff), d),
+                         "w_down": stacked((ff, d), ff)}
+    return blocks
 
 
 def layer_params(tree, i: int):
@@ -159,8 +202,11 @@ def _ffn(p, x, cfg: ArchConfig):
     if cfg.family == "moe":
         y, aux = moe_mod.moe_ffn(p["moe"], h2, cfg)
         return x + y, aux
-    return x + swiglu(h2, p["mlp"]["w_gate"], p["mlp"]["w_up"],
-                      p["mlp"]["w_down"]), None
+    m = p["mlp"]
+    if cfg.family == "audio":
+        return x + gelu_mlp(h2, m["w_in"], m["b_in"], m["w_out"],
+                            m["b_out"]), None
+    return x + swiglu(h2, m["w_gate"], m["w_up"], m["w_down"]), None
 
 
 # ---------------------------------------------------------------------------
@@ -170,7 +216,8 @@ def _ffn(p, x, cfg: ArchConfig):
 def _block_fwd(cfg: ArchConfig, p, x, positions, rope, flag):
     """One block over the whole sequence -> (x, aux, (k, v) or None): aux
     the MoE load-balancing loss or None, k/v the attention's post-RoPE
-    keys and values (None for the ssm family)."""
+    keys and values (None for the ssm family).  ``positions`` None (the
+    encoder) skips RoPE."""
     h = rms_norm(x, p["norm1"], cfg.rms_eps)
     if cfg.family == "ssm":
         branch = xlstm_mod.slstm_scan if flag else xlstm_mod.mlstm_parallel
@@ -194,20 +241,76 @@ def _block_fwd(cfg: ArchConfig, p, x, positions, rope, flag):
     return x, aux, (k, v)
 
 
+def _embed_inputs(cfg: ArchConfig, params, batch):
+    """The first hidden state [B,S,d]: ``batch["embeds"]`` cast to the
+    model's dtype where ``cfg.embed_inputs`` (audio), else the embedding
+    rows of ``batch["tokens"]``."""
+    if cfg.embed_inputs:
+        return batch["embeds"].to(torch_dtype(cfg.dtype))
+    return params["embed"][batch["tokens"].long()]
+
+
+def _cross_block_fwd(cfg: ArchConfig, p, x, ikv):
+    """One gated cross-attention layer over the image K/V ``ikv``."""
+    h = rms_norm(x, p["norm1"], cfg.rms_eps)
+    x = x + attn.cross_attention(p["attn"], h, ikv, cfg)
+    return _ffn(p, x, cfg)[0]
+
+
+def _vlm_forward(cfg: ArchConfig, params, x, positions, rope, image_embeds,
+                 collect_cache: bool):
+    """The super-block loop -> (x, caches): with ``collect_cache`` caches
+    = ((k, v) [ns,inner,B,S,KV,hd], (ik, iv) [ns,B,T,KV,hd]), else ()."""
+    if image_embeds.dtype != x.dtype:
+        # the reference's layer scan rejects the wider residual stream
+        # that image K/V in a wider dtype would promote the model to
+        raise TypeError(f"image_embeds are {image_embeds.dtype}; the model "
+                        f"runs in {x.dtype}")
+    ns, inner = cfg.vlm_dims
+    ks, vs, iks, ivs = [], [], [], []
+    for s in range(ns):
+        p_self = layer_params(params["blocks"]["self"], s)
+        for j in range(inner):
+            x, _, (k, v) = _block_fwd(cfg, layer_params(p_self, j), x,
+                                      positions, rope, False)
+            ks.append(k)
+            vs.append(v)
+        p = layer_params(params["blocks"]["cross"], s)
+        ik, iv = attn.image_kv(p["attn"], image_embeds, cfg)
+        x = _cross_block_fwd(cfg, p, x, (ik, iv))
+        iks.append(ik)
+        ivs.append(iv)
+    if not collect_cache:
+        return x, ()
+
+    def stack(ts):
+        t = torch.stack(ts)
+        return t.reshape((ns, inner) + t.shape[1:])
+    return x, ((stack(ks), stack(vs)), (torch.stack(iks), torch.stack(ivs)))
+
+
 def forward(cfg: ArchConfig, params, batch, *, collect_cache: bool = False):
-    """batch {"tokens" [B,S]} -> (logits [B,S,V] fp32, aux, caches): aux
-    the MoE load-balancing loss summed over layers (0 for the others),
-    and with ``collect_cache`` caches = (k, v), each [L,B,S,KV,hd]
-    post-RoPE, for the attention families (() for ssm)."""
+    """batch {"tokens" [B,S]} ({"embeds" [B,S,d]} for audio; vlm adds
+    "image_embeds" [B,T,d] in the model's dtype) -> (logits [B,S,V] fp32,
+    aux, caches): aux the MoE load-balancing loss summed over layers (0
+    for the others), and with ``collect_cache`` caches = (k, v), each
+    [L,B,S,KV,hd] post-RoPE, for the self-attention families (() for
+    ssm); vlm's are ``_vlm_forward``'s."""
     check_family(cfg)
-    tokens = batch["tokens"]
-    x = params["embed"][tokens.long()]
+    x = _embed_inputs(cfg, params, batch)
     B, S = x.shape[:2]
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device).expand(B, S)
-    rope = rope_tables(positions, cfg.hd, cfg.rope_theta)
-    ks, vs = [], []
+    positions = rope = None           # the encoder: no RoPE
+    if cfg.causal:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+        rope = rope_tables(positions, cfg.hd, cfg.rope_theta)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "vlm":
+        x, caches = _vlm_forward(cfg, params, x, positions, rope,
+                                 batch["image_embeds"], collect_cache)
+        x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+        return unembed(x, _table(cfg, params)), aux, caches
+    ks, vs = [], []
     for i, flag in enumerate(layer_flags(cfg)):
         p = layer_params(params["blocks"], i)
         x, aux_l, kv = _block_fwd(cfg, p, x, positions, rope, bool(flag))
@@ -224,27 +327,42 @@ def forward(cfg: ArchConfig, params, batch, *, collect_cache: bool = False):
 
 def prefill(cfg: ArchConfig, params, batch, max_len: int | None = None):
     """Run the prompt, return (logits [B,S,V], DecodeState) for decode,
-    on the tokens' device.
+    on the inputs' device.
 
     dense/moe: the caches ``forward`` collects, padded to ``max_len``
     (default: the prompt length), ``pos`` = S on every lane.
+    vlm: the same for the self layers' caches, and each cross layer's
+    image K/V (``ik``, ``iv``), which decode reads and never writes.
+    audio: as the reference does, the logits and an unused zero KV state
+    with ``pos`` = S (the encoder has no decode step).
     hybrid/ssm: as the reference does, ``forward``'s logits and a COLD
     decode state (zero recurrent state, empty KV cache, ``pos`` 0): a
     decode after it does not see the prompt.  The reference documents
     this as a simplification (a warm-state prefill would be a feature it
     lacks)."""
     check_family(cfg)
-    B, S = batch["tokens"].shape
-    device = batch["tokens"].device
-    if cfg.family in ("ssm", "hybrid"):
-        logits = forward(cfg, params, batch)[0]
-        return logits, init_decode_state(cfg, B, max_len or S, device)
-    logits, _, (k, v) = forward(cfg, params, batch, collect_cache=True)
+    x = batch["embeds"] if cfg.embed_inputs else batch["tokens"]
+    (B, S), device = x.shape[:2], x.device
     state = init_decode_state(cfg, B, max_len or S, device)
-    state.caches["k"][:, :, :S] = k.to(state.caches["k"].dtype)
-    state.caches["v"][:, :, :S] = v.to(state.caches["v"].dtype)
-    return logits, state._replace(pos=torch.full(
-        (B,), S, dtype=torch.int32, device=device))
+    pos = torch.full((B,), S, dtype=torch.int32, device=device)
+    if cfg.family in ("ssm", "hybrid", "audio"):
+        logits = forward(cfg, params, batch)[0]
+        if cfg.family == "audio":
+            state = state._replace(pos=pos)
+        return logits, state
+    logits, _, caches = forward(cfg, params, batch, collect_cache=True)
+    c = state.caches
+    if cfg.family == "vlm":
+        (k, v), (ik, iv) = caches
+        c["k"][:, :, :, :S] = k
+        c["v"][:, :, :, :S] = v
+        c["ik"].copy_(ik)
+        c["iv"].copy_(iv)
+    else:
+        k, v = caches
+        c["k"][:, :, :S] = k.to(c["k"].dtype)
+        c["v"][:, :, :S] = v.to(c["v"].dtype)
+    return logits, state._replace(pos=pos)
 
 
 # ---------------------------------------------------------------------------
@@ -333,15 +451,26 @@ class DecodeState(NamedTuple):
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       device=None) -> DecodeState:
     """Zero decode state on ``device`` (the card unless the caller asks
-    for the CPU), caches layer-stacked [L, ...]: dense/moe {"k", "v"}
-    [L, B, max_len, KV, hd]; hybrid the same plus "ssm" {"h" [L,B,di,
-    state] fp32, "conv" [L,B,K-1,di]}; ssm {"mC" [L,B,H,hd,hd], "mn"
-    [L,B,H,hd], "mm" [L,B,H], "s": {"h", "c", "n", "m"} [L,B,H,hd]}, all
-    fp32, ``mm`` 0 as in the reference (its parallel form starts the
-    stabiliser at -1e30)."""
+    for the CPU), caches layer-stacked [L, ...]: dense/moe/audio {"k",
+    "v"} [L, B, max_len, KV, hd]; hybrid the same plus "ssm" {"h"
+    [L,B,di,state] fp32, "conv" [L,B,K-1,di]}; ssm {"mC" [L,B,H,hd,hd],
+    "mn" [L,B,H,hd], "mm" [L,B,H], "s": {"h", "c", "n", "m"} [L,B,H,hd]},
+    all fp32, ``mm`` 0 as in the reference (its parallel form starts the
+    stabiliser at -1e30); vlm {"k", "v"} [ns, inner, B, max_len, KV, hd]
+    and {"ik", "iv"} [ns, B, n_image_tokens, KV, hd]."""
     check_family(cfg)
     device = resolve_device(device)
     dt, L = torch_dtype(cfg.dtype), cfg.n_layers
+    pos = torch.zeros((batch,), dtype=torch.int32, device=device)
+    kv = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    if cfg.family == "vlm":
+        ns, inner = cfg.vlm_dims
+        img = (ns, batch, cfg.n_image_tokens, cfg.n_kv_heads, cfg.hd)
+        return DecodeState(pos, {
+            "k": torch.zeros((ns, inner) + kv, dtype=dt, device=device),
+            "v": torch.zeros((ns, inner) + kv, dtype=dt, device=device),
+            "ik": torch.zeros(img, dtype=dt, device=device),
+            "iv": torch.zeros(img, dtype=dt, device=device)})
 
     def stack(tree):
         if isinstance(tree, dict):
@@ -351,13 +480,11 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
     if cfg.family == "ssm":
         caches = stack(xlstm_mod.xlstm_state_init(cfg, batch, device))
     else:
-        shape = (L, batch, max_len, cfg.n_kv_heads, cfg.hd)
-        caches = {"k": torch.zeros(shape, dtype=dt, device=device),
-                  "v": torch.zeros(shape, dtype=dt, device=device)}
+        caches = {"k": torch.zeros((L,) + kv, dtype=dt, device=device),
+                  "v": torch.zeros((L,) + kv, dtype=dt, device=device)}
         if cfg.family == "hybrid":
             caches["ssm"] = stack(ssm_mod.ssm_state_init(cfg, batch, device))
-    return DecodeState(torch.zeros((batch,), dtype=torch.int32,
-                                   device=device), caches)
+    return DecodeState(pos, caches)
 
 
 def _store_(dst: dict, src: dict):
@@ -404,13 +531,18 @@ def decode_step(cfg: ArchConfig, params, state: DecodeState, tokens,
     """tokens [B] int -> (logits [B, vocab] fp32, new state).
 
     ``backend`` selects the KV storage (``models.kv_backend``): None /
-    ``DenseBackend`` keeps contiguous caches (every family the port
-    runs); ``TieredBackend`` runs the fused path (dense/moe only) —
+    ``DenseBackend`` keeps contiguous caches (every decoder family the
+    port runs; vlm's cross layers read the image K/V prefill stored);
+    ``TieredBackend`` runs the fused path (dense/moe only) —
     ``begin_step`` once, one fused append+attend kernel per layer,
     ``end_step`` once.  ``n_pages`` (tiered only) is the live-page
     bucket; the caller guarantees it holds every live position plus this
-    step's append.  Caches update in place."""
+    step's append.  Caches update in place.  The encoder (audio) has no
+    decode step, as the reference's launcher says."""
     check_family(cfg)
+    if cfg.is_encoder:
+        raise NotImplementedError(
+            f"{cfg.name} is encoder-only: no decode serving")
     if backend is None:
         from .kv_backend import DenseBackend
         backend = DenseBackend(cfg, state.pos.device)
@@ -436,6 +568,9 @@ def decode_step(cfg: ArchConfig, params, state: DecodeState, tokens,
             vs.append(v)
         caches = backend.end_step(caches, (torch.stack(ks), torch.stack(vs)),
                                   pos, aux)
+    elif cfg.family == "vlm":
+        caches = state.caches
+        x = _vlm_decode(cfg, params, x, caches, pos, backend, rope)
     else:
         caches = state.caches
         for i, flag in enumerate(layer_flags(cfg)):
@@ -445,3 +580,20 @@ def decode_step(cfg: ArchConfig, params, state: DecodeState, tokens,
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = unembed(x, _table(cfg, params))[:, 0]
     return logits, DecodeState(pos + 1, caches)
+
+
+def _vlm_decode(cfg: ArchConfig, params, x, caches, pos, backend, rope):
+    """One token per lane through the super-blocks: each self layer over
+    its [B, max_len, KV, hd] views of the stacked caches, each cross
+    layer over its image K/V."""
+    ns, inner = cfg.vlm_dims
+    for s in range(ns):
+        p_self = layer_params(params["blocks"]["self"], s)
+        for j in range(inner):
+            x = _block_decode(cfg, layer_params(p_self, j), x,
+                              {"k": caches["k"][s, j],
+                               "v": caches["v"][s, j]},
+                              pos, False, backend, rope)
+        x = _cross_block_fwd(cfg, layer_params(params["blocks"]["cross"], s),
+                             x, (caches["ik"][s], caches["iv"][s]))
+    return x

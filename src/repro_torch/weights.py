@@ -19,57 +19,69 @@ from repro_torch.device import resolve_device, torch_dtype
 # the leaves the reference keeps in fp32 whatever ``cfg.dtype`` is
 FP32_LEAVES = ("blocks/moe/router", "blocks/ssm/dt_bias", "blocks/ssm/A_log",
                "blocks/ssm/D", "blocks/m_if", "blocks/m_if_b", "blocks/s_r",
-               "blocks/s_b")
+               "blocks/s_b", "blocks/cross/attn/gate")
+
+
+def _block_shapes(cfg: ArchConfig, lead: tuple, cross: bool = False) -> dict:
+    """path (under "blocks/") -> shape of one stack of blocks whose
+    leading dims are ``lead``; ``cross`` adds the gated cross-attention's
+    leaves."""
+    d, ff = cfg.d_model, cfg.d_ff
+    H, KV, hd, E = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.n_experts
+    shapes = {"norm1": (d,)}
+    if cfg.family == "ssm":
+        xd = d // H
+        shapes.update({"m_qkv": (d, 3, H, xd), "m_if": (d, 2, H),
+                       "m_if_b": (2, H), "m_og": (d, d), "m_out": (d, d),
+                       "s_w": (d, 4, H, xd), "s_r": (H, xd, 4, xd),
+                       "s_b": (4, H, xd), "s_out": (d, d)})
+    else:
+        shapes.update({"norm2": (d,), "attn/wq": (d, H, hd),
+                       "attn/wk": (d, KV, hd), "attn/wv": (d, KV, hd),
+                       "attn/wo": (H, hd, d)})
+    if cfg.qkv_bias:
+        shapes.update({"attn/bq": (H, hd), "attn/bk": (KV, hd),
+                       "attn/bv": (KV, hd)})
+    if cross:
+        shapes.update({"attn/gate": (), "attn/q_norm": (hd,),
+                       "attn/k_norm": (hd,)})
+    if cfg.family == "hybrid":
+        st, r = cfg.ssm_state, max(d // 16, 1)
+        shapes.update({"norm_attn_out": (d,), "norm_ssm_out": (d,),
+                       "ssm/in_proj": (d, 2 * d),
+                       "ssm/conv_w": (cfg.ssm_conv, d), "ssm/conv_b": (d,),
+                       "ssm/x_proj": (d, r + 2 * st), "ssm/dt_proj": (r, d),
+                       "ssm/dt_bias": (d,), "ssm/A_log": (d, st),
+                       "ssm/D": (d,), "ssm/out_proj": (d, d)})
+    if cfg.family == "moe":
+        shapes.update({"moe/router": (d, E), "moe/w_gate": (E, d, ff),
+                       "moe/w_up": (E, d, ff), "moe/w_down": (E, ff, d)})
+    elif cfg.family == "audio":
+        shapes.update({"mlp/w_in": (d, ff), "mlp/b_in": (ff,),
+                       "mlp/w_out": (ff, d), "mlp/b_out": (d,)})
+    elif cfg.family != "ssm":
+        shapes.update({"mlp/w_gate": (d, ff), "mlp/w_up": (d, ff),
+                       "mlp/w_down": (ff, d)})
+    return {k: lead + s for k, s in shapes.items()}
 
 
 def _expected_leaves(cfg: ArchConfig) -> dict:
-    """path -> (shape, dtype) of every parameter of ``cfg``'s decoder: the
-    reference's dtype per leaf, ``cfg.dtype`` except ``FP32_LEAVES``."""
-    L, d, ff, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
-    H, KV, hd, E = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.n_experts
-    shapes = {"embed": (V, d), "final_norm": (d,), "blocks/norm1": (L, d)}
-    if cfg.family == "ssm":
-        xd = d // H
-        shapes.update({"blocks/m_qkv": (L, d, 3, H, xd),
-                       "blocks/m_if": (L, d, 2, H),
-                       "blocks/m_if_b": (L, 2, H),
-                       "blocks/m_og": (L, d, d), "blocks/m_out": (L, d, d),
-                       "blocks/s_w": (L, d, 4, H, xd),
-                       "blocks/s_r": (L, H, xd, 4, xd),
-                       "blocks/s_b": (L, 4, H, xd),
-                       "blocks/s_out": (L, d, d)})
+    """path -> (shape, dtype) of every parameter of ``cfg``'s model: the
+    reference's dtype per leaf, ``cfg.dtype`` except ``FP32_LEAVES``.
+    vlm: "blocks/self/*" stacked [ns, inner, ...] and "blocks/cross/*"
+    stacked [ns, ...]; audio: no "embed"."""
+    d, V = cfg.d_model, cfg.vocab
+    shapes = {"final_norm": (d,)}
+    if not cfg.embed_inputs:
+        shapes["embed"] = (V, d)
+    if cfg.family == "vlm":
+        ns, inner = cfg.vlm_dims
+        stacks = {"blocks/self/": _block_shapes(cfg, (ns, inner)),
+                  "blocks/cross/": _block_shapes(cfg, (ns,), cross=True)}
     else:
-        shapes.update({"blocks/norm2": (L, d),
-                       "blocks/attn/wq": (L, d, H, hd),
-                       "blocks/attn/wk": (L, d, KV, hd),
-                       "blocks/attn/wv": (L, d, KV, hd),
-                       "blocks/attn/wo": (L, H, hd, d)})
-    if cfg.qkv_bias:
-        shapes.update({"blocks/attn/bq": (L, H, hd),
-                       "blocks/attn/bk": (L, KV, hd),
-                       "blocks/attn/bv": (L, KV, hd)})
-    if cfg.family == "hybrid":
-        st, r = cfg.ssm_state, max(d // 16, 1)
-        shapes.update({"blocks/norm_attn_out": (L, d),
-                       "blocks/norm_ssm_out": (L, d),
-                       "blocks/ssm/in_proj": (L, d, 2 * d),
-                       "blocks/ssm/conv_w": (L, cfg.ssm_conv, d),
-                       "blocks/ssm/conv_b": (L, d),
-                       "blocks/ssm/x_proj": (L, d, r + 2 * st),
-                       "blocks/ssm/dt_proj": (L, r, d),
-                       "blocks/ssm/dt_bias": (L, d),
-                       "blocks/ssm/A_log": (L, d, st),
-                       "blocks/ssm/D": (L, d),
-                       "blocks/ssm/out_proj": (L, d, d)})
-    if cfg.family == "moe":
-        shapes.update({"blocks/moe/router": (L, d, E),
-                       "blocks/moe/w_gate": (L, E, d, ff),
-                       "blocks/moe/w_up": (L, E, d, ff),
-                       "blocks/moe/w_down": (L, E, ff, d)})
-    elif cfg.family != "ssm":
-        shapes.update({"blocks/mlp/w_gate": (L, d, ff),
-                       "blocks/mlp/w_up": (L, d, ff),
-                       "blocks/mlp/w_down": (L, ff, d)})
+        stacks = {"blocks/": _block_shapes(cfg, (cfg.n_layers,))}
+    for prefix, block in stacks.items():
+        shapes.update({prefix + k: s for k, s in block.items()})
     if not cfg.tie_embeddings:
         shapes["unembed"] = (V, d)
     dt = torch_dtype(cfg.dtype)
@@ -81,7 +93,7 @@ def from_jax_params(tree, cfg: ArchConfig, device=None) -> dict:
     """Nested dict of numpy arrays (the reference's parameter tree) ->
     nested dict of tensors on ``device``, each leaf in the reference's
     dtype (``cfg.dtype``; ``FP32_LEAVES`` in fp32).  Raises on a leaf
-    whose path or shape ``cfg``'s decoder does not expect."""
+    whose path or shape ``cfg``'s model does not expect."""
     device = resolve_device(device)
     expected = _expected_leaves(cfg)
     seen = set()

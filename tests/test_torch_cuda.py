@@ -621,7 +621,7 @@ def _flash_plain(q, k, v, **kw):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
 @pytest.mark.parametrize("causal,window,q_offset", [
     (True, 0, 0), (True, 24, 0), (False, 0, 0), (True, 0, 64),
     (True, 40, 32)])
@@ -1414,3 +1414,121 @@ def test_recurrent_identities_on_the_card(cuda, form):
     assert (torch.cat(outs, 1) - full).abs().max().item() <= tol
     cpu = par({k: v.cpu() for k, v in p.items()}, x.cpu())
     assert (full.cpu() - cpu).abs().max().item() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the vlm and audio families: flash non-causal over image keys and at hd 80
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,hd,S,T", [
+    (16, 2, 128, 37, 1601),      # the vlm's cross-attention, image keys
+    (16, 2, 128, 1, 1601),       # ... one decode row
+    (4, 4, 80, 150, 150),        # hubert's MHA at hd 80
+    (4, 4, 80, 64, 1601)])
+def test_flash_kernel_non_causal(cuda, H, KV, hd, S, T, dtype):
+    """Non-causal calls with T != S and T not a multiple of the 64-key
+    block (1601: one real key in the last block), and hubert's head dim
+    80 with one head a GQA group: fp32 within 1e-4, bf16 within two ulps
+    of each plain value."""
+    q, k, v = _flash_inputs(cuda, B=2, S=S, T=T, H=H, KV=KV, hd=hd,
+                            dtype=dtype, seed=S + T + hd)
+    got = fa_ops.flash_attention_op(q, k, v, causal=False)
+    want = _flash_plain(q, k, v, causal=False)
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-4
+    else:
+        want = want.to(torch.bfloat16).float()
+        assert ((got.float() - want).abs() <= bf16_tolerance(want)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_cross_rows_independent_of_padded_keys(cuda, dtype):
+    """Over 1601 image keys: one query row alone (at its own position)
+    equals that row of the 40-row call, and a causal call at q_offset
+    1600 over keys padded to 3202 (the extra ones garbage, masked)
+    equals the non-causal call over the 1601, bit for bit."""
+    T = 1601
+    q, k, v = _flash_inputs(cuda, B=2, S=40, T=T, H=16, KV=2, hd=128,
+                            dtype=dtype, seed=11)
+    full = fa_ops.flash_attention_op(q, k, v, causal=False)
+    for i in (0, 17, 39):
+        row = fa_ops.flash_attention_op(q[:, i:i + 1].contiguous(), k, v,
+                                        causal=False, q_offset=i)
+        assert torch.equal(row, full[:, i:i + 1]), i
+    k2, v2 = (torch.cat([t, torch.randn_like(t)], dim=1) for t in (k, v))
+    one = fa_ops.flash_attention_op(q[:, :1].contiguous(), k, v, causal=False)
+    padded = fa_ops.flash_attention_op(q[:, :1].contiguous(), k2, v2,
+                                       causal=True, q_offset=T - 1)
+    assert torch.equal(padded, one)
+
+
+@pytest.mark.cuda
+def test_cross_attention_takes_image_kv_in_the_query_dtype(cuda):
+    """On a card the cross-attention core is the flash kernel, which takes
+    K/V only in q's dtype: fp32 image K/V under a bf16 model raise (the
+    CPU promotes, as the reference does)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import attention, init_params
+    cfg = dataclasses.replace(reduce_for_smoke(get_config(
+        "llama-3.2-vision-90b")), dtype="bfloat16")
+    p = {k: v[0] for k, v in _to(init_params(cfg, "cpu", seed=1)["blocks"]
+                                 ["cross"]["attn"], cuda).items()}
+    img = torch.randn(2, cfg.n_image_tokens, cfg.d_model, device=cuda)
+    ikv = attention.image_kv(p, img, cfg)
+    x = torch.randn(2, 3, cfg.d_model, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="flash_attention"):
+        attention.cross_attention(p, x, ikv, cfg)
+    ikv = attention.image_kv(p, img.bfloat16(), cfg)
+    assert attention.cross_attention(p, x, ikv, cfg).dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "hubert-xlarge"])
+def test_vlm_and_audio_card_equals_plain(cuda, arch):
+    """The fp32 smoke config on the card and on the CPU from the same
+    weights (vlm: the cross gates set to 0.5): vlm prefill of 2 lanes of
+    20 tokens over 16 image tokens, then 6 decode steps over the dense
+    backend, flash launched once a self and once a cross layer in
+    prefill and once a cross layer a decode step; hubert's forward over
+    2 lanes of 70 frames, flash once a layer.  Logits within 1e-4."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import decode_step, forward, init_params, prefill
+    cfg = reduce_for_smoke(get_config(arch))
+    rng = np.random.default_rng(12)
+    params = init_params(cfg, "cpu", seed=13)
+    if cfg.family == "vlm":
+        params["blocks"]["cross"]["attn"]["gate"].fill_(0.5)
+        batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (2, 20)),
+                                           dtype=torch.int32),
+                 "image_embeds": torch.randn(
+                     2, cfg.n_image_tokens, cfg.d_model,
+                     generator=torch.Generator().manual_seed(14))}
+    else:
+        batch = {"embeds": torch.randn(
+            2, 70, cfg.d_model, generator=torch.Generator().manual_seed(14))}
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        p = _to(params, dev)
+        b = {k: t.to(dev) for k, t in batch.items()}
+        before = fa_ops.launches
+        if cfg.family == "audio":
+            out.append([forward(cfg, p, b)[0].cpu()])
+            launched = cfg.n_layers
+        else:
+            logits, st = prefill(cfg, p, b, max_len=26)
+            rows = [logits.cpu()]
+            for i in range(6):
+                lg, st = decode_step(cfg, p, st, b["tokens"][:, i])
+                rows.append(lg.cpu())
+            out.append(rows)
+            launched = cfg.n_layers + 6 * (cfg.n_layers //
+                                           cfg.cross_attn_every)
+        if dev.type == "cuda":
+            assert fa_ops.launches - before == launched
+    for got, want in zip(*out):
+        assert (got - want).abs().max().item() <= 1e-4

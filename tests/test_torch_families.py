@@ -294,7 +294,7 @@ def test_refusals_match_reference():
     """A sliding window on the tiered backend (and so on the tiered
     engine) raises in both packages; the tiered backend and the engine
     refuse a family outside dense/moe, ``init_params`` and ``forward`` a
-    family the port does not run (audio)."""
+    family the port does not know."""
     jcfg, _, cfg, params = _models("mixtral-8x22b")
     with pytest.raises(NotImplementedError, match="sliding-window"):
         JTiered(jcfg, B, MAX_LEN)
@@ -306,11 +306,11 @@ def test_refusals_match_reference():
     Engine(cfg, params, EngineConfig(batch=B, max_len=MAX_LEN,
                                      backend="dense"), device="cpu")
     ssm = dataclasses.replace(cfg, family="ssm")
-    audio = dataclasses.replace(cfg, family="audio")
+    unknown = dataclasses.replace(cfg, family="diffusion")
     for call in (lambda: TieredBackend(ssm, B, MAX_LEN, device="cpu"),
                  lambda: Engine(ssm, params, EngineConfig(), device="cpu"),
-                 lambda: init_params(audio, "cpu"),
-                 lambda: forward(audio, params, {"tokens": torch.zeros(
+                 lambda: init_params(unknown, "cpu"),
+                 lambda: forward(unknown, params, {"tokens": torch.zeros(
                      (1, 4), dtype=torch.int32)})):
         with pytest.raises(NotImplementedError, match="famil"):
             call()
