@@ -42,7 +42,13 @@ prints no result line):
    maintenance pass; tokens/s, step times and the wall time by engine
    phase.
 5. dense against tiered at full width (2 layers, fp32, teacher-forced,
-   maintenance running): logits within 1e-3.
+   maintenance running): logits within 1e-3.  ``init_params`` scales the
+   attention projections as the reference does (fan-in ``shape[-2]``),
+   which makes full-width attention nearly one-hot; there fp32
+   reassociation alone moves logits by more than 1e-3, so this gate and
+   the other fp32 identities below (11's window, 12(b) and (d), 13(b))
+   draw those projections at 1/sqrt(d) (``weights.unit_fan_in``); the
+   gap at ``init_params``' own scale is printed, not gated.
 6. tiered server: ``TieredServer`` over one store at llama3-8b's
    per-layer KV widths (16 lanes of 4096 tokens), the same seeded inputs
    through the zero-copy path (cached and uncached device table), the
@@ -143,15 +149,35 @@ prints no result line):
    (S = 1), hubert's (S = T = 1,500, hd 80) in bf16 and fp32; rows
    independent of the call over the image keys, bit for bit.
 
+14. training: (a) flash attention's backward kernel against
+   ``attention_bwd_ref`` at llama3-8b's training shape (B 4, S = T =
+   1024, H 32/8, hd 128, causal), hymba's (window 1024, H 25/5, hd 64, S
+   = T = 2048), hubert's (hd 80, non-causal, B 4, S = T = 1500) and the
+   vlm's cross-attention (S 512 over T = 1601, H 64/8), bf16 and fp32:
+   each gradient within 1e-4 (fp32) or 5e-3 (bf16) of its max |value|,
+   lse within 1e-5, the forward's out bit for bit with and without the
+   lse store; kernel, plain, library and bound times.  (b) ``fit`` of
+   llama3-8b at published widths on 8 of its 32 layers (bf16, 4 x 1024
+   tokens, AdamW, 6 steps): launch counts set to 0 before and read
+   after, 8 flash forward and 8 backward launches a step; losses and
+   gnorms finite; step ms, tokens/s, peak memory.  Resume, on 2 layers
+   (a chip call may write 45 GiB to its disk; an 8-layer checkpoint is
+   28 GB): 3 steps with a checkpoint in a temp directory, then a resume
+   to 6, equal to 6 straight (final loss, and the hash of every
+   parameter and moment).  The gradients through flash against plain
+   attention (autograd), 2 layers, fp32.  Remat full against none; a
+   profiled step's launches and idle share.  (c) the
+   training launcher as a subprocess, exit code 0.
+
 Output, in order: phase lines, one JSON ``kernels`` line (launches: the
 main path's for paged_attention_fused, remap_gather (every launch of the
 copy engine, whose two entries share one copy body) and remap_replay,
 the cached zero-copy server run's for irt_lookup (every launch of the
 walk, whose two entries share one body), irt_walk2 and
 paged_attention_split, the concat server run's for paged_attention, the
-chunked run's for flash_attention, the Figure 7 sweep's for sim_scan;
-a row at another family's shape counts phase 11's, 12's or 13's run of
-that family),
+chunked run's for flash_attention, the Figure 7 sweep's for sim_scan,
+phase 14's training run's for flash_attention_bwd; a row at another
+family's shape counts phase 11's, 12's or 13's run of that family),
 the card's name and power limit as
 nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 """
@@ -1273,18 +1299,45 @@ def main_path_phase(torch, dev, cfg, params):
 def dense_tiered_phase(torch, dev, arch="llama3-8b"):
     """``arch`` at its published width, 2 layers, fp32 (random non-zero
     QKV biases where it has them), teacher-forced through the dense and
-    the tiered backend with maintenance running: logits within 1e-3."""
-    import numpy as np
-
+    the tiered backend with maintenance running, with the projections
+    at 1/sqrt(d) (``weights.unit_fan_in``): logits within 1e-3.  For
+    llama3-8b the gap at ``init_params``' own (the reference's) scale is
+    printed first."""
     from repro_torch.configs import get_config
-    from repro_torch.core.policy import get_policy
-    from repro_torch.models import decode_step, forward, init_params
-    from repro_torch.models.kv_backend import DenseBackend, TieredBackend
+    from repro_torch.models import init_params
+    from repro_torch.weights import unit_fan_in
 
     cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
     params = init_params(cfg, dev, seed=1)
     if cfg.qkv_bias:
         _seed_biases(torch, dev, params, seed=6)
+    if arch == "llama3-8b":
+        worst, scale, _ = _dense_tiered_run(torch, dev, cfg, params)
+        print(f"dense-vs-tiered: {arch} width at init_params' (the "
+              f"reference's) projection scale: max |logit diff| {worst:.3e} "
+              f"(max |logit| {scale:.3f}; not gated: fp32 reassociation "
+              f"through nearly one-hot attention)")
+    worst, scale, migrations = _dense_tiered_run(
+        torch, dev, cfg, unit_fan_in(params, cfg))
+    print(f"dense-vs-tiered: {arch} width, 2 layers, fp32, 1/sqrt(d) "
+          f"projections, 24 steps, {migrations} migrations: max |logit "
+          f"diff| {worst:.3e} (tol 1e-3; max |logit| {scale:.3f})")
+    _check(migrations > 0, f"{arch}: no migration during the dense/tiered run")
+    _check(math.isfinite(worst) and worst <= 1e-3,
+           f"{arch}: dense vs tiered logits differ by {worst} > 1e-3")
+    del params
+    torch.cuda.empty_cache()
+
+
+def _dense_tiered_run(torch, dev, cfg, params):
+    """Phase 5's teacher-forced run -> (max |logit diff|, max |logit|,
+    migrations)."""
+    import numpy as np
+
+    from repro_torch.core.policy import get_policy
+    from repro_torch.models import decode_step, forward
+    from repro_torch.models.kv_backend import DenseBackend, TieredBackend
+
     B, max_len = 4, 256
     dense = DenseBackend(cfg, dev)
     tiered = TieredBackend(cfg, B, max_len, page_tokens=16,
@@ -1311,17 +1364,7 @@ def dense_tiered_phase(torch, dev, arch="llama3-8b"):
             scale = max(scale, ld.abs().max().item())
             if i % 3 == 2:
                 st = tiered.maintain(st)
-    worst = max(diffs)
-    c = st.caches
-    print(f"dense-vs-tiered: {arch} width, 2 layers, fp32, 24 steps, "
-          f"{int(c.migrations)} migrations: max |logit diff| {worst:.3e} "
-          f"(tol 1e-3; max |logit| {scale:.3f})")
-    _check(int(c.migrations) > 0,
-           f"{arch}: no migration during the dense/tiered run")
-    _check(math.isfinite(worst) and worst <= 1e-3,
-           f"{arch}: dense vs tiered logits differ by {worst} > 1e-3")
-    del params
-    torch.cuda.empty_cache()
+    return max(diffs), scale, int(st.caches.migrations)
 
 
 def _seed_biases(torch, dev, params, seed):
@@ -2606,13 +2649,14 @@ def mixtral_window_phase(torch, dev):
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import decode_step, forward, init_params, moe
     from repro_torch.models.kv_backend import DenseBackend
+    from repro_torch.weights import unit_fan_in
 
     pub = get_config("mixtral-8x22b")
     cfg = dataclasses.replace(pub, n_layers=2, dtype="float32",
                               capacity_factor=pub.n_experts / pub.top_k)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = init_params(cfg, dev, seed=4)
+    params = unit_fan_in(init_params(cfg, dev, seed=4), cfg)
     torch.cuda.synchronize()
     print(f"families mixtral-8x22b: 2 of {pub.n_layers} layers, "
           f"d={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} "
@@ -2742,6 +2786,7 @@ GATE_ROWS, IDENTITY_STEPS = 64, 64
 # (name in the kernels line, kernel package, counter) of every wrapper
 KERNEL_COUNTERS = (
     ("flash_attention", "flash_attention", "launches"),
+    ("flash_attention_bwd", "flash_attention", "bwd_launches"),
     ("paged_attention_fused", "paged_attention", "launches"),
     ("paged_attention_split", "paged_attention", "split_launches"),
     ("paged_attention", "paged_attention", "unified_launches"),
@@ -2910,10 +2955,11 @@ def hymba_window_gate(torch, dev):
     from repro_torch.models import (decode_step, forward, init_decode_state,
                                     init_params, layer_flags)
     from repro_torch.models.kv_backend import DenseBackend
+    from repro_torch.weights import unit_fan_in
 
     pub = get_config("hymba-1.5b")
     cfg = dataclasses.replace(pub, n_layers=2, dtype="float32")
-    params = init_params(cfg, dev, seed=2)
+    params = unit_fan_in(init_params(cfg, dev, seed=2), cfg)
     S, R = RECURRENT_PROMPT, GATE_ROWS
     seq = torch.as_tensor(np.random.default_rng(13).integers(
         0, cfg.vocab, (1, S)), dtype=torch.int32, device=dev)
@@ -2977,6 +3023,7 @@ def recurrent_identities(torch, dev):
     one token), bf16."""
     from repro_torch.configs import get_config
     from repro_torch.models import ssm, xlstm
+    from repro_torch.weights import unit_fan_in
 
     hy, xl = get_config("hymba-1.5b"), get_config("xlstm-125m")
     T, B, S = IDENTITY_STEPS, RECURRENT_LANES, RECURRENT_PROMPT
@@ -3007,7 +3054,8 @@ def recurrent_identities(torch, dev):
     with torch.inference_mode():
         h32 = dataclasses.replace(hy, dtype="float32")
         x32 = dataclasses.replace(xl, dtype="float32")
-        ps, px = layer0(ssm.ssm_init, h32), layer0(xlstm.xlstm_init, x32)
+        ps = layer0(ssm.ssm_init, h32)
+        px = unit_fan_in(layer0(xlstm.xlstm_init, x32), x32)
         xz = randn(B, T, 2 * hy.d_model, scale=0.3)
         xm, xs = randn(B, T, xl.d_model, scale=0.1), randn(B, T, xl.d_model)
         pairs = {
@@ -3293,11 +3341,13 @@ def vlm_gate(torch, dev):
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import decode_step, forward, prefill
     from repro_torch.models.kv_backend import DenseBackend
+    from repro_torch.weights import unit_fan_in
 
     pub = get_config(VLM_ARCH)
     cfg = dataclasses.replace(pub, n_layers=pub.cross_attn_every,
                               dtype="float32")
     params, img, g = _vlm_model(torch, dev, cfg, seed=1)
+    unit_fan_in(params, cfg)
     img2 = torch.randn(img.shape, generator=g, device=dev)
     S, R = VLM_PROMPT, VLM_GATE_ROWS
     seq = torch.randint(0, cfg.vocab, (VLM_LANES, S), generator=g,
@@ -3487,6 +3537,443 @@ def vlm_audio_phase(torch, dev, rows):
     print(f"vlm/audio: phase 13 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training at published widths, flash attention's backward
+# ---------------------------------------------------------------------------
+
+# (label, B, S, T, H, KV, hd, causal, window) of the backward's gates: the
+# training run's layers first (its row in the kernels line), then hymba's,
+# hubert's and the vlm's cross-attention shapes
+FLASH_BWD_CASES = (
+    ("llama3-8b", 4, 1024, 1024, 32, 8, 128, True, 0),
+    ("hymba-1.5b", 1, 2048, 2048, 25, 5, 64, True, 1024),
+    ("hubert-xlarge", 4, 1500, 1500, 16, 16, 80, False, 0),
+    ("llama-3.2-vision-90b", 2, 512, 1601, 64, 8, 128, False, 0))
+# the training run: llama3-8b at published widths, depth cut to 8 of 32
+# layers (AdamW's fp32 moments of all 8.03 B parameters alone take 64 GB)
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_STEPS, TRAIN_RESUME_AT = "llama3-8b", 8, 6, 3
+TRAIN_SEQ, TRAIN_BATCH = 1024, 4
+# the resume check's depth: two checkpoints of ~15 GB each (params and
+# fp32 moments of 1.49 B parameters) stay inside the 45 GiB a chip call
+# may write to its disk
+TRAIN_RESUME_LAYERS = 2
+
+
+def _flash_bwd_case(torch, dev, label, B, S, T, H, KV, hd, causal, window,
+                    dtype, seed):
+    """One backward call checked and timed.  The forward kernel's out with
+    and without the lse store, bit for bit; lse within 1e-5 of
+    ``torch.logsumexp`` over the masked fp32 scores; dq, dk, dv against
+    ``attention_bwd_ref`` (fp32 from the same inputs, o and lse): fp32
+    within 1e-4 of each one's max |value|, bf16 within 5e-3 (rounding an
+    output to bf16 moves it by up to 2^-8 of its value, 3.9e-3 of the
+    max).  Times: the kernel (median of 30, cold
+    L2), the plain version, and the library (``scaled_dot_product_
+    attention``'s forward and backward minus its forward, K/V repeated
+    over the group, the same mask); the bound: 2.5x the forward's
+    multiply-adds over the unmasked pairs at the type's peak (bf16 tensor
+    cores; fp32 outside them), against each input read and each gradient
+    written once."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_lse_ref)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=dev).to(  # noqa: E731
+        dtype)
+    q, k, v, do = r(B, S, H, hd), r(B, T, KV, hd), r(B, T, KV, hd), \
+        r(B, S, H, hd)
+    kw = dict(causal=causal, window=window, q_offset=0)
+    name = "bf16" if dtype == torch.bfloat16 else "fp32"
+    o, lse, _ = fa_ops._forward(q, k, v, causal, window, 0, with_lse=True)
+    _check(torch.equal(o, fa_ops._forward(q, k, v, causal, window, 0,
+                                          with_lse=False)[0]),
+           f"flash_attention {label} {name}: the lse store changed out")
+    t = lambda x: x.transpose(1, 2).float()  # noqa: E731
+    lse_err = (lse - attention_lse_ref(t(q), t(k), **kw)).abs().max().item()
+    _check(math.isfinite(lse_err) and lse_err <= 1e-5,
+           f"flash_attention {label} {name}: lse error {lse_err} > 1e-5")
+    got = fa_ops.flash_attention_bwd_op(q, k, v, o, do, lse, **kw)
+    want = attention_bwd_ref(t(q), t(k), t(v), t(o), t(do), lse, **kw)
+    limit = 1e-4 if dtype == torch.float32 else 5e-3
+    errs, worst = [], 0.0
+    for gname, a, w in zip(("dq", "dk", "dv"), got, want):
+        w = w.transpose(1, 2)
+        e = (a.float() - w).abs().max().item()
+        rel = e / w.abs().max().item()
+        _check(math.isfinite(e) and rel <= limit,
+               f"flash_attention_bwd {label} {name}: {gname} error {e} is "
+               f"{rel:.2e} of its max (limit {limit})")
+        errs.append(f"{gname} {rel:.2e}")
+        worst = max(worst, e)
+    del got, want
+    ms = _time_ms(lambda: fa_ops.flash_attention_bwd_op(q, k, v, o, do, lse,
+                                                        **kw))
+    plain_ms = _time_ms(lambda: attention_bwd_ref(
+        t(q), t(k), t(v), t(o), t(do), lse, **kw), reps=5)
+    G = H // KV
+    lq = q.transpose(1, 2).contiguous().requires_grad_(True)
+    lk, lv = (x.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+              .requires_grad_(True) for x in (k, v))
+    ldo = do.transpose(1, 2).contiguous()
+    mask = None
+    if causal and window:
+        pos = torch.arange(max(S, T), device=dev)
+        mask = (pos[None, :T] <= pos[:S, None]) & \
+            (pos[None, :T] > pos[:S, None] - window)
+    fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        lq, lk, lv, attn_mask=mask, is_causal=causal and not window)
+    lib_ms = _time_ms(lambda: torch.autograd.grad(fwd(), (lq, lk, lv),
+                                                  ldo)) - _time_ms(fwd)
+    item = q.element_size()
+    _, _, fwd_flops = _flash_bound(S, T, H, KV, hd, 0, item, window, causal,
+                                   B)
+    flops = 2.5 * fwd_flops
+    # q, o, do in and dq out; k, v in and dk, dv out; lse in
+    nbytes = item * (4 * B * S * H * hd + 4 * B * T * KV * hd) + \
+        4 * B * H * S
+    t_ops = flops / (BF16_FLOP_PER_S if item == 2 else FP32_FLOP_PER_S) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"kernel flash_attention_bwd {name} at {label}'s shape (B={B}, "
+          f"S={S}, T={T}, H={H}/{KV}, hd={hd}, "
+          f"{'causal' if causal else 'non-causal'}"
+          f"{f', window {window}' if window else ''}): error/max "
+          f"{', '.join(errs)} (limit {limit}); lse max abs err "
+          f"{lse_err:.2e} (tol 1e-5); out with and without the lse store "
+          f"equal bit for bit; {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"scaled_dot_product_attention backward {lib_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {ms / bound_ms:.1f}x the bound")
+    print("kernel " + _vs_bound(f"flash_attention_bwd {name} at {label}'s "
+                                f"shape", ms, bound_ms, flops=flops))
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+
+
+def flash_bwd_rows(torch, dev):
+    """14(a): the backward at ``FLASH_BWD_CASES`` in bf16 and fp32.
+    Returns the kernels line's row: the training run's shape in bf16 (its
+    numbers), the rest under ``shapes``."""
+    row = dict(name="flash_attention_bwd", route="cuda",
+               source="src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention_bwd.cu",
+               replaces="src/repro/kernels/flash_attention/flash_attention.py"
+                        ":70", shapes=[])
+    for i, (arch, B, S, T, H, KV, hd, causal, window) in enumerate(
+            FLASH_BWD_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            res = _flash_bwd_case(torch, dev, arch, B, S, T, H, KV, hd,
+                                  causal, window, dtype, seed=40 + i)
+            if i == 0 and dtype == torch.bfloat16:
+                row.update(res)
+            else:
+                kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+                shape = (f"B {B}, S {S}, T {T}, H {H}/{KV}, hd {hd}, "
+                         f"{'causal' if causal else 'non-causal'}, window "
+                         f"{window}, {kind}")
+                row["shapes"].append(_shape_row(row, arch, shape, **res))
+            torch.cuda.empty_cache()
+    return row
+
+
+def _manifest_hashes(directory, step) -> dict:
+    with open(Path(directory) / f"step_{step:08d}" / "manifest.json") as f:
+        return {k: v["sha256"] for k, v in json.load(f)["leaves"].items()}
+
+
+def _train_configs():
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train.optimizer import OptConfig
+
+    pub = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(pub, n_layers=TRAIN_LAYERS)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                    global_batch=TRAIN_BATCH)
+    oc = OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    return pub, cfg, dc, oc
+
+
+def train_run(torch, dev):
+    """14(b): ``fit`` of llama3-8b at published widths on 8 of its 32
+    layers, bf16, seeded weights from ``init_params`` (the reference's
+    scale), 4 x 1024 tokens a step, AdamW (lr 3e-4, 2 warmup steps, cosine
+    over 6), remat "none", 6 steps; launch counts set to 0 just before
+    and read just after: 8 flash forward and 8 backward launches a step,
+    nothing else.  Every loss and gnorm finite.  Prints step ms (median of
+    steps 2-6: the log line's ``float`` waits for each step), tokens/s,
+    peak memory and the loss by step.  Returns the backward's launches."""
+    from repro_torch.train.loop import TrainConfig, fit
+
+    pub, cfg, dc, oc = _train_configs()
+    print(f"train {TRAIN_ARCH}: L={cfg.n_layers} of {pub.n_layers} (cut: "
+          f"AdamW's fp32 moments of all {pub.n_params() / 1e9:.2f} B "
+          f"parameters take {8 * pub.n_params() / 1e9:.0f} GB) d="
+          f"{cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.hd} "
+          f"ff={cfg.d_ff} V={cfg.vocab} {cfg.dtype}, "
+          f"{cfg.n_params() / 1e9:.3f} B parameters; {dc.global_batch} x "
+          f"{dc.seq_len} tokens a step, AdamW lr {oc.lr} warmup "
+          f"{oc.warmup_steps} cosine over {oc.total_steps}, remat none")
+    lines, stamps = [], []
+
+    def log(line):
+        stamps.append(time.perf_counter())
+        lines.append(line)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _counts(zero=True)
+    t0 = time.perf_counter()
+    fit(cfg, dc, oc, TrainConfig(steps=TRAIN_STEPS, log_every=1), log=log,
+        device=dev)
+    torch.cuda.synchronize()
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    vals = [(float(ln.split()[3]), float(ln.split()[5])) for ln in lines]
+    _check(len(vals) == TRAIN_STEPS and all(
+        math.isfinite(a) and math.isfinite(b) for a, b in vals),
+        f"train: losses and gnorms {vals} not all finite")
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = want["flash_attention_bwd"] = \
+        cfg.n_layers * TRAIN_STEPS
+    _check(launches == want, f"train: launches {launches}; want {want} (8 "
+           f"flash forward and 8 backward a step)")
+    times = [b - a for a, b in zip([t0] + stamps, stamps)]
+    steady = sorted(times[1:])
+    step_ms = steady[len(steady) // 2] * 1e3
+    print(f"train {TRAIN_ARCH}: {TRAIN_STEPS} steps, loss by step "
+          f"{[a for a, _ in vals]}, gnorm {[b for _, b in vals]}; step "
+          f"median {step_ms:.1f} ms (steps 2-{TRAIN_STEPS}; all "
+          f"{[round(x * 1e3, 1) for x in times]} ms, the first with init), "
+          f"{dc.global_batch * dc.seq_len / step_ms * 1e3:.0f} tokens/s; "
+          f"peak device memory {peak:.2f} GiB; launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})} "
+          f"({launches['flash_attention'] // TRAIN_STEPS} forward and "
+          f"{launches['flash_attention_bwd'] // TRAIN_STEPS} backward a "
+          f"step); card {_card_line()}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["flash_attention_bwd"]
+
+
+def train_resume(torch, dev, tmp):
+    """14(b), resume: at published widths on ``TRAIN_RESUME_LAYERS`` of
+    32 layers (a chip call may write 45 GiB to its disk, and one
+    checkpoint of the 8-layer run, parameters and fp32 moments, is 28
+    GB), ``fit`` of 3 steps with a checkpoint in ``tmp``, then
+    ``fit(resume=True)`` to 6: its final loss and the sha256 of every
+    parameter and moment leaf of its step-6 checkpoint equal those of 6
+    uninterrupted steps of the same ``make_train_step`` from the same
+    seed and batches, hashed in memory.  Prints the seconds of the two
+    runs (two checkpoint writes and a restore)."""
+    import shutil
+
+    from repro_torch.ckpt.manager import CheckpointManager, _digest
+    from repro_torch.data.pipeline import device_batch
+    from repro_torch.models import init_params
+    from repro_torch.train.loop import TrainConfig, fit, make_train_step
+    from repro_torch.train.optimizer import init_opt_state
+
+    pub, _, dc, oc = _train_configs()
+    cfg = dataclasses.replace(pub, n_layers=TRAIN_RESUME_LAYERS)
+    d = tmp / "resume"
+    t0 = time.perf_counter()
+    tc = TrainConfig(steps=TRAIN_RESUME_AT, ckpt_dir=str(d), ckpt_every=100,
+                     log_every=100)
+    fit(cfg, dc, oc, tc, log=lambda s: None, device=dev)
+    t1 = time.perf_counter()
+    lines = []
+    m_res = fit(cfg, dc, oc, dataclasses.replace(tc, steps=TRAIN_STEPS),
+                log=lines.append, device=dev)
+    t2 = time.perf_counter()
+    _check(lines[0] == f"[ckpt] resumed from step {TRAIN_RESUME_AT}",
+           f"train resume: the resumed run logged {lines[:1]}")
+    hashes = _manifest_hashes(d, TRAIN_STEPS)
+    nbytes = sum(f.stat().st_size for f in (d / f"step_{TRAIN_STEPS:08d}")
+                 .iterdir())
+    shutil.rmtree(d)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(cfg, dev, seed=0)
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, oc, TrainConfig())
+    for it in range(TRAIN_STEPS):
+        params, opt, _, m = step(params, opt, None, device_batch(dc, it, dev))
+    straight = {k: _digest(arr) for k, (arr, _) in CheckpointManager
+                ._snapshot({"params": params, "opt": opt}).items()}
+    loss = float(m["loss"])
+    del params, opt, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    _check(m_res["loss"] == loss and hashes == straight,
+           f"train resume: {TRAIN_RESUME_AT} steps + resume to {TRAIN_STEPS} "
+           f"gave loss {m_res['loss']} against {loss} uninterrupted; every "
+           f"leaf's hash equal: {hashes == straight}")
+    print(f"train resume: {TRAIN_ARCH} at published widths on "
+          f"{TRAIN_RESUME_LAYERS} of {pub.n_layers} layers "
+          f"({cfg.n_params() / 1e9:.3f} B parameters, a {nbytes / 1e9:.1f} "
+          f"GB checkpoint): {TRAIN_RESUME_AT} steps then fit(resume=True) "
+          f"to {TRAIN_STEPS}: final loss {m_res['loss']!r} equals 6 "
+          f"uninterrupted steps' {loss!r}, and all {len(hashes)} parameter "
+          f"and moment leaves hash the same; the runs {t1 - t0:.1f} s and "
+          f"{t2 - t1:.1f} s (each writes a checkpoint; the second restores "
+          f"one)")
+
+
+def train_grads_vs_plain(torch, dev):
+    """14(b), the kernels inside the model: one batch's gradients (4 x
+    1024 tokens) of the training config on 2 layers, the reference's init
+    scale, through flash (forward and backward kernels) against plain
+    attention (``attention._sdpa`` with the mask, differentiated by
+    autograd), both on the card.  fp32: losses within 1e-6 relative,
+    gnorms within 1e-4 relative, every gradient leaf within 1e-3 of its
+    max |value| (fp32 sums in other orders through nearly one-hot
+    attention: scores of std ~200 at this scale).  bf16: each path's
+    gnorm printed beside fp32's."""
+    from repro_torch.data.pipeline import device_batch
+    from repro_torch.models import attention, init_params
+    from repro_torch.train.loop import TrainConfig, grads_of
+    from repro_torch.train.optimizer import global_norm, leaves
+
+    pub, _, dc, _ = _train_configs()
+    batch = device_batch(dc, 0, dev)
+    flash = attention.sdpa_auto
+
+    def plain(q, k, v, *, causal, window=0, q_offset=0):
+        mask = attention.make_mask(q.shape[1], k.shape[1], causal=causal,
+                                   window=window, q_offset=q_offset,
+                                   device=q.device)
+        return attention._sdpa(q, k, v, mask)
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(pub, n_layers=2, dtype=dtype)
+        params = init_params(cfg, dev, seed=1)
+        for name, fn in (("flash", flash), ("plain", plain)):
+            attention.sdpa_auto = fn
+            try:
+                loss, _, g = grads_of(cfg, TrainConfig(), params, batch)
+            finally:
+                attention.sdpa_auto = flash
+            out[dtype, name] = (float(loss), float(global_norm(g)), g)
+        del params
+    (lf, nf, gf), (lp, np_, gp) = out["float32", "flash"], \
+        out["float32", "plain"]
+    worst = max(((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(leaves(gf), leaves(gp)))
+    _check(abs(lf - lp) <= 1e-6 * abs(lp) and abs(nf - np_) <= 1e-4 * np_
+           and worst <= 1e-3,
+           f"train grads: flash against plain attention, fp32: loss {lf} / "
+           f"{lp}, gnorm {nf} / {np_}, worst leaf {worst:.3e} of its max")
+    bf = {name: out["bfloat16", name][1] for name in ("flash", "plain")}
+    print(f"train grads: {TRAIN_ARCH} at published widths on 2 layers, the "
+          f"reference's init scale, one batch: fp32 through flash against "
+          f"plain attention: loss {lf!r} / {lp!r}, gnorm {nf:.6f} / "
+          f"{np_:.6f}, every leaf within {worst:.2e} of its max (tol "
+          f"1e-3); bf16 gnorm flash {bf['flash']:.3f}, plain "
+          f"{bf['plain']:.3f} (fp32 {nf:.3f})")
+    del out, gf, gp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_remat_and_profile(torch, dev):
+    """14(b), continued.  Remat: the gradients of one batch with remat
+    "full" against "none", from the same weights: the same loss, every
+    leaf within 1e-2 of its max |value|.  Then two ``make_train_step``
+    steps (after a warm-up step) under ``torch.profiler``: launches and
+    device time a step, the device's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import device_batch
+    from repro_torch.models import init_params
+    from repro_torch.train.loop import TrainConfig, grads_of, make_train_step
+    from repro_torch.train.optimizer import init_opt_state, leaves
+
+    _, cfg, dc, oc = _train_configs()
+    params = init_params(cfg, dev, seed=1)
+    batch = device_batch(dc, 0, dev)
+    l_none, _, g_none = grads_of(cfg, TrainConfig(), params, batch)
+    l_full, _, g_full = grads_of(cfg, TrainConfig(remat="full"), params,
+                                 batch)
+    worst = max(((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30)).item()
+                for a, b in zip(leaves(g_full), leaves(g_none)))
+    _check(bool(l_full == l_none) and worst <= 1e-2,
+           f"train remat: full gives loss {float(l_full)} against "
+           f"{float(l_none)} and grads {worst:.3e} of their max apart")
+    print(f"train remat: one step's gradients with remat full against none "
+          f"at {TRAIN_ARCH}'s {cfg.n_layers}-layer config: loss "
+          f"{float(l_none):.6f} equal; every leaf within {worst:.2e} of its "
+          f"max |value| (tol 1e-2)")
+    del g_none, g_full
+    torch.cuda.empty_cache()
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, oc, TrainConfig())
+    params, opt, _, m = step(params, opt, None, device_batch(dc, 1, dev))
+    float(m["loss"])
+    batches = [device_batch(dc, 2 + i, dev) for i in range(2)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            params, opt, _, m = step(params, opt, None, b)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    launches = sum(e.count for e in prof.key_averages()
+                   if "LaunchKernel" in e.key) / 2
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3 / 2
+    print(f"train profile: 2 make_train_step steps under torch.profiler: "
+          f"{launches:.0f} kernel launches and {busy:.1f} ms of device time "
+          f"a step against {wall / 2:.1f} ms of wall time (profiled): the "
+          f"device idle {100 * (1 - busy / (wall / 2)):.1f} %; loss "
+          f"{float(m['loss']):.4f}")
+    del params, opt, batches, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_launcher():
+    """14(c): the launcher as a subprocess on the card, exit code 0."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "llama3-8b", "--smoke", "--steps", "4"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    _check(out.returncode == 0, f"train launcher exited {out.returncode}:\n"
+           f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+    last = out.stdout.strip().splitlines()[-1]
+    print(f"train launcher: {' '.join(cmd[1:])} exited 0 in "
+          f"{time.perf_counter() - t0:.1f} s; {last}")
+
+
+def train_phase(torch, dev, rows, launches):
+    """Phase 14: the backward's gates and times (row added to the kernels
+    line), the training run with resume, remat and the profile, and the
+    launcher."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    rows["flash_attention_bwd"] = flash_bwd_rows(torch, dev)
+    launches["flash_attention_bwd"] = train_run(torch, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        train_resume(torch, dev, Path(tmp))
+    train_grads_vs_plain(torch, dev)
+    train_remat_and_profile(torch, dev)
+    train_launcher()
+    print(f"train: phase 14 took {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         _fail("src/repro_torch not found beside chip_smoke.py")
@@ -3526,6 +4013,9 @@ def main():
     families_phase(torch, dev, rows)
     recurrent_phase(torch, dev, rows)
     vlm_audio_phase(torch, dev, rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_phase(torch, dev, rows, launches)
     for name, n in launches.items():
         rows[name]["launches"] = n
     print(json.dumps({"kernels": [rows[k] for k in sorted(rows)]}))

@@ -29,6 +29,8 @@ SOURCES = {
         _PKG / "kernels/paged_attention/csrc/paged_attention.cu",
     "flash_attention":
         _PKG / "kernels/flash_attention/csrc/flash_attention.cu",
+    "flash_attention_bwd":
+        _PKG / "kernels/flash_attention/csrc/flash_attention_bwd.cu",
     "sim_scan": _PKG / "kernels/sim_scan/csrc/sim_scan.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

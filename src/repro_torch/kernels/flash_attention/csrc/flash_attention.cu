@@ -14,7 +14,10 @@
 // key j at j: row i sees key j when j < T, (causal) j <= q_offset + i and
 // (window > 0) j > q_offset + i - window.  Scores are fp32 dot products
 // times 1/sqrt(hd), masked to -1e30 as the TPU kernel does; out [B,S,H,hd]
-// in q's dtype.
+// in q's dtype.  Where the caller passes `lse` ([B,H,S] fp32, for the
+// backward in flash_attention_bwd.cu), each row's log-sum-exp of its
+// scaled, masked scores is stored there too, by one thread after the
+// row's output: nothing in the output's arithmetic changes with it.
 //
 // Bound on the H100: operations at the model's shapes.  A causal
 // 2048-token prefill does about 34 GFLOP per layer (QK and PV over the
@@ -105,9 +108,9 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int S, int T_len,
-             int H, int KV, int q_offset, int causal, int window,
-             float scale) {
+             const T* __restrict__ v, T* __restrict__ out,
+             float* __restrict__ lse, int S, int T_len, int H, int KV,
+             int q_offset, int causal, int window, float scale) {
   constexpr int LD = HD + 1;
   constexpr int LP = BK + 1;
   constexpr int DC = HD / 16;     // output columns per lane
@@ -223,6 +226,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* o = out + ((long long)b * S + q0 + row) * qs + (long long)h * HD;
 #pragma unroll
     for (int c = 0; c < DC; ++c) store(o + tx + 16 * c, acc[r][c] * inv);
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * H + h) * S + q0 + row] = m[r] + logf(l[r]);
   }
 }
 
@@ -232,8 +237,8 @@ constexpr int smem_bytes() {
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int T_len, int H, int KV, int q_offset, int causal,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int S, int T_len, int H, int KV, int q_offset, int causal,
            int window, cudaStream_t stream) {
   auto kern = flash_kernel<T, HD>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -242,26 +247,31 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   dim3 grid((S + BQ - 1) / BQ, B * H);
   kern<<<grid, THREADS, smem_bytes<HD>(), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, T_len, H, KV,
+      static_cast<const T*>(v), static_cast<T*>(out), lse, S, T_len, H, KV,
       q_offset, causal, window, 1.f / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int B,
-             int S, int T_len, int H, int KV, int hd, int q_offset,
-             int causal, int window, cudaStream_t stream) {
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             float* lse, int B, int S, int T_len, int H, int KV, int hd,
+             int q_offset, int causal, int window, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, out, B, S, T_len, H, KV, q_offset,
-                                  causal, window, stream);
-    case 32: return launch<T, 32>(q, k, v, out, B, S, T_len, H, KV, q_offset,
-                                  causal, window, stream);
-    case 64: return launch<T, 64>(q, k, v, out, B, S, T_len, H, KV, q_offset,
-                                  causal, window, stream);
-    case 80: return launch<T, 80>(q, k, v, out, B, S, T_len, H, KV, q_offset,
-                                  causal, window, stream);
-    case 128: return launch<T, 128>(q, k, v, out, B, S, T_len, H, KV,
-                                    q_offset, causal, window, stream);
+    case 16:
+      return launch<T, 16>(q, k, v, out, lse, B, S, T_len, H, KV, q_offset,
+                          causal, window, stream);
+    case 32:
+      return launch<T, 32>(q, k, v, out, lse, B, S, T_len, H, KV, q_offset,
+                          causal, window, stream);
+    case 64:
+      return launch<T, 64>(q, k, v, out, lse, B, S, T_len, H, KV, q_offset,
+                          causal, window, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, out, lse, B, S, T_len, H, KV, q_offset,
+                          causal, window, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, out, lse, B, S, T_len, H, KV, q_offset,
+                          causal, window, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -274,6 +284,7 @@ namespace tc {
 
 constexpr int NS = 2;                   // K/V ring stages
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -367,9 +378,10 @@ __device__ __forceinline__ bool sees(int key, int pos, int T_len, int causal,
 template <int HD>
 __global__ void __launch_bounds__(128)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ out, int S,
-                int T_len, int H, int KV, int HB, int MT, int q_offset,
-                int causal, int window, float scale_log2) {
+                const bf16* __restrict__ v, bf16* __restrict__ out,
+                float* __restrict__ lse, int S, int T_len, int H, int KV,
+                int HB, int MT, int q_offset, int causal, int window,
+                float scale_log2) {
   constexpr int LD = ld<HD>();
   constexpr int KT = HD / 16;           // k-steps of QK^T
   constexpr int NT = BK / 8;            // score n-tiles
@@ -550,6 +562,12 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       *reinterpret_cast<uint32_t*>(ob + c) =
           pack(o[n][2] * invb, o[n][3] * invb);
   }
+  // the scores are in log2 units (scale_log2 carries log2(e))
+  if (lse != nullptr && tig == 0) {
+    float* lrow = lse + ((long long)b * H + h) * S;
+    if (oka) lrow[ia] = (ma + log2f(la)) * LN2;
+    if (okb) lrow[ib] = (mb + log2f(lb)) * LN2;
+  }
 }
 
 // heads of one GQA group per block: the largest divisor of G up to 4,
@@ -561,8 +579,8 @@ inline int heads_per_block(int G) {
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int T_len, int H, int KV, int q_offset, int causal,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int S, int T_len, int H, int KV, int q_offset, int causal,
            int window, cudaStream_t stream) {
   auto kern = flash_tc_kernel<HD>;
   static bool opted_in = false;         // once: the call is not free
@@ -578,25 +596,30 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   dim3 grid(n_tiles, B * KV * (G / HB));
   kern<<<grid, 32 * HB * MT, smem_bytes<HD>(), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), S, T_len, H, KV,
-      HB, MT, q_offset, causal, window, LOG2E / sqrtf((float)HD));
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, S, T_len, H,
+      KV, HB, MT, q_offset, causal, window, LOG2E / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* out, int B,
-             int S, int T_len, int H, int KV, int hd, int q_offset,
-             int causal, int window, cudaStream_t stream) {
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             float* lse, int B, int S, int T_len, int H, int KV, int hd,
+             int q_offset, int causal, int window, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<16>(q, k, v, out, B, S, T_len, H, KV, q_offset,
-                               causal, window, stream);
-    case 32: return launch<32>(q, k, v, out, B, S, T_len, H, KV, q_offset,
-                               causal, window, stream);
-    case 64: return launch<64>(q, k, v, out, B, S, T_len, H, KV, q_offset,
-                               causal, window, stream);
-    case 80: return launch<80>(q, k, v, out, B, S, T_len, H, KV, q_offset,
-                               causal, window, stream);
-    case 128: return launch<128>(q, k, v, out, B, S, T_len, H, KV, q_offset,
-                                 causal, window, stream);
+    case 16:
+      return launch<16>(q, k, v, out, lse, B, S, T_len, H, KV, q_offset,
+                       causal, window, stream);
+    case 32:
+      return launch<32>(q, k, v, out, lse, B, S, T_len, H, KV, q_offset,
+                       causal, window, stream);
+    case 64:
+      return launch<64>(q, k, v, out, lse, B, S, T_len, H, KV, q_offset,
+                       causal, window, stream);
+    case 80:
+      return launch<80>(q, k, v, out, lse, B, S, T_len, H, KV, q_offset,
+                       causal, window, stream);
+    case 128:
+      return launch<128>(q, k, v, out, lse, B, S, T_len, H, KV, q_offset,
+                       causal, window, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -606,17 +629,18 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace
 
 // dtype: 0 fp32, 1 bf16.  Returns a cudaError_t code (0: launched).
+// lse: [B,H,S] fp32, or null for none.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int B, int S, int T_len, int H,
-                               int KV, int hd, int q_offset, int causal,
+                               void* out, float* lse, int B, int S, int T_len,
+                               int H, int KV, int hd, int q_offset, int causal,
                                int window, int dtype, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, out, B, S, T_len, H, KV, hd, q_offset,
-                           causal, window, s);
+    return dispatch<float>(q, k, v, out, lse, B, S, T_len, H, KV, hd,
+                           q_offset, causal, window, s);
   if (dtype == 1)
-    return tc::dispatch(q, k, v, out, B, S, T_len, H, KV, hd, q_offset,
+    return tc::dispatch(q, k, v, out, lse, B, S, T_len, H, KV, hd, q_offset,
                         causal, window, s);
   return (int)cudaErrorInvalidValue;
 }

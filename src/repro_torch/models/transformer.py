@@ -35,10 +35,14 @@ Python bools here.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device, torch_dtype
@@ -94,13 +98,12 @@ def init_params(cfg: ArchConfig, device=None, seed: int = 0) -> dict:
     """Seeded random parameters in the reference's layout, made on
     ``device`` (the card unless the caller asks for the CPU).
 
-    Every projection is scaled by 1/sqrt(fan-in) with the fan-in its
-    contracted input size (d for wq/wk/wv, H*hd for wo, the rows of the
-    MLP matrices).  The reference's ``dense_init`` takes ``shape[-2]``,
-    which for the [d, H, hd] projections is H: its q and k come out
-    sqrt(d/H) times larger and its attention nearly one-hot, so fp32
-    reassociation alone moves full-width logits by ~1e-3.  Parity tests
-    give both sides the same weights (``repro_torch.weights``).  The QKV
+    Every matrix is scaled by 1/sqrt(fan-in) with the reference's fan-in,
+    ``shape[-2]`` of the unstacked leaf (``dense_init``): the rows of the
+    MLP matrices, but H (KV) for the [d, H, hd] projections wq (wk, wv)
+    and hd for wo [H, hd, d], so q and k come out sqrt(d/H) times their
+    1/sqrt(d) size and attention at full width is nearly one-hot, as in
+    the reference.  The embedding tables are scaled by 0.02.  The QKV
     biases start at zero, as the reference's do; the MoE family's experts
     come from ``moe.moe_init``, the Mamba branch from ``ssm.ssm_init``,
     the xLSTM branches from ``xlstm.xlstm_init``.  The audio MLP's biases
@@ -153,10 +156,10 @@ def _blocks_init(cfg: ArchConfig, g, n: int, dt, device, *,
     if cfg.family == "ssm":
         blocks.update(xlstm_mod.xlstm_init(g, cfg, device))
         return blocks
-    attn_p = {"wq": stacked((d, H, hd), d),
-              "wk": stacked((d, KV, hd), d),
-              "wv": stacked((d, KV, hd), d),
-              "wo": stacked((H, hd, d), H * hd)}
+    attn_p = {"wq": stacked((d, H, hd), H),
+              "wk": stacked((d, KV, hd), KV),
+              "wv": stacked((d, KV, hd), KV),
+              "wo": stacked((H, hd, d), hd)}
     if cfg.qkv_bias:
         attn_p.update(bq=filled(0, n, H, hd), bk=filled(0, n, KV, hd),
                       bv=filled(0, n, KV, hd))
@@ -247,7 +250,9 @@ def _embed_inputs(cfg: ArchConfig, params, batch):
     rows of ``batch["tokens"]``."""
     if cfg.embed_inputs:
         return batch["embeds"].to(torch_dtype(cfg.dtype))
-    return params["embed"][batch["tokens"].long()]
+    # F.embedding: its backward on a card sums each row's gradients in a
+    # fixed order (indexing's would use atomics)
+    return F.embedding(batch["tokens"].long(), params["embed"])
 
 
 def _cross_block_fwd(cfg: ArchConfig, p, x, ikv):
@@ -257,27 +262,71 @@ def _cross_block_fwd(cfg: ArchConfig, p, x, ikv):
     return _ffn(p, x, cfg)[0]
 
 
+def _unstack(tree) -> list:
+    """Per-layer views of a layer-stacked tree of dicts, one ``unbind``
+    per leaf: its backward stacks the layers' gradients once, where
+    indexing each layer would add a zero-filled full-size gradient per
+    layer."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(per.values())))
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return tree.unbind(0)
+
+
+REMAT_POLICIES = ("none", "dots", "full")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective recomputation that keeps the outputs of the projections'
+    matrix products (``aten.mm``, ``addmm``) and recomputes everything
+    else, attention's batched products included: the counterpart of the
+    reference's ``checkpoint_dots_with_no_batch_dims``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat: str):
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant): "none"
+    leaves it alone, "full" saves only its inputs and recomputes the rest
+    in the backward, "dots" also saves the projections' products."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat {remat!r} not in {REMAT_POLICIES}")
+    if remat == "none":
+        return fn
+    kw = {} if remat == "full" else {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _dots_policy)}
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False, **kw)
+
+
 def _vlm_forward(cfg: ArchConfig, params, x, positions, rope, image_embeds,
-                 collect_cache: bool):
+                 collect_cache: bool, remat: str = "none"):
     """The super-block loop -> (x, caches): with ``collect_cache`` caches
-    = ((k, v) [ns,inner,B,S,KV,hd], (ik, iv) [ns,B,T,KV,hd]), else ()."""
+    = ((k, v) [ns,inner,B,S,KV,hd], (ik, iv) [ns,B,T,KV,hd]), else ().
+    ``remat`` wraps each super-block."""
     if image_embeds.dtype != x.dtype:
         # the reference's layer scan rejects the wider residual stream
         # that image K/V in a wider dtype would promote the model to
         raise TypeError(f"image_embeds are {image_embeds.dtype}; the model "
                         f"runs in {x.dtype}")
     ns, inner = cfg.vlm_dims
+
+    def super_block(p_self, p, x):
+        kvs = []
+        for pj in _unstack(p_self):
+            x, _, kv = _block_fwd(cfg, pj, x, positions, rope, False)
+            kvs.append(kv)
+        ikv = attn.image_kv(p["attn"], image_embeds, cfg)
+        return _cross_block_fwd(cfg, p, x, ikv), kvs, ikv
+
+    run = _remat(super_block, remat)
     ks, vs, iks, ivs = [], [], [], []
-    for s in range(ns):
-        p_self = layer_params(params["blocks"]["self"], s)
-        for j in range(inner):
-            x, _, (k, v) = _block_fwd(cfg, layer_params(p_self, j), x,
-                                      positions, rope, False)
-            ks.append(k)
-            vs.append(v)
-        p = layer_params(params["blocks"]["cross"], s)
-        ik, iv = attn.image_kv(p["attn"], image_embeds, cfg)
-        x = _cross_block_fwd(cfg, p, x, (ik, iv))
+    for p_self, p in zip(_unstack(params["blocks"]["self"]),
+                         _unstack(params["blocks"]["cross"])):
+        x, kvs, (ik, iv) = run(p_self, p, x)
+        ks += [kv[0] for kv in kvs]
+        vs += [kv[1] for kv in kvs]
         iks.append(ik)
         ivs.append(iv)
     if not collect_cache:
@@ -289,13 +338,16 @@ def _vlm_forward(cfg: ArchConfig, params, x, positions, rope, image_embeds,
     return x, ((stack(ks), stack(vs)), (torch.stack(iks), torch.stack(ivs)))
 
 
-def forward(cfg: ArchConfig, params, batch, *, collect_cache: bool = False):
+def forward(cfg: ArchConfig, params, batch, *, remat: str = "none",
+            collect_cache: bool = False):
     """batch {"tokens" [B,S]} ({"embeds" [B,S,d]} for audio; vlm adds
     "image_embeds" [B,T,d] in the model's dtype) -> (logits [B,S,V] fp32,
     aux, caches): aux the MoE load-balancing loss summed over layers (0
     for the others), and with ``collect_cache`` caches = (k, v), each
     [L,B,S,KV,hd] post-RoPE, for the self-attention families (() for
-    ssm); vlm's are ``_vlm_forward``'s."""
+    ssm); vlm's are ``_vlm_forward``'s.  ``remat`` ("none", "dots",
+    "full") recomputes each layer (the vlm: each super-block) in the
+    backward (``_remat``), as the reference's ``REMAT_POLICIES`` do."""
     check_family(cfg)
     x = _embed_inputs(cfg, params, batch)
     B, S = x.shape[:2]
@@ -307,13 +359,13 @@ def forward(cfg: ArchConfig, params, batch, *, collect_cache: bool = False):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "vlm":
         x, caches = _vlm_forward(cfg, params, x, positions, rope,
-                                 batch["image_embeds"], collect_cache)
+                                 batch["image_embeds"], collect_cache, remat)
         x = rms_norm(x, params["final_norm"], cfg.rms_eps)
         return unembed(x, _table(cfg, params)), aux, caches
+    block = _remat(functools.partial(_block_fwd, cfg), remat)
     ks, vs = [], []
-    for i, flag in enumerate(layer_flags(cfg)):
-        p = layer_params(params["blocks"], i)
-        x, aux_l, kv = _block_fwd(cfg, p, x, positions, rope, bool(flag))
+    for p, flag in zip(_unstack(params["blocks"]), layer_flags(cfg)):
+        x, aux_l, kv = block(p, x, positions, rope, bool(flag))
         if aux_l is not None:
             aux = aux + aux_l
         if collect_cache and kv is not None:
@@ -323,6 +375,23 @@ def forward(cfg: ArchConfig, params, batch, *, collect_cache: bool = False):
     logits = unembed(x, _table(cfg, params))
     caches = (torch.stack(ks), torch.stack(vs)) if ks else ()
     return logits, aux, caches
+
+
+def lm_loss(cfg: ArchConfig, params, batch, *, remat: str = "none"):
+    """Next-token cross-entropy for the decoders (the logits at position
+    t against ``labels`` at t + 1, as the reference shifts them), frame
+    classification for the encoder, plus 1e-2 times the MoE
+    load-balancing loss and 1e-4 times the z-loss (the mean squared
+    log-sum-exp of the logits).  Returns (loss, {"ce", "aux", "z"}), all
+    0-d fp32 tensors."""
+    logits, aux, _ = forward(cfg, params, batch, remat=remat)
+    labels = batch["labels"].long()
+    if cfg.causal:
+        logits, labels = logits[:, :-1], labels[:, 1:]
+    logp = torch.log_softmax(logits, dim=-1)
+    ce = -logp.gather(-1, labels[..., None]).mean()
+    z = torch.logsumexp(logits, dim=-1).square().mean()
+    return ce + 1e-2 * aux + 1e-4 * z, {"ce": ce, "aux": aux, "z": z}
 
 
 def prefill(cfg: ArchConfig, params, batch, max_len: int | None = None):

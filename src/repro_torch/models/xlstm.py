@@ -31,7 +31,9 @@ MLSTM_CHUNK = 1024  # bounds the [B,H,C,C] intra-chunk decay matrices
 
 def xlstm_init(g: torch.Generator, cfg: ArchConfig, device) -> dict:
     """Seeded layer-stacked parameters of both branches in the reference's
-    layout and dtypes.  Projections are scaled by 1/sqrt(d); the fp32
+    layout and dtypes.  Projections are scaled by 1/sqrt of the
+    reference's fan-in, ``shape[-2]``: d for the [d, d] matrices, H for
+    ``m_qkv`` [d,3,H,hd] and ``s_w`` [d,4,H,hd]; the fp32
     gate matrices ``m_if`` and ``s_r`` by 0.02 (the reference's scale);
     the gate biases are the reference's constants (mLSTM input/forget 0/3,
     sLSTM z/i/f/o 0/0/3/0)."""
@@ -41,7 +43,8 @@ def xlstm_init(g: torch.Generator, cfg: ArchConfig, device) -> dict:
     f32 = torch.float32
 
     def stacked(shape, dtype=dt, scale=None):
-        return stacked_init(g, L, shape, dtype, device, d, scale=scale)
+        return stacked_init(g, L, shape, dtype, device, shape[-2],
+                            scale=scale)
 
     def const(vals, shape):
         v = torch.tensor(vals, dtype=f32, device=device)

@@ -114,3 +114,27 @@ def from_jax_params(tree, cfg: ArchConfig, device=None) -> dict:
     if missing:
         raise ValueError(f"missing parameters {sorted(missing)}")
     return out
+
+
+def unit_fan_in(tree: dict, cfg: ArchConfig) -> dict:
+    """Rescale, in place, the projections that ``init_params`` (like the
+    reference's ``dense_init``) scales by 1/sqrt(shape[-2]) -- wq by
+    1/sqrt(H), wk and wv by 1/sqrt(KV), wo by 1/sqrt(hd), the xLSTM's
+    m_qkv and s_w by 1/sqrt(H) -- to 1/sqrt of their contracted input
+    size (d; H*hd for wo).  ``tree``'s leaves are tensors or numpy
+    arrays; returns ``tree``.
+
+    At the reference's scale attention at width is nearly one-hot (scores
+    of std ~200 at llama3-8b's), so fp32 reassociation alone moves logits
+    by ~1e-3; checks that hold two orders of the same fp32 sums against
+    each other to a tight tolerance draw their projections here."""
+    d, H, KV = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    factor = {"wq": np.sqrt(H / d), "wk": np.sqrt(KV / d),
+              "wv": np.sqrt(KV / d), "wo": np.sqrt(1 / H),
+              "m_qkv": np.sqrt(H / d), "s_w": np.sqrt(H / d)}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            unit_fan_in(v, cfg)
+        elif k in factor:
+            v *= float(factor[k])
+    return tree

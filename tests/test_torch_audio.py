@@ -8,12 +8,14 @@ Both packages get the same weights, with random non-zero MLP biases
 ``from_jax_params``.  Two configs: the fp32 smoke config (2 layers, d 64,
 heads 4/2 of 16) with the reference's own ``init_params``, and a narrow
 one at the card's head dim, hd 80 (d 160, 2 heads, 2 layers), with the
-port's: the reference scales its [d, H, hd] projections by 1/sqrt(H)
-(``dense_init`` takes ``shape[-2]`` as the fan-in), which at H = 2 makes
-q and k ~9x their 1/sqrt(d) size and the attention nearly one-hot, so
-fp32 reassociation alone parts the two packages' logits by ~1.4e-4
-there.  Tolerance 1e-4 (fp32 on both sides, products and softmaxes
-summed in other orders)."""
+port's ``init_params`` except the attention projections, which the test
+draws itself at 1/sqrt(d) (wq, wk, wv) and 1/sqrt(H*hd) (wo): both
+packages' init scales them by 1/sqrt(H) and 1/sqrt(hd) (``dense_init``
+takes ``shape[-2]`` as the fan-in), which at H = 2 makes q and k ~9x
+their 1/sqrt(d) size and the attention nearly one-hot, so fp32
+reassociation alone parts the two packages' logits by ~1.4e-4 there.
+Tolerance 1e-4 (fp32 on both sides, products and softmaxes summed in
+other orders)."""
 
 import dataclasses
 import functools
@@ -74,8 +76,9 @@ def _to_jax(tree):
 @functools.lru_cache(maxsize=None)
 def _models(arch=ARCH, narrow=False):
     """(reference cfg, params, port cfg, the same params): the
-    reference's ``init_params``, or the port's for the ``narrow`` hd-80
-    config; hubert's MLP biases random."""
+    reference's ``init_params``, or for the ``narrow`` hd-80 config the
+    port's with attention projections drawn at 1/sqrt(d) and
+    1/sqrt(H*hd); hubert's MLP biases random."""
     jcfg, cfg = j_reduce(j_get_config(arch)), reduce_for_smoke(
         get_config(arch))
     if narrow:
@@ -83,6 +86,13 @@ def _models(arch=ARCH, narrow=False):
         cfg = dataclasses.replace(cfg, **HD80)
         tree = jax.tree.map(lambda t: t.numpy(),
                             init_params(cfg, "cpu", seed=5))
+        proj = np.random.default_rng(7)
+        fan_in = {"wq": cfg.d_model, "wk": cfg.d_model, "wv": cfg.d_model,
+                  "wo": cfg.n_heads * cfg.hd}
+        attn = tree["blocks"]["attn"]
+        for k, n in fan_in.items():
+            attn[k] = (proj.standard_normal(attn[k].shape)
+                       / np.sqrt(n)).astype(np.float32)
     else:
         tree = jax.tree.map(np.asarray,
                             j_init_params(jcfg, jax.random.key(5)))

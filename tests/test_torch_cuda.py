@@ -1532,3 +1532,116 @@ def test_vlm_and_audio_card_equals_plain(cuda, arch):
             assert fa_ops.launches - before == launched
     for got, want in zip(*out):
         assert (got - want).abs().max().item() <= 1e-4
+
+
+# --- flash attention's backward and training on the card ---------------------
+
+def _bwd_inputs(device, B, S, T, H, KV, hd, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    f = lambda *s: torch.randn(s, generator=g).to(device, dtype)  # noqa: E731
+    return f(B, S, H, hd), f(B, T, KV, hd), f(B, T, KV, hd), f(B, S, H, hd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,H,KV,S,T,causal,window,q_offset", [
+    (64, 4, 4, 70, 70, True, 0, 0),          # G 1, a ragged row block
+    (128, 8, 2, 40, 97, True, 0, 57),        # G 4, a q_offset, ragged T
+    (64, 5, 1, 130, 130, True, 24, 0),       # G 5, a window
+    (80, 4, 2, 65, 150, False, 0, 0),        # hd 80, non-causal
+    (128, 8, 2, 33, 65, False, 0, 0)],       # a 1-key last block
+    ids=["g1", "g4-offset", "g5-window", "hd80-noncausal", "tail1"])
+def test_flash_backward_matches_plain(cuda, dtype, hd, H, KV, S, T, causal,
+                                      window, q_offset):
+    """dq, dk, dv from the backward kernel against ``attention_bwd_ref``
+    (fp32, from the same inputs, the forward kernel's o and lse): fp32
+    within 1e-4 of each gradient's max |value|, bf16 within 5e-3 (rounding
+    an output to bf16 moves it by up to 2^-8 of its value); lse within
+    1e-5 of
+    ``torch.logsumexp`` over the masked fp32 scores; the forward's out
+    the same bits with and without the lse store."""
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_lse_ref)
+    q, k, v, do = _bwd_inputs(cuda, 2, S, T, H, KV, hd, dtype, seed=hd + S)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o, lse, _ = fa_ops._forward(q, k, v, causal, window, q_offset,
+                                with_lse=True)
+    assert torch.equal(o, fa_ops.flash_attention_op(q, k, v, **kw))
+    t = lambda x: x.transpose(1, 2).float()  # noqa: E731
+    want_lse = attention_lse_ref(t(q), t(k), **kw)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-5)
+    before = fa_ops.bwd_launches
+    got = fa_ops.flash_attention_bwd_op(q, k, v, o, do, lse, **kw)
+    assert fa_ops.bwd_launches == before + 1
+    want = attention_bwd_ref(t(q), t(k), t(v), t(o), t(do), lse, **kw)
+    rel = 1e-4 if dtype == torch.float32 else 5e-3
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        w = w.transpose(1, 2)
+        assert a.dtype == dtype and a.shape == w.shape, name
+        err = (a.float() - w).abs().max().item()
+        assert err <= rel * w.abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+def test_flash_function_gradients_and_determinism(cuda):
+    """``flash_attention_op`` on inputs that require a gradient goes
+    through ``FlashAttention``: one forward and one backward launch, the
+    gradients the same bits on a second run (no atomics), and within
+    1e-4 of autograd through ``attention_ref`` in fp32."""
+    q, k, v, do = _bwd_inputs(cuda, 2, 96, 96, 8, 2, 64, torch.float32, 7)
+    runs = []
+    for _ in range(2):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        f0, b0 = fa_ops.launches, fa_ops.bwd_launches
+        out = fa_ops.flash_attention_op(*leaves, causal=True, window=32)
+        out.backward(do)
+        assert (fa_ops.launches - f0, fa_ops.bwd_launches - b0) == (1, 1)
+        runs.append([x.grad for x in leaves])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    t(attention_ref(*(t(x) for x in leaves), causal=True,
+                    window=32)).backward(do)
+    for a, x in zip(runs[0], leaves):
+        torch.testing.assert_close(a, x.grad, rtol=0,
+                                   atol=1e-4 * x.grad.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_flash_backward_refuses_what_it_does_not_take(cuda):
+    q, k, v, do = _bwd_inputs(cuda, 1, 16, 16, 2, 2, 64, torch.float32, 1)
+    o, lse, _ = fa_ops._forward(q, k, v, True, 0, 0, with_lse=True)
+    with pytest.raises(ValueError, match="do"):
+        fa_ops.flash_attention_bwd_op(q, k, v, o, do.bfloat16(), lse)
+    with pytest.raises(ValueError, match="lse"):
+        fa_ops.flash_attention_bwd_op(q, k, v, o, do, lse[:, :1])
+    q2, k2, v2, do2 = _bwd_inputs(cuda, 1, 16, 16, 2, 2, 48, torch.float32, 1)
+    with pytest.raises(ValueError, match="hd"):
+        fa_ops.flash_attention_bwd_op(q2, k2, v2, q2, do2, lse)
+
+
+@pytest.mark.cuda
+def test_fit_step_on_the_card(cuda, tmp_path):
+    """One ``fit`` step of the tiny llama on the card: finite loss and
+    gnorm, one flash forward and one backward launch per layer, a
+    checkpoint written; the first loss near ln(V) (random weights)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train.loop import TrainConfig, fit
+    from repro_torch.train.optimizer import OptConfig
+
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("llama3-8b")),
+                              n_layers=2, d_model=64, vocab=256)
+    dc = DataConfig(vocab=256, seq_len=32, global_batch=4, seed=7)
+    oc = OptConfig(lr=3e-3, warmup_steps=5, total_steps=60)
+    tc = TrainConfig(steps=1, ckpt_dir=str(tmp_path), log_every=1)
+    f0, b0 = fa_ops.launches, fa_ops.bwd_launches
+    m = fit(cfg, dc, oc, tc, log=lambda s: None, device=cuda)
+    assert (fa_ops.launches - f0, fa_ops.bwd_launches - b0) == (2, 2)
+    assert np.isfinite(m["loss"]) and np.isfinite(m["gnorm"])
+    assert abs(m["loss"] - np.log(256)) < 0.5, m
+    from repro_torch.ckpt.manager import CheckpointManager
+    assert CheckpointManager(str(tmp_path)).latest_step() == 1

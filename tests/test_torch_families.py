@@ -38,7 +38,7 @@ from repro_torch.models import (decode_step, forward, forward_chunk,
                                 init_chunk_buffers, init_params, moe)
 from repro_torch.models.kv_backend import DenseBackend, TieredBackend
 from repro_torch.serve.engine import Engine, EngineConfig
-from repro_torch.weights import from_jax_params
+from repro_torch.weights import from_jax_params, unit_fan_in
 
 GROUPS = {"qwen2-7b": 7, "qwen2-72b": 8, "codeqwen1.5-7b": 1,
           "granite-moe-3b-a800m": 3, "mixtral-8x22b": 6}
@@ -66,7 +66,7 @@ def _to_jax(tree):
 def _models(arch):
     jcfg, cfg = _cfgs(arch)
     params = init_params(cfg, "cpu", seed=3)
-    tree = jax.tree.map(lambda t: t.numpy(), params)
+    tree = unit_fan_in(jax.tree.map(lambda t: t.numpy(), params), cfg)
     if cfg.qkv_bias:
         rng = np.random.default_rng(4)
         for k in ("bq", "bk", "bv"):

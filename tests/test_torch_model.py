@@ -28,7 +28,7 @@ from repro_torch.models import (decode_step, forward, forward_chunk,
                                 init_chunk_buffers, init_params)
 from repro_torch.models.kv_backend import DenseBackend, TieredBackend
 from repro_torch.tiered import kvcache as tk
-from repro_torch.weights import from_jax_params
+from repro_torch.weights import from_jax_params, unit_fan_in
 
 B, MAX_LEN, PAGE, STEPS = 2, 64, 8, 24
 PREFILLS = ((0, 5), (1, 13), (0, 9))      # (lane, ctx len); third at step 12
@@ -184,13 +184,13 @@ def _chunk_starts(P, C):
 
 @functools.lru_cache(maxsize=1)
 def _port_seeded_models():
-    """The port's seeded weights (projections scaled by their contracted
-    fan-in) in both packages' layouts: the reference's ``dense_init``
-    scales q and k by sqrt(d/H) more, so its K rows reach ~14 and one
-    fp32 ulp there is ~1e-6."""
+    """The port's seeded weights with the projections rescaled to their
+    contracted fan-in (``unit_fan_in``) in both packages' layouts: at the
+    reference's ``dense_init`` scale, sqrt(d/H) larger for q and k, K
+    rows reach ~14 and one fp32 ulp there is ~1e-6."""
     jcfg = j_reduce(j_get_config("llama3-8b"))
     cfg = reduce_for_smoke(get_config("llama3-8b"))
-    params = init_params(cfg, "cpu", seed=2)
+    params = unit_fan_in(init_params(cfg, "cpu", seed=2), cfg)
     like = lambda t, x: {k: like(v, x[k]) for k, v in t.items()} \
         if isinstance(t, dict) else jnp.asarray(x.float().numpy())  # noqa
     jparams = like(j_init_params(jcfg, jax.random.key(0)), params)

@@ -6,8 +6,11 @@ point the reference gives them: ``init_params`` (leaf layout and dtypes),
 makes (the engine, the chunked forward, the tiered store, the launcher)
 and the device defaults of two state constructors.
 
-Both packages get the same weights: the port's seeded ``init_params``,
-in the reference's layout and dtypes, and back through
+Both packages get the same weights: the port's seeded ``init_params``
+with the projections rescaled to their contracted fan-in
+(``weights.unit_fan_in``: at the reference's scale the attention and the
+mLSTM are nearly one-hot and fp32 reassociation exceeds the
+tolerances), in the reference's layout and dtypes, and back through
 ``from_jax_params``.  hymba's smoke config has 4 layers (global on 0 and
 2), a 16-token window and state 8; xlstm's 4 layers (sLSTM on 3).
 Tolerances: logits within 1e-4 (fp32 reductions in another order, the
@@ -46,7 +49,8 @@ from repro_torch.models import (decode_step, forward, forward_chunk,
 from repro_torch.models.kv_backend import DenseBackend, TieredBackend
 from repro_torch.serve.engine import Engine, EngineConfig
 from repro_torch.tiered import kvcache as tk
-from repro_torch.weights import _expected_leaves, from_jax_params
+from repro_torch.weights import (_expected_leaves, from_jax_params,
+                                 unit_fan_in)
 
 ARCHS = ("hymba-1.5b", "xlstm-125m")
 ATOL, STATE_ATOL = 1e-4, 1e-5
@@ -75,7 +79,8 @@ def _leaves(tree, path=""):
 def _models(arch):
     jcfg, cfg = j_reduce(j_get_config(arch)), reduce_for_smoke(
         get_config(arch))
-    tree = jax.tree.map(lambda t: t.numpy(), init_params(cfg, "cpu", seed=3))
+    tree = unit_fan_in(jax.tree.map(lambda t: t.numpy(),
+                                    init_params(cfg, "cpu", seed=3)), cfg)
     return jcfg, _to_jax(tree), cfg, from_jax_params(tree, cfg, "cpu")
 
 
