@@ -155,10 +155,15 @@ prints no result line):
    = T = 2048), hubert's (hd 80, non-causal, B 4, S = T = 1500) and the
    vlm's cross-attention (S 512 over T = 1601, H 64/8), bf16 and fp32:
    each gradient within 1e-4 (fp32) or 5e-3 (bf16) of its max |value|,
-   lse within 1e-5, the forward's out bit for bit with and without the
-   lse store; kernel, plain, library and bound times.  (b) ``fit`` of
-   llama3-8b at published widths on 8 of its 32 layers (bf16, 4 x 1024
-   tokens, AdamW, 6 steps): launch counts set to 0 before and read
+   a second backward call equal to the first bit for bit, lse within
+   1e-5, the forward's out bit for bit with and without the lse store;
+   the library backward's error against the same reference printed
+   beside the kernel's; kernel, plain, library and bound times; and the
+   forward kernel checked and timed at the training shape (a row under
+   flash_attention's ``shapes``, with the training run's launches).
+   (b) ``fit`` of llama3-8b at published widths on 8 of its 32 layers
+   (bf16, 4 x 1024 tokens, AdamW, 6 steps): launch counts set to 0
+   before and read
    after, 8 flash forward and 8 backward launches a step; losses and
    gnorms finite; step ms, tokens/s, peak memory.  Resume, on 2 layers
    (a chip call may write 45 GiB to its disk; an 8-layer checkpoint is
@@ -176,8 +181,9 @@ the cached zero-copy server run's for irt_lookup (every launch of the
 walk, whose two entries share one body), irt_walk2 and
 paged_attention_split, the concat server run's for paged_attention, the
 chunked run's for flash_attention, the Figure 7 sweep's for sim_scan,
-phase 14's training run's for flash_attention_bwd; a row at another
-family's shape counts phase 11's, 12's or 13's run of that family),
+phase 14's training run's for flash_attention_bwd and for flash's row
+at the training shape; a row at another family's shape counts phase
+11's, 12's or 13's run of that family),
 the card's name and power limit as
 nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 """
@@ -198,14 +204,20 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
 # Each kernel's earlier device time (ms) at this script's shapes, before
-# the one-launch pass replay and the two-home walk, from PERF.md's table
-# (NVIDIA H100 80GB HBM3, 700 W); printed beside this run's.  The replay
-# and the two-home walk have none: each is printed beside the chain of
-# launches it replaces, timed in the same run.
+# the one-launch pass replay and the two-home walk, and the bf16 backward
+# before its tensor-core kernels (its CUDA-core body), from PERF.md's
+# table (NVIDIA H100 80GB HBM3, 700 W); printed beside this run's.  The replay and the
+# two-home walk have none: each is printed beside the chain of launches
+# it replaces, timed in the same run.
 EARLIER_MS = {"paged_attention_fused": 0.0318, "remap_gather": 0.0070,
               "irt_lookup": 0.0059, "paged_attention_split": 0.1361,
               "paged_attention": 0.1352, "flash_attention chunk": 0.0778,
-              "flash_attention one-shot": 0.2596}
+              "flash_attention one-shot": 0.2596,
+              "flash_attention_bwd bf16 at llama3-8b's shape": 7.121,
+              "flash_attention_bwd bf16 at hymba-1.5b's shape": 2.798,
+              "flash_attention_bwd bf16 at hubert-xlarge's shape": 7.023,
+              "flash_attention_bwd bf16 at llama-3.2-vision-90b's shape":
+                  10.487}
 
 
 def _fail(msg: str):
@@ -3567,13 +3579,15 @@ def _flash_bwd_case(torch, dev, label, B, S, T, H, KV, hd, causal, window,
     ``attention_bwd_ref`` (fp32 from the same inputs, o and lse): fp32
     within 1e-4 of each one's max |value|, bf16 within 5e-3 (rounding an
     output to bf16 moves it by up to 2^-8 of its value, 3.9e-3 of the
-    max).  Times: the kernel (median of 30, cold
-    L2), the plain version, and the library (``scaled_dot_product_
-    attention``'s forward and backward minus its forward, K/V repeated
-    over the group, the same mask); the bound: 2.5x the forward's
-    multiply-adds over the unmasked pairs at the type's peak (bf16 tensor
-    cores; fp32 outside them), against each input read and each gradient
-    written once."""
+    max); a second call equal to the first bit for bit (no atomics).  The
+    library's backward (below) is held against the same reference and
+    its error printed beside the kernel's, not gated.  Times: the kernel
+    (median of 30, cold L2), the plain version, and the library
+    (``scaled_dot_product_attention``'s forward and backward minus its
+    forward, K/V repeated over the group, the same mask); the bound: 2.5x
+    the forward's multiply-adds over the unmasked pairs at the type's peak
+    (bf16 tensor cores; fp32 outside them), against each input read and
+    each gradient written once."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -3597,23 +3611,13 @@ def _flash_bwd_case(torch, dev, label, B, S, T, H, KV, hd, causal, window,
     _check(math.isfinite(lse_err) and lse_err <= 1e-5,
            f"flash_attention {label} {name}: lse error {lse_err} > 1e-5")
     got = fa_ops.flash_attention_bwd_op(q, k, v, o, do, lse, **kw)
-    want = attention_bwd_ref(t(q), t(k), t(v), t(o), t(do), lse, **kw)
-    limit = 1e-4 if dtype == torch.float32 else 5e-3
-    errs, worst = [], 0.0
-    for gname, a, w in zip(("dq", "dk", "dv"), got, want):
-        w = w.transpose(1, 2)
-        e = (a.float() - w).abs().max().item()
-        rel = e / w.abs().max().item()
-        _check(math.isfinite(e) and rel <= limit,
-               f"flash_attention_bwd {label} {name}: {gname} error {e} is "
-               f"{rel:.2e} of its max (limit {limit})")
-        errs.append(f"{gname} {rel:.2e}")
-        worst = max(worst, e)
-    del got, want
-    ms = _time_ms(lambda: fa_ops.flash_attention_bwd_op(q, k, v, o, do, lse,
-                                                        **kw))
-    plain_ms = _time_ms(lambda: attention_bwd_ref(
-        t(q), t(k), t(v), t(o), t(do), lse, **kw), reps=5)
+    again = fa_ops.flash_attention_bwd_op(q, k, v, o, do, lse, **kw)
+    _check(all(torch.equal(a, b) for a, b in zip(got, again)),
+           f"flash_attention_bwd {label} {name}: a second call differs from "
+           f"the first")
+    del again
+    want = [w.transpose(1, 2) for w in attention_bwd_ref(
+        t(q), t(k), t(v), t(o), t(do), lse, **kw)]
     G = H // KV
     lq = q.transpose(1, 2).contiguous().requires_grad_(True)
     lk, lv = (x.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
@@ -3626,6 +3630,29 @@ def _flash_bwd_case(torch, dev, label, B, S, T, H, KV, hd, causal, window,
             (pos[None, :T] > pos[:S, None] - window)
     fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
         lq, lk, lv, attn_mask=mask, is_causal=causal and not window)
+    lq_g, lk_g, lv_g = torch.autograd.grad(fwd(), (lq, lk, lv), ldo)
+    lib = [lq_g.transpose(1, 2)] + [
+        x.float().reshape(B, KV, G, T, hd).sum(2).transpose(1, 2)
+        for x in (lk_g, lv_g)]
+    del lq_g, lk_g, lv_g
+    limit = 1e-4 if dtype == torch.float32 else 5e-3
+    errs, lib_errs, worst = [], [], 0.0
+    for gname, a, w, li in zip(("dq", "dk", "dv"), got, want, lib):
+        e = (a.float() - w).abs().max().item()
+        wmax = w.abs().max().item()
+        rel = e / wmax
+        _check(math.isfinite(e) and rel <= limit,
+               f"flash_attention_bwd {label} {name}: {gname} error {e} is "
+               f"{rel:.2e} of its max (limit {limit})")
+        errs.append(f"{gname} {rel:.2e}")
+        lib_rel = (li.float() - w).abs().max().item() / wmax
+        lib_errs.append(f"{gname} {lib_rel:.2e}")
+        worst = max(worst, e)
+    del got, want, lib
+    ms = _time_ms(lambda: fa_ops.flash_attention_bwd_op(q, k, v, o, do, lse,
+                                                        **kw))
+    plain_ms = _time_ms(lambda: attention_bwd_ref(
+        t(q), t(k), t(v), t(o), t(do), lse, **kw), reps=5)
     lib_ms = _time_ms(lambda: torch.autograd.grad(fwd(), (lq, lk, lv),
                                                   ldo)) - _time_ms(fwd)
     item = q.element_size()
@@ -3643,9 +3670,10 @@ def _flash_bwd_case(torch, dev, label, B, S, T, H, KV, hd, causal, window,
           f"S={S}, T={T}, H={H}/{KV}, hd={hd}, "
           f"{'causal' if causal else 'non-causal'}"
           f"{f', window {window}' if window else ''}): error/max "
-          f"{', '.join(errs)} (limit {limit}); lse max abs err "
-          f"{lse_err:.2e} (tol 1e-5); out with and without the lse store "
-          f"equal bit for bit; {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"{', '.join(errs)} (limit {limit}; the library's backward "
+          f"{', '.join(lib_errs)}); two calls equal bit for bit; lse max "
+          f"abs err {lse_err:.2e} (tol 1e-5); out with and without the lse "
+          f"store equal bit for bit; {ms:.4f} ms, plain {plain_ms:.3f} ms, "
           f"scaled_dot_product_attention backward {lib_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}), {ms / bound_ms:.1f}x the bound")
     print("kernel " + _vs_bound(f"flash_attention_bwd {name} at {label}'s "
@@ -3680,6 +3708,25 @@ def flash_bwd_rows(torch, dev):
     return row
 
 
+def flash_train_fwd_row(torch, dev, base):
+    """14(a): the forward kernel at the training run's shape
+    (``FLASH_BWD_CASES[0]``: B 4, S = T = 1024, H 32/8, hd 128, causal,
+    bf16), checked and timed as phase 3's rows are (``_flash_case``).
+    Returns its row for ``base``'s ``shapes``; its launches are the
+    training run's (``train_phase``)."""
+    arch, B, S, T, H, KV, hd, causal, window = FLASH_BWD_CASES[0]
+    g = torch.Generator(device=dev)
+    g.manual_seed(39)
+    r = lambda *s: torch.randn(s, generator=g, device=dev).to(  # noqa: E731
+        torch.bfloat16)
+    q, k, v = r(B, S, H, hd), r(B, T, KV, hd), r(B, T, KV, hd)
+    res = _flash_case(torch, dev, q, k, v, 0, f"one-shot at {arch}'s "
+                      f"training shape", window, causal)
+    shape = (f"training one-shot, B {B}, S {S}, q_offset 0, T {T}, H "
+             f"{H}/{KV}, hd {hd}, window {window}, bf16")
+    return _shape_row(base, arch, shape, **res)
+
+
 def _manifest_hashes(directory, step) -> dict:
     with open(Path(directory) / f"step_{step:08d}" / "manifest.json") as f:
         return {k: v["sha256"] for k, v in json.load(f)["leaves"].items()}
@@ -3706,7 +3753,8 @@ def train_run(torch, dev):
     and read just after: 8 flash forward and 8 backward launches a step,
     nothing else.  Every loss and gnorm finite.  Prints step ms (median of
     steps 2-6: the log line's ``float`` waits for each step), tokens/s,
-    peak memory and the loss by step.  Returns the backward's launches."""
+    peak memory and the loss by step.  Returns the forward's and the
+    backward's launches."""
     from repro_torch.train.loop import TrainConfig, fit
 
     pub, cfg, dc, oc = _train_configs()
@@ -3758,7 +3806,7 @@ def train_run(torch, dev):
           f"step); card {_card_line()}")
     gc.collect()
     torch.cuda.empty_cache()
-    return launches["flash_attention_bwd"]
+    return launches["flash_attention"], launches["flash_attention_bwd"]
 
 
 def train_resume(torch, dev, tmp):
@@ -3958,14 +4006,18 @@ def train_launcher():
 
 
 def train_phase(torch, dev, rows, launches):
-    """Phase 14: the backward's gates and times (row added to the kernels
+    """Phase 14: the forward at the training shape (a row under flash's
+    ``shapes``), the backward's gates and times (row added to the kernels
     line), the training run with resume, remat and the profile, and the
     launcher."""
     import tempfile
 
     t0 = time.perf_counter()
+    fwd_row = flash_train_fwd_row(torch, dev, rows["flash_attention"])
+    rows["flash_attention"]["shapes"].append(fwd_row)
     rows["flash_attention_bwd"] = flash_bwd_rows(torch, dev)
-    launches["flash_attention_bwd"] = train_run(torch, dev)
+    fwd_row["launches"], launches["flash_attention_bwd"] = train_run(torch,
+                                                                     dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         train_resume(torch, dev, Path(tmp))
     train_grads_vs_plain(torch, dev)

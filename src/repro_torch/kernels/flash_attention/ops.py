@@ -151,6 +151,9 @@ def flash_attention_bwd_op(q, k, v, o, do, lse, *, causal: bool = True,
         raise ValueError(f"flash_attention_bwd: lse must be [{B}, {H}, {S}] "
                          f"fp32")
     o, do, lse = o.contiguous(), do.contiguous(), lse.contiguous()
+    if q.data_ptr() % 16 or do.data_ptr() % 16:
+        raise ValueError("flash_attention_bwd: q and do must be 16-byte "
+                         "aligned (the kernel copies 16-byte rows of them)")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     rowdot = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     rc = _build.load("flash_attention_bwd", _bind_bwd)(

@@ -1549,8 +1549,13 @@ def _bwd_inputs(device, B, S, T, H, KV, hd, dtype, seed):
     (128, 8, 2, 40, 97, True, 0, 57),        # G 4, a q_offset, ragged T
     (64, 5, 1, 130, 130, True, 24, 0),       # G 5, a window
     (80, 4, 2, 65, 150, False, 0, 0),        # hd 80, non-causal
-    (128, 8, 2, 33, 65, False, 0, 0)],       # a 1-key last block
-    ids=["g1", "g4-offset", "g5-window", "hd80-noncausal", "tail1"])
+    (128, 8, 2, 33, 65, False, 0, 0),        # a 1-key last block
+    (128, 8, 2, 200, 200, True, 0, 0),       # G 4, 4 key blocks, ragged
+    (128, 8, 2, 150, 330, True, 0, 180),     # S < T, q_offset, 6 blocks
+    (16, 4, 2, 100, 100, True, 0, 0),        # hd 16
+    (32, 6, 3, 90, 90, True, 40, 0)],        # hd 32, a window
+    ids=["g1", "g4-offset", "g5-window", "hd80-noncausal", "tail1",
+         "g4-ragged-blocks", "offset-blocks", "hd16", "hd32-window"])
 def test_flash_backward_matches_plain(cuda, dtype, hd, H, KV, S, T, causal,
                                       window, q_offset):
     """dq, dk, dv from the backward kernel against ``attention_bwd_ref``
@@ -1583,12 +1588,15 @@ def test_flash_backward_matches_plain(cuda, dtype, hd, H, KV, S, T, causal,
 
 
 @pytest.mark.cuda
-def test_flash_function_gradients_and_determinism(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_function_gradients_and_determinism(cuda, dtype):
     """``flash_attention_op`` on inputs that require a gradient goes
     through ``FlashAttention``: one forward and one backward launch, the
-    gradients the same bits on a second run (no atomics), and within
-    1e-4 of autograd through ``attention_ref`` in fp32."""
-    q, k, v, do = _bwd_inputs(cuda, 2, 96, 96, 8, 2, 64, torch.float32, 7)
+    gradients the same bits on a second run (no atomics; in bf16 the
+    tensor-core kernels), and fp32 within 1e-4 of autograd through
+    ``attention_ref``, bf16 within 5e-3 of each gradient's max of
+    ``attention_bwd_ref`` (fp32, from the forward kernel's o and lse)."""
+    q, k, v, do = _bwd_inputs(cuda, 2, 96, 96, 8, 2, 64, dtype, 7)
     runs = []
     for _ in range(2):
         leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
@@ -1599,8 +1607,19 @@ def test_flash_function_gradients_and_determinism(cuda):
         runs.append([x.grad for x in leaves])
     for a, b in zip(*runs):
         assert torch.equal(a, b)
-    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     t = lambda x: x.transpose(1, 2)  # noqa: E731
+    if dtype == torch.bfloat16:
+        from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+        o, lse, _ = fa_ops._forward(q, k, v, True, 32, 0, with_lse=True)
+        want = attention_bwd_ref(*(t(x).float() for x in (q, k, v, o, do)),
+                                 lse, causal=True, window=32)
+        for a, w in zip(runs[0], want):
+            w = t(w)
+            assert a.dtype == dtype and a.shape == w.shape
+            err = (a.float() - w).abs().max().item()
+            assert err <= 5e-3 * w.abs().max().item(), err
+        return
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     t(attention_ref(*(t(x) for x in leaves), causal=True,
                     window=32)).backward(do)
     for a, x in zip(runs[0], leaves):
@@ -1616,6 +1635,9 @@ def test_flash_backward_refuses_what_it_does_not_take(cuda):
         fa_ops.flash_attention_bwd_op(q, k, v, o, do.bfloat16(), lse)
     with pytest.raises(ValueError, match="lse"):
         fa_ops.flash_attention_bwd_op(q, k, v, o, do, lse[:, :1])
+    do8 = torch.empty(do.numel() + 2, device=cuda)[2:].view(do.shape)
+    with pytest.raises(ValueError, match="q and do must be 16-byte"):
+        fa_ops.flash_attention_bwd_op(q, k, v, o, do8.copy_(do), lse)
     q2, k2, v2, do2 = _bwd_inputs(cuda, 1, 16, 16, 2, 2, 48, torch.float32, 1)
     with pytest.raises(ValueError, match="hd"):
         fa_ops.flash_attention_bwd_op(q2, k2, v2, q2, do2, lse)

@@ -503,3 +503,111 @@ def test_flash_emulated_chunk_rows_equal_one_shot_bitwise(q_offset):
     part = _flash_emulate(q[:, q_offset:q_offset + 64].contiguous(), k, v,
                           q_offset)
     assert torch.equal(part, full[:, q_offset:q_offset + 64])
+
+
+# ---------------------------------------------------------------------------
+# the numeric design of the tensor-core flash backward, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _terms(x, n):
+    """x as it enters a product: one bf16 term, or two (hi = bf16(x), lo
+    = bf16(x - hi), the kernels' split)."""
+    hi = _bf16(x)
+    return hi if n == 1 else hi + _bf16(x - hi)
+
+
+def _bwd_emu_inputs(S, T, H, KV, hd, seed):
+    """bf16 values (as fp32) of q, do [H,S,hd] and k, v [KV,T,hd] from a
+    numpy seed."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: _bf16(torch.from_numpy(  # noqa: E731
+        rng.normal(size=s).astype(np.float32)))
+    return f(H, S, hd), f(KV, T, hd), f(KV, T, hd), f(H, S, hd)
+
+
+def _flash_bwd_emulate(q, k, v, do, mask, p_terms=2, ds_terms=2):
+    """The bf16 backward kernels' rounding in plain torch: the forward's
+    o (bf16) and lse, fp32 S and dP from the bf16 inputs, P = exp(s -
+    lse) and 0 on masked pairs, dS = P (dP - D) with D from the bf16 o;
+    P enters dV = P^T dO, and dS enters dK = dS^T Q and dQ = dS K, as
+    ``p_terms`` and ``ds_terms`` bf16 terms; fp32 sums (dK and dV over
+    the G heads), the scale applied to the fp32 sums, outputs rounded to
+    bf16.  Returns the emulation's and ``attention_bwd_ref``'s (dq, dk,
+    dv) from the same o and lse, in the reference's layouts."""
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_lse_ref)
+    H, S, hd = q.shape
+    KV = k.shape[0]
+    G, scale = H // KV, hd ** -0.5
+    kw = dict(causal=mask["causal"], window=mask["window"],
+              q_offset=mask["q_offset"])
+    o = _bf16(attention_ref(q[None], k[None], v[None], **kw))
+    lse = attention_lse_ref(q[None], k[None], **kw)
+    want = attention_bwd_ref(q[None], k[None], v[None], o, do[None], lse,
+                             **kw)
+    pos = torch.arange(S)[:, None] + kw["q_offset"]
+    key = torch.arange(k.shape[1])[None]
+    ok = torch.ones(S, k.shape[1], dtype=torch.bool)
+    if kw["causal"]:
+        ok &= key <= pos
+    if kw["window"]:
+        ok &= key > pos - kw["window"]
+    dq = torch.empty(H, S, hd)
+    dk, dv = torch.zeros(KV, k.shape[1], hd), torch.zeros(KV, k.shape[1], hd)
+    for h in range(H):
+        kk, vv = k[h // G], v[h // G]
+        p = torch.where(ok, torch.exp(q[h] @ kk.T * scale - lse[0, h, :, None]),
+                        0.0)
+        dd = (do[h] * o[0, h]).sum(-1, keepdim=True)
+        ds = p * (do[h] @ vv.T - dd)
+        dv[h // G] += _terms(p, p_terms).T @ do[h]
+        dk[h // G] += _terms(ds, ds_terms).T @ q[h]
+        dq[h] = _terms(ds, ds_terms) @ kk
+    got = (_bf16(dq * scale), _bf16(dk * scale), _bf16(dv))
+    return got, tuple(w[0] for w in want)
+
+
+def _bwd_emu_worst(p_terms, ds_terms, S, T, H, KV, hd, seed, **mask):
+    """Each gradient's worst error as a share of its max |value|."""
+    args = _bwd_emu_inputs(S, T, H, KV, hd, seed)
+    got, want = _flash_bwd_emulate(*args, mask, p_terms, ds_terms)
+    return [((a - w).abs().max() / w.abs().max()).item()
+            for a, w in zip(got, want)]
+
+
+_BWD_EMU_CASES = {
+    "g4-causal": dict(S=128, T=128, H=8, KV=2, hd=128, causal=True,
+                      window=0, q_offset=0),
+    "offset": dict(S=64, T=192, H=4, KV=2, hd=64, causal=True, window=0,
+                   q_offset=128),
+    "window": dict(S=130, T=130, H=5, KV=1, hd=64, causal=True, window=24,
+                   q_offset=0),
+    "hd80-noncausal": dict(S=65, T=150, H=4, KV=2, hd=80, causal=False,
+                           window=0, q_offset=0),
+}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("case", sorted(_BWD_EMU_CASES))
+def test_flash_bwd_emulated_rounding_within_gate(case, seed):
+    """The backward kernels' numeric design (P and dS as two bf16 terms)
+    holds the card's gate: each bf16 gradient within 5e-3 of its max
+    |value| of ``attention_bwd_ref``."""
+    worst = _bwd_emu_worst(2, 2, seed=seed, **_BWD_EMU_CASES[case])
+    assert max(worst) <= 5e-3, worst
+
+
+@pytest.mark.parametrize("operand,seed", [("ds", 33), ("p", 173)])
+def test_flash_bwd_emulated_single_rounding_breaks_the_gate(operand, seed):
+    """Why P and dS take two bf16 terms: rounded once, either breaks the
+    5e-3 gate on some inputs (dS: dq and dk, P: dv), where the two-term
+    design holds it."""
+    case = _BWD_EMU_CASES["hd80-noncausal"]
+    p_terms, ds_terms = (1, 2) if operand == "p" else (2, 1)
+    once = _bwd_emu_worst(p_terms, ds_terms, seed=seed, **case)
+    assert max(once) > 5e-3, once
+    assert max(_bwd_emu_worst(2, 2, seed=seed, **case)) <= 5e-3
