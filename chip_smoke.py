@@ -91,9 +91,15 @@ prints no result line):
    ``run_many`` launch each, launch counts reset before and read after,
    counters equal to the JAX reference's
    (``tests/golden/sim_fig7_counters.json``), wall ms and ns per access
-   cold and warm, the headline ratios; (d) the plain loop's time per
-   access step beside the kernel's, and the kernels line's call
-   (Trimma-C's first 512 accesses of the sweep, kernel and plain loop).
+   cold and warm, each scheme's warm ms beside its time before the
+   kernel's redesign (a constant), the headline ratios; (d) the plain
+   loop's time per access step beside the kernel's, and the kernels
+   line's call (Trimma-C's first 512 accesses of the sweep, kernel and
+   plain loop), with the chain's yardstick measured in the same call
+   (``sim_scan_chase``: one dependent shared-memory load, one through
+   L2): the row's bound is the larger of its chain bound (512 accesses x
+   one shared-memory load, ``bound_by`` "operations") and its bytes
+   bound, both printed and both in the row.
 11. the other families at full width: qwen2-7b (random non-zero QKV
    biases) and granite-moe-3b at their published widths and depths,
    seeded weights made on the card, served by the tiered engine on phase
@@ -217,7 +223,8 @@ EARLIER_MS = {"paged_attention_fused": 0.0318, "remap_gather": 0.0070,
               "flash_attention_bwd bf16 at hymba-1.5b's shape": 2.798,
               "flash_attention_bwd bf16 at hubert-xlarge's shape": 7.023,
               "flash_attention_bwd bf16 at llama-3.2-vision-90b's shape":
-                  10.487}
+                  10.487,
+              "sim_scan": 1.1069}
 
 
 def _fail(msg: str):
@@ -2155,6 +2162,12 @@ SIM_CHECK_WLS = ("pr", "xz", "lbm", "ycsb_a")
 # the kernels line's call: the first accesses of Trimma-C's sweep, kernel
 # and plain loop over the same range of the same full-size inputs
 SIM_ROW_SCHEME, SIM_ROW_LEN = "trimma_c", 512
+# each scheme's warm run_many wall ms of the sweep before the kernel's
+# redesign (PERF.md, NVIDIA H100 80GB HBM3, 700 W); printed beside this
+# run's
+SIM_SWEEP_EARLIER_MS = {"trimma_c": 100.4, "linear_c": 73.9,
+                        "trimma_f": 71.2, "mempod": 63.9, "ideal_c": 41.7,
+                        "ideal_f": 31.7, "alloy": 24.2, "lohhill": 24.0}
 
 
 def _sim_golden_configs(P):
@@ -2367,14 +2380,19 @@ def sim_phase(torch, dev):
           f"calls; traces generated in {gen_s:.2f} s")
     for name in cfgs:
         cold, warm = wall[name]
+        was = SIM_SWEEP_EARLIER_MS[name]
         print(f"sim (c): {name}: run_many wall {cold:.1f} ms cold, "
               f"{warm:.1f} ms warm; {1e6 * cold / n_sweep:.1f} / "
-              f"{1e6 * warm / n_sweep:.1f} ns per access")
+              f"{1e6 * warm / n_sweep:.1f} ns per access; warm against "
+              f"{was} ms before the redesign (PERF.md constant, "
+              f"{was / warm:.2f}x)")
     tot_c = sum(v[0] for v in wall.values())
     tot_w = sum(v[1] for v in wall.values())
+    was = sum(SIM_SWEEP_EARLIER_MS.values())
     print(f"sim (c): all {len(cfgs)} schemes {tot_c:.1f} ms cold, "
           f"{tot_w:.1f} ms warm; {1e6 * tot_w / (n_sweep * len(cfgs)):.1f} "
-          f"ns per access warm; card {_card_line()}")
+          f"ns per access warm; warm against {was:.1f} ms before the "
+          f"redesign ({was / tot_w:.2f}x); card {_card_line()}")
     r = results
     alloy_c = _geomean([a["t_total"] / t["t_total"]
                         for a, t in zip(r["alloy"], r["trimma_c"])])
@@ -2415,7 +2433,26 @@ def sim_phase(torch, dev):
         np, {k: v.cpu().numpy() for k, v in fresh.items()},
         {k: v.cpu().numpy() for k, v in kern.items()},
         blocks[:, :SIM_ROW_LEN], cfg.n_phys)
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    # the chain: every access reads a word the access before it wrote, so
+    # a trace's accesses take at least one dependent shared-memory load
+    # each, one after another (the traces run side by side)
+    t_smem = ss_ops.sim_scan_chase_op("smem", dev)
+    t_l2 = ss_ops.sim_scan_chase_op("l2", dev)
+    chain_ms = SIM_ROW_LEN * t_smem["ns"] * 1e-6
+    l2_trips = 1e6 * ms / SIM_ROW_LEN / t_l2["ns"]
+    bound_ms = max(chain_ms, bytes_ms)
+    bound_by = "operations" if chain_ms >= bytes_ms else "bytes"
+    print(f"sim (d): the chain's yardstick (sim_scan_chase, this call): one "
+          f"dependent shared-memory load {t_smem['ns']:.2f} ns "
+          f"({t_smem['cycles']:.1f} SM cycles), one dependent load through "
+          f"L2 over a 256 KB row {t_l2['ns']:.2f} ns ({t_l2['cycles']:.1f} "
+          f"cycles); the row's chain bound {SIM_ROW_LEN} x "
+          f"{t_smem['ns']:.2f} ns = {chain_ms:.6f} ms beside its bytes bound "
+          f"{bytes_ms:.6f} ms: bound {bound_ms:.6f} ms by the "
+          f"{'chain' if bound_by == 'operations' else 'bytes'}; the kernel "
+          f"{ms / chain_ms:.1f}x the chain, {l2_trips:.2f} L2 round "
+          f"trips' time an access step")
     acc = b.shape[0] * SIM_ROW_LEN
     print(f"sim (d): plain loop on the card {p_ms / n_acc:.3f} ms per "
           f"access step ({len(SIM_CHECK_WLS)} traces at once; kernel "
@@ -2426,8 +2463,8 @@ def sim_phase(torch, dev):
           f"kernel {ms:.4f} ms (CUDA events, state reset outside the "
           f"window), plain {plain_ms:.1f} ms, {plain_ms / ms:.0f}x; "
           f"{1e6 * ms / SIM_ROW_LEN:.0f} ns per access step, "
-          f"{1e6 * ms / acc:.1f} ns per access; bound {bound_ms:.6f} ms, "
-          f"{nbytes} B this range needs ({parts}); "
+          f"{1e6 * ms / acc:.1f} ns per access; bytes bound "
+          f"{bytes_ms:.6f} ms, {nbytes} B this range needs ({parts}); "
           f"{_vs_bound('sim_scan', ms, bound_ms, nbytes=nbytes)}; phase 10 "
           f"took {time.perf_counter() - t_phase:.1f} s")
     row = dict(name="sim_scan", route="cuda",
@@ -2435,7 +2472,9 @@ def sim_phase(torch, dev):
                replaces="src/repro/core/simulator.py:442 (jax.lax.scan; "
                         "no Pallas kernel)",
                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-               bound_by="bytes", library_ms=None)
+               bound_by=bound_by, library_ms=None, chain_bound_ms=chain_ms,
+               bytes_bound_ms=bytes_ms, t_smem_ns=t_smem["ns"],
+               t_l2_ns=t_l2["ns"])
     return row, launches
 
 

@@ -5,9 +5,15 @@ updating the batched simulator state in place.
 Tensors on the CPU go to the plain version (``ref.sim_scan_ref``: a
 Python loop of the batch-first step); tensors on a card launch the
 hand-written kernel (``csrc/sim_scan.cu``: one thread block per trace,
-the whole range of accesses inside one launch) or raise on what it does
-not take.  ``launches`` counts the kernel's launches (reset by
-assignment).
+the whole range of accesses inside one launch; warp 0 runs the accesses
+with the next 32 accesses' trace words, remap entries, tracker words and
+sector vectors in registers, patched by every store, so no access waits
+on device memory) or raise on what it does not take.  ``launches``
+counts the kernel's launches (reset by assignment).
+
+``sim_scan_chase_op`` measures the yardstick of the kernel's dependent
+chain, the latency of one dependent load in shared memory and through
+L2; ``chip_smoke.py`` and a card test call it, the simulator never does.
 """
 
 from __future__ import annotations
@@ -51,17 +57,19 @@ _TRACKERS = {"touch": 0, "mea": 1, "recency": 2}
 
 
 def _bind(lib):
-    vp = ctypes.c_void_p
+    vp, ci = ctypes.c_void_p, ctypes.c_int
     for name in ("sim_scan_remap", "sim_scan_tagmatch"):
         fn = getattr(lib, name)
         fn.argtypes = [vp, vp]
-        fn.restype = ctypes.c_int
+        fn.restype = ci
+    lib.sim_scan_chase.argtypes = [vp, ci, ci, ci, ci, vp, vp]
+    lib.sim_scan_chase.restype = ci
     lib.sim_scan_n_args.argtypes = []
-    lib.sim_scan_n_args.restype = ctypes.c_int
+    lib.sim_scan_n_args.restype = ci
     if lib.sim_scan_n_args() != len(_ARGS):
         raise RuntimeError("sim_scan: the library's argument vector does "
                            "not match the wrapper's")
-    return lib.sim_scan_remap, lib.sim_scan_tagmatch
+    return lib.sim_scan_remap, lib.sim_scan_tagmatch, lib.sim_scan_chase
 
 
 def is_tagmatch(cfg) -> bool:
@@ -169,10 +177,44 @@ def sim_scan_op(cfg, timing, state: dict, blocks, writes, deallocs,
         if key in args:
             args[key] = t.data_ptr()
     vec = (ctypes.c_int64 * len(_ARGS))(*[int(args[k]) for k in _ARGS])
-    remap_entry, tagmatch_entry = _build.load("sim_scan", _bind)
+    remap_entry, tagmatch_entry, _ = _build.load("sim_scan", _bind)
     entry = tagmatch_entry if is_tagmatch(cfg) else remap_entry
     rc = entry(ctypes.cast(vec, ctypes.c_void_p), _build.stream_ptr(dev))
     if rc != 0:
         raise RuntimeError(f"sim_scan launch failed: cudaError {rc}")
     launches += 1
     return state
+
+
+# the chase's cycles: shared memory (16 KB), and one remap row (256 KB)
+CHASE_WORDS = {"smem": 4096, "l2": 65536}
+_CHASE_KINDS = {"smem": 0, "l2": 1}
+CHASE_STEPS = 1 << 16
+
+
+def sim_scan_chase_op(kind: str, device) -> dict:
+    """The latency of one dependent load on the card: one thread follows
+    a random cycle (seed 0) of ``CHASE_WORDS[kind]`` int32 words, in
+    shared memory (``"smem"``) or in device memory through L2 (``"l2"``,
+    loads that bypass L1), once round untimed and then ``CHASE_STEPS``
+    hops.  Returns ``{"ns": ..., "cycles": ...}`` per hop.  The yardstick
+    of the scan's dependent chain: called by ``chip_smoke.py`` and a card
+    test, never by ``run`` / ``run_many``; it synchronises to read its
+    result."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"sim_scan_chase: needs a card, got {dev}")
+    n = CHASE_WORDS[kind]
+    order = torch.randperm(n, generator=torch.Generator().manual_seed(0))
+    nxt = torch.empty(n, dtype=torch.int32)
+    nxt[order] = order.roll(-1).to(torch.int32)    # one cycle through all n
+    nxt = nxt.to(dev)
+    out = torch.zeros(3, dtype=torch.int64, device=dev)
+    *_, chase = _build.load("sim_scan", _bind)
+    rc = chase(ctypes.c_void_p(nxt.data_ptr()), n, _CHASE_KINDS[kind], n,
+               CHASE_STEPS, ctypes.c_void_p(out.data_ptr()),
+               _build.stream_ptr(dev))
+    if rc != 0:
+        raise RuntimeError(f"sim_scan_chase launch failed: cudaError {rc}")
+    cycles, ns, _ = out.tolist()
+    return {"ns": ns / CHASE_STEPS, "cycles": cycles / CHASE_STEPS}

@@ -21,6 +21,7 @@ from repro_torch.kernels.remap_gather import ops as rg_ops
 from repro_torch.kernels.remap_gather.ref import (FAST_TO_SLOW, SLOW_TO_FAST,
                                                   remap_gather_ref,
                                                   remap_replay_ref)
+import sim_hazards as hz
 
 
 @pytest.fixture
@@ -1170,6 +1171,140 @@ def test_sim_scan_rejects_what_it_does_not_take(cuda):
                            b, w, d)
     with pytest.raises(ValueError, match="range"):
         ss_ops.sim_scan_op(cfg, HBM3_DDR5, st, b, w, d, 10, 5)
+
+
+# the hazard traces of tests/sim_hazards.py: the kernel keeps 32 accesses'
+# state in registers, patched by every store and reloaded at every tick
+
+def _hazard_run(cuda, case, ranges, **trace_kw):
+    """The kernel over ``ranges`` (one launch each) and the plain loop over
+    the whole trace, from the same fresh state: (kernel state, plain
+    state, launches)."""
+    from repro_torch.core import HBM3_DDR5
+    from repro_torch.kernels.sim_scan import ops as ss_ops
+    from repro_torch.kernels.sim_scan.ref import sim_scan_ref
+    cfg = hz.config(case)
+    blocks, writes, deallocs, _ = hz.trace(case, **trace_kw)
+    b, w, d = (torch.as_tensor(x, device=cuda)
+               for x in (blocks, writes, deallocs))
+    kern = _sim_state(cfg, b.shape[0], cuda)
+    plain = {k: v.clone() for k, v in kern.items()}
+    before = ss_ops.launches
+    for start, end in ranges:
+        ss_ops.sim_scan_op(cfg, HBM3_DDR5, kern, b, w, d, start, end)
+    sim_scan_ref(cfg, HBM3_DDR5, plain, b, w, d)
+    torch.cuda.synchronize()
+    return kern, plain, ss_ops.launches - before
+
+
+def _assert_states_equal(kern, plain):
+    for k in plain:
+        assert torch.equal(kern[k], plain[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", hz.cases(), ids=lambda c: c[0])
+def test_sim_hazard_kernel_matches_plain(cuda, case):
+    """Every key of the end state equal to the plain loop's, two traces
+    of 256 accesses in one launch."""
+    kern, plain, n = _hazard_run(cuda, case, [(0, hz.LENGTH)])
+    assert n == 1
+    _assert_states_equal(kern, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["swap_fb_next/trimma_f",
+                                   "sector_next/trimma_c", "tick0/topk",
+                                   "dealloc/trimma_f"])
+def test_sim_hazard_ranges_split_inside_a_batch(cuda, label):
+    """[0, 1), [1, 33), [33, 250) in three launches (250 % 32 != 0; each
+    split falls inside a batch of the launch before) == the plain loop
+    over [0, 250)."""
+    kern, plain, n = _hazard_run(cuda, hz.case(label),
+                                 [(0, 1), (1, 33), (33, 250)], length=250)
+    assert n == 3
+    _assert_states_equal(kern, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_traces", [1, 133])
+@pytest.mark.parametrize("label", ["repeat/trimma_c", "tick1/mea",
+                                   "dealloc/trimma_c"])
+def test_sim_hazard_trace_counts(cuda, label, n_traces):
+    """One trace, and 133 (more blocks than the card has SMs)."""
+    kern, plain, n = _hazard_run(cuda, hz.case(label), [(0, hz.LENGTH)],
+                                 n_traces=n_traces, seed=n_traces)
+    assert n == 1 and kern["counters"].shape[0] == n_traces
+    _assert_states_equal(kern, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["sector_next/trimma_f", "tick2/recency",
+                                   "repeat/linear_c"])
+def test_sim_hazard_two_launches_equal(cuda, label):
+    """Two launches from the same state give the same state bit for
+    bit."""
+    one, _, _ = _hazard_run(cuda, hz.case(label), [(0, hz.LENGTH)])
+    two, _, _ = _hazard_run(cuda, hz.case(label), [(0, hz.LENGTH)])
+    _assert_states_equal(one, two)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["on_demand", "threshold", "mea"])
+@pytest.mark.parametrize("mode", ["cache", "flat"])
+@pytest.mark.parametrize("rc", ["irc", "conventional", "none", "ideal"])
+def test_sim_scan_every_kernel_variant(cuda, rc, mode, preset):
+    """Each compiled variant of the remap-table kernel (remap-cache kind x
+    mode x policy kind: untracked, the touch tracker with a threshold,
+    any other tracker) equals the plain loop in every state key."""
+    from repro_torch import core as P
+    from repro_torch.core import HBM3_DDR5
+    from repro_torch.kernels.sim_scan import ops as ss_ops
+    from repro_torch.kernels.sim_scan.ref import sim_scan_ref
+    # threshold 2 keeps the touch tracker in cache mode too
+    over = dict(install_threshold=2) if preset == "threshold" else {}
+    cfg = P.SimConfig(**SIM_GEOM, mode=mode, meta="irt", remap_cache=rc,
+                      policy=P.get_policy(preset, decay_shift=3, **over)
+                      ).validate()
+    bs, ws = [], []
+    for wl in ("pr", "xz"):
+        b, w = P.generate_trace(P.WORKLOADS[wl], cfg.slow_blocks, 160, 2)
+        bs.append(P.relabel_first_touch(b) if mode == "flat" else b)
+        ws.append(w)
+    b = torch.as_tensor(np.stack(bs).astype(np.int32), device=cuda)
+    w = torch.as_tensor(np.stack(ws), device=cuda)
+    d = torch.zeros_like(w)
+    kern = _sim_state(cfg, 2, cuda)
+    plain = {k: v.clone() for k, v in kern.items()}
+    ss_ops.sim_scan_op(cfg, HBM3_DDR5, kern, b, w, d)
+    sim_scan_ref(cfg, HBM3_DDR5, plain, b, w, d)
+    torch.cuda.synchronize()
+    _assert_states_equal(kern, plain)
+
+
+@pytest.mark.cuda
+def test_sim_scan_chase_orders_the_latencies(cuda):
+    """The chain's yardstick: a dependent shared-memory load is faster
+    than a dependent load through L2, and both take time."""
+    from repro_torch.kernels.sim_scan import ops as ss_ops
+    smem = ss_ops.sim_scan_chase_op("smem", cuda)
+    l2 = ss_ops.sim_scan_chase_op("l2", cuda)
+    assert 0 < smem["ns"] < l2["ns"]
+    assert 0 < smem["cycles"] < l2["cycles"]
+
+
+@pytest.mark.cuda
+def test_sim_scan_builds_without_spills(cuda):
+    """ptxas (``-Xptxas -v``) reports no spills for any entry of the
+    library (one compiled body serves every case above)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.sim_scan import ops as ss_ops
+    _build.load("sim_scan", ss_ops._bind)
+    lines = [ln for ln in _build.build_log("sim_scan").splitlines()
+             if "spill" in ln]
+    assert len(lines) >= 3
+    for ln in lines:
+        assert "0 bytes spill stores, 0 bytes spill loads" in ln, ln
 
 
 # ---------------------------------------------------------------------------
