@@ -37,10 +37,13 @@ prints no result line):
    qwen2-7b's stacked pools (32 and 28 layers).
 4. main path: llama3-8b at its published width (32 layers, bf16, seeded
    random weights made on the card) served by the tiered engine (its
-   one-shot prefill runs the flash kernel); launch counts are reset just
-   before the run and read just after, one copy-engine launch per
-   maintenance pass; tokens/s, step times and the wall time by engine
-   phase.
+   one-shot prefill runs the flash kernel; its decode step per live-page
+   bucket, maintenance plan and apply replay CUDA graphs captured at
+   their first call); launch counts are reset just before the run and
+   read just after (the wrappers book a replay's launches), one
+   copy-engine launch per maintenance pass; tokens/s, step times and the
+   wall time by engine phase, timed around the engine's own step, plan
+   and apply.
 5. dense against tiered at full width (2 layers, fp32, teacher-forced,
    maintenance running): logits within 1e-3.  ``init_params`` scales the
    attention projections as the reference does (fan-in ``shape[-2]``),
@@ -57,7 +60,10 @@ prints no result line):
    the kernel launches of one more zero-copy pass counted by the
    profiler); zero-copy equal to concat bit for bit on every live lane at
    every step, the cached path served from the device table, a zero-copy
-   step with no host wait.
+   step with no host wait.  Each path runs eager (``graphs=False``) and
+   captured (its step and ``maintain()`` replayed as CUDA graphs): every
+   output, the counters and launch counts equal bit for bit; steps/s of
+   both; a captured pass is one ``cudaGraphLaunch``.
 7. chunked prefill + multi-tenant QoS at full width: phase 4's weights
    served by ``Engine(scheduler="chunked", prefill_chunk=256, tenants=
    (interactive: weight 2, on-demand; batch: weight 1))``, 16 requests of
@@ -77,9 +83,11 @@ prints no result line):
    counts reset before each run and read after; equal tokens and
    counters, demotions counted and flight-recorded, the ring's kinds
    equal to what the counters imply, the exposition and trace parsed,
-   the endpoints answering 200; tokens/s, ms per engine step, launches
-   per loop iteration, host waits per step and maintenance ms per pass,
-   off against on.
+   the endpoints answering 200; tokens/s, ms per engine step, launch
+   calls per loop iteration (``cudaLaunchKernel`` and
+   ``cudaGraphLaunch``), host waits per step and maintenance ms per
+   pass, off against on (with the flight recorder on, the apply runs
+   eagerly).
 10. the paper-evaluation simulator: (a) the kernel (``sim_scan``, every
    access of every trace of a sweep in one launch) reproduces
    ``tests/golden/sim_counters.json`` for its 7 schemes; (b) kernel ==
@@ -106,8 +114,10 @@ prints no result line):
    4's store with phase 4's first 8 requests: every request finished and
    released to identity, launch counts as in phase 4; tokens/s, ms per
    decode step, maintenance ms per pass, the kernel launches and device
-   time of a decode step (``torch.profiler``), launches per kind and,
-   for granite, the routed choices dropped for capacity; each then dense
+   time of a decode step (``torch.profiler``: host launch calls, kernels
+   or graphs), launches per kind and, for granite, the routed choices
+   dropped for capacity (counted on the card, so replays count); each
+   then dense
    against tiered on 2 layers in fp32 as phase 5.  mixtral-8x22b at full
    width on 2 of its 56 layers, fp32, dense backend: a 4,600-token
    prompt through flash with the 4096-token window, 16 teacher-forced
@@ -179,6 +189,23 @@ prints no result line):
    attention (autograd), 2 layers, fp32.  Remat full against none; a
    profiled step's launches and idle share.  (c) the
    training launcher as a subprocess, exit code 0.
+15. the compiled serving steps (runs right after phase 4, before any
+   ``torch.profiler`` session): (a) phase 4's workload served by two
+   engines, eager (``graphs=False``) and captured
+   (``serve.decode.StepGraphs``: the decode step per live-page bucket,
+   the plan, the apply), in two interleaved pairs, eager then captured,
+   twice: the first pair times the engine's step, plan and apply
+   synchronised, the second runs clean; (b) phase 7's chunked +
+   two-tenant run and (c) granite-moe-3b on phase 11's store, eager
+   against captured; (d) a third pair of (a)'s engines with a profiled
+   window of loop iterations.  Gates, every run: token streams,
+   counters, the wrappers' launch counts and every state leaf equal bit
+   for bit; (a)'s captured engine captures nothing after its first run
+   and decodes the same tokens every run.  Prints, eager and captured,
+   tokens/s, decode step p50 and p90, maintenance ms a pass,
+   ``cudaLaunchKernel`` and ``cudaGraphLaunch`` calls, device ops and
+   busy ms a loop iteration, the device's idle share, capture seconds
+   per key and the graph pool's bytes.
 
 Output, in order: phase lines, one JSON ``kernels`` line (launches: the
 main path's for paged_attention_fused, remap_gather (every launch of the
@@ -1223,11 +1250,9 @@ def main_path_phase(torch, dev, cfg, params):
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.remap_gather import ops as rg_ops
-    from repro_torch.serve import engine as eng_mod
 
     eng = main_path_engine(torch, dev, cfg, params)
     spent: dict = {}              # phase -> host ms of each synchronised call
-    real = eng_mod.decode_step
 
     def timed(phase, fn):
         def run(*a, **kw):
@@ -1240,23 +1265,21 @@ def main_path_phase(torch, dev, cfg, params):
             return out
         return run
 
-    eng_mod.decode_step = timed("decode step", real)
+    # the engine's own step, plan and apply (captured graphs, replayed)
+    eng._decode = timed("decode step", eng._decode)
     eng.prefill_lane = timed("prefill", eng.prefill_lane)
+    eng._plan = timed("maintenance plan", eng._plan)
+    eng._apply = timed("maintenance apply", eng._apply)
     be = eng.backend
-    be.plan_maintain = timed("maintenance plan", be.plan_maintain)
-    be.apply_maintain = timed("maintenance apply", be.apply_maintain)
     be.release = timed("release", be.release)
     torch.cuda.reset_peak_memory_stats()
     pa_ops.launches = 0
     rg_ops.launches = rg_ops.replay_launches = 0
     fa_ops.launches = 0
-    try:
-        t0 = time.perf_counter()
-        done = eng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        eng_mod.decode_step = real
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launches = {"paged_attention_fused": pa_ops.launches,
                 "remap_gather": rg_ops.launches,
                 "remap_replay": rg_ops.replay_launches}
@@ -1301,12 +1324,15 @@ def main_path_phase(torch, dev, cfg, params):
           f"submitted at once)")
     print(f"main: launches {json.dumps(launches)} (one replay per "
           f"maintenance pass, {passes} passes); flash_attention "
-          f"{prefill_flash} (the one-shot prefills)")
+          f"{prefill_flash} (the one-shot prefills); captured steps "
+          f"{sorted(map(str, eng.graphs.graphs))}, graph pool "
+          f"{eng.graphs.pool_bytes / 2**20:.1f} MiB")
     totals = {k: v for k, v in c.items() if not k.startswith("epoch_")}
     print(f"main: counters {json.dumps(totals)}")
     print(f"main: peak device memory {peak / 2**30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated)")
     del eng
+    gc.collect()              # engines hold cycles (scheduler, wrappers)
     torch.cuda.empty_cache()
     return launches
 
@@ -1345,6 +1371,7 @@ def dense_tiered_phase(torch, dev, arch="llama3-8b"):
     _check(math.isfinite(worst) and worst <= 1e-3,
            f"{arch}: dense vs tiered logits differ by {worst} > 1e-3")
     del params
+    gc.collect()              # engines hold cycles (scheduler, wrappers)
     torch.cuda.empty_cache()
 
 
@@ -1433,11 +1460,11 @@ def server_inputs(torch, dev):
                 k=r(SERVER_STEPS, B, KV, hd), v=r(SERVER_STEPS, B, KV, hd))
 
 
-def make_server(torch, dev, tcfg, path):
+def make_server(torch, dev, tcfg, path, graphs=None):
     """A ``TieredServer`` whose slow pools hold seeded bytes (the same for
-    every path)."""
+    every path); ``graphs`` False: the eager steps."""
     from repro_torch.serve.engine import TieredServer
-    srv = TieredServer(tcfg, path=path, device=dev)
+    srv = TieredServer(tcfg, path=path, device=dev, graphs=graphs)
     g = torch.Generator(device=dev)
     g.manual_seed(5)
     for pool in (srv.state.slow_k, srv.state.slow_v):
@@ -1445,13 +1472,31 @@ def make_server(torch, dev, tcfg, path):
     return srv
 
 
+def _launch_calls(prof) -> dict:
+    """The host's runtime calls that launch work in a profiled window
+    (``cudaLaunchKernel`` and its variants; ``cudaGraphLaunch``) and the
+    kernels and copies the device ran, with their device ms."""
+    from torch.autograd import DeviceType
+    keys = prof.key_averages()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+    return {"kernel_launches": sum(e.count for e in keys
+                                   if "LaunchKernel" in e.key),
+            "graph_launches": sum(e.count for e in keys
+                                  if "GraphLaunch" in e.key),
+            "device_ops": len(dev_events),
+            "device_ms": sum(e.time_range.elapsed_us()
+                             for e in dev_events) / 1e3}
+
+
 def server_run(torch, dev, path, cached, inputs, *, check_waits=False,
-               count_pass=False):
+               count_pass=False, graphs=None):
     """One ``TieredServer`` run over the seeded inputs: 64 steps,
     ``maintain()`` every 4 steps, lane 0 released before step 32 and
-    restarted at position 0.  Launch counts are reset just before the run
-    and read just after.  ``count_pass``: after the run, one more
-    ``maintain()`` under the profiler, counting its kernel launches."""
+    restarted at position 0; captured steps unless ``graphs`` is False.
+    Launch counts are reset just before the run and read just after.
+    ``count_pass``: after the run, one more ``maintain()`` under the
+    profiler, counting the host's launch calls and the device's ops."""
     import dataclasses as dc
 
     from repro_torch.core.remap.irt import INVALID
@@ -1462,7 +1507,7 @@ def server_run(torch, dev, path, cached, inputs, *, check_waits=False,
     tcfg = dc.replace(inputs["tcfg"], cache_device_table=cached)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
-    srv = make_server(torch, dev, tcfg, path)
+    srv = make_server(torch, dev, tcfg, path, graphs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()        # after the seeding's temps
     pos = inputs["pos0"].clone()
@@ -1495,7 +1540,8 @@ def server_run(torch, dev, path, cached, inputs, *, check_waits=False,
                            pos)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - s) * 1e3)
-        outs.append(out.reshape(inputs["q"][i].shape))
+        # a captured step's output is its graph's buffer: keep a copy
+        outs.append(out.reshape(inputs["q"][i].shape).clone())
         pos = torch.where(pos >= 0, pos + 1, pos)
         if i % 4 == 3:
             s = time.perf_counter()
@@ -1519,8 +1565,7 @@ def server_run(torch, dev, path, cached, inputs, *, check_waits=False,
                                  ProfilerActivity.CUDA]) as prof:
             srv.maintain()
             torch.cuda.synchronize()
-        pass_launches = sum(1 for e in prof.events()
-                            if "LaunchKernel" in e.name)
+        pass_launches = _launch_calls(prof)
     pool_bytes = sum(getattr(srv.state, f).numel()
                      * getattr(srv.state, f).element_size()
                      for f in ("fast_k", "fast_v", "slow_k", "slow_v"))
@@ -1531,8 +1576,11 @@ def server_run(torch, dev, path, cached, inputs, *, check_waits=False,
                wall=wall, step_ms=sorted(step_ms), maint_ms=maint_ms,
                copied=copied, peak=torch.cuda.max_memory_allocated() - base,
                released_clean=released_clean, n_logical=tcfg.n_logical,
-               pass_launches=pass_launches)
+               pass_launches=pass_launches,
+               captured=sorted(srv.graphs.graphs) if srv.graphs.enabled
+               else None)
     del srv
+    gc.collect()              # engines hold cycles (scheduler, wrappers)
     torch.cuda.empty_cache()
     return res
 
@@ -1551,14 +1599,32 @@ def server_phase(torch, dev):
           f"pools 2 x {tcfg.fast_slots * tcfg.page_bytes // 2 / 2**20:.0f} "
           f"MiB; {SERVER_STEPS} steps, maintain every 4, lane 0 released "
           f"at step {RELEASE_STEP}")
-    runs = {}
+    runs, eager = {}, {}
     for label, path, cached in SERVER_PATHS:
+        eager[label] = server_run(torch, dev, path, cached, inputs,
+                                  count_pass=label == "zero_copy",
+                                  graphs=False)
         runs[label] = res = server_run(torch, dev, path, cached, inputs,
                                        check_waits=label == "zero_copy",
                                        count_pass=label == "zero_copy")
+        e = eager[label]
+        for i in range(SERVER_STEPS):
+            _check(torch.equal(res["outs"][i], e["outs"][i]),
+                   f"server {label} step {i}: captured differs from eager")
+        _check(res["counters"] == e["counters"]
+               and res["launches"] == e["launches"]
+               and res["captured"] == ["maintain", "step"],
+               f"server {label}: captured counters {res['counters']}, "
+               f"launches {res['launches']}, graphs {res['captured']} "
+               f"against eager {e['counters']}, {e['launches']}")
         n = SERVER_STEPS
         sm = res["step_ms"]
         c = res["counters"]
+        print(f"server {label}: captured == eager bit for bit (every output"
+              f", counters, launch counts); eager {n / e['wall']:.1f} "
+              f"steps/s, synchronised step median "
+              f"{e['step_ms'][n // 2]:.3f} ms, maintain "
+              f"{sum(e['maint_ms']) / len(e['maint_ms']):.3f} ms; captured:")
         print(f"server {label}: {n / res['wall']:.1f} steps/s "
               f"({res['wall'] * 1e3 / n:.3f} ms per step with maintenance), "
               f"synchronised step median {sm[n // 2]:.3f} ms (p90 "
@@ -1609,9 +1675,16 @@ def server_phase(torch, dev):
                f"one replay per maintenance pass ({n_pass})")
     _check(zc["launches"]["irt_walk2"] == zc["launches"]["irt_lookup"] > 0,
            f"server zero_copy: walk launches {zc['launches']}")
+    ep, cp = eager["zero_copy"]["pass_launches"], zc["pass_launches"]
+    _check(cp["graph_launches"] == 1 and cp["device_ops"] > 0,
+           f"server: a captured maintain() pass made {cp}")
     print(f"server: one copy-engine launch per maintain() pass on every "
-          f"path; a zero_copy maintain() pass makes "
-          f"{zc['pass_launches']} kernel launches (torch.profiler)")
+          f"path; a zero_copy maintain() pass (torch.profiler): eager "
+          f"{ep['kernel_launches']} kernel launches, {ep['device_ops']} "
+          f"device ops, {ep['device_ms']:.3f} device ms; captured "
+          f"{cp['graph_launches']} graph launch and "
+          f"{cp['kernel_launches']} kernel launches on the host, "
+          f"{cp['device_ops']} device ops, {cp['device_ms']:.3f} device ms")
     launches = {k: runs["zero_copy"]["launches"][k]
                 for k in ("irt_lookup", "irt_walk2",
                           "paged_attention_split")}
@@ -1631,20 +1704,12 @@ def server_phase(torch, dev):
 # phase 7: chunked prefill + multi-tenant QoS at full width
 # ---------------------------------------------------------------------------
 
-def chunked_qos_phase(torch, dev, cfg, params):
-    """Phase 4's weights served by the chunked scheduler with two
-    tenants: 256-token chunks, one per engine step; the interactive
-    tenant (weight 2, on-demand decider) admits its prompts' first two
-    pages straight into the fast pool; maintenance runs the per-tenant
-    pass.  16 seeded requests alternate tenants, prompts 200-1900 tokens
-    (padded lengths <= 2048: 1-8 chunks each), max_new 32-64."""
+def chunked_engine(cfg, params, dev, graphs=None):
+    """Phase 7's engine with its 16 requests submitted: 256-token chunks,
+    two tenants (interactive: weight 2, on-demand; batch: weight 1),
+    prompts 200-1900 tokens, max_new 32-64."""
     import numpy as np
 
-    from repro_torch.core.remap.irt import INVALID
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.paged_attention import ops as pa_ops
-    from repro_torch.kernels.remap_gather import ops as rg_ops
-    from repro_torch.serve import engine as eng_mod
     from repro_torch.serve.engine import Engine, EngineConfig, Request
     from repro_torch.serve.sched import TenantConfig
 
@@ -1654,13 +1719,29 @@ def chunked_qos_phase(torch, dev, cfg, params):
                       tenants=(TenantConfig("interactive", weight=2,
                                             policy="on_demand"),
                                TenantConfig("batch", weight=1)))
-    eng = Engine(cfg, params, ec, device=dev)
+    eng = Engine(cfg, params, ec, device=dev, graphs=graphs)
     rng = np.random.default_rng(7)
     for i in range(16):
         eng.submit(Request(rid=i, prompt=rng.integers(
             0, cfg.vocab, int(rng.integers(200, 1901))),
             max_new=int(rng.integers(32, 65)),
             tenant_id=("interactive", "batch")[i % 2]))
+    return eng
+
+
+def chunked_qos_phase(torch, dev, cfg, params):
+    """Phase 4's weights served by the chunked scheduler with two
+    tenants: 256-token chunks, one per engine step; the interactive
+    tenant (weight 2, on-demand decider) admits its prompts' first two
+    pages straight into the fast pool; maintenance runs the per-tenant
+    pass.  16 seeded requests alternate tenants, prompts 200-1900 tokens
+    (padded lengths <= 2048: 1-8 chunks each), max_new 32-64."""
+    from repro_torch.core.remap.irt import INVALID
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.remap_gather import ops as rg_ops
+
+    eng = chunked_engine(cfg, params, dev)
     spent: dict = {}
 
     def timed(phase, fn):
@@ -1674,9 +1755,8 @@ def chunked_qos_phase(torch, dev, cfg, params):
             return out
         return run
 
-    real_step, chunk_fwd, write_chunk = (eng_mod.decode_step, eng.chunk_fwd,
-                                         eng.write_chunk)
-    eng_mod.decode_step = timed("decode step", real_step)
+    chunk_fwd, write_chunk = eng.chunk_fwd, eng.write_chunk
+    eng._decode = timed("decode step", eng._decode)   # a captured graph
     eng.chunk_fwd = lambda logits=False: timed(
         "chunk forward", chunk_fwd(logits=logits))
     eng.write_chunk = timed("chunk write", write_chunk)
@@ -1689,13 +1769,10 @@ def chunked_qos_phase(torch, dev, cfg, params):
     torch.cuda.reset_peak_memory_stats()
     fa_ops.launches = pa_ops.launches = rg_ops.launches = 0
     rg_ops.replay_launches = 0
-    try:
-        t0 = time.perf_counter()
-        done = eng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        eng_mod.decode_step = real_step
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launches = {"flash_attention": fa_ops.launches,
                 "paged_attention_fused": pa_ops.launches,
                 "remap_gather": rg_ops.launches,
@@ -1756,6 +1833,7 @@ def chunked_qos_phase(torch, dev, cfg, params):
           f"{json.dumps(totals)}; peak device memory {peak / 2**30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated)")
     del eng
+    gc.collect()              # engines hold cycles (scheduler, wrappers)
     torch.cuda.empty_cache()
     return {"flash_attention": launches["flash_attention"]}
 
@@ -1886,7 +1964,6 @@ def _telemetry_run(torch, dev, cfg, params, tmp, telemetry: bool):
     from repro_torch.kernels.remap_gather import ops as rg_ops
     from repro_torch.models.kv_backend import TieredBackend
     from repro_torch.obs import FlightConfig, ObsConfig, parse_slos
-    from repro_torch.serve import engine as eng_mod
     from repro_torch.serve.engine import Engine, EngineConfig, Request
 
     tel = {}
@@ -1915,7 +1992,7 @@ def _telemetry_run(torch, dev, cfg, params, tmp, telemetry: bool):
             "window_tokens": 0, "fetched": {},
             "host_ms": {"sample": 0.0, "record": 0.0, "export": 0.0}}
     first, count = TELEMETRY_WINDOW
-    real_step = eng_mod.decode_step
+    real_step = eng._decode          # the engine's step: a captured graph
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
     def step(*a, **kw):
@@ -1933,7 +2010,7 @@ def _telemetry_run(torch, dev, cfg, params, tmp, telemetry: bool):
         book["steps"] += 1
         return real_step(*a, **kw)
 
-    plan, flush, prefill = (backend.plan_maintain, eng._flush_maintain,
+    plan, flush, prefill = (eng._plan, eng._flush_maintain,
                             eng.prefill_lane)
 
     def timed_plan(*a, **kw):
@@ -1963,7 +2040,7 @@ def _telemetry_run(torch, dev, cfg, params, tmp, telemetry: bool):
                 book["host_ms"][key] += (time.perf_counter() - s) * 1e3
         return call
 
-    backend.plan_maintain = timed_plan
+    eng._plan = timed_plan
     eng._flush_maintain = timed_flush
     eng.prefill_lane = counted_prefill
     if telemetry:   # the export at the end holds the last sample
@@ -1997,7 +2074,7 @@ def _telemetry_run(torch, dev, cfg, params, tmp, telemetry: bool):
     torch.cuda.synchronize()
     pa_ops.launches = fa_ops.launches = 0
     rg_ops.launches = rg_ops.replay_launches = 0
-    eng_mod.decode_step = step
+    eng._decode = step
     try:
         with warnings.catch_warnings():
             warnings.simplefilter("always")
@@ -2011,7 +2088,6 @@ def _telemetry_run(torch, dev, cfg, params, tmp, telemetry: bool):
             finally:
                 torch.cuda.set_sync_debug_mode("default")
     finally:
-        eng_mod.decode_step = real_step
         fetched["stop"] = True
         if fetcher is not None:
             fetcher.join(timeout=120)
@@ -2022,8 +2098,12 @@ def _telemetry_run(torch, dev, cfg, params, tmp, telemetry: bool):
                 "remap_gather": rg_ops.launches,
                 "remap_replay": rg_ops.replay_launches}
     name = "on" if telemetry else "off"
-    book["launches"] = sum(e.count for e in prof.key_averages()
-                           if "LaunchKernel" in e.key) / count
+    # the host's launch calls: kernels launched one by one and replays of
+    # captured steps (one cudaGraphLaunch each)
+    calls = _launch_calls(prof)
+    book["launches"] = (calls["kernel_launches"]
+                        + calls["graph_launches"]) / count
+    book["graph_launches"] = calls["graph_launches"] / count
     _check(book["window_s"] > 0 and book["counting"]
            and book["launches"] > 0,
            f"telemetry {name}: the profiled window did not close or "
@@ -2111,7 +2191,8 @@ def telemetry_phase(torch, dev, cfg, params):
         parts.append(
             f"{name}: {tokens / rest:.1f} tokens/s, "
             f"{1e3 * rest / steps:.2f} ms per engine step, "
-            f"{bk['launches']:.1f} launches per step, "
+            f"{bk['launches']:.1f} launch calls per step "
+            f"({bk['graph_launches']:.1f} of them graph launches), "
             f"{bk['waits'] / steps:.3f} host waits per step, maintenance "
             f"{maint / len(bk['apply_ms']):.2f} ms per pass")
     host = book["host_ms"]
@@ -2144,6 +2225,269 @@ def telemetry_phase(torch, dev, cfg, params):
           f"JSONL rows; endpoints 200 at step {fetched['at_step']}; phase 9 "
           f"took {time.perf_counter() - t0:.1f} s")
     del eng, off, done, off_done
+    gc.collect()              # engines hold cycles (scheduler, wrappers)
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the compiled serving steps, captured against eager
+# ---------------------------------------------------------------------------
+
+# the clean runs' profiled loop iterations (first, count): two maintenance
+# plans and two applies fall in them
+GRAPHS_WINDOW = (40, 8)
+
+
+def _kernel_counts() -> dict:
+    """Every wrapper's launch counter (a replay books its graph's)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.irt_lookup import ops as irt_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.remap_gather import ops as rg_ops
+    return {"paged_attention_fused": pa_ops.launches,
+            "paged_attention_split": pa_ops.split_launches,
+            "paged_attention": pa_ops.unified_launches,
+            "remap_gather": rg_ops.launches,
+            "remap_replay": rg_ops.replay_launches,
+            "irt_lookup": irt_ops.launches,
+            "irt_walk2": irt_ops.walk2_launches,
+            "flash_attention": fa_ops.launches}
+
+
+def _graph_run(torch, eng, requests=None, *, timed=False, window=None,
+               profiled=False):
+    """Submit ``requests`` ((prompt, max_new) each; None: already
+    submitted) and run ``eng``.  ``timed``: the engine's step, plan and
+    apply synchronised and timed on the host clock.  ``window`` (first,
+    count): the wall time of those loop iterations, synchronised at both
+    ends; ``profiled``: the window under ``torch.profiler`` (host launch
+    calls, device ops and busy time), left out of tokens/s.  Returns the
+    run's books."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import Request
+    for i, (prompt, max_new) in enumerate(requests or ()):
+        eng.submit(Request(rid=i, prompt=prompt, max_new=max_new))
+    n_req = len(eng.queue)
+    spent: dict = {}
+    book = {"steps": 0, "window_s": 0.0, "window_tokens": 0, "calls": None}
+    real = {k: getattr(eng, k) for k in ("_decode", "_plan", "_apply")}
+
+    def sync_timed(name, fn):
+        def run(*a):
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            spent.setdefault(name, []).append(
+                (time.perf_counter() - s) * 1e3)
+            return out
+        return run
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def windowed(*a):
+        i = book["steps"]
+        book["steps"] += 1
+        if window is not None and i in (window[0], window[0] + window[1]):
+            torch.cuda.synchronize()
+            if i == window[0]:
+                book["window_s"] = time.perf_counter()
+                book["window_tokens"] = eng._tokens_out
+                if profiled:
+                    prof.start()
+            else:
+                book["window_s"] = time.perf_counter() - book["window_s"]
+                book["window_tokens"] = (eng._tokens_out
+                                         - book["window_tokens"])
+                if profiled:
+                    prof.stop()
+                    book["calls"] = _launch_calls(prof)
+        return step(*a)
+
+    step = real["_decode"]
+    if timed:
+        step = sync_timed("step", step)
+        eng._plan = sync_timed("plan", real["_plan"])
+        eng._apply = sync_timed("apply", real["_apply"])
+    eng._decode = windowed
+    before, steps0 = _kernel_counts(), eng.steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for k in real:                    # back to the class's methods
+            vars(eng).pop(k, None)
+    after = _kernel_counts()
+    n_tok = sum(len(r.tokens) for r in done)
+    if window is not None:
+        _check(book["window_tokens"] > 0
+               and (book["calls"] is not None or not profiled),
+               f"the window {window} did not close")
+    left_out = (book["window_tokens"], book["window_s"]) if profiled \
+        else (0, 0.0)
+    return dict(streams={r.rid: r.tokens for r in done},
+                counters=eng.counters, steps=eng.steps - steps0,
+                launches={k: after[k] - before[k] for k in after},
+                wall=wall, n_tok=n_tok, spent=spent,
+                tok_s=(n_tok - left_out[0]) / (wall - left_out[1]),
+                window_s=book["window_s"], calls=book["calls"],
+                keys=sorted(map(str, eng.graphs.graphs)),
+                done=all(r.done for r in done) and len(done) == n_req)
+
+
+def _states_equal(torch, a, b) -> bool:
+    from torch.utils import _pytree as pytree
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _hold_equal(torch, label, e, c, eng_e, eng_c):
+    """The captured run against the eager one: token streams, counters,
+    the wrappers' launch counts and every state leaf, bit for bit."""
+    _check(e["done"] and c["done"], f"{label}: a request did not finish")
+    _check(c["streams"] == e["streams"],
+           f"{label}: captured token streams differ from eager")
+    _check(c["counters"] == e["counters"],
+           f"{label}: captured counters differ from eager")
+    _check(c["launches"] == e["launches"],
+           f"{label}: captured launch counts {c['launches']} != eager "
+           f"{e['launches']}")
+    _check(_states_equal(torch, eng_c.final_state, eng_e.final_state),
+           f"{label}: a captured state leaf differs from eager")
+
+
+def _mode_line(timed, clean, profiled) -> str:
+    """One mode's numbers: tokens/s (the clean run), the synchronised
+    step and maintenance times (the timed run), the host's launch calls,
+    the device's ops and busy time a loop iteration and its idle share
+    (the profiled window, against its own wall and the same iterations'
+    wall in the clean run)."""
+    sp = timed["spent"]
+    st = sorted(sp["step"])
+    passes = max(len(sp.get("apply", [])), 1)
+    plan, apply = sum(sp.get("plan", [])) / passes, \
+        sum(sp.get("apply", [])) / passes
+    k, n = profiled["calls"], GRAPHS_WINDOW[1]
+    busy = k["device_ms"] / n
+    it_ms = 1e3 * clean["window_s"] / n
+    return (f"{clean['tok_s']:.1f} tokens/s; decode step p50 "
+            f"{st[len(st) // 2]:.2f} ms, p90 {st[int(len(st) * 0.9)]:.2f} ms "
+            f"(synchronised, {len(st)} steps); maintenance "
+            f"{plan + apply:.2f} ms a pass (plan {plan:.2f} + apply "
+            f"{apply:.2f}, {passes} passes); a loop iteration "
+            f"{k['kernel_launches'] / n:.1f} cudaLaunchKernel and "
+            f"{k['graph_launches'] / n:.2f} cudaGraphLaunch on the host, "
+            f"{k['device_ops'] / n:.1f} device ops, {busy:.2f} ms device "
+            f"busy: idle {100 * (1 - busy / it_ms):.1f} % of the same "
+            f"iterations in the clean run ({it_ms:.2f} ms each), "
+            f"{100 * (1 - k['device_ms'] / (1e3 * profiled['window_s'])):.1f}"
+            f" % of the profiled window ({1e3 * profiled['window_s'] / n:.2f}"
+            f" ms an iteration under the profiler)")
+
+
+def _graphs_pairs(torch, label, engs, reqs, rounds):
+    """``rounds`` (keywords of ``_graph_run``) over the eager and the
+    captured engine in turn, each captured run held to the eager run
+    before it.  Returns {(round, mode): books}."""
+    runs = {}
+    for r, kw in enumerate(rounds):
+        for m in (False, None):
+            runs[r, m] = _graph_run(torch, engs[m], reqs, **kw)
+        _hold_equal(torch, f"{label} round {r + 1}", runs[r, False],
+                    runs[r, None], engs[False], engs[None])
+    return runs
+
+
+def graphs_phase(torch, dev, cfg, params):
+    """Phase 15, right after phase 4 (before any ``torch.profiler``
+    session).  (a) Phase 4's llama3-8b workload (published widths, bf16,
+    16 requests, not cut) served by two engines, eager (``graphs=False``)
+    and captured, in two interleaved pairs, eager then captured, twice:
+    the first pair times the engine's step, plan and apply (synchronised),
+    the second runs clean (tokens/s).  (b) Phase 7's chunked + two-tenant
+    run, eager against captured (its multi-tenant pass eager).  (c)
+    granite-moe-3b-a800m at published widths and depth on phase 4's store
+    with phase 4's first 8 requests, eager against captured.  (d) A third
+    pair of (a)'s engines with a profiled window of ``GRAPHS_WINDOW``
+    loop iterations.  Gates, every run: token streams, counters, the
+    wrappers' launch counts and every state leaf of the captured run
+    equal to the eager run's bit for bit; (a)'s captured engine captures
+    nothing after its first run and decodes the same tokens every run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve.engine import Engine, EngineConfig
+    t0 = time.perf_counter()
+    card = _card_line()
+    reqs = main_requests(cfg)
+    engs = {m: Engine(cfg, params, EngineConfig(**MAIN_EC), device=dev,
+                      graphs=m) for m in (False, None)}
+    runs = _graphs_pairs(torch, "graphs llama3-8b", engs, reqs,
+                         (dict(timed=True), dict(window=GRAPHS_WINDOW)))
+    keys = runs[0, None]["keys"]
+    capture_s = engs[None].graphs.capture_seconds
+    pool = engs[None].graphs.pool_bytes
+    _check(any(k.startswith("('decode'") for k in keys)
+           and "apply" in keys and "plan" in keys,
+           f"graphs: captured keys {keys}")
+
+    ch = {m: chunked_engine(cfg, params, dev, graphs=m)
+          for m in (False, None)}
+    chunked = _graphs_pairs(torch, "graphs chunked", ch, None, ({},))
+    del ch
+    gc.collect()              # engines hold cycles (scheduler, wrappers)
+    torch.cuda.empty_cache()
+    print(f"graphs chunked + QoS: captured == eager bit for bit (token "
+          f"streams, counters, launch counts, every state leaf; the "
+          f"multi-tenant pass eager, {chunked[0, None]['keys']} captured); "
+          f"eager {chunked[0, False]['tok_s']:.1f} tokens/s, captured "
+          f"{chunked[0, None]['tok_s']:.1f} tokens/s; card {card}")
+
+    gcfg = get_config("granite-moe-3b-a800m")
+    gparams = init_params(gcfg, dev, seed=0)
+    gen = {m: Engine(gcfg, gparams, EngineConfig(**MAIN_EC), device=dev,
+                     graphs=m) for m in (False, None)}
+    gran = _graphs_pairs(torch, "graphs granite", gen,
+                         main_requests(gcfg)[:FAMILY_REQUESTS], ({},))
+    del gen, gparams
+    gc.collect()              # engines hold cycles (scheduler, wrappers)
+    torch.cuda.empty_cache()
+    print(f"graphs granite-moe-3b-a800m: captured == eager bit for bit "
+          f"({FAMILY_REQUESTS} requests, {gran[0, None]['steps']} steps); "
+          f"eager {gran[0, False]['tok_s']:.1f} tokens/s, captured "
+          f"{gran[0, None]['tok_s']:.1f} tokens/s; card {card}")
+
+    runs.update({(2, m): r for (_, m), r in _graphs_pairs(
+        torch, "graphs llama3-8b profiled", engs, reqs,
+        (dict(window=GRAPHS_WINDOW, profiled=True),)).items()})
+    _check(engs[None].graphs.captures == len(keys)
+           and all(runs[r, None]["keys"] == keys for r in (1, 2)),
+           f"graphs: a later captured run captured "
+           f"{runs[2, None]['keys']} after {keys}")
+    # (the step count runs on across runs, as the reference's does, so
+    # the maintenance cadence and with it the counters may shift)
+    _check(all(runs[r, None]["streams"] == runs[0, None]["streams"]
+               for r in (1, 2)),
+           "graphs: the captured engine's later runs decoded other tokens")
+    for m, name in ((False, "eager"), (None, "captured")):
+        print(f"graphs llama3-8b {name}: "
+              f"{_mode_line(runs[0, m], runs[1, m], runs[2, m])}; card "
+              f"{card}")
+    print(f"graphs llama3-8b: captured == eager bit for bit in all three "
+          f"pairs (16 requests, {runs[1, None]['steps']} steps: token "
+          f"streams, counters, launch counts "
+          f"{json.dumps(runs[1, None]['launches'])}, every state leaf); "
+          f"the captured engine's later runs captured nothing and decoded "
+          f"the first's tokens; {len(keys)} graphs, capture seconds "
+          f"{json.dumps({str(k): round(v, 4) for k, v in capture_s.items()})}"
+          f"; graph pool {pool / 2**20:.1f} MiB ({pool} bytes reserved by "
+          f"the captures); phase 15 took {time.perf_counter() - t0:.1f} s")
+    del engs
+    gc.collect()              # engines hold cycles (scheduler, wrappers)
     torch.cuda.empty_cache()
 
 
@@ -2491,22 +2835,22 @@ MIXTRAL_PROMPT, MIXTRAL_STEPS = 4600, 16
 
 
 def _count_drops(torch, moe_mod, dev):
-    """Wrap ``moe.dispatch`` so that every call adds its dropped choices
-    to a counter on the card (nothing waits for it).  Returns (counter,
-    calls, restore)."""
+    """Wrap ``moe.dispatch`` so that every call adds its dropped choices,
+    one dispatch and its routed choices to counters on the card (nothing
+    waits for them; a captured step replays the adds).  Returns (the
+    counters [dropped, dispatches, routed], restore)."""
     real = moe_mod.dispatch
-    dropped = torch.zeros((), dtype=torch.int64, device=dev)
-    calls = [0, 0]                      # dispatches, choices routed
+    counts = torch.zeros((3,), dtype=torch.int64, device=dev)
 
     def counted(eidx, n_experts, cap):
         slot, keep = real(eidx, n_experts, cap)
-        dropped.add_((~keep).sum())
-        calls[0] += 1
-        calls[1] += keep.numel()
+        counts[0].add_((~keep).sum())
+        counts[1].add_(1)
+        counts[2].add_(keep.numel())
         return slot, keep
 
     moe_mod.dispatch = counted
-    return dropped, calls, lambda: setattr(moe_mod, "dispatch", real)
+    return counts, lambda: setattr(moe_mod, "dispatch", real)
 
 
 def family_serve(torch, dev, arch):
@@ -2517,12 +2861,12 @@ def family_serve(torch, dev, arch):
     back to identity, one fused launch per layer and decode step, one
     flash launch per layer and prefill, one copy-engine launch per
     maintenance pass.  Prints tokens/s, ms per decode step (median, p90),
-    maintenance ms per pass, the kernel launches of a decode step
-    (``torch.profiler`` over ``FAMILY_PROFILED`` steps), the launches per
-    kind, the device's busy time in the profiled steps (their kernels'
-    device time) against the median step and, for MoE, the choices
-    dropped for capacity.  Returns the launches per kind."""
-    from torch.autograd import DeviceType
+    maintenance ms per pass, the host's launch calls of a decode step
+    (``torch.profiler`` over ``FAMILY_PROFILED`` steps; a captured step is
+    one graph launch), the launches per kind, the device's busy time in
+    the profiled steps (their kernels' device time) against the median
+    step and, for MoE, the choices dropped for capacity.  Returns the
+    launches per kind."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
@@ -2531,7 +2875,6 @@ def family_serve(torch, dev, arch):
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.remap_gather import ops as rg_ops
     from repro_torch.models import init_params, moe
-    from repro_torch.serve import engine as eng_mod
     from repro_torch.serve.engine import Engine, EngineConfig, Request
 
     cfg = get_config(arch)
@@ -2556,7 +2899,7 @@ def family_serve(torch, dev, arch):
     spent: dict = {}
     book = {"step": 0, "launches": [], "busy_ms": [], "window_s": 0.0,
             "window_tok": 0}
-    real = eng_mod.decode_step
+    real = eng._decode               # the engine's step: a captured graph
     first, count = FAMILY_PROFILED
 
     def timed(phase, fn):
@@ -2572,32 +2915,30 @@ def family_serve(torch, dev, arch):
 
     step_timed = timed("decode step", real)
 
-    def step(cfg_, params_, state, tokens, **kw):
+    def step(state, tokens, n_pages):
         i = book["step"]
         book["step"] += 1
         if not first <= i < first + count:
-            return step_timed(cfg_, params_, state, tokens, **kw)
+            return step_timed(state, tokens, n_pages)
         torch.cuda.synchronize()
         s = time.perf_counter()
         book["window_tok"] += int((state.pos >= 0).sum())
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            out = real(cfg_, params_, state, tokens, **kw)
+            out = real(state, tokens, n_pages)
             torch.cuda.synchronize()
-        book["launches"].append(sum(e.count for e in prof.key_averages()
-                                    if "LaunchKernel" in e.key))
-        book["busy_ms"].append(sum(
-            e.time_range.elapsed_us() for e in prof.events()
-            if e.device_type == DeviceType.CUDA) / 1e3)
+        calls = _launch_calls(prof)
+        book["launches"].append(calls["kernel_launches"]
+                                + calls["graph_launches"])
+        book["busy_ms"].append(calls["device_ms"])
         book["window_s"] += time.perf_counter() - s
         return out
 
-    eng_mod.decode_step = step
+    eng._decode = step
     eng.prefill_lane = timed("prefill", eng.prefill_lane)
-    be = eng.backend
-    be.plan_maintain = timed("maintenance plan", be.plan_maintain)
-    be.apply_maintain = timed("maintenance apply", be.apply_maintain)
-    dropped, calls, restore = _count_drops(torch, moe, dev)
+    eng._plan = timed("maintenance plan", eng._plan)
+    eng._apply = timed("maintenance apply", eng._apply)
+    counts, restore = _count_drops(torch, moe, dev)
     pa_ops.launches = fa_ops.launches = 0
     rg_ops.launches = rg_ops.replay_launches = 0
     try:
@@ -2606,7 +2947,6 @@ def family_serve(torch, dev, arch):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        eng_mod.decode_step = real
         restore()
     launches = {"paged_attention_fused": pa_ops.launches,
                 "flash_attention": fa_ops.launches,
@@ -2646,8 +2986,9 @@ def family_serve(torch, dev, arch):
     median = steps[len(steps) // 2]
     drops = ""
     if cfg.family == "moe":
-        drops = (f"; MoE dispatches {calls[0]}, {int(dropped)} of "
-                 f"{calls[1]} routed choices dropped for capacity")
+        dropped, dispatches, routed = counts.tolist()
+        drops = (f"; MoE dispatches {dispatches}, {dropped} of "
+                 f"{routed} routed choices dropped for capacity")
     print(f"families {arch}: {n} requests, {n_tok} tokens, {eng.steps} "
           f"decode steps, {prefills} prefills, {passes} maintenance passes "
           f"in {wall:.2f} s: "
@@ -2657,8 +2998,9 @@ def family_serve(torch, dev, arch):
           f"{steps[int(len(steps) * 0.9)]:.2f} ms), maintenance "
           f"{maint:.2f} ms per pass (plan + apply), prefill "
           f"{sum(spent['prefill']) / prefills:.2f} ms each; "
-          f"{per_step:.1f} kernel launches and {busy:.2f} ms of device "
-          f"time per decode step (torch.profiler, steps {first}-"
+          f"{per_step:.1f} launch calls (kernels or graphs) and "
+          f"{busy:.2f} ms of device time per decode step "
+          f"(torch.profiler, steps {first}-"
           f"{first + count - 1}): the device idle "
           f"{100 * (1 - busy / median):.1f} % of the median step{drops}")
     print(f"families {arch}: launches {json.dumps(launches)}; every request "
@@ -2669,6 +3011,7 @@ def family_serve(torch, dev, arch):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card "
           f"{_card_line()}")
     del eng, params
+    gc.collect()              # engines hold cycles (scheduler, wrappers)
     torch.cuda.empty_cache()
     return launches
 
@@ -2718,7 +3061,8 @@ def mixtral_window_phase(torch, dev):
     n, steps = MIXTRAL_PROMPT, MIXTRAL_STEPS
     seq = torch.as_tensor(np.random.default_rng(5).integers(
         0, cfg.vocab, (1, n + steps)), dtype=torch.int32, device=dev)
-    dropped, calls, restore = _count_drops(torch, moe, dev)
+    counts, restore = _count_drops(torch, moe, dev)
+    dropped = counts[0]                 # a view: the choices dropped
     fa_ops.launches = 0
     t0 = time.perf_counter()
     try:
@@ -2781,6 +3125,7 @@ def mixtral_window_phase(torch, dev):
           f"GiB")
     launches = fa_ops.launches
     del params, out, dec, one, dec0, one0
+    gc.collect()              # engines hold cycles (scheduler, wrappers)
     torch.cuda.empty_cache()
     return launches
 
@@ -2986,6 +3331,7 @@ def recurrent_serve(torch, dev, arch):
           f"GiB ({held / 2**30:.2f} GiB of it allocated before the run); "
           f"card {_card_line()}")
     del params, st
+    gc.collect()              # engines hold cycles (scheduler, wrappers)
     torch.cuda.empty_cache()
     return launches
 
@@ -3058,6 +3404,7 @@ def hymba_window_gate(torch, dev):
           f"{moved:.3e} from the windowed forward (must exceed 1e-2); "
           f"{fa_ops.launches} flash launches (fp32); {secs:.1f} s")
     del params, out, dec, one, dec0, one0
+    gc.collect()              # engines hold cycles (scheduler, wrappers)
     torch.cuda.empty_cache()
 
 
@@ -3499,6 +3846,7 @@ def audio_forward(torch, dev):
           f"({held / 2**30:.2f} GiB of it allocated before the run); card "
           f"{_card_line()}")
     del params, emb, logits
+    gc.collect()              # engines hold cycles (scheduler, wrappers)
     torch.cuda.empty_cache()
     return launches["flash_attention"]
 
@@ -4093,12 +4441,14 @@ def main():
     rows = kernel_phase(torch, dev)
     cfg, params = main_model(torch, dev)
     launches = main_path_phase(torch, dev, cfg, params)
+    graphs_phase(torch, dev, cfg, params)
     dense_tiered_phase(torch, dev)
     launches.update(server_phase(torch, dev))
     launches.update(chunked_qos_phase(torch, dev, cfg, params))
     chunk_equivalence_phase(torch, dev, cfg, params)
     telemetry_phase(torch, dev, cfg, params)
     del params
+    gc.collect()              # engines hold cycles (scheduler, wrappers)
     torch.cuda.empty_cache()
     rows["sim_scan"], launches["sim_scan"] = sim_phase(torch, dev)
     families_phase(torch, dev, rows)

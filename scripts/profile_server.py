@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a tiered-server decode step's time goes, on the card.
 
-  python3 scripts/profile_server.py [--skip 8] [--window 24]
+  python3 scripts/profile_server.py [--skip 8] [--window 24] [--eager]
 
 Builds the store and seeded inputs of ``chip_smoke.py``'s server phase
 (one store at llama3-8b's per-layer KV widths, 16 lanes x 256 pages, 15
@@ -11,8 +11,9 @@ steps twice, first without and then under ``torch.profiler``, and one
 maintenance pass under the profiler.  Prints per path: ms per step
 (profiler off), device busy time per step and its share of the
 unprofiled window, device time by kernel class, kernel launches and
-stream waits per step, and the same for the maintenance pass.  Needs a
-card.
+stream waits per step, and the same for the maintenance pass.  The
+server's step and pass are captured CUDA graphs (one ``cudaGraphLaunch``
+each), or eager with ``--eager``.  Needs a card.
 """
 
 from __future__ import annotations
@@ -51,8 +52,9 @@ def _report(prof, n, wall_ms, what):
     busy_ms = sum(dev_us.values()) / 1e3
     calls = {e.key: e.count / n for e in prof.key_averages()}
     launches = sum(v for k, v in calls.items() if "LaunchKernel" in k)
+    graphs = sum(v for k, v in calls.items() if "GraphLaunch" in k)
     line = (f"{what}: {wall_ms / n:.3f} ms (profiler off); "
-            f"{launches:.1f} kernel launches, "
+            f"{launches:.1f} kernel launches, {graphs:.1f} graph launches, "
             f"{calls.get('cudaStreamSynchronize', 0.0):.1f} "
             f"cudaStreamSynchronize each")
     if busy_ms == 0:
@@ -74,6 +76,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--skip", type=int, default=8)
     ap.add_argument("--window", type=int, default=24)
+    ap.add_argument("--eager", action="store_true",
+                    help="run the server's steps eagerly (graphs=False)")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
@@ -96,7 +100,8 @@ def main():
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     for label, path, cached in chip_smoke.SERVER_PATHS:
         tcfg = dataclasses.replace(inputs["tcfg"], cache_device_table=cached)
-        srv = chip_smoke.make_server(torch, dev, tcfg, path)
+        srv = chip_smoke.make_server(torch, dev, tcfg, path,
+                                     False if args.eager else None)
         pos = inputs["pos0"].clone()
         i = 0
 

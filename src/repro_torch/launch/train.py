@@ -40,7 +40,7 @@ def main(argv=None):
     if args.mesh != "none" or args.model_parallel > 1:
         raise NotImplementedError(
             "--mesh host and --model-parallel > 1 need the port's sharding "
-            "(ROADMAP.md, queue 1, item 3, \"Sharding\")")
+            "(ROADMAP.md, queue 1, item 4, \"Sharding\")")
 
     from repro_torch.configs import get_config, reduce_for_smoke
     from repro_torch.data.pipeline import DataConfig

@@ -252,11 +252,14 @@ class TieredBackend:
 
     # -- maintenance & lane lifecycle ---------------------------------------
 
-    def maintain(self, state, max_moves: int | None = None):
-        """One synchronous migration-scheduler pass."""
+    def maintain(self, state, max_moves: int | None = None, err=None):
+        """One synchronous migration-scheduler pass.  ``err``: the
+        caller's out-of-range flag for the pass's copies, read by the
+        caller (``kvcache._replay_descs``); without it the pass reads its
+        own at once."""
         from repro_torch.tiered import kvcache as tk
         return state._replace(caches=tk.run_scheduler_stacked(
-            self.tcfg, state.caches, max_moves=max_moves))
+            self.tcfg, state.caches, max_moves=max_moves, err=err))
 
     def plan_maintain(self, state, max_moves: int | None = None):
         """Score + plan only; the engine applies it one step later."""
@@ -264,12 +267,13 @@ class TieredBackend:
         return tk.plan_maintenance(self.tcfg, state.caches,
                                    max_moves=max_moves)
 
-    def apply_maintain(self, state, plan):
+    def apply_maintain(self, state, plan, err=None):
         """Apply a previously computed plan (safe one step late:
-        write-through keeps both tiers' bytes fresh)."""
+        write-through keeps both tiers' bytes fresh); ``err`` as in
+        ``maintain``."""
         from repro_torch.tiered import kvcache as tk
         return state._replace(caches=tk.apply_maintenance_stacked(
-            self.tcfg, state.caches, plan))
+            self.tcfg, state.caches, plan, err))
 
     def apply_maintain_desc(self, state, plan):
         """``apply_maintain`` that also returns the (ddesc, pdesc) move

@@ -1,17 +1,281 @@
-"""Serving steps (the part of ``repro.serve.decode`` the port needs:
-``make_tiered_decode_step`` against one tiered KV store, and
-``make_chunk_prefill_fn`` for chunked prefill).  PyTorch runs eagerly,
-so there is no jit and no sharding here."""
+"""Serving steps (port of ``repro.serve.decode``): ``make_decode_fn`` and
+``make_prefill_fn`` (plain functions, as the reference's), the tiered
+decode step against one store (``make_tiered_decode_step``), the
+chunked-prefill step (``make_chunk_prefill_fn``), and ``StepGraphs``,
+which plays the part of ``jax.jit`` for the serving steps: each step is
+captured once as a CUDA graph and then replayed.  Sharding
+(``jit_decode``, ``jit_prefill``) is not ported."""
 
 from __future__ import annotations
 
+import importlib
+import time
+from typing import Any, NamedTuple
+
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch._scatter import on_device
 from repro_torch.serve import tiered as srv
 from repro_torch.tiered import kvcache as tk
 
 PATHS = ("zero_copy", "fused", "concat")
+
+# every wrapper's launch counters (module, names): a replay runs no Python,
+# so ``StepGraphs`` books each graph's launches itself
+LAUNCH_COUNTERS = (
+    ("repro_torch.kernels.paged_attention.ops",
+     ("launches", "split_launches", "unified_launches")),
+    ("repro_torch.kernels.flash_attention.ops", ("launches", "bwd_launches")),
+    ("repro_torch.kernels.remap_gather.ops", ("launches", "replay_launches")),
+    ("repro_torch.kernels.irt_lookup.ops", ("launches", "walk2_launches")),
+)
+# state leaves updated in place by every step: a step must hand them back
+# as the same tensors (a pool is never copied on a step)
+POOL_LEAVES = frozenset(("fast_k", "fast_v", "slow_k", "slow_v", "k", "v"))
+
+
+def make_decode_fn(cfg):
+    """fn(params, state, tokens [B]) -> (logits [B, vocab], state): one
+    decode step over the dense caches (``models.decode_step``)."""
+    from repro_torch.models import decode_step
+
+    def fn(params, state, tokens):
+        return decode_step(cfg, params, state, tokens)
+    return fn
+
+
+def make_prefill_fn(cfg, shape):
+    """fn(params, batch) -> (last-position logits [B, vocab], state) with
+    the caches padded to ``shape.seq_len``; an encoder's fn returns the
+    logits over every frame."""
+    from repro_torch.models import forward, prefill
+
+    if cfg.is_encoder:
+        def encode(params, batch):
+            logits, _, _ = forward(cfg, params, batch)
+            return logits
+        return encode
+
+    def fn(params, batch):
+        logits, state = prefill(cfg, params, batch, max_len=shape.seq_len)
+        return logits[:, -1], state
+    return fn
+
+
+def _counts() -> dict:
+    return {(m, a): getattr(importlib.import_module(m), a)
+            for m, names in LAUNCH_COUNTERS for a in names}
+
+
+def _book(counts: dict, sign: int = 1) -> None:
+    for (m, a), n in counts.items():
+        if n:
+            mod = importlib.import_module(m)
+            setattr(mod, a, getattr(mod, a) + sign * n)
+
+
+def _storage(t: torch.Tensor) -> int:
+    return t.untyped_storage().data_ptr()
+
+
+def _tensors(tree) -> list:
+    return [t for t in pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _leaf_name(path) -> str:
+    k = path[-1] if path else None
+    return str(getattr(k, "name", getattr(k, "key", "")))
+
+
+class _Graph(NamedTuple):
+    """One captured step: the graph, its static inputs, its outputs (kept
+    alive; read before the next replay), the launches it makes and the
+    seconds its capture took."""
+    graph: Any
+    args: list
+    out: Any
+    counts: dict
+    seconds: float
+
+
+class StepGraphs:
+    """Serving steps captured once per key as CUDA graphs and replayed,
+    over one set of static state buffers (``bind``).
+
+    ``run(key, fn, state, *args)`` runs ``fn(state, *args) -> (out,
+    new_state)``, where ``new_state`` has ``state``'s structure.  The
+    first call of a key runs ``fn`` eagerly as the real step, on the
+    runner's side stream (which loads the kernel libraries, makes that
+    stream's cuBLAS handle and the paged kernels' counters outside any
+    capture), writes ``new_state`` back into the static buffers, then
+    captures ``fn`` on the same stream with the write-back inside the
+    graph; later calls replay it.  The runner writes only into buffers
+    it owns: the bound state, tensors handed to ``own``, its graphs'
+    outputs and static arguments.  At capture an argument it owns is the
+    graph's static input as it stands, any other is cloned into one.
+    Before each call every leaf of ``state`` and ``args`` whose storage
+    differs from its static buffer is copied in (the scheduler and the
+    eager steps replace leaves between steps); the caller gets the static
+    buffers back as the new state.  A pool leaf (``POOL_LEAVES``) must
+    come back as the same tensor, else the capture raises: a pool is
+    never copied on a step.  Each graph's outputs are its own buffers,
+    overwritten by its next replay.  Every graph of the runner shares one
+    memory pool.  The wrappers' launch counters count a replay as the
+    eager step would.  A capture that fails raises; nothing falls back to
+    the eager step.
+
+    ``enabled`` None: graphs on a card, the eager step on the CPU (there
+    are no graphs there); False: always eager; True on the CPU raises."""
+
+    def __init__(self, device, enabled: bool | None = None):
+        self.device = torch.device(device)
+        cuda = self.device.type == "cuda"
+        if enabled and not cuda:
+            raise ValueError(f"CUDA graphs need a card; the device is "
+                             f"{self.device}")
+        self.enabled = cuda if enabled is None else bool(enabled)
+        self.graphs: dict = {}
+        self.pool_bytes = 0               # the graph pool's reserved bytes
+        self._static = None               # (leaves, names, spec)
+        self._owned: dict = {}            # data_ptr -> a buffer it owns
+        if self.enabled:
+            if self.device.index is None:
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(self.device)
+
+    @property
+    def captures(self) -> int:
+        return len(self.graphs)
+
+    @property
+    def capture_seconds(self) -> dict:
+        return {k: g.seconds for k, g in self.graphs.items()}
+
+    def bind(self, state):
+        """Make ``state``'s tensors the static buffers every graph reads
+        and writes (once); later binds copy ``state`` into them.  Returns
+        the static state."""
+        flat, spec = pytree.tree_flatten_with_path(state)
+        leaves = [t for _, t in flat]
+        if self._static is None:
+            self._static = (leaves, [_leaf_name(p) for p, _ in flat], spec)
+            for t in leaves:
+                self.own(t)
+        else:
+            self._fill(self._static[0], leaves, "state")
+        return self.state
+
+    def own(self, t: torch.Tensor) -> torch.Tensor:
+        """Hand ``t`` to the runner: a graph may take it as a static input
+        as it stands (the engine's token buffer, the server's ``pos``)."""
+        if isinstance(t, torch.Tensor):
+            self._owned[t.data_ptr()] = t
+        return t
+
+    @property
+    def state(self):
+        leaves, _, spec = self._static
+        return pytree.tree_unflatten(leaves, spec)
+
+    @staticmethod
+    def _fill(static, leaves, what):
+        if len(static) != len(leaves):
+            raise ValueError(f"StepGraphs: the {what} has {len(leaves)} "
+                             f"leaves, its static buffers {len(static)}")
+        for s, t in zip(static, leaves):
+            if not isinstance(t, torch.Tensor):
+                if t != s:
+                    raise ValueError(f"StepGraphs: a non-tensor {what} leaf "
+                                     f"changed ({s!r} -> {t!r})")
+                continue
+            if t.shape != s.shape or t.dtype != s.dtype:
+                raise ValueError(
+                    f"StepGraphs: a {what} leaf changed from {s.dtype} "
+                    f"{tuple(s.shape)} to {t.dtype} {tuple(t.shape)}")
+            if t.data_ptr() != s.data_ptr():
+                s.copy_(t)
+
+    def _write_back(self, new_state):
+        """Copy the step's new state leaves into the static buffers (inside
+        the capture when capturing)."""
+        leaves, names, spec = self._static
+        flat, new_spec = pytree.tree_flatten(new_state)
+        if new_spec != spec:
+            raise ValueError("StepGraphs: the step returned a state of "
+                             "another structure")
+        storage = {_storage(s) for s in leaves if s.numel()}
+        for s, t, name in zip(leaves, flat, names):
+            if t.numel() == 0 or (t.data_ptr() == s.data_ptr()
+                                  and t.shape == s.shape):
+                continue
+            if name in POOL_LEAVES:
+                raise RuntimeError(
+                    f"StepGraphs: the step returned pool leaf {name!r} as a "
+                    f"new tensor; a pool must be updated in place, never "
+                    f"copied on a step")
+            if _storage(t) in storage:
+                raise RuntimeError(
+                    f"StepGraphs: the step returned leaf {name!r} as a view "
+                    f"of a static buffer")
+            s.copy_(t)
+
+    def run(self, key, fn, state, *args):
+        """``fn(state, *args)`` through the graph of ``key`` -> (out,
+        state): the static state when graphs are on."""
+        if not self.enabled:
+            return fn(state, *args)
+        if self._static is None:
+            self.bind(state)
+        else:
+            self._fill(self._static[0], pytree.tree_leaves(state), "state")
+        g = self.graphs.get(key)
+        if g is None:
+            return self._capture(key, fn, args)
+        arg_leaves = pytree.tree_leaves(args)
+        self._fill(g.args, arg_leaves, "argument")
+        g.graph.replay()
+        _book(g.counts)
+        return g.out, self.state
+
+    def _capture(self, key, fn, args):
+        leaves, spec = pytree.tree_flatten(args)
+        static_args = [self.own(t if not isinstance(t, torch.Tensor)
+                                or t.data_ptr() in self._owned
+                                else t.clone()) for t in leaves]
+        args = pytree.tree_unflatten(static_args, spec)
+        state = self.state
+        cur = torch.cuda.current_stream(self.device)
+        s = self._stream
+        s.wait_stream(cur)
+        with torch.cuda.stream(s):
+            out_eager, new = fn(state, *args)     # the real step
+            self._write_back(new)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        before = _counts()
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, pool=self._pool, stream=s,
+                              capture_error_mode="thread_local"):
+            out, new = fn(state, *args)
+            self._write_back(new)
+        seconds = time.perf_counter() - t0
+        after = _counts()
+        counts = {k: after[k] - before[k] for k in after}
+        _book(counts, -1)                 # the capture launched nothing
+        self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
+        with torch.cuda.stream(s):        # this call's outputs: the step's
+            for a, b in zip(_tensors(out), _tensors(out_eager)):
+                a.copy_(b)
+        cur.wait_stream(s)
+        for t in _tensors(out):
+            self.own(t)
+        self.graphs[key] = _Graph(graph, static_args, out, counts, seconds)
+        return out, self.state
 
 
 def make_tiered_decode_step(tcfg: tk.TieredConfig, *,

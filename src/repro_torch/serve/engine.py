@@ -25,6 +25,19 @@ copy replay runs; ``EngineConfig.slos`` books each finished request's
 latency against its tenant's targets.  With all three off the engine
 launches exactly what it launches without them.  ``jax.jit`` state
 donation has no counterpart: the pools update in place.
+
+Compiled steps: where the reference jits a serving step, the port
+captures it once as a CUDA graph and replays it (``serve.decode
+.StepGraphs``): the engine's decode step per live-page bucket (its greedy
+argmax inside), the maintenance plan, its apply and the synchronous
+pass, and ``TieredServer``'s step and maintenance.  The engine's state
+buffers outlive a run (``run`` resets them in place), so each graph is
+captured at most once per engine.  ``graphs=None`` captures on a card and
+runs eagerly on the CPU, ``False`` runs eagerly everywhere (the
+counterpart of ``jax.disable_jit``).  The host reads (the bucket, tokens
+and ``pos`` after a step, the pass's copy flag) stay between the graphs;
+prefill, chunked ingest, admission, release, the multi-tenant pass and
+the flight-recorded apply and release run eagerly.
 """
 
 from __future__ import annotations
@@ -48,6 +61,7 @@ from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.registry import MetricSpec, register
 from repro_torch.obs.slo import SLOMonitor
 from repro_torch.obs.trace import profiler_trace
+from repro_torch.serve.decode import StepGraphs
 
 # the serving engine's own books (DESIGN.md §10); the trimma_* families
 # are declared by the modules that own them
@@ -150,29 +164,50 @@ class TieredServer:
     "concat" or "fused"); ``maintain`` runs one migration-scheduler pass
     between steps; ``release`` recycles a lane, dropping its pages from
     the iRT, the iRC and the device table in one batched pass.  The pools
-    update in place."""
+    update in place.  ``step`` and ``maintain`` are captured CUDA graphs
+    on a card (``graphs`` as ``Engine``'s); ``release`` runs eagerly."""
 
-    def __init__(self, tcfg, *, path: str = "zero_copy", device=None):
+    def __init__(self, tcfg, *, path: str = "zero_copy", device=None,
+                 graphs: bool | None = None):
+        from repro_torch.kernels.remap_gather.ops import new_flag
         from repro_torch.serve.decode import make_tiered_decode_step
         from repro_torch.tiered import kvcache as tk
         self.cfg = tcfg
         self.device = resolve_device(device)
-        self.state = tk.init_state(tcfg, self.device)
+        self.graphs = StepGraphs(self.device, graphs)
+        self.state = self.graphs.bind(tk.init_state(tcfg, self.device))
         self._step = make_tiered_decode_step(tcfg, path=path)
+        self._pos = self.graphs.own(torch.zeros(
+            (tcfg.n_seqs,), dtype=torch.int32, device=self.device))
+        self._copy_err = new_flag(self.device)
         self.steps = 0
 
     def step(self, q, k_new, v_new, pos):
         """One decode token per lane: q [B, KV, G, hd], k_new/v_new
         [B, KV, hd], ``pos`` a Python int or an int tensor on the
-        server's device, scalar or [B] (< 0 idles a lane).  Returns
-        [B, KV, G, hd]; nothing waits for the card."""
-        out, self.state = self._step(self.state, q, k_new, v_new, pos)
+        server's device, scalar or [B] (< 0 idles a lane), copied into
+        the step's [B] int32 buffer.  Returns [B, KV, G, hd], on a card
+        the graph's output buffer, which the next step overwrites (clone
+        it to keep it); nothing waits for the card."""
+        if isinstance(pos, torch.Tensor):
+            self._pos.copy_(pos.expand(self.cfg.n_seqs))
+        else:
+            self._pos.fill_(int(pos))
+        out, self.state = self.graphs.run("step", self._step, self.state,
+                                          q, k_new, v_new, self._pos)
         self.steps += 1
         return out
 
-    def maintain(self):
+    def _pass(self, st):
         from repro_torch.serve import tiered as srv
-        self.state = srv.maintain(self.cfg, self.state)
+        return None, srv.maintain(self.cfg, st, err=self._copy_err)
+
+    def maintain(self):
+        """One maintenance pass; raises ``IndexError`` if one of its page
+        copies met an index outside its pool (one host read)."""
+        from repro_torch.kernels.remap_gather.ops import check_flag
+        _, self.state = self.graphs.run("maintain", self._pass, self.state)
+        check_flag(self._copy_err)
 
     def release(self, seq: int):
         from repro_torch.serve import tiered as srv
@@ -209,7 +244,8 @@ class Engine:
     there)."""
 
     def __init__(self, cfg: ArchConfig, params, ec: EngineConfig,
-                 backend=None, scheduler=None, *, device=None):
+                 backend=None, scheduler=None, *, device=None,
+                 graphs: bool | None = None):
         if cfg.family not in _PREFILL_FAMILIES:
             raise NotImplementedError(
                 f"Engine prefill supports KV-cache families "
@@ -232,6 +268,13 @@ class Engine:
             self.backend = make_backend(cfg, ec.backend, ec.batch,
                                         ec.max_len, device=self.device, **kw)
         self._tiered = isinstance(self.backend, TieredBackend)
+        # the compiled steps (module docstring): one runner, one graph pool
+        self.graphs = StepGraphs(self.device, graphs)
+        self._kept = None              # (state, tokens): every run's buffers
+        self._copy_err = None          # the captured passes' copy flag
+        if self._tiered:
+            from repro_torch.kernels.remap_gather.ops import new_flag
+            self._copy_err = new_flag(self.device)
         self._maintain_tenants = None  # bound by a multi-tenant scheduler
         self._pending_plan = None      # (plan, the step it was made at)
         self.maintain_overlaps = 0
@@ -293,6 +336,69 @@ class Engine:
         """The greedy scheduler's wave anchor (None for schedulers
         without straggler bucketing)."""
         return getattr(self.scheduler, "active_bucket", None)
+
+    # -- the compiled steps (captured once, replayed) ----------------------
+
+    def _decode_step(self, state, tokens, n_pages: int | None):
+        """The full-model decode step of live-page bucket ``n_pages``, its
+        greedy token written into ``tokens`` in place."""
+        logits, state = decode_step(self.cfg, self.params, state, tokens,
+                                    backend=self.backend, n_pages=n_pages)
+        tokens.copy_(torch.argmax(logits, dim=-1))
+        return (logits, tokens), state
+
+    def _decode(self, state, tokens, n_pages: int | None):
+        """One decode step -> (logits, next tokens, state): one graph per
+        live-page bucket, as the reference jits one step per bucket.  The
+        returned tokens are the step's token buffer, which the scheduler
+        writes in place and the next step reads."""
+        (logits, tokens), state = self.graphs.run(
+            ("decode", n_pages),
+            lambda st, tok: self._decode_step(st, tok, n_pages), state,
+            tokens)
+        return logits, tokens, state
+
+    def _plan_fn(self, state):
+        return self.backend.plan_maintain(state), state
+
+    def _apply_fn(self, state, plan):
+        return None, self.backend.apply_maintain(state, plan,
+                                                 err=self._copy_err)
+
+    def _pass_fn(self, state):
+        return None, self.backend.maintain(state, err=self._copy_err)
+
+    def _plan(self, state):
+        """Score and plan a maintenance pass (a graph): the plan's tensors
+        are the graph's outputs, applied before its next replay."""
+        return self.graphs.run("plan", self._plan_fn, state)[0]
+
+    def _apply(self, state, plan):
+        """Apply a plan (a graph); its copies set ``_copy_err``, which
+        ``_log_bandwidth`` reads."""
+        return self.graphs.run("apply", self._apply_fn, state, plan)[1]
+
+    def _maintain(self, state):
+        """One synchronous maintenance pass (a graph; the schedulers'
+        single-tenant pass)."""
+        return self.graphs.run("maintain", self._pass_fn, state)[1]
+
+    def _reset_state(self):
+        """The (state, tokens) buffers every run reuses, reset in place to
+        a fresh ``init_state`` and zero tokens (made on the first run,
+        then bound as the graphs' static buffers)."""
+        ec = self.ec
+        fresh = self.backend.init_state(ec.batch, ec.max_len)
+        if self._kept is None:             # the copy flag is fresh too
+            self._kept = (self.graphs.bind(fresh), self.graphs.own(
+                torch.zeros((ec.batch,), dtype=torch.int32,
+                            device=self.device)))
+            return self._kept
+        self.graphs.bind(fresh)
+        self._kept[1].zero_()
+        if self._copy_err is not None:
+            self._copy_err.zero_()
+        return self._kept
 
     # -- primitives the scheduler calls -----------------------------------
 
@@ -417,7 +523,7 @@ class Engine:
             if self._fl is not None:
                 state = self._rec_apply(state, plan, plan_step)
             else:
-                state = self.backend.apply_maintain(state, plan)
+                state = self._apply(state, plan)
         self._pending_plan = None
         if overlapped:
             self.maintain_overlaps += 1
@@ -425,9 +531,16 @@ class Engine:
         return state
 
     def _log_bandwidth(self, state):
+        """Book the pass's page counts and read the captured passes' copy
+        flag, in one host read after every pass; a copy that met an index
+        outside its pool raises ``IndexError`` here."""
         L = self.backend.n_layers
-        self._bw_log.append((int(state.caches.promo_pages) * L,
-                             int(state.caches.demo_pages) * L))
+        c = state.caches
+        promo, demo, bad = torch.stack(
+            [c.promo_pages, c.demo_pages, self._copy_err[0]]).tolist()
+        if bad:
+            raise IndexError("remap_gather: an index lay outside its pool")
+        self._bw_log.append((promo * L, demo * L))
 
     def _maintain_hook(self, state):
         """The maintenance hook after every ``maintain_every``-th step.
@@ -439,13 +552,11 @@ class Engine:
         tenants = self._maintain_tenants is not None
         if self.ec.overlap_maintain and not tenants:
             with self.tracer.span("maintain", step=self.steps, phase="plan"):
-                self._pending_plan = (self.backend.plan_maintain(state),
-                                      self.steps)
+                self._pending_plan = (self._plan(state), self.steps)
             return state
         with self.tracer.span("maintain", step=self.steps):
             if self._fl is not None and not tenants:
-                state = self._rec_apply(
-                    state, self.backend.plan_maintain(state), self.steps)
+                state = self._rec_apply(state, self._plan(state), self.steps)
             else:
                 state = self.scheduler.maintain(state)
         self._log_bandwidth(state)
@@ -583,9 +694,7 @@ class Engine:
         obs, tracer = ec.obs, self.tracer
         lanes: list[Request | None] = [None] * ec.batch
         self._lanes_ref = lanes
-        state = self.backend.init_state(ec.batch, ec.max_len)
-        tokens = torch.zeros((ec.batch,), dtype=torch.int32,
-                             device=self.device)
+        state, tokens = self._reset_state()
         finished: list[Request] = []
         self._bw_log = []
         self._pending_plan = None
@@ -603,10 +712,7 @@ class Engine:
                 state = self._flush_maintain(state, overlapped=True)
                 n_pages = self._live_bucket(state.pos.cpu().numpy())
                 with tracer.span("decode_step", step=self.steps):
-                    logits, state = decode_step(self.cfg, self.params, state,
-                                                tokens, backend=self.backend,
-                                                n_pages=n_pages)
-                    tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+                    _, tokens, state = self._decode(state, tokens, n_pages)
                 self.steps += 1
                 if self._tiered and self.steps % ec.maintain_every == 0:
                     state = self._maintain_hook(state)

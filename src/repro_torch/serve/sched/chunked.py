@@ -252,5 +252,5 @@ class ChunkedScheduler:
         if not self.eng._tiered:
             return state
         if len(self.tenants) == 1:
-            return self.eng.backend.maintain(state)
+            return self.eng._maintain(state)
         return self.eng._maintain_tenants(state, self.lane_tenant.copy())

@@ -75,4 +75,4 @@ class GreedyScheduler:
         return state, tokens
 
     def maintain(self, state):
-        return self.eng.backend.maintain(state)
+        return self.eng._maintain(state)

@@ -90,11 +90,12 @@ def attend_tokens(cfg: tk.TieredConfig, st: tk.TieredState, q, k_new,
 
 
 def maintain(cfg: tk.TieredConfig, st: tk.TieredState,
-             max_moves: int | None = None) -> tk.TieredState:
+             max_moves: int | None = None, err=None) -> tk.TieredState:
     """Between decode steps: one policy-scheduler pass (bounded promotion
     and demotion queues, epoch decay); every move writes its translation
-    through ``dev_table``."""
-    return tk.run_scheduler(cfg, st, max_moves=max_moves)
+    through ``dev_table``.  ``err``: the caller's out-of-range flag for
+    the pass's copies (``kvcache._replay_descs``)."""
+    return tk.run_scheduler(cfg, st, max_moves=max_moves, err=err)
 
 
 def release(cfg: tk.TieredConfig, st: tk.TieredState,

@@ -644,13 +644,14 @@ def _unstack(one: TieredState, st: TieredState) -> TieredState:
 
 
 def run_scheduler(cfg: TieredConfig, st: TieredState,
-                  max_moves: int | None = None) -> TieredState:
+                  max_moves: int | None = None, err=None) -> TieredState:
     """One maintenance pass on a single-layer store: score, plan bounded
     promotion + demotion queues, apply them, advance the epoch.  The page
     copies replay as on a one-layer stack (``run_scheduler_stacked``), so
-    the pass reads its out-of-range flag once, not once per copy."""
-    return _unstack(run_scheduler_stacked(cfg, _one_layer(st), max_moves),
-                    st)
+    the pass reads its out-of-range flag once, not once per copy (or, with
+    the caller's ``err``, leaves it to the caller: ``_replay_descs``)."""
+    return _unstack(run_scheduler_stacked(cfg, _one_layer(st), max_moves,
+                                          err=err), st)
 
 
 def migrate_hot(cfg: TieredConfig, st: TieredState,
@@ -699,13 +700,20 @@ def _pass_records(ddesc, pdesc):
     return torch.cat(parts) if parts else None
 
 
-def _replay_descs(pools, ddesc, pdesc):
+def _replay_descs(pools, ddesc, pdesc, err=None):
     """Apply recorded maintenance copies to the stacked pools in exactly
     the order the metadata pass recorded them (``_pass_records``), every
     layer alike, in one launch of the copy engine's replay
-    (``remap_replay_op``); its out-of-range flag is read once."""
+    (``remap_replay_op``).  Without ``err`` its out-of-range flag is read
+    at once; with the caller's ``err`` (``remap_gather.ops.new_flag``)
+    the launch sets that flag and nothing waits for the card: the caller
+    reads it (``check_flag``) where it next waits anyway, so the pass can
+    run inside a captured CUDA graph."""
     recs = _pass_records(ddesc, pdesc)
     if recs is None:
+        return
+    if err is not None:
+        rg_ops.remap_replay_op(pools, recs, err)
         return
     err = rg_ops.new_flag(pools[0].device)
     rg_ops.remap_replay_op(pools, recs, err)
@@ -727,25 +735,29 @@ def plan_maintenance(cfg: TieredConfig, sts: TieredState,
     return pol_sched.plan(pol, sc, resident, mm)
 
 
-def apply_maintenance_stacked_desc(cfg: TieredConfig, sts: TieredState, p):
+def apply_maintenance_stacked_desc(cfg: TieredConfig, sts: TieredState, p,
+                                   err=None):
     """Apply a Plan to a stacked store: the metadata pass runs once with
     pool copies recorded, then the copies replay over the [L, ...] pools
-    (in place).  Returns ``(state, ddesc, pdesc)``."""
+    (in place; ``err`` as in ``_replay_descs``).  Returns ``(state, ddesc,
+    pdesc)``."""
     sts, ddesc, pdesc = _apply_plan(cfg, sts, p, _now(cfg, sts))
-    _replay_descs(_stacked_pools(sts), ddesc, pdesc)
+    _replay_descs(_stacked_pools(sts), ddesc, pdesc, err)
     return sts, ddesc, pdesc
 
 
-def apply_maintenance_stacked(cfg: TieredConfig, sts: TieredState,
-                              p) -> TieredState:
-    return apply_maintenance_stacked_desc(cfg, sts, p)[0]
+def apply_maintenance_stacked(cfg: TieredConfig, sts: TieredState, p,
+                              err=None) -> TieredState:
+    return apply_maintenance_stacked_desc(cfg, sts, p, err)[0]
 
 
 def run_scheduler_stacked(cfg: TieredConfig, sts: TieredState,
-                          max_moves: int | None = None) -> TieredState:
-    """One synchronous maintenance pass over a stacked store."""
-    return apply_maintenance_stacked(cfg, sts,
-                                     plan_maintenance(cfg, sts, max_moves))
+                          max_moves: int | None = None,
+                          err=None) -> TieredState:
+    """One synchronous maintenance pass over a stacked store (``err`` as
+    in ``_replay_descs``)."""
+    return apply_maintenance_stacked(
+        cfg, sts, plan_maintenance(cfg, sts, max_moves), err)
 
 
 def run_scheduler_tenants_stacked(cfg: TieredConfig, sts: TieredState,

@@ -818,7 +818,7 @@ TRACE = dict(batch=2, max_len=64, backend="tiered", page_tokens=8,
              fast_data_slots=4, maintain_every=2)
 
 
-def _card_engine(cuda, **ec_kw):
+def _card_engine(cuda, graphs=None, **ec_kw):
     from repro_torch.configs import get_config, reduce_for_smoke
     from repro_torch.core.policy import get_policy
     from repro_torch.models import init_params
@@ -831,7 +831,7 @@ def _card_engine(cuda, **ec_kw):
                        fast_data_slots=4,
                        policy=get_policy("write_aware", demote_threshold=16),
                        device=cuda)
-    eng = Engine(cfg, params, ec, backend=be, device=cuda)
+    eng = Engine(cfg, params, ec, backend=be, device=cuda, graphs=graphs)
     rng = np.random.default_rng(3)
     for rid in range(4):
         eng.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab, 4),
@@ -984,7 +984,11 @@ def test_telemetry_off_launches_what_the_loop_without_telemetry_did(cuda):
     """With obs, flight and SLOs off the engine launches exactly the
     kernels of the loop without telemetry, over a whole run (greedy
     scheduler, overlapped maintenance, releases and prefills included),
-    and decodes the same tokens."""
+    and decodes the same tokens.  Both run eagerly (``graphs=False``):
+    the loop without telemetry had no captured steps, and a replay makes
+    one ``cudaGraphLaunch`` where the eager step makes its kernels'
+    launches (``test_captured_engine_equals_eager`` holds the captured
+    engine to the eager one)."""
     from torch.profiler import ProfilerActivity, profile
 
     def launches(run):
@@ -997,9 +1001,10 @@ def test_telemetry_off_launches_what_the_loop_without_telemetry_did(cuda):
                 if "LaunchKernel" in e.key)
         return n, [r.tokens for r in done]
 
-    _card_engine(cuda).run()                         # builds and loads
-    eng_n, eng_tokens = launches(_card_engine(cuda).run)
-    loop_n, loop_tokens = launches(_ParentLoop(_card_engine(cuda)).run)
+    _card_engine(cuda, graphs=False).run()           # builds and loads
+    eng_n, eng_tokens = launches(_card_engine(cuda, graphs=False).run)
+    loop_n, loop_tokens = launches(
+        _ParentLoop(_card_engine(cuda, graphs=False)).run)
     assert eng_tokens == loop_tokens
     assert eng_n == loop_n > 0
 
@@ -1802,3 +1807,207 @@ def test_fit_step_on_the_card(cuda, tmp_path):
     assert abs(m["loss"] - np.log(256)) < 0.5, m
     from repro_torch.ckpt.manager import CheckpointManager
     assert CheckpointManager(str(tmp_path)).latest_step() == 1
+
+
+# ---------------------------------------------------------------------------
+# the compiled serving steps: captured CUDA graphs against the eager steps
+# ---------------------------------------------------------------------------
+
+def _kernel_counts():
+    from repro_torch.kernels.irt_lookup import ops as irt_ops
+    return (pa_ops.launches, pa_ops.split_launches, pa_ops.unified_launches,
+            rg_ops.launches, rg_ops.replay_launches, irt_ops.launches,
+            irt_ops.walk2_launches, fa_ops.launches)
+
+
+def _graph_engine(cuda, graphs, arch="llama3-8b", **ec_kw):
+    """The smoke config's tiered engine with requests whose live pages
+    cross the 1-, 2- and 4-page buckets of an 8-page table, and a spy on
+    the engine's step that keeps every step's logits."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import init_params
+    from repro_torch.serve.engine import Engine, EngineConfig, Request
+    cfg = reduce_for_smoke(get_config(arch))
+    params = init_params(cfg, cuda, seed=2)
+    ec = EngineConfig(**{**TRACE, "fast_data_slots": 6, **ec_kw})
+    eng = Engine(cfg, params, ec, device=cuda, graphs=graphs)
+    logits = []
+    real = eng._decode
+
+    def spy(state, tokens, n_pages):
+        out = real(state, tokens, n_pages)
+        logits.append(out[0].clone())
+        return out
+
+    eng._decode = spy
+
+    def submit():
+        rng = np.random.default_rng(9)
+        for rid in range(5):
+            eng.submit(Request(rid=rid, prompt=rng.integers(
+                0, cfg.vocab, int(rng.integers(3, 20))),
+                max_new=int(rng.integers(10, 30))))
+    return eng, logits, submit
+
+
+def _served(eng, logits, submit):
+    logits.clear()
+    submit()
+    before = _kernel_counts()
+    done = eng.run()
+    counts = tuple(b - a for a, b in zip(before, _kernel_counts()))
+    state = [t.clone() for t in torch.utils._pytree.tree_leaves(
+        eng.final_state)]
+    return ({r.rid: r.tokens for r in done}, eng.counters, counts,
+            torch.stack(logits), state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tiered", "dense", "moe", "sync"])
+def test_captured_engine_equals_eager(cuda, case):
+    """Captured (one graph per live-page bucket, the plan, the apply, the
+    synchronous pass) equals the eager engine bit for bit: every step's
+    logits, the token streams, the counters, every state leaf and the
+    wrappers' launch counts; the run crosses buckets, and a second run
+    on the same engine captures nothing and decodes the first's logits
+    and tokens (the step count runs on across runs, as the reference's
+    does, so the maintenance cadence may shift)."""
+    kw = {"tiered": {}, "dense": {"backend": "dense"},
+          "moe": {"arch": "granite-moe-3b-a800m"},
+          "sync": {"overlap_maintain": False}}[case]
+    runs = {}
+    for graphs in (False, True):
+        eng, logits, submit = _graph_engine(cuda, graphs, **kw)
+        runs[graphs] = _served(eng, logits, submit)
+        if graphs:
+            keys = set(eng.graphs.graphs)
+            again = _served(eng, logits, submit)
+            assert set(eng.graphs.graphs) == keys
+            assert again[0] == runs[True][0]
+            assert _equal(again[3], runs[True][3])
+    buckets = {k[1] for k in keys if k[0] == "decode"}
+    if case != "dense":
+        assert len(buckets) >= 2, keys
+        assert {"plan", "apply"} <= keys or "maintain" in keys
+    for a, b in zip(runs[False], runs[True]):
+        assert _equal(a, b)
+
+
+def _equal(a, b):
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+@pytest.mark.cuda
+def test_replay_books_launches_as_the_eager_step(cuda):
+    """A replay adds to the wrappers' counters what the eager step adds;
+    the capture itself adds nothing; the step's outputs come back in the
+    graph's own buffers; the caller's argument is copied into the graph's
+    static input, never written."""
+    from repro_torch.serve.decode import StepGraphs
+    d = _inputs(cuda, K=1, seed=3)
+    runner = StepGraphs(cuda)
+    state = runner.bind({"k": d["slow_k"]})
+
+    def fn(st, q):
+        out = pa_ops.paged_attention_fused_op(
+            q, d["fast_k"], d["fast_v"], st["k"], d["slow_v"],
+            d["entries"], d["k_new"], d["v_new"], d["pos"])
+        return out, st
+    before = pa_ops.launches
+    first, _ = runner.run("read", fn, state, d["q"])    # eager + capture
+    assert pa_ops.launches == before + 1
+    q0, q2 = d["q"].clone(), d["q"] * 2
+    out, _ = runner.run("read", fn, state, q2)
+    assert pa_ops.launches == before + 2 and runner.captures == 1
+    assert torch.equal(d["q"], q0)
+    assert out.data_ptr() == first.data_ptr()
+    assert torch.equal(out, pa_ops.paged_attention_fused_op(
+        q2, d["fast_k"], d["fast_v"], d["slow_k"], d["slow_v"],
+        d["entries"], d["k_new"], d["v_new"], d["pos"]))
+
+
+@pytest.mark.cuda
+def test_capture_refuses_a_copied_pool_and_a_host_read(cuda):
+    """The runner raises, never falls back: a step that hands a pool back
+    as a new tensor (the data_ptr check), and a step whose capture fails
+    (a host read inside it)."""
+    from repro_torch.serve.decode import StepGraphs
+    runner = StepGraphs(cuda)
+    pool = torch.zeros(4, 8, device=cuda)
+    state = runner.bind({"slow_k": pool, "n": torch.zeros((), device=cuda)})
+    with pytest.raises(RuntimeError, match="pool leaf"):
+        runner.run("copy", lambda st: (None, {**st, "slow_k":
+                                              st["slow_k"] + 1}), state)
+    assert not runner.graphs
+    # a failed capture leaves its stream's allocator state behind: run it
+    # in a process of its own
+    import subprocess
+    import sys
+    src = Path(__file__).resolve().parents[1] / "src"
+    script = (
+        "import torch\n"
+        "from repro_torch.serve.decode import StepGraphs\n"
+        "r = StepGraphs('cuda')\n"
+        "st = r.bind({'n': torch.zeros((), device='cuda'),\n"
+        "             'x': torch.ones(4, device='cuda')})\n"
+        "try:\n"
+        "    r.run('read', lambda s: (None, {**s, 'n': s['n'] + float(\n"
+        "        s['x'].sum().item())}), st)\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', 'read' in r.graphs, isinstance(e, RuntimeError))\n")
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, timeout=300,
+                          env={**__import__("os").environ,
+                               "PYTHONPATH": str(src)})
+    assert proc.stdout.strip() == "raised False True", (
+        proc.stdout, proc.stderr[-2000:])
+
+
+@pytest.mark.cuda
+def test_server_captured_equals_eager_every_path(cuda):
+    """``TieredServer`` captured against eager on its four paths (the
+    zero-copy read over the cached and the uncached device table, concat,
+    fused): every output bit for bit, with maintenance and a release
+    between steps, ``pos`` as a tensor and as an int; counters and the
+    wrappers' launch counts equal."""
+    import dataclasses
+
+    paths = (("zero_copy", True), ("zero_copy", False), ("concat", False),
+             ("fused", True))
+    for path, cached in paths:
+        cfg = _server_cfg(cache_device_table=cached)
+        runs = []
+        for graphs in (False, True):
+            from repro_torch.serve.engine import TieredServer
+            srv = TieredServer(cfg, path=path, device=cuda, graphs=graphs)
+            g = torch.Generator(device=cuda).manual_seed(0)
+            for pool in (srv.state.slow_k, srv.state.slow_v):
+                pool.copy_(torch.randn(pool.shape, generator=g,
+                                       device=cuda))
+            pos = torch.tensor([300, 40, -1], dtype=torch.int32,
+                               device=cuda)
+            outs, before = [], _kernel_counts()
+            for step in range(12):
+                q = torch.randn(3, 2, 4, 64, generator=g, device=cuda).to(
+                    torch.bfloat16)
+                kv = torch.randn(3, 2, 64, generator=g, device=cuda).to(
+                    torch.bfloat16)
+                p = 77 if step == 9 else pos
+                outs.append(srv.step(q, kv, kv, p).clone())
+                pos = torch.where(pos >= 0, pos + 1, pos)
+                if step % 3 == 2:
+                    srv.maintain()
+                if step == 6:
+                    srv.release(1)
+                    pos[1] = 0
+            counts = tuple(b - a for a, b in zip(before, _kernel_counts()))
+            runs.append((torch.stack(outs), srv.counters, counts))
+            if graphs:
+                assert set(srv.graphs.graphs) == {"step", "maintain"}
+        assert torch.equal(runs[0][0], runs[1][0]), path
+        assert runs[0][1:] == runs[1][1:], path
+        assert runs[0][1]["migrations"] > 0
