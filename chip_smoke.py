@@ -193,19 +193,31 @@ prints no result line):
    ``torch.profiler`` session): (a) phase 4's workload served by two
    engines, eager (``graphs=False``) and captured
    (``serve.decode.StepGraphs``: the decode step per live-page bucket,
-   the plan, the apply), in two interleaved pairs, eager then captured,
-   twice: the first pair times the engine's step, plan and apply
-   synchronised, the second runs clean; (b) phase 7's chunked +
-   two-tenant run and (c) granite-moe-3b on phase 11's store, eager
-   against captured; (d) a third pair of (a)'s engines with a profiled
-   window of loop iterations.  Gates, every run: token streams,
-   counters, the wrappers' launch counts and every state leaf equal bit
-   for bit; (a)'s captured engine captures nothing after its first run
-   and decodes the same tokens every run.  Prints, eager and captured,
-   tokens/s, decode step p50 and p90, maintenance ms a pass,
+   the plan, the apply, the one-shot prefill per padded length, the
+   release), in two interleaved pairs, eager then captured, twice: the
+   first pair times the engine's steps synchronised, the second runs
+   clean; (b) phase 7's chunked + two-tenant run (the chunk forward and
+   write, the admission, the multi-tenant pass and the release
+   captured), timed and clean; (e) a flight-recorded pair (phase 9's
+   engine, recorder on: the recorded apply and release captured) and
+   (c) granite-moe-3b on phase 11's store, eager against captured; (d)
+   a third pair of (a)'s engines with a profiled window of loop
+   iterations, the captured one with its eager call sites labelled,
+   then a third pair of (b)'s with a profiled window.  Gates, every
+   run: token streams, counters, the wrappers' launch counts, every
+   state leaf and the flight ring equal bit for bit; every captured
+   engine captures nothing after its first run, and (a)'s decodes the
+   same tokens every run; in the captured profiled windows no
+   hand-written kernel goes out through ``cudaLaunchKernel`` (joined on
+   CUPTI correlation ids; the eager windows are the control).  Prints,
+   eager and captured, tokens/s, decode step p50 and p90, maintenance
+   ms a pass, prefill, chunk forward, chunk write, multi-tenant pass,
+   admission and release ms (a call that captured apart),
    ``cudaLaunchKernel`` and ``cudaGraphLaunch`` calls, device ops and
-   busy ms a loop iteration, the device's idle share, capture seconds
-   per key and the graph pool's bytes.
+   busy ms a loop iteration, the device's idle share, the
+   ``cudaLaunchKernel`` calls left by call site, the graph keys,
+   capture seconds and the graph pool's bytes, and the chunk K/V bytes
+   copied a chunk.
 
 Output, in order: phase lines, one JSON ``kernels`` line (launches: the
 main path's for paged_attention_fused, remap_gather (every launch of the
@@ -1265,13 +1277,12 @@ def main_path_phase(torch, dev, cfg, params):
             return out
         return run
 
-    # the engine's own step, plan and apply (captured graphs, replayed)
+    # the engine's own steps (captured graphs, replayed)
     eng._decode = timed("decode step", eng._decode)
     eng.prefill_lane = timed("prefill", eng.prefill_lane)
     eng._plan = timed("maintenance plan", eng._plan)
     eng._apply = timed("maintenance apply", eng._apply)
-    be = eng.backend
-    be.release = timed("release", be.release)
+    eng._release = timed("release", eng._release)
     torch.cuda.reset_peak_memory_stats()
     pa_ops.launches = 0
     rg_ops.launches = rg_ops.replay_launches = 0
@@ -1475,11 +1486,13 @@ def make_server(torch, dev, tcfg, path, graphs=None):
 def _launch_calls(prof) -> dict:
     """The host's runtime calls that launch work in a profiled window
     (``cudaLaunchKernel`` and its variants; ``cudaGraphLaunch``) and the
-    kernels and copies the device ran, with their device ms."""
+    kernels and copies the device ran, with their device ms (a label's
+    span on the device timeline is no device work)."""
     from torch.autograd import DeviceType
     keys = prof.key_averages()
-    dev_events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
+    dev_events = [e for e in prof.events()       # not phase 15's labels
+                  if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith("site ")]
     return {"kernel_launches": sum(e.count for e in keys
                                    if "LaunchKernel" in e.key),
             "graph_launches": sum(e.count for e in keys
@@ -1613,7 +1626,7 @@ def server_phase(torch, dev):
                    f"server {label} step {i}: captured differs from eager")
         _check(res["counters"] == e["counters"]
                and res["launches"] == e["launches"]
-               and res["captured"] == ["maintain", "step"],
+               and res["captured"] == ["maintain", "release", "step"],
                f"server {label}: captured counters {res['counters']}, "
                f"launches {res['launches']}, graphs {res['captured']} "
                f"against eager {e['counters']}, {e['launches']}")
@@ -1704,12 +1717,20 @@ def server_phase(torch, dev):
 # phase 7: chunked prefill + multi-tenant QoS at full width
 # ---------------------------------------------------------------------------
 
-def chunked_engine(cfg, params, dev, graphs=None):
-    """Phase 7's engine with its 16 requests submitted: 256-token chunks,
-    two tenants (interactive: weight 2, on-demand; batch: weight 1),
-    prompts 200-1900 tokens, max_new 32-64."""
+def chunked_requests(cfg):
+    """Phase 7's 16 seeded requests, (prompt, max_new, tenant) each:
+    prompts 200-1900 tokens, max_new 32-64, tenants alternating."""
     import numpy as np
+    rng = np.random.default_rng(7)
+    return [(rng.integers(0, cfg.vocab, int(rng.integers(200, 1901))),
+             int(rng.integers(32, 65)), ("interactive", "batch")[i % 2])
+            for i in range(16)]
 
+
+def chunked_engine(cfg, params, dev, graphs=None, submit=True):
+    """Phase 7's engine with its 16 requests submitted (``submit``):
+    256-token chunks, two tenants (interactive: weight 2, on-demand;
+    batch: weight 1), prompts 200-1900 tokens, max_new 32-64."""
     from repro_torch.serve.engine import Engine, EngineConfig, Request
     from repro_torch.serve.sched import TenantConfig
 
@@ -1720,12 +1741,10 @@ def chunked_engine(cfg, params, dev, graphs=None):
                                             policy="on_demand"),
                                TenantConfig("batch", weight=1)))
     eng = Engine(cfg, params, ec, device=dev, graphs=graphs)
-    rng = np.random.default_rng(7)
-    for i in range(16):
-        eng.submit(Request(rid=i, prompt=rng.integers(
-            0, cfg.vocab, int(rng.integers(200, 1901))),
-            max_new=int(rng.integers(32, 65)),
-            tenant_id=("interactive", "batch")[i % 2]))
+    for i, (prompt, max_new, tenant) in enumerate(
+            chunked_requests(cfg) if submit else ()):
+        eng.submit(Request(rid=i, prompt=prompt, max_new=max_new,
+                           tenant_id=tenant))
     return eng
 
 
@@ -1755,16 +1774,14 @@ def chunked_qos_phase(torch, dev, cfg, params):
             return out
         return run
 
-    chunk_fwd, write_chunk = eng.chunk_fwd, eng.write_chunk
-    eng._decode = timed("decode step", eng._decode)   # a captured graph
-    eng.chunk_fwd = lambda logits=False: timed(
-        "chunk forward", chunk_fwd(logits=logits))
-    eng.write_chunk = timed("chunk write", write_chunk)
+    # the engine's own steps (captured graphs, replayed)
+    eng._decode = timed("decode step", eng._decode)
+    eng.chunk_forward = timed("chunk forward", eng.chunk_forward)
+    eng.write_chunk = timed("chunk write", eng.write_chunk)
     eng.admit_fast = timed("admission", eng.admit_fast)
     eng.prefill_lane = timed("one-shot prefill", eng.prefill_lane)
-    be = eng.backend
-    be.maintain_tenants = timed("maintenance", be.maintain_tenants)
-    be.release = timed("release", be.release)
+    eng._tenant_pass = timed("maintenance", eng._tenant_pass)
+    eng._release = timed("release", eng._release)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa_ops.launches = pa_ops.launches = rg_ops.launches = 0
@@ -1944,6 +1961,22 @@ def flight_identity(counters, by_kind, n_layers, page_bytes) -> dict:
                       (copy_backs - counters["demotions"]) // L)}
 
 
+def demoting_engine(cfg, params, dev, graphs=None, **ec_kw):
+    """Phase 4's engine and store under write_aware with
+    ``TELEMETRY_POLICY`` (phases 9 and 15(e)); ``ec_kw``: the telemetry
+    fields of ``EngineConfig``."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.models.kv_backend import TieredBackend
+    from repro_torch.serve.engine import Engine, EngineConfig
+    ec = EngineConfig(**MAIN_EC, **ec_kw)
+    backend = TieredBackend(
+        cfg, ec.batch, ec.max_len, page_tokens=ec.page_tokens,
+        fast_data_slots=ec.fast_data_slots,
+        policy=get_policy("write_aware", **TELEMETRY_POLICY), device=dev)
+    return Engine(cfg, params, ec, backend=backend, device=dev,
+                  graphs=graphs)
+
+
 def _telemetry_run(torch, dev, cfg, params, tmp, telemetry: bool):
     """Phase 4's engine and first requests under a demoting write_aware
     policy, telemetry off or on; the host waits counted (sync debug mode
@@ -1958,13 +1991,11 @@ def _telemetry_run(torch, dev, cfg, params, tmp, telemetry: bool):
 
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.policy import get_policy
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.remap_gather import ops as rg_ops
-    from repro_torch.models.kv_backend import TieredBackend
     from repro_torch.obs import FlightConfig, ObsConfig, parse_slos
-    from repro_torch.serve.engine import Engine, EngineConfig, Request
+    from repro_torch.serve.engine import Request
 
     tel = {}
     if telemetry:
@@ -1975,12 +2006,7 @@ def _telemetry_run(torch, dev, cfg, params, tmp, telemetry: bool):
                                  http_port=0),
                    flight=FlightConfig(capacity=4096),
                    slos=parse_slos("*:latency:60000:0.9:64"))
-    ec = EngineConfig(**MAIN_EC, **tel)
-    backend = TieredBackend(
-        cfg, ec.batch, ec.max_len, page_tokens=ec.page_tokens,
-        fast_data_slots=ec.fast_data_slots,
-        policy=get_policy("write_aware", **TELEMETRY_POLICY), device=dev)
-    eng = Engine(cfg, params, ec, backend=backend, device=dev)
+    eng = demoting_engine(cfg, params, dev, **tel)
     for i, (prompt, max_new) in enumerate(
             main_requests(cfg)[:TELEMETRY_REQUESTS]):
         eng.submit(Request(rid=i, prompt=prompt, max_new=max_new))
@@ -2236,6 +2262,23 @@ def telemetry_phase(torch, dev, cfg, params):
 # the clean runs' profiled loop iterations (first, count): two maintenance
 # plans and two applies fall in them
 GRAPHS_WINDOW = (40, 8)
+# the chunked run's profiled loop iterations: eight chunk forwards and
+# writes and two multi-tenant passes fall in them
+CHUNKED_WINDOW = (8, 8)
+# the hand-written kernels' device names (substrings), by wrapper
+HAND_WRITTEN = {"flash_attention": "flash", "paged_attention": "paged_kernel",
+                "remap_replay": "remap_replay_kernel",
+                "remap_gather": "remap_gather_kernel", "irt_lookup": "irt_"}
+# the engine's eager calls between the graphs, labelled in a profiled
+# window to name the cudaLaunchKernel calls left (with the scheduler's
+# refill, which writes a refilled lane's first token)
+SITES = ("_scalar", "_stage", "park_idle", "set_pos", "_log_bandwidth",
+         "_refresh_lane_tenants", "_live_bucket")
+# the engine's steps a timed run synchronises and times on the host clock
+GRAPH_TIMED = {"_decode": "step", "_plan": "plan", "_apply": "apply",
+               "prefill_lane": "prefill", "chunk_forward": "chunk forward",
+               "write_chunk": "chunk write", "admit_fast": "admission",
+               "_tenant_pass": "tenant pass", "_release": "release"}
 
 
 def _kernel_counts() -> dict:
@@ -2254,32 +2297,88 @@ def _kernel_counts() -> dict:
             "flash_attention": fa_ops.launches}
 
 
+def _kernel_routes(prof) -> dict:
+    """Each hand-written kernel's device launches in a profiled window by
+    the host call that launched it (``cudaLaunchKernel``,
+    ``cudaGraphLaunch``, ...), joined on CUPTI's correlation ids: a
+    kernel replayed inside a graph carries its graph launch's."""
+    from torch.autograd import DeviceType
+    events = prof.profiler.kineto_results.events()
+    calls = {e.correlation_id(): e.name() for e in events
+             if e.device_type() == DeviceType.CPU and "Launch" in e.name()}
+    routes: dict = {}
+    for e in events:
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        for name, sub in HAND_WRITTEN.items():
+            if sub in e.name():
+                r = routes.setdefault(name, {})
+                call = calls.get(e.correlation_id(), "unmatched")
+                r[call] = r.get(call, 0) + 1
+    return routes
+
+
+def _launch_sites(prof) -> dict:
+    """``cudaLaunchKernel`` calls in a profiled window by call site: the
+    innermost ``SITES`` label (``_labelled``) above each, else the op
+    that made it."""
+    sites: dict = {}
+    for e in prof.events():
+        if "LaunchKernel" not in e.name:
+            continue
+        p = e.cpu_parent
+        key = p.name if p is not None else "?"
+        while p is not None:
+            if p.name.startswith("site "):
+                key = p.name[5:]
+                break
+            p = p.cpu_parent
+        sites[key] = sites.get(key, 0) + 1
+    return dict(sorted(sites.items(), key=lambda kv: -kv[1]))
+
+
+def _labelled(torch, name, fn):
+    """``fn`` under a profiler label ``site <name>``."""
+    def call(*a, **kw):
+        with torch.profiler.record_function("site " + name):
+            return fn(*a, **kw)
+    return call
+
+
 def _graph_run(torch, eng, requests=None, *, timed=False, window=None,
-               profiled=False):
-    """Submit ``requests`` ((prompt, max_new) each; None: already
-    submitted) and run ``eng``.  ``timed``: the engine's step, plan and
-    apply synchronised and timed on the host clock.  ``window`` (first,
-    count): the wall time of those loop iterations, synchronised at both
-    ends; ``profiled``: the window under ``torch.profiler`` (host launch
-    calls, device ops and busy time), left out of tokens/s.  Returns the
-    run's books."""
+               profiled=False, sites=False):
+    """Submit ``requests`` ((prompt, max_new[, tenant]) each; None:
+    already submitted) and run ``eng``.  ``timed``: the engine's steps
+    (``GRAPH_TIMED``) synchronised and timed on the host clock.
+    ``window`` (first, count): the wall time of those loop iterations,
+    synchronised at both ends; ``profiled``: the window under
+    ``torch.profiler`` (host launch calls, device ops and busy time, the
+    hand-written kernels' launch routes; with ``sites`` the
+    ``cudaLaunchKernel`` calls by call site, the engine's methods in
+    ``SITES`` and the scheduler's ``refill`` labelled), left out of
+    tokens/s.
+    Returns the run's books."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import Request
-    for i, (prompt, max_new) in enumerate(requests or ()):
-        eng.submit(Request(rid=i, prompt=prompt, max_new=max_new))
+    for i, (prompt, max_new, *tenant) in enumerate(requests or ()):
+        eng.submit(Request(rid=i, prompt=prompt, max_new=max_new,
+                           **({"tenant_id": tenant[0]} if tenant else {})))
     n_req = len(eng.queue)
     spent: dict = {}
-    book = {"steps": 0, "window_s": 0.0, "window_tokens": 0, "calls": None}
-    real = {k: getattr(eng, k) for k in ("_decode", "_plan", "_apply")}
+    book = {"steps": 0, "window_s": 0.0, "window_tokens": 0, "calls": None,
+            "routes": None, "sites": None}
+    real = {k: getattr(eng, k) for k in GRAPH_TIMED}
 
     def sync_timed(name, fn):
-        def run(*a):
+        def run(*a):           # a call that captured books apart
+            n = eng.graphs.captures
             torch.cuda.synchronize()
             s = time.perf_counter()
             out = fn(*a)
             torch.cuda.synchronize()
-            spent.setdefault(name, []).append(
+            key = name if eng.graphs.captures == n else name + " capture"
+            spent.setdefault(key, []).append(
                 (time.perf_counter() - s) * 1e3)
             return out
         return run
@@ -2303,13 +2402,22 @@ def _graph_run(torch, eng, requests=None, *, timed=False, window=None,
                 if profiled:
                     prof.stop()
                     book["calls"] = _launch_calls(prof)
+                    book["routes"] = _kernel_routes(prof)
+                    if sites:
+                        book["sites"] = _launch_sites(prof)
         return step(*a)
 
     step = real["_decode"]
     if timed:
-        step = sync_timed("step", step)
-        eng._plan = sync_timed("plan", real["_plan"])
-        eng._apply = sync_timed("apply", real["_apply"])
+        for k, name in GRAPH_TIMED.items():
+            setattr(eng, k, sync_timed(name, real[k]))
+        step = eng._decode
+    sched = eng.scheduler
+    if sites:
+        for k in SITES:
+            setattr(eng, k, _labelled(torch, k, getattr(eng, k)))
+        sched.refill = _labelled(torch, "refill", sched.refill)
+        step = _labelled(torch, "_decode", step)
     eng._decode = windowed
     before, steps0 = _kernel_counts(), eng.steps
     torch.cuda.synchronize()
@@ -2319,8 +2427,9 @@ def _graph_run(torch, eng, requests=None, *, timed=False, window=None,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        for k in real:                    # back to the class's methods
+        for k in (*real, *SITES):         # back to the class's methods
             vars(eng).pop(k, None)
+        vars(sched).pop("refill", None)
     after = _kernel_counts()
     n_tok = sum(len(r.tokens) for r in done)
     if window is not None:
@@ -2335,7 +2444,10 @@ def _graph_run(torch, eng, requests=None, *, timed=False, window=None,
                 wall=wall, n_tok=n_tok, spent=spent,
                 tok_s=(n_tok - left_out[0]) / (wall - left_out[1]),
                 window_s=book["window_s"], calls=book["calls"],
+                routes=book["routes"], sites=book["sites"],
                 keys=sorted(map(str, eng.graphs.graphs)),
+                ring={k: t.clone() for k, t in (eng._fl or {}).items()},
+                copy_bytes=eng.chunk_copy_bytes,
                 done=all(r.done for r in done) and len(done) == n_req)
 
 
@@ -2348,7 +2460,8 @@ def _states_equal(torch, a, b) -> bool:
 
 def _hold_equal(torch, label, e, c, eng_e, eng_c):
     """The captured run against the eager one: token streams, counters,
-    the wrappers' launch counts and every state leaf, bit for bit."""
+    the wrappers' launch counts, every state leaf and the flight ring
+    (events, head, counts), bit for bit."""
     _check(e["done"] and c["done"], f"{label}: a request did not finish")
     _check(c["streams"] == e["streams"],
            f"{label}: captured token streams differ from eager")
@@ -2359,6 +2472,9 @@ def _hold_equal(torch, label, e, c, eng_e, eng_c):
            f"{e['launches']}")
     _check(_states_equal(torch, eng_c.final_state, eng_e.final_state),
            f"{label}: a captured state leaf differs from eager")
+    _check(c["ring"].keys() == e["ring"].keys()
+           and _states_equal(torch, c["ring"], e["ring"]),
+           f"{label}: the captured flight ring differs from eager")
 
 
 def _mode_line(timed, clean, profiled) -> str:
@@ -2393,14 +2509,49 @@ def _mode_line(timed, clean, profiled) -> str:
 def _graphs_pairs(torch, label, engs, reqs, rounds):
     """``rounds`` (keywords of ``_graph_run``) over the eager and the
     captured engine in turn, each captured run held to the eager run
-    before it.  Returns {(round, mode): books}."""
+    before it (``sites`` only for the captured one).  Returns {(round,
+    mode): books}."""
     runs = {}
     for r, kw in enumerate(rounds):
         for m in (False, None):
-            runs[r, m] = _graph_run(torch, engs[m], reqs, **kw)
+            runs[r, m] = _graph_run(torch, engs[m], reqs, **{
+                **kw, "sites": bool(kw.get("sites")) and m is None})
         _hold_equal(torch, f"{label} round {r + 1}", runs[r, False],
                     runs[r, None], engs[False], engs[None])
     return runs
+
+
+def _check_routes(label, captured, eager):
+    """In a captured profiled window no hand-written kernel went out
+    through ``cudaLaunchKernel`` and some were replayed; in the eager
+    window they went out one by one (the control of the join)."""
+    one_by_one = {k: v for k, v in captured.items()
+                  if any("LaunchKernel" in c for c in v)}
+    _check(not one_by_one, f"{label}: hand-written kernels launched one "
+           f"by one in the captured window: {one_by_one}")
+    _check(any("GraphLaunch" in c for v in captured.values() for c in v),
+           f"{label}: no hand-written kernel replayed in the captured "
+           f"window: {captured}")
+    _check(any("LaunchKernel" in c for v in eager.values() for c in v),
+           f"{label}: the eager window's hand-written kernels were not "
+           f"joined to their launch calls: {eager}")
+
+
+def _ms(spent, name) -> str:
+    v = spent.get(name, [])
+    return f"{len(v)} x {sum(v) / len(v):.2f} ms" if v else "none"
+
+
+def _kinds(keys) -> set:
+    """The kinds of a runner's captured keys (their str forms)."""
+    return {k.split("'")[1] if k.startswith("(") else k for k in keys}
+
+
+def _capture_line(graphs) -> str:
+    cs = graphs.capture_seconds
+    return (f"{len(cs)} graphs, capture {sum(cs.values()):.2f} s in all "
+            f"(max {max(cs.values()):.4f} s a key), graph pool "
+            f"{graphs.pool_bytes / 2**20:.1f} MiB")
 
 
 def graphs_phase(torch, dev, cfg, params):
@@ -2408,18 +2559,30 @@ def graphs_phase(torch, dev, cfg, params):
     session).  (a) Phase 4's llama3-8b workload (published widths, bf16,
     16 requests, not cut) served by two engines, eager (``graphs=False``)
     and captured, in two interleaved pairs, eager then captured, twice:
-    the first pair times the engine's step, plan and apply (synchronised),
-    the second runs clean (tokens/s).  (b) Phase 7's chunked + two-tenant
-    run, eager against captured (its multi-tenant pass eager).  (c)
+    the first pair times the engine's steps (synchronised), the second
+    runs clean (tokens/s).  (b) Phase 7's chunked + two-tenant run, eager
+    against captured (the chunk forward, the chunk write, the admission,
+    the multi-tenant pass and the release captured), in two pairs: timed,
+    then clean.  (e) The flight-recorded pair: phase 9's engine with the
+    recorder on and phase 4's first 8 requests, twice.  (c)
     granite-moe-3b-a800m at published widths and depth on phase 4's store
-    with phase 4's first 8 requests, eager against captured.  (d) A third
-    pair of (a)'s engines with a profiled window of ``GRAPHS_WINDOW``
-    loop iterations.  Gates, every run: token streams, counters, the
-    wrappers' launch counts and every state leaf of the captured run
-    equal to the eager run's bit for bit; (a)'s captured engine captures
-    nothing after its first run and decodes the same tokens every run."""
+    with phase 4's first 8 requests.  (d) A third pair of (a)'s engines
+    with a profiled window of ``GRAPHS_WINDOW`` loop iterations, the
+    captured one with its eager call sites labelled (its
+    ``cudaLaunchKernel`` calls by call site), then a third pair of (b)'s with a profiled window of
+    ``CHUNKED_WINDOW``: last, since a process runs slower after a
+    profiler session (``PERF.md`` §7).  Times of a call that captured are
+    booked apart.  Gates,
+    every run: token streams, counters, the wrappers' launch counts,
+    every state leaf and the flight ring of the captured run equal to
+    the eager run's bit for bit; every captured engine captures nothing
+    after its first run, and (a)'s decodes the same tokens every run; in
+    the captured profiled windows no hand-written kernel goes out through
+    ``cudaLaunchKernel``."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
+    from repro_torch.obs import FlightConfig
+    from repro_torch.obs import flight as obs_flight
     from repro_torch.serve.engine import Engine, EngineConfig
     t0 = time.perf_counter()
     card = _card_line()
@@ -2429,23 +2592,48 @@ def graphs_phase(torch, dev, cfg, params):
     runs = _graphs_pairs(torch, "graphs llama3-8b", engs, reqs,
                          (dict(timed=True), dict(window=GRAPHS_WINDOW)))
     keys = runs[0, None]["keys"]
+    capture = _capture_line(engs[None].graphs)
     capture_s = engs[None].graphs.capture_seconds
-    pool = engs[None].graphs.pool_bytes
-    _check(any(k.startswith("('decode'") for k in keys)
-           and "apply" in keys and "plan" in keys,
-           f"graphs: captured keys {keys}")
+    _check({"decode", "plan", "apply", "prefill", "release"}
+           <= _kinds(keys), f"graphs: captured keys {keys}")
 
-    ch = {m: chunked_engine(cfg, params, dev, graphs=m)
+    ch = {m: chunked_engine(cfg, params, dev, graphs=m, submit=False)
           for m in (False, None)}
-    chunked = _graphs_pairs(torch, "graphs chunked", ch, None, ({},))
-    del ch
+    creqs = chunked_requests(cfg)
+    chunked = _graphs_pairs(torch, "graphs chunked", ch, creqs,
+                            (dict(timed=True), {}))
+    ckeys = chunked[0, None]["keys"]
+    _check({"decode", "chunk", "write_chunk", "admit", "maintain_tenants",
+            "release"} <= _kinds(ckeys),
+           f"graphs chunked: captured keys {ckeys}")
+
+    fe = {m: demoting_engine(cfg, params, dev, graphs=m,
+                             flight=FlightConfig(capacity=4096))
+          for m in (False, None)}
+    flight = _graphs_pairs(torch, "graphs flight", fe,
+                           reqs[:TELEMETRY_REQUESTS], ({}, {}))
+    fkeys = flight[0, None]["keys"]
+    _check(flight[1, None]["keys"] == fkeys,
+           f"graphs flight: the second captured run captured "
+           f"{flight[1, None]['keys']} after {fkeys}")
+    _check({"apply_rec", "release_rec", "prefill"} <= _kinds(fkeys),
+           f"graphs flight: captured keys {fkeys}")
+    ring = flight[0, None]["ring"]
+    _check(int(ring["counts"][obs_flight.K_DEMOTE]) > 0
+           and int(ring["counts"][obs_flight.K_RELEASE]) > 0,
+           f"graphs flight: the ring holds no demote or release "
+           f"({ring['counts'].tolist()})")
+    del fe
     gc.collect()              # engines hold cycles (scheduler, wrappers)
     torch.cuda.empty_cache()
-    print(f"graphs chunked + QoS: captured == eager bit for bit (token "
-          f"streams, counters, launch counts, every state leaf; the "
-          f"multi-tenant pass eager, {chunked[0, None]['keys']} captured); "
-          f"eager {chunked[0, False]['tok_s']:.1f} tokens/s, captured "
-          f"{chunked[0, None]['tok_s']:.1f} tokens/s; card {card}")
+    print(f"graphs flight-recorded: captured == eager bit for bit in both "
+          f"pairs ({TELEMETRY_REQUESTS} requests; token streams, counters, "
+          f"launch counts, every state leaf, the ring's events, head "
+          f"{int(ring['head'])} and counts by kind "
+          f"{ring['counts'].tolist()}); the second captured run captured "
+          f"nothing; {len(fkeys)} keys; eager "
+          f"{flight[0, False]['tok_s']:.1f} tokens/s, captured "
+          f"{flight[0, None]['tok_s']:.1f} tokens/s; card {card}")
 
     gcfg = get_config("granite-moe-3b-a800m")
     gparams = init_params(gcfg, dev, seed=0)
@@ -2463,29 +2651,90 @@ def graphs_phase(torch, dev, cfg, params):
 
     runs.update({(2, m): r for (_, m), r in _graphs_pairs(
         torch, "graphs llama3-8b profiled", engs, reqs,
-        (dict(window=GRAPHS_WINDOW, profiled=True),)).items()})
+        (dict(window=GRAPHS_WINDOW, profiled=True, sites=True),)).items()})
+    chunked.update({(2, m): r for (_, m), r in _graphs_pairs(
+        torch, "graphs chunked profiled", ch, creqs,
+        (dict(window=CHUNKED_WINDOW, profiled=True),)).items()})
+    _check(all(chunked[r, None]["keys"] == ckeys for r in (1, 2))
+           and ch[None].graphs.captures == len(ckeys),
+           f"graphs chunked: a later captured run captured "
+           f"{chunked[2, None]['keys']} after {ckeys}")
+    _check_routes("graphs chunked", chunked[2, None]["routes"],
+                  chunked[2, False]["routes"])
+    ccapture = _capture_line(ch[None].graphs)
+    C = ch[None].scheduler.chunk
+    L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+    item = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    del ch
+    gc.collect()              # engines hold cycles (scheduler, wrappers)
+    torch.cuda.empty_cache()
+    print(f"graphs chunked + QoS: captured == eager bit for bit in all "
+          f"three pairs (token streams, counters, launch counts, every "
+          f"state leaf); the later captured runs captured nothing; eager "
+          f"{chunked[1, False]['tok_s']:.1f} tokens/s, captured "
+          f"{chunked[1, None]['tok_s']:.1f} tokens/s (the clean pair); "
+          f"card {card}")
+    for m, name in ((False, "eager"), (None, "captured")):
+        sp = chunked[0, m]["spent"]
+        k, n = chunked[2, m]["calls"], CHUNKED_WINDOW[1]
+        idle = 1 - k["device_ms"] / (1e3 * chunked[2, m]["window_s"])
+        print(f"graphs chunked {name} (synchronised, host clock; a call "
+              f"that captured apart): chunk forward "
+              f"{_ms(sp, 'chunk forward')}, chunk write "
+              f"{_ms(sp, 'chunk write')}, multi-tenant pass "
+              f"{_ms(sp, 'tenant pass')}, admission {_ms(sp, 'admission')}"
+              f", release {_ms(sp, 'release')}, decode step "
+              f"{_ms(sp, 'step')}, chunk forward capture "
+              f"{_ms(sp, 'chunk forward capture')}; profiled window "
+              f"{CHUNKED_WINDOW}: {k['kernel_launches'] / n:.1f} "
+              f"cudaLaunchKernel and {k['graph_launches'] / n:.2f} "
+              f"cudaGraphLaunch a loop iteration, {k['device_ms'] / n:.2f} "
+              f"ms device busy, idle {100 * idle:.1f} % of the window; "
+              f"hand-written kernels by launch call "
+              f"{json.dumps(chunked[2, m]['routes'])}; card {card}")
+    sp = chunked[0, None]["spent"]
+    n_chunks = sum(len(sp.get(k, ())) for k in ("chunk forward",
+                                                "chunk forward capture"))
+    print(f"graphs chunked captured: {ccapture}; {len(ckeys)} keys "
+          f"{ckeys}; K/V rows the chunk routing copied to switch ingests "
+          f"{chunked[1, None]['copy_bytes'] / n_chunks:.0f} bytes a chunk "
+          f"({chunked[1, None]['copy_bytes']} over {n_chunks} chunks), "
+          f"and inside each chunk graph its {C} rows "
+          f"({2 * L * C * KV * hd * item} bytes) into the write's "
+          f"buffers; card {card}")
     _check(engs[None].graphs.captures == len(keys)
            and all(runs[r, None]["keys"] == keys for r in (1, 2)),
            f"graphs: a later captured run captured "
            f"{runs[2, None]['keys']} after {keys}")
+    _check_routes("graphs llama3-8b", runs[2, None]["routes"],
+                  runs[2, False]["routes"])
     # (the step count runs on across runs, as the reference's does, so
     # the maintenance cadence and with it the counters may shift)
     _check(all(runs[r, None]["streams"] == runs[0, None]["streams"]
                for r in (1, 2)),
            "graphs: the captured engine's later runs decoded other tokens")
     for m, name in ((False, "eager"), (None, "captured")):
+        sp = runs[0, m]["spent"]
         print(f"graphs llama3-8b {name}: "
-              f"{_mode_line(runs[0, m], runs[1, m], runs[2, m])}; card "
-              f"{card}")
+              f"{_mode_line(runs[0, m], runs[1, m], runs[2, m])}; prefill "
+              f"{_ms(sp, 'prefill')} a request, release "
+              f"{_ms(sp, 'release')} (synchronised; calls that captured: "
+              f"prefill {_ms(sp, 'prefill capture')}, release "
+              f"{_ms(sp, 'release capture')}); hand-written kernels "
+              f"in the profiled window by launch call "
+              f"{json.dumps(runs[2, m]['routes'])}; card {card}")
+    n = GRAPHS_WINDOW[1]
+    sites = {k: round(v / n, 2) for k, v in runs[2, None]["sites"].items()}
+    print(f"graphs llama3-8b captured: the cudaLaunchKernel calls left a "
+          f"loop iteration by call site {json.dumps(sites)}; card {card}")
     print(f"graphs llama3-8b: captured == eager bit for bit in all three "
           f"pairs (16 requests, {runs[1, None]['steps']} steps: token "
           f"streams, counters, launch counts "
           f"{json.dumps(runs[1, None]['launches'])}, every state leaf); "
           f"the captured engine's later runs captured nothing and decoded "
-          f"the first's tokens; {len(keys)} graphs, capture seconds "
+          f"the first's tokens; {capture}; capture seconds "
           f"{json.dumps({str(k): round(v, 4) for k, v in capture_s.items()})}"
-          f"; graph pool {pool / 2**20:.1f} MiB ({pool} bytes reserved by "
-          f"the captures); phase 15 took {time.perf_counter() - t0:.1f} s")
+          f"; phase 15 took {time.perf_counter() - t0:.1f} s")
     del engs
     gc.collect()              # engines hold cycles (scheduler, wrappers)
     torch.cuda.empty_cache()

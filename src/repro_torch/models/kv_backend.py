@@ -18,8 +18,10 @@ first pages straight into the fast pool (``admit_prefix``) and runs the
 multi-tenant maintenance pass (``maintain_tenants``).
 
 ``pos`` is per lane ([B] int32); a negative position marks an idle lane,
-whose append is dropped and whose read sees nothing.  Caches and pools
-update in place.
+whose append is dropped and whose read sees nothing.  Caches, pools and
+``pos`` update in place.  The lane, ``start`` and ``length`` of the
+prompt and lifecycle methods are Python ints or 0-d int tensors on the
+device (a captured step's device scalars, never read on the host).
 """
 
 from __future__ import annotations
@@ -28,11 +30,23 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch._scatter import drop_add, drop_set_
+from repro_torch._scatter import drop_add, drop_set_, on_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 
 from . import attention as attn
+
+
+def _lane_rows(lane, device) -> torch.Tensor:
+    """A lane (Python int or 0-d tensor) as a [1] int64 index on
+    ``device``: a 0-d tensor index would be read on the host."""
+    return on_device(lane, torch.int64, device).reshape(1)
+
+
+def _set_pos(pos: torch.Tensor, lane, length) -> None:
+    """``pos[lane] = length`` in place, without a host read."""
+    pos[_lane_rows(lane, pos.device)] = on_device(
+        length, pos.dtype, pos.device).reshape(1)
 
 
 def _host_num(v):
@@ -89,26 +103,29 @@ class DenseBackend:
                          cv.to(q.dtype), mask[:, None, None, None, :])
         return out.reshape(B, KV, G, hd), cache
 
-    def write_prefill(self, state, lane: int, k_layers, v_layers, length):
+    def write_prefill(self, state, lane, k_layers, v_layers, length):
         """Install a prompt's K/V (k/v [L, P, KV, hd], rows < ``length``
         real) into one lane and set ``pos[lane] = length``."""
         c = state.caches
         P = k_layers.shape[1]
-        c["k"][:, lane, :P] = k_layers.to(c["k"].dtype)
-        c["v"][:, lane, :P] = v_layers.to(c["v"].dtype)
-        pos = state.pos.clone()
-        pos[lane] = length
-        return state._replace(pos=pos)
+        ln = _lane_rows(lane, c["k"].device)
+        c["k"][:, ln, :P] = k_layers[:, None].to(c["k"].dtype)
+        c["v"][:, ln, :P] = v_layers[:, None].to(c["v"].dtype)
+        _set_pos(state.pos, lane, length)
+        return state
 
-    def write_prefill_chunk(self, state, lane: int, k_layers, v_layers,
-                            start: int, length):
+    def write_prefill_chunk(self, state, lane, k_layers, v_layers, start,
+                            length):
         """Chunked prompt ingest: rows [start, start + C) of one lane's
         prompt K/V (k/v [L, C, KV, hd]).  ``pos`` is untouched: the
         scheduler sets it when the last chunk lands."""
         c = state.caches
-        C = k_layers.shape[1]
-        c["k"][:, lane, start:start + C] = k_layers.to(c["k"].dtype)
-        c["v"][:, lane, start:start + C] = v_layers.to(c["v"].dtype)
+        dev = c["k"].device
+        rows = on_device(start, torch.int64, dev) + torch.arange(
+            k_layers.shape[1], device=dev)
+        ln = _lane_rows(lane, dev)
+        c["k"][:, ln, rows] = k_layers.to(c["k"].dtype)
+        c["v"][:, ln, rows] = v_layers.to(c["v"].dtype)
         return state
 
 
@@ -275,34 +292,34 @@ class TieredBackend:
         return state._replace(caches=tk.apply_maintenance_stacked(
             self.tcfg, state.caches, plan, err))
 
-    def apply_maintain_desc(self, state, plan):
+    def apply_maintain_desc(self, state, plan, err=None):
         """``apply_maintain`` that also returns the (ddesc, pdesc) move
         descriptors, what each plan entry actually did, for the flight
         recorder.  The same pass (one replay launch); the descriptors are
-        the ones its copy table was built from."""
+        the ones its copy table was built from; ``err`` as in
+        ``maintain``."""
         from repro_torch.tiered import kvcache as tk
         caches, ddesc, pdesc = tk.apply_maintenance_stacked_desc(
-            self.tcfg, state.caches, plan)
+            self.tcfg, state.caches, plan, err)
         return state._replace(caches=caches), ddesc, pdesc
 
-    def release(self, state, lane: int):
+    def release(self, state, lane):
         """Drop one lane's pages from the metadata (pos untouched)."""
         from repro_torch.tiered import kvcache as tk
         return state._replace(caches=tk.release_seq_stacked(
             self.tcfg, state.caches, lane))
 
-    def write_prefill(self, state, lane: int, k_layers, v_layers, length):
+    def write_prefill(self, state, lane, k_layers, v_layers, length):
         """All layers' prompt K/V pages land in the slow homes; sets
         ``pos[lane] = length``.  The lane must have been released."""
         from repro_torch.tiered import kvcache as tk
         caches = tk.prefill_tokens_stacked(self.tcfg, state.caches, lane,
                                            k_layers, v_layers, length)
-        pos = state.pos.clone()
-        pos[lane] = length
-        return state._replace(pos=pos, caches=caches)
+        _set_pos(state.pos, lane, length)
+        return state._replace(caches=caches)
 
-    def write_prefill_chunk(self, state, lane: int, k_layers, v_layers,
-                            start: int, length):
+    def write_prefill_chunk(self, state, lane, k_layers, v_layers, start,
+                            length):
         """Chunked prompt ingest, one page-aligned chunk: rows
         [start, start + C) of each layer's prompt K/V land in each page's
         current tier (``prefill_chunk_stacked``: a page admitted to the
@@ -312,33 +329,38 @@ class TieredBackend:
             self.tcfg, state.caches, lane, k_layers, v_layers, start,
             length))
 
-    def admit_prefix(self, state, lane: int, length, n_pages: int):
+    def admit_prefix(self, state, lane, length, n_pages: int, err=None):
         """Direct-to-fast admission at ingest: promote the first
         ``n_pages`` prompt pages of ``lane`` into the fast pool of every
-        layer now (``admit_pages_stacked``)."""
+        layer now (``admit_pages_stacked``; ``err`` as in ``maintain``)."""
         from repro_torch.tiered import kvcache as tk
         return state._replace(caches=tk.admit_pages_stacked(
-            self.tcfg, state.caches, lane, length, n_pages))
+            self.tcfg, state.caches, lane, length, n_pages, err))
 
-    def admit_prefix_desc(self, state, lane: int, length, n_pages: int):
+    def admit_prefix_desc(self, state, lane, length, n_pages: int,
+                          err=None):
         """``admit_prefix`` that also returns the install descriptors
         (flight-recorder install and admission-eviction events)."""
         from repro_torch.tiered import kvcache as tk
         caches, pdesc = tk.admit_pages_stacked_desc(
-            self.tcfg, state.caches, lane, length, n_pages)
+            self.tcfg, state.caches, lane, length, n_pages, err)
         return state._replace(caches=caches), pdesc
 
-    def maintain_tenants(self, state, lane_tenant, pols, quotas):
+    def maintain_tenants(self, state, lane_tenant, pols, quotas, err=None):
         """Multi-tenant maintenance: one ``run_scheduler_tenants_stacked``
         pass (always synchronous).  ``lane_tenant`` [B] maps each lane to
-        its tenant (< 0: idle, its pages move for nobody); ``pols`` and
-        ``quotas`` are the per-tenant policies and fast-slot partition."""
+        its tenant (< 0: idle, its pages move for nobody): an int32
+        tensor on the device, taken as it stands (the engine's own
+        buffer), or an array, copied there; ``pols`` and ``quotas`` are
+        the per-tenant policies and fast-slot partition; ``err`` as in
+        ``maintain``."""
         from repro_torch.tiered import kvcache as tk
-        page_tenant = torch.as_tensor(
-            lane_tenant, dtype=torch.int32,
-            device=self.device).repeat_interleave(self.tcfg.max_pages_per_seq)
+        lt = torch.as_tensor(lane_tenant, dtype=torch.int32,
+                             device=self.device)
+        page_tenant = lt[:, None].expand(
+            -1, self.tcfg.max_pages_per_seq).reshape(-1)
         return state._replace(caches=tk.run_scheduler_tenants_stacked(
-            self.tcfg, state.caches, page_tenant, pols, quotas))
+            self.tcfg, state.caches, page_tenant, pols, quotas, err))
 
     def metrics(self, state) -> dict:
         """Canonical telemetry, with counts summed over the layers the

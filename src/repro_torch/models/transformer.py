@@ -339,7 +339,7 @@ def _vlm_forward(cfg: ArchConfig, params, x, positions, rope, image_embeds,
 
 
 def forward(cfg: ArchConfig, params, batch, *, remat: str = "none",
-            collect_cache: bool = False):
+            collect_cache: bool = False, return_logits: bool = True):
     """batch {"tokens" [B,S]} ({"embeds" [B,S,d]} for audio; vlm adds
     "image_embeds" [B,T,d] in the model's dtype) -> (logits [B,S,V] fp32,
     aux, caches): aux the MoE load-balancing loss summed over layers (0
@@ -347,7 +347,10 @@ def forward(cfg: ArchConfig, params, batch, *, remat: str = "none",
     [L,B,S,KV,hd] post-RoPE, for the self-attention families (() for
     ssm); vlm's are ``_vlm_forward``'s.  ``remat`` ("none", "dots",
     "full") recomputes each layer (the vlm: each super-block) in the
-    backward (``_remat``), as the reference's ``REMAT_POLICIES`` do."""
+    backward (``_remat``), as the reference's ``REMAT_POLICIES`` do.
+    ``return_logits=False`` skips the final norm and the unembedding
+    (logits None): a prefill that keeps only the caches, as the
+    reference's jitted prefill, whose logits XLA never computes."""
     check_family(cfg)
     x = _embed_inputs(cfg, params, batch)
     B, S = x.shape[:2]
@@ -371,10 +374,11 @@ def forward(cfg: ArchConfig, params, batch, *, remat: str = "none",
         if collect_cache and kv is not None:
             ks.append(kv[0])
             vs.append(kv[1])
-    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    logits = unembed(x, _table(cfg, params))
     caches = (torch.stack(ks), torch.stack(vs)) if ks else ()
-    return logits, aux, caches
+    if not return_logits:
+        return None, aux, caches
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return unembed(x, _table(cfg, params)), aux, caches
 
 
 def lm_loss(cfg: ArchConfig, params, batch, *, remat: str = "none"):

@@ -8,6 +8,7 @@ captured once as a CUDA graph and then replayed.  Sharding
 
 from __future__ import annotations
 
+import gc
 import importlib
 import time
 from typing import Any, NamedTuple
@@ -123,7 +124,9 @@ class StepGraphs:
     overwritten by its next replay.  Every graph of the runner shares one
     memory pool.  The wrappers' launch counters count a replay as the
     eager step would.  A capture that fails raises; nothing falls back to
-    the eager step.
+    the eager step.  Python's cyclic collector is off during a capture: a
+    collection there could finalize an older engine's graphs, and a graph
+    destroyed mid-capture invalidates the capture.
 
     ``enabled`` None: graphs on a card, the eager step on the CPU (there
     are no graphs there); False: always eager; True on the CPU raises."""
@@ -259,10 +262,16 @@ class StepGraphs:
         before = _counts()
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=self._pool, stream=s,
-                              capture_error_mode="thread_local"):
-            out, new = fn(state, *args)
-            self._write_back(new)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool, stream=s,
+                                  capture_error_mode="thread_local"):
+                out, new = fn(state, *args)
+                self._write_back(new)
+        finally:
+            if collecting:
+                gc.enable()
         seconds = time.perf_counter() - t0
         after = _counts()
         counts = {k: after[k] - before[k] for k in after}

@@ -27,22 +27,35 @@ launches exactly what it launches without them.  ``jax.jit`` state
 donation has no counterpart: the pools update in place.
 
 Compiled steps: where the reference jits a serving step, the port
-captures it once as a CUDA graph and replays it (``serve.decode
+captures it once per key as a CUDA graph and replays it (``serve.decode
 .StepGraphs``): the engine's decode step per live-page bucket (its greedy
 argmax inside), the maintenance plan, its apply and the synchronous
-pass, and ``TieredServer``'s step and maintenance.  The engine's state
-buffers outlive a run (``run`` resets them in place), so each graph is
-captured at most once per engine.  ``graphs=None`` captures on a card and
-runs eagerly on the CPU, ``False`` runs eagerly everywhere (the
-counterpart of ``jax.disable_jit``).  The host reads (the bucket, tokens
-and ``pos`` after a step, the pass's copy flag) stay between the graphs;
-prefill, chunked ingest, admission, release, the multi-tenant pass and
-the flight-recorded apply and release run eagerly.
+pass, the one-shot prefill per padded length P (the forward without the
+unembedding, then the install), the chunk forward per (P, C, start, final
+chunk) (the flash kernel takes ``start`` as a host ``q_offset``), the
+chunk write per C, the admission per page count, the release, the
+multi-tenant pass, the flight-recorded apply, admission and release, and
+``TieredServer``'s step, maintenance and release.  A lane, length, chunk
+start or flight step goes in as one of the engine's own 0-d int32 device
+buffers, filled before the call (a Python int would be baked into the
+graph at capture); prompt and chunk tokens go in through the engine's own
+[1, n] buffers (from pinned host memory, without a wait), the chunk K/V
+through its own work buffers per P (``_chunk_route``), the multi-tenant
+pass's lane -> tenant map through its own [B] buffer, and the flight
+ring is written in place.  The engine's state buffers outlive a run
+(``run`` resets them in place), so each graph is captured at most once
+per engine.  ``graphs=None`` captures on a card and runs eagerly on the
+CPU, ``False`` runs eagerly everywhere (the counterpart of
+``jax.disable_jit``).  Between the graphs stay the host reads (the
+bucket, tokens and ``pos`` after a step, a final chunk's first token,
+the copy flag after each pass and at the end of a run) and two small
+eager steps, ``set_pos`` and ``park_idle`` (one to three ops each).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable
 
@@ -164,8 +177,9 @@ class TieredServer:
     "concat" or "fused"); ``maintain`` runs one migration-scheduler pass
     between steps; ``release`` recycles a lane, dropping its pages from
     the iRT, the iRC and the device table in one batched pass.  The pools
-    update in place.  ``step`` and ``maintain`` are captured CUDA graphs
-    on a card (``graphs`` as ``Engine``'s); ``release`` runs eagerly."""
+    update in place.  All three are captured CUDA graphs on a card
+    (``graphs`` as ``Engine``'s; the released lane goes in as a device
+    scalar)."""
 
     def __init__(self, tcfg, *, path: str = "zero_copy", device=None,
                  graphs: bool | None = None):
@@ -179,6 +193,8 @@ class TieredServer:
         self._step = make_tiered_decode_step(tcfg, path=path)
         self._pos = self.graphs.own(torch.zeros(
             (tcfg.n_seqs,), dtype=torch.int32, device=self.device))
+        self._lane = self.graphs.own(torch.zeros(
+            (), dtype=torch.int32, device=self.device))
         self._copy_err = new_flag(self.device)
         self.steps = 0
 
@@ -209,9 +225,15 @@ class TieredServer:
         _, self.state = self.graphs.run("maintain", self._pass, self.state)
         check_flag(self._copy_err)
 
-    def release(self, seq: int):
+    def _release_fn(self, st, seq):
         from repro_torch.serve import tiered as srv
-        self.state = srv.release(self.cfg, self.state, seq)
+        return None, srv.release(self.cfg, st, seq)
+
+    def release(self, seq: int):
+        """Recycle lane ``seq`` (its number goes in as the server's own
+        device scalar, filled here)."""
+        _, self.state = self.graphs.run("release", self._release_fn,
+                                        self.state, self._lane.fill_(int(seq)))
 
     @property
     def metrics(self) -> dict:
@@ -275,7 +297,19 @@ class Engine:
         if self._tiered:
             from repro_torch.kernels.remap_gather.ops import new_flag
             self._copy_err = new_flag(self.device)
+        # the captured steps' scalar arguments (lane, prompt length, chunk
+        # start, flight step): 0-d int32 buffers filled before each call
+        self._lane_s, self._len_s, self._start_s, self._step_s = (
+            self.graphs.own(torch.zeros((), dtype=torch.int32,
+                                        device=self.device))
+            for _ in range(4))
+        self._tok_bufs: dict = {}      # width n -> [1, n] token buffer
+        self._chunk_work: dict = {}    # P -> chunk K/V work buffers
+        self._chunk_rows: dict = {}    # C -> a chunk's K/V rows [L, C, ...]
+        self._chunk_holder: dict = {}  # P -> the ingest the work buffers hold
+        self.chunk_copy_bytes = 0      # K/V bytes moved to switch ingests
         self._maintain_tenants = None  # bound by a multi-tenant scheduler
+        self._pass_tenant = None       # its lane -> tenant device buffer
         self._pending_plan = None      # (plan, the step it was made at)
         self.maintain_overlaps = 0
         self.releases = 0
@@ -307,11 +341,12 @@ class Engine:
         for t in ec.tenants:
             self._tenant_idx.setdefault(getattr(t, "name", str(t)),
                                         len(self._tenant_idx))
-        if self._fl_cfg is not None:
-            self._fl = obs_flight.init(self._fl_cfg.capacity, self.device)
+        if self._fl_cfg is not None:   # written in place by the graphs
+            self._fl = {k: self.graphs.own(t) for k, t in obs_flight.init(
+                self._fl_cfg.capacity, self.device).items()}
             self._lane_tenant_np = np.zeros((ec.batch,), np.int32)
-            self._lane_tenant = torch.zeros((ec.batch,), dtype=torch.int32,
-                                            device=self.device)
+            self._lane_tenant = self.graphs.own(torch.zeros(
+                (ec.batch,), dtype=torch.int32, device=self.device))
         self.slo = SLOMonitor(ec.slos) if ec.slos else None
         self.obs_server = None
         if self.hub is not None and ec.obs.http_port is not None:
@@ -383,6 +418,80 @@ class Engine:
         single-tenant pass)."""
         return self.graphs.run("maintain", self._pass_fn, state)[1]
 
+    def _tenant_pass(self, state, lane_tenant: np.ndarray):
+        """The multi-tenant maintenance pass (a graph) over the scheduler's
+        lane -> tenant map ``lane_tenant`` [B] (< 0: idle), mirrored into
+        the engine's own device buffer one write per lane that changed."""
+        for i in np.flatnonzero(lane_tenant != self._pass_tenant_np):
+            self._pass_tenant[int(i)] = int(lane_tenant[i])
+            self._pass_tenant_np[i] = lane_tenant[i]
+        return self.graphs.run("maintain_tenants", self._maintain_tenants,
+                               state, self._pass_tenant)[1]
+
+    def _prefill_fn(self, state, tokens, lane, length):
+        """One-shot prefill of padded ``tokens`` [1, P]: the forward without
+        the unembedding (its logits are never read), then the backend
+        installs the K/V into ``lane`` and sets its ``pos``."""
+        _, _, (k, v) = forward(self.cfg, self.params, {"tokens": tokens},
+                               collect_cache=True, return_logits=False)
+        return None, self.backend.write_prefill(state, lane, k[:, 0],
+                                                v[:, 0], length)
+
+    def _chunk_fn(self, state, tokens, bk, bv, rk, rv, *, start: int,
+                  logits: bool):
+        """One chunk forward (``serve.decode.make_chunk_prefill_fn``) over
+        the work buffers ``bk``/``bv``; the chunk's K/V rows are copied
+        into ``rk``/``rv`` [L, C, KV, hd] for the write."""
+        from repro_torch.serve.decode import make_chunk_prefill_fn
+        out = make_chunk_prefill_fn(self.cfg, logits=logits)(
+            self.params, tokens, bk, bv, start)
+        C = tokens.shape[1]
+        rk.copy_(bk[:, 0, start:start + C])
+        rv.copy_(bv[:, 0, start:start + C])
+        return (out[2] if logits else None), state
+
+    def _write_chunk_fn(self, state, rk, rv, lane, start, length):
+        return None, self.backend.write_prefill_chunk(state, lane, rk, rv,
+                                                      start, length)
+
+    def _admit_fn(self, state, lane, length, *, n_pages: int):
+        return None, self.backend.admit_prefix(state, lane, length, n_pages,
+                                               err=self._copy_err)
+
+    def _release_fn(self, state, lane):
+        return None, self.backend.release(state, lane)
+
+    def _release(self, state, lane: int):
+        """Recycle one lane's tiered metadata (a graph); flight-recorded,
+        one RELEASE event per page the lane still holds comes first."""
+        lane_s = self._scalar(self._lane_s, lane)
+        if self._fl is None:
+            return self.graphs.run("release", self._release_fn, state,
+                                   lane_s)[1]
+        self._refresh_lane_tenants(self._lanes_ref)
+        return self.graphs.run("release_rec", self._rec_release_fn, state,
+                               lane_s, self._scalar(self._step_s,
+                                                    self.steps))[1]
+
+    @staticmethod
+    def _scalar(buf, value) -> torch.Tensor:
+        """``buf``, one of the engine's 0-d int32 arguments, filled with
+        ``value``: a fill on the card, no copy from the host."""
+        return buf.fill_(int(value))
+
+    def _stage(self, values: np.ndarray) -> torch.Tensor:
+        """int32 ``values`` [n] in the engine's own [1, n] token buffer,
+        copied from pinned host memory on a card (nothing waits)."""
+        n = values.shape[0]
+        buf = self._tok_bufs.get(n)
+        if buf is None:
+            buf = self._tok_bufs[n] = self.graphs.own(torch.zeros(
+                (1, n), dtype=torch.int32, device=self.device))
+        src = torch.from_numpy(np.ascontiguousarray(values, np.int32))
+        if buf.is_cuda:
+            src = src.pin_memory()
+        return buf.copy_(src.view(1, n), non_blocking=buf.is_cuda)
+
     def _reset_state(self):
         """The (state, tokens) buffers every run reuses, reset in place to
         a fresh ``init_state`` and zero tokens (made on the first run,
@@ -418,10 +527,11 @@ class Engine:
 
     # -- flight recorder ------------------------------------------------------
 
-    def _record(self, batches, step: int, touch) -> None:
+    def _record(self, batches, step, touch) -> None:
         """Append event batches ``(kind, cause, pages, enable)`` to the
-        ring in order, as ONE ``record``: lanes from the pages, tenants
-        from the device lane map, ``score`` the tracker hotness in
+        ring in order, as ONE ``record`` written into the ring in place:
+        lanes from the pages, tenants from the device lane map, ``step``
+        an int or a 0-d device tensor, ``score`` the tracker hotness in
         ``touch`` (read before the moves)."""
         key = tuple((k, c, p.numel()) for k, c, p, _ in batches)
         if key not in self._event_cols:
@@ -433,20 +543,32 @@ class Engine:
         pages = torch.cat([p.reshape(-1) for _, _, p, _ in batches])
         en = torch.cat([e.reshape(-1) for _, _, _, e in batches])
         lane = pages // self.backend.tcfg.max_pages_per_seq
-        self._fl = obs_flight.record(
+        self._ring_write(obs_flight.record(
             self._fl, kind, pages, en, step=step, lane=lane,
             tenant=at(self._lane_tenant, lane), cause=cause,
-            score=at(touch, pages))
+            score=at(touch, pages)))
+
+    def _ring_write(self, fl: dict) -> None:
+        """The ring's new tensors copied into its own buffers."""
+        for k, t in fl.items():
+            self._fl[k].copy_(t)
 
     def _rec_apply(self, state, plan, step: int):
+        """Apply a maintenance plan and record its moves (a graph): events
+        stamp ``step``, the step the plan was MADE at, filled into the
+        step scalar before the call, so an overlapped apply records the
+        same stream as a synchronous one."""
+        return self.graphs.run("apply_rec", self._rec_apply_fn, state, plan,
+                               self._scalar(self._step_s, step))[1]
+
+    def _rec_apply_fn(self, state, plan, step):
         """Apply a maintenance plan through the descriptor-returning pass
         and record one event per ACTUAL move: demotes, FIFO-victim
-        evicts, promotes, forced metadata evicts, in that order.  Events
-        stamp ``step``, the step the plan was MADE at, so an overlapped
-        apply records the same stream as a synchronous one; ``score`` is
-        the page's hotness read before the apply."""
+        evicts, promotes, forced metadata evicts, in that order;
+        ``score`` is the page's hotness read before the apply."""
         touch = state.caches.touch     # metadata is functional: stays put
-        state, ddesc, pdesc = self.backend.apply_maintain_desc(state, plan)
+        state, ddesc, pdesc = self.backend.apply_maintain_desc(
+            state, plan, err=self._copy_err)
         self._record([
             (obs_flight.K_DEMOTE, obs_flight.C_PLAN_DEMOTE, ddesc["cb1_dst"],
              ddesc["cb1_en"]),
@@ -456,21 +578,38 @@ class Engine:
              pdesc["in_src"], pdesc["in_en"]),
             (obs_flight.K_EVICT, obs_flight.C_FORCED, pdesc["cb2_dst"],
              pdesc["cb2_en"])], step, touch)
-        return state
+        return None, state
 
-    def _rec_release(self, state, lane: int):
-        """One RELEASE event per page the lane still holds under Trimma
-        metadata, then the release itself."""
+    def _rec_release_fn(self, state, lane, step):
+        """One RELEASE event per page ``lane`` (a 0-d device tensor) still
+        holds under Trimma metadata, its tenant read from the device lane
+        map, then the release itself."""
         caches = state.caches
         mpp = self.backend.tcfg.max_pages_per_seq
         ids = lane * mpp + torch.arange(mpp, dtype=torch.int32,
                                         device=self.device)
         held = at(caches.leaf_table, ids) != INVALID
-        self._fl = obs_flight.record(
-            self._fl, obs_flight.K_RELEASE, ids, held, step=self.steps,
-            lane=lane, tenant=int(self._lane_tenant_np[lane]),
-            cause=obs_flight.C_RECYCLE, score=at(caches.touch, ids))
-        return self.backend.release(state, lane)
+        self._ring_write(obs_flight.record(
+            self._fl, obs_flight.K_RELEASE, ids, held, step=step,
+            lane=lane, tenant=at(self._lane_tenant, lane),
+            cause=obs_flight.C_RECYCLE, score=at(caches.touch, ids)))
+        return None, self.backend.release(state, lane)
+
+    def _rec_admit_fn(self, state, lane, length, step, *, n_pages: int):
+        """A flight-recorded admission: each actual install and each
+        eviction it forced records an event (victim evicts, installs,
+        forced evicts)."""
+        touch = state.caches.touch
+        state, pdesc = self.backend.admit_prefix_desc(
+            state, lane, length, n_pages, err=self._copy_err)
+        self._record([
+            (obs_flight.K_EVICT, obs_flight.C_VICTIM, pdesc["cb1_dst"],
+             pdesc["cb1_en"]),
+            (obs_flight.K_INSTALL, obs_flight.C_ADMIT, pdesc["in_src"],
+             pdesc["in_en"]),
+            (obs_flight.K_EVICT, obs_flight.C_FORCED, pdesc["cb2_dst"],
+             pdesc["cb2_en"])], step, touch)
+        return None, state
 
     def _refresh_lane_tenants(self, lanes) -> None:
         """Update the lane -> tenant-index map from the live lane
@@ -568,11 +707,7 @@ class Engine:
         if self._tiered:
             state = self._flush_maintain(state)
             with self.tracer.span("release", lane=lane):
-                if self._fl is not None:
-                    self._refresh_lane_tenants(self._lanes_ref)
-                    state = self._rec_release(state, lane)
-                else:
-                    state = self.backend.release(state, lane)
+                state = self._release(state, lane)
             self.releases += 1
         return state
 
@@ -590,53 +725,97 @@ class Engine:
         from repro_torch.models import init_chunk_buffers
         return init_chunk_buffers(self.cfg, P, device=self.device)
 
-    def chunk_fwd(self, *, logits: bool = False) -> Callable:
-        """The chunked-prefill forward (``serve.decode
-        .make_chunk_prefill_fn``): (params, chunk_tokens [1, C], buf_k,
-        buf_v, start) -> the buffers with rows [start, start+C) written in
-        place, plus the chunk's logits [1, C, vocab] with ``logits``."""
-        from repro_torch.serve.decode import make_chunk_prefill_fn
-        return make_chunk_prefill_fn(self.cfg, logits=logits)
+    def _chunk_route(self, ing, start: int):
+        """The engine's own chunk K/V work buffers of ``ing``'s padded
+        length P (the chunk graphs' static inputs), holding ``ing``'s rows
+        below ``start``.  One ingest at a time holds them: a switch parks
+        the holder's rows in its own buffers (``buf_k``/``buf_v``, made
+        at its first park) and brings the next ingest's back, the only
+        K/V copies of the routing (``chunk_copy_bytes``)."""
+        P = ing.P
+        work = self._chunk_work.get(P)
+        if work is None:
+            work = self._chunk_work[P] = tuple(
+                map(self.graphs.own, self.chunk_buffers(P)))
+        held = self._chunk_holder.get(P)
+        if held is not ing:
+            if held is not None and held.start > 0:
+                if held.buf_k is None:
+                    held.buf_k, held.buf_v = self.chunk_buffers(P)
+                self._copy_rows((held.buf_k, held.buf_v), work, held.start)
+            if start > 0:
+                self._copy_rows(work, (ing.buf_k, ing.buf_v), start)
+            self._chunk_holder[P] = ing
+        return work
 
-    def write_chunk(self, state, lane: int, bk, bv, start: int, C: int,
+    def _copy_rows(self, dst, src, n: int) -> None:
+        for d, s in zip(dst, src):
+            d[:, :, :n].copy_(s[:, :, :n])
+            self.chunk_copy_bytes += d[:, :, :n].numel() * d.element_size()
+
+    def chunk_forward(self, state, ing, start: int, C: int, final: bool):
+        """One chunk of the chunked scheduler's ingest ``ing`` (its padded
+        prompt ``ctx``, length P, parked buffers): the forward of rows
+        [start, start + C) against the rows before them, a graph per (P,
+        C, start, final) over the engine's work buffers (``_chunk_route``).
+        Returns (state, the chunk's logits [1, C, vocab] when ``final``,
+        the graph's buffer, else None)."""
+        bk, bv = self._chunk_route(ing, start)
+        rows = self._chunk_rows.get(C)
+        if rows is None:
+            L, _, _, KV, hd = bk.shape
+            rows = self._chunk_rows[C] = tuple(
+                self.graphs.own(bk.new_zeros((L, C, KV, hd)))
+                for _ in range(2))
+        logits, state = self.graphs.run(
+            ("chunk", ing.P, C, start, final),
+            functools.partial(self._chunk_fn, start=start, logits=final),
+            state, self._stage(ing.ctx[start:start + C]), bk, bv, *rows)
+        if final:
+            self._chunk_holder.pop(ing.P, None)
+        return state, logits
+
+    def write_chunk(self, state, lane: int, start: int, C: int,
                     length: int):
-        """Chunk ingest: rows [start, start+C) of the accumulated buffers
-        through ``backend.write_prefill_chunk`` (tiered: routed page
-        stores)."""
-        with self.tracer.span("prefill_chunk", lane=lane, start=int(start),
+        """Chunk ingest: the K/V rows of the last ``chunk_forward`` of
+        width C through ``backend.write_prefill_chunk`` (tiered: routed
+        page stores), a graph per C."""
+        with self.tracer.span("prefill_chunk", lane=lane, start=start,
                               tokens=C):
-            return self.backend.write_prefill_chunk(
-                state, lane, bk[:, 0, start:start + C],
-                bv[:, 0, start:start + C], start, length)
+            return self.graphs.run(
+                ("write_chunk", C), self._write_chunk_fn, state,
+                *self._chunk_rows[C], self._scalar(self._lane_s, lane),
+                self._scalar(self._start_s, start),
+                self._scalar(self._len_s, length))[1]
 
     def admit_fast(self, state, lane: int, length: int, n_pages: int):
         """Direct-to-fast admission: promote the first ``n_pages`` prompt
-        pages of ``lane`` into every layer's fast pool (tiered only).
-        With the flight recorder on, each actual install and each
-        eviction the admission forced records an event (victim evicts,
-        installs, forced evicts)."""
+        pages of ``lane`` into every layer's fast pool (tiered only; a
+        graph per ``n_pages``, flight-recorded or not)."""
+        args = (self._scalar(self._lane_s, lane),
+                self._scalar(self._len_s, length))
         with self.tracer.span("admit_fast", lane=lane, pages=n_pages):
             if self._fl is None:
-                return self.backend.admit_prefix(state, lane, length,
-                                                 n_pages)
+                return self.graphs.run(
+                    ("admit", n_pages),
+                    functools.partial(self._admit_fn, n_pages=n_pages),
+                    state, *args)[1]
             self._refresh_lane_tenants(self._lanes_ref)
-            touch = state.caches.touch
-            state, pdesc = self.backend.admit_prefix_desc(state, lane,
-                                                          length, n_pages)
-            self._record([
-                (obs_flight.K_EVICT, obs_flight.C_VICTIM, pdesc["cb1_dst"],
-                 pdesc["cb1_en"]),
-                (obs_flight.K_INSTALL, obs_flight.C_ADMIT, pdesc["in_src"],
-                 pdesc["in_en"]),
-                (obs_flight.K_EVICT, obs_flight.C_FORCED, pdesc["cb2_dst"],
-                 pdesc["cb2_en"])], self.steps, touch)
-            return state
+            return self.graphs.run(
+                ("admit_rec", n_pages),
+                functools.partial(self._rec_admit_fn, n_pages=n_pages),
+                state, *args, self._scalar(self._step_s, self.steps))[1]
 
     def build_maintain_tenants(self, pols: tuple, quotas: tuple):
         """Bind the multi-tenant maintenance pass to a fixed tenant
-        partition (called once by the QoS scheduler at bind)."""
-        self._maintain_tenants = lambda s, lt: self.backend.maintain_tenants(
-            s, lt, pols, quotas)
+        partition (called once by the QoS scheduler at bind), with its
+        lane -> tenant device buffer."""
+        self._maintain_tenants = lambda s, lt: (None, (
+            self.backend.maintain_tenants(s, lt, pols, quotas,
+                                          err=self._copy_err)))
+        self._pass_tenant = self.graphs.own(torch.full(
+            (self.ec.batch,), -1, dtype=torch.int32, device=self.device))
+        self._pass_tenant_np = np.full((self.ec.batch,), -1, np.int32)
 
     def note_token(self, req: Request, tok: int, pos: int,
                    now: float | None = None):
@@ -673,15 +852,14 @@ class Engine:
             pos[lane] = 0
             return state._replace(pos=pos), int(prompt[-1])
         P = padded_len(int(ctx.size), self.ec.max_len)
-        padded = np.zeros((1, P), np.int32)
-        padded[0, :ctx.size] = ctx
+        padded = np.zeros((P,), np.int32)
+        padded[:ctx.size] = ctx
         with self.tracer.span("prefill", lane=lane, rid=req.rid,
                               tokens=int(ctx.size), padded=P):
-            tokens = torch.as_tensor(padded, device=self.device)
-            _, _, (k, v) = forward(self.cfg, self.params, {"tokens": tokens},
-                                   collect_cache=True)
-            state = self.backend.write_prefill(state, lane, k[:, 0],
-                                               v[:, 0], int(ctx.size))
+            state = self.graphs.run(
+                ("prefill", P), self._prefill_fn, state, self._stage(padded),
+                self._scalar(self._lane_s, lane),
+                self._scalar(self._len_s, ctx.size))[1]
         return state, int(prompt[-1])
 
     # -- decode loop ---------------------------------------------------------
@@ -700,8 +878,11 @@ class Engine:
         self._pending_plan = None
         tracer.clear()             # one saved trace == one run
         self._pending_obs = []
+        self._chunk_holder = {}
+        self.chunk_copy_bytes = 0
         if self._fl_cfg is not None:   # fresh ring: one ring == one run
-            self._fl = obs_flight.init(self._fl_cfg.capacity, self.device)
+            for t in self._fl.values():
+                t.zero_()
             self._flight_cache = None
             self._lane_tenant_np[:] = 0
             self._lane_tenant.zero_()
@@ -731,6 +912,9 @@ class Engine:
                         f"queue={len(self.queue)}, done={len(finished)}")
                 state, tokens = sched.refill(state, tokens, lanes, finished)
             state = self._flush_maintain(state)   # a last hook may be open
+            if self._copy_err is not None:   # admissions since the last pass
+                from repro_torch.kernels.remap_gather.ops import check_flag
+                check_flag(self._copy_err)
         self.final_state = state
         if self.hub is not None:
             self._finalize_obs(state, lanes, finished)

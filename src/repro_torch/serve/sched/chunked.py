@@ -43,8 +43,9 @@ class _Ingest:
     length: int                # real prompt tokens
     P: int                     # padded (power-of-two) buffer length
     start: int = 0             # next chunk's first position
-    buf_k: object = None       # [L, 1, P, KV, hd] chunk K/V buffers
-    buf_v: object = None
+    buf_k: object = None       # [L, 1, P, KV, hd] chunk K/V rows parked
+    buf_v: object = None       # while another ingest holds the engine's
+                               # work buffers (``Engine._chunk_route``)
 
 
 class ChunkedScheduler:
@@ -173,10 +174,8 @@ class ChunkedScheduler:
             return state, tokens
         padded = np.zeros((P,), np.int32)
         padded[:prompt.size] = prompt
-        bk, bv = eng.chunk_buffers(P)
         self.ingests[lane] = _Ingest(req=req, ctx=padded,
-                                     length=int(prompt.size), P=P,
-                                     buf_k=bk, buf_v=bv)
+                                     length=int(prompt.size), P=P)
         if admit:
             # BEFORE the chunk writes: they route to the fast copies
             state = eng.admit_fast(state, lane, int(prompt.size), admit)
@@ -185,9 +184,9 @@ class ChunkedScheduler:
 
     def _advance(self, state, tokens, lane: int):
         """One chunk of ``lane``'s ingest: the chunk forward against the
-        accumulated buffers, the chunk written through the backend, and on
+        accumulated rows, the chunk written through the backend, and on
         the final chunk the lane un-parked with the request's first token
-        taken off the chunk's logits."""
+        taken off the chunk's logits (a host read between the graphs)."""
         eng = self.eng
         ing = self.ingests[lane]
         C = min(self.chunk, ing.P)
@@ -195,18 +194,14 @@ class ChunkedScheduler:
         # overlapped rows recompute and re-write the same values
         start = min(ing.start, ing.P - C)
         final = start + C >= ing.length
-        chunk = ing.ctx[start:start + C]
-        out = eng.chunk_fwd(logits=final)(eng.params, chunk[None],
-                                          ing.buf_k, ing.buf_v, start)
-        ing.buf_k, ing.buf_v = out[:2]
-        state = eng.write_chunk(state, lane, ing.buf_k, ing.buf_v, start, C,
-                                ing.length)
+        state, logits = eng.chunk_forward(state, ing, start, C, final)
+        state = eng.write_chunk(state, lane, start, C, ing.length)
         ing.start = start + C
         self.book.stats[self.book.tenant_of(ing.req)]["chunks"] += 1
         if final:
             del self.ingests[lane]
             state = eng.set_pos(state, lane, ing.length)
-            tok1 = int(torch.argmax(out[2][0, ing.length - 1 - start]))
+            tok1 = int(torch.argmax(logits[0, ing.length - 1 - start]))
             tokens[lane] = tok1
             eng.note_token(ing.req, tok1, ing.length)
         return state, tokens
@@ -253,4 +248,4 @@ class ChunkedScheduler:
             return state
         if len(self.tenants) == 1:
             return self.eng._maintain(state)
-        return self.eng._maintain_tenants(state, self.lane_tenant.copy())
+        return self.eng._tenant_pass(state, self.lane_tenant)

@@ -556,14 +556,22 @@ def demote_one(cfg: TieredConfig, st: TieredState, page_id, enable):
     return _demote_one_desc(cfg, st, page_id, enable)[0]
 
 
+def _lane_index(seq):
+    """A lane as a Python int, or a 0-d int tensor on the store's device
+    as it stands: a captured step takes the lane as a device scalar, and
+    ``int`` would read it on the host (and bake it into the graph)."""
+    return seq if isinstance(seq, torch.Tensor) else int(seq)
+
+
 def release_seq(cfg: TieredConfig, st: TieredState, seq) -> TieredState:
     """Free one sequence's pages when its lane is recycled: pure metadata
     (no bytes move) reset to identity in one batched pass — iRT entries,
     fast slots, hotness, the iRC row range, and the device-table rows
     (rewritten to the identity homes, still valid).  Works on a single
-    or a stacked store alike (the metadata is shared)."""
+    or a stacked store alike (the metadata is shared).  ``seq``: a Python
+    int or a 0-d int tensor on the device (``_lane_index``)."""
     dev = st.leaf_table.device
-    lo = int(seq) * cfg.max_pages_per_seq
+    lo = _lane_index(seq) * cfg.max_pages_per_seq
     ids = lo + torch.arange(cfg.max_pages_per_seq, dtype=I32, device=dev)
     entry = st.leaf_table[ids.long()]
     res = entry != INVALID
@@ -761,17 +769,19 @@ def run_scheduler_stacked(cfg: TieredConfig, sts: TieredState,
 
 
 def run_scheduler_tenants_stacked(cfg: TieredConfig, sts: TieredState,
-                                  page_tenant, pols, quotas) -> TieredState:
+                                  page_tenant, pols, quotas,
+                                  err=None) -> TieredState:
     """The multi-tenant maintenance pass (DESIGN.md §9) over a stacked
     store: ``run_scheduler``'s scoring and apply, with the move queues of
     ``core/policy.plan_tenants``: one bounded plan per tenant over its own
     pages (``page_tenant`` [n_logical] int32, < 0: moves for nobody), each
     with its tenant's policy (``pols``) and fast-slot quota
-    (``quotas``).  Always synchronous: the engine never defers it."""
+    (``quotas``).  Always synchronous: the engine never defers it.
+    ``err`` as in ``_replay_descs``."""
     sc, resident, now = _plan_inputs(cfg, sts)
     p = pol_sched.plan_tenants(pols, sc, resident, page_tenant, quotas)
     sts, ddesc, pdesc = _apply_plan(cfg, sts, p, now)
-    _replay_descs(_stacked_pools(sts), ddesc, pdesc)
+    _replay_descs(_stacked_pools(sts), ddesc, pdesc, err)
     return sts
 
 
@@ -794,15 +804,17 @@ def prefill_tokens_stacked(cfg: TieredConfig, sts: TieredState, seq, k, v,
                            length=None) -> TieredState:
     """Batched prompt ingest into one sequence's slow homes in every
     layer: k, v [L, S, KV, hd], pages at or past ``length`` skipped, one
-    scatter per pool.  Precondition: the sequence's pages map to identity
-    (freshly released)."""
+    scatter per pool.  ``seq`` and ``length``: Python ints or 0-d int
+    tensors on the device.  Precondition: the sequence's pages map to
+    identity (freshly released)."""
     dt = sts.slow_k.dtype
     pk, pv = _paged(cfg, k, dt), _paged(cfg, v, dt)
     j = torch.arange(pk.shape[1], dtype=I32, device=sts.slow_k.device)
     length = on_device(k.shape[1] if length is None else length, I32,
                        j.device)
     rows = torch.where(j * cfg.page_tokens < length,
-                       int(seq) * cfg.max_pages_per_seq + j, cfg.n_logical)
+                       _lane_index(seq) * cfg.max_pages_per_seq + j,
+                       cfg.n_logical)
     drop_set_(sts.slow_k, (slice(None), rows), pk)
     drop_set_(sts.slow_v, (slice(None), rows), pv)
     return sts
@@ -811,20 +823,22 @@ def prefill_tokens_stacked(cfg: TieredConfig, sts: TieredState, seq, k, v,
 def prefill_chunk_stacked(cfg: TieredConfig, sts: TieredState, seq, k, v,
                           start: int, length) -> TieredState:
     """Chunked prompt ingest (DESIGN.md §9): tokens ``[start, start + C)``
-    of sequence ``seq`` in every layer (k, v [L, C, KV, hd]; ``start`` a
-    page-aligned Python int; every chunk but the last covers whole
-    pages).  Unlike ``prefill_tokens_stacked`` each page goes to its
+    of sequence ``seq`` in every layer (k, v [L, C, KV, hd]; ``start``
+    page aligned; every chunk but the last covers whole pages; ``seq``,
+    ``start`` and ``length`` Python ints or 0-d int tensors on the
+    device).  Unlike ``prefill_tokens_stacked`` each page goes to its
     current tier: the fast copy of a resident page (admitted at ingest or
     promoted mid-ingest), else the slow home, as appends do.  Pages at or
     past ``length`` are skipped.  Pools update in place."""
     dt = sts.slow_k.dtype
     pk, pv = _paged(cfg, k, dt), _paged(cfg, v, dt)
     dev = sts.slow_k.device
-    j = int(start) // cfg.page_tokens + torch.arange(
+    j = _lane_index(start) // cfg.page_tokens + torch.arange(
         pk.shape[1], dtype=I32, device=dev)
     ok = (j * cfg.page_tokens < on_device(length, I32, dev)) \
         & (j < cfg.max_pages_per_seq)
-    ids = logical_page(cfg, int(seq), j.clamp(0, cfg.max_pages_per_seq - 1))
+    ids = logical_page(cfg, _lane_index(seq),
+                       j.clamp(0, cfg.max_pages_per_seq - 1))
     entry = sts.leaf_table[ids.long()]
     in_fast = entry != INVALID
     fast_idx = torch.where(ok & in_fast, entry, cfg.fast_slots)
@@ -847,19 +861,21 @@ def prefill_chunk(cfg: TieredConfig, st: TieredState, seq, k, v, start: int,
 
 
 def admit_pages_stacked_desc(cfg: TieredConfig, sts: TieredState, seq,
-                             length, n_pages: int):
+                             length, n_pages: int, err=None):
     """Direct-to-fast admission at ingest (DESIGN.md §9): promote the
     first ``n_pages`` pages of sequence ``seq`` that hold tokens below
     ``length`` into the fast pool now, with one tracker touch each (the
     install touch, so a maintenance pass mid-ingest does not demote them
     straight back).  The moves run once on the metadata, in page order;
-    their install copies replay over the [L, ...] pools.  Returns
-    ``(state, pdesc)``, the moves' copy descriptors."""
+    their install copies replay over the [L, ...] pools (``err`` as in
+    ``_replay_descs``).  ``seq`` and ``length``: Python ints or 0-d int
+    tensors on the device; ``n_pages`` is static.  Returns ``(state,
+    pdesc)``, the moves' copy descriptors."""
     dev = sts.leaf_table.device
     mpp = cfg.max_pages_per_seq
     j = torch.arange(int(n_pages), dtype=I32, device=dev)
     en = (j * cfg.page_tokens < on_device(length, I32, dev)) & (j < mpp)
-    ids = logical_page(cfg, int(seq), j.clamp(0, mpp - 1))
+    ids = logical_page(cfg, _lane_index(seq), j.clamp(0, mpp - 1))
     descs = []
     for i in range(int(n_pages)):
         sts, d = _migrate_one_desc(cfg, sts, ids[i], en[i],
@@ -868,13 +884,13 @@ def admit_pages_stacked_desc(cfg: TieredConfig, sts: TieredState, seq,
     sts = _tr_replace(sts, pol_track.record(cfg.pol, _tr_view(cfg, sts), ids,
                                             now=_now(cfg, sts), enable=en))
     pdesc = _stack_descs(descs)
-    _replay_descs(_stacked_pools(sts), None, pdesc)
+    _replay_descs(_stacked_pools(sts), None, pdesc, err)
     return sts, pdesc
 
 
 def admit_pages_stacked(cfg: TieredConfig, sts: TieredState, seq, length,
-                        n_pages: int) -> TieredState:
-    return admit_pages_stacked_desc(cfg, sts, seq, length, n_pages)[0]
+                        n_pages: int, err=None) -> TieredState:
+    return admit_pages_stacked_desc(cfg, sts, seq, length, n_pages, err)[0]
 
 
 def admit_pages(cfg: TieredConfig, st: TieredState, seq, length,

@@ -975,8 +975,9 @@ class _ParentLoop:
         return state
 
     def release_lane(self, state, lane):
-        state = self.flush(state)
-        return self.eng.backend.release(state, lane)
+        # the engine's release step (its lane a device scalar), as the
+        # engine runs it with telemetry off
+        return self.eng._release(self.flush(state), lane)
 
 
 @pytest.mark.cuda
@@ -1893,11 +1894,135 @@ def test_captured_engine_equals_eager(cuda, case):
         assert _equal(a, b)
 
 
+def _lifecycle_engine(cuda, graphs, case):
+    """``_graph_engine`` with the flight recorder (``case`` holds
+    "flight") or the chunked scheduler with two tenants (8-token chunks,
+    the interactive tenant's first two pages admitted straight to the
+    fast pool; ``case`` holds "chunked"), and six requests of 17-40 prompt
+    tokens (padded to 32 or 64) alternating tenants: two ingests of one
+    padded length run at once, so the chunk work buffers switch."""
+    from repro_torch.obs import FlightConfig
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.sched import TenantConfig
+    kw = {}
+    if "chunked" in case:
+        kw.update(scheduler="chunked", prefill_chunk=8, admit_pages=2,
+                  tenants=(TenantConfig("interactive", weight=2,
+                                        policy="on_demand"),
+                           TenantConfig("batch")))
+    if "flight" in case:
+        kw["flight"] = FlightConfig(capacity=256)
+    eng, logits, _ = _graph_engine(cuda, graphs, **kw)
+
+    def submit():
+        rng = np.random.default_rng(10)
+        for rid in range(6):
+            eng.submit(Request(rid=rid, prompt=rng.integers(
+                0, eng.cfg.vocab, int(rng.integers(17, 41))),
+                max_new=int(rng.integers(6, 20)),
+                tenant_id=("interactive", "batch")[rid % 2]))
+    return eng, logits, submit
+
+
+# the captured keys each lifecycle case must make (by the key's kind)
+LIFECYCLE_KEYS = {
+    "greedy_flight": {"decode", "prefill", "plan", "apply_rec",
+                      "release_rec"},
+    "chunked": {"decode", "chunk", "write_chunk", "admit", "release",
+                "maintain_tenants"},
+    "chunked_flight": {"decode", "chunk", "write_chunk", "admit_rec",
+                       "release_rec", "maintain_tenants"},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(LIFECYCLE_KEYS))
+def test_captured_lifecycle_equals_eager(cuda, case):
+    """The prompt and lifecycle steps captured (one-shot prefill per P,
+    the chunk forward per (P, C, start, final) and write per C, the
+    admission per page count, the release, the multi-tenant pass, the
+    flight-recorded apply, admission and release) equal the eager engine
+    bit for bit: every step's logits, the token streams, the counters,
+    every state leaf, the wrappers' launch counts and the flight ring's
+    events, head and counts; a second run captures nothing new and
+    decodes the first's tokens."""
+    runs = {}
+    for graphs in (False, True):
+        eng, logits, submit = _lifecycle_engine(cuda, graphs, case)
+        runs[graphs] = _served(eng, logits, submit) + (
+            {k: t.clone() for k, t in (eng._fl or {}).items()},
+            eng.chunk_copy_bytes)
+        if graphs:
+            keys = set(eng.graphs.graphs)
+            again = _served(eng, logits, submit)
+            assert set(eng.graphs.graphs) == keys
+            assert again[0] == runs[True][0]
+    kinds = {k if isinstance(k, str) else k[0] for k in keys}
+    assert LIFECYCLE_KEYS[case] <= kinds, sorted(map(str, keys))
+    if "flight" in case:
+        assert int(runs[True][5]["head"]) > 0
+    if "chunked" in case:
+        assert runs[True][6] > 0
+    for a, b in zip(runs[False], runs[True]):
+        assert _equal(a, b)
+
+
+@pytest.mark.cuda
+def test_admission_and_release_graphs_replay_at_another_lane(cuda):
+    """An admission and a release captured at lane 0 and replayed at lane
+    1 write lane 1's pages and metadata: lane 1's first two pages become
+    resident with their slow bytes in the fast slots, then lane 1's
+    entries go back to identity, lane 0's untouched by the replays; every
+    state leaf equals the eager engine's."""
+    from repro_torch.core.remap.irt import INVALID
+    from repro_torch.serve.engine import Request
+    leaves = {}
+    for graphs in (False, True):
+        eng, _, _ = _graph_engine(cuda, graphs)
+        mpp = eng.backend.tcfg.max_pages_per_seq
+        rng = np.random.default_rng(4)
+
+        def lane_entries(st, lane):
+            return st.caches.leaf_table[lane * mpp:(lane + 1) * mpp].clone()
+
+        with torch.inference_mode():
+            state, _ = eng._reset_state()
+            for lane in (0, 1):
+                state, _ = eng.prefill_lane(state, lane, Request(
+                    rid=lane, prompt=rng.integers(0, eng.cfg.vocab, 31),
+                    max_new=4))
+            state = eng.admit_fast(state, 0, 30, 2)      # the capture
+            lane0 = lane_entries(state, 0)
+            assert (lane_entries(state, 1) == INVALID).all()
+            state = eng.admit_fast(state, 1, 30, 2)      # a replay
+            got = lane_entries(state, 1)
+            assert (got[:2] != INVALID).all() and (got[2:] == INVALID).all()
+            assert torch.equal(lane_entries(state, 0), lane0)
+            c = state.caches
+            for j in range(2):
+                slot, home = int(got[j]), mpp + j
+                assert torch.equal(c.fast_k[:, slot], c.slow_k[:, home])
+            state = eng._release(state, 0)               # the capture
+            assert (lane_entries(state, 0) == INVALID).all()
+            assert torch.equal(lane_entries(state, 1), got)
+            state = eng._release(state, 1)               # a replay
+            assert (lane_entries(state, 1) == INVALID).all()
+            torch.cuda.synchronize()
+        if graphs:
+            assert {("admit", 2), "release"} <= set(eng.graphs.graphs)
+        leaves[graphs] = [t.clone() for t in
+                          torch.utils._pytree.tree_leaves(state)]
+    assert _equal(leaves[False], leaves[True])
+
+
 def _equal(a, b):
     if isinstance(a, torch.Tensor):
         return a.dtype == b.dtype and torch.equal(a, b)
     if isinstance(a, (list, tuple)):
         return len(a) == len(b) and all(_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, dict) and any(isinstance(v, torch.Tensor)
+                                   for v in a.values()):
+        return a.keys() == b.keys() and all(_equal(a[k], b[k]) for k in a)
     return a == b
 
 
@@ -2007,7 +2132,8 @@ def test_server_captured_equals_eager_every_path(cuda):
             counts = tuple(b - a for a, b in zip(before, _kernel_counts()))
             runs.append((torch.stack(outs), srv.counters, counts))
             if graphs:
-                assert set(srv.graphs.graphs) == {"step", "maintain"}
+                assert set(srv.graphs.graphs) == {"step", "maintain",
+                                                  "release"}
         assert torch.equal(runs[0][0], runs[1][0]), path
         assert runs[0][1:] == runs[1][1:], path
         assert runs[0][1]["migrations"] > 0

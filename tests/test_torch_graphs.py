@@ -9,7 +9,15 @@ and the functions and books around the graphs.
   server capture, exactly as they capture it: the tiered fused decode
   step, the dense one and the MoE one (each with its argmax), the
   maintenance plan, its apply and the synchronous pass with the engine's
-  copy flag, and the server's three step paths and its pass.
+  copy flag, the one-shot prefill (tiered and dense), the chunk forward
+  and the chunk write (tiered and dense), the admission and the release,
+  plain and flight-recorded, the recorded apply, the multi-tenant pass,
+  and the server's three step paths, its pass and its release.  The
+  lane, length, chunk start and flight step go in as the engine's 0-d
+  tensors, so an ``int()`` of one shows as ``_local_scalar_dense``.
+* The tiered store's and the backends' lane-lifecycle functions with
+  those arguments as 0-d tensors (and the multi-tenant pass's lane map
+  as a tensor) equal their Python-int calls bit for bit, at two lanes.
 * ``make_decode_fn`` and ``make_prefill_fn`` against the reference's on
   the fp32 smoke configs (llama3-8b; hubert-xlarge for the encoder
   branch), logits within 1e-4 (fp32 on both sides, reduced in other
@@ -45,6 +53,7 @@ from repro_torch.models import init_params
 from repro_torch.serve import decode as t_decode
 from repro_torch.serve.engine import (Engine, EngineConfig, Request,
                                       TieredServer)
+from repro_torch.serve.sched import TenantConfig
 from repro_torch.tiered import kvcache as tk
 from repro_torch.weights import from_jax_params
 
@@ -134,8 +143,48 @@ def _server_path(path, what):
     srv, args = _server(path)
     if what == "maintain":
         return lambda: srv._pass(srv.state)
+    if what == "release":
+        return lambda: srv._release_fn(srv.state, srv._lane.fill_(1))
     pos = srv._pos.copy_(args[3])
     return lambda: srv._step(srv.state, *args[:3], pos)
+
+
+def _lifecycle_path(what, backend="tiered", **over):
+    """A prompt, chunk, admission or release step of an engine mid-run
+    (``_served_engine``), as the engine captures it: lane 1, length 29,
+    chunk start 8 and flight step 5 in the engine's own 0-d tensors, a
+    32-token prompt, 8-token chunks."""
+    from repro_torch.obs import FlightConfig
+    if what.endswith("_rec"):
+        over["flight"] = FlightConfig(capacity=64)
+    if what == "tenants":
+        over.update(scheduler="chunked", prefill_chunk=8, tenants=(
+            TenantConfig("a", weight=2, policy="on_demand"),
+            TenantConfig("b")))
+    eng, state, _ = _served_engine(backend=backend, **over)
+    lane, length, start, step = (
+        eng._scalar(b, v) for b, v in ((eng._lane_s, 1), (eng._len_s, 29),
+                                       (eng._start_s, 8), (eng._step_s, 5)))
+    toks = eng._stage(np.arange(32, dtype=np.int32))
+    bk, bv = eng.chunk_buffers(32)
+    rk, rv = (t[:, 0, :8].clone() for t in (bk, bv))
+    if what == "tenants":
+        eng._pass_tenant.copy_(torch.tensor([0, 1], dtype=torch.int32))
+    fns = {
+        "prefill": lambda: eng._prefill_fn(state, toks, lane, length),
+        "chunk": lambda: eng._chunk_fn(state, toks[:, 8:16], bk, bv, rk, rv,
+                                       start=8, logits=True),
+        "write_chunk": lambda: eng._write_chunk_fn(state, rk, rv, lane,
+                                                   start, length),
+        "admit": lambda: eng._admit_fn(state, lane, length, n_pages=2),
+        "admit_rec": lambda: eng._rec_admit_fn(state, lane, length, step,
+                                               n_pages=2),
+        "release": lambda: eng._release_fn(state, lane),
+        "release_rec": lambda: eng._rec_release_fn(state, lane, step),
+        "apply_rec": lambda: eng._rec_apply_fn(
+            state, eng._plan_fn(state)[0], step),
+        "tenants": lambda: eng._maintain_tenants(state, eng._pass_tenant)}
+    return fns[what]
 
 
 GUARDED = {
@@ -151,7 +200,23 @@ GUARDED = {
     "server_fused": lambda: _server_path("fused", "step"),
     "server_concat": lambda: _server_path("concat", "step"),
     "server_maintain": lambda: _server_path("zero_copy", "maintain"),
+    "server_release": lambda: _server_path("zero_copy", "release"),
+    "prefill": lambda: _lifecycle_path("prefill"),
+    "dense_prefill": lambda: _lifecycle_path("prefill", "dense"),
+    "chunk_forward": lambda: _lifecycle_path("chunk"),
+    "chunk_write": lambda: _lifecycle_path("write_chunk"),
+    "dense_chunk_write": lambda: _lifecycle_path("write_chunk", "dense"),
+    "admit": lambda: _lifecycle_path("admit"),
+    "admit_recorded": lambda: _lifecycle_path("admit_rec"),
+    "release": lambda: _lifecycle_path("release"),
+    "release_recorded": lambda: _lifecycle_path("release_rec"),
+    "apply_recorded": lambda: _lifecycle_path("apply_rec"),
+    "tenant_pass": lambda: _lifecycle_path("tenants"),
 }
+
+
+# the dense chunk write is two indexed stores and their index
+MIN_OPS = {"dense_chunk_write": 5}
 
 
 @pytest.mark.parametrize("path", sorted(GUARDED))
@@ -161,7 +226,8 @@ def test_captured_path_reads_nothing_on_the_host(path):
     fn = GUARDED[path]()
     with torch.inference_mode():
         _, mode = _guarded(fn)
-    assert mode.ops > 20, f"{path}: only {mode.ops} ops seen"
+    assert mode.ops > MIN_OPS.get(path, 20), \
+        f"{path}: only {mode.ops} ops seen"
     assert not mode.found, f"{path}: host reads {mode.found}"
 
 
@@ -318,3 +384,75 @@ def test_graphs_need_a_card_and_pools_stay_in_place():
         runner._write_back(st._replace(slow_k=st.slow_k.clone()))
     with pytest.raises(RuntimeError, match="view of a static buffer"):
         runner._write_back(st._replace(touch=st.ema[:]))
+
+
+# ---------------------------------------------------------------------------
+# the lane-lifecycle functions: device-scalar arguments == Python ints
+# ---------------------------------------------------------------------------
+
+def _lifecycle_backend(kind):
+    """A backend of the smoke config (4 lanes, 64 positions, 8-token pages,
+    6 fast slots) whose lanes 0-2 hold seeded prompts and lane 0 two
+    admitted pages, so a release, an admission and a pass have work."""
+    from repro_torch.models.kv_backend import DenseBackend, TieredBackend
+    cfg, _ = _params("llama3-8b")
+    be = TieredBackend(cfg, 4, 64, page_tokens=8, fast_data_slots=6,
+                       device="cpu") if kind == "tiered" \
+        else DenseBackend(cfg, "cpu")
+    st = be.init_state(4, 64)
+    g = torch.Generator().manual_seed(11)
+    kv = lambda n: torch.randn((cfg.n_layers, n, cfg.n_kv_heads,  # noqa
+                                cfg.hd), generator=g)
+    for lane, n in ((0, 30), (1, 21), (2, 40)):
+        st = be.write_prefill(st, lane, kv(40), kv(40), n)
+    if kind == "tiered":
+        st = be.admit_prefix(st, 0, 30, 2)
+    return cfg, be, st, kv(8), kv(8)
+
+
+def _lifecycle_call(name, be, st, k8, v8, lane, length, start, as_tensor):
+    i32 = (lambda x: torch.tensor(x, dtype=torch.int32)) if as_tensor \
+        else (lambda x: x)
+    args = (i32(lane), i32(length))
+    if name == "release":
+        return be.release(st, args[0])
+    if name == "release_single":
+        return tk.release_seq(be.tcfg, st.caches._replace(**{
+            f: getattr(st.caches, f)[0] for f in tk.POOL_FIELDS}), args[0])
+    if name == "write_prefill":
+        return be.write_prefill(st, *args[:1], k8, v8, args[1])
+    if name == "write_prefill_chunk":
+        return be.write_prefill_chunk(st, args[0], k8, v8, i32(start),
+                                      args[1])
+    if name == "admit":
+        return be.admit_prefix_desc(st, *args, 2)
+    if name == "tenants":
+        lt = np.array([0, 1, lane % 2, -1], np.int32)
+        return be.maintain_tenants(
+            st, torch.from_numpy(lt) if as_tensor else lt,
+            (be.tcfg.pol, be.tcfg.pol), (4, 2))
+    raise KeyError(name)
+
+
+LIFECYCLE = [("tiered", n) for n in ("release", "release_single",
+                                     "write_prefill", "write_prefill_chunk",
+                                     "admit", "tenants")] \
+    + [("dense", n) for n in ("write_prefill", "write_prefill_chunk")]
+
+
+@pytest.mark.parametrize("lane", [1, 2])
+@pytest.mark.parametrize("kind,name", LIFECYCLE)
+def test_lifecycle_with_device_scalars_equals_python_ints(kind, name, lane):
+    """Each function with the lane, length and chunk start as 0-d int32
+    tensors (the captured steps' arguments) leaves every state leaf and
+    pool, and returns every descriptor, bit for bit as its Python-int
+    call does."""
+    outs = []
+    for as_tensor in (False, True):
+        cfg, be, st, k8, v8 = _lifecycle_backend(kind)
+        outs.append(_leaves(_lifecycle_call(name, be, st, k8, v8, lane,
+                                            23 + lane, 8 * lane,
+                                            as_tensor)))
+    assert len(outs[0]) == len(outs[1]) > 1
+    for a, b in zip(*outs):
+        assert a.dtype == b.dtype and torch.equal(a, b)
