@@ -218,6 +218,19 @@ prints no result line):
    ``cudaLaunchKernel`` calls left by call site, the graph keys,
    capture seconds and the graph pool's bytes, and the chunk K/V bytes
    copied a chunk.
+16. sharding (after phase 14), on a one-rank NCCL group over the (1, 1)
+   ("data", "model") mesh of ``launch.mesh.make_host_mesh(1)``: (a) the
+   sharded train step (parameters and moments as DTensors by the
+   reference's specs, gathered each step, the data mean scattered onto
+   the shards) against ``make_train_step`` at 14(b)'s llama3-8b shape
+   (8 of 32 layers, bf16, 4 x 1024 tokens), 3 steps each from the same
+   parameters and batches: losses, gnorms and final parameters bit for
+   bit, 8 flash forward and 8 backward launches a step in both; ms a step
+   and peak memory of both; (b) ``jit_prefill`` of 2 x 256 tokens and 8
+   greedy ``jit_decode`` steps at the same widths against ``prefill`` and
+   ``decode_step``: logits and tokens bit for bit; (c)
+   ``dp_mean_compressed`` through NCCL against its plain single-process
+   result, bit for bit.
 
 Output, in order: phase lines, one JSON ``kernels`` line (launches: the
 main path's for paged_attention_fused, remap_gather (every launch of the
@@ -4662,6 +4675,221 @@ def train_phase(torch, dev, rows, launches):
     print(f"train: phase 14 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: sharding on the card, a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+SHARD_STEPS = 3                 # 16(a): steps of each training run
+# 16(b): lanes, prompt tokens and greedy decode steps of the served run
+SHARD_LANES, SHARD_PROMPT, SHARD_DECODE = 2, 256, 8
+
+
+def _shard_train_run(torch, dev, cfg, dc, oc, batches, mesh):
+    """``SHARD_STEPS`` steps of ``make_train_step`` (``mesh`` None) or of
+    ``make_sharded_train_step`` on ``mesh`` from ``init_params(cfg, dev,
+    1)``: (loss and gnorm by step, host ms by step (each ends in a read of
+    the loss), the wrappers' launches, peak device GiB, the final
+    parameters on the host)."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import abstract_params_and_axes, init_params
+    from repro_torch.sharding import specs
+    from repro_torch.train.loop import (TrainConfig, init_sharded_state,
+                                        make_sharded_train_step,
+                                        make_train_step)
+    from repro_torch.train.optimizer import init_opt_state, leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, dev, seed=1)
+    if mesh is None:
+        step = make_train_step(cfg, oc, TrainConfig())
+        opt, err = init_opt_state(params), None
+        feed = lambda b: b  # noqa: E731
+    else:
+        step, p_sh, b_sh = make_sharded_train_step(
+            cfg, oc, TrainConfig(), mesh, make_batch(dc, 0))
+        params = specs.distribute_tree(params, p_sh)
+        opt, err = init_sharded_state(
+            p_sh, abstract_params_and_axes(cfg)[0], False)
+        feed = lambda b: {k: specs.distribute(v, b_sh[k])  # noqa: E731
+                          for k, v in b.items()}
+    _counts(zero=True)
+    vals, ms = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, err, m = step(params, opt, err, feed(b))
+        vals.append((m["loss"].item(), m["gnorm"].item()))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    final = [(p if mesh is None else p.full_tensor()).cpu()
+             for p in leaves(params)]
+    del params, opt, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return vals, ms, launches, peak, final
+
+
+def shard_train(torch, dev, mesh):
+    """16(a): the sharded train step on a (1, 1) mesh against
+    ``make_train_step`` at phase 14(b)'s llama3-8b shape (published
+    widths, 8 of 32 layers, bf16, 4 x 1024 tokens, AdamW), the same
+    parameters and batches, ``SHARD_STEPS`` steps each: losses, gnorms
+    and every final parameter equal bit for bit (on one rank the data
+    mean is the rank's own gradient and every collective copies), flash
+    forward and backward launches a step equal (8 and 8); ms a step
+    (steps 2 on) and peak memory of both."""
+    from repro_torch.data.pipeline import device_batch
+
+    _, cfg, dc, oc = _train_configs()
+    batches = [device_batch(dc, it, dev) for it in range(SHARD_STEPS)]
+    runs = {name: _shard_train_run(torch, dev, cfg, dc, oc, batches, m)
+            for name, m in (("unsharded", None), ("sharded", mesh))}
+    (v0, ms0, l0, pk0, f0), (v1, ms1, l1, pk1, f1) = runs.values()
+    worst = max((a.float() - b.float()).abs().max().item()
+                for a, b in zip(f0, f1))
+    per_step = SHARD_STEPS * cfg.n_layers
+    _check(l0 == l1 and l0["flash_attention"] == per_step
+           and l0["flash_attention_bwd"] == per_step,
+           f"shard train: launches unsharded {l0}, sharded {l1}; want "
+           f"{cfg.n_layers} flash forward and backward a step in both")
+    _check(v0 == v1 and worst == 0.0,
+           f"shard train: sharded (loss, gnorm) {v1} against {v0}; largest "
+           f"parameter difference {worst:.3e} (want bit for bit on one rank)")
+    step0, step1 = (sorted(x[1:])[len(x[1:]) // 2] for x in (ms0, ms1))
+    print(f"shard train: {TRAIN_ARCH} L={cfg.n_layers} {cfg.dtype}, "
+          f"{dc.global_batch} x {dc.seq_len} tokens, {SHARD_STEPS} steps "
+          f"from the same parameters and batches; (loss, gnorm) by step "
+          f"{v1} equal bit for bit, every final parameter equal "
+          f"({len(f1)} leaves); flash {per_step // SHARD_STEPS} forward and "
+          f"{per_step // SHARD_STEPS} backward launches a step in both")
+    print(f"shard train: ms a step (median of steps 2-{SHARD_STEPS}; all "
+          f"{[round(x, 1) for x in ms1]}) sharded {step1:.1f} against "
+          f"unsharded {step0:.1f} (all {[round(x, 1) for x in ms0]}), "
+          f"{step1 - step0:+.1f} ms; peak device memory sharded "
+          f"{pk1:.2f} GiB against {pk0:.2f} GiB ({pk1 - pk0:+.2f} GiB); "
+          f"card {_card_line()}")
+
+
+def shard_serve(torch, dev, mesh):
+    """16(b): ``jit_prefill`` of ``SHARD_LANES`` x ``SHARD_PROMPT`` tokens
+    then ``SHARD_DECODE`` greedy ``jit_decode`` steps on the (1, 1) mesh,
+    llama3-8b at published widths on 8 of 32 layers, bf16, against
+    ``prefill`` and ``decode_step``: the logits at every step and the
+    tokens equal bit for bit; flash launched once a layer in each
+    prefill."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.models import (abstract_params_and_axes, decode_step,
+                                    init_params, prefill)
+    from repro_torch.serve.decode import jit_decode, jit_prefill
+    from repro_torch.sharding import specs
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    shape = ShapeConfig("phase16", SHARD_PROMPT + SHARD_DECODE, SHARD_LANES,
+                        "prefill")
+    params = init_params(cfg, dev, seed=2)
+    g = torch.Generator(device=dev).manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab, (SHARD_LANES, SHARD_PROMPT),
+                           generator=g, device=dev, dtype=torch.int32)
+    _counts(zero=True)
+    want, state = prefill(cfg, params, {"tokens": prompt},
+                          max_len=shape.seq_len)
+    want = [want[:, -1]]
+    for _ in range(SHARD_DECODE):
+        logits, state = decode_step(cfg, params, state,
+                                    want[-1].argmax(-1).to(torch.int32))
+        want.append(logits)
+    plain_launches = _counts(zero=True)
+    del state
+    pre, (params_abs, _) = jit_prefill(cfg, shape, mesh)
+    dec, _ = jit_decode(cfg, dataclasses.replace(shape, kind="decode"), mesh)
+    sharded = specs.distribute_tree(params, specs.tree_shardings(
+        abstract_params_and_axes(cfg)[1], mesh, params_abs))
+    b_sh = specs.NamedSharding(mesh, specs.spec_for(("batch", None),
+                                                    mesh=mesh))
+    t_sh = specs.NamedSharding(mesh, specs.spec_for(("batch",), mesh=mesh))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = pre(sharded, {"tokens": specs.distribute(prompt, b_sh)})
+    got = [logits.full_tensor()]
+    for _ in range(SHARD_DECODE):
+        logits, state = dec(sharded, state, specs.distribute(
+            got[-1].argmax(-1).to(torch.int32), t_sh))
+        got.append(logits.full_tensor())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+    toks = [x.argmax(-1).tolist() for x in got]
+    _check(all(same), f"shard serve: logits equal by step {same}")
+    _check(launches == plain_launches and launches["flash_attention"]
+           == cfg.n_layers, f"shard serve: launches {launches}, unsharded "
+           f"{plain_launches}; want flash once a layer in prefill")
+    print(f"shard serve: jit_prefill of {SHARD_LANES} x {SHARD_PROMPT} "
+          f"tokens then {SHARD_DECODE} jit_decode steps at {TRAIN_ARCH}'s "
+          f"widths, {cfg.n_layers} layers {cfg.dtype}: logits equal bit for "
+          f"bit at every step, tokens {toks}; launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})} as "
+          f"unsharded; {wall:.2f} s wall (eager)")
+    del params, sharded, state, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def shard_dp_mean(torch, dev):
+    """16(c): ``dp_mean_compressed`` through NCCL (a float MAX and an
+    int32 SUM all-reduce) on one rank against its plain single-process
+    result, bit for bit, over a tree of an fp32 [4096, 4096], a bf16
+    [1024, 128] and an fp32 [3] leaf."""
+    from repro_torch.train.compression import _scale_for, dp_mean_compressed
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    tree = {"a": torch.randn(4096, 4096, generator=g, device=dev),
+            "b": {"w": torch.randn(1024, 128, generator=g, device=dev)
+                  .to(torch.bfloat16),
+                  "z": torch.tensor([0.0, 1.5, -3.0], device=dev)}}
+    got = dp_mean_compressed(tree)
+
+    def plain(x):
+        s = _scale_for(x)
+        q = torch.clamp(torch.round(x.float() / s), -127, 127)
+        return (q * s / 1).to(x.dtype)
+    pairs = [(got["a"], plain(tree["a"])), (got["b"]["w"],
+             plain(tree["b"]["w"])), (got["b"]["z"], plain(tree["b"]["z"]))]
+    _check(all(torch.equal(a, b) for a, b in pairs),
+           "shard dp mean: NCCL result differs from the plain one")
+    print("shard dp mean: dp_mean_compressed through NCCL (MAX, int32 SUM) "
+          "equals the plain single-process result bit for bit (3 leaves, "
+          "fp32 and bf16)")
+
+
+def sharding_phase(torch, dev):
+    """Phase 16: a one-rank NCCL group over a file store, the (1, 1)
+    ("data", "model") mesh of ``make_host_mesh(1)``; 16(a), (b), (c); the
+    group destroyed at the end."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pg_") as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(str(Path(tmp) / "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = make_host_mesh(1, dev)
+            shard_train(torch, dev, mesh)
+            shard_serve(torch, dev, mesh)
+            shard_dp_mean(torch, dev)
+        finally:
+            dist.destroy_process_group()
+    print(f"sharding: phase 16 took {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         _fail("src/repro_torch not found beside chip_smoke.py")
@@ -4706,6 +4934,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     train_phase(torch, dev, rows, launches)
+    sharding_phase(torch, dev)
     for name, n in launches.items():
         rows[name]["launches"] = n
     print(json.dumps({"kernels": [rows[k] for k in sorted(rows)]}))

@@ -18,7 +18,15 @@ package restores what the other wrote:
   * retention keeps the last ``keep`` checkpoints.
 
 ``restore`` loads the leaves into the structure of a template, as
-tensors on an explicit device (there is no mesh).
+tensors on an explicit device, or laid out on a tree of shardings
+(``sharding.specs.NamedSharding``): the elastic path, since a checkpoint
+does not record the mesh that wrote it.
+
+A tree of DTensors (the sharded training state) is gathered leaf by
+leaf on the calling thread, on every rank (a collective), and rank 0
+alone writes it; ``save`` and ``wait`` then meet the other ranks at a
+barrier, so a checkpoint is published on every rank when they return.
+The writer thread runs no collective.
 """
 
 from __future__ import annotations
@@ -81,9 +89,16 @@ def _digest(arr: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(arr)).hexdigest()[:16]
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def _to_host(x) -> tuple[np.ndarray, str]:
     """A leaf -> (numpy array to store, manifest dtype); bfloat16 tensors
-    as their 16-bit words."""
+    as their 16-bit words; a DTensor gathered whole first."""
+    if _is_dtensor(x):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         # a copy even on the CPU: the training loop updates its
         # parameters in place while the writer thread runs
@@ -112,6 +127,7 @@ class CheckpointManager:
         os.makedirs(self.directory, exist_ok=True)
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._meet = False        # a sharded save waits for its barrier
 
     # -- discovery ---------------------------------------------------------
     def all_steps(self) -> list[int]:
@@ -129,16 +145,34 @@ class CheckpointManager:
     # -- save ---------------------------------------------------------------
     @staticmethod
     def _snapshot(tree) -> dict:
-        return {k: _to_host(v) for k, v in _flatten(tree).items()}
+        """Every leaf on the host, as it is written.  A sharded tree's
+        leaves are gathered on every rank (a collective) and copied to the
+        host by the writing rank only."""
+        if _roles(tree)[1]:
+            return {k: _to_host(v) for k, v in _flatten(tree).items()}
+        for v in _flatten(tree).values():
+            if _is_dtensor(v):
+                v.full_tensor()
+        return {}
 
     def save(self, step: int, tree, extra: dict | None = None) -> str:
         """Synchronous atomic save."""
-        return self._write(step, self._snapshot(tree), extra or {})
+        sharded, writes = _roles(tree)
+        host = self._snapshot(tree)
+        final = os.path.join(self.directory, f"step_{step:08d}")
+        if writes:
+            final = self._write(step, host, extra or {})
+        if sharded:
+            _barrier()
+        return final
 
     def save_async(self, step: int, tree, extra: dict | None = None):
         """Copy every leaf to the host now, then write on a thread."""
         self.wait()
+        self._meet, writes = _roles(tree)
         host = self._snapshot(tree)
+        if not writes:
+            return
 
         def work():
             try:
@@ -153,6 +187,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._meet:
+            self._meet = False
+            _barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -193,12 +230,15 @@ class CheckpointManager:
 
     # -- restore -------------------------------------------------------------
     def restore(self, step: int | None, template, device=None,
-                verify: bool = True):
+                shardings=None, verify: bool = True):
         """Load checkpoint ``step`` (None: the latest) into the structure
         of ``template``, every leaf a tensor in its stored dtype on
-        ``device`` (the card unless the caller asks for the CPU).
-        Returns (tree, extra, step); raises IOError on a leaf whose bytes
-        do not match its hash."""
+        ``device`` (the card unless the caller asks for the CPU); with
+        ``shardings`` (a tree like ``template`` of ``NamedSharding``)
+        each leaf is laid out as a DTensor on its sharding, every rank
+        reading the whole leaf and keeping its piece.  Returns (tree,
+        extra, step); raises IOError on a leaf whose bytes do not match
+        its hash."""
         device = resolve_device(device)
         if step is None:
             step = self.latest_step()
@@ -214,9 +254,29 @@ class CheckpointManager:
                 raise IOError(f"checkpoint corruption in leaf {name}")
             return name, arr
 
+        place = lambda name, t: t  # noqa: E731
+        if shardings is not None:
+            from repro_torch.sharding.specs import distribute
+            sh = _flatten(shardings)
+            place = lambda name, t: distribute(t, sh[name])  # noqa: E731
         flat = {}
         with ThreadPoolExecutor(_WORKERS) as pool:
             for name, arr in pool.map(leaf, manifest["leaves"].items()):
-                flat[name] = _from_host(
-                    arr, manifest["leaves"][name]["dtype"], device)
+                flat[name] = place(name, _from_host(
+                    arr, manifest["leaves"][name]["dtype"], device))
         return _unflatten_like(template, flat), manifest["extra"], step
+
+
+def _roles(tree) -> tuple[bool, bool]:
+    """(whether ``tree`` holds DTensors, whether this rank writes it):
+    of a sharded tree rank 0 alone writes."""
+    sharded = any(_is_dtensor(v) for v in _flatten(tree).values())
+    if not sharded:
+        return False, True
+    import torch.distributed as dist
+    return True, dist.get_rank() == 0
+
+
+def _barrier():
+    import torch.distributed as dist
+    dist.barrier()

@@ -17,6 +17,11 @@ all land in one sink row past the end.
 
 from __future__ import annotations
 
+import contextlib
+import os
+import threading
+import warnings
+
 import torch
 import torch.nn.functional as F
 
@@ -99,10 +104,62 @@ def _moe_tokens(p, xf, cfg: ArchConfig):
     return out, aux
 
 
+def groups() -> int:
+    """``REPRO_MOE_GROUPS`` (0 when unset), read at each call as the
+    reference reads it at each trace."""
+    return int(os.environ.get("REPRO_MOE_GROUPS", "0"))
+
+
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def shard_of(n: int):
+    """Within this context ``moe_ffn`` is called on one of ``n`` equal
+    data shards of the reference's batch (the sharded steps' rows), so
+    ``REPRO_MOE_GROUPS`` = G groups of the whole batch are G / n groups
+    here.  The caller checks that n divides G."""
+    prev = getattr(_local, "shards", 1)
+    _local.shards = n
+    try:
+        yield
+    finally:
+        _local.shards = prev
+
+
+def data_shards(cfg: ArchConfig, n: int, rows: int) -> int:
+    """How many pieces a call over ``rows`` rows, split in ``n`` equal
+    data shards, computes apart while giving the reference's values:
+    ``n`` when ``n`` divides ``rows`` and, for MoE, ``REPRO_MOE_GROUPS``
+    = G makes the reference route in groups that the shards split evenly
+    (n divides G, G divides ``rows``).  Else 1: every rank computes every
+    row, n times the work and the activations, and a warning says so."""
+    if n == 1:
+        return 1
+    if rows % n:
+        why = f"{rows} rows do not split over {n} data ranks"
+    elif cfg.family == "moe" and not (groups() > 1 and groups() % n == 0
+                                      and rows % groups() == 0):
+        why = (f"MoE routes all {rows} rows together unless "
+               f"REPRO_MOE_GROUPS is a multiple of {n} dividing {rows}")
+    else:
+        return n
+    warnings.warn(f"{cfg.name}: every one of {n} data ranks computes the "
+                  f"whole batch ({why})", stacklevel=2)
+    return 1
+
+
 def moe_ffn(p, x, cfg: ArchConfig):
     """x [B, S, d] -> (y [B, S, d], aux loss, a 0-d fp32 tensor).  All
-    B*S tokens route together, as the reference routes them (its
-    ``REPRO_MOE_GROUPS`` split for sharded dispatch is not ported)."""
+    B*S tokens route together, as the reference routes them; with
+    ``REPRO_MOE_GROUPS`` = G > 1 dividing B, each of G groups of B / G
+    rows routes on its own (its own capacity, its own ranks) and aux is
+    the groups' mean, as the reference's grouped dispatch."""
     B, S, d = x.shape
+    G = groups() // getattr(_local, "shards", 1)
+    if G > 1 and B % G == 0:
+        xg = x.reshape(G, (B // G) * S, d)
+        ys, auxs = zip(*(_moe_tokens(p, xg[i], cfg) for i in range(G)))
+        return torch.stack(ys).reshape(B, S, d), torch.stack(auxs).mean()
     y, aux = _moe_tokens(p, x.reshape(B * S, d), cfg)
     return y.reshape(B, S, d), aux

@@ -36,6 +36,7 @@ Python bools here.
 from __future__ import annotations
 
 import functools
+import os
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -46,6 +47,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.weights import abstract_params, param_axes
 
 from . import attention as attn
 from . import moe as moe_mod
@@ -131,6 +133,19 @@ def init_params(cfg: ArchConfig, device=None, seed: int = 0) -> dict:
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init(g, (cfg.vocab, d), dt, device, 0.02)
     return params
+
+
+def init_params_and_axes(cfg: ArchConfig, device=None,
+                         seed: int = 0) -> tuple[dict, dict]:
+    """(``init_params(cfg, device, seed)``, the same tree of the
+    reference's logical-axis tuples)."""
+    return init_params(cfg, device, seed), param_axes(cfg)
+
+
+def abstract_params_and_axes(cfg: ArchConfig) -> tuple[dict, dict]:
+    """(the parameters as ``meta`` tensors, their logical axes): shapes
+    and dtypes with nothing allocated."""
+    return abstract_params(cfg), param_axes(cfg)
 
 
 def _map(fn, tree):
@@ -387,14 +402,29 @@ def lm_loss(cfg: ArchConfig, params, batch, *, remat: str = "none"):
     classification for the encoder, plus 1e-2 times the MoE
     load-balancing loss and 1e-4 times the z-loss (the mean squared
     log-sum-exp of the logits).  Returns (loss, {"ce", "aux", "z"}), all
-    0-d fp32 tensors."""
+    0-d fp32 tensors.  ``REPRO_SHARDED_CE=1`` (read at each call) takes
+    the reference's vocab-sharded formulation of the same quantities:
+    the log-sum-exp from a detached max and a sum of exponentials, the
+    label's logit picked by a mask over the vocab."""
     logits, aux, _ = forward(cfg, params, batch, remat=remat)
     labels = batch["labels"].long()
     if cfg.causal:
         logits, labels = logits[:, :-1], labels[:, 1:]
-    logp = torch.log_softmax(logits, dim=-1)
-    ce = -logp.gather(-1, labels[..., None]).mean()
-    z = torch.logsumexp(logits, dim=-1).square().mean()
+    if os.environ.get("REPRO_SHARDED_CE", "0") == "1":
+        # the reference's vocab-sharded form: max, sum-exp and the label's
+        # logit as reductions over the vocab, each [B, S]
+        m = logits.max(dim=-1, keepdim=True).values.detach()
+        sumexp = torch.exp(logits - m).sum(dim=-1)
+        vpos = torch.arange(logits.shape[-1], device=logits.device)
+        lab_logit = torch.where(vpos == labels[..., None], logits,
+                                0.0).sum(-1)
+        lse = torch.log(sumexp) + m[..., 0]
+        ce = (lse - lab_logit).mean()
+        z = lse.square().mean()
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        ce = -logp.gather(-1, labels[..., None]).mean()
+        z = torch.logsumexp(logits, dim=-1).square().mean()
     return ce + 1e-2 * aux + 1e-4 * z, {"ce": ce, "aux": aux, "z": z}
 
 

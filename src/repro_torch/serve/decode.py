@@ -3,8 +3,15 @@
 decode step against one store (``make_tiered_decode_step``), the
 chunked-prefill step (``make_chunk_prefill_fn``), and ``StepGraphs``,
 which plays the part of ``jax.jit`` for the serving steps: each step is
-captured once as a CUDA graph and then replayed.  Sharding
-(``jit_decode``, ``jit_prefill``) is not ported."""
+captured once as a CUDA graph and then replayed.
+
+The sharded serving steps (``jit_decode``, ``jit_prefill``; the names
+are the reference's) run on a ``DeviceMesh``: parameters laid out by
+their logical axes, the decode state by ``decode_state_shardings`` (the
+caches' lanes over the data axes, their positions over "model"), the
+inputs by ``batch_shardings``.  A step gathers the parameters, computes
+this rank's lanes (gathering their positions), and lays its outputs back
+out on the same shardings.  The "model" axis shards storage only."""
 
 from __future__ import annotations
 
@@ -62,6 +69,198 @@ def make_prefill_fn(cfg, shape):
         logits, state = prefill(cfg, params, batch, max_len=shape.seq_len)
         return logits[:, -1], state
     return fn
+
+
+# ---------------------------------------------------------------------------
+# sharded steps
+# ---------------------------------------------------------------------------
+
+def _cache_axes(path: str, ndim: int) -> tuple:
+    """A decode-state leaf's logical axes: KV caches' lanes over
+    "batch" and positions over "seq", image K/V and recurrent states
+    lanes only."""
+    leaf = path.split("/")[-1]
+    if leaf in ("k", "v"):
+        if ndim == 6:     # vlm: [ns, inner, B, S, KV, hd]
+            return ("layers", None, "batch", "seq", None, None)
+        return ("layers", "batch", "seq", None, None)
+    if leaf in ("ik", "iv"):                    # image KV: [ns,B,T,KV,hd]
+        return ("layers", "batch", None, None, None)
+    return ("layers", "batch") + (None,) * (ndim - 2)
+
+
+def _state_axes(state) -> Any:
+    """The decode state's tree of logical axes: ``pos`` replicated, as
+    the reference's; each cache leaf by ``_cache_axes``."""
+    from repro_torch.models import DecodeState
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{path}/{k}") for k, v in node.items()}
+        return () if node.dim() == 0 else _cache_axes(path, node.dim())
+    return DecodeState((), walk(state.caches, "caches"))
+
+
+def decode_state_shardings(cfg, state_abs, mesh):
+    """``NamedSharding`` tree matching a ``DecodeState``."""
+    from repro_torch.sharding.specs import NamedSharding, map_leaves, spec_for
+
+    return map_leaves(
+        lambda ax, leaf: NamedSharding(mesh, spec_for(
+            ax, mesh=mesh, shape=tuple(leaf.shape))),
+        _state_axes(state_abs), state_abs)
+
+
+def batch_shardings(batch_specs: dict, mesh) -> dict:
+    """Every input's rows over "batch"."""
+    from repro_torch.sharding.specs import NamedSharding, spec_for
+
+    return {k: NamedSharding(mesh, spec_for(
+        ("batch",) + (None,) * (len(v.shape) - 1), mesh=mesh,
+        shape=tuple(v.shape))) for k, v in batch_specs.items()}
+
+
+class _Lanes:
+    """Which lanes this rank computes: its own piece of the batch (split
+    as ``lanes`` splits dim 0) unless an MoE dispatch would cross ranks,
+    then every lane (``moe.data_shards`` warns)."""
+
+    def __init__(self, cfg, lanes, B: int):
+        from repro_torch.models import moe
+        from repro_torch.sharding import specs
+
+        self.mesh = lanes.mesh
+        n, _ = specs.shard_index(lanes.placements, self.mesh)
+        self.shards = moe.data_shards(cfg, n, B)
+        self.local = self.shards == n
+        self.lane_pl = lanes.placements
+
+    def placements(self, batch_dim):
+        """Compute placements of a leaf whose lanes are ``batch_dim``."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        return tuple(Shard(batch_dim) if self.local and batch_dim is not None
+                     and pl.is_shard() else Replicate()
+                     for pl in self.lane_pl)
+
+    def take(self, t, batch_dim):
+        """A DTensor -> this rank's lanes of it, whole otherwise."""
+        return t.redistribute(self.mesh,
+                              self.placements(batch_dim)).to_local()
+
+    def put(self, t, batch_dim, shape, sh):
+        """This rank's lanes of a result -> a DTensor on ``sh``."""
+        from repro_torch.sharding.specs import distribute_local
+
+        return distribute_local(t, self.mesh, self.placements(batch_dim),
+                                shape).redistribute(self.mesh,
+                                                    sh.placements)
+
+
+def _batch_dim(axes):
+    return axes.index("batch") if "batch" in axes else None
+
+
+def _state_io(lanes: _Lanes, s_sh, state_abs):
+    """(take, put) of a decode state: this rank's lanes (their positions
+    gathered) as plain tensors, and back onto ``s_sh``.  ``pos`` is
+    replicated but split by lane like the caches."""
+    from repro_torch.sharding.specs import map_leaves
+
+    axes = _state_axes(state_abs)
+    axes = axes._replace(pos=("batch",))
+
+    def take(state):
+        return map_leaves(lambda t, ax: lanes.take(t, _batch_dim(ax)),
+                          state, axes)
+
+    def put(state):
+        return map_leaves(
+            lambda t, ax, ab, sh: lanes.put(t, _batch_dim(ax), ab.shape, sh),
+            state, axes, state_abs, s_sh)
+    return take, put
+
+
+def jit_decode(cfg, shape, mesh):
+    """The decode step on ``mesh``: returns (step, (params_abs,
+    state_abs, tokens_abs)), as the reference's.  step(params, state,
+    tokens) takes DTensors (params on their logical axes' shardings, the
+    state on ``decode_state_shardings``, tokens [B] over "batch") and
+    returns (logits [B, vocab] over ("batch", "vocab"), the new state on
+    the state's shardings).  The state is donated, as the reference's
+    is: its pieces may be updated in place."""
+    from repro_torch.models import (abstract_decode_state,
+                                    abstract_params_and_axes, moe)
+    from repro_torch.sharding.specs import (NamedSharding, gather_tree,
+                                            spec_for)
+
+    params_abs, _ = abstract_params_and_axes(cfg)
+    state_abs = abstract_decode_state(cfg, shape)
+    s_sh = decode_state_shardings(cfg, state_abs, mesh)
+    B = shape.global_batch
+    t_abs = torch.empty((B,), dtype=torch.int32, device="meta")
+    t_sh = NamedSharding(mesh, spec_for(("batch",), mesh=mesh, shape=(B,)))
+    logits_sh = NamedSharding(mesh, spec_for(
+        ("batch", "vocab"), mesh=mesh, shape=(B, cfg.vocab)))
+    lanes = _Lanes(cfg, t_sh, B)
+    take, put = _state_io(lanes, s_sh, state_abs)
+    fn = make_decode_fn(cfg)
+
+    def step(params, state, tokens):
+        full = gather_tree(params)
+        with moe.shard_of(lanes.shards):
+            logits, new = fn(full, take(state), lanes.take(tokens, 0))
+        return (lanes.put(logits, 0, (B, cfg.vocab), logits_sh), put(new))
+
+    return step, (params_abs, state_abs, t_abs)
+
+
+def jit_prefill(cfg, shape, mesh):
+    """The prefill step on ``mesh``: returns (step, (params_abs,
+    input_specs)), as the reference's.  step(params, batch) takes
+    DTensors (the batch over "batch"; prompts of up to ``shape.seq_len``
+    tokens, the caches padded to it as ``make_prefill_fn`` pads them, so
+    ``jit_decode`` at the same shape continues them) and returns
+    (last-position logits [B, vocab] over ("batch", "vocab"), the decode
+    state on ``decode_state_shardings``); an encoder's step returns its
+    logits [B, S, vocab] over ("batch", None, "vocab")."""
+    from repro_torch.models import (abstract_decode_state,
+                                    abstract_params_and_axes, input_specs,
+                                    moe)
+    from repro_torch.sharding.specs import (NamedSharding, gather_tree,
+                                            spec_for)
+
+    params_abs, _ = abstract_params_and_axes(cfg)
+    specs_in = input_specs(cfg, shape)
+    b_sh = batch_shardings(specs_in, mesh)
+    B, S = shape.global_batch, shape.seq_len
+    lanes = _Lanes(cfg, next(iter(b_sh.values())), B)
+    fn = make_prefill_fn(cfg, shape)
+
+    def run(params, batch):
+        full = gather_tree(params)
+        with moe.shard_of(lanes.shards):
+            return fn(full, {k: lanes.take(v, 0) for k, v in batch.items()})
+
+    if cfg.is_encoder:
+        out_sh = NamedSharding(mesh, spec_for(
+            ("batch", None, "vocab"), mesh=mesh, shape=(B, S, cfg.vocab)))
+
+        def encode(params, batch):
+            logits = run(params, batch)
+            return lanes.put(logits, 0, (B,) + logits.shape[1:], out_sh)
+        return encode, (params_abs, specs_in)
+
+    state_abs = abstract_decode_state(cfg, shape)
+    s_sh = decode_state_shardings(cfg, state_abs, mesh)
+    _, put = _state_io(lanes, s_sh, state_abs)
+    logits_sh = NamedSharding(mesh, spec_for(
+        ("batch", "vocab"), mesh=mesh, shape=(B, cfg.vocab)))
+
+    def step(params, batch):
+        logits, state = run(params, batch)
+        return lanes.put(logits, 0, (B, cfg.vocab), logits_sh), put(state)
+    return step, (params_abs, specs_in)
 
 
 def _counts() -> dict:

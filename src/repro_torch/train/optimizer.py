@@ -74,15 +74,24 @@ def schedule(cfg: OptConfig, step) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(g.float().square().sum() for g in leaves(tree)))
+    return norm_of(g.float().square().sum() for g in leaves(tree))
+
+
+def norm_of(sums) -> torch.Tensor:
+    """sqrt of the leaves' sums of squares, added in leaf order."""
+    return torch.sqrt(sum(sums))
 
 
 @torch.no_grad()
-def apply_updates(cfg: OptConfig, params, grads, state: OptState):
+def apply_updates(cfg: OptConfig, params, grads, state: OptState,
+                  gnorm=None):
     """One AdamW step: params, ``state.mu`` and ``state.nu`` are updated
     in place.  Returns (params, new state, {"gnorm", "lr"} as 0-d fp32
-    tensors)."""
-    gnorm = global_norm(grads)
+    tensors).  ``gnorm``, when given, is the clip's global norm (the
+    sharded step passes the norm of the whole gradient, with this rank's
+    shards as the trees); else ``global_norm(grads)``."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state.step + 1
     lr = schedule(cfg, step)

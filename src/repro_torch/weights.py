@@ -22,71 +22,127 @@ FP32_LEAVES = ("blocks/moe/router", "blocks/ssm/dt_bias", "blocks/ssm/A_log",
                "blocks/s_b", "blocks/cross/attn/gate")
 
 
-def _block_shapes(cfg: ArchConfig, lead: tuple, cross: bool = False) -> dict:
-    """path (under "blocks/") -> shape of one stack of blocks whose
-    leading dims are ``lead``; ``cross`` adds the gated cross-attention's
-    leaves."""
+def _block_leaves(cfg: ArchConfig, lead: tuple, cross: bool = False) -> dict:
+    """path (under "blocks/") -> (shape, logical axes) of one stack of
+    blocks whose leading dims are ``lead`` (each "layers"); ``cross``
+    adds the gated cross-attention's leaves.  The axes are those of the
+    reference's ``dense_init``/``zeros_init``/``ones_init`` calls
+    (``repro/models/{attention,moe,ssm,xlstm,transformer}.py``)."""
     d, ff = cfg.d_model, cfg.d_ff
     H, KV, hd, E = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.n_experts
-    shapes = {"norm1": (d,)}
+    emb = ("embed",)
+    leaves = {"norm1": ((d,), emb)}
     if cfg.family == "ssm":
         xd = d // H
-        shapes.update({"m_qkv": (d, 3, H, xd), "m_if": (d, 2, H),
-                       "m_if_b": (2, H), "m_og": (d, d), "m_out": (d, d),
-                       "s_w": (d, 4, H, xd), "s_r": (H, xd, 4, xd),
-                       "s_b": (4, H, xd), "s_out": (d, d)})
+        qkv = ("embed", "qkv", "heads", None)
+        leaves.update({
+            "m_qkv": ((d, 3, H, xd), qkv),
+            "m_if": ((d, 2, H), ("embed", None, "heads")),
+            "m_if_b": ((2, H), (None, "heads")),
+            "m_og": ((d, d), ("embed", "mlp")),
+            "m_out": ((d, d), ("mlp", "embed")),
+            "s_w": ((d, 4, H, xd), qkv),
+            "s_r": ((H, xd, 4, xd), ("heads", None, "qkv", None)),
+            "s_b": ((4, H, xd), ("qkv", "heads", None)),
+            "s_out": ((d, d), ("mlp", "embed"))})
     else:
-        shapes.update({"norm2": (d,), "attn/wq": (d, H, hd),
-                       "attn/wk": (d, KV, hd), "attn/wv": (d, KV, hd),
-                       "attn/wo": (H, hd, d)})
+        leaves.update({
+            "norm2": ((d,), emb),
+            "attn/wq": ((d, H, hd), ("embed", "heads", None)),
+            "attn/wk": ((d, KV, hd), ("embed", "kv_heads", None)),
+            "attn/wv": ((d, KV, hd), ("embed", "kv_heads", None)),
+            "attn/wo": ((H, hd, d), ("heads", None, "embed"))})
     if cfg.qkv_bias:
-        shapes.update({"attn/bq": (H, hd), "attn/bk": (KV, hd),
-                       "attn/bv": (KV, hd)})
+        leaves.update({"attn/bq": ((H, hd), ("heads", None)),
+                       "attn/bk": ((KV, hd), ("kv_heads", None)),
+                       "attn/bv": ((KV, hd), ("kv_heads", None))})
     if cross:
-        shapes.update({"attn/gate": (), "attn/q_norm": (hd,),
-                       "attn/k_norm": (hd,)})
+        leaves.update({"attn/gate": ((), ()), "attn/q_norm": ((hd,), (None,)),
+                       "attn/k_norm": ((hd,), (None,))})
     if cfg.family == "hybrid":
         st, r = cfg.ssm_state, max(d // 16, 1)
-        shapes.update({"norm_attn_out": (d,), "norm_ssm_out": (d,),
-                       "ssm/in_proj": (d, 2 * d),
-                       "ssm/conv_w": (cfg.ssm_conv, d), "ssm/conv_b": (d,),
-                       "ssm/x_proj": (d, r + 2 * st), "ssm/dt_proj": (r, d),
-                       "ssm/dt_bias": (d,), "ssm/A_log": (d, st),
-                       "ssm/D": (d,), "ssm/out_proj": (d, d)})
+        leaves.update({
+            "norm_attn_out": ((d,), emb), "norm_ssm_out": ((d,), emb),
+            "ssm/in_proj": ((d, 2 * d), ("embed", "mlp")),
+            "ssm/conv_w": ((cfg.ssm_conv, d), ("conv", "mlp")),
+            "ssm/conv_b": ((d,), ("mlp",)),
+            "ssm/x_proj": ((d, r + 2 * st), ("mlp", None)),
+            "ssm/dt_proj": ((r, d), (None, "mlp")),
+            "ssm/dt_bias": ((d,), ("mlp",)),
+            "ssm/A_log": ((d, st), ("mlp", "state")),
+            "ssm/D": ((d,), ("mlp",)),
+            "ssm/out_proj": ((d, d), ("mlp", "embed"))})
     if cfg.family == "moe":
-        shapes.update({"moe/router": (d, E), "moe/w_gate": (E, d, ff),
-                       "moe/w_up": (E, d, ff), "moe/w_down": (E, ff, d)})
+        leaves.update({
+            "moe/router": ((d, E), ("embed", "expert")),
+            "moe/w_gate": ((E, d, ff), ("expert", "embed", "mlp")),
+            "moe/w_up": ((E, d, ff), ("expert", "embed", "mlp")),
+            "moe/w_down": ((E, ff, d), ("expert", "mlp", "embed"))})
     elif cfg.family == "audio":
-        shapes.update({"mlp/w_in": (d, ff), "mlp/b_in": (ff,),
-                       "mlp/w_out": (ff, d), "mlp/b_out": (d,)})
+        leaves.update({"mlp/w_in": ((d, ff), ("embed", "mlp")),
+                       "mlp/b_in": ((ff,), ("mlp",)),
+                       "mlp/w_out": ((ff, d), ("mlp", "embed")),
+                       "mlp/b_out": ((d,), emb)})
     elif cfg.family != "ssm":
-        shapes.update({"mlp/w_gate": (d, ff), "mlp/w_up": (d, ff),
-                       "mlp/w_down": (ff, d)})
-    return {k: lead + s for k, s in shapes.items()}
+        leaves.update({"mlp/w_gate": ((d, ff), ("embed", "mlp")),
+                       "mlp/w_up": ((d, ff), ("embed", "mlp")),
+                       "mlp/w_down": ((ff, d), ("mlp", "embed"))})
+    layers = ("layers",) * len(lead)
+    return {k: (lead + s, layers + a) for k, (s, a) in leaves.items()}
+
+
+def _layout(cfg: ArchConfig) -> dict:
+    """path -> (shape, logical axes) of every parameter of ``cfg``'s
+    model.  vlm: "blocks/self/*" stacked [ns, inner, ...] (axes "layers",
+    "layers", ... as the reference's reshaped stack) and "blocks/cross/*"
+    stacked [ns, ...]; audio: no "embed"."""
+    d, V = cfg.d_model, cfg.vocab
+    table = ((V, d), ("vocab", "embed"))
+    out = {"final_norm": ((d,), ("embed",))}
+    if not cfg.embed_inputs:
+        out["embed"] = table
+    if cfg.family == "vlm":
+        ns, inner = cfg.vlm_dims
+        stacks = {"blocks/self/": _block_leaves(cfg, (ns, inner)),
+                  "blocks/cross/": _block_leaves(cfg, (ns,), cross=True)}
+    else:
+        stacks = {"blocks/": _block_leaves(cfg, (cfg.n_layers,))}
+    for prefix, block in stacks.items():
+        out.update({prefix + k: v for k, v in block.items()})
+    if not cfg.tie_embeddings:
+        out["unembed"] = table
+    return out
 
 
 def _expected_leaves(cfg: ArchConfig) -> dict:
     """path -> (shape, dtype) of every parameter of ``cfg``'s model: the
-    reference's dtype per leaf, ``cfg.dtype`` except ``FP32_LEAVES``.
-    vlm: "blocks/self/*" stacked [ns, inner, ...] and "blocks/cross/*"
-    stacked [ns, ...]; audio: no "embed"."""
-    d, V = cfg.d_model, cfg.vocab
-    shapes = {"final_norm": (d,)}
-    if not cfg.embed_inputs:
-        shapes["embed"] = (V, d)
-    if cfg.family == "vlm":
-        ns, inner = cfg.vlm_dims
-        stacks = {"blocks/self/": _block_shapes(cfg, (ns, inner)),
-                  "blocks/cross/": _block_shapes(cfg, (ns,), cross=True)}
-    else:
-        stacks = {"blocks/": _block_shapes(cfg, (cfg.n_layers,))}
-    for prefix, block in stacks.items():
-        shapes.update({prefix + k: s for k, s in block.items()})
-    if not cfg.tie_embeddings:
-        shapes["unembed"] = (V, d)
+    reference's dtype per leaf, ``cfg.dtype`` except ``FP32_LEAVES``."""
     dt = torch_dtype(cfg.dtype)
     return {k: (s, torch.float32 if k in FP32_LEAVES else dt)
-            for k, s in shapes.items()}
+            for k, (s, _) in _layout(cfg).items()}
+
+
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for path, v in flat.items():
+        *dirs, leaf = path.split("/")
+        node = out
+        for k in dirs:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return out
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """The parameters' tree of logical-axis tuples, the reference's."""
+    return _nest({k: a for k, (_, a) in _layout(cfg).items()})
+
+
+def abstract_params(cfg: ArchConfig) -> dict:
+    """The parameters' tree as ``meta`` tensors: shapes and dtypes, no
+    storage (qwen2-72b and the 100-layer vlm cost nothing)."""
+    return _nest({k: torch.empty(s, dtype=dt, device="meta")
+                  for k, (s, dt) in _expected_leaves(cfg).items()})
 
 
 def from_jax_params(tree, cfg: ArchConfig, device=None) -> dict:

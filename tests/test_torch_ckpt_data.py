@@ -250,13 +250,17 @@ def test_apply_updates_matches_reference(dtype):
     params, grads = _opt_inputs(dtype)
     jdt = jnp.dtype(dtype)
     tdt = getattr(torch, dtype)
-    jp = jax.tree.map(lambda a: jnp.asarray(a).astype(jdt), params)
-    tp = jax.tree.map(lambda a: torch.from_numpy(a).to(tdt), params)
+    jp = jax.tree.map(lambda a: jnp.asarray(a.copy()).astype(jdt), params)
+    # each side gets its own copy: an aligned fp32 array can back both a
+    # jax array and a tensor, and the port writes its params in place
+    # while the reference's dispatched step may not yet have read them
+    tp = jax.tree.map(lambda a: torch.from_numpy(a.copy()).to(tdt),
+                      params)
     js, ts = jopt.init_opt_state(jp), init_opt_state(tp)
     jupd = jax.jit(lambda p, g, s: jopt.apply_updates(oc, p, g, s))
     for g in grads:
         jg = jax.tree.map(lambda a: jnp.asarray(a).astype(jdt), g)
-        tg = jax.tree.map(lambda a: torch.from_numpy(a).to(tdt), g)
+        tg = jax.tree.map(lambda a: torch.from_numpy(a.copy()).to(tdt), g)
         jp, js, jstats = jupd(jp, jg, js)
         tp, ts, tstats = apply_updates(oc, tp, tg, ts)
         _assert_tree(_np(tp), _np(jp), dtype == "bfloat16")

@@ -2137,3 +2137,94 @@ def test_server_captured_equals_eager_every_path(cuda):
         assert torch.equal(runs[0][0], runs[1][0]), path
         assert runs[0][1:] == runs[1][1:], path
         assert runs[0][1]["migrations"] > 0
+
+
+# ---------------------------------------------------------------------------
+# sharding: a one-rank NCCL group on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """The (1, 1) ("data", "model") mesh of ``make_host_mesh(1)`` over a
+    one-rank NCCL group on a file store; the group destroyed after."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield make_host_mesh(1, cuda)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("microbatches,compress", [(1, False), (2, True)])
+def test_sharded_step_equals_unsharded_on_the_card(nccl_mesh, microbatches,
+                                                   compress):
+    """Two sharded steps of the tiny llama on a one-rank NCCL mesh against
+    ``make_train_step`` from the same parameters and batches: losses,
+    gnorms, parameters and error state bit for bit; flash forward and
+    backward launches equal."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.data.pipeline import DataConfig, device_batch, make_batch
+    from repro_torch.models import abstract_params_and_axes, init_params
+    from repro_torch.sharding import specs
+    from repro_torch.train import compression
+    from repro_torch.train.loop import (TrainConfig, init_sharded_state,
+                                        make_sharded_train_step,
+                                        make_train_step)
+    from repro_torch.train.optimizer import (OptConfig, init_opt_state,
+                                             leaves)
+
+    cuda = torch.device("cuda")
+    cfg = reduce_for_smoke(get_config("llama3-8b"))
+    dc = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4, seed=7)
+    oc = OptConfig(lr=3e-3, warmup_steps=5, total_steps=60)
+    tc = TrainConfig(microbatches=microbatches, compress_grads=compress)
+    runs = []
+    for sharded in (False, True):
+        params = init_params(cfg, cuda, seed=0)
+        if sharded:
+            step, p_sh, b_sh = make_sharded_train_step(cfg, oc, tc, nccl_mesh,
+                                                       make_batch(dc, 0))
+            params = specs.distribute_tree(params, p_sh)
+            opt, err = init_sharded_state(
+                p_sh, abstract_params_and_axes(cfg)[0], compress)
+        else:
+            step = make_train_step(cfg, oc, tc)
+            opt = init_opt_state(params)
+            err = compression.init_error_state(params) if compress else None
+        f0, b0 = fa_ops.launches, fa_ops.bwd_launches
+        vals = []
+        for it in range(2):
+            b = device_batch(dc, it, cuda)
+            if sharded:
+                b = {k: specs.distribute(v, b_sh[k]) for k, v in b.items()}
+            params, opt, err, m = step(params, opt, err, b)
+            vals.append((float(m["loss"]), float(m["gnorm"])))
+        whole = (lambda t: t.full_tensor()) if sharded else (lambda t: t)
+        runs.append((vals, [whole(t) for t in leaves(params)],
+                     [whole(t) for t in leaves(err)] if compress else [],
+                     (fa_ops.launches - f0, fa_ops.bwd_launches - b0)))
+    (v0, p0, e0, l0), (v1, p1, e1, l1) = runs
+    assert v0 == v1
+    assert all(torch.equal(a, b) for a, b in zip(p0 + e0, p1 + e1))
+    assert l0 == l1 == (2 * microbatches * cfg.n_layers,) * 2
+
+
+@pytest.mark.cuda
+def test_dp_mean_compressed_through_nccl(nccl_mesh):
+    """``dp_mean_compressed`` over the one-rank NCCL group (a float MAX
+    and an int32 SUM all-reduce) against its plain result, bit for bit."""
+    from repro_torch.train.compression import _scale_for, dp_mean_compressed
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tree = {"a": torch.randn(64, 33, generator=g, device="cuda") * 3,
+            "b": torch.randn(7, generator=g, device="cuda").bfloat16()}
+    got = dp_mean_compressed(tree)
+    for k, x in tree.items():
+        s = _scale_for(x)
+        want = (torch.clamp(torch.round(x.float() / s), -127, 127) * s
+                ).to(x.dtype)
+        assert torch.equal(got[k], want), k

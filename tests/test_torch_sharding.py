@@ -1,0 +1,415 @@
+"""The port's sharding against the JAX reference's.
+
+Specs: ``spec_for`` on fake (16, 16) and (2, 16, 16) meshes (fixed cases
+and hypothesis), every config's parameter axes and ``tree_shardings``,
+every decoder's ``decode_state_shardings`` and ``batch_shardings`` (the
+reference through ``abstract_params_and_axes``, ``abstract_decode_state``
+and ``input_specs``, nothing materialised): equal, entry for entry.
+
+The multi-rank path runs once, in 4 spawned gloo processes on the CPU
+(``tests/torch_dist_worker.py``, which imports no JAX) on a (2, 2)
+("data", "model") mesh: the sharded train step of smoke llama3-8b and
+granite-moe against the reference's ``make_sharded_train_step`` on a
+one-device mesh (plain, and with 2 microbatches and int8 error
+feedback), a checkpoint saved on (2, 2) and restored on (4, 1), sharded
+prefill and decode against the unsharded port, and the int8 data mean
+against the reference's under ``jax.vmap(..., axis_name="data")``, and
+a sharded ``fit`` that one rank alone is told to stop.
+
+Tolerances, fp32 on the CPU, those of ``test_torch_train.py``'s train
+step (the ranks sum the data mean in another order than one device):
+losses within 1e-5, gnorms and each gradient leaf within 1e-4 of its
+max |value|; parameters after the steps within 1e-6 of each leaf's max
+|value| per step (AdamW with eps 1), with compression plus the first
+step's lr times one int8 quantum of the leaf per microbatch, and the
+error state within one quantum per microbatch.  The int8 mean, the
+checkpoint's values and the served token streams exactly; the served
+logits within 1e-5.  ``REPRO_SHARDED_CE=1`` and ``REPRO_MOE_GROUPS=2``:
+the loss within 1e-5 and gradients within 1e-4 of their max, as the
+loss parity tests.
+"""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+from jax.sharding import AxisType, Mesh
+
+import torch_dist_worker as W
+from repro.ckpt.manager import CheckpointManager as JManager
+from repro.configs import ALL_ARCHS as J_ALL_ARCHS
+from repro.configs import SHAPES as J_SHAPES
+from repro.configs import get_config as j_get_config
+from repro.configs import reduce_for_smoke as j_reduce
+from repro.data.pipeline import DataConfig as JDataConfig
+from repro.data.pipeline import make_batch as j_make_batch
+from repro.models import abstract_decode_state as j_abstract_decode_state
+from repro.models import abstract_params_and_axes as j_abstract_params
+from repro.models import input_specs as j_input_specs
+from repro.models import loss_fn as j_loss_fn
+from repro.serve import decode as j_decode
+from repro.sharding import specs as jspecs
+from repro.train import compression as jcomp
+from repro.train import loop as jloop
+from repro.train import optimizer as jopt
+from repro_torch.configs import ALL_ARCHS, SHAPES, get_config
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import (abstract_decode_state,
+                                abstract_params_and_axes, init_params,
+                                input_specs, loss_fn)
+from repro_torch.serve.decode import batch_shardings, decode_state_shardings
+from repro_torch.sharding import specs
+from repro_torch.train.loop import TrainConfig, grads_of
+from repro_torch.weights import from_jax_params
+
+LOSS_ATOL, GRAD_REL, STEP_REL = 1e-5, 1e-4, 1e-6
+LOGIT_ATOL = 1e-5
+
+_DEVS = np.asarray(jax.devices() * 512)[:512]
+# fake meshes: the reference's specs need only names and sizes
+J_MESHES = {"16x16": Mesh(_DEVS[:256].reshape(16, 16), ("data", "model")),
+            "2x16x16": Mesh(_DEVS.reshape(2, 16, 16),
+                            ("pod", "data", "model"))}
+MESHES = {"16x16": make_production_mesh(),
+          "2x16x16": make_production_mesh(multi_pod=True)}
+LOGICAL = sorted(specs.DEFAULT_RULES) + [None]
+
+
+def _flat(tree, prefix=""):
+    """path -> leaf of nested dicts and named tuples, either package."""
+    if hasattr(tree, "_fields"):
+        tree = tree._asdict()
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _jspec_leaves(tree):
+    """path -> leaf of a reference tree (named-tuple fields by name)."""
+    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+    return {"/".join(str(getattr(k, "key", getattr(k, "name", k)))
+                     for k in path): leaf for path, leaf in flat}
+
+
+def _jspec_tree(tree):
+    """path -> tuple(spec) of a tree of the reference's NamedShardings."""
+    return {k: tuple(sh.spec) for k, sh in _jspec_leaves(tree).items()}
+
+
+# --- spec_for --------------------------------------------------------------
+
+FIXED = ((("batch", "seq", "embed"), (256, 4096, 8192)),
+         (("batch", None), (64, 128)),
+         (("layers", "embed", "kv_heads", None), (80, 8192, 8, 128)),
+         (("layers", "expert", "embed", "mlp"), (40, 40, 1536, 512)),
+         (("vocab", "embed"), (49155, 1536)),
+         (("vocab", "embed"), (128256, 4096)),
+         (("layers", "batch", "seq", None, None), (32, 128, 32768, 8, 128)),
+         (("batch",), (1,)), (("batch",), (2,)), ((), ()),
+         (("embed", "embed"), (32, 32)),
+         (("heads", "mlp"), (25, 1600)))
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_spec_for_fixed_cases(mesh):
+    """Divisibility drops, the pod axis, an axis used once, with and
+    without shapes: the reference's entries exactly."""
+    for axes, shape in FIXED:
+        for s in (shape, None):
+            want = tuple(jspecs.spec_for(axes, mesh=J_MESHES[mesh],
+                                         shape=s))
+            assert specs.spec_for(axes, mesh=MESHES[mesh], shape=s) == want, \
+                (axes, s)
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.lists(st.tuples(st.sampled_from(LOGICAL),
+                          st.integers(1, 4096)), min_size=0, max_size=5),
+       st.sampled_from(sorted(MESHES)))
+def test_spec_for_matches_reference(dims, mesh):
+    axes = tuple(a for a, _ in dims)
+    shape = tuple(n for _, n in dims)
+    want = tuple(jspecs.spec_for(axes, mesh=J_MESHES[mesh], shape=shape))
+    assert specs.spec_for(axes, mesh=MESHES[mesh], shape=shape) == want
+
+
+def test_placements_follow_the_spec():
+    """A spec -> one placement per mesh dim; a dimension over (pod, data)
+    shards on both, in mesh order; another order raises."""
+    from torch.distributed.tensor import Replicate, Shard
+    m = MESHES["2x16x16"]
+    assert specs.placements_for((("pod", "data"), None, "model"), m) == (
+        Shard(0), Shard(0), Shard(2))
+    assert specs.placements_for((None, "data"), m) == (
+        Replicate(), Shard(1), Replicate())
+    with pytest.raises(ValueError):
+        specs.placements_for((("data", "pod"),), m)
+    with specs.use_mesh(m):
+        assert specs.current_mesh() is m
+        sh = specs.named_sharding(("batch", "embed"), (64, 4096))
+        assert sh.spec == (("pod", "data"), None)
+        x = torch.ones(2)
+        assert specs.logical_constraint(x, ("batch",)) is x
+    assert specs.current_mesh() is None
+    assert specs.named_sharding(("batch",)) is None
+
+
+# --- the abstract trees ----------------------------------------------------
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_param_axes_and_shardings_match_reference(arch):
+    """Every leaf's logical axes, shape and dtype, and its spec on both
+    production meshes, equal the reference's."""
+    assert sorted(ALL_ARCHS) == sorted(J_ALL_ARCHS)
+    jabs, jaxes = j_abstract_params(j_get_config(arch))
+    abs_, axes = abstract_params_and_axes(get_config(arch))
+    jflat = _flat(jax.tree.map(lambda a: a, jaxes,
+                               is_leaf=lambda t: isinstance(t, tuple)))
+    assert _flat(axes) == jflat
+    for k, t in _flat(abs_).items():
+        a = _flat(jabs)[k]
+        assert t.device.type == "meta"
+        assert tuple(t.shape) == a.shape and str(t.dtype).split(".")[1] \
+            == str(a.dtype), k
+    for m in MESHES:
+        want = _jspec_tree(jspecs.tree_shardings(jaxes, J_MESHES[m], jabs))
+        got = {k: s.spec for k, s in _flat(specs.tree_shardings(
+            axes, MESHES[m], abs_)).items()}
+        assert got == want, m
+
+
+DECODERS = [a for a in ALL_ARCHS if not get_config(a).is_encoder]
+
+
+@pytest.mark.parametrize("arch", DECODERS)
+def test_decode_state_and_batch_shardings_match_reference(arch):
+    """The decode state's and the prefill inputs' specs per leaf, on both
+    production meshes, at decode_32k and prefill_32k."""
+    jcfg, cfg = j_get_config(arch), get_config(arch)
+    dec, pre = "decode_32k", "prefill_32k"
+    jstate = j_abstract_decode_state(jcfg, J_SHAPES[dec])
+    state = abstract_decode_state(cfg, SHAPES[dec])
+    assert {k: tuple(v.shape) for k, v in _flat(state).items()} == {
+        k: v.shape for k, v in _jspec_leaves(jstate).items()}
+    for m in MESHES:
+        want = _jspec_tree(j_decode.decode_state_shardings(
+            jcfg, jstate, J_MESHES[m]))
+        got = {k: s.spec for k, s in _flat(decode_state_shardings(
+            cfg, state, MESHES[m])).items()}
+        assert got == want, m
+        want = _jspec_tree(j_decode.batch_shardings(
+            j_input_specs(jcfg, J_SHAPES[pre]), J_MESHES[m]))
+        got = {k: s.spec for k, s in batch_shardings(
+            input_specs(cfg, SHAPES[pre]), MESHES[m]).items()}
+        assert got == want, m
+
+
+# --- REPRO_SHARDED_CE and REPRO_MOE_GROUPS ---------------------------------
+
+def _loss_parity(arch, monkeypatch, env):
+    """The port's loss and gradients against a freshly jitted
+    reference's, with ``env`` set for both."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    cfg, jcfg = W.smoke(arch), j_reduce(j_get_config(arch))
+    tree = jax.tree.map(lambda t: t.float().numpy(),
+                        init_params(cfg, "cpu", seed=3))
+    batch = j_make_batch(JDataConfig(vocab=cfg.vocab, seq_len=16,
+                                     global_batch=4, seed=2), 0)
+    (jl, jm), jg = jax.jit(jax.value_and_grad(
+        lambda p, b: j_loss_fn(jcfg, p, b), has_aux=True))(
+            jax.tree.map(jnp.asarray, tree), jax.tree.map(jnp.asarray, batch))
+    loss, m, g = grads_of(cfg, TrainConfig(),
+                          from_jax_params(tree, cfg, "cpu"),
+                          {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert abs(float(loss) - float(jl)) <= LOSS_ATOL
+    for k in ("ce", "aux", "z"):
+        assert abs(float(m[k]) - float(jm[k])) <= LOSS_ATOL * max(
+            1.0, abs(float(jm[k]))), k
+    want = _flat(jax.tree.map(np.asarray, jg))
+    for k, t in _flat(g).items():
+        np.testing.assert_allclose(t.numpy(), want[k], rtol=0, atol=GRAD_REL
+                                   * np.abs(want[k]).max() + 1e-12,
+                                   err_msg=k)
+    return float(loss), m
+
+
+def test_sharded_ce_matches_reference(monkeypatch):
+    """``REPRO_SHARDED_CE=1``: the reference's vocab-sharded loss, and
+    within 1e-6 of the port's default formulation."""
+    loss, _ = _loss_parity("llama3-8b", monkeypatch,
+                           {"REPRO_SHARDED_CE": "1"})
+    monkeypatch.setenv("REPRO_SHARDED_CE", "0")
+    cfg = W.smoke("llama3-8b")
+    batch = {k: torch.from_numpy(v) for k, v in j_make_batch(JDataConfig(
+        vocab=cfg.vocab, seq_len=16, global_batch=4, seed=2), 0).items()}
+    plain = float(loss_fn(cfg, init_params(cfg, "cpu", seed=3), batch)[0])
+    assert abs(loss - plain) <= 1e-6
+
+
+def test_moe_groups_match_reference(monkeypatch):
+    """``REPRO_MOE_GROUPS=2``: granite routes each half of the batch on
+    its own, as the reference; the aux loss (the groups' mean) differs
+    from the whole batch's."""
+    _, m = _loss_parity("granite-moe-3b-a800m", monkeypatch,
+                        {"REPRO_MOE_GROUPS": "2"})
+    monkeypatch.setenv("REPRO_MOE_GROUPS", "0")
+    _, m0 = _loss_parity("granite-moe-3b-a800m", monkeypatch, {})
+    assert float(m["aux"]) != float(m0["aux"])
+
+
+# --- the multi-rank run ----------------------------------------------------
+
+@pytest.fixture(scope="module")
+def dist_run(tmp_path_factory):
+    out = tmp_path_factory.mktemp("dist")
+    W.spawn(str(out))
+    return out
+
+
+def test_dp_mean_compressed_matches_reference(dist_run):
+    """Four gloo ranks (MAX and int32 SUM all-reduces) against the
+    reference under ``jax.vmap(..., axis_name="data")``: bit for bit."""
+    trees = [W.dp_tree(r) for r in range(W.WORLD)]
+    stacked = jax.tree.map(lambda *xs: jnp.stack(xs), *trees)
+    want = jax.vmap(jcomp.dp_mean_compressed, axis_name="data")(stacked)
+    got = np.load(dist_run / "dp_mean.npz")
+    for k, w in _flat(jax.tree.map(np.asarray, want)).items():
+        np.testing.assert_array_equal(got[k], w[0], err_msg=k)
+
+
+def _reference_run(case):
+    """The reference's sharded step on a one-device mesh from the port's
+    init: (losses, gnorms, final params, final error state, the first
+    batch's gradient, per-microbatch quanta)."""
+    arch, mb, compress, _ = case
+    jcfg, cfg = j_reduce(j_get_config(arch)), W.smoke(arch)
+    dc = JDataConfig(vocab=cfg.vocab, **W.DC_KW)
+    oc = W.opt_config()
+    tree = jax.tree.map(lambda t: t.float().numpy(),
+                        init_params(cfg, "cpu", seed=0))
+    jtc = jloop.TrainConfig(microbatches=mb, compress_grads=compress)
+    # the reference's step jitted on a one-device mesh of Auto axes (the
+    # partitioner's, which its specs are written for)
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto, AxisType.Auto))
+    step, _, _ = jloop.make_sharded_train_step(
+        jcfg, jopt.OptConfig(**vars(oc)), jtc, mesh, j_make_batch(dc, 0),
+        donate=False)
+    p = jax.tree.map(jnp.asarray, tree)
+    opt = jopt.init_opt_state(p)
+    err = jax.tree.map(jnp.zeros_like, p) if compress else None
+    grad_fn = jax.jit(jax.grad(lambda q, b: j_loss_fn(jcfg, q, b)[0]))
+    grad = grad_fn(p, j_make_batch(dc, 0))
+    losses, gnorms = [], []
+    for it in range(W.TRAIN_STEPS):
+        p, opt, err, m = step(p, opt, err, j_make_batch(dc, it))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]))
+    quantum = {}
+    for it in range(W.TRAIN_STEPS if compress else 0):
+        b = j_make_batch(dc, it)
+        for i in range(mb):
+            rows = slice(i * dc.global_batch // mb,
+                         (i + 1) * dc.global_batch // mb)
+            g = grad_fn(jax.tree.map(jnp.asarray, tree),
+                        {k: v[rows] for k, v in b.items()})
+            for k, t in _flat(jax.tree.map(np.asarray, g)).items():
+                quantum[k] = quantum.get(k, 0.0) + 1.5 * np.abs(t).max() / 127
+    return (losses, gnorms, _flat(jax.tree.map(np.asarray, p)),
+            _flat(jax.tree.map(np.asarray, err)) if compress else {},
+            _flat(jax.tree.map(np.asarray, grad)), quantum)
+
+
+@pytest.mark.parametrize("case", range(len(W.TRAIN_CASES)),
+                         ids=["-".join(map(str, c)) for c in W.TRAIN_CASES])
+def test_sharded_train_step_matches_reference(case, dist_run, monkeypatch):
+    """``TRAIN_STEPS`` sharded steps on 4 ranks against the reference's
+    ``make_sharded_train_step`` on one device, within the stated
+    tolerances: losses, gnorms, the first batch's data-mean gradient,
+    the parameters and the error state."""
+    arch, mb, compress, groups = W.TRAIN_CASES[case]
+    monkeypatch.setenv("REPRO_MOE_GROUPS", str(groups))
+    losses, gnorms, params, err, grad, quantum = _reference_run(
+        W.TRAIN_CASES[case])
+    got = np.load(dist_run / f"train_{case}.npz")
+    assert int(got["step"]) == W.TRAIN_STEPS
+    np.testing.assert_allclose(got["loss"], losses, rtol=0, atol=LOSS_ATOL)
+    np.testing.assert_allclose(got["gnorm"], gnorms, rtol=GRAD_REL)
+    for k, w in grad.items():
+        np.testing.assert_allclose(got[f"grad/{k}"], w, rtol=0, atol=GRAD_REL
+                                   * np.abs(w).max() + 1e-12, err_msg=k)
+    lr1 = W.opt_config().lr / W.opt_config().warmup_steps
+    for name, want, slack in (("param", params, lr1), ("err", err, 1.0)):
+        for k, w in want.items():
+            np.testing.assert_allclose(
+                got[f"{name}/{k}"], w, rtol=0,
+                atol=W.TRAIN_STEPS * STEP_REL * np.abs(w).max()
+                + slack * quantum.get(k, 0.0) + 1e-12, err_msg=f"{name}/{k}")
+
+
+def test_checkpoint_restores_on_another_mesh(dist_run):
+    """Saved from (2, 2) (gathered on every rank, written by rank 0),
+    restored onto (4, 1): every leaf equal and on (4, 1)'s placements;
+    the reference's manager reads the same files as case 0's final
+    parameters, bit for bit."""
+    info = json.loads((dist_run / "ckpt.json").read_text())
+    assert info["step"] == 2 and info["extra"] == {"arch": "llama3-8b"}
+    assert info["unequal"] == [] and info["misplaced"] == []
+    assert info["leaves"] > 0
+    params = {k[len("param/"):]: v for k, v in
+              np.load(dist_run / "train_0.npz").items()
+              if k.startswith("param/")}
+    tmpl = {"params": _nest(params), "opt": jopt.OptState(
+        0, _nest(params), _nest(params))}
+    tree, extra, step = JManager(str(dist_run / "ckpt")).restore(None, tmpl)
+    assert step == 2
+    for k, v in _flat(tree["params"]).items():
+        np.testing.assert_array_equal(np.asarray(v), params[k], err_msg=k)
+
+
+def _nest(flat):
+    out = {}
+    for path, v in flat.items():
+        *dirs, leaf = path.split("/")
+        node = out
+        for d in dirs:
+            node = node.setdefault(d, {})
+        node[leaf] = v
+    return out
+
+
+@pytest.mark.parametrize("arch", W.SERVE_ARCHS)
+def test_sharded_serving_matches_unsharded(arch, dist_run):
+    """``jit_prefill`` then greedy ``jit_decode`` steps on (2, 2) (lanes
+    over data, cache positions over model; granite without
+    ``REPRO_MOE_GROUPS``: every rank computes every lane, and
+    ``jit_prefill`` and ``jit_decode`` each warn so) against the
+    unsharded ``prefill`` and ``decode_step``: the same tokens and
+    positions, logits within 1e-5, the state on its shardings."""
+    got = json.loads((dist_run / "serve.json").read_text())[arch]
+    moe = get_config(arch).family == "moe"
+    assert got["whole_batch_warnings"] == (2 if moe else 0)
+    assert got["tokens"] == got["want_tokens"]
+    assert got["pos"] == got["want_pos"] == [
+        W.SERVE_PROMPT + W.SERVE_STEPS] * W.SERVE_B
+    assert got["placed"]
+    assert got["logit_gap"] <= LOGIT_ATOL
+    assert "(None, 'data', 'model', None, None)" in got["state_specs"]
+
+
+def test_preempt_on_one_rank_stops_every_rank(dist_run):
+    """SIGTERM on one rank of a sharded ``fit``: every rank agrees, saves
+    at the same step (a gather on every rank) and stops after it, and
+    nothing hangs."""
+    info = json.loads((dist_run / "preempt.json").read_text())
+    assert info["ranks"] == [{"steps": [0], "stopped": True}] * W.WORLD
+    assert info["saved"] == [1]

@@ -343,15 +343,23 @@ def test_resume_across_packages(tmp_path):
 
 def test_launcher_trains_on_the_cpu_and_refuses_sharding(tmp_path, capsys):
     """``launch.train`` with ``--device cpu``: the reference's flags, a
-    checkpoint, the final metrics printed; ``--mesh host`` and
-    ``--model-parallel 2`` raise, naming the sharding item."""
+    checkpoint, the final metrics printed, unsharded and with ``--mesh
+    host`` (a one-rank gloo group of its own); ``--model-parallel 2``
+    is refused without ``--mesh host``, and on one rank."""
+    import torch.distributed as dist
+
     from repro_torch.launch import train
     argv = ["--arch", "llama3-8b", "--smoke", "--device", "cpu", "--steps",
-            "3", "--batch", "2", "--seq", "16", "--ckpt-dir", str(tmp_path),
-            "--microbatches", "2", "--compress-grads", "--remat", "dots"]
-    m = train.main(argv)
-    assert np.isfinite(m["loss"]) and "final:" in capsys.readouterr().out
-    assert CheckpointManager(str(tmp_path)).latest_step() == 3
-    for extra in (["--mesh", "host"], ["--model-parallel", "2"]):
-        with pytest.raises(NotImplementedError, match="Sharding"):
-            train.main(argv + extra)
+            "3", "--batch", "2", "--seq", "16", "--microbatches", "2",
+            "--compress-grads", "--remat", "dots"]
+    for name, extra in (("plain", []), ("mesh", ["--mesh", "host"])):
+        ckpt = tmp_path / name
+        m = train.main(argv + ["--ckpt-dir", str(ckpt)] + extra)
+        assert np.isfinite(m["loss"]) and "final:" in capsys.readouterr().out
+        assert CheckpointManager(str(ckpt)).latest_step() == 3
+    assert not dist.is_initialized()
+    with pytest.raises(SystemExit):
+        train.main(argv + ["--model-parallel", "2"])
+    with pytest.raises(ValueError, match="model_parallel 2"):
+        train.main(argv + ["--mesh", "host", "--model-parallel", "2"])
+    assert not dist.is_initialized()
