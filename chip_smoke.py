@@ -217,20 +217,47 @@ prints no result line):
    busy ms a loop iteration, the device's idle share, the
    ``cudaLaunchKernel`` calls left by call site, the graph keys,
    capture seconds and the graph pool's bytes, and the chunk K/V bytes
-   copied a chunk.
+   copied a chunk.  Each pair of engines is then dropped with Python's
+   cyclic collector off: every engine is gone and the reserved device
+   memory falls (reference counting alone frees an engine's graphs,
+   graph pool and KV pools).
 16. sharding (after phase 14), on a one-rank NCCL group over the (1, 1)
-   ("data", "model") mesh of ``launch.mesh.make_host_mesh(1)``: (a) the
-   sharded train step (parameters and moments as DTensors by the
-   reference's specs, gathered each step, the data mean scattered onto
-   the shards) against ``make_train_step`` at 14(b)'s llama3-8b shape
-   (8 of 32 layers, bf16, 4 x 1024 tokens), 3 steps each from the same
+   ("data", "model") mesh of ``launch.mesh.make_host_mesh(1)``, through
+   the tensor-parallel path of the dense family (every part split over
+   the one "model" rank, each layer's pieces taken inside the layer
+   loop): (a) the sharded train step (parameters and moments as DTensors
+   by the reference's specs, the data mean scattered onto the shards)
+   against ``make_train_step`` under ``REPRO_SHARDED_CE=1`` (the split
+   step's loss takes that form) at 14(b)'s llama3-8b shape (8 of 32
+   layers, bf16, 4 x 1024 tokens), 3 steps each from the same
    parameters and batches: losses, gnorms and final parameters bit for
    bit, 8 flash forward and 8 backward launches a step in both; ms a step
    and peak memory of both; (b) ``jit_prefill`` of 2 x 256 tokens and 8
-   greedy ``jit_decode`` steps at the same widths against ``prefill`` and
+   greedy ``jit_decode`` steps at the same widths against ``prefill``
+   (the last position unembedded alone, as ``make_prefill_fn`` does) and
    ``decode_step``: logits and tokens bit for bit; (c)
    ``dp_mean_compressed`` through NCCL against its plain single-process
-   result, bit for bit.
+   result, bit for bit; (d) the gathered path that every family but the
+   dense one still takes: granite-moe-3b-a800m at published widths on 4
+   of 32 layers, ``REPRO_MOE_GROUPS=2`` on both sides, through (a)'s
+   training run against ``make_train_step`` and (b)'s served run
+   against ``prefill`` and ``decode_step``, bit for bit, with
+   ``specs.gather_tree`` counted once a step or call and
+   ``_Layout.reduce`` once a leaf a training step.
+17. one rank's share of qwen2-72b on a (1, 4) mesh (after phase 16):
+   rank 0 of a 4-rank group of ``torch.distributed``'s fake backend
+   (``FakeStore``: every collective returns at once and moves nothing,
+   so no value is compared and no time includes communication), the
+   parameters made by ``init_sharded_params`` on the card (published
+   widths, all 80 layers, QKV bias, bf16), a ``jit_prefill`` of 8 x 2048
+   tokens into caches padded to 4096 positions, then 32 ``jit_decode``
+   steps.  Prints the rank's peak memory (and by stage: the draw, the
+   prefill, the decode steps), parameter and cache bytes,
+   prefill ms, decode ms p50 and p90 and flash launches (one a layer in
+   the prefill, at 16 of the 64 query heads over 2 of the 8 KV heads),
+   and the collectives a decode step would run on four cards (their
+   count and bytes, recorded at dispatch); then flash at the rank's
+   prefill shape, checked and timed as phase 3's rows.
 
 Output, in order: phase lines, one JSON ``kernels`` line (launches: the
 main path's for paged_attention_fused, remap_gather (every launch of the
@@ -241,17 +268,20 @@ paged_attention_split, the concat server run's for paged_attention, the
 chunked run's for flash_attention, the Figure 7 sweep's for sim_scan,
 phase 14's training run's for flash_attention_bwd and for flash's row
 at the training shape; a row at another family's shape counts phase
-11's, 12's or 13's run of that family),
+11's, 12's or 13's run of that family, and flash's row at qwen2-72b's
+rank shape phase 17's prefill),
 the card's name and power limit as
 nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1356,7 +1386,7 @@ def main_path_phase(torch, dev, cfg, params):
     print(f"main: peak device memory {peak / 2**30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated)")
     del eng
-    gc.collect()              # engines hold cycles (scheduler, wrappers)
+    gc.collect()
     torch.cuda.empty_cache()
     return launches
 
@@ -1395,7 +1425,7 @@ def dense_tiered_phase(torch, dev, arch="llama3-8b"):
     _check(math.isfinite(worst) and worst <= 1e-3,
            f"{arch}: dense vs tiered logits differ by {worst} > 1e-3")
     del params
-    gc.collect()              # engines hold cycles (scheduler, wrappers)
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -1606,7 +1636,7 @@ def server_run(torch, dev, path, cached, inputs, *, check_waits=False,
                captured=sorted(srv.graphs.graphs) if srv.graphs.enabled
                else None)
     del srv
-    gc.collect()              # engines hold cycles (scheduler, wrappers)
+    gc.collect()
     torch.cuda.empty_cache()
     return res
 
@@ -1863,7 +1893,7 @@ def chunked_qos_phase(torch, dev, cfg, params):
           f"{json.dumps(totals)}; peak device memory {peak / 2**30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated)")
     del eng
-    gc.collect()              # engines hold cycles (scheduler, wrappers)
+    gc.collect()
     torch.cuda.empty_cache()
     return {"flash_attention": launches["flash_attention"]}
 
@@ -2264,7 +2294,7 @@ def telemetry_phase(torch, dev, cfg, params):
           f"JSONL rows; endpoints 200 at step {fetched['at_step']}; phase 9 "
           f"took {time.perf_counter() - t0:.1f} s")
     del eng, off, done, off_done
-    gc.collect()              # engines hold cycles (scheduler, wrappers)
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -2636,9 +2666,7 @@ def graphs_phase(torch, dev, cfg, params):
            and int(ring["counts"][obs_flight.K_RELEASE]) > 0,
            f"graphs flight: the ring holds no demote or release "
            f"({ring['counts'].tolist()})")
-    del fe
-    gc.collect()              # engines hold cycles (scheduler, wrappers)
-    torch.cuda.empty_cache()
+    freed = [_free_without_collector(torch, "graphs flight", fe)]
     print(f"graphs flight-recorded: captured == eager bit for bit in both "
           f"pairs ({TELEMETRY_REQUESTS} requests; token streams, counters, "
           f"launch counts, every state leaf, the ring's events, head "
@@ -2654,9 +2682,8 @@ def graphs_phase(torch, dev, cfg, params):
                      graphs=m) for m in (False, None)}
     gran = _graphs_pairs(torch, "graphs granite", gen,
                          main_requests(gcfg)[:FAMILY_REQUESTS], ({},))
-    del gen, gparams
-    gc.collect()              # engines hold cycles (scheduler, wrappers)
-    torch.cuda.empty_cache()
+    del gparams
+    freed.append(_free_without_collector(torch, "graphs granite", gen))
     print(f"graphs granite-moe-3b-a800m: captured == eager bit for bit "
           f"({FAMILY_REQUESTS} requests, {gran[0, None]['steps']} steps); "
           f"eager {gran[0, False]['tok_s']:.1f} tokens/s, captured "
@@ -2678,9 +2705,7 @@ def graphs_phase(torch, dev, cfg, params):
     C = ch[None].scheduler.chunk
     L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
     item = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
-    del ch
-    gc.collect()              # engines hold cycles (scheduler, wrappers)
-    torch.cuda.empty_cache()
+    freed.append(_free_without_collector(torch, "graphs chunked", ch))
     print(f"graphs chunked + QoS: captured == eager bit for bit in all "
           f"three pairs (token streams, counters, launch counts, every "
           f"state leaf); the later captured runs captured nothing; eager "
@@ -2748,9 +2773,40 @@ def graphs_phase(torch, dev, cfg, params):
           f"the first's tokens; {capture}; capture seconds "
           f"{json.dumps({str(k): round(v, 4) for k, v in capture_s.items()})}"
           f"; phase 15 took {time.perf_counter() - t0:.1f} s")
-    del engs
-    gc.collect()              # engines hold cycles (scheduler, wrappers)
-    torch.cuda.empty_cache()
+    freed.append(_free_without_collector(torch, "graphs llama3-8b", engs))
+    print(f"graphs: each pair of engines (eager and captured) freed by "
+          f"del alone, the cyclic collector off: reserved device GiB "
+          f"before -> after {json.dumps(freed)} (flight, granite, chunked, "
+          f"llama3-8b)")
+
+
+def _free_without_collector(torch, label, engines: dict) -> list:
+    """Drop ``engines`` (a dict holding the caller's only references to
+    them) with Python's cyclic collector off, then empty the allocator's
+    cache: every engine must be gone (a weak reference dead) and the
+    reserved memory must fall, their graphs, graph pool and KV pools
+    released by reference counting alone.  Returns the reserved GiB
+    [before, after]."""
+    import weakref
+
+    refs = [weakref.ref(e) for e in engines.values()]
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_reserved()
+        engines.clear()
+        torch.cuda.empty_cache()
+        after = torch.cuda.memory_reserved()
+    finally:
+        if collecting:
+            gc.enable()
+    alive = sum(r() is not None for r in refs)
+    _check(alive == 0 and after < before,
+           f"{label}: after del with the collector off {alive} engines "
+           f"alive, reserved {before / 2**30:.2f} -> {after / 2**30:.2f} "
+           f"GiB")
+    return [round(before / 2**30, 2), round(after / 2**30, 2)]
 
 
 # ---------------------------------------------------------------------------
@@ -3273,7 +3329,7 @@ def family_serve(torch, dev, arch):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card "
           f"{_card_line()}")
     del eng, params
-    gc.collect()              # engines hold cycles (scheduler, wrappers)
+    gc.collect()
     torch.cuda.empty_cache()
     return launches
 
@@ -3387,7 +3443,7 @@ def mixtral_window_phase(torch, dev):
           f"GiB")
     launches = fa_ops.launches
     del params, out, dec, one, dec0, one0
-    gc.collect()              # engines hold cycles (scheduler, wrappers)
+    gc.collect()
     torch.cuda.empty_cache()
     return launches
 
@@ -3492,7 +3548,7 @@ def recurrent_serve(torch, dev, arch):
     from repro_torch.models.kv_backend import DenseBackend
 
     cfg = get_config(arch)
-    gc.collect()                  # earlier phases' engines hold cycles
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
@@ -3593,7 +3649,7 @@ def recurrent_serve(torch, dev, arch):
           f"GiB ({held / 2**30:.2f} GiB of it allocated before the run); "
           f"card {_card_line()}")
     del params, st
-    gc.collect()              # engines hold cycles (scheduler, wrappers)
+    gc.collect()
     torch.cuda.empty_cache()
     return launches
 
@@ -3666,7 +3722,7 @@ def hymba_window_gate(torch, dev):
           f"{moved:.3e} from the windowed forward (must exceed 1e-2); "
           f"{fa_ops.launches} flash launches (fp32); {secs:.1f} s")
     del params, out, dec, one, dec0, one0
-    gc.collect()              # engines hold cycles (scheduler, wrappers)
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -4108,7 +4164,7 @@ def audio_forward(torch, dev):
           f"({held / 2**30:.2f} GiB of it allocated before the run); card "
           f"{_card_line()}")
     del params, emb, logits
-    gc.collect()              # engines hold cycles (scheduler, wrappers)
+    gc.collect()
     torch.cuda.empty_cache()
     return launches["flash_attention"]
 
@@ -4381,13 +4437,16 @@ def _manifest_hashes(directory, step) -> dict:
         return {k: v["sha256"] for k, v in json.load(f)["leaves"].items()}
 
 
-def _train_configs():
+def _train_configs(arch=None, layers=None):
+    """(published config, cfg, data config, optimiser config) of a
+    training run: ``arch`` (``TRAIN_ARCH``) at published widths on
+    ``layers`` (``TRAIN_LAYERS``) layers, 4 x 1024 tokens, AdamW."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.train.optimizer import OptConfig
 
-    pub = get_config(TRAIN_ARCH)
-    cfg = dataclasses.replace(pub, n_layers=TRAIN_LAYERS)
+    pub = get_config(arch or TRAIN_ARCH)
+    cfg = dataclasses.replace(pub, n_layers=layers or TRAIN_LAYERS)
     dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                     global_batch=TRAIN_BATCH)
     oc = OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
@@ -4682,6 +4741,51 @@ def train_phase(torch, dev, rows, launches):
 SHARD_STEPS = 3                 # 16(a): steps of each training run
 # 16(b): lanes, prompt tokens and greedy decode steps of the served run
 SHARD_LANES, SHARD_PROMPT, SHARD_DECODE = 2, 256, 8
+# 16(d): a family outside the split, on the gathered path: its depth and
+# the MoE routing groups both sides route in
+SHARD_GATHERED, SHARD_GATHERED_LAYERS = "granite-moe-3b-a800m", 4
+SHARD_MOE_GROUPS = "2"
+
+
+@contextlib.contextmanager
+def _env(**kw):
+    """``os.environ`` with ``kw`` set, restored on exit."""
+    old = {k: os.environ.get(k) for k in kw}
+    os.environ.update(kw)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def _gathered_calls():
+    """Counts, by name, the calls of the gathered path's pieces in the
+    context: ``specs.gather_tree`` (the whole tree on each rank) and
+    ``train.loop._Layout.reduce`` (a gradient's data mean onto its
+    shard)."""
+    from repro_torch.sharding import specs
+    from repro_torch.train import loop
+
+    n = {"gather_tree": 0, "reduce": 0}
+    real = (specs.gather_tree, loop._Layout.reduce)
+
+    def gather_tree(*a, **kw):
+        n["gather_tree"] += 1
+        return real[0](*a, **kw)
+
+    def reduce(*a, **kw):
+        n["reduce"] += 1
+        return real[1](*a, **kw)
+    specs.gather_tree, loop._Layout.reduce = gather_tree, reduce
+    try:
+        yield n
+    finally:
+        specs.gather_tree, loop._Layout.reduce = real
 
 
 def _shard_train_run(torch, dev, cfg, dc, oc, batches, mesh):
@@ -4689,7 +4793,7 @@ def _shard_train_run(torch, dev, cfg, dc, oc, batches, mesh):
     ``make_sharded_train_step`` on ``mesh`` from ``init_params(cfg, dev,
     1)``: (loss and gnorm by step, host ms by step (each ends in a read of
     the loss), the wrappers' launches, peak device GiB, the final
-    parameters on the host)."""
+    parameters on the host, the gathered path's calls)."""
     from repro_torch.data.pipeline import make_batch
     from repro_torch.models import abstract_params_and_axes, init_params
     from repro_torch.sharding import specs
@@ -4702,26 +4806,27 @@ def _shard_train_run(torch, dev, cfg, dc, oc, batches, mesh):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, dev, seed=1)
-    if mesh is None:
-        step = make_train_step(cfg, oc, TrainConfig())
-        opt, err = init_opt_state(params), None
-        feed = lambda b: b  # noqa: E731
-    else:
-        step, p_sh, b_sh = make_sharded_train_step(
-            cfg, oc, TrainConfig(), mesh, make_batch(dc, 0))
-        params = specs.distribute_tree(params, p_sh)
-        opt, err = init_sharded_state(
-            p_sh, abstract_params_and_axes(cfg)[0], False)
-        feed = lambda b: {k: specs.distribute(v, b_sh[k])  # noqa: E731
-                          for k, v in b.items()}
-    _counts(zero=True)
-    vals, ms = [], []
-    for b in batches:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, opt, err, m = step(params, opt, err, feed(b))
-        vals.append((m["loss"].item(), m["gnorm"].item()))
-        ms.append((time.perf_counter() - t0) * 1e3)
+    with _gathered_calls() as calls:
+        if mesh is None:
+            step = make_train_step(cfg, oc, TrainConfig())
+            opt, err = init_opt_state(params), None
+            feed = lambda b: b  # noqa: E731
+        else:
+            step, p_sh, b_sh = make_sharded_train_step(
+                cfg, oc, TrainConfig(), mesh, make_batch(dc, 0))
+            params = specs.distribute_tree(params, p_sh)
+            opt, err = init_sharded_state(
+                p_sh, abstract_params_and_axes(cfg)[0], False)
+            feed = lambda b: {k: specs.distribute(v, b_sh[k])  # noqa: E731
+                              for k, v in b.items()}
+        _counts(zero=True)
+        vals, ms = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, err, m = step(params, opt, err, feed(b))
+            vals.append((m["loss"].item(), m["gnorm"].item()))
+            ms.append((time.perf_counter() - t0) * 1e3)
     launches = _counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     final = [(p if mesh is None else p.full_tensor()).cpu()
@@ -4729,43 +4834,63 @@ def _shard_train_run(torch, dev, cfg, dc, oc, batches, mesh):
     del params, opt, m
     gc.collect()
     torch.cuda.empty_cache()
-    return vals, ms, launches, peak, final
+    return vals, ms, launches, peak, final, dict(calls)
 
 
-def shard_train(torch, dev, mesh):
-    """16(a): the sharded train step on a (1, 1) mesh against
-    ``make_train_step`` at phase 14(b)'s llama3-8b shape (published
-    widths, 8 of 32 layers, bf16, 4 x 1024 tokens, AdamW), the same
-    parameters and batches, ``SHARD_STEPS`` steps each: losses, gnorms
-    and every final parameter equal bit for bit (on one rank the data
-    mean is the rank's own gradient and every collective copies), flash
-    forward and backward launches a step equal (8 and 8); ms a step
-    (steps 2 on) and peak memory of both."""
+def shard_train(torch, dev, mesh, arch, layers, env, label):
+    """16(a) and the training half of 16(d): the sharded train step on a
+    (1, 1) mesh against ``make_train_step`` under ``env`` on both sides,
+    ``arch`` at published widths on ``layers`` layers, bf16, 4 x 1024
+    tokens, AdamW, the same parameters and batches, ``SHARD_STEPS`` steps
+    each: losses, gnorms and every final parameter equal bit for bit (on
+    one rank the data mean is the rank's own gradient), flash forward
+    and backward launches a step equal (one a layer); ms a step (steps 2
+    on) and peak memory of both.  The dense family runs split (every
+    part over the one "model" rank, no ``gather_tree``; its loss takes
+    the ``REPRO_SHARDED_CE`` form, which ``env`` gives the unsharded
+    side), any other family gathered (``gather_tree`` once a step,
+    ``_Layout.reduce`` once a leaf a step)."""
     from repro_torch.data.pipeline import device_batch
+    from repro_torch.train.optimizer import leaves
 
-    _, cfg, dc, oc = _train_configs()
+    _, cfg, dc, oc = _train_configs(arch, layers)
     batches = [device_batch(dc, it, dev) for it in range(SHARD_STEPS)]
-    runs = {name: _shard_train_run(torch, dev, cfg, dc, oc, batches, m)
-            for name, m in (("unsharded", None), ("sharded", mesh))}
-    (v0, ms0, l0, pk0, f0), (v1, ms1, l1, pk1, f1) = runs.values()
+    with _env(**env):
+        runs = {name: _shard_train_run(torch, dev, cfg, dc, oc, batches, m)
+                for name, m in (("unsharded", None), ("sharded", mesh))}
+    (v0, ms0, l0, pk0, f0, _), (v1, ms1, l1, pk1, f1, calls) = runs.values()
+    if cfg.family == "dense":
+        path = f"split path (parts {json.dumps(_split_parts(cfg, mesh))})"
+        _check(all(_split_parts(cfg, mesh).values())
+               and calls["gather_tree"] == 0,
+               f"{label}: parts not split or tree gathered ({path}, {calls})")
+    else:
+        n_leaves = len(leaves(_abstract_params(cfg)))
+        path = (f"gathered path (gather_tree {calls['gather_tree']} calls, "
+                f"_Layout.reduce {calls['reduce']})")
+        _check(calls["gather_tree"] == SHARD_STEPS
+               and calls["reduce"] == SHARD_STEPS * n_leaves,
+               f"{label}: {path}; want gather_tree once a step and reduce "
+               f"once for each of {n_leaves} leaves a step")
     worst = max((a.float() - b.float()).abs().max().item()
                 for a, b in zip(f0, f1))
     per_step = SHARD_STEPS * cfg.n_layers
     _check(l0 == l1 and l0["flash_attention"] == per_step
            and l0["flash_attention_bwd"] == per_step,
-           f"shard train: launches unsharded {l0}, sharded {l1}; want "
+           f"{label}: launches unsharded {l0}, sharded {l1}; want "
            f"{cfg.n_layers} flash forward and backward a step in both")
     _check(v0 == v1 and worst == 0.0,
-           f"shard train: sharded (loss, gnorm) {v1} against {v0}; largest "
+           f"{label}: sharded (loss, gnorm) {v1} against {v0}; largest "
            f"parameter difference {worst:.3e} (want bit for bit on one rank)")
     step0, step1 = (sorted(x[1:])[len(x[1:]) // 2] for x in (ms0, ms1))
-    print(f"shard train: {TRAIN_ARCH} L={cfg.n_layers} {cfg.dtype}, "
+    print(f"{label}: {arch} L={cfg.n_layers} {cfg.dtype}, "
           f"{dc.global_batch} x {dc.seq_len} tokens, {SHARD_STEPS} steps "
-          f"from the same parameters and batches; (loss, gnorm) by step "
+          f"from the same parameters and batches, {path} against "
+          f"make_train_step under {json.dumps(env)}; (loss, gnorm) by step "
           f"{v1} equal bit for bit, every final parameter equal "
           f"({len(f1)} leaves); flash {per_step // SHARD_STEPS} forward and "
           f"{per_step // SHARD_STEPS} backward launches a step in both")
-    print(f"shard train: ms a step (median of steps 2-{SHARD_STEPS}; all "
+    print(f"{label}: ms a step (median of steps 2-{SHARD_STEPS}; all "
           f"{[round(x, 1) for x in ms1]}) sharded {step1:.1f} against "
           f"unsharded {step0:.1f} (all {[round(x, 1) for x in ms0]}), "
           f"{step1 - step0:+.1f} ms; peak device memory sharded "
@@ -4773,64 +4898,95 @@ def shard_train(torch, dev, mesh):
           f"card {_card_line()}")
 
 
-def shard_serve(torch, dev, mesh):
-    """16(b): ``jit_prefill`` of ``SHARD_LANES`` x ``SHARD_PROMPT`` tokens
-    then ``SHARD_DECODE`` greedy ``jit_decode`` steps on the (1, 1) mesh,
-    llama3-8b at published widths on 8 of 32 layers, bf16, against
-    ``prefill`` and ``decode_step``: the logits at every step and the
-    tokens equal bit for bit; flash launched once a layer in each
-    prefill."""
+def _abstract_params(cfg):
+    from repro_torch.models import abstract_params_and_axes
+    return abstract_params_and_axes(cfg)[0]
+
+
+def _split_parts(cfg, mesh) -> dict:
+    """Which parts (attention, MLP, vocabulary) of ``cfg`` run split over
+    ``mesh``'s "model" axis, from the parameters' shardings."""
+    from repro_torch.models import abstract_params_and_axes
+    from repro_torch.sharding import specs
+    from repro_torch.sharding.tensor_parallel import TensorParallel
+
+    params_abs, axes = abstract_params_and_axes(cfg)
+    return TensorParallel(cfg, mesh, specs.tree_shardings(
+        axes, mesh, params_abs), params_abs).split
+
+
+def shard_serve(torch, dev, mesh, arch, layers, env, label):
+    """16(b) and the serving half of 16(d): ``jit_prefill`` of
+    ``SHARD_LANES`` x ``SHARD_PROMPT`` tokens then ``SHARD_DECODE`` greedy
+    ``jit_decode`` steps on the (1, 1) mesh, ``arch`` at published widths
+    on ``layers`` layers, bf16, against ``prefill`` (the last position
+    unembedded alone, as ``make_prefill_fn`` does) and ``decode_step``,
+    under ``env`` on both sides: the logits at every step and the tokens
+    equal bit for bit; flash launched once a layer in each prefill.  The
+    dense family runs split (no ``gather_tree``), any other gathered
+    (``gather_tree`` once a call)."""
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.models import (abstract_params_and_axes, decode_step,
                                     init_params, prefill)
     from repro_torch.serve.decode import jit_decode, jit_prefill
     from repro_torch.sharding import specs
 
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     shape = ShapeConfig("phase16", SHARD_PROMPT + SHARD_DECODE, SHARD_LANES,
                         "prefill")
     params = init_params(cfg, dev, seed=2)
     g = torch.Generator(device=dev).manual_seed(3)
     prompt = torch.randint(0, cfg.vocab, (SHARD_LANES, SHARD_PROMPT),
                            generator=g, device=dev, dtype=torch.int32)
-    _counts(zero=True)
-    want, state = prefill(cfg, params, {"tokens": prompt},
-                          max_len=shape.seq_len)
-    want = [want[:, -1]]
-    for _ in range(SHARD_DECODE):
-        logits, state = decode_step(cfg, params, state,
-                                    want[-1].argmax(-1).to(torch.int32))
-        want.append(logits)
-    plain_launches = _counts(zero=True)
-    del state
-    pre, (params_abs, _) = jit_prefill(cfg, shape, mesh)
-    dec, _ = jit_decode(cfg, dataclasses.replace(shape, kind="decode"), mesh)
-    sharded = specs.distribute_tree(params, specs.tree_shardings(
-        abstract_params_and_axes(cfg)[1], mesh, params_abs))
-    b_sh = specs.NamedSharding(mesh, specs.spec_for(("batch", None),
-                                                    mesh=mesh))
-    t_sh = specs.NamedSharding(mesh, specs.spec_for(("batch",), mesh=mesh))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, state = pre(sharded, {"tokens": specs.distribute(prompt, b_sh)})
-    got = [logits.full_tensor()]
-    for _ in range(SHARD_DECODE):
-        logits, state = dec(sharded, state, specs.distribute(
-            got[-1].argmax(-1).to(torch.int32), t_sh))
-        got.append(logits.full_tensor())
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = _counts()
+    with _env(**env), _gathered_calls() as calls:
+        _counts(zero=True)
+        want, state = prefill(cfg, params, {"tokens": prompt},
+                              max_len=shape.seq_len, last=True)
+        want = [want[:, -1]]
+        for _ in range(SHARD_DECODE):
+            logits, state = decode_step(cfg, params, state,
+                                        want[-1].argmax(-1).to(torch.int32))
+            want.append(logits)
+        plain_launches = _counts(zero=True)
+        del state
+        pre, (params_abs, _) = jit_prefill(cfg, shape, mesh)
+        dec, _ = jit_decode(cfg, dataclasses.replace(shape, kind="decode"),
+                            mesh)
+        sharded = specs.distribute_tree(params, specs.tree_shardings(
+            abstract_params_and_axes(cfg)[1], mesh, params_abs))
+        b_sh = specs.NamedSharding(mesh, specs.spec_for(("batch", None),
+                                                        mesh=mesh))
+        t_sh = specs.NamedSharding(mesh, specs.spec_for(("batch",),
+                                                        mesh=mesh))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = pre(sharded,
+                            {"tokens": specs.distribute(prompt, b_sh)})
+        got = [logits.full_tensor()]
+        for _ in range(SHARD_DECODE):
+            logits, state = dec(sharded, state, specs.distribute(
+                got[-1].argmax(-1).to(torch.int32), t_sh))
+            got.append(logits.full_tensor())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+    gathered = 0 if cfg.family == "dense" else 1 + SHARD_DECODE
+    _check(calls["gather_tree"] == gathered,
+           f"{label}: gather_tree called {calls['gather_tree']} times, "
+           f"want {gathered} ({cfg.family})")
     same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
     toks = [x.argmax(-1).tolist() for x in got]
-    _check(all(same), f"shard serve: logits equal by step {same}")
+    _check(all(same), f"{label}: logits equal by step {same}")
     _check(launches == plain_launches and launches["flash_attention"]
-           == cfg.n_layers, f"shard serve: launches {launches}, unsharded "
+           == cfg.n_layers, f"{label}: launches {launches}, unsharded "
            f"{plain_launches}; want flash once a layer in prefill")
-    print(f"shard serve: jit_prefill of {SHARD_LANES} x {SHARD_PROMPT} "
-          f"tokens then {SHARD_DECODE} jit_decode steps at {TRAIN_ARCH}'s "
-          f"widths, {cfg.n_layers} layers {cfg.dtype}: logits equal bit for "
-          f"bit at every step, tokens {toks}; launches "
+    path = "split" if cfg.family == "dense" else \
+        f"gathered (gather_tree {calls['gather_tree']} calls)"
+    print(f"{label}: jit_prefill of {SHARD_LANES} x {SHARD_PROMPT} "
+          f"tokens then {SHARD_DECODE} jit_decode steps at {arch}'s "
+          f"widths, {cfg.n_layers} layers {cfg.dtype}, {path} path under "
+          f"{json.dumps(env)}: logits equal bit for bit at every step, "
+          f"tokens {toks}; launches "
           f"{json.dumps({k: v for k, v in launches.items() if v})} as "
           f"unsharded; {wall:.2f} s wall (eager)")
     del params, sharded, state, logits
@@ -4867,8 +5023,8 @@ def shard_dp_mean(torch, dev):
 
 def sharding_phase(torch, dev):
     """Phase 16: a one-rank NCCL group over a file store, the (1, 1)
-    ("data", "model") mesh of ``make_host_mesh(1)``; 16(a), (b), (c); the
-    group destroyed at the end."""
+    ("data", "model") mesh of ``make_host_mesh(1)``; 16(a), (b), (c),
+    (d); the group destroyed at the end."""
     import tempfile
 
     import torch.distributed as dist
@@ -4882,12 +5038,186 @@ def sharding_phase(torch, dev):
             rank=0, world_size=1)
         try:
             mesh = make_host_mesh(1, dev)
-            shard_train(torch, dev, mesh)
-            shard_serve(torch, dev, mesh)
+            shard_train(torch, dev, mesh, TRAIN_ARCH, TRAIN_LAYERS,
+                        {"REPRO_SHARDED_CE": "1"}, "shard train")
+            shard_serve(torch, dev, mesh, TRAIN_ARCH, TRAIN_LAYERS, {},
+                        "shard serve")
             shard_dp_mean(torch, dev)
+            moe = {"REPRO_MOE_GROUPS": SHARD_MOE_GROUPS}
+            shard_train(torch, dev, mesh, SHARD_GATHERED,
+                        SHARD_GATHERED_LAYERS, moe, "shard gathered train")
+            shard_serve(torch, dev, mesh, SHARD_GATHERED,
+                        SHARD_GATHERED_LAYERS, moe, "shard gathered serve")
         finally:
             dist.destroy_process_group()
     print(f"sharding: phase 16 took {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 17: one rank's share of qwen2-72b on a (1, 4) mesh
+# ---------------------------------------------------------------------------
+
+TP_ARCH, TP_MODEL = "qwen2-72b", 4
+TP_LANES, TP_PROMPT, TP_LEN, TP_DECODE = 8, 2048, 4096, 32
+
+
+def _wire_bytes(op: str, sizes: list, n: int) -> float:
+    """Bytes one rank sends for a collective over ``n`` ranks by the ring
+    algorithms: all-reduce 2 (n-1)/n of the tensor, all-gather (n-1)/n of
+    the gathered output, all-to-all (n-1)/n of the send buffer."""
+    big = max(sizes)
+    return (2 if "allreduce" in op else 1) * (n - 1) / n * big
+
+
+def _peak_since(torch, base: int) -> float:
+    """GiB allocated at the peak since the last reset, above ``base``
+    bytes; the peak is reset for the next stage."""
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    return round(peak, 2)
+
+
+def tp_share_phase(torch, dev, rows):
+    """Phase 17: rank 0's share of qwen2-72b on a (1, 4) ("data",
+    "model") mesh, a fake 4-rank group (module docstring): parameters by
+    ``init_sharded_params`` on the card, a ``jit_prefill`` of
+    ``TP_LANES`` x ``TP_PROMPT`` tokens into caches padded to ``TP_LEN``,
+    ``TP_DECODE`` ``jit_decode`` steps (each rank's greedy pick over its
+    own vocab columns).  No value is checked: the fake collectives leave
+    their outputs unwritten.  Every part must run split, the cache piece
+    must be [80, 8, 1024, 8, 128] and flash must run once a layer in the
+    prefill.  Appends flash's row at the rank's prefill shape to
+    ``rows``."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_sharded_params
+    from repro_torch.serve.decode import (batch_shardings, jit_decode,
+                                          jit_prefill)
+    from repro_torch.sharding import specs
+    from repro_torch.sharding.tensor_parallel import CollectiveLog
+    from repro_torch.train.optimizer import leaves
+
+    t0 = time.perf_counter()
+    card = _card_line()
+    cfg = get_config(TP_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=TP_MODEL)
+    try:
+        mesh = make_host_mesh(TP_MODEL, dev)
+        split = _split_parts(cfg, mesh)
+        _check(all(split.values()), f"tp share: parts not split {split}")
+        t1 = time.perf_counter()
+        params = init_sharded_params(cfg, mesh, seed=5, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t1
+        stage = {"init": _peak_since(torch, base)}
+        p_bytes = sum(t.to_local().numel() * t.to_local().element_size()
+                      for t in leaves(params))
+        shape = ShapeConfig("phase17", TP_LEN, TP_LANES, "prefill")
+        pre, _ = jit_prefill(cfg, shape, mesh)
+        dec, _ = jit_decode(cfg, dataclasses.replace(shape, kind="decode"),
+                            mesh)
+        g = torch.Generator(device=dev).manual_seed(6)
+        prompt = torch.randint(0, cfg.vocab, (TP_LANES, TP_PROMPT),
+                               generator=g, device=dev, dtype=torch.int32)
+        b_sh = batch_shardings({"tokens": prompt}, mesh)["tokens"]
+        t_sh = batch_shardings({"tokens": prompt[:, 0]}, mesh)["tokens"]
+        vocab0 = cfg.vocab // TP_MODEL * mesh.get_coordinate()[1]
+        _counts(zero=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, state = pre(params, {"tokens": specs.distribute(prompt,
+                                                                b_sh)})
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t1) * 1e3
+        stage["prefill"] = _peak_since(torch, base)
+        launches = _counts(zero=True)
+        piece = tuple(state.caches["k"].to_local().shape)
+        want = (cfg.n_layers, TP_LANES, TP_LEN // TP_MODEL, cfg.n_kv_heads,
+                cfg.hd)
+        _check(piece == want, f"tp share: cache piece {piece}, want {want}")
+        c_bytes = sum(t.to_local().numel() * t.to_local().element_size()
+                      for t in state.caches.values())
+        ms, rec = [], CollectiveLog()
+        for i in range(TP_DECODE):
+            tok = (logits.to_local().argmax(-1) + vocab0).to(torch.int32)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if i == 0:
+                with rec:
+                    logits, state = dec(params, state, specs.distribute(
+                        tok, t_sh))
+            else:
+                logits, state = dec(params, state, specs.distribute(tok,
+                                                                    t_sh))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+        dec_launches = _counts()
+        stage["decode"] = _peak_since(torch, base)
+        peak = max(stage.values())
+        model = mesh.get_group("model").group_name
+        on_model = [c for c in rec.calls if c.group == model]
+        kinds: dict = {}
+        for c in on_model:
+            op = c.op.split(".")[1]
+            kinds[op] = kinds.get(op, 0) + 1
+        wire = sum(_wire_bytes(c.op, c.nbytes, TP_MODEL) for c in on_model)
+        largest = max(max(c.nbytes) for c in on_model)
+        del params, state, logits
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    st = sorted(ms[1:])
+    p50, p90 = st[len(st) // 2], st[int(len(st) * 0.9)]
+    bound_ms = p_bytes / HBM_BYTES_PER_S * 1e3
+    _check(launches["flash_attention"] == cfg.n_layers
+           and dec_launches["flash_attention"] == 0,
+           f"tp share: flash launches prefill {launches}, decode "
+           f"{dec_launches}; want {cfg.n_layers} in the prefill")
+    print(f"tp share: {TP_ARCH} rank 0 of a (1, {TP_MODEL}) mesh on a "
+          f"fake {TP_MODEL}-rank group (no value compared; no time "
+          f"includes communication: the fake collectives move nothing), "
+          f"published widths, {cfg.n_layers} layers, QKV bias, "
+          f"{cfg.dtype}, parts {json.dumps(split)}: parameters of the "
+          f"rank {p_bytes / 1e9:.2f} GB (init_sharded_params "
+          f"{init_s:.1f} s), cache of the rank {c_bytes / 1e9:.2f} GB "
+          f"(piece {list(piece)}), peak device memory of the rank "
+          f"{peak:.2f} GiB (by stage {json.dumps(stage)}); card {card}")
+    print(f"tp share: prefill of {TP_LANES} x {TP_PROMPT} tokens into "
+          f"{TP_LEN} positions {prefill_ms:.1f} ms with flash launched "
+          f"{launches['flash_attention']} times (once a layer, H "
+          f"{cfg.n_heads // TP_MODEL}/{cfg.n_kv_heads // TP_MODEL} heads a "
+          f"rank); decode ms a step p50 {p50:.2f}, p90 {p90:.2f} "
+          f"(steps 2-{TP_DECODE}, synchronised, all "
+          f"{[round(x, 2) for x in ms]}), against the weight-read bound "
+          f"{bound_ms:.2f} ms (the rank's parameter bytes at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); excluding communication; "
+          f"card {card}")
+    print(f"tp share: a decode step on 4 cards would run {len(on_model)} "
+          f"collectives on \"model\" ({json.dumps(kinds)}; "
+          f"{len(rec.calls) - len(on_model)} on other groups), the largest "
+          f"tensor {largest} bytes, {wire / 1e6:.3f} MB sent a rank by the "
+          f"ring algorithms; phase 17 took {time.perf_counter() - t0:.1f} s")
+    B, S = TP_LANES, TP_PROMPT
+    H, KV, hd = cfg.n_heads // TP_MODEL, cfg.n_kv_heads // TP_MODEL, cfg.hd
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn(B, S, h, hd, generator=g, device=dev).to(
+        torch.bfloat16) for h in (H, KV, KV))
+    base_row = rows["flash_attention"]
+    row = _shape_row(base_row, TP_ARCH, f"tensor-parallel rank, B {B}, S {S}, "
+                     f"T {S}, H {H}/{KV}, hd {hd}, causal, bf16",
+                     **_flash_case(torch, dev, q, k, v, 0,
+                                   f"at {TP_ARCH}'s rank shape (tp 4)"))
+    row["launches"] = launches["flash_attention"]
+    base_row["shapes"].append(row)
 
 
 def main():
@@ -4925,7 +5255,7 @@ def main():
     chunk_equivalence_phase(torch, dev, cfg, params)
     telemetry_phase(torch, dev, cfg, params)
     del params
-    gc.collect()              # engines hold cycles (scheduler, wrappers)
+    gc.collect()
     torch.cuda.empty_cache()
     rows["sim_scan"], launches["sim_scan"] = sim_phase(torch, dev)
     families_phase(torch, dev, rows)
@@ -4935,6 +5265,7 @@ def main():
     torch.cuda.empty_cache()
     train_phase(torch, dev, rows, launches)
     sharding_phase(torch, dev)
+    tp_share_phase(torch, dev, rows)
     for name, n in launches.items():
         rows[name]["launches"] = n
     print(json.dumps({"kernels": [rows[k] for k in sorted(rows)]}))

@@ -22,6 +22,20 @@ Prometheus exposition, the sample series and the phase trace
 lifecycles (tiered only), ``--slo`` books per-tenant targets, and
 ``--http-port`` serves ``/metrics``, ``/healthz`` and ``/debug/state``
 for the run (``--hold`` seconds longer).
+
+``--mesh host [--model-parallel N]`` serves on a ("data", "model")
+``DeviceMesh`` over every rank instead of the engine (which stays on one
+device): the requests in waves of ``--batch`` lanes, each a
+``serve.decode.jit_prefill`` then greedy ``jit_decode`` steps over the
+dense caches, sequence-sharded over "model".  For the dense family the
+compute splits over the N "model" ranks (heads, MLP and vocabulary) and
+each rank draws only its pieces of the parameters, so a model larger
+than one card serves on N; the other families shard storage only and
+gather the parameters each step.  The group is torchrun's, as
+``launch.train``'s:
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --arch qwen2-72b --mesh host --model-parallel 4
 """
 
 from __future__ import annotations
@@ -102,9 +116,32 @@ def main(argv=None):
     ap.add_argument("--hold", type=float, default=0.0,
                     help="--http-port: keep the endpoints up this many "
                          "seconds after the run")
+    ap.add_argument("--mesh", default="none", choices=["none", "host"],
+                    help="host: serve on a (data, model) mesh over every "
+                         "rank through jit_prefill / jit_decode (greedy "
+                         "waves of --batch lanes; no engine options)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="--mesh host: ranks on the \"model\" axis; the "
+                         "dense family's heads, MLP and vocabulary split "
+                         "over them (tensor-parallel compute), the other "
+                         "families shard storage only")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.mesh == "host":
+        engine_only = [f for f, on in (
+            ("--backend tiered", args.backend != "dense"),
+            ("--scheduler", args.scheduler != "greedy"),
+            ("--tenants", args.tenants), ("--flight", args.flight),
+            ("--slo", args.slo), ("--prom-out", args.prom_out),
+            ("--metrics-jsonl", args.metrics_jsonl),
+            ("--trace-out", args.trace_out),
+            ("--http-port", args.http_port is not None)) if on]
+        if engine_only:
+            ap.error(f"--mesh host serves without the engine; "
+                     f"{', '.join(engine_only)} need it")
+    elif args.model_parallel > 1:
+        ap.error("--model-parallel needs --mesh host")
     if args.flight and args.backend != "tiered":
         raise SystemExit("--flight needs --backend tiered (the recorder "
                          "reads the tiered store's move descriptors)")
@@ -120,6 +157,8 @@ def main(argv=None):
         cfg = reduce_for_smoke(cfg)
     if cfg.is_encoder:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
+    if args.mesh == "host":
+        return _serve_sharded(args, cfg, device)
     tenants = _parse_tenants(args.tenants) if args.tenants else ()
     params = init_params(cfg, device, seed=0)
     obs = None
@@ -211,6 +250,74 @@ def _serve(args, cfg, eng, tenants, device):
                         ("perfetto trace", args.trace_out)):
         if path:
             print(f"obs: {label} -> {path}")
+
+
+PROMPT_TOKENS = 4       # each request's prompt, as ``_serve`` submits it
+
+
+def _serve_sharded(args, cfg, device) -> dict:
+    """``--mesh host``: ``--requests`` seeded prompts in waves of
+    ``--batch`` lanes (the last wave padded with its last prompt, whose
+    extra lanes' tokens are not counted), each a ``jit_prefill`` into
+    caches of ``--max-len`` positions and ``--max-new`` greedy tokens
+    (the first from the prefill's logits, the rest from ``jit_decode``).
+    Returns {"requests", "tokens", "seconds"}; rank 0 prints them."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import process_group
+    from repro_torch.models import (abstract_params_and_axes, init_params,
+                                    init_sharded_params)
+    from repro_torch.serve.decode import (batch_shardings, jit_decode,
+                                          jit_prefill)
+    from repro_torch.sharding import specs
+
+    if PROMPT_TOKENS + args.max_new - 1 > args.max_len:
+        raise SystemExit(f"--max-len {args.max_len} holds no "
+                         f"{PROMPT_TOKENS}-token prompt and {args.max_new} "
+                         f"new tokens")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, size=(args.requests, PROMPT_TOKENS)
+                           ).astype(np.int32)
+    with process_group(device) as rank:
+        mesh = make_host_mesh(args.model_parallel, device)
+        shape = ShapeConfig("serve", args.max_len, args.batch, "prefill")
+        pre, (params_abs, _) = jit_prefill(cfg, shape, mesh)
+        dec, _ = jit_decode(cfg, dataclasses.replace(shape, kind="decode"),
+                            mesh)
+        if cfg.family == "dense":
+            params = init_sharded_params(cfg, mesh, seed=0, device=device)
+        else:
+            params = specs.distribute_tree(
+                init_params(cfg, device, seed=0), specs.tree_shardings(
+                    abstract_params_and_axes(cfg)[1], mesh, params_abs))
+        n_tok = 0
+        t0 = time.time()
+        for lo in range(0, args.requests, args.batch):
+            wave = prompts[lo:lo + args.batch]
+            lanes = np.concatenate([wave, np.repeat(
+                wave[-1:], args.batch - len(wave), axis=0)])
+            x = torch.from_numpy(lanes).to(device)
+            b_sh = batch_shardings({"tokens": x}, mesh)["tokens"]
+            t_sh = batch_shardings({"tokens": x[:, 0]}, mesh)["tokens"]
+            logits, state = pre(params, {"tokens": specs.distribute(x,
+                                                                    b_sh)})
+            for i in range(args.max_new):
+                nxt = logits.full_tensor().argmax(-1).to(torch.int32)
+                n_tok += len(wave)
+                if i + 1 < args.max_new:
+                    logits, state = dec(params, state,
+                                        specs.distribute(nxt, t_sh))
+        dt = time.time() - t0
+        if rank == 0:
+            print(f"served {args.requests} requests, {n_tok} tokens in "
+                  f"{dt:.1f}s ({n_tok / dt:.1f} tok/s) on mesh "
+                  f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}, "
+                  f"{device.type}")
+    return {"requests": args.requests, "tokens": n_tok, "seconds": dt}
 
 
 if __name__ == "__main__":

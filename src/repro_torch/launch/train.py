@@ -17,11 +17,16 @@ trains on the card; ``--device cpu`` runs the plain versions.
 The process group comes from torchrun's environment (``RANK``,
 ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, ``LOCAL_RANK``); run
 without it, the launcher makes a one-rank group.  NCCL on the card, gloo
-with ``--device cpu``.  The "model" axis shards storage only (no
-tensor-parallel compute).  An MoE arch splits each batch over the data
-ranks only when ``REPRO_MOE_GROUPS`` is a multiple of their count that
-divides the batch: otherwise the reference routes the whole batch
-together, so every rank computes all of it (a warning says so).
+with ``--device cpu``.  For the dense family ``--model-parallel N``
+splits the compute over the N "model" ranks (heads, MLP and vocabulary,
+``sharding/tensor_parallel.py``) and each rank draws only its own
+pieces of the parameters (``models.init_sharded_params``); the other
+families shard storage only over "model" and gather every parameter on
+each rank for the step (a warning says so).  An MoE arch splits each
+batch over the data ranks only when ``REPRO_MOE_GROUPS`` is a multiple
+of their count that divides the batch: otherwise the reference routes
+the whole batch together, so every rank computes all of it (a warning
+says so).
 """
 
 from __future__ import annotations
@@ -53,7 +58,11 @@ def main(argv=None):
                     "splits the batch over the data ranks only when "
                     "REPRO_MOE_GROUPS is a multiple of their count (else "
                     "every rank computes the whole batch, with a warning)")
-    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="ranks on the mesh's \"model\" axis: the dense "
+                    "family's heads, MLP and vocabulary split over them "
+                    "(tensor-parallel compute, each rank drawing only its "
+                    "pieces); the other families shard storage only")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain versions)")
     args = ap.parse_args(argv)

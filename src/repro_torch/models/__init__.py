@@ -6,11 +6,12 @@ branches and the KV backends; ``loss_fn`` for training."""
 from .model import (abstract_decode_state, abstract_params_and_axes,
                     decode_step, forward, forward_chunk, init_chunk_buffers,
                     init_decode_state, init_params, init_params_and_axes,
-                    input_specs, loss_fn, prefill)
+                    init_sharded_params, input_specs, loss_fn, prefill)
 from .transformer import DecodeState, layer_flags, lm_loss
 
 __all__ = ["DecodeState", "abstract_decode_state",
            "abstract_params_and_axes", "decode_step", "forward",
            "forward_chunk", "init_chunk_buffers", "init_decode_state",
-           "init_params", "init_params_and_axes", "input_specs",
+           "init_params", "init_params_and_axes", "init_sharded_params",
+           "input_specs",
            "layer_flags", "lm_loss", "loss_fn", "prefill"]

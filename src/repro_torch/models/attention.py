@@ -50,7 +50,10 @@ def _proj(x, w):
 
 def _qkv(p, x, cfg, positions, rope=None):
     """q, k, v [B,S,*,hd]; RoPE at ``positions`` (``rope``: the step's
-    precomputed ``layers.rope_tables``)."""
+    precomputed ``layers.rope_tables``).  The head counts are the
+    weights' own: under tensor parallelism (``sharding/tensor_parallel``)
+    ``p`` holds this rank's H/tp query and KV/tp key/value heads, and the
+    GQA group H/KV is unchanged."""
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
@@ -61,28 +64,44 @@ def _qkv(p, x, cfg, positions, rope=None):
 
 
 def _out(o, wo):
-    """einsum("bshk,hkd->bsd", o, wo)."""
+    """einsum("bshk,hkd->bsd", o, wo); with this rank's heads of ``o`` and
+    rows of ``wo`` it is this rank's term of the sum over "model"."""
     H, hd, d = wo.shape
     return o.reshape(*o.shape[:-2], H * hd) @ wo.reshape(H * hd, d) \
         .to(o.dtype)
+
+
+def _scores(q, k, mask):
+    """The fp32 scores [B,KV,G,S,T] of q [B,S,H,hd] against k [B,T,KV,hd],
+    taken in q's and k's promoted dtype (as the reference's einsum
+    promotes), scaled, plus ``mask``."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    ct = torch.promote_types(q.dtype, k.dtype)
+    q, k = q.to(ct).reshape(B, S, KV, H // KV, hd), k.to(ct)
+    scores = torch.einsum("bskgh,btkh->bkgst", q, k).float()
+    scores = scores / math.sqrt(hd)
+    if mask is not None:
+        scores = scores + mask
+    return scores
 
 
 def _sdpa(q, k, v, mask):
     """q [B,S,H,hd]; k,v [B,T,KV,hd]; GQA by head grouping.  Scores are
     taken in q's and k's promoted dtype (as the reference's einsum
     promotes), then softmaxed in fp32; out in v's dtype."""
+    return _sdpa_lse(q, k, v, mask)[0]
+
+
+def _sdpa_lse(q, k, v, mask, *, lse: bool = False):
+    """``_sdpa``'s output and, with ``lse``, the scores' log-sum-exp
+    [B,KV,G,S] (else None): what merges attention over pieces of the key
+    axis (``TensorParallel.combine``)."""
     B, S, H, hd = q.shape
-    KV = k.shape[2]
-    G = H // KV
-    ct = torch.promote_types(q.dtype, k.dtype)
-    q, k = q.to(ct).reshape(B, S, KV, G, hd), k.to(ct)
-    scores = torch.einsum("bskgh,btkh->bkgst", q, k).float()
-    scores = scores / math.sqrt(hd)
-    if mask is not None:
-        scores = scores + mask
+    scores = _scores(q, k, mask)
     w = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bkgst,btkh->bskgh", w, v)
-    return out.reshape(B, S, H, hd)
+    out = torch.einsum("bkgst,btkh->bskgh", w, v).reshape(B, S, H, hd)
+    return out, (torch.logsumexp(scores, dim=-1) if lse else None)
 
 
 def chunked_sdpa(q, k, v, *, causal: bool, window: int = 0,

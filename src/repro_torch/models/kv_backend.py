@@ -77,13 +77,17 @@ class DenseBackend:
 
     def append(self, cache, k, v, pos):
         """Write one token's K/V per lane (k, v [B, KV, hd]) into one
-        layer's cache view; idle and past-capacity lanes write nothing."""
+        layer's cache view; idle and past-capacity lanes write nothing.
+        Every lane has its own row, so a lane that writes nothing rewrites
+        the bytes already at its position clamped into the cache (a few
+        launches, where ``drop_set_``'s general rule takes ~35)."""
         ck, cv = cache["k"], cache["v"]
         B, S = ck.shape[:2]
-        write = torch.where((pos >= 0) & (pos < S), pos, S)
+        ok = ((pos >= 0) & (pos < S))[:, None, None]
+        row = pos.clamp(0, S - 1).long()
         lane = torch.arange(B, device=ck.device)
-        drop_set_(ck, (lane, write), k)
-        drop_set_(cv, (lane, write), v)
+        for c, new in ((ck, k), (cv, v)):
+            c[lane, row] = torch.where(ok, new.to(c.dtype), c[lane, row])
         return cache
 
     def attend(self, cache, q, pos, *, window: int = 0):
@@ -102,6 +106,36 @@ class DenseBackend:
         out = attn._sdpa(q.reshape(B, 1, KV * G, hd), ck.to(q.dtype),
                          cv.to(q.dtype), mask[:, None, None, None, :])
         return out.reshape(B, KV, G, hd), cache
+
+    @staticmethod
+    def shard_mask(pos, rows: int, *, start: int = 0, window: int = 0):
+        """[B, rows] additive fp32 mask of positions [start, start + rows)
+        against each lane's ``pos`` (``attend``'s rule)."""
+        ki = torch.arange(rows, device=pos.device)[None, :] + start
+        ok = ki <= pos[:, None]
+        if window > 0:
+            ok &= ki > pos[:, None] - window
+        return torch.where(ok, 0.0, attn.NEG_INF).float()
+
+    def attend_shard(self, cache, q, pos, *, start: int = 0,
+                     window: int = 0, mask=None):
+        """``attend`` over a piece of the sequence: the layer's cache view
+        holds positions [start, start + rows) (a rank's piece of the
+        sequence-sharded cache).  Returns (out [B, KV, G, hd], lse [B, KV,
+        G]), the scores' log-sum-exp beside the output, for the merge
+        across pieces; a lane with no position of the piece at or below
+        its ``pos`` gets an lse near -1e30 and weighs nothing there.  With
+        ``start`` 0 and the whole cache, ``out`` is ``attend``'s.
+        ``mask``: ``shard_mask``'s, made once for every layer of a step."""
+        B, KV, G, hd = q.shape
+        ck, cv = cache["k"], cache["v"]
+        if mask is None:
+            mask = self.shard_mask(pos, ck.shape[1], start=start,
+                                   window=window)
+        out, lse = attn._sdpa_lse(q.reshape(B, 1, KV * G, hd),
+                                  ck.to(q.dtype), cv.to(q.dtype),
+                                  mask[:, None, None, None, :], lse=True)
+        return out.reshape(B, KV, G, hd), lse.reshape(B, KV, G)
 
     def write_prefill(self, state, lane, k_layers, v_layers, length):
         """Install a prompt's K/V (k/v [L, P, KV, hd], rows < ``length``

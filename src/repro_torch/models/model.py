@@ -48,8 +48,11 @@ def abstract_decode_state(cfg: ArchConfig, shape: ShapeConfig):
                                          shape.seq_len, "meta")
 
 
-def loss_fn(cfg: ArchConfig, params, batch, *, remat: str = "none"):
-    return transformer.lm_loss(cfg, params, batch, remat=remat)
+def loss_fn(cfg: ArchConfig, params, batch, *, remat: str = "none",
+            tp=None):
+    """``lm_loss``; ``tp`` runs the split step on this rank's parameter
+    pieces (the dense family, ``sharding/tensor_parallel.py``)."""
+    return transformer.lm_loss(cfg, params, batch, remat=remat, tp=tp)
 
 
 forward = transformer.forward
@@ -59,5 +62,6 @@ prefill = transformer.prefill
 decode_step = transformer.decode_step
 init_params = transformer.init_params
 init_params_and_axes = transformer.init_params_and_axes
+init_sharded_params = transformer.init_sharded_params
 abstract_params_and_axes = transformer.abstract_params_and_axes
 init_decode_state = transformer.init_decode_state

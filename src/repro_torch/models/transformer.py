@@ -96,7 +96,8 @@ def _window(cfg: ArchConfig, flag) -> int:
 # parameters
 # ---------------------------------------------------------------------------
 
-def init_params(cfg: ArchConfig, device=None, seed: int = 0) -> dict:
+def init_params(cfg: ArchConfig, device=None, seed: int = 0, *,
+                cut=None) -> dict:
     """Seeded random parameters in the reference's layout, made on
     ``device`` (the card unless the caller asks for the CPU).
 
@@ -111,12 +112,22 @@ def init_params(cfg: ArchConfig, device=None, seed: int = 0) -> dict:
     the xLSTM branches from ``xlstm.xlstm_init``.  The audio MLP's biases
     start at zero and the vlm cross layers' ``gate`` at 0, so tanh(gate)
     = 0 and the cross branch adds nothing until the gate is set, as in
-    the reference."""
+    the reference.
+
+    ``cut`` (``init_sharded_params``; the dense family only) maps a
+    leaf's path to a function from one layer's whole draw (or a
+    top-level leaf's) to the piece kept: the draws are the same, in the
+    same order, and each leaf is stacked from its pieces."""
     check_family(cfg)
     device = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
+    if cut is not None and cfg.family != "dense":
+        raise NotImplementedError(
+            f"a cut draw covers the dense family; {cfg.name} is "
+            f"{cfg.family!r}: lay out init_params with specs.distribute_tree")
+    keep = cut or (lambda path: (lambda t: t))
     if cfg.family == "vlm":
         ns, inner = cfg.vlm_dims
         self_blocks = _blocks_init(cfg, g, ns * inner, dt, device)
@@ -124,15 +135,63 @@ def init_params(cfg: ArchConfig, device=None, seed: int = 0) -> dict:
                                self_blocks),
                   "cross": _blocks_init(cfg, g, ns, dt, device, cross=True)}
     else:
-        blocks = _blocks_init(cfg, g, cfg.n_layers, dt, device)
+        blocks = _blocks_init(cfg, g, cfg.n_layers, dt, device, cut=cut)
     d = cfg.d_model
     params = {} if cfg.embed_inputs else {
-        "embed": dense_init(g, (cfg.vocab, d), dt, device, 0.02)}
-    params.update(blocks=blocks,
-                  final_norm=torch.ones(d, dtype=dt, device=device))
+        "embed": keep("embed")(dense_init(g, (cfg.vocab, d), dt, device,
+                                          0.02))}
+    params.update(blocks=blocks, final_norm=keep("final_norm")(
+        torch.ones(d, dtype=dt, device=device)))
     if not cfg.tie_embeddings:
-        params["unembed"] = dense_init(g, (cfg.vocab, d), dt, device, 0.02)
+        params["unembed"] = keep("unembed")(
+            dense_init(g, (cfg.vocab, d), dt, device, 0.02))
     return params
+
+
+def init_sharded_params(cfg: ArchConfig, mesh, seed: int = 0,
+                        device=None) -> dict:
+    """``init_params(cfg, device, seed)`` laid out on ``mesh`` by the
+    reference's specs, made without the whole tree: each leaf is drawn
+    one layer at a time on ``device`` (the card unless the caller asks
+    for the CPU), the same draws in the same order, and this rank keeps
+    only its piece of each layer.  The ranks' pieces, gathered, are
+    ``init_params``'s tensors exactly; no rank holds more than one layer
+    of a stacked leaf whole (a layer of qwen2-72b's ``w_gate`` is 0.97 GB
+    in fp32 as drawn).  A top-level leaf is drawn whole before its piece
+    is cut: qwen2-72b's embedding tables, [152064, 8192], are 4.98 GB
+    each in fp32 as drawn, and that draw, not the prefill, sets the
+    rank's peak memory.  The dense family only; the others go through
+    ``specs.distribute_tree(init_params(...), ...)``."""
+    from repro_torch.sharding import specs
+
+    params_abs, axes = abstract_params_and_axes(cfg)
+    p_sh = specs.tree_shardings(axes, mesh, params_abs)
+    flat = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}" if path else k)
+        else:
+            flat[path] = node
+    walk(p_sh, "")
+
+    def cut(path):
+        pl = flat[path].placements
+        if path.startswith("blocks/"):
+            from repro_torch.sharding.tensor_parallel import \
+                _placements_without
+            pl = _placements_without(pl)
+
+        def piece(t):
+            part = specs.local_chunk(t, mesh, pl)
+            return part.clone() if part.numel() < t.numel() else part
+        return piece
+    local = init_params(cfg, device, seed, cut=cut)
+    return specs.map_leaves(
+        lambda t, sh, ab: specs.distribute_local(t, mesh, sh.placements,
+                                                 ab.shape),
+        local, p_sh, params_abs)
 
 
 def init_params_and_axes(cfg: ArchConfig, device=None,
@@ -155,47 +214,57 @@ def _map(fn, tree):
 
 
 def _blocks_init(cfg: ArchConfig, g, n: int, dt, device, *,
-                 cross: bool = False) -> dict:
+                 cross: bool = False, cut=None) -> dict:
     """``n`` layers' blocks stacked on a leading [n] axis; ``cross`` adds
-    the gated cross-attention's "gate", "q_norm" and "k_norm"."""
+    the gated cross-attention's "gate", "q_norm" and "k_norm"; ``cut``
+    as ``init_params`` takes it (each leaf named by its path under
+    "blocks/")."""
     d, ff = cfg.d_model, cfg.d_ff
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
 
-    def stacked(shape, fan_in):
-        return stacked_init(g, n, shape, dt, device, fan_in)
+    def stacked(name, shape, fan_in):
+        piece = cut(f"blocks/{name}") if cut is not None else None
+        return stacked_init(g, n, shape, dt, device, fan_in, piece=piece)
 
-    def filled(fill, *shape):
-        return torch.full(shape, fill, dtype=dt, device=device)
+    def filled(name, fill, *shape):
+        if cut is None:
+            return torch.full((n,) + shape, fill, dtype=dt, device=device)
+        one = cut(f"blocks/{name}")(torch.full(shape, fill, dtype=dt,
+                                               device=device))
+        return one.expand((n,) + one.shape).contiguous()
 
-    blocks = {"norm1": filled(1, n, d)}
+    blocks = {"norm1": filled("norm1", 1, d)}
     if cfg.family == "ssm":
         blocks.update(xlstm_mod.xlstm_init(g, cfg, device))
         return blocks
-    attn_p = {"wq": stacked((d, H, hd), H),
-              "wk": stacked((d, KV, hd), KV),
-              "wv": stacked((d, KV, hd), KV),
-              "wo": stacked((H, hd, d), hd)}
+    attn_p = {"wq": stacked("attn/wq", (d, H, hd), H),
+              "wk": stacked("attn/wk", (d, KV, hd), KV),
+              "wv": stacked("attn/wv", (d, KV, hd), KV),
+              "wo": stacked("attn/wo", (H, hd, d), hd)}
     if cfg.qkv_bias:
-        attn_p.update(bq=filled(0, n, H, hd), bk=filled(0, n, KV, hd),
-                      bv=filled(0, n, KV, hd))
+        attn_p.update(bq=filled("attn/bq", 0, H, hd),
+                      bk=filled("attn/bk", 0, KV, hd),
+                      bv=filled("attn/bv", 0, KV, hd))
     if cross:
         attn_p.update(gate=torch.zeros(n, dtype=torch.float32, device=device),
-                      q_norm=filled(1, n, hd), k_norm=filled(1, n, hd))
-    blocks.update(attn=attn_p, norm2=filled(1, n, d))
+                      q_norm=filled("attn/q_norm", 1, hd),
+                      k_norm=filled("attn/k_norm", 1, hd))
+    blocks.update(attn=attn_p, norm2=filled("norm2", 1, d))
     if cfg.family == "hybrid":
         blocks.update(ssm=ssm_mod.ssm_init(g, cfg, device),
-                      norm_attn_out=filled(1, n, d),
-                      norm_ssm_out=filled(1, n, d))
+                      norm_attn_out=filled("norm_attn_out", 1, d),
+                      norm_ssm_out=filled("norm_ssm_out", 1, d))
     if cfg.family == "moe":
         blocks["moe"] = moe_mod.moe_init(g, cfg, device)
     elif cfg.family == "audio":
-        blocks["mlp"] = {"w_in": stacked((d, ff), d), "b_in": filled(0, n, ff),
-                         "w_out": stacked((ff, d), ff),
-                         "b_out": filled(0, n, d)}
+        blocks["mlp"] = {"w_in": stacked("mlp/w_in", (d, ff), d),
+                         "b_in": filled("mlp/b_in", 0, ff),
+                         "w_out": stacked("mlp/w_out", (ff, d), ff),
+                         "b_out": filled("mlp/b_out", 0, d)}
     else:
-        blocks["mlp"] = {"w_gate": stacked((d, ff), d),
-                         "w_up": stacked((d, ff), d),
-                         "w_down": stacked((ff, d), ff)}
+        blocks["mlp"] = {"w_gate": stacked("mlp/w_gate", (d, ff), d),
+                         "w_up": stacked("mlp/w_up", (d, ff), d),
+                         "w_down": stacked("mlp/w_down", (ff, d), ff)}
     return blocks
 
 
@@ -354,7 +423,8 @@ def _vlm_forward(cfg: ArchConfig, params, x, positions, rope, image_embeds,
 
 
 def forward(cfg: ArchConfig, params, batch, *, remat: str = "none",
-            collect_cache: bool = False, return_logits: bool = True):
+            collect_cache: bool = False, return_logits: bool | str = True,
+            tp=None):
     """batch {"tokens" [B,S]} ({"embeds" [B,S,d]} for audio; vlm adds
     "image_embeds" [B,T,d] in the model's dtype) -> (logits [B,S,V] fp32,
     aux, caches): aux the MoE load-balancing loss summed over layers (0
@@ -365,8 +435,23 @@ def forward(cfg: ArchConfig, params, batch, *, remat: str = "none",
     backward (``_remat``), as the reference's ``REMAT_POLICIES`` do.
     ``return_logits=False`` skips the final norm and the unembedding
     (logits None): a prefill that keeps only the caches, as the
-    reference's jitted prefill, whose logits XLA never computes."""
+    reference's jitted prefill, whose logits XLA never computes;
+    ``return_logits="last"`` unembeds the last position only (logits
+    [B, 1, V]), the one a jitted prefill returns.
+
+    ``tp`` (a ``sharding.tensor_parallel.TensorParallel``; the dense
+    family) runs the split step on this rank's pieces of the parameters
+    (``_forward_tp``): the logits are this rank's vocab columns, and
+    ``collect_cache`` is not taken (``prefill`` lays the cache out)."""
     check_family(cfg)
+    if tp is not None:
+        if collect_cache:
+            raise ValueError("forward(tp=...) collects no cache; prefill "
+                             "lays a split cache out")
+        return (_forward_tp(cfg, params, batch, tp, remat=remat,
+                            logits=return_logits),
+                torch.zeros((), dtype=torch.float32,
+                            device=batch["tokens"].device), ())
     x = _embed_inputs(cfg, params, batch)
     B, S = x.shape[:2]
     positions = rope = None           # the encoder: no RoPE
@@ -378,8 +463,7 @@ def forward(cfg: ArchConfig, params, batch, *, remat: str = "none",
     if cfg.family == "vlm":
         x, caches = _vlm_forward(cfg, params, x, positions, rope,
                                  batch["image_embeds"], collect_cache, remat)
-        x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-        return unembed(x, _table(cfg, params)), aux, caches
+        return _logits(cfg, params, x, return_logits), aux, caches
     block = _remat(functools.partial(_block_fwd, cfg), remat)
     ks, vs = [], []
     for p, flag in zip(_unstack(params["blocks"]), layer_flags(cfg)):
@@ -392,11 +476,20 @@ def forward(cfg: ArchConfig, params, batch, *, remat: str = "none",
     caches = (torch.stack(ks), torch.stack(vs)) if ks else ()
     if not return_logits:
         return None, aux, caches
+    return _logits(cfg, params, x, return_logits), aux, caches
+
+
+def _logits(cfg: ArchConfig, params, x, which):
+    """The final norm and the unembedding of ``x`` [B, S, d], of its last
+    position only when ``which`` is "last"."""
+    if which == "last":
+        x = x[:, -1:]
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    return unembed(x, _table(cfg, params)), aux, caches
+    return unembed(x, _table(cfg, params))
 
 
-def lm_loss(cfg: ArchConfig, params, batch, *, remat: str = "none"):
+def lm_loss(cfg: ArchConfig, params, batch, *, remat: str = "none",
+            tp=None):
     """Next-token cross-entropy for the decoders (the logits at position
     t against ``labels`` at t + 1, as the reference shifts them), frame
     classification for the encoder, plus 1e-2 times the MoE
@@ -405,12 +498,17 @@ def lm_loss(cfg: ArchConfig, params, batch, *, remat: str = "none"):
     0-d fp32 tensors.  ``REPRO_SHARDED_CE=1`` (read at each call) takes
     the reference's vocab-sharded formulation of the same quantities:
     the log-sum-exp from a detached max and a sum of exponentials, the
-    label's logit picked by a mask over the vocab."""
-    logits, aux, _ = forward(cfg, params, batch, remat=remat)
+    label's logit picked by a mask over the vocab.  With ``tp`` (the
+    split step, ``forward``) the loss always takes that form, over this
+    rank's vocab columns with [B, S]-sized reductions over "model"
+    (``TensorParallel.cross_entropy``)."""
+    logits, aux, _ = forward(cfg, params, batch, remat=remat, tp=tp)
     labels = batch["labels"].long()
     if cfg.causal:
         logits, labels = logits[:, :-1], labels[:, 1:]
-    if os.environ.get("REPRO_SHARDED_CE", "0") == "1":
+    if tp is not None:
+        ce, z = tp.cross_entropy(logits, labels)
+    elif os.environ.get("REPRO_SHARDED_CE", "0") == "1":
         # the reference's vocab-sharded form: max, sum-exp and the label's
         # logit as reductions over the vocab, each [B, S]
         m = logits.max(dim=-1, keepdim=True).values.detach()
@@ -428,9 +526,11 @@ def lm_loss(cfg: ArchConfig, params, batch, *, remat: str = "none"):
     return ce + 1e-2 * aux + 1e-4 * z, {"ce": ce, "aux": aux, "z": z}
 
 
-def prefill(cfg: ArchConfig, params, batch, max_len: int | None = None):
+def prefill(cfg: ArchConfig, params, batch, max_len: int | None = None, *,
+            last: bool = False, tp=None, seq_split: bool = False):
     """Run the prompt, return (logits [B,S,V], DecodeState) for decode,
-    on the inputs' device.
+    on the inputs' device; with ``last`` the logits are the last
+    position's only, [B,1,V] (the others are never unembedded).
 
     dense/moe: the caches ``forward`` collects, padded to ``max_len``
     (default: the prompt length), ``pos`` = S on every lane.
@@ -442,18 +542,29 @@ def prefill(cfg: ArchConfig, params, batch, max_len: int | None = None):
     decode state (zero recurrent state, empty KV cache, ``pos`` 0): a
     decode after it does not see the prompt.  The reference documents
     this as a simplification (a warm-state prefill would be a feature it
-    lacks)."""
+    lacks).
+
+    ``tp`` (the dense family, this rank's parameter pieces and lanes):
+    the split prefill (``_prefill_tp``): logits are this rank's vocab
+    columns of the last position, [B, 1, V/tp] (``last`` taken), and
+    with ``seq_split`` the caches hold this rank's
+    positions, [L, B, max_len / tp, KV, hd]."""
     check_family(cfg)
+    if tp is not None:
+        return _prefill_tp(cfg, params, batch, tp, max_len or
+                           batch["tokens"].shape[1], seq_split)
     x = batch["embeds"] if cfg.embed_inputs else batch["tokens"]
     (B, S), device = x.shape[:2], x.device
     state = init_decode_state(cfg, B, max_len or S, device)
     pos = torch.full((B,), S, dtype=torch.int32, device=device)
+    which = "last" if last else True
     if cfg.family in ("ssm", "hybrid", "audio"):
-        logits = forward(cfg, params, batch)[0]
+        logits = forward(cfg, params, batch, return_logits=which)[0]
         if cfg.family == "audio":
             state = state._replace(pos=pos)
         return logits, state
-    logits, _, caches = forward(cfg, params, batch, collect_cache=True)
+    logits, _, caches = forward(cfg, params, batch, collect_cache=True,
+                                return_logits=which)
     c = state.caches
     if cfg.family == "vlm":
         (k, v), (ik, iv) = caches
@@ -630,7 +741,8 @@ def _block_decode(cfg: ArchConfig, p, x, cache, pos, flag, backend, rope):
 
 
 def decode_step(cfg: ArchConfig, params, state: DecodeState, tokens,
-                backend=None, *, n_pages: int | None = None):
+                backend=None, *, n_pages: int | None = None, tp=None,
+                seq_split: bool = False):
     """tokens [B] int -> (logits [B, vocab] fp32, new state).
 
     ``backend`` selects the KV storage (``models.kv_backend``): None /
@@ -641,11 +753,18 @@ def decode_step(cfg: ArchConfig, params, state: DecodeState, tokens,
     ``end_step`` once.  ``n_pages`` (tiered only) is the live-page
     bucket; the caller guarantees it holds every live position plus this
     step's append.  Caches update in place.  The encoder (audio) has no
-    decode step, as the reference's launcher says."""
+    decode step, as the reference's launcher says.
+
+    ``tp`` (the dense family over the dense caches): the split step
+    (``_decode_step_tp``) on this rank's parameter pieces and lanes; with
+    ``seq_split`` the caches hold this rank's positions and are never
+    gathered.  The logits are this rank's vocab columns."""
     check_family(cfg)
     if cfg.is_encoder:
         raise NotImplementedError(
             f"{cfg.name} is encoder-only: no decode serving")
+    if tp is not None:
+        return _decode_step_tp(cfg, params, state, tokens, tp, seq_split)
     if backend is None:
         from .kv_backend import DenseBackend
         backend = DenseBackend(cfg, state.pos.device)
@@ -700,3 +819,135 @@ def _vlm_decode(cfg: ArchConfig, params, x, caches, pos, backend, rope):
         x = _cross_block_fwd(cfg, layer_params(params["blocks"]["cross"], s),
                              x, (caches["ik"][s], caches["iv"][s]))
     return x
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel compute (sharding/tensor_parallel.py): the dense family
+# ---------------------------------------------------------------------------
+
+def _check_tp(cfg: ArchConfig):
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"tensor-parallel compute covers the dense family; {cfg.name} "
+            f"is {cfg.family!r}")
+
+
+def _block_fwd_tp(cfg: ArchConfig, tp, p_local, x, positions, rope):
+    """One dense block over the whole sequence on this rank's pieces of
+    the layer (``tp.layer`` gathers them over the data axes, inside any
+    remat, so a recomputing backward gathers again): attention on this
+    rank's heads, the MLP on its columns, each summed over "model".
+    Returns (x, (k, v) of this rank's KV heads)."""
+    p = tp.layer(p_local)
+    h = rms_norm(x, p["norm1"], cfg.rms_eps)
+    a, kv = attn.self_attention(p["attn"], tp.enter(h, "attn"), cfg,
+                                positions=positions, causal=cfg.causal,
+                                window=cfg.sliding_window, rope=rope)
+    x = x + tp.exit(a, "attn")
+    h2 = rms_norm(x, p["norm2"], cfg.rms_eps)
+    m = p["mlp"]
+    return x + tp.exit(swiglu(tp.enter(h2, "mlp"), m["w_gate"], m["w_up"],
+                              m["w_down"]), "mlp"), kv
+
+
+def _table_path(cfg: ArchConfig) -> str:
+    return "embed" if cfg.tie_embeddings else "unembed"
+
+
+def _forward_tp(cfg: ArchConfig, params, batch, tp, *, remat: str = "none",
+                logits: bool | str = True, on_layer=None):
+    """The split forward on this rank's parameter pieces -> this rank's
+    vocab columns of the logits [B, S, V/tp] fp32 (of the last position
+    only, [B, 1, V/tp], with ``logits="last"``; None without ``logits``);
+    ``on_layer(i, (k, v))`` sees each layer's K/V."""
+    _check_tp(cfg)
+    x = tp.embed(batch["tokens"], tp.leaf("embed", params["embed"]))
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    rope = rope_tables(positions, cfg.hd, cfg.rope_theta)
+    block = _remat(functools.partial(_block_fwd_tp, cfg, tp), remat)
+    for i, p in enumerate(_unstack(params["blocks"])):
+        x, kv = block(p, x, positions, rope)
+        if on_layer is not None:
+            on_layer(i, kv)
+    if not logits:
+        return None
+    if logits == "last":
+        x = x[:, -1:]
+    x = rms_norm(x, tp.leaf("final_norm", params["final_norm"]),
+                 cfg.rms_eps)
+    table = _table_path(cfg)
+    return unembed(tp.enter(x, "vocab"), tp.leaf(table, params[table]))
+
+
+def _prefill_tp(cfg: ArchConfig, params, batch, tp, max_len: int,
+                seq_split: bool):
+    """The split prefill: each layer's K/V of this rank's heads laid out
+    by sequence as soon as the layer has run (``tp.seq_layout``, an
+    all-to-all over "model"), so ``decode_step(tp=...)`` continues from
+    the state.  Only the last position is unembedded: the logits are
+    [B, 1, V/tp]."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    rows = max_len // tp.size if seq_split else max_len
+    shape = (cfg.n_layers, B, rows, cfg.n_kv_heads, cfg.hd)
+    dt = torch_dtype(cfg.dtype)
+    caches = {"k": torch.zeros(shape, dtype=dt, device=tokens.device),
+              "v": torch.zeros(shape, dtype=dt, device=tokens.device)}
+
+    def write(i, kv):
+        for name, t in zip(("k", "v"), kv):
+            caches[name][i] = tp.seq_layout(t, max_len, seq_split).to(dt)
+    logits = _forward_tp(cfg, params, batch, tp, logits="last",
+                         on_layer=write)
+    pos = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
+    return logits, DecodeState(pos, caches)
+
+
+def _decode_step_tp(cfg: ArchConfig, params, state: DecodeState, tokens, tp,
+                    seq_split: bool):
+    """One split decode step (``decode_step(tp=...)``): per layer, q and
+    the new k/v of this rank's heads are all-gathered over "model" in one
+    call ([B, H, hd], [B, KV, hd]); the rank whose positions hold a lane's
+    ``pos`` writes its row; every rank attends its own positions for all
+    heads (``DenseBackend.attend_shard``), the pieces merge by their lse
+    (``tp.combine``), and each rank keeps its own heads for the
+    row-split ``wo``."""
+    from .kv_backend import DenseBackend
+
+    _check_tp(cfg)
+    backend = DenseBackend(cfg, state.pos.device)
+    x = tp.embed(tokens[:, None], tp.leaf("embed", params["embed"]))
+    pos = state.pos
+    rope = rope_tables(pos[:, None], cfg.hd, cfg.rope_theta)
+    caches = state.caches
+    rows = caches["k"].shape[2]
+    start = tp.rank * rows if seq_split else 0
+    # one mask for every layer: this rank's positions against each lane's
+    mask = backend.shard_mask(pos, rows, start=start,
+                              window=cfg.sliding_window)
+    for i, p_local in enumerate(_unstack(params["blocks"])):
+        p = tp.layer(p_local)
+        h = rms_norm(x, p["norm1"], cfg.rms_eps)
+        q, k, v = tp.gather_qkv(*(t[:, 0] for t in attn._qkv(
+            p["attn"], tp.enter(h, "attn"), cfg, pos[:, None], rope)))
+        B, H, hd = q.shape
+        KV = k.shape[1]
+        cache = layer_params(caches, i)
+        backend.append(cache, k, v, pos - start)
+        out, lse = backend.attend_shard(cache, q.reshape(B, KV, H // KV, hd),
+                                        pos, mask=mask)
+        if seq_split:
+            out = tp.combine(out, lse)
+        out = tp.own_heads(out.reshape(B, 1, H, hd))
+        x = x + tp.exit(attn._out(out, p["attn"]["wo"]), "attn")
+        h2 = rms_norm(x, p["norm2"], cfg.rms_eps)
+        m = p["mlp"]
+        x = x + tp.exit(swiglu(tp.enter(h2, "mlp"), m["w_gate"], m["w_up"],
+                               m["w_down"]), "mlp")
+    x = rms_norm(x, tp.leaf("final_norm", params["final_norm"]),
+                 cfg.rms_eps)
+    table = _table_path(cfg)
+    logits = unembed(tp.enter(x, "vocab"), tp.leaf(table, params[table]))
+    return logits[:, 0], DecodeState(pos + 1, caches)

@@ -9,9 +9,14 @@ The sharded serving steps (``jit_decode``, ``jit_prefill``; the names
 are the reference's) run on a ``DeviceMesh``: parameters laid out by
 their logical axes, the decode state by ``decode_state_shardings`` (the
 caches' lanes over the data axes, their positions over "model"), the
-inputs by ``batch_shardings``.  A step gathers the parameters, computes
-this rank's lanes (gathering their positions), and lays its outputs back
-out on the same shardings.  The "model" axis shards storage only."""
+inputs by ``batch_shardings``.  For the dense family they compute tensor
+parallel (``sharding/tensor_parallel.py``): each rank runs its heads,
+MLP columns and vocab columns on its lanes, each layer's pieces gathered
+over the data axes only; prefill lays each layer's K/V out by sequence,
+and decode attends each rank's own positions and merges the pieces by
+their log-sum-exp, so the cache never moves.  The other families gather
+the parameters, compute this rank's lanes (gathering their positions),
+and lay the outputs back out on the same shardings."""
 
 from __future__ import annotations
 
@@ -55,8 +60,8 @@ def make_decode_fn(cfg):
 
 def make_prefill_fn(cfg, shape):
     """fn(params, batch) -> (last-position logits [B, vocab], state) with
-    the caches padded to ``shape.seq_len``; an encoder's fn returns the
-    logits over every frame."""
+    the caches padded to ``shape.seq_len`` (no other position is
+    unembedded); an encoder's fn returns the logits over every frame."""
     from repro_torch.models import forward, prefill
 
     if cfg.is_encoder:
@@ -66,7 +71,8 @@ def make_prefill_fn(cfg, shape):
         return encode
 
     def fn(params, batch):
-        logits, state = prefill(cfg, params, batch, max_len=shape.seq_len)
+        logits, state = prefill(cfg, params, batch, max_len=shape.seq_len,
+                                last=True)
         return logits[:, -1], state
     return fn
 
@@ -181,6 +187,44 @@ def _state_io(lanes: _Lanes, s_sh, state_abs):
     return take, put
 
 
+class _Split(NamedTuple):
+    """A split serving step's layout: the ``TensorParallel``, this rank's
+    lanes [lo, hi), whether the caches hold this rank's positions only,
+    and the logits' placements as computed."""
+    tp: Any
+    lo: int
+    hi: int
+    seq_split: bool
+    logits_pl: tuple
+
+
+def _split(cfg, mesh, params_abs, lanes_sh, B: int, s_sh, what: str):
+    """The dense family's split step on ``mesh`` (``TensorParallel``), or
+    None for the other families, which gather (and warn so once)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.models import abstract_params_and_axes
+    from repro_torch.sharding import specs
+    from repro_torch.sharding.tensor_parallel import (TensorParallel,
+                                                      warn_gathered)
+
+    if cfg.family != "dense":
+        warn_gathered(cfg, mesh, what)
+        return None
+    p_sh = specs.tree_shardings(abstract_params_and_axes(cfg)[1], mesh,
+                                params_abs)
+    tp = TensorParallel(cfg, mesh, p_sh, params_abs)
+    tp.warn_whole(what)
+    lo, hi = specs.shard_range(lanes_sh.placements, mesh, B)
+    seq_split = tp.size > 1 and \
+        s_sh.caches["k"].placements[tp.m].is_shard()
+    logits_pl = tuple(
+        Shard(0) if pl.is_shard() else
+        Shard(1) if i == tp.m and tp.split["vocab"] else Replicate()
+        for i, pl in enumerate(lanes_sh.placements))
+    return _Split(tp, lo, hi, seq_split, logits_pl)
+
+
 def jit_decode(cfg, shape, mesh):
     """The decode step on ``mesh``: returns (step, (params_abs,
     state_abs, tokens_abs)), as the reference's.  step(params, state,
@@ -188,7 +232,13 @@ def jit_decode(cfg, shape, mesh):
     state on ``decode_state_shardings``, tokens [B] over "batch") and
     returns (logits [B, vocab] over ("batch", "vocab"), the new state on
     the state's shardings).  The state is donated, as the reference's
-    is: its pieces may be updated in place."""
+    is: its pieces may be updated in place.
+
+    The dense family's step is split (``models.decode_step(tp=...)``):
+    no parameter piece leaves its "model" rank, and the caches are
+    updated in place on the rank that holds each position.  The other
+    families gather the parameters and this rank's lanes of the caches
+    (``moe.data_shards`` decides the lanes)."""
     from repro_torch.models import (abstract_decode_state,
                                     abstract_params_and_axes, moe)
     from repro_torch.sharding.specs import (NamedSharding, gather_tree,
@@ -202,6 +252,10 @@ def jit_decode(cfg, shape, mesh):
     t_sh = NamedSharding(mesh, spec_for(("batch",), mesh=mesh, shape=(B,)))
     logits_sh = NamedSharding(mesh, spec_for(
         ("batch", "vocab"), mesh=mesh, shape=(B, cfg.vocab)))
+    split = _split(cfg, mesh, params_abs, t_sh, B, s_sh, "jit_decode")
+    if split is not None:
+        return _split_decode(cfg, mesh, split, s_sh, logits_sh, B), (
+            params_abs, state_abs, t_abs)
     lanes = _Lanes(cfg, t_sh, B)
     take, put = _state_io(lanes, s_sh, state_abs)
     fn = make_decode_fn(cfg)
@@ -215,6 +269,26 @@ def jit_decode(cfg, shape, mesh):
     return step, (params_abs, state_abs, t_abs)
 
 
+def _split_decode(cfg, mesh, split: _Split, s_sh, logits_sh, B: int):
+    from repro_torch.models import DecodeState, decode_step
+    from repro_torch.sharding.specs import distribute_local, map_leaves
+    from repro_torch.sharding.tensor_parallel import local_tree
+
+    def step(params, state, tokens):
+        pos = state.pos.to_local()                 # replicated [B]
+        logits, _ = decode_step(
+            cfg, local_tree(params), DecodeState(
+                pos[split.lo:split.hi], map_leaves(lambda t: t.to_local(),
+                                                   state.caches)),
+            tokens.to_local(), tp=split.tp, seq_split=split.seq_split)
+        logits = distribute_local(logits, mesh, split.logits_pl,
+                                  (B, cfg.vocab)).redistribute(
+            mesh, logits_sh.placements)
+        return logits, DecodeState(distribute_local(
+            pos + 1, mesh, s_sh.pos.placements, (B,)), state.caches)
+    return step
+
+
 def jit_prefill(cfg, shape, mesh):
     """The prefill step on ``mesh``: returns (step, (params_abs,
     input_specs)), as the reference's.  step(params, batch) takes
@@ -223,7 +297,10 @@ def jit_prefill(cfg, shape, mesh):
     ``jit_decode`` at the same shape continues them) and returns
     (last-position logits [B, vocab] over ("batch", "vocab"), the decode
     state on ``decode_state_shardings``); an encoder's step returns its
-    logits [B, S, vocab] over ("batch", None, "vocab")."""
+    logits [B, S, vocab] over ("batch", None, "vocab").  The dense
+    family's step is split (``models.prefill(tp=...)``): each rank's
+    K/V heads go to the ranks that hold their positions, one layer at a
+    time; the other families gather the parameters."""
     from repro_torch.models import (abstract_decode_state,
                                     abstract_params_and_axes, input_specs,
                                     moe)
@@ -253,14 +330,45 @@ def jit_prefill(cfg, shape, mesh):
 
     state_abs = abstract_decode_state(cfg, shape)
     s_sh = decode_state_shardings(cfg, state_abs, mesh)
-    _, put = _state_io(lanes, s_sh, state_abs)
     logits_sh = NamedSharding(mesh, spec_for(
         ("batch", "vocab"), mesh=mesh, shape=(B, cfg.vocab)))
+    split = _split(cfg, mesh, params_abs, next(iter(b_sh.values())), B,
+                   s_sh, "jit_prefill")
+    if split is not None:
+        return _split_prefill(cfg, mesh, split, s_sh, state_abs, logits_sh,
+                              shape), (params_abs, specs_in)
+    _, put = _state_io(lanes, s_sh, state_abs)
 
     def step(params, batch):
         logits, state = run(params, batch)
         return lanes.put(logits, 0, (B, cfg.vocab), logits_sh), put(state)
     return step, (params_abs, specs_in)
+
+
+def _split_prefill(cfg, mesh, split: _Split, s_sh, state_abs, logits_sh,
+                   shape):
+    from repro_torch.models import DecodeState, prefill
+    from repro_torch.sharding.specs import distribute_local, map_leaves
+    from repro_torch.sharding.tensor_parallel import local_tree
+
+    B = shape.global_batch
+
+    def step(params, batch):
+        tokens = batch["tokens"].to_local()
+        logits, st = prefill(cfg, local_tree(params), {"tokens": tokens},
+                             max_len=shape.seq_len, tp=split.tp,
+                             seq_split=split.seq_split)
+        logits = distribute_local(logits[:, -1], mesh, split.logits_pl,
+                                  (B, cfg.vocab)).redistribute(
+            mesh, logits_sh.placements)
+        pos = torch.full((B,), tokens.shape[1], dtype=torch.int32,
+                         device=tokens.device)
+        state = DecodeState(pos, st.caches)
+        return logits, map_leaves(
+            lambda t, sh, ab: distribute_local(t, mesh, sh.placements,
+                                               ab.shape),
+            state, s_sh, state_abs)
+    return step
 
 
 def _counts() -> dict:
@@ -324,8 +432,13 @@ class StepGraphs:
     memory pool.  The wrappers' launch counters count a replay as the
     eager step would.  A capture that fails raises; nothing falls back to
     the eager step.  Python's cyclic collector is off during a capture: a
-    collection there could finalize an older engine's graphs, and a graph
-    destroyed mid-capture invalidates the capture.
+    graph destroyed mid-capture invalidates the capture, and a collection
+    there would finalize any unreachable cycle that holds graphs.  Engines
+    once were such cycles (each scheduler held its engine, and two
+    callbacks on the engine captured it), so only the collector freed
+    them; the schedulers now hold a ``weakref.proxy`` and the callbacks
+    reach the engine weakly, so ``del engine`` frees its graphs, their
+    pool and its KV pools at once (``tests/test_torch_engine_lifetime.py``).
 
     ``enabled`` None: graphs on a card, the eager step on the CPU (there
     are no graphs there); False: always eager; True on the CPU raises."""

@@ -57,6 +57,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
+import weakref
 from typing import Callable
 
 import numpy as np
@@ -134,6 +135,17 @@ class Request:
     @property
     def queue_wait(self) -> float:
         return self.admitted_at - self.arrived
+
+
+def _weakly(method) -> Callable:
+    """``method`` (a bound method) as a callable that does not keep its
+    object alive: the obs server's callbacks would otherwise tie the
+    engine into a cycle that only the cyclic collector frees."""
+    ref = weakref.WeakMethod(method)
+
+    def call(*args, **kw):
+        return ref()(*args, **kw)
+    return call
 
 
 @dataclasses.dataclass
@@ -308,7 +320,8 @@ class Engine:
         self._chunk_rows: dict = {}    # C -> a chunk's K/V rows [L, C, ...]
         self._chunk_holder: dict = {}  # P -> the ingest the work buffers hold
         self.chunk_copy_bytes = 0      # K/V bytes moved to switch ingests
-        self._maintain_tenants = None  # bound by a multi-tenant scheduler
+        self._tenant_parts = None      # (pols, quotas) of a multi-tenant
+                                       # scheduler's pass
         self._pass_tenant = None       # its lane -> tenant device buffer
         self._pending_plan = None      # (plan, the step it was made at)
         self.maintain_overlaps = 0
@@ -353,10 +366,11 @@ class Engine:
             from repro_torch.obs.http import ObsServer
             self.obs_server = ObsServer(
                 metrics_fn=self.hub.to_prometheus,
-                health_fn=lambda: {"steps": self.steps,
-                                   "tokens": self._tokens_out},
-                state_fn=self.debug_state,
+                health_fn=_weakly(self._health),
+                state_fn=_weakly(self.debug_state),
                 host=ec.obs.http_host, port=ec.obs.http_port)
+            # the server's thread outlives the engine unless closed with it
+            weakref.finalize(self, self.obs_server.close)
 
     def submit(self, req: Request):
         req.arrived = time.time()
@@ -688,7 +702,7 @@ class Engine:
         flight events stamp).  The multi-tenant pass stays synchronous
         (the lane -> tenant map can go stale across a deferral) and is
         not flight-recorded: its plan has no single-descriptor pass."""
-        tenants = self._maintain_tenants is not None
+        tenants = self._tenant_parts is not None
         if self.ec.overlap_maintain and not tenants:
             with self.tracer.span("maintain", step=self.steps, phase="plan"):
                 self._pending_plan = (self._plan(state), self.steps)
@@ -810,12 +824,20 @@ class Engine:
         """Bind the multi-tenant maintenance pass to a fixed tenant
         partition (called once by the QoS scheduler at bind), with its
         lane -> tenant device buffer."""
-        self._maintain_tenants = lambda s, lt: (None, (
-            self.backend.maintain_tenants(s, lt, pols, quotas,
-                                          err=self._copy_err)))
+        self._tenant_parts = (pols, quotas)
         self._pass_tenant = self.graphs.own(torch.full(
             (self.ec.batch,), -1, dtype=torch.int32, device=self.device))
         self._pass_tenant_np = np.full((self.ec.batch,), -1, np.int32)
+
+    def _maintain_tenants(self, state, lane_tenant):
+        """The multi-tenant pass over ``build_maintain_tenants``'s
+        partition, as a step: (None, state)."""
+        pols, quotas = self._tenant_parts
+        return None, self.backend.maintain_tenants(
+            state, lane_tenant, pols, quotas, err=self._copy_err)
+
+    def _health(self) -> dict:
+        return {"steps": self.steps, "tokens": self._tokens_out}
 
     def note_token(self, req: Request, tok: int, pos: int,
                    now: float | None = None):

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -64,7 +65,8 @@ class ChunkedScheduler:
     # -- binding ----------------------------------------------------------
 
     def bind(self, engine) -> None:
-        self.eng = engine
+        # a proxy, as ``GreedyScheduler.bind`` keeps: no engine cycle
+        self.eng = weakref.proxy(engine)
         ec = self.ec
         self.chunk = int(ec.prefill_chunk)
         if engine._tiered:

@@ -5,6 +5,7 @@ anchored to the first request of a wave, single tenant (port of
 from __future__ import annotations
 
 import time
+import weakref
 from collections import deque
 
 import numpy as np
@@ -20,7 +21,9 @@ class GreedyScheduler:
         self.eng = None
 
     def bind(self, engine) -> None:
-        self.eng = engine
+        # a proxy: the engine holds its scheduler, and a strong reference
+        # back would leave the engine to the cyclic collector
+        self.eng = weakref.proxy(engine)
 
     def submit(self, req) -> None:
         self.queue.append(req)

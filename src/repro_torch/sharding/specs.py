@@ -16,15 +16,19 @@ Parallelism mapping, as in the reference:
   heads/mlp/vocab/kv/expert -> "model"
   seq      -> "model"           the decode caches' sequence dimension
 
-In the port the specs decide STORAGE only.  The reference hands them to
-XLA's SPMD partitioner, which also decides where each product runs; the
-port's steps (``train.loop.make_sharded_train_step``,
-``serve.decode.jit_decode``/``jit_prefill``) gather the parameters into
-plain tensors, compute on this rank's rows of the batch and lay the
-results back out on these placements.  Tensor-parallel compute over the
-"model" axis (heads, mlp, vocab and experts split across its ranks) is
-not ported: that axis shards storage only.  ``logical_constraint``,
-XLA's layout hint inside model code, returns its input unchanged.
+The reference hands the specs to XLA's SPMD partitioner, which also
+decides where each product runs.  In the port the specs lay out
+storage, and the steps (``train.loop.make_sharded_train_step``,
+``serve.decode.jit_decode``/``jit_prefill``) decide the compute: for
+the dense family they split it over the "model" axis as the specs split
+the leaves (heads, kv_heads, mlp and vocab; ``sharding/
+tensor_parallel.py``), each layer's pieces gathered over the data axes
+only; the other families gather the parameters into plain tensors and
+compute on this rank's rows of the batch (experts are not split across
+ranks).  ``model_group`` and ``shard_range`` give a step the "model"
+axis and this rank's index range along a split dimension.
+``logical_constraint``, XLA's layout hint inside model code, returns its
+input unchanged.
 
 ``spec_for`` takes a ``DeviceMesh`` or a ``MeshShape`` (axis names and
 sizes, no processes), so rules can be checked against a 2 x 16 x 16 mesh
@@ -296,3 +300,23 @@ def shard_index(placements, mesh, dim: int = 0) -> tuple[int, int]:
         if pl.is_shard(dim):
             n, idx = n * mesh.size(i), idx * mesh.size(i) + coord[i]
     return n, idx
+
+
+def shard_range(placements, mesh, size: int, dim: int = 0) -> tuple[int, int]:
+    """This rank's index range [lo, hi) along ``dim`` (of ``size``
+    entries) under ``placements``."""
+    n, idx = shard_index(placements, mesh, dim)
+    return idx * size // n, (idx + 1) * size // n
+
+
+def model_group(mesh) -> tuple:
+    """(the index of ``mesh``'s "model" dimension or None, its size, this
+    rank's coordinate on it, its process group or None when it has one
+    rank)."""
+    names = tuple(mesh.mesh_dim_names)
+    if "model" not in names:
+        return None, 1, 0, None
+    m = names.index("model")
+    n = mesh.size(m)
+    return m, n, mesh.get_coordinate()[m], mesh.get_group(m) if n > 1 \
+        else None

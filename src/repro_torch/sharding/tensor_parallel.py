@@ -1,0 +1,475 @@
+"""Tensor-parallel compute over the mesh's "model" axis, with the
+parameters' "data" pieces gathered one layer at a time (FSDP), for the
+dense decoders.
+
+The reference hands its logical-axis specs to XLA, whose partitioner
+splits the products: heads, kv_heads, mlp and vocab over "model".  Here
+the same split is written out, Megatron style, over
+``mesh.get_group("model")``:
+
+* ``copy_to_model`` before a column-split product (wq/wk/wv, w_gate/w_up,
+  the unembedding): identity forward, all-reduce backward;
+  ``reduce_from_model`` after a row-split product (wo, w_down, the
+  embedding's rows): all-reduce forward, identity backward.  Both are
+  ``torch.autograd.Function``s over plain ``torch.distributed`` calls.
+* ``TensorParallel.layer`` gathers one layer's parameter pieces over the
+  mesh dims other than "model" (``_Gather``: an all-gather forward; its
+  backward is ``train.loop._Layout.reduce``, the data mean
+  reduce-scattered onto the leaf's own piece, one leaf at a time).  Each
+  rank keeps its own "model" piece; nothing gathers the whole tree.
+* The vocabulary split follows the reference's ``REPRO_SHARDED_CE``: the
+  embedding looks up this rank's vocab rows (zero elsewhere) and
+  all-reduces; the unembedding computes this rank's vocab columns in
+  fp32; the loss all-reduces only [B, S]-sized partials (the max, the
+  sum of exponentials, the label's logit).
+* Decode over the sequence-sharded cache (``combine``): each rank attends
+  its own positions for every head and returns (out, lse); the pieces
+  merge by lse weights across "model" after a MAX all-reduce of the lse,
+  so a rank whose positions are all masked weighs 0.
+
+What splits is what ``spec_for`` split: a part (attention, the MLP, the
+vocabulary) runs split only when all of its leaves shard on "model"
+(``TensorParallel.split``); a part that ``spec_for`` left whole on some
+leaf (kv_heads that do not divide the "model" size) runs whole on every
+rank, its leaves gathered over "model" too, and ``whole_parts`` names it
+so that the step can warn.  On a mesh whose "model" size is 1 every part
+is split trivially and no collective runs on that axis.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import NamedTuple
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+PARTS = ("attn", "mlp", "vocab")
+# the leaves of each part (paths under the parameter tree's root)
+_PART_LEAVES = {
+    "attn": ("blocks/attn/wq", "blocks/attn/wk", "blocks/attn/wv",
+             "blocks/attn/wo", "blocks/attn/bq", "blocks/attn/bk",
+             "blocks/attn/bv"),
+    "mlp": ("blocks/mlp/w_gate", "blocks/mlp/w_up", "blocks/mlp/w_down"),
+    "vocab": ("embed", "unembed"),
+}
+
+
+def _part_of(path: str) -> str | None:
+    for part, names in _PART_LEAVES.items():
+        if path in names:
+            return part
+    return None
+
+
+def _all_gather(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """``n`` ranks' pieces of ``t`` concatenated along ``dim`` (rank
+    order), contiguous."""
+    import torch.distributed as dist
+
+    # all_gather_single is the newer name; all_gather_into_tensor, which
+    # it deprecates, is the only one in older releases
+    gather = getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+    x = t.movedim(dim, 0).contiguous()
+    out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    gather(out, x, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward, all-reduce of the gradient over "model"."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """All-reduce (sum) over "model" forward, identity backward: every
+    rank computes the same loss from the sum, so each rank's gradient of
+    the sum is already the gradient of its own term."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafPlan:
+    """How one parameter leaf (one layer of a stacked leaf) moves in the
+    step: ``gathers`` (mesh dim, tensor dim) all-gathered before use,
+    minor mesh dim first; ``compute`` the placements of the tensor the
+    layer computes with; ``placements`` the leaf's own; ``shape`` the
+    layer's global shape."""
+    mesh: object
+    gathers: tuple
+    compute: tuple
+    placements: tuple
+    shape: tuple
+
+    def gather(self, local: torch.Tensor) -> torch.Tensor:
+        for i, d in self.gathers:
+            local = _all_gather(local, d, self.mesh.get_group(i),
+                                self.mesh.size(i))
+        return local
+
+
+class _Gather(torch.autograd.Function):
+    """A leaf's piece -> the tensor its layer computes with (all-gathered
+    over the mesh dims in ``plan.gathers``); backward: this rank's
+    gradient of it -> this rank's piece of the data-mean gradient
+    (``TensorParallel.reduce``)."""
+
+    @staticmethod
+    def forward(ctx, local, plan, tp):
+        ctx.plan, ctx.tp = plan, tp
+        return plan.gather(local) if plan.gathers else local.view_as(local)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.reduce(g, ctx.plan), None, None
+
+
+def _placements_without(placements, dim: int = 0) -> tuple:
+    """A stacked leaf's placements -> those of one layer (dim 0 gone)."""
+    from torch.distributed.tensor import Shard
+
+    out = []
+    for pl in placements:
+        if pl.is_shard():
+            if pl.dim == dim:
+                raise ValueError("a layer-stacked leaf is split on its "
+                                 "layer dimension")
+            out.append(Shard(pl.dim - (pl.dim > dim)))
+        else:
+            out.append(pl)
+    return tuple(out)
+
+
+def _flat(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _nest_like(tree, flat: dict, prefix: str = ""):
+    if isinstance(tree, dict):
+        return {k: _nest_like(v, flat, f"{prefix}{k}/")
+                for k, v in tree.items()}
+    return flat[prefix[:-1]]
+
+
+class TensorParallel:
+    """The split of one model's parameters on a mesh, and the pieces of
+    the split step (module docstring).
+
+    ``p_sh`` is the parameters' tree of ``NamedSharding``s
+    (``specs.tree_shardings``) and ``params_abs`` their abstract tree.
+    ``reduce`` is the gradients' data mean (``train.loop._Layout.reduce``:
+    a per-rank gradient, the leaf's placements, the placements and global
+    shape it was computed on -> this rank's piece); inference needs
+    none."""
+
+    def __init__(self, cfg, mesh, p_sh, params_abs, *, reduce=None):
+        from repro_torch.sharding.specs import model_group, shard_range
+
+        self.cfg, self.mesh = cfg, mesh
+        self.m, self.size, self.rank, self.group = model_group(mesh)
+        self._reduce = reduce
+        sh, abs_ = _flat(p_sh), _flat(params_abs)
+
+        def on_model(path):
+            return self.m is not None and \
+                sh[path].placements[self.m].is_shard()
+        self.split = {part: all(on_model(p) for p in names if p in sh)
+                      for part, names in _PART_LEAVES.items()}
+        plans = {}
+        for path, s in sh.items():
+            stacked = path.startswith("blocks/")
+            pl = tuple(s.placements)
+            shape = tuple(abs_[path].shape)
+            if stacked:
+                pl, shape = _placements_without(pl), shape[1:]
+            part = _part_of(path)
+            keep = part is not None and self.split[part]
+            compute, gathers = [], []
+            for i, p in enumerate(pl):
+                if p.is_shard() and mesh.size(i) > 1 \
+                        and not (i == self.m and keep):
+                    gathers.append((i, p.dim))
+                    compute.append(_replicate())
+                else:
+                    compute.append(p)
+            plans[path] = LeafPlan(mesh, tuple(reversed(gathers)),
+                                   tuple(compute), pl, shape)
+        self.plans = plans
+        self.block_plans = _nest_like(p_sh["blocks"], {
+            k[len("blocks/"):]: v for k, v in plans.items()
+            if k.startswith("blocks/")})
+        # this rank's vocab rows [start, start + rows) of the tables
+        self.vocab_start, end = (0, cfg.vocab)
+        if self.split["vocab"]:
+            self.vocab_start, end = shard_range(sh["embed"].placements,
+                                                mesh, cfg.vocab)
+        self.vocab_rows = end - self.vocab_start
+
+    # -- the split ----------------------------------------------------------
+
+    def whole_parts(self) -> list[str]:
+        """The parts ``spec_for`` left whole on some leaf: they run whole
+        on every rank, their leaves gathered over "model"."""
+        return [p for p in PARTS if not self.split[p]]
+
+    def warn_whole(self, what: str) -> None:
+        """One warning naming the parts this step computes whole."""
+        whole = self.whole_parts()
+        if whole and self.size > 1:
+            warnings.warn(
+                f"{self.cfg.name}: {what} computes {', '.join(whole)} whole "
+                f"on each of the {self.size} \"model\" ranks (spec_for "
+                f"left a leaf of each unsplit), gathering their leaves",
+                stacklevel=3)
+
+    # -- the collectives over "model" -----------------------------------------
+
+    def enter(self, x, part: str):
+        """Before a column-split product of ``part``."""
+        if self.group is None or not self.split[part]:
+            return x
+        return _CopyToModel.apply(x, self.group)
+
+    def exit(self, y, part: str):
+        """After a row-split product of ``part``: the sum over ranks."""
+        if self.group is None or not self.split[part]:
+            return y
+        return _ReduceFromModel.apply(y, self.group)
+
+    def model_max(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over "model" (no gradient)."""
+        if self.group is None:
+            return t
+        import torch.distributed as dist
+
+        t = t.detach().contiguous().clone()
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return t
+
+    def gather_heads(self, t: torch.Tensor) -> torch.Tensor:
+        """[..., H/tp, hd] -> [..., H, hd] over "model" (inference)."""
+        if self.group is None or not self.split["attn"]:
+            return t
+        return _all_gather(t, t.dim() - 2, self.group, self.size)
+
+    def gather_qkv(self, q, k, v):
+        """A decode step's q [B, H/tp, hd] and k, v [B, KV/tp, hd] of this
+        rank's heads -> every head's, in one all-gather over "model"."""
+        if self.group is None or not self.split["attn"]:
+            return q, k, v
+        sizes = [t.shape[1] for t in (q, k, v)]
+        every = _all_gather(torch.cat([q, k, v], dim=1), 1, self.group,
+                            self.size)
+        parts = every.unflatten(1, (self.size, sum(sizes))).split(sizes,
+                                                                  dim=2)
+        return tuple(t.flatten(1, 2) for t in parts)
+
+    def own_heads(self, t: torch.Tensor) -> torch.Tensor:
+        """[..., H, hd] -> this rank's heads [..., H/tp, hd]."""
+        if self.size == 1 or not self.split["attn"]:
+            return t
+        n = t.shape[-2] // self.size
+        return t[..., self.rank * n:(self.rank + 1) * n, :]
+
+    # -- parameters -------------------------------------------------------
+
+    def layer(self, p_local: dict) -> dict:
+        """One layer's pieces (views of the stacked local leaves) -> the
+        tensors the layer computes with."""
+        return _map2(self._take, p_local, self.block_plans)
+
+    def leaf(self, path: str, local: torch.Tensor) -> torch.Tensor:
+        """A top-level leaf's piece -> the tensor the step computes with."""
+        return self._take(local, self.plans[path])
+
+    def _take(self, local, plan):
+        if not plan.gathers and not local.requires_grad:
+            return local
+        return _Gather.apply(local, plan, self)
+
+    def reduce(self, g: torch.Tensor, plan: LeafPlan) -> torch.Tensor:
+        """This rank's gradient of a computed tensor -> its piece of the
+        data mean on the leaf's placements (summed in fp32)."""
+        if self._reduce is None:
+            raise RuntimeError("TensorParallel built without a data mean "
+                               "cannot reduce gradients")
+        return self._reduce(g, plan.placements, plan.compute, plan.shape)
+
+    # -- the vocabulary -----------------------------------------------------
+
+    def embed(self, tokens: torch.Tensor, table: torch.Tensor):
+        """Embedding rows of ``tokens`` from this rank's vocab rows of
+        ``table`` (zero for the others), summed over "model"."""
+        import torch.nn.functional as F
+
+        if self.group is None or not self.split["vocab"]:
+            return F.embedding(tokens.long(), table)
+        v0 = self.vocab_start
+        ok = (tokens >= v0) & (tokens < v0 + self.vocab_rows)
+        rows = F.embedding(torch.where(ok, tokens - v0, 0).long(), table)
+        return self.exit(rows * ok[..., None].to(rows.dtype), "vocab")
+
+    def cross_entropy(self, logits: torch.Tensor, labels: torch.Tensor):
+        """(ce, z) of the reference's ``REPRO_SHARDED_CE`` form from this
+        rank's vocab columns ``logits`` [B, S, V/tp] fp32: the max, the
+        sum of exponentials and the label's logit reduced over "model",
+        each [B, S]."""
+        split = self.split["vocab"]
+        m = logits.max(dim=-1, keepdim=True).values.detach()
+        if split:
+            m = self.model_max(m)
+        sumexp = torch.exp(logits - m).sum(dim=-1)
+        vpos = self.vocab_start + torch.arange(logits.shape[-1],
+                                               device=logits.device)
+        lab = torch.where(vpos == labels[..., None], logits, 0.0).sum(-1)
+        if split:
+            sumexp, lab = self.exit(sumexp, "vocab"), self.exit(lab, "vocab")
+        lse = torch.log(sumexp) + m[..., 0]
+        return (lse - lab).mean(), lse.square().mean()
+
+    # -- decode over the sequence-sharded cache -------------------------------
+
+    def combine(self, out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+        """Merge ranks' attention over their own positions: out [B, KV, G,
+        hd] and lse [B, KV, G] per rank -> the attention over all
+        positions, in ``out``'s dtype.  The lse's max over ranks first, so
+        a rank whose positions are all masked weighs 0."""
+        if self.group is None:
+            return out
+        import torch.distributed as dist
+
+        m = self.model_max(lse)
+        w = torch.exp(lse - m)
+        acc = torch.cat([out.float() * w[..., None], w[..., None]], dim=-1)
+        dist.all_reduce(acc, group=self.group)
+        return (acc[..., :-1] / acc[..., -1:]).to(out.dtype)
+
+    def seq_layout(self, k: torch.Tensor, length: int, seq_split: bool):
+        """A layer's prompt K (or V) [B, S, KVl, hd] of this rank's heads
+        -> this rank's rows of the cache [B, length/tp, KV, hd] (every
+        head at this rank's positions; an all-to-all over "model"), or
+        [B, length, KV, hd] when the cache is not split by sequence.  Rows
+        past the prompt are zeros, as ``init_decode_state`` leaves them."""
+        import torch.distributed as dist
+
+        B, S, KVl, hd = k.shape
+        heads_split = self.group is not None and self.split["attn"]
+        if not seq_split or self.size == 1:
+            full = k.new_zeros((B, length, KVl, hd))
+            full[:, :S] = k
+            return self.gather_heads(full) if heads_split else full
+        rows = length // self.size
+        if not heads_split:
+            lo = self.rank * rows
+            out = k.new_zeros((B, rows, KVl, hd))
+            n = max(min(S - lo, rows), 0)
+            out[:, :n] = k[:, lo:lo + n]
+            return out
+        send = k.new_zeros((self.size, B, rows, KVl, hd))
+        for j in range(self.size):
+            n = max(min(S - j * rows, rows), 0)
+            if n:
+                send[j, :, :n] = k[:, j * rows:j * rows + n]
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=self.group)
+        # recv[i]: rank i's heads at this rank's positions
+        return recv.permute(1, 2, 0, 3, 4).reshape(B, rows, self.size * KVl,
+                                                   hd)
+
+
+class Collective(NamedTuple):
+    """One collective call: the op, its group's name, and the shape and
+    bytes of each tensor argument."""
+    op: str
+    group: str | None
+    shapes: list
+    nbytes: list
+
+
+class CollectiveLog(TorchDispatchMode):
+    """Records every collective dispatched while the mode is on, in
+    ``calls``: ``torch.distributed``'s own calls (c10d) and DTensor's
+    (functional collectives) alike."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls: list[Collective] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace in ("c10d", "_c10d_functional"):
+            group, shapes, nbytes = None, [], []
+            for a in list(args) + list((kwargs or {}).values()):
+                for t in (a if isinstance(a, (list, tuple)) else [a]):
+                    if isinstance(t, torch.Tensor):
+                        shapes.append(list(t.shape))
+                        nbytes.append(t.numel() * t.element_size())
+                    elif isinstance(t, str) and group is None:
+                        group = t
+                    elif type(t).__name__ == "ScriptObject" and \
+                            "ProcessGroup" in str(t._type()):
+                        group = torch._C._distributed_c10d.ProcessGroup \
+                            .unbox(t).group_name
+            self.calls.append(Collective(str(func), group, shapes, nbytes))
+        return func(*args, **(kwargs or {}))
+
+
+def warn_gathered(cfg, mesh, what: str) -> None:
+    """One warning that ``what`` gathers the whole parameter tree on each
+    rank: a family outside the split (every family but the dense one) on
+    a mesh whose "model" axis has more than one rank."""
+    from repro_torch.sharding.specs import model_group
+
+    if model_group(mesh)[1] > 1:
+        warnings.warn(
+            f"{cfg.name}: {what} gathers every parameter on each rank "
+            f"(tensor-parallel compute covers the dense family; "
+            f"{cfg.family!r} shards storage only over \"model\")",
+            stacklevel=3)
+
+
+def _replicate():
+    from torch.distributed.tensor import Replicate
+    return Replicate()
+
+
+def _map2(fn, tree, plans):
+    if isinstance(tree, dict):
+        return {k: _map2(fn, v, plans[k]) for k, v in tree.items()}
+    return fn(tree, plans)
+
+
+def local_tree(tree):
+    """Every DTensor leaf's local piece (no communication)."""
+    from repro_torch.sharding.specs import map_leaves
+    return map_leaves(lambda t: t.to_local(), tree)

@@ -19,14 +19,18 @@ reaches the same parameters as an uninterrupted one.
 ``make_sharded_train_step`` is the step on a ``DeviceMesh``: every
 parameter, AdamW moment and error-feedback buffer is a DTensor laid out
 by the reference's logical-axis specs (``sharding/specs.py``), and the
-batch is split over the data axes.  A step gathers the parameters into
-plain tensors, runs the step body above on this rank's rows (on a card,
-the flash kernels forward and backward), reduces the gradients to their
-data mean and scatters them onto the parameters' shards (a
-reduce-scatter), and runs AdamW on the shards with the global norm of
-the whole gradient: ZeRO-3 over the whole mesh.  The "model" axis
-shards storage only; no product is split across its ranks.  ``fit``
-takes ``mesh=`` to train so.
+batch is split over the data axes.  For the dense family the step
+computes tensor parallel over "model" (``sharding/tensor_parallel.py``):
+each layer's pieces are gathered over the data axes only, inside the
+layer loop, and each rank runs its own heads, MLP columns and vocab
+columns on its rows (on a card, the flash kernels forward and backward
+on H/tp heads); each leaf's gradient is reduced to its data mean and
+scattered onto the leaf's piece as the backward leaves the layer.  The
+other families gather the whole parameter tree into plain tensors, run
+the step body above on this rank's rows, and reduce-scatter the
+gradients after it.  AdamW then runs on the shards with the global norm
+of the whole gradient: ZeRO-3 over the whole mesh.  ``fit`` takes
+``mesh=`` to train so.
 """
 
 from __future__ import annotations
@@ -44,9 +48,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.data.pipeline import DataConfig, device_batch, make_batch
 from repro_torch.device import resolve_device
 from repro_torch.models import (abstract_params_and_axes,
-                                init_params_and_axes, loss_fn)
+                                init_params_and_axes, init_sharded_params,
+                                loss_fn)
 from repro_torch.models import moe as moe_mod
 from repro_torch.sharding import specs
+from repro_torch.sharding.tensor_parallel import (TensorParallel, local_tree,
+                                                  warn_gathered)
 from repro_torch.train import compression
 from repro_torch.train.optimizer import (OptConfig, OptState, apply_updates,
                                          init_opt_state, leaves, map_tree,
@@ -65,9 +72,11 @@ class TrainConfig:
     watchdog_secs: float = 0.0       # > 0: warn when a step stalls
 
 
-def grads_of(cfg: ArchConfig, tc: TrainConfig, params, batch):
+def grads_of(cfg: ArchConfig, tc: TrainConfig, params, batch, tp=None):
     """(loss, metrics, gradients in the parameters' tree and dtypes) of
-    ``loss_fn`` under ``tc.remat``; ``params`` are left as they are."""
+    ``loss_fn`` under ``tc.remat``; ``params`` are left as they are.
+    With ``tp`` (``TensorParallel``) ``params`` are this rank's pieces and
+    so are the gradients: each piece's share of the data mean."""
     flat = []
 
     def track(t):
@@ -77,7 +86,7 @@ def grads_of(cfg: ArchConfig, tc: TrainConfig, params, batch):
 
     with torch.enable_grad():
         loss, metrics = loss_fn(cfg, map_tree(track, params), batch,
-                                remat=tc.remat)
+                                remat=tc.remat, tp=tp)
         gs = torch.autograd.grad(loss, flat, allow_unused=True)
     it = iter(g if g is not None else torch.zeros_like(t)
               for g, t in zip(gs, flat))
@@ -191,17 +200,25 @@ class _Layout:
 
     def data_mean(self, t: torch.Tensor) -> torch.Tensor:
         """The mean over data shards of a per-rank tensor."""
-        return self._partial(t).full_tensor()
-
-    def _partial(self, t):
         return specs.distribute_local(t / self.shards, self.mesh,
-                                      self.partial, t.shape)
+                                      self.partial, t.shape).full_tensor()
 
-    def reduce(self, g: torch.Tensor, sh) -> torch.Tensor:
+    def reduce(self, g: torch.Tensor, sh, compute: tuple | None = None,
+               shape: tuple | None = None) -> torch.Tensor:
         """A per-rank gradient leaf -> this rank's shard of the data
-        mean, in the leaf's dtype (summed in fp32)."""
-        return self._partial(g.float()).redistribute(
-            self.mesh, sh.placements).to_local().to(g.dtype)
+        mean on ``sh`` (a sharding or its placements), in the leaf's
+        dtype (summed in fp32).  ``g`` is whole on the mesh dims that do
+        not split the rows, or, given ``compute``, on those placements
+        (the tensor-parallel step's ``Shard`` on "model") of the global
+        ``shape``."""
+        pl = self.partial
+        if compute is not None:
+            pl = tuple(r if r.is_partial() else c
+                       for r, c in zip(self.partial, compute))
+        t = specs.distribute_local(g.float() / self.shards, self.mesh, pl,
+                                   g.shape if shape is None else shape)
+        return t.redistribute(self.mesh, getattr(sh, "placements", sh)) \
+            .to_local().to(g.dtype)
 
 
 def _sharded_norm(mesh, g, p_sh) -> torch.Tensor:
@@ -248,7 +265,27 @@ def make_sharded_train_step(cfg: ArchConfig, opt_cfg: OptConfig,
     reference routes over the whole batch); then every rank computes the
     whole batch and the gradient needs no reduction.
     ``train_step.grads(params, batch)`` gives this rank's shards of the
-    data-mean gradient, without a step."""
+    data-mean gradient, without a step.
+
+    The dense family's step is tensor parallel (module docstring; its
+    ``train_step.tp`` is the ``TensorParallel``); the loss takes the
+    reference's ``REPRO_SHARDED_CE`` form.  A part whose leaves
+    ``spec_for`` left whole on "model" runs whole on every rank, with one
+    warning when the step is made.  Peak memory of a rank in the split
+    step, with P the parameters' bytes, n = dp x tp ranks, w bytes per
+    parameter value, L layers, P_l one layer's parameter bytes, R = B/dp
+    rows of S tokens and V the vocab:
+      P/n x (1 + 8/w)      the pieces and their fp32 AdamW moments
+      + 4P/(n w)           the error buffers, with compression
+      + P_l/tp             one layer's pieces gathered over data
+      + L x A              what autograd keeps of each layer: with remat
+                           "none" its activations at H/tp heads and ff/tp
+                           columns and its gathered weights P_l/tp; with
+                           remat "full" its input, R S d w
+      + 3 x R S V/tp x 4   the fp32 logits, their exponentials and their
+                           gradient.
+    The other families compute on the whole gathered tree: P on every
+    rank besides its pieces."""
     params_abs, axes = abstract_params_and_axes(cfg)
     p_sh = specs.tree_shardings(axes, mesh, params_abs)
     b_sh = {k: specs.NamedSharding(mesh, specs.spec_for(ax, mesh=mesh))
@@ -257,18 +294,35 @@ def make_sharded_train_step(cfg: ArchConfig, opt_cfg: OptConfig,
     n_mb = tc.microbatches
     lay = _Layout(cfg, mesh, next(iter(b_sh.values())).placements,
                   B // n_mb)
+    tp = None
+    if cfg.family == "dense":
+        tp = TensorParallel(cfg, mesh, p_sh, params_abs, reduce=lay.reduce)
+        tp.warn_whole("make_sharded_train_step")
+    else:
+        warn_gathered(cfg, mesh, "make_sharded_train_step")
 
-    def grads(full, rows):
+    def grads(compute, rows):
+        if tp is not None:
+            return grads_of(cfg, tc, compute, rows, tp=tp)
         with moe_mod.shard_of(lay.shards):
-            loss, metrics, g = grads_of(cfg, tc, full, rows)
+            loss, metrics, g = grads_of(cfg, tc, compute, rows)
         return loss, metrics, specs.map_leaves(lay.reduce, g, p_sh)
 
+    def params_for_compute(params):
+        """The split step's pieces, or the whole gathered tree."""
+        return local_tree(params) if tp is not None \
+            else specs.gather_tree(params)
+
+    def whole_batch(batch):
+        """The batch's rows on every rank (tokens only: small)."""
+        return {k: v.full_tensor() for k, v in batch.items()}
+
     def step(params, opt_state, err_state, batch):
-        full = specs.gather_tree(params)
+        full = params_for_compute(params)
         if n_mb == 1 and lay.local:
             rows = {k: v.to_local() for k, v in batch.items()}
         else:
-            rows = specs.gather_tree(batch)
+            rows = whole_batch(batch)
         if n_mb > 1:
             acc = map_tree(lambda p: torch.zeros(p.to_local().shape,
                                                  dtype=torch.float32,
@@ -307,10 +361,11 @@ def make_sharded_train_step(cfg: ArchConfig, opt_cfg: OptConfig,
     def data_mean_grads(params, batch):
         """This rank's shards of the data-mean gradient at ``params`` over
         the whole ``batch`` (one microbatch)."""
-        rows = specs.gather_tree(batch)
-        return grads(specs.gather_tree(params), lay.rows(rows, 0, B))[2]
+        return grads(params_for_compute(params),
+                     lay.rows(whole_batch(batch), 0, B))[2]
 
     step.grads = data_mean_grads
+    step.tp = tp
     return step, p_sh, b_sh
 
 
@@ -368,11 +423,17 @@ def fit(cfg: ArchConfig, dc: DataConfig, opt_cfg: OptConfig, tc: TrainConfig,
 
 
 def _fit(cfg, dc, opt_cfg, tc, mesh, resume, seed, log, device):
-    params, axes = init_params_and_axes(cfg, device, seed=seed)
+    if mesh is not None and cfg.family == "dense":
+        # each rank draws its own pieces: no rank holds the whole tree
+        params = init_sharded_params(cfg, mesh, seed, device)
+        axes = abstract_params_and_axes(cfg)[1]
+    else:
+        params, axes = init_params_and_axes(cfg, device, seed=seed)
     if mesh is not None:
         step_fn, p_sh, b_sh = make_sharded_train_step(
             cfg, opt_cfg, tc, mesh, make_batch(dc, 0))
-        params = specs.distribute_tree(params, p_sh)
+        if cfg.family != "dense":
+            params = specs.distribute_tree(params, p_sh)
         opt_state, err_state = init_sharded_state(
             p_sh, abstract_params_and_axes(cfg)[0], tc.compress_grads)
         b_pl = next(iter(b_sh.values())).placements

@@ -2161,11 +2161,13 @@ def nccl_mesh(cuda, tmp_path):
 @pytest.mark.cuda
 @pytest.mark.parametrize("microbatches,compress", [(1, False), (2, True)])
 def test_sharded_step_equals_unsharded_on_the_card(nccl_mesh, microbatches,
-                                                   compress):
-    """Two sharded steps of the tiny llama on a one-rank NCCL mesh against
-    ``make_train_step`` from the same parameters and batches: losses,
-    gnorms, parameters and error state bit for bit; flash forward and
-    backward launches equal."""
+                                                   compress, monkeypatch):
+    """Two sharded steps of the tiny llama on a one-rank NCCL mesh (the
+    dense family's tensor-parallel path, every part split over the one
+    "model" rank) against ``make_train_step`` under ``REPRO_SHARDED_CE=1``
+    (the split step's loss takes that form) from the same parameters and
+    batches: losses, gnorms, parameters and error state bit for bit;
+    flash forward and backward launches equal."""
     from repro_torch.configs import get_config, reduce_for_smoke
     from repro_torch.data.pipeline import DataConfig, device_batch, make_batch
     from repro_torch.models import abstract_params_and_axes, init_params
@@ -2182,6 +2184,7 @@ def test_sharded_step_equals_unsharded_on_the_card(nccl_mesh, microbatches,
     dc = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4, seed=7)
     oc = OptConfig(lr=3e-3, warmup_steps=5, total_steps=60)
     tc = TrainConfig(microbatches=microbatches, compress_grads=compress)
+    monkeypatch.setenv("REPRO_SHARDED_CE", "1")
     runs = []
     for sharded in (False, True):
         params = init_params(cfg, cuda, seed=0)

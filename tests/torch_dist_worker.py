@@ -18,7 +18,21 @@ test compares into the directory ``out``:
   world;
 * ``preempt.json``: ``fit`` on (2, 2) with SIGTERM on rank 1 alone after
   step 0: each rank's logged steps and whether it stopped, and the
-  steps saved.
+  steps saved;
+* ``tp_train_<i>.npz``: ``TP_TRAIN_CASES[i]``, the tensor-parallel train
+  step of a dense config on its mesh, as ``train_<i>.npz`` (with the
+  parts that ran split);
+* ``tp_serve.json``: ``TP_SERVE_CASES``, split prefill then decode with
+  ragged positions, an idle lane and (one case) a window, against the
+  unsharded port;
+* ``comm.json``: every collective of one split train step, prefill and
+  decode step (op, group, elements), recorded under a dispatch mode, and
+  whether ``specs.gather_tree`` was called;
+* ``remat.json``: the split step's gradient under remat "full"
+  against "none", and the all-gathers each ran on "data";
+* ``init.json``: ``init_sharded_params`` on (2, 2) and (1, 4): the
+  gathered pieces against ``init_params``, and the largest tensor an op
+  made while drawing.
 """
 
 from __future__ import annotations
@@ -31,6 +45,9 @@ import warnings
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.sharding.tensor_parallel import CollectiveLog
 
 WORLD = 4
 TRAIN_STEPS = 2
@@ -44,6 +61,25 @@ DC_KW = dict(seq_len=16, global_batch=8, seed=5)
 SERVE_ARCHS = ("llama3-8b", "granite-moe-3b-a800m")
 SERVE_B, SERVE_PROMPT, SERVE_LEN, SERVE_STEPS = 4, 10, 16, 6
 PREEMPT_STEPS = 3
+# tensor-parallel cases: (mesh, arch, wide, microbatches, compress_grads);
+# "wide" gives the smoke config 8 heads over 4 KV heads, which split over
+# a 4-rank "model" axis; the smoke config's 2 KV heads do not (attention
+# runs whole there, the last case)
+TP_TRAIN_CASES = (((2, 2), "qwen2-7b", False, 1, False),
+                  ((2, 2), "qwen2-7b", False, 2, True),
+                  ((1, 4), "llama3-8b", True, 1, False),
+                  ((1, 4), "llama3-8b", True, 2, True),
+                  ((1, 4), "qwen2-7b", True, 1, False),
+                  ((1, 4), "qwen2-7b", True, 2, True),
+                  ((1, 4), "llama3-8b", False, 1, False))
+# (mesh, arch, wide, sliding window)
+TP_SERVE_CASES = (((2, 2), "llama3-8b", False, 0),
+                  ((2, 2), "qwen2-7b", False, 0),
+                  ((1, 4), "llama3-8b", True, 6),
+                  ((1, 4), "qwen2-7b", True, 0),
+                  ((1, 4), "llama3-8b", False, 0))
+# lanes' positions after the prefill: ragged, lane 3 idle throughout
+TP_SERVE_POS = (10, 7, 3, -100)
 
 
 def opt_config():
@@ -56,6 +92,31 @@ def opt_config():
 def smoke(arch):
     from repro_torch.configs import get_config, reduce_for_smoke
     return reduce_for_smoke(get_config(arch))
+
+
+def widen(cfg, wide: bool, window: int = 0):
+    """The smoke config with 8 heads over 4 KV heads (``wide``) and a
+    sliding window; either package's config."""
+    if wide:
+        cfg = dataclasses.replace(cfg, n_heads=8, n_kv_heads=4)
+    return dataclasses.replace(cfg, sliding_window=window) if window else cfg
+
+
+def init(cfg) -> dict:
+    """``init_params(cfg, "cpu", 0)`` with the QKV biases drawn (normal,
+    0.5): at their init of zero they would not show in the outputs, and
+    bk's gradient is zero in exact arithmetic (softmax is unmoved by one
+    shift of every key), so from zero its values after a step are
+    rounding noise."""
+    from repro_torch.models import init_params
+    params = init_params(cfg, "cpu", seed=0)
+    if cfg.qkv_bias:
+        rng = np.random.default_rng(12)
+        for k in ("bq", "bk", "bv"):
+            b = params["blocks"]["attn"][k]
+            b.copy_(torch.from_numpy(rng.normal(0, 0.5, b.shape).astype(
+                np.float32)))
+    return params
 
 
 def data_config(cfg):
@@ -105,20 +166,43 @@ def _batch(dc, it, b_sh, mesh):
 
 
 def train_case(i, mesh, out):
+    arch, mb, compress, groups = TRAIN_CASES[i]
+    os.environ["REPRO_MOE_GROUPS"] = str(groups)
+    res, state = _train(smoke(arch), mb, compress, mesh)
+    os.environ.pop("REPRO_MOE_GROUPS")
+    if dist.get_rank() == 0:
+        np.savez(os.path.join(out, f"train_{i}.npz"), **res)
+    return state
+
+
+def tp_train_case(i, meshes, out):
+    shape, arch, wide, mb, compress = TP_TRAIN_CASES[i]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res, (_, _, _, step) = _train(widen(smoke(arch), wide), mb, compress,
+                                      meshes[shape])
+    res["split"] = np.array([step.tp.split[p] for p in ("attn", "mlp",
+                                                        "vocab")])
+    res["whole_warnings"] = np.array(sum("computes attn whole" in
+                                         str(w.message) for w in caught))
+    if dist.get_rank() == 0:
+        np.savez(os.path.join(out, f"tp_train_{i}.npz"), **res)
+
+
+def _train(cfg, mb, compress, mesh):
+    """``TRAIN_STEPS`` sharded steps of ``cfg`` on ``mesh`` -> (what
+    ``train_<i>.npz`` holds, (params, opt, p_sh, the step))."""
     from repro_torch.data.pipeline import make_batch
-    from repro_torch.models import abstract_params_and_axes, init_params
+    from repro_torch.models import abstract_params_and_axes
     from repro_torch.sharding import specs
     from repro_torch.train.loop import (TrainConfig, init_sharded_state,
                                         make_sharded_train_step)
 
-    arch, mb, compress, groups = TRAIN_CASES[i]
-    os.environ["REPRO_MOE_GROUPS"] = str(groups)
-    cfg = smoke(arch)
     dc = data_config(cfg)
     tc = TrainConfig(microbatches=mb, compress_grads=compress)
     step, p_sh, b_sh = make_sharded_train_step(cfg, opt_config(), tc, mesh,
                                                make_batch(dc, 0))
-    params = specs.distribute_tree(init_params(cfg, "cpu", seed=0), p_sh)
+    params = specs.distribute_tree(init(cfg), p_sh)
     opt, err = init_sharded_state(p_sh, abstract_params_and_axes(cfg)[0],
                                   compress)
     res = {}
@@ -138,10 +222,7 @@ def train_case(i, mesh, out):
         res.update({f"err/{k}": _full(v) for k, v in flat(err).items()})
     res["loss"], res["gnorm"] = np.array(losses), np.array(gnorms)
     res["step"] = np.array(int(opt.step.full_tensor()))
-    os.environ.pop("REPRO_MOE_GROUPS")
-    if dist.get_rank() == 0:
-        np.savez(os.path.join(out, f"train_{i}.npz"), **res)
-    return params, opt, p_sh
+    return res, (params, opt, p_sh, step)
 
 
 def ckpt_case(state, out, rank):
@@ -156,7 +237,7 @@ def ckpt_case(state, out, rank):
     arch = TRAIN_CASES[0][0]
     cfg = smoke(arch)
     mgr = CheckpointManager(os.path.join(out, "ckpt"))
-    params, opt, _ = state
+    params, opt = state[:2]
     mgr.save_async(2, {"params": params, "opt": opt}, extra={"arch": arch})
     mgr.wait()
     mesh41 = _mesh((4, 1))
@@ -274,6 +355,227 @@ def preempt_case(mesh, out, rank):
                        "saved": CheckpointManager(ckpt).all_steps()}, f)
 
 
+def tp_serve_case(i, meshes):
+    """Split ``jit_prefill``, the positions set to ``TP_SERVE_POS``, then
+    greedy split ``jit_decode`` steps against the unsharded port with the
+    same positions: tokens, the logits' largest gap, the caches gathered
+    against the unsharded ones, and each cache piece's shape."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import (abstract_params_and_axes, decode_step,
+                                    prefill)
+    from repro_torch.serve.decode import (batch_shardings,
+                                          decode_state_shardings, jit_decode,
+                                          jit_prefill)
+    from repro_torch.sharding import specs
+
+    shape, arch, wide, window = TP_SERVE_CASES[i]
+    mesh = meshes[shape]
+    cfg = widen(smoke(arch), wide, window)
+    full = init(cfg)
+    sh = ShapeConfig("serve", SERVE_LEN, SERVE_B, "prefill")
+    pre, (params_abs, _) = jit_prefill(cfg, sh, mesh)
+    dec, (_, state_abs, _) = jit_decode(cfg, dataclasses.replace(
+        sh, kind="decode"), mesh)
+    params = specs.distribute_tree(full, specs.tree_shardings(
+        abstract_params_and_axes(cfg)[1], mesh, params_abs))
+    prompt = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab, (SERVE_B, SERVE_PROMPT), dtype=np.int32))
+    b_sh = batch_shardings({"tokens": prompt}, mesh)
+    logits, state = pre(params, {"tokens": specs.distribute(
+        prompt, b_sh["tokens"])})
+    want_logits, want = prefill(cfg, full, {"tokens": prompt},
+                                max_len=SERVE_LEN)
+    want_logits = want_logits[:, -1]
+    s_sh = decode_state_shardings(cfg, state_abs, mesh)
+    pos = torch.tensor(TP_SERVE_POS, dtype=torch.int32)
+    state = state._replace(pos=specs.distribute(pos, s_sh.pos))
+    want = want._replace(pos=pos.clone())
+    t_sh = specs.NamedSharding(mesh, specs.spec_for(
+        ("batch",), mesh=mesh, shape=(SERVE_B,)))
+    toks, want_toks, gap = [], [], 0.0
+    for _ in range(SERVE_STEPS):
+        got = logits.full_tensor()
+        gap = max(gap, (got - want_logits).abs().max().item())
+        nxt, want_nxt = got.argmax(-1), want_logits.argmax(-1)
+        toks.append(nxt.tolist())
+        want_toks.append(want_nxt.tolist())
+        logits, state = dec(params, state, specs.distribute(
+            nxt.to(torch.int32), t_sh))
+        want_logits, want = decode_step(cfg, full, want, want_nxt)
+    got = logits.full_tensor()
+    gap = max(gap, (got - want_logits).abs().max().item())
+    cache_gap = max((state.caches[k].full_tensor() - want.caches[k]).abs()
+                    .max().item() for k in ("k", "v"))
+    return {"tokens": toks, "want_tokens": want_toks, "logit_gap": gap,
+            "cache_gap": cache_gap, "pos": state.pos.full_tensor().tolist(),
+            "want_pos": want.pos.tolist(),
+            "piece": list(state.caches["k"].to_local().shape),
+            "whole": list(state_abs.caches["k"].shape),
+            "logits_spec": str(logits.placements)}
+
+
+def comm_case(meshes, out, rank):
+    """Under ``CollectiveLog``: one split train step, a prefill and a decode
+    step of smoke llama3-8b on (2, 2) and of the wide one on (1, 4), with
+    ``specs.gather_tree`` counted; the collectives on "model" and the
+    shapes no such collective may have (every parameter leaf's piece,
+    layer and whole, and the caches')."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import (abstract_params_and_axes, init_params)
+    from repro_torch.serve.decode import batch_shardings, jit_decode, \
+        jit_prefill
+    from repro_torch.sharding import specs
+    from repro_torch.train.loop import (TrainConfig, init_sharded_state,
+                                        make_sharded_train_step)
+
+    res = {}
+    calls = [0]
+    real = specs.gather_tree
+
+    def counted(tree):
+        calls[0] += 1
+        return real(tree)
+    specs.gather_tree = counted
+    try:
+        for shape, wide in (((2, 2), False), ((1, 4), True)):
+            mesh = meshes[shape]
+            cfg = widen(smoke("llama3-8b"), wide)
+            # 24 tokens: no activation shares a shape with a parameter
+            dc = dataclasses.replace(data_config(cfg), seq_len=24)
+            step, p_sh, b_sh = make_sharded_train_step(
+                cfg, opt_config(), TrainConfig(), mesh, make_batch(dc, 0))
+            full = init_params(cfg, "cpu", seed=0)
+            params = specs.distribute_tree(full, p_sh)
+            opt, err = init_sharded_state(
+                p_sh, abstract_params_and_axes(cfg)[0], False)
+            batch = _batch(dc, 0, b_sh, mesh)
+            sh = ShapeConfig("serve", SERVE_LEN, SERVE_B, "prefill")
+            pre, _ = jit_prefill(cfg, sh, mesh)
+            dec, (_, state_abs, _) = jit_decode(cfg, dataclasses.replace(
+                sh, kind="decode"), mesh)
+            prompt = torch.zeros((SERVE_B, SERVE_PROMPT), dtype=torch.int32)
+            tokens = torch.zeros((SERVE_B,), dtype=torch.int32)
+            bs = batch_shardings({"tokens": prompt}, mesh)["tokens"]
+            ts = batch_shardings({"tokens": tokens}, mesh)["tokens"]
+            recs = {}
+            for phase in ("train", "prefill", "decode"):
+                rec = CollectiveLog()
+                with rec:
+                    if phase == "train":
+                        step(params, opt, err, batch)
+                    elif phase == "prefill":
+                        _, state = pre(params, {"tokens": specs.distribute(
+                            prompt, bs)})
+                    else:
+                        dec(params, state, specs.distribute(tokens, ts))
+                recs[phase] = rec.calls
+            model = mesh.get_group("model").group_name
+            pieces = set()
+            for t in flat(params).values():
+                pieces.add(tuple(t.to_local().shape))
+                pieces.add(tuple(t.to_local().shape[1:]))
+                pieces.add(tuple(t.shape))
+                pieces.add(tuple(t.shape[1:]))
+            for t in flat(state.caches).values():
+                pieces.add(tuple(t.to_local().shape))
+                pieces.add(tuple(t.to_local().shape[1:]))
+            res[str(shape)] = {
+                ph: [c for c in calls_ if c[1] == model]
+                for ph, calls_ in recs.items()}
+            res[str(shape)]["n_all"] = {ph: len(c) for ph, c in recs.items()}
+            res[str(shape)]["forbidden"] = sorted(map(list, pieces))
+            res[str(shape)]["bounds"] = {
+                "train": dc.global_batch // shape[0] * dc.seq_len
+                * cfg.d_model,
+                "prefill": SERVE_B // shape[0] * SERVE_LEN * cfg.d_model,
+                "decode": SERVE_B // shape[0] * max(
+                    cfg.d_model, (cfg.n_heads + 2 * cfg.n_kv_heads)
+                    * cfg.hd, cfg.n_heads * (cfg.hd + 1))}
+    finally:
+        specs.gather_tree = real
+    res["gather_tree_calls"] = calls[0]
+    if rank == 0:
+        with open(os.path.join(out, "comm.json"), "w") as f:
+            json.dump(res, f)
+
+
+def remat_case(meshes, out, rank):
+    """The split step's data-mean gradient of smoke llama3-8b on (2, 2)
+    under remat "full" against "none" (the largest difference), and the
+    all-gathers each ran on the "data" group (a recomputing backward
+    gathers each layer's pieces again)."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.sharding import specs
+    from repro_torch.train.loop import TrainConfig, make_sharded_train_step
+
+    mesh = meshes[(2, 2)]
+    cfg = smoke("llama3-8b")
+    dc = data_config(cfg)
+    data = mesh.get_group("data").group_name
+    grads, gathers = {}, {}
+    for remat in ("none", "full"):
+        step, p_sh, b_sh = make_sharded_train_step(
+            cfg, opt_config(), TrainConfig(remat=remat), mesh,
+            make_batch(dc, 0))
+        params = specs.distribute_tree(init(cfg), p_sh)
+        rec = CollectiveLog()
+        with rec:
+            grads[remat] = flat(step.grads(params, _batch(dc, 0, b_sh,
+                                                          mesh)))
+        gathers[remat] = sum(c.op.startswith("c10d._allgather_base")
+                             and c.group == data for c in rec.calls)
+    diff = max((grads["full"][k] - grads["none"][k]).abs().max().item()
+               for k in grads["none"])
+    if rank == 0:
+        with open(os.path.join(out, "remat.json"), "w") as f:
+            json.dump({"max_diff": diff, "gathers": gathers}, f)
+
+
+class Sizes(TorchDispatchMode):
+    """The shape of every tensor an op makes in the mode (meta tensors,
+    which hold no memory, aside)."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in (out if isinstance(out, (list, tuple)) else [out]):
+            if isinstance(t, torch.Tensor) and t.device.type != "meta":
+                self.shapes.add(tuple(t.shape))
+        return out
+
+
+def init_case(meshes, out, rank):
+    """``init_sharded_params`` of smoke qwen2-7b (QKV bias) on (2, 2)
+    and (1, 4): the leaves whose gathered pieces differ from
+    ``init_params``'s, the shapes of what ops made while drawing, and
+    per leaf one layer's element count, its piece's and its whole
+    shape."""
+    from repro_torch.models import init_params, init_sharded_params
+
+    cfg = smoke("qwen2-7b")
+    want = flat(init_params(cfg, "cpu", seed=4))
+    res = {}
+    for shape, mesh in meshes.items():
+        rec = Sizes()
+        with rec:
+            got = flat(init_sharded_params(cfg, mesh, seed=4, device="cpu"))
+        res[str(shape)] = {
+            "unequal": [k for k in want if not torch.equal(
+                got[k].full_tensor(), want[k])],
+            "shapes": sorted(map(list, rec.shapes)),
+            "layer": {k: (v[0].numel() if k.startswith("blocks/")
+                          else v.numel()) for k, v in want.items()},
+            "whole": {k: list(v.shape) for k, v in want.items()},
+            "piece": {k: list(got[k].to_local().shape) for k in want}}
+    if rank == 0:
+        with open(os.path.join(out, "init.json"), "w") as f:
+            json.dump(res, f)
+
+
 def dp_case(out, rank):
     from repro_torch.train.compression import dp_mean_compressed
     tree = {k: torch.from_numpy(v) if not isinstance(v, dict) else
@@ -291,6 +593,7 @@ def run(rank: int, world: int, store: str, out: str):
                             rank=rank, world_size=world)
     try:
         mesh = _mesh((2, 2))
+        meshes = {(2, 2): mesh, (1, 4): _mesh((1, 4))}
         state = None
         for i in range(len(TRAIN_CASES)):
             res = train_case(i, mesh, out)
@@ -301,6 +604,16 @@ def run(rank: int, world: int, store: str, out: str):
         if rank == 0:
             with open(os.path.join(out, "serve.json"), "w") as f:
                 json.dump(serve, f)
+        for i in range(len(TP_TRAIN_CASES)):
+            tp_train_case(i, meshes, out)
+        tp_serve = [tp_serve_case(i, meshes) for i in range(len(
+            TP_SERVE_CASES))]
+        if rank == 0:
+            with open(os.path.join(out, "tp_serve.json"), "w") as f:
+                json.dump(tp_serve, f)
+        comm_case(meshes, out, rank)
+        remat_case(meshes, out, rank)
+        init_case(meshes, out, rank)
         dp_case(out, rank)
         preempt_case(mesh, out, rank)
         dist.barrier()
@@ -308,7 +621,7 @@ def run(rank: int, world: int, store: str, out: str):
         dist.destroy_process_group()
 
 
-def spawn(out: str, timeout: float = 240.0) -> None:
+def spawn(out: str, timeout: float = 400.0) -> None:
     """Run ``run`` on ``WORLD`` spawned ranks; a rank's error is raised
     here, and ranks still running at ``timeout`` seconds are killed and
     a TimeoutError raised (a hang fails, it does not stall the suite)."""
