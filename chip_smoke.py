@@ -123,7 +123,9 @@ prints no result line):
    prompt through flash with the 4096-token window, 16 teacher-forced
    decode steps each within 1e-3 of the one-shot forward, and a window-0
    control that matches its own forward and differs from the windowed
-   one.
+   one; then the ring (``REPRO_WINDOW_CACHE=1``): a 4,080-token
+   ``prefill`` into a ring of 4,096 slots and 32 decode steps across
+   position 4,096, each within 1e-3 of the one-shot forward.
 12. the recurrent families at full width: (a) hymba-1.5b (attention and
    Mamba heads in parallel, window 1024 except on the global layers 0,
    8, 16, 24) and (c) xlstm-125m (mLSTM, sLSTM every 4th layer) at their
@@ -237,13 +239,16 @@ prints no result line):
    (the last position unembedded alone, as ``make_prefill_fn`` does) and
    ``decode_step``: logits and tokens bit for bit; (c)
    ``dp_mean_compressed`` through NCCL against its plain single-process
-   result, bit for bit; (d) the gathered path that every family but the
-   dense one still takes: granite-moe-3b-a800m at published widths on 4
-   of 32 layers, ``REPRO_MOE_GROUPS=2`` on both sides, through (a)'s
-   training run against ``make_train_step`` and (b)'s served run
-   against ``prefill`` and ``decode_step``, bit for bit, with
-   ``specs.gather_tree`` counted once a step or call and
-   ``_Layout.reduce`` once a leaf a training step.
+   result, bit for bit; (d) the gathered path that the families outside
+   the split still take: hymba-1.5b at published widths on 4 of 32
+   layers, through (a)'s training run against ``make_train_step`` and
+   (b)'s served run against ``prefill`` and ``decode_step``, bit for
+   bit, with ``specs.gather_tree`` counted once a step or call and
+   ``_Layout.reduce`` once a leaf a training step; (e) the MoE family on
+   the split path: granite-moe-3b-a800m at published widths on 4 of 32
+   layers (every expert local to the one rank, every dispatch offset
+   0), (a)'s training run under ``REPRO_SHARDED_CE=1`` and (b)'s served
+   run, bit for bit, ``gather_tree`` never called.
 17. one rank's share of qwen2-72b on a (1, 4) mesh (after phase 16):
    rank 0 of a 4-rank group of ``torch.distributed``'s fake backend
    (``FakeStore``: every collective returns at once and moves nothing,
@@ -258,6 +263,19 @@ prints no result line):
    and the collectives a decode step would run on four cards (their
    count and bytes, recorded at dispatch); then flash at the rank's
    prefill shape, checked and timed as phase 3's rows.
+18. one rank's share of mixtral-8x22b on a (1, 4) mesh (after phase 17,
+   whose memory is freed first), as phase 17 on a fake 4-rank group,
+   with ``REPRO_WINDOW_CACHE=1``: ``init_sharded_params`` on the card
+   (published widths, all 56 layers, bf16, 2 of the 8 experts a rank),
+   a ``jit_prefill`` of 4 x 4,032 tokens into a ring of 4,096 slots
+   (1,024 a rank), then 128 ``jit_decode`` steps (the ring wraps at
+   step 64).  Prints peak memory by stage (the draw, the prefill, the
+   decode), parameter (expert) and cache bytes, prefill ms, decode p50
+   and p90 against the weight bound, flash launches (one a layer in the
+   prefill, H 12/2 a rank), the expert rows computed a layer, and the
+   collectives a decode step would run on four cards; then flash at the
+   rank's prefill shape (window 4,096), checked and timed as phase 3's
+   rows.  Then one line of every phase's host seconds.
 
 Output, in order: phase lines, one JSON ``kernels`` line (launches: the
 main path's for paged_attention_fused, remap_gather (every launch of the
@@ -269,7 +287,7 @@ chunked run's for flash_attention, the Figure 7 sweep's for sim_scan,
 phase 14's training run's for flash_attention_bwd and for flash's row
 at the training shape; a row at another family's shape counts phase
 11's, 12's or 13's run of that family, and flash's row at qwen2-72b's
-rank shape phase 17's prefill),
+rank shape phase 17's prefill and at mixtral-8x22b's phase 18's),
 the card's name and power limit as
 nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 """
@@ -3150,6 +3168,8 @@ FAMILY_ARCHS = ("qwen2-7b", "granite-moe-3b-a800m")
 # time and tokens are left out of the run's other numbers
 FAMILY_PROFILED = (24, 4)
 MIXTRAL_PROMPT, MIXTRAL_STEPS = 4600, 16
+# 11's ring run: a prompt just under the window, decode steps across it
+RING_PROMPT, RING_STEPS = 4080, 32
 
 
 def _count_drops(torch, moe_mod, dev):
@@ -3160,8 +3180,8 @@ def _count_drops(torch, moe_mod, dev):
     real = moe_mod.dispatch
     counts = torch.zeros((3,), dtype=torch.int64, device=dev)
 
-    def counted(eidx, n_experts, cap):
-        slot, keep = real(eidx, n_experts, cap)
+    def counted(eidx, n_experts, cap, offset=None):
+        slot, keep = real(eidx, n_experts, cap, offset)
         counts[0].add_((~keep).sum())
         counts[1].add_(1)
         counts[2].add_(keep.numel())
@@ -3441,11 +3461,63 @@ def mixtral_window_phase(torch, dev):
           f"{fa_ops.launches} flash launches (fp32), {secs:.1f} s; peak "
           f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB")
-    launches = fa_ops.launches
+    launches = fa_ops.launches + mixtral_ring_run(torch, dev, cfg, params)
     del params, out, dec, one, dec0, one0
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def mixtral_ring_run(torch, dev, cfg, params):
+    """11(ring): the window phase's mixtral (2 layers, fp32) with
+    ``REPRO_WINDOW_CACHE=1``: ``prefill`` of a ``RING_PROMPT``-token
+    prompt into a ring of ``window`` slots (4,096), then ``RING_STEPS``
+    teacher-forced ``decode_step``s over the dense backend at positions
+    across 4,096, where the ring wraps: each step's logits within 1e-3
+    of the one-shot ``forward`` over the same tokens (window 4,096).
+    Returns the flash launches (the prefill's and the forward's)."""
+    import numpy as np
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import decode_step, forward, prefill
+
+    n, steps = RING_PROMPT, RING_STEPS
+    seq = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab, (1, n + steps)), dtype=torch.int32, device=dev)
+    fa_ops.launches = 0
+    t0 = time.perf_counter()
+    with torch.inference_mode(), _env(REPRO_WINDOW_CACHE="1"):
+        _, st = prefill(cfg, params, {"tokens": seq[:, :n]},
+                        max_len=n + steps, last=True)
+        slots = st.caches["k"].shape[2]
+        rows = []
+        for i in range(steps):
+            lg, st = decode_step(cfg, params, st, seq[:, n + i])
+            rows.append(lg[0])
+        one = forward(cfg, params, {"tokens": seq})[0][0, n:]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    err = (torch.stack(rows) - one).abs().max().item()
+    pos = int(st.pos[0])
+    _check(slots == cfg.sliding_window,
+           f"mixtral ring: the cache holds {slots} slots, want "
+           f"{cfg.sliding_window}")
+    _check(pos == n + steps and n < slots < pos,
+           f"mixtral ring: decode ended at {pos}; the ring of {slots} slots "
+           f"must wrap")
+    _check(math.isfinite(err) and err <= 1e-3,
+           f"mixtral ring: decode differs from the one-shot forward by "
+           f"{err} > 1e-3")
+    _check(fa_ops.launches == 2 * cfg.n_layers,
+           f"mixtral ring: flash launches {fa_ops.launches} != 2 forwards "
+           f"x {cfg.n_layers} layers")
+    print(f"families mixtral-8x22b ring: REPRO_WINDOW_CACHE=1, a {n}-token "
+          f"prefill into a ring of {slots} slots, then {steps} "
+          f"teacher-forced decode steps at positions {n}-{n + steps - 1} "
+          f"(the ring wraps at {slots}): max |decode - one-shot forward| "
+          f"{err:.3e} (tol 1e-3); {fa_ops.launches} flash launches, "
+          f"{secs:.1f} s")
+    return fa_ops.launches
 
 
 def families_phase(torch, dev, rows):
@@ -4741,10 +4813,10 @@ def train_phase(torch, dev, rows, launches):
 SHARD_STEPS = 3                 # 16(a): steps of each training run
 # 16(b): lanes, prompt tokens and greedy decode steps of the served run
 SHARD_LANES, SHARD_PROMPT, SHARD_DECODE = 2, 256, 8
-# 16(d): a family outside the split, on the gathered path: its depth and
-# the MoE routing groups both sides route in
-SHARD_GATHERED, SHARD_GATHERED_LAYERS = "granite-moe-3b-a800m", 4
-SHARD_MOE_GROUPS = "2"
+# 16(d): a family outside the split, on the gathered path, and its depth;
+# 16(e): the MoE family on the split path, and its depth
+SHARD_GATHERED, SHARD_GATHERED_LAYERS = "hymba-1.5b", 4
+SHARD_MOE, SHARD_MOE_LAYERS = "granite-moe-3b-a800m", 4
 
 
 @contextlib.contextmanager
@@ -4845,12 +4917,14 @@ def shard_train(torch, dev, mesh, arch, layers, env, label):
     each: losses, gnorms and every final parameter equal bit for bit (on
     one rank the data mean is the rank's own gradient), flash forward
     and backward launches a step equal (one a layer); ms a step (steps 2
-    on) and peak memory of both.  The dense family runs split (every
-    part over the one "model" rank, no ``gather_tree``; its loss takes
-    the ``REPRO_SHARDED_CE`` form, which ``env`` gives the unsharded
-    side), any other family gathered (``gather_tree`` once a step,
+    on) and peak memory of both.  The dense and MoE families run split
+    (every part over the one "model" rank, every expert local and every
+    dispatch offset 0, no ``gather_tree``; the loss takes the
+    ``REPRO_SHARDED_CE`` form, which ``env`` gives the unsharded side),
+    any other family gathered (``gather_tree`` once a step,
     ``_Layout.reduce`` once a leaf a step)."""
     from repro_torch.data.pipeline import device_batch
+    from repro_torch.sharding.tensor_parallel import SPLIT_FAMILIES
     from repro_torch.train.optimizer import leaves
 
     _, cfg, dc, oc = _train_configs(arch, layers)
@@ -4859,7 +4933,7 @@ def shard_train(torch, dev, mesh, arch, layers, env, label):
         runs = {name: _shard_train_run(torch, dev, cfg, dc, oc, batches, m)
                 for name, m in (("unsharded", None), ("sharded", mesh))}
     (v0, ms0, l0, pk0, f0, _), (v1, ms1, l1, pk1, f1, calls) = runs.values()
-    if cfg.family == "dense":
+    if cfg.family in SPLIT_FAMILIES:
         path = f"split path (parts {json.dumps(_split_parts(cfg, mesh))})"
         _check(all(_split_parts(cfg, mesh).values())
                and calls["gather_tree"] == 0,
@@ -4903,16 +4977,24 @@ def _abstract_params(cfg):
     return abstract_params_and_axes(cfg)[0]
 
 
-def _split_parts(cfg, mesh) -> dict:
-    """Which parts (attention, MLP, vocabulary) of ``cfg`` run split over
-    ``mesh``'s "model" axis, from the parameters' shardings."""
+def _split_of(cfg, mesh):
+    """The ``TensorParallel`` of ``cfg``'s parameters on ``mesh``."""
     from repro_torch.models import abstract_params_and_axes
     from repro_torch.sharding import specs
     from repro_torch.sharding.tensor_parallel import TensorParallel
 
     params_abs, axes = abstract_params_and_axes(cfg)
     return TensorParallel(cfg, mesh, specs.tree_shardings(
-        axes, mesh, params_abs), params_abs).split
+        axes, mesh, params_abs), params_abs)
+
+
+def _split_parts(cfg, mesh) -> dict:
+    """Which parts (attention, MLP or MoE, vocabulary) of ``cfg`` run
+    split over ``mesh``'s "model" axis, from the parameters'
+    shardings."""
+    other = "mlp" if cfg.family == "moe" else "moe"
+    return {k: v for k, v in _split_of(cfg, mesh).split.items()
+            if k != other}
 
 
 def shard_serve(torch, dev, mesh, arch, layers, env, label):
@@ -4923,13 +5005,14 @@ def shard_serve(torch, dev, mesh, arch, layers, env, label):
     unembedded alone, as ``make_prefill_fn`` does) and ``decode_step``,
     under ``env`` on both sides: the logits at every step and the tokens
     equal bit for bit; flash launched once a layer in each prefill.  The
-    dense family runs split (no ``gather_tree``), any other gathered
-    (``gather_tree`` once a call)."""
+    dense and MoE families run split (no ``gather_tree``), any other
+    gathered (``gather_tree`` once a call)."""
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.models import (abstract_params_and_axes, decode_step,
                                     init_params, prefill)
     from repro_torch.serve.decode import jit_decode, jit_prefill
     from repro_torch.sharding import specs
+    from repro_torch.sharding.tensor_parallel import SPLIT_FAMILIES
 
     cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     shape = ShapeConfig("phase16", SHARD_PROMPT + SHARD_DECODE, SHARD_LANES,
@@ -4970,7 +5053,7 @@ def shard_serve(torch, dev, mesh, arch, layers, env, label):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _counts()
-    gathered = 0 if cfg.family == "dense" else 1 + SHARD_DECODE
+    gathered = 0 if cfg.family in SPLIT_FAMILIES else 1 + SHARD_DECODE
     _check(calls["gather_tree"] == gathered,
            f"{label}: gather_tree called {calls['gather_tree']} times, "
            f"want {gathered} ({cfg.family})")
@@ -4980,7 +5063,7 @@ def shard_serve(torch, dev, mesh, arch, layers, env, label):
     _check(launches == plain_launches and launches["flash_attention"]
            == cfg.n_layers, f"{label}: launches {launches}, unsharded "
            f"{plain_launches}; want flash once a layer in prefill")
-    path = "split" if cfg.family == "dense" else \
+    path = "split" if cfg.family in SPLIT_FAMILIES else \
         f"gathered (gather_tree {calls['gather_tree']} calls)"
     print(f"{label}: jit_prefill of {SHARD_LANES} x {SHARD_PROMPT} "
           f"tokens then {SHARD_DECODE} jit_decode steps at {arch}'s "
@@ -5024,7 +5107,7 @@ def shard_dp_mean(torch, dev):
 def sharding_phase(torch, dev):
     """Phase 16: a one-rank NCCL group over a file store, the (1, 1)
     ("data", "model") mesh of ``make_host_mesh(1)``; 16(a), (b), (c),
-    (d); the group destroyed at the end."""
+    (d), (e); the group destroyed at the end."""
     import tempfile
 
     import torch.distributed as dist
@@ -5043,11 +5126,14 @@ def sharding_phase(torch, dev):
             shard_serve(torch, dev, mesh, TRAIN_ARCH, TRAIN_LAYERS, {},
                         "shard serve")
             shard_dp_mean(torch, dev)
-            moe = {"REPRO_MOE_GROUPS": SHARD_MOE_GROUPS}
             shard_train(torch, dev, mesh, SHARD_GATHERED,
-                        SHARD_GATHERED_LAYERS, moe, "shard gathered train")
+                        SHARD_GATHERED_LAYERS, {}, "shard gathered train")
             shard_serve(torch, dev, mesh, SHARD_GATHERED,
-                        SHARD_GATHERED_LAYERS, moe, "shard gathered serve")
+                        SHARD_GATHERED_LAYERS, {}, "shard gathered serve")
+            shard_train(torch, dev, mesh, SHARD_MOE, SHARD_MOE_LAYERS,
+                        {"REPRO_SHARDED_CE": "1"}, "shard moe train")
+            shard_serve(torch, dev, mesh, SHARD_MOE, SHARD_MOE_LAYERS, {},
+                        "shard moe serve")
         finally:
             dist.destroy_process_group()
     print(f"sharding: phase 16 took {time.perf_counter() - t0:.1f} s")
@@ -5220,6 +5306,207 @@ def tp_share_phase(torch, dev, rows):
     base_row["shapes"].append(row)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: one rank's share of mixtral-8x22b on a (1, 4) mesh
+# ---------------------------------------------------------------------------
+
+MOE_ARCH, MOE_MODEL = "mixtral-8x22b", 4
+# lanes, prompt tokens (under the 4,096-token window: a ring prefill takes
+# no longer prompt) and decode steps (the ring wraps at step 64)
+MOE_LANES, MOE_PROMPT, MOE_DECODE = 4, 4032, 128
+
+
+def moe_share_phase(torch, dev, rows):
+    """Phase 18: rank 0's share of mixtral-8x22b on a (1, 4) ("data",
+    "model") mesh, a fake 4-rank group as phase 17's (no value compared,
+    no communication timed), ``REPRO_WINDOW_CACHE=1``: parameters by
+    ``init_sharded_params`` on the card (published widths, all 56
+    layers, bf16; 2 of the 8 experts a rank), a ``jit_prefill`` of
+    ``MOE_LANES`` x ``MOE_PROMPT`` tokens into a ring of 4,096 slots
+    (1,024 on the rank), ``MOE_DECODE`` ``jit_decode`` steps past the
+    window.  Gates: every part split, the experts by expert (2 a rank),
+    the cache piece [56, 4, 1024, 8, 128], flash once a layer in the
+    prefill and never in decode, the MoE layer dispatched once a layer
+    in each call.  Prints peak memory by stage, parameter (and expert)
+    and cache bytes, prefill ms, decode p50 and p90 against the weight
+    bound, the expert rows computed a layer, and the collectives a
+    decode step would run on four cards; then appends flash's row at the
+    rank's prefill shape to ``rows``."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_sharded_params, moe
+    from repro_torch.serve.decode import (batch_shardings, jit_decode,
+                                          jit_prefill)
+    from repro_torch.sharding import specs
+    from repro_torch.sharding.tensor_parallel import CollectiveLog
+    from repro_torch.train.optimizer import leaves
+
+    t0 = time.perf_counter()
+    card = _card_line()
+    cfg = get_config(MOE_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    caps = []                       # each dispatch's capacity (host ints)
+    real = moe.dispatch
+
+    def counted(eidx, n_experts, cap, offset=None):
+        caps.append(cap)
+        return real(eidx, n_experts, cap, offset)
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=MOE_MODEL)
+    moe.dispatch = counted
+    try:
+        with _env(REPRO_WINDOW_CACHE="1"):
+            mesh = make_host_mesh(MOE_MODEL, dev)
+            tp = _split_of(cfg, mesh)
+            split = _split_parts(cfg, mesh)
+            n_loc = tp.moe_experts[0]
+            _check(all(split.values()) and tp.moe_mode == "expert"
+                   and n_loc == cfg.n_experts // MOE_MODEL,
+                   f"moe share: parts {split}, MoE split "
+                   f"{tp.moe_mode} {tp.moe_experts}")
+            t1 = time.perf_counter()
+            params = init_sharded_params(cfg, mesh, seed=5, device=dev)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t1
+            stage = {"init": _peak_since(torch, base)}
+            p_bytes = sum(t.to_local().numel() * t.to_local().element_size()
+                          for t in leaves(params))
+            e_bytes = sum(t.to_local().numel() * t.to_local().element_size()
+                          for t in params["blocks"]["moe"].values())
+            shape = ShapeConfig("phase18", MOE_PROMPT + MOE_DECODE,
+                                MOE_LANES, "prefill")
+            pre, _ = jit_prefill(cfg, shape, mesh)
+            dec, _ = jit_decode(cfg, dataclasses.replace(shape,
+                                                         kind="decode"),
+                                mesh)
+            g = torch.Generator(device=dev).manual_seed(6)
+            prompt = torch.randint(0, cfg.vocab, (MOE_LANES, MOE_PROMPT),
+                                   generator=g, device=dev,
+                                   dtype=torch.int32)
+            b_sh = batch_shardings({"tokens": prompt}, mesh)["tokens"]
+            t_sh = batch_shardings({"tokens": prompt[:, 0]}, mesh)["tokens"]
+            vocab0 = cfg.vocab // MOE_MODEL * mesh.get_coordinate()[1]
+            _counts(zero=True)
+            caps.clear()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, state = pre(params, {"tokens": specs.distribute(
+                prompt, b_sh)})
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t1) * 1e3
+            stage["prefill"] = _peak_since(torch, base)
+            launches = _counts(zero=True)
+            pre_caps = list(caps)
+            caps.clear()
+            slots = cfg.sliding_window
+            piece = tuple(state.caches["k"].to_local().shape)
+            want = (cfg.n_layers, MOE_LANES, slots // MOE_MODEL,
+                    cfg.n_kv_heads, cfg.hd)
+            _check(piece == want,
+                   f"moe share: cache piece {piece}, want {want}")
+            c_bytes = sum(t.to_local().numel() * t.to_local().element_size()
+                          for t in state.caches.values())
+            ms, rec = [], CollectiveLog()
+            for i in range(MOE_DECODE):
+                tok = (logits.to_local().argmax(-1) + vocab0).to(torch.int32)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                if i == 0:
+                    with rec:
+                        logits, state = dec(params, state, specs.distribute(
+                            tok, t_sh))
+                else:
+                    logits, state = dec(params, state, specs.distribute(
+                        tok, t_sh))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t1) * 1e3)
+            dec_launches = _counts()
+            stage["decode"] = _peak_since(torch, base)
+            end = int(state.pos.to_local().max())
+            model = mesh.get_group("model").group_name
+            on_model = [c for c in rec.calls if c.group == model]
+            kinds: dict = {}
+            for c in on_model:
+                op = c.op.split(".")[1]
+                kinds[op] = kinds.get(op, 0) + 1
+            wire = sum(_wire_bytes(c.op, c.nbytes, MOE_MODEL)
+                       for c in on_model)
+            largest = max(max(c.nbytes) for c in on_model)
+            del params, state, logits
+    finally:
+        moe.dispatch = real
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak = max(stage.values())
+    st = sorted(ms[1:])
+    p50, p90 = st[len(st) // 2], st[int(len(st) * 0.9)]
+    bound_ms = p_bytes / HBM_BYTES_PER_S * 1e3
+    dec_caps = caps[:cfg.n_layers]
+    _check(launches["flash_attention"] == cfg.n_layers
+           and dec_launches["flash_attention"] == 0,
+           f"moe share: flash launches prefill {launches}, decode "
+           f"{dec_launches}; want {cfg.n_layers} in the prefill")
+    _check(len(pre_caps) == cfg.n_layers
+           and len(caps) == cfg.n_layers * MOE_DECODE,
+           f"moe share: {len(pre_caps)} dispatches in the prefill and "
+           f"{len(caps)} in decode; want one a layer a call")
+    _check(end == MOE_PROMPT + MOE_DECODE and end > slots,
+           f"moe share: decode ended at {end}; the ring of {slots} slots "
+           f"must wrap")
+    print(f"moe share: {MOE_ARCH} rank 0 of a (1, {MOE_MODEL}) mesh on a "
+          f"fake {MOE_MODEL}-rank group (no value compared; no time "
+          f"includes communication), published widths, {cfg.n_layers} "
+          f"layers, {cfg.dtype}, REPRO_WINDOW_CACHE=1, parts "
+          f"{json.dumps(split)}, experts split by expert ({n_loc} of "
+          f"{cfg.n_experts} a rank): parameters of the rank "
+          f"{p_bytes / 1e9:.2f} GB ({e_bytes / 1e9:.2f} GB of experts; "
+          f"init_sharded_params {init_s:.1f} s), ring cache of the rank "
+          f"{c_bytes / 1e9:.3f} GB (piece {list(piece)} of {slots} slots), "
+          f"peak device memory of the rank {peak:.2f} GiB above the "
+          f"{base / 2**30:.2f} GiB held before (by stage "
+          f"{json.dumps(stage)}); card {card}")
+    print(f"moe share: prefill of {MOE_LANES} x {MOE_PROMPT} tokens into "
+          f"the ring {prefill_ms:.1f} ms with flash launched "
+          f"{launches['flash_attention']} times (once a layer, H "
+          f"{cfg.n_heads // MOE_MODEL}/{cfg.n_kv_heads // MOE_MODEL} heads "
+          f"a rank); expert rows computed a layer: prefill {n_loc} x "
+          f"{pre_caps[0]} = {n_loc * pre_caps[0]}, decode {n_loc} x "
+          f"{dec_caps[0]} = {n_loc * dec_caps[0]} (this rank's experts x "
+          f"the call's capacity); decode ms a step p50 {p50:.2f}, p90 "
+          f"{p90:.2f} (steps 2-{MOE_DECODE}, positions {MOE_PROMPT}-"
+          f"{end - 1}, the ring wrapping at {slots}; synchronised, all "
+          f"{[round(x, 2) for x in ms]}), against the weight-read bound "
+          f"{bound_ms:.2f} ms (the rank's parameter bytes at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); excluding communication; "
+          f"card {card}")
+    print(f"moe share: a decode step on 4 cards would run {len(on_model)} "
+          f"collectives on \"model\" ({json.dumps(kinds)}; "
+          f"{len(rec.calls) - len(on_model)} on other groups), the largest "
+          f"tensor {largest} bytes, {wire / 1e6:.3f} MB sent a rank by the "
+          f"ring algorithms; phase 18 took {time.perf_counter() - t0:.1f} s")
+    B, S = MOE_LANES, MOE_PROMPT
+    H, KV, hd = cfg.n_heads // MOE_MODEL, cfg.n_kv_heads // MOE_MODEL, cfg.hd
+    g = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = (torch.randn(B, S, h, hd, generator=g, device=dev).to(
+        torch.bfloat16) for h in (H, KV, KV))
+    base_row = rows["flash_attention"]
+    row = _shape_row(base_row, MOE_ARCH, f"expert-parallel rank, B {B}, S "
+                     f"{S}, T {S}, H {H}/{KV}, hd {hd}, causal, window "
+                     f"{cfg.sliding_window}, bf16",
+                     **_flash_case(torch, dev, q, k, v, 0,
+                                   f"at {MOE_ARCH}'s rank shape (tp 4)",
+                                   window=cfg.sliding_window))
+    row["launches"] = launches["flash_attention"]
+    base_row["shapes"].append(row)
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         _fail("src/repro_torch not found beside chip_smoke.py")
@@ -5235,9 +5522,16 @@ def main():
     print(f"device: {torch.cuda.get_device_name(0)} ({card}); torch "
           f"{torch.__version__} cuda {torch.version.cuda}; TF32 off for "
           f"matmul and cuDNN")
+    seconds = {}                  # phase -> host seconds, in run order
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
 
     from repro_torch.kernels import _build
-    secs = _build.build_all()
+    secs = phase("2 build", _build.build_all)
     print(f"build: {len(_build.SOURCES)} kernel libraries in {secs:.1f} s "
           f"(nvcc, sm_90a, one process per source)")
     for name in _build.SOURCES:
@@ -5245,27 +5539,33 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"build: {name}: {line.strip()}")
 
-    rows = kernel_phase(torch, dev)
-    cfg, params = main_model(torch, dev)
-    launches = main_path_phase(torch, dev, cfg, params)
-    graphs_phase(torch, dev, cfg, params)
-    dense_tiered_phase(torch, dev)
-    launches.update(server_phase(torch, dev))
-    launches.update(chunked_qos_phase(torch, dev, cfg, params))
-    chunk_equivalence_phase(torch, dev, cfg, params)
-    telemetry_phase(torch, dev, cfg, params)
+    rows = phase("3 kernels", kernel_phase, torch, dev)
+    cfg, params = phase("4 model", main_model, torch, dev)
+    launches = phase("4 main path", main_path_phase, torch, dev, cfg, params)
+    phase("15 graphs", graphs_phase, torch, dev, cfg, params)
+    phase("5 dense-tiered", dense_tiered_phase, torch, dev)
+    launches.update(phase("6 server", server_phase, torch, dev))
+    launches.update(phase("7 chunked", chunked_qos_phase, torch, dev, cfg,
+                          params))
+    phase("8 chunk equivalence", chunk_equivalence_phase, torch, dev, cfg,
+          params)
+    phase("9 telemetry", telemetry_phase, torch, dev, cfg, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    rows["sim_scan"], launches["sim_scan"] = sim_phase(torch, dev)
-    families_phase(torch, dev, rows)
-    recurrent_phase(torch, dev, rows)
-    vlm_audio_phase(torch, dev, rows)
+    rows["sim_scan"], launches["sim_scan"] = phase("10 simulator", sim_phase,
+                                                   torch, dev)
+    phase("11 families", families_phase, torch, dev, rows)
+    phase("12 recurrent", recurrent_phase, torch, dev, rows)
+    phase("13 vlm/audio", vlm_audio_phase, torch, dev, rows)
     gc.collect()
     torch.cuda.empty_cache()
-    train_phase(torch, dev, rows, launches)
-    sharding_phase(torch, dev)
-    tp_share_phase(torch, dev, rows)
+    phase("14 train", train_phase, torch, dev, rows, launches)
+    phase("16 sharding", sharding_phase, torch, dev)
+    phase("17 tp share", tp_share_phase, torch, dev, rows)
+    phase("18 moe share", moe_share_phase, torch, dev, rows)
+    print(f"phases: host seconds {json.dumps(seconds)}, "
+          f"{sum(seconds.values()):.1f} s in all")
     for name, n in launches.items():
         rows[name]["launches"] = n
     print(json.dumps({"kernels": [rows[k] for k in sorted(rows)]}))

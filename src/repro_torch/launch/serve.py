@@ -27,12 +27,12 @@ for the run (``--hold`` seconds longer).
 ``DeviceMesh`` over every rank instead of the engine (which stays on one
 device): the requests in waves of ``--batch`` lanes, each a
 ``serve.decode.jit_prefill`` then greedy ``jit_decode`` steps over the
-dense caches, sequence-sharded over "model".  For the dense family the
-compute splits over the N "model" ranks (heads, MLP and vocabulary) and
-each rank draws only its pieces of the parameters, so a model larger
-than one card serves on N; the other families shard storage only and
-gather the parameters each step.  The group is torchrun's, as
-``launch.train``'s:
+dense caches, sequence-sharded over "model".  For the dense and MoE
+families the compute splits over the N "model" ranks (heads, MLP or
+experts, and vocabulary) and each rank draws only its pieces of the
+parameters, so a model larger than one card serves on N; the other
+families shard storage only and gather the parameters each step.  The
+group is torchrun's, as ``launch.train``'s:
 
   torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
       --arch qwen2-72b --mesh host --model-parallel 4
@@ -122,9 +122,9 @@ def main(argv=None):
                          "waves of --batch lanes; no engine options)")
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="--mesh host: ranks on the \"model\" axis; the "
-                         "dense family's heads, MLP and vocabulary split "
-                         "over them (tensor-parallel compute), the other "
-                         "families shard storage only")
+                         "dense and MoE families' heads, MLP (or experts) "
+                         "and vocabulary split over them (tensor-parallel "
+                         "compute), the other families shard storage only")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -274,6 +274,7 @@ def _serve_sharded(args, cfg, device) -> dict:
     from repro_torch.serve.decode import (batch_shardings, jit_decode,
                                           jit_prefill)
     from repro_torch.sharding import specs
+    from repro_torch.sharding.tensor_parallel import SPLIT_FAMILIES
 
     if PROMPT_TOKENS + args.max_new - 1 > args.max_len:
         raise SystemExit(f"--max-len {args.max_len} holds no "
@@ -288,7 +289,7 @@ def _serve_sharded(args, cfg, device) -> dict:
         pre, (params_abs, _) = jit_prefill(cfg, shape, mesh)
         dec, _ = jit_decode(cfg, dataclasses.replace(shape, kind="decode"),
                             mesh)
-        if cfg.family == "dense":
+        if cfg.family in SPLIT_FAMILIES:
             params = init_sharded_params(cfg, mesh, seed=0, device=device)
         else:
             params = specs.distribute_tree(

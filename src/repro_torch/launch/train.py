@@ -17,16 +17,15 @@ trains on the card; ``--device cpu`` runs the plain versions.
 The process group comes from torchrun's environment (``RANK``,
 ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, ``LOCAL_RANK``); run
 without it, the launcher makes a one-rank group.  NCCL on the card, gloo
-with ``--device cpu``.  For the dense family ``--model-parallel N``
-splits the compute over the N "model" ranks (heads, MLP and vocabulary,
-``sharding/tensor_parallel.py``) and each rank draws only its own
-pieces of the parameters (``models.init_sharded_params``); the other
-families shard storage only over "model" and gather every parameter on
-each rank for the step (a warning says so).  An MoE arch splits each
-batch over the data ranks only when ``REPRO_MOE_GROUPS`` is a multiple
-of their count that divides the batch: otherwise the reference routes
-the whole batch together, so every rank computes all of it (a warning
-says so).
+with ``--device cpu``.  For the dense and MoE families
+``--model-parallel N`` splits the compute over the N "model" ranks
+(heads, MLP or experts, and vocabulary, ``sharding/tensor_parallel.py``)
+and each rank draws only its own pieces of the parameters
+(``models.init_sharded_params``); the other families shard storage only
+over "model" and gather every parameter on each rank for the step (a
+warning says so).  Each data rank computes its own rows; an MoE
+dispatch ranks them after the earlier ranks' rows, as the reference
+routes the whole batch (``moe.moe_ffn_split``).
 """
 
 from __future__ import annotations
@@ -54,15 +53,14 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--mesh", default="none", choices=["none", "host"],
-                    help="host: train sharded over every rank; an MoE arch "
-                    "splits the batch over the data ranks only when "
-                    "REPRO_MOE_GROUPS is a multiple of their count (else "
-                    "every rank computes the whole batch, with a warning)")
+                    help="host: train sharded over every rank, each data "
+                    "rank on its own rows of the batch")
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="ranks on the mesh's \"model\" axis: the dense "
-                    "family's heads, MLP and vocabulary split over them "
-                    "(tensor-parallel compute, each rank drawing only its "
-                    "pieces); the other families shard storage only")
+                    "and MoE families' heads, MLP or experts, and vocabulary "
+                    "split over them (tensor-parallel compute, each rank "
+                    "drawing only its pieces); the other families shard "
+                    "storage only")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain versions)")
     args = ap.parse_args(argv)

@@ -202,18 +202,22 @@ def image_kv(p, img_embeds, cfg):
 
 
 def block_decode_attention(p, x, cfg, cache, pos, backend, *, window: int = 0,
-                           rope=None):
+                           rope=None, ring: bool = False):
     """One block's decode attention through a backend's per-layer
     ``append``/``attend`` pair (the dense path).  x [B,1,d]; pos [B]
     (negative: idle lane); ``window`` > 0 keeps only the keys inside this
     layer's sliding window (the hybrid family's global layers pass 0).
-    Returns (y [B,1,d], cache)."""
+    ``ring``: the cache is a ring of the window's slots, slot ``s``
+    holding position ``pos - ((pos - s) mod S)`` (the reference's
+    ``REPRO_WINDOW_CACHE``); reads are masked by the true window, so the
+    values are those of the full-length cache.  Returns (y [B,1,d],
+    cache)."""
     q, k, v = _qkv(p, x, cfg, pos[:, None], rope)
     B, _, H, hd = q.shape
     KV = k.shape[2]
-    cache = backend.append(cache, k[:, 0], v[:, 0], pos)
+    cache = backend.append(cache, k[:, 0], v[:, 0], pos, ring=ring)
     out, cache = backend.attend(cache, q.reshape(B, KV, H // KV, hd), pos,
-                                window=window)
+                                window=window, ring=ring)
     return _out(out.reshape(B, 1, H, hd), p["wo"]), cache
 
 

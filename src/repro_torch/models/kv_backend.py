@@ -75,58 +75,75 @@ class DenseBackend:
         return transformer.init_decode_state(self.cfg, batch, max_len,
                                              self.device)
 
-    def append(self, cache, k, v, pos):
+    def is_ring(self, cache) -> bool:
+        """Whether a layer's cache view is a ring of the sliding window's
+        slots (``transformer._ring_cache_len``): no more positions than
+        the window, as the reference decides."""
+        sw = self.cfg.sliding_window
+        return sw > 0 and cache["k"].shape[1] <= sw
+
+    def append(self, cache, k, v, pos, *, ring: bool = False):
         """Write one token's K/V per lane (k, v [B, KV, hd]) into one
-        layer's cache view; idle and past-capacity lanes write nothing.
-        Every lane has its own row, so a lane that writes nothing rewrites
-        the bytes already at its position clamped into the cache (a few
-        launches, where ``drop_set_``'s general rule takes ~35)."""
+        layer's cache view, at row ``pos`` (``pos % S`` in a ring); idle
+        and past-capacity lanes write nothing.  Every lane has its own
+        row, so a lane that writes nothing rewrites the bytes already at
+        its position clamped into the cache (a few launches, where
+        ``drop_set_``'s general rule takes ~35)."""
         ck, cv = cache["k"], cache["v"]
         B, S = ck.shape[:2]
-        ok = ((pos >= 0) & (pos < S))[:, None, None]
-        row = pos.clamp(0, S - 1).long()
+        if ring:
+            ok, row = pos >= 0, pos.remainder(S).long()
+        else:
+            ok, row = (pos >= 0) & (pos < S), pos.clamp(0, S - 1).long()
+        ok = ok[:, None, None]
         lane = torch.arange(B, device=ck.device)
         for c, new in ((ck, k), (cv, v)):
             c[lane, row] = torch.where(ok, new.to(c.dtype), c[lane, row])
         return cache
 
-    def attend(self, cache, q, pos, *, window: int = 0):
+    def attend(self, cache, q, pos, *, window: int = 0, ring: bool = False):
         """q [B, KV, G, hd] attends positions <= pos per lane, and with
         ``window`` > 0 only those > pos - window (the reference's sliding
-        window mask).  The cache keeps every position: the reference's
-        ring cache of the window (``REPRO_WINDOW_CACHE``) is not ported."""
+        window mask); in a ring (``ring``) slot s holds position
+        ``pos - ((pos - s) mod S)``, masked by the same rule (an idle lane
+        sees nothing)."""
         B, KV, G, hd = q.shape
         ck, cv = cache["k"], cache["v"]
-        S = ck.shape[1]
-        ki = torch.arange(S, device=q.device)[None, :]
-        ok = ki <= pos[:, None]
-        if window > 0:
-            ok &= ki > pos[:, None] - window
-        mask = torch.where(ok, 0.0, attn.NEG_INF).float()
+        mask = self.shard_mask(pos, ck.shape[1], window=window,
+                               ring=ck.shape[1] if ring else 0)
         out = attn._sdpa(q.reshape(B, 1, KV * G, hd), ck.to(q.dtype),
                          cv.to(q.dtype), mask[:, None, None, None, :])
         return out.reshape(B, KV, G, hd), cache
 
     @staticmethod
-    def shard_mask(pos, rows: int, *, start: int = 0, window: int = 0):
+    def shard_mask(pos, rows: int, *, start: int = 0, window: int = 0,
+                   ring: int = 0):
         """[B, rows] additive fp32 mask of positions [start, start + rows)
-        against each lane's ``pos`` (``attend``'s rule)."""
+        against each lane's ``pos`` (``attend``'s rule); with ``ring`` = W
+        slots [start, start + rows) of a ring of W slots, at the positions
+        they hold."""
         ki = torch.arange(rows, device=pos.device)[None, :] + start
-        ok = ki <= pos[:, None]
+        pb = pos[:, None]
+        if ring:
+            ki = pb - (pb - ki).remainder(ring)
+            ok = ki >= 0
+        else:
+            ok = ki <= pb
         if window > 0:
-            ok &= ki > pos[:, None] - window
+            ok &= ki > pb - window
         return torch.where(ok, 0.0, attn.NEG_INF).float()
 
     def attend_shard(self, cache, q, pos, *, start: int = 0,
                      window: int = 0, mask=None):
         """``attend`` over a piece of the sequence: the layer's cache view
         holds positions [start, start + rows) (a rank's piece of the
-        sequence-sharded cache).  Returns (out [B, KV, G, hd], lse [B, KV,
-        G]), the scores' log-sum-exp beside the output, for the merge
-        across pieces; a lane with no position of the piece at or below
-        its ``pos`` gets an lse near -1e30 and weighs nothing there.  With
-        ``start`` 0 and the whole cache, ``out`` is ``attend``'s.
-        ``mask``: ``shard_mask``'s, made once for every layer of a step."""
+        sequence-sharded cache; a ring's slots take ``shard_mask``'s
+        ``ring``).  Returns (out [B, KV, G, hd], lse [B, KV, G]), the scores'
+        log-sum-exp beside the output, for the merge across pieces; a
+        lane with no position of the piece at or below its ``pos`` gets
+        an lse near -1e30 and weighs nothing there.  With ``start`` 0 and
+        the whole cache, ``out`` is ``attend``'s.  ``mask``:
+        ``shard_mask``'s, made once for every layer of a step."""
         B, KV, G, hd = q.shape
         ck, cv = cache["k"], cache["v"]
         if mask is None:

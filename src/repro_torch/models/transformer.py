@@ -47,6 +47,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.sharding.tensor_parallel import SPLIT_FAMILIES
 from repro_torch.weights import abstract_params, param_axes
 
 from . import attention as attn
@@ -114,7 +115,7 @@ def init_params(cfg: ArchConfig, device=None, seed: int = 0, *,
     = 0 and the cross branch adds nothing until the gate is set, as in
     the reference.
 
-    ``cut`` (``init_sharded_params``; the dense family only) maps a
+    ``cut`` (``init_sharded_params``; the dense and MoE families) maps a
     leaf's path to a function from one layer's whole draw (or a
     top-level leaf's) to the piece kept: the draws are the same, in the
     same order, and each leaf is stacked from its pieces."""
@@ -123,10 +124,11 @@ def init_params(cfg: ArchConfig, device=None, seed: int = 0, *,
     dt = torch_dtype(cfg.dtype)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
-    if cut is not None and cfg.family != "dense":
+    if cut is not None and cfg.family not in SPLIT_FAMILIES:
         raise NotImplementedError(
-            f"a cut draw covers the dense family; {cfg.name} is "
-            f"{cfg.family!r}: lay out init_params with specs.distribute_tree")
+            f"a cut draw covers the families {SPLIT_FAMILIES}; {cfg.name} "
+            f"is {cfg.family!r}: lay out init_params with "
+            f"specs.distribute_tree")
     keep = cut or (lambda path: (lambda t: t))
     if cfg.family == "vlm":
         ns, inner = cfg.vlm_dims
@@ -157,10 +159,11 @@ def init_sharded_params(cfg: ArchConfig, mesh, seed: int = 0,
     only its piece of each layer.  The ranks' pieces, gathered, are
     ``init_params``'s tensors exactly; no rank holds more than one layer
     of a stacked leaf whole (a layer of qwen2-72b's ``w_gate`` is 0.97 GB
-    in fp32 as drawn).  A top-level leaf is drawn whole before its piece
-    is cut: qwen2-72b's embedding tables, [152064, 8192], are 4.98 GB
-    each in fp32 as drawn, and that draw, not the prefill, sets the
-    rank's peak memory.  The dense family only; the others go through
+    in fp32 as drawn, of mixtral-8x22b's [8, 6144, 16384] 3.22 GB).  A
+    top-level leaf is drawn whole before its piece is cut: qwen2-72b's
+    embedding tables, [152064, 8192], are 4.98 GB each in fp32 as drawn,
+    and that draw, not the prefill, sets the rank's peak memory.  The
+    dense and MoE families; the others go through
     ``specs.distribute_tree(init_params(...), ...)``."""
     from repro_torch.sharding import specs
 
@@ -255,7 +258,7 @@ def _blocks_init(cfg: ArchConfig, g, n: int, dt, device, *,
                       norm_attn_out=filled("norm_attn_out", 1, d),
                       norm_ssm_out=filled("norm_ssm_out", 1, d))
     if cfg.family == "moe":
-        blocks["moe"] = moe_mod.moe_init(g, cfg, device)
+        blocks["moe"] = moe_mod.moe_init(g, cfg, device, cut=cut)
     elif cfg.family == "audio":
         blocks["mlp"] = {"w_in": stacked("mlp/w_in", (d, ff), d),
                          "b_in": filled("mlp/b_in", 0, ff),
@@ -439,19 +442,18 @@ def forward(cfg: ArchConfig, params, batch, *, remat: str = "none",
     ``return_logits="last"`` unembeds the last position only (logits
     [B, 1, V]), the one a jitted prefill returns.
 
-    ``tp`` (a ``sharding.tensor_parallel.TensorParallel``; the dense
-    family) runs the split step on this rank's pieces of the parameters
-    (``_forward_tp``): the logits are this rank's vocab columns, and
-    ``collect_cache`` is not taken (``prefill`` lays the cache out)."""
+    ``tp`` (a ``sharding.tensor_parallel.TensorParallel``; the dense and
+    MoE families) runs the split step on this rank's pieces of the
+    parameters and its rows (``_forward_tp``): the logits are this
+    rank's vocab columns, aux the whole batch's, and ``collect_cache``
+    is not taken (``prefill`` lays the cache out)."""
     check_family(cfg)
     if tp is not None:
         if collect_cache:
             raise ValueError("forward(tp=...) collects no cache; prefill "
                              "lays a split cache out")
-        return (_forward_tp(cfg, params, batch, tp, remat=remat,
-                            logits=return_logits),
-                torch.zeros((), dtype=torch.float32,
-                            device=batch["tokens"].device), ())
+        return _forward_tp(cfg, params, batch, tp, remat=remat,
+                           logits=return_logits, aux=True) + ((),)
     x = _embed_inputs(cfg, params, batch)
     B, S = x.shape[:2]
     positions = rope = None           # the encoder: no RoPE
@@ -533,7 +535,10 @@ def prefill(cfg: ArchConfig, params, batch, max_len: int | None = None, *,
     position's only, [B,1,V] (the others are never unembedded).
 
     dense/moe: the caches ``forward`` collects, padded to ``max_len``
-    (default: the prompt length), ``pos`` = S on every lane.
+    (default: the prompt length), ``pos`` = S on every lane; a ring cache
+    (``_ring_cache_len``) takes the prompt at slots 0..S-1, and a prompt
+    longer than the cache raises ``ValueError``, as the reference's
+    write does.
     vlm: the same for the self layers' caches, and each cross layer's
     image K/V (``ik``, ``iv``), which decode reads and never writes.
     audio: as the reference does, the logits and an unused zero KV state
@@ -544,11 +549,12 @@ def prefill(cfg: ArchConfig, params, batch, max_len: int | None = None, *,
     this as a simplification (a warm-state prefill would be a feature it
     lacks).
 
-    ``tp`` (the dense family, this rank's parameter pieces and lanes):
-    the split prefill (``_prefill_tp``): logits are this rank's vocab
+    ``tp`` (the dense and MoE families, this rank's parameter pieces and
+    lanes): the split prefill (``_prefill_tp``): logits are this rank's vocab
     columns of the last position, [B, 1, V/tp] (``last`` taken), and
     with ``seq_split`` the caches hold this rank's
-    positions, [L, B, max_len / tp, KV, hd]."""
+    positions, [L, B, W / tp, KV, hd] (W = max_len, or the ring's
+    slots)."""
     check_family(cfg)
     if tp is not None:
         return _prefill_tp(cfg, params, batch, tp, max_len or
@@ -563,6 +569,11 @@ def prefill(cfg: ArchConfig, params, batch, max_len: int | None = None, *,
         if cfg.family == "audio":
             state = state._replace(pos=pos)
         return logits, state
+    slots = state.caches["k"].shape[-3]
+    if S > slots:
+        # the reference's write of the prompt rows fails to broadcast
+        raise ValueError(f"a {S}-token prompt does not fit the decode "
+                         f"caches' {slots} positions")
     logits, _, caches = forward(cfg, params, batch, collect_cache=True,
                                 return_logits=which)
     c = state.caches
@@ -662,6 +673,20 @@ class DecodeState(NamedTuple):
     caches: Any               # backend-owned, layer-stacked
 
 
+def _ring_cache_len(cfg: ArchConfig, max_len: int) -> int:
+    """The decode caches' positions for ``max_len``: with
+    ``REPRO_WINDOW_CACHE=1`` (read at each call, as the reference reads
+    it at each trace) a plain-KV decoder whose every layer attends a
+    sliding window keeps a ring of ``min(max_len, window)`` slots, slot
+    ``pos % S`` holding position ``pos`` (``DenseBackend``'s ``ring``);
+    else ``max_len``."""
+    if (os.environ.get("REPRO_WINDOW_CACHE", "0") == "1"
+            and cfg.sliding_window > 0 and cfg.global_attn_every == 0
+            and cfg.family in _KV_FAMILIES):
+        return min(max_len, cfg.sliding_window)
+    return max_len
+
+
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       device=None) -> DecodeState:
     """Zero decode state on ``device`` (the card unless the caller asks
@@ -671,12 +696,13 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
     "mn" [L,B,H,hd], "mm" [L,B,H], "s": {"h", "c", "n", "m"} [L,B,H,hd]},
     all fp32, ``mm`` 0 as in the reference (its parallel form starts the
     stabiliser at -1e30); vlm {"k", "v"} [ns, inner, B, max_len, KV, hd]
-    and {"ik", "iv"} [ns, B, n_image_tokens, KV, hd]."""
+    and {"ik", "iv"} [ns, B, n_image_tokens, KV, hd].  The KV caches hold
+    ``_ring_cache_len(cfg, max_len)`` positions."""
     check_family(cfg)
     device = resolve_device(device)
     dt, L = torch_dtype(cfg.dtype), cfg.n_layers
     pos = torch.zeros((batch,), dtype=torch.int32, device=device)
-    kv = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    kv = (batch, _ring_cache_len(cfg, max_len), cfg.n_kv_heads, cfg.hd)
     if cfg.family == "vlm":
         ns, inner = cfg.vlm_dims
         img = (ns, batch, cfg.n_image_tokens, cfg.n_kv_heads, cfg.hd)
@@ -726,9 +752,13 @@ def _block_decode(cfg: ArchConfig, p, x, cache, pos, flag, backend, rope):
                 p, h, {"C": cache["mC"], "n": cache["mn"], "m": cache["mm"]})
             _store_(cache, {"mC": st["C"], "mn": st["n"], "mm": st["m"]})
         return x + out
+    # a ring cache (``DenseBackend.is_ring``) on the layers that all
+    # attend the window; the hybrid's per-layer window never rings
+    ring = cfg.family != "hybrid" and getattr(backend, "is_ring",
+                                              lambda c: False)(cache)
     a, _ = attn.block_decode_attention(p["attn"], h, cfg, cache, pos,
                                        backend, window=_window(cfg, flag),
-                                       rope=rope)
+                                       rope=rope, ring=ring)
     if cfg.family == "hybrid":
         xz = h @ p["ssm"]["in_proj"].to(h.dtype)
         s_out, st = ssm_mod.ssm_step(p["ssm"], xz, cache["ssm"], cfg)
@@ -755,7 +785,8 @@ def decode_step(cfg: ArchConfig, params, state: DecodeState, tokens,
     step's append.  Caches update in place.  The encoder (audio) has no
     decode step, as the reference's launcher says.
 
-    ``tp`` (the dense family over the dense caches): the split step
+    ``tp`` (the dense and MoE families over the dense caches): the split
+    step
     (``_decode_step_tp``) on this rank's parameter pieces and lanes; with
     ``seq_split`` the caches hold this rank's positions and are never
     gathered.  The logits are this rank's vocab columns."""
@@ -822,32 +853,45 @@ def _vlm_decode(cfg: ArchConfig, params, x, caches, pos, backend, rope):
 
 
 # ---------------------------------------------------------------------------
-# tensor-parallel compute (sharding/tensor_parallel.py): the dense family
+# tensor-parallel compute (sharding/tensor_parallel.py): dense and MoE
 # ---------------------------------------------------------------------------
 
 def _check_tp(cfg: ArchConfig):
-    if cfg.family != "dense":
+    if cfg.family not in SPLIT_FAMILIES:
         raise NotImplementedError(
-            f"tensor-parallel compute covers the dense family; {cfg.name} "
-            f"is {cfg.family!r}")
+            f"tensor-parallel compute covers the families {SPLIT_FAMILIES}; "
+            f"{cfg.name} is {cfg.family!r}")
 
 
-def _block_fwd_tp(cfg: ArchConfig, tp, p_local, x, positions, rope):
-    """One dense block over the whole sequence on this rank's pieces of
-    the layer (``tp.layer`` gathers them over the data axes, inside any
+def _ffn_tp(cfg: ArchConfig, tp, p, x, aux: bool):
+    """The block's second half on this rank's pieces -> (x, aux): the
+    MLP on this rank's columns, or the MoE layer on this rank's experts
+    (``moe.moe_ffn_split``; aux its load-balancing terms when ``aux``),
+    summed over "model"."""
+    h2 = rms_norm(x, p["norm2"], cfg.rms_eps)
+    if cfg.family == "moe":
+        y, a = moe_mod.moe_ffn_split(p["moe"], h2, cfg, tp, aux=aux)
+        return x + y, a
+    m = p["mlp"]
+    return x + tp.exit(swiglu(tp.enter(h2, "mlp"), m["w_gate"], m["w_up"],
+                              m["w_down"]), "mlp"), None
+
+
+def _block_fwd_tp(cfg: ArchConfig, tp, aux: bool, p_local, x, positions,
+                  rope):
+    """One block over the whole sequence on this rank's pieces of the
+    layer (``tp.layer`` gathers them over the data axes, inside any
     remat, so a recomputing backward gathers again): attention on this
-    rank's heads, the MLP on its columns, each summed over "model".
-    Returns (x, (k, v) of this rank's KV heads)."""
+    rank's heads, the MLP on its columns or the MoE layer on its experts,
+    each summed over "model".  Returns (x, aux or None, (k, v) of this
+    rank's KV heads)."""
     p = tp.layer(p_local)
     h = rms_norm(x, p["norm1"], cfg.rms_eps)
     a, kv = attn.self_attention(p["attn"], tp.enter(h, "attn"), cfg,
                                 positions=positions, causal=cfg.causal,
                                 window=cfg.sliding_window, rope=rope)
-    x = x + tp.exit(a, "attn")
-    h2 = rms_norm(x, p["norm2"], cfg.rms_eps)
-    m = p["mlp"]
-    return x + tp.exit(swiglu(tp.enter(h2, "mlp"), m["w_gate"], m["w_up"],
-                              m["w_down"]), "mlp"), kv
+    x, aux_l = _ffn_tp(cfg, tp, p, x + tp.exit(a, "attn"), aux)
+    return x, aux_l, kv
 
 
 def _table_path(cfg: ArchConfig) -> str:
@@ -855,10 +899,12 @@ def _table_path(cfg: ArchConfig) -> str:
 
 
 def _forward_tp(cfg: ArchConfig, params, batch, tp, *, remat: str = "none",
-                logits: bool | str = True, on_layer=None):
-    """The split forward on this rank's parameter pieces -> this rank's
+                logits: bool | str = True, on_layer=None, aux: bool = False):
+    """The split forward on this rank's parameter pieces -> (this rank's
     vocab columns of the logits [B, S, V/tp] fp32 (of the last position
-    only, [B, 1, V/tp], with ``logits="last"``; None without ``logits``);
+    only, [B, 1, V/tp], with ``logits="last"``; None without
+    ``logits``), with ``aux`` the MoE load-balancing loss summed over
+    layers (a 0-d fp32 tensor, 0 for the dense family), else None);
     ``on_layer(i, (k, v))`` sees each layer's K/V."""
     _check_tp(cfg)
     x = tp.embed(batch["tokens"], tp.leaf("embed", params["embed"]))
@@ -866,19 +912,24 @@ def _forward_tp(cfg: ArchConfig, params, batch, tp, *, remat: str = "none",
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
     rope = rope_tables(positions, cfg.hd, cfg.rope_theta)
-    block = _remat(functools.partial(_block_fwd_tp, cfg, tp), remat)
+    block = _remat(functools.partial(_block_fwd_tp, cfg, tp, aux), remat)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(_unstack(params["blocks"])):
-        x, kv = block(p, x, positions, rope)
+        x, aux_l, kv = block(p, x, positions, rope)
+        if aux_l is not None:
+            total = total + aux_l
         if on_layer is not None:
             on_layer(i, kv)
+    total = tp.moe_aux(total) if aux else None
     if not logits:
-        return None
+        return None, total
     if logits == "last":
         x = x[:, -1:]
     x = rms_norm(x, tp.leaf("final_norm", params["final_norm"]),
                  cfg.rms_eps)
     table = _table_path(cfg)
-    return unembed(tp.enter(x, "vocab"), tp.leaf(table, params[table]))
+    return unembed(tp.enter(x, "vocab"), tp.leaf(table, params[table])), \
+        total
 
 
 def _prefill_tp(cfg: ArchConfig, params, batch, tp, max_len: int,
@@ -887,9 +938,16 @@ def _prefill_tp(cfg: ArchConfig, params, batch, tp, max_len: int,
     by sequence as soon as the layer has run (``tp.seq_layout``, an
     all-to-all over "model"), so ``decode_step(tp=...)`` continues from
     the state.  Only the last position is unembedded: the logits are
-    [B, 1, V/tp]."""
+    [B, 1, V/tp].  A ring cache (``_ring_cache_len``) is laid out at its
+    W slots (the prompt at slots 0..S-1, which is position mod W), and a
+    prompt longer than the cache raises ``ValueError`` as ``prefill``
+    does."""
     tokens = batch["tokens"]
     B, S = tokens.shape
+    max_len = _ring_cache_len(cfg, max_len)
+    if S > max_len:
+        raise ValueError(f"a {S}-token prompt does not fit the decode "
+                         f"caches' {max_len} positions")
     rows = max_len // tp.size if seq_split else max_len
     shape = (cfg.n_layers, B, rows, cfg.n_kv_heads, cfg.hd)
     dt = torch_dtype(cfg.dtype)
@@ -899,8 +957,8 @@ def _prefill_tp(cfg: ArchConfig, params, batch, tp, max_len: int,
     def write(i, kv):
         for name, t in zip(("k", "v"), kv):
             caches[name][i] = tp.seq_layout(t, max_len, seq_split).to(dt)
-    logits = _forward_tp(cfg, params, batch, tp, logits="last",
-                         on_layer=write)
+    logits, _ = _forward_tp(cfg, params, batch, tp, logits="last",
+                            on_layer=write)
     pos = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
     return logits, DecodeState(pos, caches)
 
@@ -910,10 +968,11 @@ def _decode_step_tp(cfg: ArchConfig, params, state: DecodeState, tokens, tp,
     """One split decode step (``decode_step(tp=...)``): per layer, q and
     the new k/v of this rank's heads are all-gathered over "model" in one
     call ([B, H, hd], [B, KV, hd]); the rank whose positions hold a lane's
-    ``pos`` writes its row; every rank attends its own positions for all
-    heads (``DenseBackend.attend_shard``), the pieces merge by their lse
+    ``pos`` (in a ring of W slots, slot ``pos % W``) writes its row; every
+    rank attends its own positions for all heads
+    (``DenseBackend.attend_shard``), the pieces merge by their lse
     (``tp.combine``), and each rank keeps its own heads for the
-    row-split ``wo``."""
+    row-split ``wo``; then the MLP or the MoE layer as in the forward."""
     from .kv_backend import DenseBackend
 
     _check_tp(cfg)
@@ -924,9 +983,14 @@ def _decode_step_tp(cfg: ArchConfig, params, state: DecodeState, tokens, tp,
     caches = state.caches
     rows = caches["k"].shape[2]
     start = tp.rank * rows if seq_split else 0
+    slots = rows * tp.size if seq_split else rows
+    sw = cfg.sliding_window
+    ring = slots if 0 < slots <= sw else 0     # ``DenseBackend.is_ring``
+    # each lane's row in this rank's piece (outside it: no write)
+    at = (torch.where(pos >= 0, pos.remainder(slots), -1) if ring else pos) \
+        - start
     # one mask for every layer: this rank's positions against each lane's
-    mask = backend.shard_mask(pos, rows, start=start,
-                              window=cfg.sliding_window)
+    mask = backend.shard_mask(pos, rows, start=start, window=sw, ring=ring)
     for i, p_local in enumerate(_unstack(params["blocks"])):
         p = tp.layer(p_local)
         h = rms_norm(x, p["norm1"], cfg.rms_eps)
@@ -935,17 +999,14 @@ def _decode_step_tp(cfg: ArchConfig, params, state: DecodeState, tokens, tp,
         B, H, hd = q.shape
         KV = k.shape[1]
         cache = layer_params(caches, i)
-        backend.append(cache, k, v, pos - start)
+        backend.append(cache, k, v, at)
         out, lse = backend.attend_shard(cache, q.reshape(B, KV, H // KV, hd),
                                         pos, mask=mask)
         if seq_split:
             out = tp.combine(out, lse)
         out = tp.own_heads(out.reshape(B, 1, H, hd))
-        x = x + tp.exit(attn._out(out, p["attn"]["wo"]), "attn")
-        h2 = rms_norm(x, p["norm2"], cfg.rms_eps)
-        m = p["mlp"]
-        x = x + tp.exit(swiglu(tp.enter(h2, "mlp"), m["w_gate"], m["w_up"],
-                               m["w_down"]), "mlp")
+        x, _ = _ffn_tp(cfg, tp, p, x + tp.exit(
+            attn._out(out, p["attn"]["wo"]), "attn"), False)
     x = rms_norm(x, tp.leaf("final_norm", params["final_norm"]),
                  cfg.rms_eps)
     table = _table_path(cfg)

@@ -9,14 +9,14 @@ The sharded serving steps (``jit_decode``, ``jit_prefill``; the names
 are the reference's) run on a ``DeviceMesh``: parameters laid out by
 their logical axes, the decode state by ``decode_state_shardings`` (the
 caches' lanes over the data axes, their positions over "model"), the
-inputs by ``batch_shardings``.  For the dense family they compute tensor
-parallel (``sharding/tensor_parallel.py``): each rank runs its heads,
-MLP columns and vocab columns on its lanes, each layer's pieces gathered
-over the data axes only; prefill lays each layer's K/V out by sequence,
-and decode attends each rank's own positions and merges the pieces by
-their log-sum-exp, so the cache never moves.  The other families gather
-the parameters, compute this rank's lanes (gathering their positions),
-and lay the outputs back out on the same shardings."""
+inputs by ``batch_shardings``.  For the dense and MoE families they
+compute tensor parallel (``sharding/tensor_parallel.py``): each rank
+runs its heads, MLP columns and vocab columns on its lanes, each layer's
+pieces gathered over the data axes only; prefill lays each layer's K/V
+out by sequence, and decode attends each rank's own positions and merges
+the pieces by their log-sum-exp, so the cache never moves.  The other
+families gather the parameters, compute this rank's lanes (gathering
+their positions), and lay the outputs back out on the same shardings."""
 
 from __future__ import annotations
 
@@ -128,8 +128,8 @@ def batch_shardings(batch_specs: dict, mesh) -> dict:
 
 class _Lanes:
     """Which lanes this rank computes: its own piece of the batch (split
-    as ``lanes`` splits dim 0) unless an MoE dispatch would cross ranks,
-    then every lane (``moe.data_shards`` warns)."""
+    as ``lanes`` splits dim 0) unless the lanes do not split evenly, then
+    every lane (``moe.data_shards`` warns)."""
 
     def __init__(self, cfg, lanes, B: int):
         from repro_torch.models import moe
@@ -199,21 +199,25 @@ class _Split(NamedTuple):
 
 
 def _split(cfg, mesh, params_abs, lanes_sh, B: int, s_sh, what: str):
-    """The dense family's split step on ``mesh`` (``TensorParallel``), or
-    None for the other families, which gather (and warn so once)."""
+    """The split step on ``mesh`` (``TensorParallel``) of the dense and
+    MoE families, or None for the others, which gather (and warn so
+    once).  Each rank computes its own lanes; an MoE dispatch ranks them
+    after the earlier ranks' lanes (``moe.moe_ffn_split``)."""
     from torch.distributed.tensor import Replicate, Shard
 
     from repro_torch.models import abstract_params_and_axes
     from repro_torch.sharding import specs
-    from repro_torch.sharding.tensor_parallel import (TensorParallel,
+    from repro_torch.sharding.tensor_parallel import (SPLIT_FAMILIES,
+                                                      TensorParallel,
                                                       warn_gathered)
 
-    if cfg.family != "dense":
+    if cfg.family not in SPLIT_FAMILIES:
         warn_gathered(cfg, mesh, what)
         return None
     p_sh = specs.tree_shardings(abstract_params_and_axes(cfg)[1], mesh,
                                 params_abs)
-    tp = TensorParallel(cfg, mesh, p_sh, params_abs)
+    tp = TensorParallel(cfg, mesh, p_sh, params_abs,
+                        rows=lanes_sh.placements)
     tp.warn_whole(what)
     lo, hi = specs.shard_range(lanes_sh.placements, mesh, B)
     seq_split = tp.size > 1 and \
@@ -234,13 +238,14 @@ def jit_decode(cfg, shape, mesh):
     the state's shardings).  The state is donated, as the reference's
     is: its pieces may be updated in place.
 
-    The dense family's step is split (``models.decode_step(tp=...)``):
-    no parameter piece leaves its "model" rank, and the caches are
-    updated in place on the rank that holds each position.  The other
+    The dense and MoE families' step is split
+    (``models.decode_step(tp=...)``): no parameter piece leaves its
+    "model" rank, and the caches are updated in place on the rank that
+    holds each position (a ring cache's slot ``pos % W``).  The other
     families gather the parameters and this rank's lanes of the caches
     (``moe.data_shards`` decides the lanes)."""
     from repro_torch.models import (abstract_decode_state,
-                                    abstract_params_and_axes, moe)
+                                    abstract_params_and_axes)
     from repro_torch.sharding.specs import (NamedSharding, gather_tree,
                                             spec_for)
 
@@ -262,8 +267,7 @@ def jit_decode(cfg, shape, mesh):
 
     def step(params, state, tokens):
         full = gather_tree(params)
-        with moe.shard_of(lanes.shards):
-            logits, new = fn(full, take(state), lanes.take(tokens, 0))
+        logits, new = fn(full, take(state), lanes.take(tokens, 0))
         return (lanes.put(logits, 0, (B, cfg.vocab), logits_sh), put(new))
 
     return step, (params_abs, state_abs, t_abs)
@@ -297,13 +301,12 @@ def jit_prefill(cfg, shape, mesh):
     ``jit_decode`` at the same shape continues them) and returns
     (last-position logits [B, vocab] over ("batch", "vocab"), the decode
     state on ``decode_state_shardings``); an encoder's step returns its
-    logits [B, S, vocab] over ("batch", None, "vocab").  The dense
-    family's step is split (``models.prefill(tp=...)``): each rank's
+    logits [B, S, vocab] over ("batch", None, "vocab").  The dense and
+    MoE families' step is split (``models.prefill(tp=...)``): each rank's
     K/V heads go to the ranks that hold their positions, one layer at a
     time; the other families gather the parameters."""
     from repro_torch.models import (abstract_decode_state,
-                                    abstract_params_and_axes, input_specs,
-                                    moe)
+                                    abstract_params_and_axes, input_specs)
     from repro_torch.sharding.specs import (NamedSharding, gather_tree,
                                             spec_for)
 
@@ -316,8 +319,7 @@ def jit_prefill(cfg, shape, mesh):
 
     def run(params, batch):
         full = gather_tree(params)
-        with moe.shard_of(lanes.shards):
-            return fn(full, {k: lanes.take(v, 0) for k, v in batch.items()})
+        return fn(full, {k: lanes.take(v, 0) for k, v in batch.items()})
 
     if cfg.is_encoder:
         out_sh = NamedSharding(mesh, spec_for(

@@ -284,6 +284,12 @@ class Engine:
             raise NotImplementedError(
                 f"Engine prefill supports KV-cache families "
                 f"{_PREFILL_FAMILIES}; got {cfg.family!r}")
+        from repro_torch.models.transformer import _ring_cache_len
+        if _ring_cache_len(cfg, ec.max_len) != ec.max_len:
+            raise NotImplementedError(
+                "Engine prefill writes prompt rows linearly and does not "
+                "support the ring-buffer window cache "
+                "(REPRO_WINDOW_CACHE=1)")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "

@@ -1,6 +1,6 @@
 """Tensor-parallel compute over the mesh's "model" axis, with the
 parameters' "data" pieces gathered one layer at a time (FSDP), for the
-dense decoders.
+dense and MoE decoders.
 
 The reference hands its logical-axis specs to XLA, whose partitioner
 splits the products: heads, kv_heads, mlp and vocab over "model".  Here
@@ -26,6 +26,12 @@ the same split is written out, Megatron style, over
   its own positions for every head and returns (out, lse); the pieces
   merge by lse weights across "model" after a MAX all-reduce of the lse,
   so a rank whose positions are all masked weighs 0.
+* The MoE layer (``moe.moe_ffn_split``) runs this rank's experts on its
+  rows' choices of them, the router's logits gathered over "model" (its
+  backward a reduce-scatter), or every expert on its d_ff columns where
+  the experts do not split; its dispatch ranks a data rank's choices
+  after the earlier data ranks' (an all-gather of [E] counts) and its
+  aux loss sums the data ranks' shares (``data_sum``).
 
 What splits is what ``spec_for`` split: a part (attention, the MLP, the
 vocabulary) runs split only when all of its leaves shard on "model"
@@ -45,15 +51,22 @@ from typing import NamedTuple
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-PARTS = ("attn", "mlp", "vocab")
+# the families whose steps compute split (the others gather the tree)
+SPLIT_FAMILIES = ("dense", "moe")
+PARTS = ("attn", "mlp", "moe", "vocab")
 # the leaves of each part (paths under the parameter tree's root)
 _PART_LEAVES = {
     "attn": ("blocks/attn/wq", "blocks/attn/wk", "blocks/attn/wv",
              "blocks/attn/wo", "blocks/attn/bq", "blocks/attn/bk",
              "blocks/attn/bv"),
     "mlp": ("blocks/mlp/w_gate", "blocks/mlp/w_up", "blocks/mlp/w_down"),
+    "moe": ("blocks/moe/router", "blocks/moe/w_gate", "blocks/moe/w_up",
+            "blocks/moe/w_down"),
     "vocab": ("embed", "unembed"),
 }
+# the MoE part's split by the dimension "model" shards in one layer of
+# w_gate [E, d, ff]: by expert or by d_ff column
+_MOE_MODES = {0: "expert", 2: "mlp"}
 
 
 def _part_of(path: str) -> str | None:
@@ -61,6 +74,23 @@ def _part_of(path: str) -> str | None:
         if path in names:
             return part
     return None
+
+
+def _reduce_scatter(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """The sum over ``n`` ranks of ``t``, each rank keeping its own of
+    ``n`` equal pieces along ``dim``: NCCL's reduce-scatter, or an
+    all-reduce and a slice where the backend has none (gloo)."""
+    import torch.distributed as dist
+
+    x = t.movedim(dim, 0).contiguous()
+    if dist.get_backend(group) == "nccl":
+        out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        dist.reduce_scatter_tensor(out, x, group=group)
+    else:
+        dist.all_reduce(x, group=group)
+        out = x.chunk(n)[dist.get_rank(group)]
+    return out.movedim(0, dim).contiguous()
 
 
 def _all_gather(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
@@ -112,6 +142,65 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _GatherModel(torch.autograd.Function):
+    """All-gather over "model" along ``dim``; backward: the ranks'
+    gradients summed, each rank keeping its own piece (reduce-scatter):
+    each rank's gradient of the gathered tensor covers only its own
+    terms of the loss."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group, n):
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        return _all_gather(t, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.dim, ctx.group, ctx.n), None, None, \
+            None
+
+
+class _SumOver(torch.autograd.Function):
+    """All-reduce (sum) over a group, forward and backward: every rank's
+    loss holds the sum, so each rank's input takes the sum of every
+    rank's gradient of it."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def _rows_group(mesh, placements):
+    """(pieces, this rank's piece, the process group over them or None)
+    of a batch split by ``placements`` over the data axes, the pieces in
+    the mesh's flattened ("pod", "data") order."""
+    from repro_torch.sharding.specs import shard_index
+
+    if placements is None:
+        return 1, 0, None
+    n, idx = shard_index(placements, mesh)
+    dims = [i for i, pl in enumerate(placements)
+            if pl.is_shard(0) and mesh.size(i) > 1]
+    if not dims:
+        return n, idx, None
+    if len(dims) == 1:
+        return n, idx, mesh.get_group(dims[0])
+    names = tuple(mesh.mesh_dim_names[i] for i in dims)
+    return n, idx, mesh[names]._flatten().get_group()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,14 +280,27 @@ class TensorParallel:
     ``reduce`` is the gradients' data mean (``train.loop._Layout.reduce``:
     a per-rank gradient, the leaf's placements, the placements and global
     shape it was computed on -> this rank's piece); inference needs
-    none."""
+    none.  ``rows``: the placements that split the batch's rows over the
+    data axes when each rank computes its own rows (None: every rank
+    computes every row); an MoE dispatch ranks across them
+    (``moe.moe_ffn_split``).
 
-    def __init__(self, cfg, mesh, p_sh, params_abs, *, reduce=None):
+    The MoE part (``moe_mode``) follows ``spec_for``, which puts "model"
+    on the experts when E divides its size, else on d_ff when that
+    divides: "expert" (this rank's experts, ``moe_experts`` = (E/m, the
+    first), the router's columns of them), "mlp" (every expert on this
+    rank's d_ff columns, the router whole) or None (the whole layer on
+    every rank, with ``warn_whole``'s warning)."""
+
+    def __init__(self, cfg, mesh, p_sh, params_abs, *, reduce=None,
+                 rows=None):
         from repro_torch.sharding.specs import model_group, shard_range
 
         self.cfg, self.mesh = cfg, mesh
         self.m, self.size, self.rank, self.group = model_group(mesh)
         self._reduce = reduce
+        n, idx, self._data_group = _rows_group(mesh, rows)
+        self.rows = (n, idx)
         sh, abs_ = _flat(p_sh), _flat(params_abs)
 
         def on_model(path):
@@ -206,6 +308,15 @@ class TensorParallel:
                 sh[path].placements[self.m].is_shard()
         self.split = {part: all(on_model(p) for p in names if p in sh)
                       for part, names in _PART_LEAVES.items()}
+        self.moe_mode, self.moe_experts = None, (cfg.n_experts, 0)
+        if "blocks/moe/w_gate" in sh:
+            pl = _placements_without(sh["blocks/moe/w_gate"].placements)
+            if self.m is not None and pl[self.m].is_shard():
+                self.moe_mode = _MOE_MODES[pl[self.m].dim]
+            self.split["moe"] = self.moe_mode is not None
+            if self.moe_mode == "expert":
+                lo, hi = shard_range(pl, mesh, cfg.n_experts)
+                self.moe_experts = (hi - lo, lo)
         plans = {}
         for path, s in sh.items():
             stacked = path.startswith("blocks/")
@@ -266,6 +377,36 @@ class TensorParallel:
         if self.group is None or not self.split[part]:
             return y
         return _ReduceFromModel.apply(y, self.group)
+
+    def gather_model(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """``t``'s pieces over "model" along ``dim``, the gradient's sum
+        over the ranks scattered back (``_GatherModel``)."""
+        if self.group is None:
+            return t
+        return _GatherModel.apply(t, dim, self.group, self.size)
+
+    def moe_aux(self, aux):
+        """The MoE loss's terms summed over "model" when each rank holds
+        its own experts' (``moe.moe_ffn_split``), identity backward."""
+        if self.group is None or self.moe_mode != "expert" or aux is None:
+            return aux
+        return _ReduceFromModel.apply(aux.reshape(1), self.group)[0]
+
+    # -- the collectives over the data axes (the batch's rows) ----------------
+
+    def data_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """[n, *t.shape]: every data rank's ``t`` in row order (no
+        gradient)."""
+        if self._data_group is None:
+            return t[None]
+        return _all_gather(t.detach()[None], 0, self._data_group,
+                           self.rows[0])
+
+    def data_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the data ranks (``_SumOver``)."""
+        if self._data_group is None:
+            return t
+        return _SumOver.apply(t, self._data_group)
 
     def model_max(self, t: torch.Tensor) -> torch.Tensor:
         """The elementwise max over "model" (no gradient)."""
@@ -446,14 +587,15 @@ class CollectiveLog(TorchDispatchMode):
 
 def warn_gathered(cfg, mesh, what: str) -> None:
     """One warning that ``what`` gathers the whole parameter tree on each
-    rank: a family outside the split (every family but the dense one) on
+    rank: a family outside the split (``SPLIT_FAMILIES``) on
     a mesh whose "model" axis has more than one rank."""
     from repro_torch.sharding.specs import model_group
 
     if model_group(mesh)[1] > 1:
         warnings.warn(
             f"{cfg.name}: {what} gathers every parameter on each rank "
-            f"(tensor-parallel compute covers the dense family; "
+            f"(tensor-parallel compute covers the families "
+            f"{SPLIT_FAMILIES}; "
             f"{cfg.family!r} shards storage only over \"model\")",
             stacklevel=3)
 

@@ -19,18 +19,18 @@ reaches the same parameters as an uninterrupted one.
 ``make_sharded_train_step`` is the step on a ``DeviceMesh``: every
 parameter, AdamW moment and error-feedback buffer is a DTensor laid out
 by the reference's logical-axis specs (``sharding/specs.py``), and the
-batch is split over the data axes.  For the dense family the step
-computes tensor parallel over "model" (``sharding/tensor_parallel.py``):
-each layer's pieces are gathered over the data axes only, inside the
-layer loop, and each rank runs its own heads, MLP columns and vocab
-columns on its rows (on a card, the flash kernels forward and backward
-on H/tp heads); each leaf's gradient is reduced to its data mean and
-scattered onto the leaf's piece as the backward leaves the layer.  The
-other families gather the whole parameter tree into plain tensors, run
-the step body above on this rank's rows, and reduce-scatter the
-gradients after it.  AdamW then runs on the shards with the global norm
-of the whole gradient: ZeRO-3 over the whole mesh.  ``fit`` takes
-``mesh=`` to train so.
+batch is split over the data axes.  For the dense and MoE families the
+step computes tensor parallel over "model"
+(``sharding/tensor_parallel.py``): each layer's pieces are gathered over
+the data axes only, inside the layer loop, and each rank runs its own
+heads, MLP columns (or experts) and vocab columns on its rows (on a
+card, the flash kernels forward and backward on H/tp heads); each leaf's
+gradient is reduced to its data mean and scattered onto the leaf's piece
+as the backward leaves the layer.  The other families gather the whole
+parameter tree into plain tensors, run the step body above on this
+rank's rows, and reduce-scatter the gradients after it.  AdamW then runs
+on the shards with the global norm of the whole gradient: ZeRO-3 over
+the whole mesh.  ``fit`` takes ``mesh=`` to train so.
 """
 
 from __future__ import annotations
@@ -52,7 +52,8 @@ from repro_torch.models import (abstract_params_and_axes,
                                 loss_fn)
 from repro_torch.models import moe as moe_mod
 from repro_torch.sharding import specs
-from repro_torch.sharding.tensor_parallel import (TensorParallel, local_tree,
+from repro_torch.sharding.tensor_parallel import (SPLIT_FAMILIES,
+                                                  TensorParallel, local_tree,
                                                   warn_gathered)
 from repro_torch.train import compression
 from repro_torch.train.optimizer import (OptConfig, OptState, apply_updates,
@@ -185,6 +186,8 @@ class _Layout:
         self.n, self.idx = specs.shard_index(b_pl, mesh)
         self.shards = moe_mod.data_shards(cfg, self.n, rows_per_call)
         self.local = self.shards == self.n
+        # how a rank's rows lie in a call's rows (None: it has them all)
+        self.row_placements = b_pl if self.local else None
         # a per-rank value: a partial sum over the dims that split the
         # rows when ranks compute their own rows, else the same everywhere
         self.partial = tuple(
@@ -260,16 +263,17 @@ def make_sharded_train_step(cfg: ArchConfig, opt_cfg: OptConfig,
     each leaf against its whole leaf's scale.
 
     Ranks compute their own rows unless a microbatch does not split
-    evenly over them or an MoE dispatch would cross them
-    (``moe.data_shards``, which warns: without ``REPRO_MOE_GROUPS`` the
-    reference routes over the whole batch); then every rank computes the
-    whole batch and the gradient needs no reduction.
+    evenly over them (``moe.data_shards``, which warns); then every rank
+    computes the whole batch and the gradient needs no reduction.  An
+    MoE dispatch ranks each rank's choices after the earlier ranks' of
+    its routing group (``moe.moe_ffn_split``), as the reference routes
+    the whole batch.
     ``train_step.grads(params, batch)`` gives this rank's shards of the
     data-mean gradient, without a step.
 
-    The dense family's step is tensor parallel (module docstring; its
-    ``train_step.tp`` is the ``TensorParallel``); the loss takes the
-    reference's ``REPRO_SHARDED_CE`` form.  A part whose leaves
+    The dense and MoE families' step is tensor parallel (module
+    docstring; its ``train_step.tp`` is the ``TensorParallel``); the loss
+    takes the reference's ``REPRO_SHARDED_CE`` form.  A part whose leaves
     ``spec_for`` left whole on "model" runs whole on every rank, with one
     warning when the step is made.  Peak memory of a rank in the split
     step, with P the parameters' bytes, n = dp x tp ranks, w bytes per
@@ -284,8 +288,10 @@ def make_sharded_train_step(cfg: ArchConfig, opt_cfg: OptConfig,
                            remat "full" its input, R S d w
       + 3 x R S V/tp x 4   the fp32 logits, their exponentials and their
                            gradient.
-    The other families compute on the whole gathered tree: P on every
-    rank besides its pieces."""
+    An MoE layer's activations are its [E/tp, C, d] expert buffers (C the
+    routing group's capacity) and their [E/tp, C, ff] products.  The
+    other families compute on the whole gathered tree: P on every rank
+    besides its pieces."""
     params_abs, axes = abstract_params_and_axes(cfg)
     p_sh = specs.tree_shardings(axes, mesh, params_abs)
     b_sh = {k: specs.NamedSharding(mesh, specs.spec_for(ax, mesh=mesh))
@@ -295,8 +301,9 @@ def make_sharded_train_step(cfg: ArchConfig, opt_cfg: OptConfig,
     lay = _Layout(cfg, mesh, next(iter(b_sh.values())).placements,
                   B // n_mb)
     tp = None
-    if cfg.family == "dense":
-        tp = TensorParallel(cfg, mesh, p_sh, params_abs, reduce=lay.reduce)
+    if cfg.family in SPLIT_FAMILIES:
+        tp = TensorParallel(cfg, mesh, p_sh, params_abs, reduce=lay.reduce,
+                            rows=lay.row_placements)
         tp.warn_whole("make_sharded_train_step")
     else:
         warn_gathered(cfg, mesh, "make_sharded_train_step")
@@ -304,8 +311,7 @@ def make_sharded_train_step(cfg: ArchConfig, opt_cfg: OptConfig,
     def grads(compute, rows):
         if tp is not None:
             return grads_of(cfg, tc, compute, rows, tp=tp)
-        with moe_mod.shard_of(lay.shards):
-            loss, metrics, g = grads_of(cfg, tc, compute, rows)
+        loss, metrics, g = grads_of(cfg, tc, compute, rows)
         return loss, metrics, specs.map_leaves(lay.reduce, g, p_sh)
 
     def params_for_compute(params):
@@ -423,7 +429,7 @@ def fit(cfg: ArchConfig, dc: DataConfig, opt_cfg: OptConfig, tc: TrainConfig,
 
 
 def _fit(cfg, dc, opt_cfg, tc, mesh, resume, seed, log, device):
-    if mesh is not None and cfg.family == "dense":
+    if mesh is not None and cfg.family in SPLIT_FAMILIES:
         # each rank draws its own pieces: no rank holds the whole tree
         params = init_sharded_params(cfg, mesh, seed, device)
         axes = abstract_params_and_axes(cfg)[1]
@@ -432,7 +438,7 @@ def _fit(cfg, dc, opt_cfg, tc, mesh, resume, seed, log, device):
     if mesh is not None:
         step_fn, p_sh, b_sh = make_sharded_train_step(
             cfg, opt_cfg, tc, mesh, make_batch(dc, 0))
-        if cfg.family != "dense":
+        if cfg.family not in SPLIT_FAMILIES:
             params = specs.distribute_tree(params, p_sh)
         opt_state, err_state = init_sharded_state(
             p_sh, abstract_params_and_axes(cfg)[0], tc.compress_grads)

@@ -32,13 +32,30 @@ test compares into the directory ``out``:
   against "none", and the all-gathers each ran on "data";
 * ``init.json``: ``init_sharded_params`` on (2, 2) and (1, 4): the
   gathered pieces against ``init_params``, and the largest tensor an op
-  made while drawing.
+  made while drawing;
+* ``moe_train_<i>.npz``: ``MOE_TRAIN_CASES[i]``, the split MoE step
+  (experts over "model", or d_ff where E does not divide it) as
+  ``train_<i>.npz``, with its mode and the warnings it raised;
+* ``moe_dispatch.npz``: the split layer's expert ids, slots and kept
+  flags on (4, 1) and (2, 2), every rank's in rank order, and its output
+  gathered, for ``MOE_DISPATCH_INPUT``;
+* ``moe_serve.json``: ``MOE_SERVE_CASES``, as ``tp_serve.json`` (ring
+  caches for mixtral, ``REPRO_WINDOW_CACHE=1`` on both sides) and the
+  warnings raised;
+* ``moe_comm.json``: the collectives of a split MoE train step, prefill
+  and decode step, and the shapes of the expert pieces;
+* ``moe_init.json``: ``init_sharded_params`` of smoke granite against
+  ``init_params``;
+* ``gathered.json``: ``GATHERED_ARCH``, a family outside the split, on
+  the gathered path of (2, 2): its data-mean gradient against the
+  unsharded port's, ``serve_case``'s run, the gathered-tree calls.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import warnings
 
@@ -80,6 +97,29 @@ TP_SERVE_CASES = (((2, 2), "llama3-8b", False, 0),
                   ((1, 4), "llama3-8b", False, 0))
 # lanes' positions after the prefill: ragged, lane 3 idle throughout
 TP_SERVE_POS = (10, 7, 3, -100)
+# the split MoE step: (mesh, arch, wide, REPRO_MOE_GROUPS, n_experts (0:
+# the config's)); 6 experts do not split over 4 "model" ranks, d_ff 96
+# does.  With TRAIN_CASES' granite on (2, 2) (groups 2, and none with 2
+# microbatches and int8) each arch runs on both meshes, with and
+# without groups
+MOE_TRAIN_CASES = (((2, 2), "mixtral-8x22b", False, 0, 0),
+                   ((1, 4), "mixtral-8x22b", True, 2, 0),
+                   ((1, 4), "granite-moe-3b-a800m", True, 0, 0),
+                   ((1, 4), "granite-moe-3b-a800m", True, 0, 6))
+# split MoE serving: (mesh, arch, wide, window, ring cache); a ring of
+# ``RING_WINDOW`` slots takes a ``RING_PROMPT``-token prompt, and the
+# decode passes the window (``RING_POS``)
+MOE_SERVE_CASES = (((2, 2), "granite-moe-3b-a800m", False, 0, False),
+                   ((1, 4), "granite-moe-3b-a800m", True, 0, False),
+                   ((1, 4), "mixtral-8x22b", True, 8, True),
+                   ((2, 2), "mixtral-8x22b", False, 8, True))
+RING_WINDOW, RING_PROMPT = 8, 6
+RING_POS = (6, 5, 3, -100)
+# a family outside the split, on the gathered path
+GATHERED_ARCH = "hymba-1.5b"
+# the dispatch case: B rows of S tokens, router column 0 biased so that
+# its expert overflows (drops), REPRO_MOE_GROUPS 0 and 2
+MOE_DISPATCH_INPUT = dict(B=8, S=6, bias=6.0, seed=7)
 
 
 def opt_config():
@@ -360,6 +400,33 @@ def tp_serve_case(i, meshes):
     greedy split ``jit_decode`` steps against the unsharded port with the
     same positions: tokens, the logits' largest gap, the caches gathered
     against the unsharded ones, and each cache piece's shape."""
+    shape, arch, wide, window = TP_SERVE_CASES[i]
+    return _split_serve(meshes[shape], widen(smoke(arch), wide, window),
+                        SERVE_PROMPT, TP_SERVE_POS)
+
+
+def moe_serve_case(i, meshes):
+    """``MOE_SERVE_CASES[i]`` as ``tp_serve_case``; a ring case runs with
+    ``REPRO_WINDOW_CACHE=1`` on both sides, a ``RING_PROMPT``-token
+    prompt and ``RING_POS``.  Adds the port's warnings raised."""
+    shape, arch, wide, window, ring = MOE_SERVE_CASES[i]
+    if ring:
+        os.environ["REPRO_WINDOW_CACHE"] = "1"
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = _split_serve(meshes[shape], moe_config(
+                smoke(arch), wide, window=window),
+                RING_PROMPT if ring else SERVE_PROMPT,
+                RING_POS if ring else TP_SERVE_POS)
+    finally:
+        os.environ.pop("REPRO_WINDOW_CACHE", None)
+    return dict(res, port_warnings=_port_warnings(caught))
+
+
+def _split_serve(mesh, cfg, prompt_len: int, pos0):
+    """``tp_serve_case``'s run of ``cfg`` on ``mesh``: a prompt of
+    ``prompt_len`` tokens, the positions then set to ``pos0``."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.models import (abstract_params_and_axes, decode_step,
                                     prefill)
@@ -368,9 +435,6 @@ def tp_serve_case(i, meshes):
                                           jit_prefill)
     from repro_torch.sharding import specs
 
-    shape, arch, wide, window = TP_SERVE_CASES[i]
-    mesh = meshes[shape]
-    cfg = widen(smoke(arch), wide, window)
     full = init(cfg)
     sh = ShapeConfig("serve", SERVE_LEN, SERVE_B, "prefill")
     pre, (params_abs, _) = jit_prefill(cfg, sh, mesh)
@@ -379,7 +443,7 @@ def tp_serve_case(i, meshes):
     params = specs.distribute_tree(full, specs.tree_shardings(
         abstract_params_and_axes(cfg)[1], mesh, params_abs))
     prompt = torch.from_numpy(np.random.default_rng(11).integers(
-        0, cfg.vocab, (SERVE_B, SERVE_PROMPT), dtype=np.int32))
+        0, cfg.vocab, (SERVE_B, prompt_len), dtype=np.int32))
     b_sh = batch_shardings({"tokens": prompt}, mesh)
     logits, state = pre(params, {"tokens": specs.distribute(
         prompt, b_sh["tokens"])})
@@ -387,7 +451,7 @@ def tp_serve_case(i, meshes):
                                 max_len=SERVE_LEN)
     want_logits = want_logits[:, -1]
     s_sh = decode_state_shardings(cfg, state_abs, mesh)
-    pos = torch.tensor(TP_SERVE_POS, dtype=torch.int32)
+    pos = torch.tensor(pos0, dtype=torch.int32)
     state = state._replace(pos=specs.distribute(pos, s_sh.pos))
     want = want._replace(pos=pos.clone())
     t_sh = specs.NamedSharding(mesh, specs.spec_for(
@@ -576,6 +640,262 @@ def init_case(meshes, out, rank):
             json.dump(res, f)
 
 
+def moe_comm_case(meshes, out, rank):
+    """Under ``CollectiveLog``: one split train step, a prefill and a
+    decode step of smoke granite on (2, 2) and of the wide one on (1,
+    4): every collective (op, group, shapes, bytes), the groups' names,
+    each expert leaf's piece and layer shapes (which no collective on
+    "model" may have) and the bounds of an activation."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import abstract_params_and_axes
+    from repro_torch.serve.decode import batch_shardings, jit_decode, \
+        jit_prefill
+    from repro_torch.sharding import specs
+    from repro_torch.train.loop import (TrainConfig, init_sharded_state,
+                                        make_sharded_train_step)
+
+    res = {}
+    for shape, wide in (((2, 2), False), ((1, 4), True)):
+        mesh = meshes[shape]
+        cfg = widen(smoke("granite-moe-3b-a800m"), wide)
+        dc = dataclasses.replace(data_config(cfg), seq_len=24)
+        step, p_sh, b_sh = make_sharded_train_step(
+            cfg, opt_config(), TrainConfig(), mesh, make_batch(dc, 0))
+        params = specs.distribute_tree(init(cfg), p_sh)
+        opt, err = init_sharded_state(
+            p_sh, abstract_params_and_axes(cfg)[0], False)
+        batch = _batch(dc, 0, b_sh, mesh)
+        sh = ShapeConfig("serve", SERVE_LEN, SERVE_B, "prefill")
+        pre, _ = jit_prefill(cfg, sh, mesh)
+        dec, _ = jit_decode(cfg, dataclasses.replace(sh, kind="decode"),
+                            mesh)
+        prompt = torch.zeros((SERVE_B, SERVE_PROMPT), dtype=torch.int32)
+        tokens = torch.zeros((SERVE_B,), dtype=torch.int32)
+        bs = batch_shardings({"tokens": prompt}, mesh)["tokens"]
+        ts = batch_shardings({"tokens": tokens}, mesh)["tokens"]
+        r = {}
+        for phase in ("train", "prefill", "decode"):
+            rec = CollectiveLog()
+            with rec:
+                if phase == "train":
+                    step(params, opt, err, batch)
+                elif phase == "prefill":
+                    _, state = pre(params, {"tokens": specs.distribute(
+                        prompt, bs)})
+                else:
+                    dec(params, state, specs.distribute(tokens, ts))
+            r[phase] = [list(c) for c in rec.calls]
+        experts = set()
+        for name in ("w_gate", "w_up", "w_down"):
+            t = params["blocks"]["moe"][name]
+            for full in (t.to_local().shape, t.shape):
+                experts.add(tuple(full))
+                experts.add(tuple(full[1:]))
+        dp = shape[0]
+        r.update(groups={"model": mesh.get_group("model").group_name,
+                         "data": mesh.get_group("data").group_name},
+                 experts=sorted(map(list, experts)),
+                 bounds={"train": dc.global_batch // dp * dc.seq_len
+                         * cfg.d_model,
+                         "prefill": SERVE_B // dp * SERVE_LEN * cfg.d_model,
+                         "decode": SERVE_B // dp * max(
+                             cfg.d_model, (cfg.n_heads + 2 * cfg.n_kv_heads)
+                             * cfg.hd, cfg.n_heads * (cfg.hd + 1))},
+                 E=cfg.n_experts)
+        res[str(shape)] = r
+    if rank == 0:
+        with open(os.path.join(out, "moe_comm.json"), "w") as f:
+            json.dump(res, f)
+
+
+def moe_init_case(meshes, out, rank):
+    """``init_sharded_params`` of smoke granite (wide) on (2, 2) and
+    (1, 4) against ``init_params``: the leaves whose gathered pieces
+    differ, each MoE leaf's piece shape, and the largest tensor an op
+    made while drawing against the largest layer of a leaf."""
+    from repro_torch.models import init_params, init_sharded_params
+
+    cfg = widen(smoke("granite-moe-3b-a800m"), True)
+    want = flat(init_params(cfg, "cpu", seed=4))
+    res = {}
+    for shape, mesh in meshes.items():
+        if shape not in ((2, 2), (1, 4)):
+            continue
+        rec = Sizes()
+        with rec:
+            got = flat(init_sharded_params(cfg, mesh, seed=4, device="cpu"))
+        res[str(shape)] = {
+            "unequal": [k for k in want if not torch.equal(
+                got[k].full_tensor(), want[k])],
+            "largest": max(math.prod(sh) for sh in rec.shapes),
+            "layer": max(v[0].numel() if k.startswith("blocks/")
+                         else v.numel() for k, v in want.items()),
+            "piece": {k: list(got[k].to_local().shape) for k in want
+                      if "/moe/" in k}}
+    if rank == 0:
+        with open(os.path.join(out, "moe_init.json"), "w") as f:
+            json.dump(res, f)
+
+
+def gathered_case(meshes, out, rank):
+    """``GATHERED_ARCH`` on (2, 2) through the gathered path: the
+    data-mean gradient of one batch against the unsharded port's on the
+    whole batch (each leaf's largest gap over its largest value), the
+    served run of ``serve_case``, the gathered-tree calls and the
+    port's warnings."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.sharding import specs
+    from repro_torch.train.loop import (TrainConfig, grads_of,
+                                        make_sharded_train_step)
+
+    mesh = meshes[(2, 2)]
+    cfg = smoke(GATHERED_ARCH)
+    dc = data_config(cfg)
+    calls = [0]
+    real = specs.gather_tree
+
+    def counted(tree):
+        calls[0] += 1
+        return real(tree)
+    specs.gather_tree = counted
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            step, p_sh, b_sh = make_sharded_train_step(
+                cfg, opt_config(), TrainConfig(), mesh, make_batch(dc, 0))
+            g = step.grads(specs.distribute_tree(init(cfg), p_sh),
+                           _batch(dc, 0, b_sh, mesh))
+            res = serve_case(GATHERED_ARCH, mesh)
+    finally:
+        specs.gather_tree = real
+    whole = {k: torch.from_numpy(v) for k, v in make_batch(dc, 0).items()}
+    want = flat(grads_of(cfg, TrainConfig(), init(cfg), whole)[2])
+    sh, shapes = flat(p_sh), {k: t.shape for k, t in want.items()}
+    gap = {k: ((specs.distribute_local(v, mesh, sh[k].placements, shapes[k])
+                .full_tensor() - want[k]).abs().max()
+               / want[k].abs().max().clamp_min(1e-12)).item()
+           for k, v in flat(g).items()}
+    res.update(grad_gap=gap, gather_tree_calls=calls[0],
+               port_warnings=_port_warnings(caught))
+    if rank == 0:
+        with open(os.path.join(out, "gathered.json"), "w") as f:
+            json.dump(res, f)
+
+
+def moe_config(cfg, wide: bool, n_experts: int = 0, window: int = 0):
+    """``widen``, with ``n_experts`` experts when not 0; either
+    package's config."""
+    cfg = widen(cfg, wide, window)
+    return dataclasses.replace(cfg, n_experts=n_experts) if n_experts \
+        else cfg
+
+
+_PORT_WARNINGS = ("computes the whole batch", "gathers every parameter",
+                  " whole on each of")
+
+
+def _port_warnings(caught) -> int:
+    """How many of ``caught`` are the port's warnings of gathered or
+    repeated work."""
+    return sum(any(m in str(w.message) for m in _PORT_WARNINGS)
+               for w in caught)
+
+
+def moe_train_case(i, meshes, out):
+    """``MOE_TRAIN_CASES[i]``: the split MoE step, as ``train_case``."""
+    shape, arch, wide, groups, n_exp = MOE_TRAIN_CASES[i]
+    os.environ["REPRO_MOE_GROUPS"] = str(groups)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res, (_, _, _, step) = _train(moe_config(smoke(arch), wide, n_exp),
+                                      1, False, meshes[shape])
+    os.environ.pop("REPRO_MOE_GROUPS")
+    res["mode"] = np.array(str(step.tp.moe_mode))
+    res["split"] = np.array([step.tp.split[p] for p in ("attn", "moe",
+                                                        "vocab")])
+    res["port_warnings"] = np.array(_port_warnings(caught))
+    if dist.get_rank() == 0:
+        np.savez(os.path.join(out, f"moe_train_{i}.npz"), **res)
+
+
+def moe_dispatch_inputs(cfg):
+    """The dispatch case's seeded router and experts (fp32) and hidden
+    states x [B, S, d], router column 0 biased so that its expert
+    overflows."""
+    kw = MOE_DISPATCH_INPUT
+    rng = np.random.default_rng(kw["seed"])
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = {"router": rng.normal(0, d ** -0.5, (d, E)).astype(np.float32),
+         "w_gate": rng.normal(0, d ** -0.5, (E, d, ff)).astype(np.float32),
+         "w_up": rng.normal(0, d ** -0.5, (E, d, ff)).astype(np.float32),
+         "w_down": rng.normal(0, ff ** -0.5, (E, ff, d)).astype(np.float32)}
+    x = rng.normal(0, 1, (kw["B"], kw["S"], d)).astype(np.float32)
+    u = p["router"][:, 0] / np.linalg.norm(p["router"][:, 0])
+    return p, x + kw["bias"] * u
+
+
+def moe_dispatch_case(meshes, out, rank):
+    """``moe.moe_ffn_split`` of smoke granite on the dispatch inputs, each
+    data rank on its rows, on (4, 1) and (2, 2), REPRO_MOE_GROUPS 0 and 2:
+    every dispatch's expert ids, slots and kept flags in rank order (the
+    first "model" rank of each data rank's), and the output."""
+    from repro_torch.models import abstract_params_and_axes, moe
+    from repro_torch.sharding import specs
+    from repro_torch.sharding.tensor_parallel import TensorParallel
+
+    cfg = smoke("granite-moe-3b-a800m")
+    p_np, x_np = moe_dispatch_inputs(cfg)
+    res = {}
+    for shape in ((4, 1), (2, 2)):
+        if shape not in meshes:
+            meshes[shape] = _mesh(shape)
+        mesh = meshes[shape]
+        params_abs, axes = abstract_params_and_axes(cfg)
+        p_sh = specs.tree_shardings(axes, mesh, params_abs)
+        b_pl = specs.NamedSharding(mesh, specs.spec_for(
+            ("batch", None, None), mesh=mesh,
+            shape=x_np.shape)).placements
+        tp = TensorParallel(cfg, mesh, p_sh, params_abs, rows=b_pl)
+        plans = tp.block_plans["moe"]
+        p = {k: specs.local_chunk(torch.from_numpy(v), mesh,
+                                  plans[k].compute) for k, v in p_np.items()}
+        n, idx = tp.rows
+        rows = x_np.shape[0] // n
+        x = torch.from_numpy(x_np[idx * rows:(idx + 1) * rows])
+        for groups in (0, 2):
+            os.environ["REPRO_MOE_GROUPS"] = str(groups)
+            seen = []
+            real = moe.dispatch
+
+            def spy(eidx, n_experts, cap, offset=None):
+                slot, keep = real(eidx, n_experts, cap, offset)
+                seen.append((eidx.reshape(-1).numpy(), slot.numpy(),
+                             keep.numpy()))
+                return slot, keep
+            moe.dispatch = spy
+            try:
+                y, _ = moe.moe_ffn_split(p, x, cfg, tp, aux=False)
+            finally:
+                moe.dispatch = real
+                os.environ.pop("REPRO_MOE_GROUPS")
+            mine = None
+            if mesh.get_coordinate()[1] == 0:
+                mine = ([np.concatenate(t) for t in zip(*seen)],
+                        y.detach().numpy())
+            every = [None] * dist.get_world_size()
+            dist.all_gather_object(every, mine)
+            every = [e for e in every if e is not None]
+            key = f"{shape[0]}x{shape[1]}/{groups}"
+            for j, name in enumerate(("eidx", "slot", "keep")):
+                res[f"{key}/{name}"] = np.concatenate([e[0][j]
+                                                       for e in every])
+            res[f"{key}/y"] = np.concatenate([e[1] for e in every])
+            res[f"{key}/calls"] = np.array(len(seen))
+    if rank == 0:
+        np.savez(os.path.join(out, "moe_dispatch.npz"), **res)
+
+
 def dp_case(out, rank):
     from repro_torch.train.compression import dp_mean_compressed
     tree = {k: torch.from_numpy(v) if not isinstance(v, dict) else
@@ -614,6 +934,17 @@ def run(rank: int, world: int, store: str, out: str):
         comm_case(meshes, out, rank)
         remat_case(meshes, out, rank)
         init_case(meshes, out, rank)
+        for i in range(len(MOE_TRAIN_CASES)):
+            moe_train_case(i, meshes, out)
+        moe_serve = [moe_serve_case(i, meshes) for i in range(len(
+            MOE_SERVE_CASES))]
+        if rank == 0:
+            with open(os.path.join(out, "moe_serve.json"), "w") as f:
+                json.dump(moe_serve, f)
+        moe_comm_case(meshes, out, rank)
+        moe_init_case(meshes, out, rank)
+        moe_dispatch_case(meshes, out, rank)
+        gathered_case(meshes, out, rank)
         dp_case(out, rank)
         preempt_case(mesh, out, rank)
         dist.barrier()
