@@ -248,7 +248,14 @@ prints no result line):
    the split path: granite-moe-3b-a800m at published widths on 4 of 32
    layers (every expert local to the one rank, every dispatch offset
    0), (a)'s training run under ``REPRO_SHARDED_CE=1`` and (b)'s served
-   run, bit for bit, ``gather_tree`` never called.
+   run, bit for bit, ``gather_tree`` never called; (f) the vlm and the
+   audio encoder on the split path: llama-3.2-vision-90b at published
+   widths on one super-block (4 self layers and 1 cross layer, its gate
+   at 0.5, 1,601 seeded image tokens), (b)'s served run (flash once a
+   layer in the prefill and once a cross layer a decode step), and
+   hubert-xlarge at published widths on 4 of 48 layers, (a)'s training
+   run on seeded frame embeddings, each bit for bit, ``gather_tree``
+   never called.
 17. one rank's share of qwen2-72b on a (1, 4) mesh (after phase 16):
    rank 0 of a 4-rank group of ``torch.distributed``'s fake backend
    (``FakeStore``: every collective returns at once and moves nothing,
@@ -275,7 +282,24 @@ prints no result line):
    prefill, H 12/2 a rank), the expert rows computed a layer, and the
    collectives a decode step would run on four cards; then flash at the
    rank's prefill shape (window 4,096), checked and timed as phase 3's
-   rows.  Then one line of every phase's host seconds.
+   rows.
+19. one rank's share of llama-3.2-vision-90b on a (1, 4) mesh (after
+   phase 18, whose memory is freed first), as phase 17 on a fake 4-rank
+   group: ``init_sharded_params`` on the card (published widths, all
+   100 layers: 20 super-blocks of 4 self layers and 1 gated cross
+   layer, bf16, the gates at 0.5), a ``jit_prefill`` of 4 x 2,048
+   tokens over 1,601 seeded bf16 image tokens into caches padded to
+   4,096 positions, then 32 ``jit_decode`` steps.  Gates: every part
+   split, the self cache piece [20, 4, 4, 1024, 8, 128], the image K/V
+   whole over "model" [20, 4, 1601, 8, 128], flash 100 times in the
+   prefill (80 self, 20 cross) and 20 times a decode step (the cross
+   layers), 441 collectives a decode step on "model" (5 a self layer, 2
+   a cross layer, 1 for the embedding) and none on another group.
+   Prints peak memory by stage, parameter and cache bytes, prefill ms,
+   decode p50 and p90 against the bound of reading the rank's weights
+   and caches once; then flash at the rank's self prefill, cross
+   prefill and cross decode shapes (H 16/2), checked and timed as phase
+   3's rows.  Then one line of every phase's host seconds.
 
 Output, in order: phase lines, one JSON ``kernels`` line (launches: the
 main path's for paged_attention_fused, remap_gather (every launch of the
@@ -287,7 +311,8 @@ chunked run's for flash_attention, the Figure 7 sweep's for sim_scan,
 phase 14's training run's for flash_attention_bwd and for flash's row
 at the training shape; a row at another family's shape counts phase
 11's, 12's or 13's run of that family, and flash's row at qwen2-72b's
-rank shape phase 17's prefill and at mixtral-8x22b's phase 18's),
+rank shape phase 17's prefill, at mixtral-8x22b's phase 18's and at
+the vlm's rank shapes phase 19's prefill and decode),
 the card's name and power limit as
 nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 """
@@ -4512,7 +4537,8 @@ def _manifest_hashes(directory, step) -> dict:
 def _train_configs(arch=None, layers=None):
     """(published config, cfg, data config, optimiser config) of a
     training run: ``arch`` (``TRAIN_ARCH``) at published widths on
-    ``layers`` (``TRAIN_LAYERS``) layers, 4 x 1024 tokens, AdamW."""
+    ``layers`` (``TRAIN_LAYERS``) layers, 4 x 1024 tokens (an encoder's
+    seeded frame embeddings), AdamW."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.train.optimizer import OptConfig
@@ -4520,7 +4546,8 @@ def _train_configs(arch=None, layers=None):
     pub = get_config(arch or TRAIN_ARCH)
     cfg = dataclasses.replace(pub, n_layers=layers or TRAIN_LAYERS)
     dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                    global_batch=TRAIN_BATCH)
+                    global_batch=TRAIN_BATCH,
+                    embed_dim=cfg.d_model if cfg.embed_inputs else 0)
     oc = OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
     return pub, cfg, dc, oc
 
@@ -4814,9 +4841,14 @@ SHARD_STEPS = 3                 # 16(a): steps of each training run
 # 16(b): lanes, prompt tokens and greedy decode steps of the served run
 SHARD_LANES, SHARD_PROMPT, SHARD_DECODE = 2, 256, 8
 # 16(d): a family outside the split, on the gathered path, and its depth;
-# 16(e): the MoE family on the split path, and its depth
+# 16(e): the MoE family on the split path, and its depth; 16(f): the vlm
+# (one super-block: 4 self layers and a cross layer) and the encoder
 SHARD_GATHERED, SHARD_GATHERED_LAYERS = "hymba-1.5b", 4
 SHARD_MOE, SHARD_MOE_LAYERS = "granite-moe-3b-a800m", 4
+SHARD_VLM_LAYERS, SHARD_AUDIO_LAYERS = 5, 4
+# the vlm's cross gate in 16(f) and phase 19: tanh(0.5) = 0.46 (the
+# reference's 0 hides the branch)
+SHARD_VLM_GATE = 0.5
 
 
 @contextlib.contextmanager
@@ -4910,16 +4942,17 @@ def _shard_train_run(torch, dev, cfg, dc, oc, batches, mesh):
 
 
 def shard_train(torch, dev, mesh, arch, layers, env, label):
-    """16(a) and the training half of 16(d): the sharded train step on a
-    (1, 1) mesh against ``make_train_step`` under ``env`` on both sides,
-    ``arch`` at published widths on ``layers`` layers, bf16, 4 x 1024
-    tokens, AdamW, the same parameters and batches, ``SHARD_STEPS`` steps
-    each: losses, gnorms and every final parameter equal bit for bit (on
+    """16(a), the training halves of 16(d) and 16(f): the sharded train
+    step on a (1, 1) mesh against ``make_train_step`` under ``env`` on
+    both sides, ``arch`` at published widths on ``layers`` layers, bf16,
+    4 x 1024 tokens (an encoder's frame embeddings), AdamW, the same
+    parameters and batches, ``SHARD_STEPS`` steps each: losses, gnorms
+    and every final parameter equal bit for bit (on
     one rank the data mean is the rank's own gradient), flash forward
     and backward launches a step equal (one a layer); ms a step (steps 2
-    on) and peak memory of both.  The dense and MoE families run split
-    (every part over the one "model" rank, every expert local and every
-    dispatch offset 0, no ``gather_tree``; the loss takes the
+    on) and peak memory of both.  The families of ``SPLIT_FAMILIES`` run
+    split (every part over the one "model" rank, every expert local and
+    every dispatch offset 0, no ``gather_tree``; the loss takes the
     ``REPRO_SHARDED_CE`` form, which ``env`` gives the unsharded side),
     any other family gathered (``gather_tree`` once a step,
     ``_Layout.reduce`` once a leaf a step)."""
@@ -4998,19 +5031,24 @@ def _split_parts(cfg, mesh) -> dict:
 
 
 def shard_serve(torch, dev, mesh, arch, layers, env, label):
-    """16(b) and the serving half of 16(d): ``jit_prefill`` of
-    ``SHARD_LANES`` x ``SHARD_PROMPT`` tokens then ``SHARD_DECODE`` greedy
-    ``jit_decode`` steps on the (1, 1) mesh, ``arch`` at published widths
-    on ``layers`` layers, bf16, against ``prefill`` (the last position
-    unembedded alone, as ``make_prefill_fn`` does) and ``decode_step``,
-    under ``env`` on both sides: the logits at every step and the tokens
-    equal bit for bit; flash launched once a layer in each prefill.  The
-    dense and MoE families run split (no ``gather_tree``), any other
-    gathered (``gather_tree`` once a call)."""
+    """16(b), the serving halves of 16(d) and 16(f): ``jit_prefill`` of
+    ``SHARD_LANES`` x ``SHARD_PROMPT`` tokens (the vlm's over seeded
+    image embeddings, its gates at ``SHARD_VLM_GATE``) then
+    ``SHARD_DECODE`` greedy ``jit_decode`` steps on the (1, 1) mesh,
+    ``arch`` at published widths on ``layers`` layers, bf16, against
+    ``prefill`` (the last position unembedded alone, as
+    ``make_prefill_fn`` does) and ``decode_step``, under ``env`` on both
+    sides: the logits at every step and the tokens equal bit for bit;
+    flash launched once a layer in each prefill (and once a vlm cross
+    layer a decode step).  The families of ``SPLIT_FAMILIES`` run split
+    (no ``gather_tree``), any other gathered (``gather_tree`` once a
+    call)."""
     from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.device import torch_dtype
     from repro_torch.models import (abstract_params_and_axes, decode_step,
                                     init_params, prefill)
-    from repro_torch.serve.decode import jit_decode, jit_prefill
+    from repro_torch.serve.decode import (batch_shardings, jit_decode,
+                                          jit_prefill)
     from repro_torch.sharding import specs
     from repro_torch.sharding.tensor_parallel import SPLIT_FAMILIES
 
@@ -5019,12 +5057,20 @@ def shard_serve(torch, dev, mesh, arch, layers, env, label):
                         "prefill")
     params = init_params(cfg, dev, seed=2)
     g = torch.Generator(device=dev).manual_seed(3)
-    prompt = torch.randint(0, cfg.vocab, (SHARD_LANES, SHARD_PROMPT),
-                           generator=g, device=dev, dtype=torch.int32)
+    prompt = {"tokens": torch.randint(
+        0, cfg.vocab, (SHARD_LANES, SHARD_PROMPT), generator=g, device=dev,
+        dtype=torch.int32)}
+    n_cross = 0
+    if cfg.family == "vlm":
+        n_cross = cfg.vlm_dims[0]
+        params["blocks"]["cross"]["attn"]["gate"].fill_(SHARD_VLM_GATE)
+        prompt["image_embeds"] = torch.randn(
+            (SHARD_LANES, cfg.n_image_tokens, cfg.d_model), generator=g,
+            device=dev).to(torch_dtype(cfg.dtype))
     with _env(**env), _gathered_calls() as calls:
         _counts(zero=True)
-        want, state = prefill(cfg, params, {"tokens": prompt},
-                              max_len=shape.seq_len, last=True)
+        want, state = prefill(cfg, params, prompt, max_len=shape.seq_len,
+                              last=True)
         want = [want[:, -1]]
         for _ in range(SHARD_DECODE):
             logits, state = decode_step(cfg, params, state,
@@ -5037,14 +5083,13 @@ def shard_serve(torch, dev, mesh, arch, layers, env, label):
                             mesh)
         sharded = specs.distribute_tree(params, specs.tree_shardings(
             abstract_params_and_axes(cfg)[1], mesh, params_abs))
-        b_sh = specs.NamedSharding(mesh, specs.spec_for(("batch", None),
-                                                        mesh=mesh))
+        b_sh = batch_shardings(prompt, mesh)
         t_sh = specs.NamedSharding(mesh, specs.spec_for(("batch",),
                                                         mesh=mesh))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, state = pre(sharded,
-                            {"tokens": specs.distribute(prompt, b_sh)})
+        logits, state = pre(sharded, {k: specs.distribute(v, b_sh[k])
+                                      for k, v in prompt.items()})
         got = [logits.full_tensor()]
         for _ in range(SHARD_DECODE):
             logits, state = dec(sharded, state, specs.distribute(
@@ -5060,9 +5105,11 @@ def shard_serve(torch, dev, mesh, arch, layers, env, label):
     same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
     toks = [x.argmax(-1).tolist() for x in got]
     _check(all(same), f"{label}: logits equal by step {same}")
+    flash = cfg.n_layers + SHARD_DECODE * n_cross
     _check(launches == plain_launches and launches["flash_attention"]
-           == cfg.n_layers, f"{label}: launches {launches}, unsharded "
-           f"{plain_launches}; want flash once a layer in prefill")
+           == flash, f"{label}: launches {launches}, unsharded "
+           f"{plain_launches}; want flash once a layer in prefill and "
+           f"{n_cross} a decode step ({flash})")
     path = "split" if cfg.family in SPLIT_FAMILIES else \
         f"gathered (gather_tree {calls['gather_tree']} calls)"
     print(f"{label}: jit_prefill of {SHARD_LANES} x {SHARD_PROMPT} "
@@ -5107,7 +5154,7 @@ def shard_dp_mean(torch, dev):
 def sharding_phase(torch, dev):
     """Phase 16: a one-rank NCCL group over a file store, the (1, 1)
     ("data", "model") mesh of ``make_host_mesh(1)``; 16(a), (b), (c),
-    (d), (e); the group destroyed at the end."""
+    (d), (e), (f); the group destroyed at the end."""
     import tempfile
 
     import torch.distributed as dist
@@ -5134,6 +5181,10 @@ def sharding_phase(torch, dev):
                         {"REPRO_SHARDED_CE": "1"}, "shard moe train")
             shard_serve(torch, dev, mesh, SHARD_MOE, SHARD_MOE_LAYERS, {},
                         "shard moe serve")
+            shard_serve(torch, dev, mesh, VLM_ARCH, SHARD_VLM_LAYERS, {},
+                        "shard vlm serve")
+            shard_train(torch, dev, mesh, AUDIO_ARCH, SHARD_AUDIO_LAYERS,
+                        {"REPRO_SHARDED_CE": "1"}, "shard audio train")
         finally:
             dist.destroy_process_group()
     print(f"sharding: phase 16 took {time.perf_counter() - t0:.1f} s")
@@ -5507,6 +5558,212 @@ def moe_share_phase(torch, dev, rows):
     base_row["shapes"].append(row)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: one rank's share of llama-3.2-vision-90b on a (1, 4) mesh
+# ---------------------------------------------------------------------------
+
+VLM_MODEL = 4
+VLM_SHARE_LANES, VLM_SHARE_PROMPT, VLM_SHARE_LEN = 4, 2048, 4096
+VLM_SHARE_DECODE = 32
+
+
+def vlm_share_phase(torch, dev, rows):
+    """Phase 19: rank 0's share of llama-3.2-vision-90b on a (1, 4)
+    ("data", "model") mesh, a fake 4-rank group as phase 17's (no value
+    compared, no communication timed): parameters by
+    ``init_sharded_params`` on the card (published widths, all 100
+    layers, bf16, every cross gate at ``SHARD_VLM_GATE``), a
+    ``jit_prefill`` of ``VLM_SHARE_LANES`` x ``VLM_SHARE_PROMPT`` tokens
+    over 1,601 seeded bf16 image tokens into caches padded to
+    ``VLM_SHARE_LEN``, then ``VLM_SHARE_DECODE`` ``jit_decode`` steps.
+    Gates: every part split, the self cache piece [20, 4, 4, 1024, 8,
+    128], the image K/V [20, 4, 1601, 8, 128] (whole over "model"),
+    flash 80 times in the self layers and 20 in the cross layers of the
+    prefill and 20 times a decode step, 441 collectives a decode step on
+    "model" and none on another group.  Prints peak memory by stage,
+    parameter and cache bytes, prefill ms, decode p50 and p90 against
+    the bound of one read of the rank's parameters, its self cache piece
+    and its KV heads of the image K/V; then appends flash's rows at the
+    rank's self prefill, cross prefill and cross decode shapes to
+    ``rows``."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_sharded_params
+    from repro_torch.serve.decode import (batch_shardings, jit_decode,
+                                          jit_prefill)
+    from repro_torch.sharding import specs
+    from repro_torch.sharding.tensor_parallel import CollectiveLog
+    from repro_torch.train.optimizer import leaves
+
+    t0 = time.perf_counter()
+    card = _card_line()
+    cfg = get_config(VLM_ARCH)
+    ns, inner = cfg.vlm_dims
+    B, S, T = VLM_SHARE_LANES, VLM_SHARE_PROMPT, cfg.n_image_tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=VLM_MODEL)
+    try:
+        mesh = make_host_mesh(VLM_MODEL, dev)
+        split = _split_parts(cfg, mesh)
+        _check(all(split.values()), f"vlm share: parts not split {split}")
+        t1 = time.perf_counter()
+        params = init_sharded_params(cfg, mesh, seed=5, device=dev)
+        params["blocks"]["cross"]["attn"]["gate"].to_local().fill_(
+            SHARD_VLM_GATE)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t1
+        stage = {"init": _peak_since(torch, base)}
+        p_bytes = sum(t.to_local().numel() * t.to_local().element_size()
+                      for t in leaves(params))
+        shape = ShapeConfig("phase19", VLM_SHARE_LEN, B, "prefill")
+        pre, _ = jit_prefill(cfg, shape, mesh)
+        dec, _ = jit_decode(cfg, dataclasses.replace(shape, kind="decode"),
+                            mesh)
+        g = torch.Generator(device=dev).manual_seed(6)
+        prompt = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=g,
+                                          device=dev, dtype=torch.int32),
+                  "image_embeds": torch.randn(
+                      (B, T, cfg.d_model), generator=g,
+                      device=dev).to(torch.bfloat16)}
+        b_sh = batch_shardings(prompt, mesh)
+        t_sh = batch_shardings({"tokens": prompt["tokens"][:, 0]},
+                               mesh)["tokens"]
+        vocab0 = cfg.vocab // VLM_MODEL * mesh.get_coordinate()[1]
+        _counts(zero=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with _CrossTap() as cross:
+            logits, state = pre(params, {k: specs.distribute(v, b_sh[k])
+                                         for k, v in prompt.items()})
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t1) * 1e3
+        stage["prefill"] = _peak_since(torch, base)
+        launches = _counts(zero=True)
+        pieces = {k: tuple(t.to_local().shape)
+                  for k, t in state.caches.items()}
+        want = {"k": (ns, inner, B, VLM_SHARE_LEN // VLM_MODEL,
+                      cfg.n_kv_heads, cfg.hd),
+                "ik": (ns, B, T, cfg.n_kv_heads, cfg.hd)}
+        _check(pieces["k"] == want["k"] and pieces["ik"] == want["ik"],
+               f"vlm share: cache pieces {pieces}, want {want}")
+        c_bytes = {k: t.to_local().numel() * t.to_local().element_size()
+                   for k, t in state.caches.items()}
+        ms, rec = [], CollectiveLog()
+        for i in range(VLM_SHARE_DECODE):
+            tok = (logits.to_local().argmax(-1) + vocab0).to(torch.int32)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if i == 0:
+                with rec:
+                    logits, state = dec(params, state, specs.distribute(
+                        tok, t_sh))
+            else:
+                logits, state = dec(params, state, specs.distribute(tok,
+                                                                    t_sh))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+        dec_launches = _counts()
+        stage["decode"] = _peak_since(torch, base)
+        end = int(state.pos.to_local().max())
+        model = mesh.get_group("model").group_name
+        on_model = [c for c in rec.calls if c.group == model]
+        kinds: dict = {}
+        for c in on_model:
+            op = c.op.split(".")[1]
+            kinds[op] = kinds.get(op, 0) + 1
+        wire = sum(_wire_bytes(c.op, c.nbytes, VLM_MODEL) for c in on_model)
+        largest = max(max(c.nbytes) for c in on_model)
+        del params, state, logits, prompt
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak = max(stage.values())
+    st = sorted(ms[1:])
+    p50, p90 = st[len(st) // 2], st[int(len(st) * 0.9)]
+    # one decode step reads the rank's weights, its self cache piece and
+    # its KV heads of the image K/V once
+    read = p_bytes + c_bytes["k"] + c_bytes["v"] + (
+        c_bytes["ik"] + c_bytes["iv"]) // VLM_MODEL
+    bound_ms = read / HBM_BYTES_PER_S * 1e3
+    n_self, n_cross = ns * inner, ns
+    want_calls = 5 * n_self + 2 * n_cross + 1
+    _check(launches["flash_attention"] == n_self + n_cross
+           and cross.launches == n_cross
+           and dec_launches["flash_attention"] == n_cross * VLM_SHARE_DECODE,
+           f"vlm share: flash launches prefill {launches['flash_attention']} "
+           f"({cross.launches} cross), decode "
+           f"{dec_launches['flash_attention']}; want {n_self + n_cross} "
+           f"({n_cross} cross) and {n_cross} a decode step")
+    _check(len(on_model) == want_calls and len(rec.calls) == want_calls,
+           f"vlm share: a decode step ran {len(on_model)} collectives on "
+           f"\"model\" and {len(rec.calls) - len(on_model)} on other "
+           f"groups; want {want_calls} (5 a self layer, 2 a cross layer, 1 "
+           f"for the embedding) and none")
+    _check(end == S + VLM_SHARE_DECODE,
+           f"vlm share: decode ended at {end}, want {S + VLM_SHARE_DECODE}")
+    print(f"vlm share: {VLM_ARCH} rank 0 of a (1, {VLM_MODEL}) mesh on a "
+          f"fake {VLM_MODEL}-rank group (no value compared; no time "
+          f"includes communication), published widths, {cfg.n_layers} "
+          f"layers ({ns} super-blocks of {inner} self + 1 cross), "
+          f"{cfg.dtype}, gates {SHARD_VLM_GATE}, parts {json.dumps(split)}: "
+          f"parameters of the rank {p_bytes / 1e9:.2f} GB "
+          f"(init_sharded_params {init_s:.1f} s), self cache of the rank "
+          f"{(c_bytes['k'] + c_bytes['v']) / 1e9:.3f} GB (piece "
+          f"{list(pieces['k'])}), image K/V {(c_bytes['ik'] + c_bytes['iv']) / 1e9:.3f} "
+          f"GB (whole over \"model\", {list(pieces['ik'])}), peak device "
+          f"memory of the rank {peak:.2f} GiB above the {base / 2**30:.2f} "
+          f"GiB held before (by stage {json.dumps(stage)}); card {card}")
+    print(f"vlm share: prefill of {B} x {S} tokens over {T} image tokens "
+          f"into {VLM_SHARE_LEN} positions {prefill_ms:.1f} ms with flash "
+          f"launched {launches['flash_attention']} times "
+          f"({launches['flash_attention'] - cross.launches} self, "
+          f"{cross.launches} cross; H {cfg.n_heads // VLM_MODEL}/"
+          f"{cfg.n_kv_heads // VLM_MODEL} heads a rank); decode ms a step "
+          f"p50 {p50:.2f}, p90 {p90:.2f} (steps 2-{VLM_SHARE_DECODE}, "
+          f"synchronised, all {[round(x, 2) for x in ms]}; flash "
+          f"{dec_launches['flash_attention']} launches in all), against "
+          f"the bound {bound_ms:.2f} ms (one read of the rank's "
+          f"parameters, self cache piece and KV heads of the image K/V, "
+          f"{read / 1e9:.2f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); "
+          f"excluding communication; card {card}")
+    print(f"vlm share: a decode step on 4 cards would run {len(on_model)} "
+          f"collectives on \"model\" ({json.dumps(kinds)}; "
+          f"{len(rec.calls) - len(on_model)} on other groups), the largest "
+          f"tensor {largest} bytes, {wire / 1e6:.3f} MB sent a rank by the "
+          f"ring algorithms; phase 19 took {time.perf_counter() - t0:.1f} s")
+    H, KV, hd = cfg.n_heads // VLM_MODEL, cfg.n_kv_heads // VLM_MODEL, cfg.hd
+    g = torch.Generator(device=dev).manual_seed(9)
+    q, k, v = (torch.randn(B, S, h, hd, generator=g, device=dev).to(
+        torch.bfloat16) for h in (H, KV, KV))
+    ik, iv = (torch.randn(B, T, KV, hd, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    base_row = rows["flash_attention"]
+    cases = (("self prefill", q, k, v, True, n_self),
+             ("cross prefill", q, ik, iv, False, n_cross),
+             ("cross decode", q[:, -1:].contiguous(), ik, iv, False,
+              n_cross * VLM_SHARE_DECODE))
+    for label, qq, kk, vv, causal, n in cases:
+        row = _shape_row(
+            base_row, VLM_ARCH, f"tensor-parallel rank, {label}, B {B}, S "
+            f"{qq.shape[1]}, T {kk.shape[1]}, H {H}/{KV}, hd {hd}, "
+            f"{'causal' if causal else 'non-causal'}, bf16",
+            **_flash_case(torch, dev, qq, kk, vv, 0,
+                          f"{label} at {VLM_ARCH}'s rank shape (tp 4)",
+                          causal=causal))
+        row["launches"] = n
+        base_row["shapes"].append(row)
+    del q, k, v, ik, iv
+    torch.cuda.empty_cache()
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         _fail("src/repro_torch not found beside chip_smoke.py")
@@ -5564,6 +5821,7 @@ def main():
     phase("16 sharding", sharding_phase, torch, dev)
     phase("17 tp share", tp_share_phase, torch, dev, rows)
     phase("18 moe share", moe_share_phase, torch, dev, rows)
+    phase("19 vlm share", vlm_share_phase, torch, dev, rows)
     print(f"phases: host seconds {json.dumps(seconds)}, "
           f"{sum(seconds.values()):.1f} s in all")
     for name, n in launches.items():

@@ -80,6 +80,20 @@ def make_batch(cfg: DataConfig, step: int, *, shard: int = 0,
     return batch
 
 
+def batch_rows(cfg: DataConfig, step: int, shard: int,
+               n_shards: int) -> dict:
+    """Rows [shard*B/n, (shard+1)*B/n) of ``make_batch(cfg, step)``, the
+    whole batch's rows: the tokens from ``make_batch``'s own shard (each
+    row has its own generator), the frame embeddings (``embed_dim``) cut
+    from the whole batch's, which one generator draws for every row at
+    once (``make_batch``'s shard would draw other values)."""
+    if not cfg.embed_dim:
+        return make_batch(cfg, step, shard=shard, n_shards=n_shards)
+    b = cfg.global_batch // n_shards
+    return {k: v[shard * b:(shard + 1) * b]
+            for k, v in make_batch(cfg, step).items()}
+
+
 def device_batch(cfg: DataConfig, step: int, device=None) -> dict:
     """``make_batch(cfg, step)`` as tensors on ``device`` (the card
     unless the caller asks for the CPU)."""

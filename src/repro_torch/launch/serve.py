@@ -30,9 +30,12 @@ device): the requests in waves of ``--batch`` lanes, each a
 dense caches, sequence-sharded over "model".  For the dense and MoE
 families the compute splits over the N "model" ranks (heads, MLP or
 experts, and vocabulary) and each rank draws only its pieces of the
-parameters, so a model larger than one card serves on N; the other
-families shard storage only and gather the parameters each step.  The
-group is torchrun's, as ``launch.train``'s:
+parameters, so a model larger than one card serves on N; the hybrid
+and ssm families shard storage only and gather the parameters each
+step.  The vlm, whose steps split too (``serve.decode.jit_prefill`` and
+``jit_decode``), is refused here: its prompts carry image embeddings,
+which the launcher does not make.  The group is torchrun's, as
+``launch.train``'s:
 
   torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
       --arch qwen2-72b --mesh host --model-parallel 4
@@ -124,7 +127,8 @@ def main(argv=None):
                     help="--mesh host: ranks on the \"model\" axis; the "
                          "dense and MoE families' heads, MLP (or experts) "
                          "and vocabulary split over them (tensor-parallel "
-                         "compute), the other families shard storage only")
+                         "compute), the hybrid and ssm families shard "
+                         "storage only")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -158,6 +162,10 @@ def main(argv=None):
     if cfg.is_encoder:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
     if args.mesh == "host":
+        if cfg.family == "vlm":
+            raise SystemExit(f"{cfg.name}: --mesh host serves token "
+                             f"prompts; the vlm's prefill takes image "
+                             f"embeddings (serve.decode.jit_prefill)")
         return _serve_sharded(args, cfg, device)
     tenants = _parse_tenants(args.tenants) if args.tenants else ()
     params = init_params(cfg, device, seed=0)

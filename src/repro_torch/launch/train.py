@@ -17,13 +17,13 @@ trains on the card; ``--device cpu`` runs the plain versions.
 The process group comes from torchrun's environment (``RANK``,
 ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, ``LOCAL_RANK``); run
 without it, the launcher makes a one-rank group.  NCCL on the card, gloo
-with ``--device cpu``.  For the dense and MoE families
-``--model-parallel N`` splits the compute over the N "model" ranks
-(heads, MLP or experts, and vocabulary, ``sharding/tensor_parallel.py``)
-and each rank draws only its own pieces of the parameters
-(``models.init_sharded_params``); the other families shard storage only
-over "model" and gather every parameter on each rank for the step (a
-warning says so).  Each data rank computes its own rows; an MoE
+with ``--device cpu``.  For the dense, MoE and vlm decoders and the
+audio encoder ``--model-parallel N`` splits the compute over the N
+"model" ranks (heads, MLP or experts, and vocabulary,
+``sharding/tensor_parallel.py``) and each rank draws only its own pieces
+of the parameters (``models.init_sharded_params``); the hybrid and ssm
+families shard storage only over "model" and gather every parameter on
+each rank for the step (a warning says so).  Each data rank computes its own rows; an MoE
 dispatch ranks them after the earlier ranks' rows, as the reference
 routes the whole batch (``moe.moe_ffn_split``).
 """

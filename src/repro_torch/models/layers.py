@@ -57,10 +57,13 @@ def swiglu(x, w_gate, w_up, w_down):
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
-def gelu_mlp(x, w_in, b_in, w_out, b_out):
+def gelu_mlp(x, w_in, b_in, w_out, b_out=None):
     """The audio family's MLP with biases.  GELU in its tanh form, which
-    ``jax.nn.gelu`` computes by default (the erf form differs by ~1e-3)."""
-    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out
+    ``jax.nn.gelu`` computes by default (the erf form differs by ~1e-3).
+    ``b_out`` None leaves the output bias out (the split MLP adds it
+    after the sum over "model")."""
+    y = F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out
+    return y if b_out is None else y + b_out
 
 
 def rope_frequencies(head_dim: int, theta: float, device=None):

@@ -47,7 +47,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device, torch_dtype
-from repro_torch.sharding.tensor_parallel import SPLIT_FAMILIES
+from repro_torch.sharding.tensor_parallel import (SPLIT_FAMILIES,
+                                                  _placements_without,
+                                                  layer_dims)
 from repro_torch.weights import abstract_params, param_axes
 
 from . import attention as attn
@@ -115,10 +117,12 @@ def init_params(cfg: ArchConfig, device=None, seed: int = 0, *,
     = 0 and the cross branch adds nothing until the gate is set, as in
     the reference.
 
-    ``cut`` (``init_sharded_params``; the dense and MoE families) maps a
-    leaf's path to a function from one layer's whole draw (or a
-    top-level leaf's) to the piece kept: the draws are the same, in the
-    same order, and each leaf is stacked from its pieces."""
+    ``cut`` (``init_sharded_params``; the families of
+    ``SPLIT_FAMILIES``: dense, MoE, vlm and audio) maps a leaf's path to
+    a function from one layer's whole draw (or a top-level leaf's) to
+    the piece kept: the draws are the same, in the same order (the vlm's
+    ns x inner self layers one by one, then its ns cross layers), and
+    each leaf is stacked from its pieces."""
     check_family(cfg)
     device = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
@@ -132,10 +136,12 @@ def init_params(cfg: ArchConfig, device=None, seed: int = 0, *,
     keep = cut or (lambda path: (lambda t: t))
     if cfg.family == "vlm":
         ns, inner = cfg.vlm_dims
-        self_blocks = _blocks_init(cfg, g, ns * inner, dt, device)
+        self_blocks = _blocks_init(cfg, g, ns * inner, dt, device, cut=cut,
+                                   prefix="blocks/self/")
         blocks = {"self": _map(lambda t: t.reshape((ns, inner) + t.shape[1:]),
                                self_blocks),
-                  "cross": _blocks_init(cfg, g, ns, dt, device, cross=True)}
+                  "cross": _blocks_init(cfg, g, ns, dt, device, cross=True,
+                                        cut=cut, prefix="blocks/cross/")}
     else:
         blocks = _blocks_init(cfg, g, cfg.n_layers, dt, device, cut=cut)
     d = cfg.d_model
@@ -163,7 +169,8 @@ def init_sharded_params(cfg: ArchConfig, mesh, seed: int = 0,
     top-level leaf is drawn whole before its piece is cut: qwen2-72b's
     embedding tables, [152064, 8192], are 4.98 GB each in fp32 as drawn,
     and that draw, not the prefill, sets the rank's peak memory.  The
-    dense and MoE families; the others go through
+    families of ``SPLIT_FAMILIES`` (dense, MoE, vlm, audio); the hybrid
+    and ssm families go through
     ``specs.distribute_tree(init_params(...), ...)``."""
     from repro_torch.sharding import specs
 
@@ -180,11 +187,7 @@ def init_sharded_params(cfg: ArchConfig, mesh, seed: int = 0,
     walk(p_sh, "")
 
     def cut(path):
-        pl = flat[path].placements
-        if path.startswith("blocks/"):
-            from repro_torch.sharding.tensor_parallel import \
-                _placements_without
-            pl = _placements_without(pl)
+        pl = _placements_without(flat[path].placements, layer_dims(path))
 
         def piece(t):
             part = specs.local_chunk(t, mesh, pl)
@@ -217,23 +220,24 @@ def _map(fn, tree):
 
 
 def _blocks_init(cfg: ArchConfig, g, n: int, dt, device, *,
-                 cross: bool = False, cut=None) -> dict:
+                 cross: bool = False, cut=None,
+                 prefix: str = "blocks/") -> dict:
     """``n`` layers' blocks stacked on a leading [n] axis; ``cross`` adds
     the gated cross-attention's "gate", "q_norm" and "k_norm"; ``cut``
-    as ``init_params`` takes it (each leaf named by its path under
-    "blocks/")."""
+    as ``init_params`` takes it (each leaf named by its path, under
+    ``prefix``)."""
     d, ff = cfg.d_model, cfg.d_ff
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
 
     def stacked(name, shape, fan_in):
-        piece = cut(f"blocks/{name}") if cut is not None else None
+        piece = cut(prefix + name) if cut is not None else None
         return stacked_init(g, n, shape, dt, device, fan_in, piece=piece)
 
     def filled(name, fill, *shape):
         if cut is None:
             return torch.full((n,) + shape, fill, dtype=dt, device=device)
-        one = cut(f"blocks/{name}")(torch.full(shape, fill, dtype=dt,
-                                               device=device))
+        one = cut(prefix + name)(torch.full(shape, fill, dtype=dt,
+                                            device=device))
         return one.expand((n,) + one.shape).contiguous()
 
     blocks = {"norm1": filled("norm1", 1, d)}
@@ -387,16 +391,20 @@ def _remat(fn, remat: str):
     return lambda *a: checkpoint(fn, *a, use_reentrant=False, **kw)
 
 
-def _vlm_forward(cfg: ArchConfig, params, x, positions, rope, image_embeds,
-                 collect_cache: bool, remat: str = "none"):
-    """The super-block loop -> (x, caches): with ``collect_cache`` caches
-    = ((k, v) [ns,inner,B,S,KV,hd], (ik, iv) [ns,B,T,KV,hd]), else ().
-    ``remat`` wraps each super-block."""
+def _check_image_dtype(image_embeds, x):
     if image_embeds.dtype != x.dtype:
         # the reference's layer scan rejects the wider residual stream
         # that image K/V in a wider dtype would promote the model to
         raise TypeError(f"image_embeds are {image_embeds.dtype}; the model "
                         f"runs in {x.dtype}")
+
+
+def _vlm_forward(cfg: ArchConfig, params, x, positions, rope, image_embeds,
+                 collect_cache: bool, remat: str = "none"):
+    """The super-block loop -> (x, caches): with ``collect_cache`` caches
+    = ((k, v) [ns,inner,B,S,KV,hd], (ik, iv) [ns,B,T,KV,hd]), else ().
+    ``remat`` wraps each super-block."""
+    _check_image_dtype(image_embeds, x)
     ns, inner = cfg.vlm_dims
 
     def super_block(p_self, p, x):
@@ -442,9 +450,9 @@ def forward(cfg: ArchConfig, params, batch, *, remat: str = "none",
     ``return_logits="last"`` unembeds the last position only (logits
     [B, 1, V]), the one a jitted prefill returns.
 
-    ``tp`` (a ``sharding.tensor_parallel.TensorParallel``; the dense and
-    MoE families) runs the split step on this rank's pieces of the
-    parameters and its rows (``_forward_tp``): the logits are this
+    ``tp`` (a ``sharding.tensor_parallel.TensorParallel``; the families
+    of ``SPLIT_FAMILIES``) runs the split step on this rank's pieces of
+    the parameters and its rows (``_forward_tp``): the logits are this
     rank's vocab columns, aux the whole batch's, and ``collect_cache``
     is not taken (``prefill`` lays the cache out)."""
     check_family(cfg)
@@ -549,17 +557,18 @@ def prefill(cfg: ArchConfig, params, batch, max_len: int | None = None, *,
     this as a simplification (a warm-state prefill would be a feature it
     lacks).
 
-    ``tp`` (the dense and MoE families, this rank's parameter pieces and
-    lanes): the split prefill (``_prefill_tp``): logits are this rank's vocab
-    columns of the last position, [B, 1, V/tp] (``last`` taken), and
-    with ``seq_split`` the caches hold this rank's
+    ``tp`` (the families of ``SPLIT_FAMILIES``, this rank's parameter
+    pieces and lanes): the split prefill (``_prefill_tp``): logits are
+    this rank's vocab columns of the last position, [B, 1, V/tp]
+    (``last`` taken), and with ``seq_split`` the caches hold this rank's
     positions, [L, B, W / tp, KV, hd] (W = max_len, or the ring's
-    slots)."""
+    slots; the vlm's [ns, inner, B, W / tp, KV, hd], its image K/V
+    whole)."""
     check_family(cfg)
-    if tp is not None:
-        return _prefill_tp(cfg, params, batch, tp, max_len or
-                           batch["tokens"].shape[1], seq_split)
     x = batch["embeds"] if cfg.embed_inputs else batch["tokens"]
+    if tp is not None:
+        return _prefill_tp(cfg, params, batch, tp, max_len or x.shape[1],
+                           seq_split)
     (B, S), device = x.shape[:2], x.device
     state = init_decode_state(cfg, B, max_len or S, device)
     pos = torch.full((B,), S, dtype=torch.int32, device=device)
@@ -785,11 +794,11 @@ def decode_step(cfg: ArchConfig, params, state: DecodeState, tokens,
     step's append.  Caches update in place.  The encoder (audio) has no
     decode step, as the reference's launcher says.
 
-    ``tp`` (the dense and MoE families over the dense caches): the split
-    step
-    (``_decode_step_tp``) on this rank's parameter pieces and lanes; with
-    ``seq_split`` the caches hold this rank's positions and are never
-    gathered.  The logits are this rank's vocab columns."""
+    ``tp`` (the decoders of ``SPLIT_FAMILIES`` over the dense caches):
+    the split step (``_decode_step_tp``) on this rank's parameter pieces
+    and lanes; with ``seq_split`` the caches hold this rank's positions
+    and are never gathered.  The logits are this rank's vocab
+    columns."""
     check_family(cfg)
     if cfg.is_encoder:
         raise NotImplementedError(
@@ -853,7 +862,8 @@ def _vlm_decode(cfg: ArchConfig, params, x, caches, pos, backend, rope):
 
 
 # ---------------------------------------------------------------------------
-# tensor-parallel compute (sharding/tensor_parallel.py): dense and MoE
+# tensor-parallel compute (sharding/tensor_parallel.py): dense, MoE, vlm
+# and audio
 # ---------------------------------------------------------------------------
 
 def _check_tp(cfg: ArchConfig):
@@ -867,25 +877,29 @@ def _ffn_tp(cfg: ArchConfig, tp, p, x, aux: bool):
     """The block's second half on this rank's pieces -> (x, aux): the
     MLP on this rank's columns, or the MoE layer on this rank's experts
     (``moe.moe_ffn_split``; aux its load-balancing terms when ``aux``),
-    summed over "model"."""
+    summed over "model"; the audio MLP's output bias added once, after
+    the sum."""
     h2 = rms_norm(x, p["norm2"], cfg.rms_eps)
     if cfg.family == "moe":
         y, a = moe_mod.moe_ffn_split(p["moe"], h2, cfg, tp, aux=aux)
         return x + y, a
     m = p["mlp"]
+    if cfg.family == "audio":
+        y = gelu_mlp(tp.enter(h2, "mlp"), m["w_in"], m["b_in"], m["w_out"])
+        return x + (tp.exit(y, "mlp") + m["b_out"]), None
     return x + tp.exit(swiglu(tp.enter(h2, "mlp"), m["w_gate"], m["w_up"],
                               m["w_down"]), "mlp"), None
 
 
 def _block_fwd_tp(cfg: ArchConfig, tp, aux: bool, p_local, x, positions,
-                  rope):
+                  rope, stack: str | None = None):
     """One block over the whole sequence on this rank's pieces of the
     layer (``tp.layer`` gathers them over the data axes, inside any
-    remat, so a recomputing backward gathers again): attention on this
-    rank's heads, the MLP on its columns or the MoE layer on its experts,
-    each summed over "model".  Returns (x, aux or None, (k, v) of this
-    rank's KV heads)."""
-    p = tp.layer(p_local)
+    remat, so a recomputing backward gathers again; ``stack`` the vlm's
+    "self"): attention on this rank's heads, the MLP on its columns or
+    the MoE layer on its experts, each summed over "model".  Returns (x,
+    aux or None, (k, v) of this rank's KV heads)."""
+    p = tp.layer(p_local, stack)
     h = rms_norm(x, p["norm1"], cfg.rms_eps)
     a, kv = attn.self_attention(p["attn"], tp.enter(h, "attn"), cfg,
                                 positions=positions, causal=cfg.causal,
@@ -894,32 +908,87 @@ def _block_fwd_tp(cfg: ArchConfig, tp, aux: bool, p_local, x, positions,
     return x, aux_l, kv
 
 
+def _cross_block_tp(cfg: ArchConfig, tp, p, x, ikv):
+    """One gated cross-attention layer on this rank's pieces ``p``
+    (gathered): q of this rank's heads against ``ikv``, the image K/V of
+    its KV heads, ``wo`` summed over "model", then the MLP."""
+    h = rms_norm(x, p["norm1"], cfg.rms_eps)
+    a = attn.cross_attention(p["attn"], tp.enter(h, "attn"), ikv, cfg)
+    return _ffn_tp(cfg, tp, p, x + tp.exit(a, "attn"), False)[0]
+
+
+def _vlm_forward_tp(cfg: ArchConfig, tp, params, x, positions, rope,
+                    image_embeds, remat: str, on_layer, on_image):
+    """The split super-block loop (``_vlm_forward`` on this rank's
+    pieces): the self layers as the dense family's; each cross layer
+    computes the image K/V of this rank's KV heads (``attn.image_kv``)
+    and attends them with its query heads.  ``on_layer((s, j), (k, v))``
+    sees each self layer's K/V and ``on_image(s, (ik, iv))`` each cross
+    layer's image K/V; ``remat`` wraps each super-block."""
+    _check_image_dtype(image_embeds, x)
+
+    def super_block(p_self, p_cross, x):
+        kvs = []
+        for pj in _unstack(p_self):
+            x, _, kv = _block_fwd_tp(cfg, tp, False, pj, x, positions, rope,
+                                     "self")
+            kvs.append(kv)
+        p = tp.layer(p_cross, "cross")
+        ikv = attn.image_kv(p["attn"], image_embeds, cfg)
+        return _cross_block_tp(cfg, tp, p, x, ikv), kvs, ikv
+
+    run = _remat(super_block, remat)
+    for s, (p_self, p_cross) in enumerate(zip(
+            _unstack(params["blocks"]["self"]),
+            _unstack(params["blocks"]["cross"]))):
+        x, kvs, ikv = run(p_self, p_cross, x)
+        if on_layer is not None:
+            for j, kv in enumerate(kvs):
+                on_layer((s, j), kv)
+        if on_image is not None:
+            on_image(s, ikv)
+    return x
+
+
 def _table_path(cfg: ArchConfig) -> str:
     return "embed" if cfg.tie_embeddings else "unembed"
 
 
 def _forward_tp(cfg: ArchConfig, params, batch, tp, *, remat: str = "none",
-                logits: bool | str = True, on_layer=None, aux: bool = False):
+                logits: bool | str = True, on_layer=None, on_image=None,
+                aux: bool = False):
     """The split forward on this rank's parameter pieces -> (this rank's
     vocab columns of the logits [B, S, V/tp] fp32 (of the last position
     only, [B, 1, V/tp], with ``logits="last"``; None without
     ``logits``), with ``aux`` the MoE load-balancing loss summed over
-    layers (a 0-d fp32 tensor, 0 for the dense family), else None);
-    ``on_layer(i, (k, v))`` sees each layer's K/V."""
+    layers (a 0-d fp32 tensor, 0 for the other families), else None);
+    ``on_layer(i, (k, v))`` sees each layer's K/V (the vlm's: ``(s, j)``
+    for i, and ``on_image`` its cross layers', ``_vlm_forward_tp``).
+    The audio encoder takes ``batch["embeds"]``, with no RoPE and no
+    mask."""
     _check_tp(cfg)
-    x = tp.embed(batch["tokens"], tp.leaf("embed", params["embed"]))
+    if cfg.embed_inputs:
+        x = _embed_inputs(cfg, params, batch)
+    else:
+        x = tp.embed(batch["tokens"], tp.leaf("embed", params["embed"]))
     B, S = x.shape[:2]
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device).expand(B, S)
-    rope = rope_tables(positions, cfg.hd, cfg.rope_theta)
-    block = _remat(functools.partial(_block_fwd_tp, cfg, tp, aux), remat)
+    positions = rope = None           # the encoder: no RoPE
+    if cfg.causal:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+        rope = rope_tables(positions, cfg.hd, cfg.rope_theta)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, p in enumerate(_unstack(params["blocks"])):
-        x, aux_l, kv = block(p, x, positions, rope)
-        if aux_l is not None:
-            total = total + aux_l
-        if on_layer is not None:
-            on_layer(i, kv)
+    if cfg.family == "vlm":
+        x = _vlm_forward_tp(cfg, tp, params, x, positions, rope,
+                            batch["image_embeds"], remat, on_layer, on_image)
+    else:
+        block = _remat(functools.partial(_block_fwd_tp, cfg, tp, aux), remat)
+        for i, p in enumerate(_unstack(params["blocks"])):
+            x, aux_l, kv = block(p, x, positions, rope)
+            if aux_l is not None:
+                total = total + aux_l
+            if on_layer is not None:
+                on_layer(i, kv)
     total = tp.moe_aux(total) if aux else None
     if not logits:
         return None, total
@@ -937,42 +1006,59 @@ def _prefill_tp(cfg: ArchConfig, params, batch, tp, max_len: int,
     """The split prefill: each layer's K/V of this rank's heads laid out
     by sequence as soon as the layer has run (``tp.seq_layout``, an
     all-to-all over "model"), so ``decode_step(tp=...)`` continues from
-    the state.  Only the last position is unembedded: the logits are
-    [B, 1, V/tp].  A ring cache (``_ring_cache_len``) is laid out at its
-    W slots (the prompt at slots 0..S-1, which is position mod W), and a
-    prompt longer than the cache raises ``ValueError`` as ``prefill``
-    does."""
-    tokens = batch["tokens"]
-    B, S = tokens.shape
+    the state; the vlm's image K/V of this rank's KV heads gathered over
+    "model" (``tp.gather_heads``: they stay whole there, as the
+    reference lays them out).  Only the last position is unembedded: the
+    logits are [B, 1, V/tp].  A ring cache (``_ring_cache_len``) is laid
+    out at its W slots (the prompt at slots 0..S-1, which is position
+    mod W), and a prompt longer than the cache raises ``ValueError`` as
+    ``prefill`` does.  The encoder returns the reference's unused zero
+    state with ``pos`` = S."""
+    x = batch["embeds"] if cfg.embed_inputs else batch["tokens"]
+    (B, S), device = x.shape[:2], x.device
     max_len = _ring_cache_len(cfg, max_len)
     if S > max_len:
         raise ValueError(f"a {S}-token prompt does not fit the decode "
                          f"caches' {max_len} positions")
     rows = max_len // tp.size if seq_split else max_len
-    shape = (cfg.n_layers, B, rows, cfg.n_kv_heads, cfg.hd)
+    kv = (B, rows, cfg.n_kv_heads, cfg.hd)
     dt = torch_dtype(cfg.dtype)
-    caches = {"k": torch.zeros(shape, dtype=dt, device=tokens.device),
-              "v": torch.zeros(shape, dtype=dt, device=tokens.device)}
+    lead = cfg.vlm_dims if cfg.family == "vlm" else (cfg.n_layers,)
+    caches = {"k": torch.zeros(lead + kv, dtype=dt, device=device),
+              "v": torch.zeros(lead + kv, dtype=dt, device=device)}
+    if cfg.family == "vlm":
+        img = (lead[0], B, cfg.n_image_tokens, cfg.n_kv_heads, cfg.hd)
+        caches.update(ik=torch.zeros(img, dtype=dt, device=device),
+                      iv=torch.zeros(img, dtype=dt, device=device))
 
     def write(i, kv):
         for name, t in zip(("k", "v"), kv):
             caches[name][i] = tp.seq_layout(t, max_len, seq_split).to(dt)
+
+    def write_image(s, ikv):
+        for name, t in zip(("ik", "iv"), ikv):
+            caches[name][s] = tp.gather_heads(t)
     logits, _ = _forward_tp(cfg, params, batch, tp, logits="last",
-                            on_layer=write)
-    pos = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
+                            on_layer=None if cfg.is_encoder else write,
+                            on_image=write_image)
+    pos = torch.full((B,), S, dtype=torch.int32, device=device)
     return logits, DecodeState(pos, caches)
 
 
 def _decode_step_tp(cfg: ArchConfig, params, state: DecodeState, tokens, tp,
                     seq_split: bool):
-    """One split decode step (``decode_step(tp=...)``): per layer, q and
-    the new k/v of this rank's heads are all-gathered over "model" in one
-    call ([B, H, hd], [B, KV, hd]); the rank whose positions hold a lane's
-    ``pos`` (in a ring of W slots, slot ``pos % W``) writes its row; every
-    rank attends its own positions for all heads
+    """One split decode step (``decode_step(tp=...)``): per self layer, q
+    and the new k/v of this rank's heads are all-gathered over "model" in
+    one call ([B, H, hd], [B, KV, hd]); the rank whose positions hold a
+    lane's ``pos`` (in a ring of W slots, slot ``pos % W``) writes its
+    row; every rank attends its own positions for all heads
     (``DenseBackend.attend_shard``), the pieces merge by their lse
     (``tp.combine``), and each rank keeps its own heads for the
-    row-split ``wo``; then the MLP or the MoE layer as in the forward."""
+    row-split ``wo``; then the MLP or the MoE layer as in the forward:
+    5 collectives a layer over a sequence-split cache.  A vlm cross
+    layer attends with this rank's query heads the image K/V of its KV
+    heads (``tp.own_heads`` of the whole ``ik``/``iv``): no gather and
+    no merge, 2 collectives (``wo``'s and the MLP's sums)."""
     from .kv_backend import DenseBackend
 
     _check_tp(cfg)
@@ -981,7 +1067,7 @@ def _decode_step_tp(cfg: ArchConfig, params, state: DecodeState, tokens, tp,
     pos = state.pos
     rope = rope_tables(pos[:, None], cfg.hd, cfg.rope_theta)
     caches = state.caches
-    rows = caches["k"].shape[2]
+    rows = caches["k"].shape[-3]
     start = tp.rank * rows if seq_split else 0
     slots = rows * tp.size if seq_split else rows
     sw = cfg.sliding_window
@@ -991,22 +1077,35 @@ def _decode_step_tp(cfg: ArchConfig, params, state: DecodeState, tokens, tp,
         - start
     # one mask for every layer: this rank's positions against each lane's
     mask = backend.shard_mask(pos, rows, start=start, window=sw, ring=ring)
-    for i, p_local in enumerate(_unstack(params["blocks"])):
-        p = tp.layer(p_local)
+
+    def self_layer(x, p_local, cache, stack=None):
+        p = tp.layer(p_local, stack)
         h = rms_norm(x, p["norm1"], cfg.rms_eps)
         q, k, v = tp.gather_qkv(*(t[:, 0] for t in attn._qkv(
             p["attn"], tp.enter(h, "attn"), cfg, pos[:, None], rope)))
         B, H, hd = q.shape
         KV = k.shape[1]
-        cache = layer_params(caches, i)
         backend.append(cache, k, v, at)
         out, lse = backend.attend_shard(cache, q.reshape(B, KV, H // KV, hd),
                                         pos, mask=mask)
         if seq_split:
             out = tp.combine(out, lse)
         out = tp.own_heads(out.reshape(B, 1, H, hd))
-        x, _ = _ffn_tp(cfg, tp, p, x + tp.exit(
-            attn._out(out, p["attn"]["wo"]), "attn"), False)
+        return _ffn_tp(cfg, tp, p, x + tp.exit(
+            attn._out(out, p["attn"]["wo"]), "attn"), False)[0]
+
+    if cfg.family == "vlm":
+        for s, (p_self, p_cross) in enumerate(zip(
+                _unstack(params["blocks"]["self"]),
+                _unstack(params["blocks"]["cross"]))):
+            for j, pj in enumerate(_unstack(p_self)):
+                x = self_layer(x, pj, {"k": caches["k"][s, j],
+                                       "v": caches["v"][s, j]}, "self")
+            ikv = tuple(tp.own_heads(caches[n][s]) for n in ("ik", "iv"))
+            x = _cross_block_tp(cfg, tp, tp.layer(p_cross, "cross"), x, ikv)
+    else:
+        for i, p_local in enumerate(_unstack(params["blocks"])):
+            x = self_layer(x, p_local, layer_params(caches, i))
     x = rms_norm(x, tp.leaf("final_norm", params["final_norm"]),
                  cfg.rms_eps)
     table = _table_path(cfg)

@@ -9,14 +9,17 @@ The sharded serving steps (``jit_decode``, ``jit_prefill``; the names
 are the reference's) run on a ``DeviceMesh``: parameters laid out by
 their logical axes, the decode state by ``decode_state_shardings`` (the
 caches' lanes over the data axes, their positions over "model"), the
-inputs by ``batch_shardings``.  For the dense and MoE families they
-compute tensor parallel (``sharding/tensor_parallel.py``): each rank
-runs its heads, MLP columns and vocab columns on its lanes, each layer's
-pieces gathered over the data axes only; prefill lays each layer's K/V
-out by sequence, and decode attends each rank's own positions and merges
-the pieces by their log-sum-exp, so the cache never moves.  The other
-families gather the parameters, compute this rank's lanes (gathering
-their positions), and lay the outputs back out on the same shardings."""
+inputs by ``batch_shardings``.  For the dense, MoE and vlm decoders and
+the audio encoder they compute tensor parallel
+(``sharding/tensor_parallel.py``): each rank runs its heads, MLP columns
+(or experts) and vocab columns on its lanes, each layer's pieces
+gathered over the data axes only; prefill lays each layer's K/V out by
+sequence, and decode attends each rank's own positions and merges the
+pieces by their log-sum-exp, so the cache never moves (the vlm's image
+K/V stay whole over "model", as the reference lays them out, and each
+rank reads its KV heads of them).  The hybrid and ssm families gather
+the parameters, compute this rank's lanes (gathering their positions),
+and lay the outputs back out on the same shardings."""
 
 from __future__ import annotations
 
@@ -198,11 +201,16 @@ class _Split(NamedTuple):
     logits_pl: tuple
 
 
-def _split(cfg, mesh, params_abs, lanes_sh, B: int, s_sh, what: str):
-    """The split step on ``mesh`` (``TensorParallel``) of the dense and
-    MoE families, or None for the others, which gather (and warn so
-    once).  Each rank computes its own lanes; an MoE dispatch ranks them
-    after the earlier ranks' lanes (``moe.moe_ffn_split``)."""
+def _split(cfg, mesh, params_abs, lanes_sh, B: int, s_sh, what: str,
+           vocab_dim: int = 1):
+    """The split step on ``mesh`` (``TensorParallel``) of the families of
+    ``SPLIT_FAMILIES``, or None for the others, which gather (and warn
+    so once).  Each rank computes its own lanes; an MoE dispatch ranks
+    them after the earlier ranks' lanes (``moe.moe_ffn_split``).  The
+    caches are split by sequence when "model" shards their "seq"
+    dimension (the third from last: [L, B, S, KV, hd], the vlm's [ns,
+    inner, B, S, KV, hd]); ``s_sh`` None (the encoder) has no caches.
+    The logits' vocabulary is their dimension ``vocab_dim``."""
     from torch.distributed.tensor import Replicate, Shard
 
     from repro_torch.models import abstract_params_and_axes
@@ -220,11 +228,13 @@ def _split(cfg, mesh, params_abs, lanes_sh, B: int, s_sh, what: str):
                         rows=lanes_sh.placements)
     tp.warn_whole(what)
     lo, hi = specs.shard_range(lanes_sh.placements, mesh, B)
-    seq_split = tp.size > 1 and \
-        s_sh.caches["k"].placements[tp.m].is_shard()
+    seq_split = False
+    if s_sh is not None and tp.size > 1:
+        k = s_sh.caches["k"]
+        seq_split = k.placements[tp.m].is_shard(len(k.spec) - 3)
     logits_pl = tuple(
         Shard(0) if pl.is_shard() else
-        Shard(1) if i == tp.m and tp.split["vocab"] else Replicate()
+        Shard(vocab_dim) if i == tp.m and tp.split["vocab"] else Replicate()
         for i, pl in enumerate(lanes_sh.placements))
     return _Split(tp, lo, hi, seq_split, logits_pl)
 
@@ -238,12 +248,13 @@ def jit_decode(cfg, shape, mesh):
     the state's shardings).  The state is donated, as the reference's
     is: its pieces may be updated in place.
 
-    The dense and MoE families' step is split
+    The step of the families of ``SPLIT_FAMILIES`` is split
     (``models.decode_step(tp=...)``): no parameter piece leaves its
     "model" rank, and the caches are updated in place on the rank that
-    holds each position (a ring cache's slot ``pos % W``).  The other
-    families gather the parameters and this rank's lanes of the caches
-    (``moe.data_shards`` decides the lanes)."""
+    holds each position (a ring cache's slot ``pos % W``); the encoder's
+    step raises when called, as the reference's does.  The hybrid and
+    ssm families gather the parameters and this rank's lanes of the
+    caches (``moe.data_shards`` decides the lanes)."""
     from repro_torch.models import (abstract_decode_state,
                                     abstract_params_and_axes)
     from repro_torch.sharding.specs import (NamedSharding, gather_tree,
@@ -301,10 +312,11 @@ def jit_prefill(cfg, shape, mesh):
     ``jit_decode`` at the same shape continues them) and returns
     (last-position logits [B, vocab] over ("batch", "vocab"), the decode
     state on ``decode_state_shardings``); an encoder's step returns its
-    logits [B, S, vocab] over ("batch", None, "vocab").  The dense and
-    MoE families' step is split (``models.prefill(tp=...)``): each rank's
-    K/V heads go to the ranks that hold their positions, one layer at a
-    time; the other families gather the parameters."""
+    logits [B, S, vocab] over ("batch", None, "vocab").  The step of the
+    families of ``SPLIT_FAMILIES`` is split (``models.prefill(tp=...)``,
+    the encoder's ``models.forward(tp=...)``): each rank's K/V heads go
+    to the ranks that hold their positions, one layer at a time; the
+    hybrid and ssm families gather the parameters."""
     from repro_torch.models import (abstract_decode_state,
                                     abstract_params_and_axes, input_specs)
     from repro_torch.sharding.specs import (NamedSharding, gather_tree,
@@ -324,6 +336,11 @@ def jit_prefill(cfg, shape, mesh):
     if cfg.is_encoder:
         out_sh = NamedSharding(mesh, spec_for(
             ("batch", None, "vocab"), mesh=mesh, shape=(B, S, cfg.vocab)))
+        split = _split(cfg, mesh, params_abs, next(iter(b_sh.values())), B,
+                       None, "jit_prefill", vocab_dim=2)
+        if split is not None:
+            return _split_encode(cfg, mesh, split, out_sh), (params_abs,
+                                                             specs_in)
 
         def encode(params, batch):
             logits = run(params, batch)
@@ -347,6 +364,24 @@ def jit_prefill(cfg, shape, mesh):
     return step, (params_abs, specs_in)
 
 
+def _split_encode(cfg, mesh, split: _Split, out_sh):
+    """The encoder's split step: ``models.forward(tp=...)`` on this
+    rank's lanes -> the logits over every frame, this rank's vocab
+    columns, laid out on ``out_sh``."""
+    from repro_torch.models import forward
+    from repro_torch.sharding.specs import distribute_local
+    from repro_torch.sharding.tensor_parallel import local_tree
+
+    def encode(params, batch):
+        logits, _, _ = forward(cfg, local_tree(params), {
+            k: v.to_local() for k, v in batch.items()}, tp=split.tp)
+        B, S = batch["embeds"].shape[:2]
+        return distribute_local(logits, mesh, split.logits_pl,
+                                (B, S, cfg.vocab)).redistribute(
+            mesh, out_sh.placements)
+    return encode
+
+
 def _split_prefill(cfg, mesh, split: _Split, s_sh, state_abs, logits_sh,
                    shape):
     from repro_torch.models import DecodeState, prefill
@@ -356,8 +391,9 @@ def _split_prefill(cfg, mesh, split: _Split, s_sh, state_abs, logits_sh,
     B = shape.global_batch
 
     def step(params, batch):
-        tokens = batch["tokens"].to_local()
-        logits, st = prefill(cfg, local_tree(params), {"tokens": tokens},
+        local = {k: v.to_local() for k, v in batch.items()}
+        tokens = local["tokens"]
+        logits, st = prefill(cfg, local_tree(params), local,
                              max_len=shape.seq_len, tp=split.tp,
                              seq_split=split.seq_split)
         logits = distribute_local(logits[:, -1], mesh, split.logits_pl,

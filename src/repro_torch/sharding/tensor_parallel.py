@@ -1,6 +1,7 @@
 """Tensor-parallel compute over the mesh's "model" axis, with the
 parameters' "data" pieces gathered one layer at a time (FSDP), for the
-dense and MoE decoders.
+dense and MoE decoders, the vlm (its self and gated cross layers) and
+the audio encoder.
 
 The reference hands its logical-axis specs to XLA, whose partitioner
 splits the products: heads, kv_heads, mlp and vocab over "model".  Here
@@ -26,6 +27,14 @@ the same split is written out, Megatron style, over
   its own positions for every head and returns (out, lse); the pieces
   merge by lse weights across "model" after a MAX all-reduce of the lse,
   so a rank whose positions are all masked weighs 0.
+* The vlm's cross layers run on this rank's heads as the self layers
+  do: q of its heads against the image K/V of its KV heads, ``wo``
+  row-split.  Their ``gate``, ``q_norm`` and ``k_norm`` stay whole on
+  every rank but act on this rank's heads only, so their gradient is a
+  partial sum over "model" (``_MODEL_PARTIAL``: the leaf's plan
+  computes on ``Partial`` there, and the data mean sums it).  The audio
+  MLP's ``b_in`` splits with ``w_in``'s columns; ``b_out`` is added
+  once, after the sum over "model".
 * The MoE layer (``moe.moe_ffn_split``) runs this rank's experts on its
   rows' choices of them, the router's logits gathered over "model" (its
   backward a reduce-scatter), or every expert on its d_ff columns where
@@ -52,28 +61,46 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 # the families whose steps compute split (the others gather the tree)
-SPLIT_FAMILIES = ("dense", "moe")
+SPLIT_FAMILIES = ("dense", "moe", "vlm", "audio")
 PARTS = ("attn", "mlp", "moe", "vocab")
-# the leaves of each part (paths under the parameter tree's root)
+# the leaves of each part (paths under the parameter tree's root, the
+# vlm's "blocks/self/" and "blocks/cross/" read as "blocks/")
 _PART_LEAVES = {
     "attn": ("blocks/attn/wq", "blocks/attn/wk", "blocks/attn/wv",
              "blocks/attn/wo", "blocks/attn/bq", "blocks/attn/bk",
              "blocks/attn/bv"),
-    "mlp": ("blocks/mlp/w_gate", "blocks/mlp/w_up", "blocks/mlp/w_down"),
+    "mlp": ("blocks/mlp/w_gate", "blocks/mlp/w_up", "blocks/mlp/w_down",
+            "blocks/mlp/w_in", "blocks/mlp/b_in", "blocks/mlp/w_out"),
     "moe": ("blocks/moe/router", "blocks/moe/w_gate", "blocks/moe/w_up",
             "blocks/moe/w_down"),
     "vocab": ("embed", "unembed"),
 }
+# leaves whole on every rank that act on this rank's heads when attention
+# is split, so that each rank's gradient is its part of the sum over
+# "model"
+_MODEL_PARTIAL = ("blocks/cross/attn/gate", "blocks/cross/attn/q_norm",
+                  "blocks/cross/attn/k_norm")
 # the MoE part's split by the dimension "model" shards in one layer of
 # w_gate [E, d, ff]: by expert or by d_ff column
 _MOE_MODES = {0: "expert", 2: "mlp"}
 
 
 def _part_of(path: str) -> str | None:
+    path = path.replace("blocks/self/", "blocks/").replace("blocks/cross/",
+                                                             "blocks/")
     for part, names in _PART_LEAVES.items():
         if path in names:
             return part
     return None
+
+
+def layer_dims(path: str) -> int:
+    """The leading layer dimensions of the leaf at ``path``: 2 for the
+    vlm's self stack [ns, inner, ...], 1 for another stacked leaf, 0 at
+    the top level."""
+    if path.startswith("blocks/self/"):
+        return 2
+    return int(path.startswith("blocks/"))
 
 
 def _reduce_scatter(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
@@ -208,8 +235,9 @@ class LeafPlan:
     """How one parameter leaf (one layer of a stacked leaf) moves in the
     step: ``gathers`` (mesh dim, tensor dim) all-gathered before use,
     minor mesh dim first; ``compute`` the placements of the tensor the
-    layer computes with; ``placements`` the leaf's own; ``shape`` the
-    layer's global shape."""
+    layer computes with (``Partial`` on "model" for a leaf whose
+    gradient is a partial sum there, ``_MODEL_PARTIAL``); ``placements``
+    the leaf's own; ``shape`` the layer's global shape."""
     mesh: object
     gathers: tuple
     compute: tuple
@@ -239,17 +267,18 @@ class _Gather(torch.autograd.Function):
         return ctx.tp.reduce(g, ctx.plan), None, None
 
 
-def _placements_without(placements, dim: int = 0) -> tuple:
-    """A stacked leaf's placements -> those of one layer (dim 0 gone)."""
+def _placements_without(placements, lead: int = 1) -> tuple:
+    """A stacked leaf's placements -> those of one layer (its ``lead``
+    leading layer dimensions gone)."""
     from torch.distributed.tensor import Shard
 
     out = []
     for pl in placements:
         if pl.is_shard():
-            if pl.dim == dim:
+            if pl.dim < lead:
                 raise ValueError("a layer-stacked leaf is split on its "
                                  "layer dimension")
-            out.append(Shard(pl.dim - (pl.dim > dim)))
+            out.append(Shard(pl.dim - lead))
         else:
             out.append(pl)
     return tuple(out)
@@ -306,8 +335,8 @@ class TensorParallel:
         def on_model(path):
             return self.m is not None and \
                 sh[path].placements[self.m].is_shard()
-        self.split = {part: all(on_model(p) for p in names if p in sh)
-                      for part, names in _PART_LEAVES.items()}
+        self.split = {part: all(on_model(p) for p in sh
+                                if _part_of(p) == part) for part in PARTS}
         self.moe_mode, self.moe_experts = None, (cfg.n_experts, 0)
         if "blocks/moe/w_gate" in sh:
             pl = _placements_without(sh["blocks/moe/w_gate"].placements)
@@ -319,19 +348,21 @@ class TensorParallel:
                 self.moe_experts = (hi - lo, lo)
         plans = {}
         for path, s in sh.items():
-            stacked = path.startswith("blocks/")
-            pl = tuple(s.placements)
-            shape = tuple(abs_[path].shape)
-            if stacked:
-                pl, shape = _placements_without(pl), shape[1:]
+            lead = layer_dims(path)
+            pl = _placements_without(s.placements, lead)
+            shape = tuple(abs_[path].shape)[lead:]
             part = _part_of(path)
             keep = part is not None and self.split[part]
+            partial = path in _MODEL_PARTIAL and self.size > 1 \
+                and self.split["attn"]
             compute, gathers = [], []
             for i, p in enumerate(pl):
                 if p.is_shard() and mesh.size(i) > 1 \
                         and not (i == self.m and keep):
                     gathers.append((i, p.dim))
                     compute.append(_replicate())
+                elif i == self.m and partial:
+                    compute.append(_partial())
                 else:
                     compute.append(p)
             plans[path] = LeafPlan(mesh, tuple(reversed(gathers)),
@@ -343,7 +374,8 @@ class TensorParallel:
         # this rank's vocab rows [start, start + rows) of the tables
         self.vocab_start, end = (0, cfg.vocab)
         if self.split["vocab"]:
-            self.vocab_start, end = shard_range(sh["embed"].placements,
+            table = "unembed" if cfg.embed_inputs else "embed"
+            self.vocab_start, end = shard_range(sh[table].placements,
                                                 mesh, cfg.vocab)
         self.vocab_rows = end - self.vocab_start
 
@@ -445,10 +477,12 @@ class TensorParallel:
 
     # -- parameters -------------------------------------------------------
 
-    def layer(self, p_local: dict) -> dict:
+    def layer(self, p_local: dict, stack: str | None = None) -> dict:
         """One layer's pieces (views of the stacked local leaves) -> the
-        tensors the layer computes with."""
-        return _map2(self._take, p_local, self.block_plans)
+        tensors the layer computes with; ``stack`` names the vlm's
+        "self" or "cross" stack."""
+        plans = self.block_plans if stack is None else self.block_plans[stack]
+        return _map2(self._take, p_local, plans)
 
     def leaf(self, path: str, local: torch.Tensor) -> torch.Tensor:
         """A top-level leaf's piece -> the tensor the step computes with."""
@@ -603,6 +637,11 @@ def warn_gathered(cfg, mesh, what: str) -> None:
 def _replicate():
     from torch.distributed.tensor import Replicate
     return Replicate()
+
+
+def _partial():
+    from torch.distributed.tensor import Partial
+    return Partial()
 
 
 def _map2(fn, tree, plans):

@@ -19,18 +19,18 @@ reaches the same parameters as an uninterrupted one.
 ``make_sharded_train_step`` is the step on a ``DeviceMesh``: every
 parameter, AdamW moment and error-feedback buffer is a DTensor laid out
 by the reference's logical-axis specs (``sharding/specs.py``), and the
-batch is split over the data axes.  For the dense and MoE families the
-step computes tensor parallel over "model"
-(``sharding/tensor_parallel.py``): each layer's pieces are gathered over
-the data axes only, inside the layer loop, and each rank runs its own
-heads, MLP columns (or experts) and vocab columns on its rows (on a
-card, the flash kernels forward and backward on H/tp heads); each leaf's
-gradient is reduced to its data mean and scattered onto the leaf's piece
-as the backward leaves the layer.  The other families gather the whole
-parameter tree into plain tensors, run the step body above on this
-rank's rows, and reduce-scatter the gradients after it.  AdamW then runs
-on the shards with the global norm of the whole gradient: ZeRO-3 over
-the whole mesh.  ``fit`` takes ``mesh=`` to train so.
+batch is split over the data axes.  For the dense, MoE and vlm
+decoders and the audio encoder the step computes tensor parallel over
+"model" (``sharding/tensor_parallel.py``): each layer's pieces are
+gathered over the data axes only, inside the layer loop, and each rank
+runs its own heads, MLP columns (or experts) and vocab columns on its
+rows (on a card, the flash kernels forward and backward on H/tp heads);
+each leaf's gradient is reduced to its data mean and scattered onto the
+leaf's piece as the backward leaves the layer.  The hybrid and ssm
+families gather the whole parameter tree into plain tensors, run the
+step body above on this rank's rows, and reduce-scatter the gradients
+after it.  AdamW then runs on the shards with the global norm of the
+whole gradient: ZeRO-3 over the whole mesh.  ``fit`` takes ``mesh=`` to train so.
 """
 
 from __future__ import annotations
@@ -45,7 +45,8 @@ import torch
 
 from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.configs.base import ArchConfig
-from repro_torch.data.pipeline import DataConfig, device_batch, make_batch
+from repro_torch.data.pipeline import (DataConfig, batch_rows, device_batch,
+                                       make_batch)
 from repro_torch.device import resolve_device
 from repro_torch.models import (abstract_params_and_axes,
                                 init_params_and_axes, init_sharded_params,
@@ -271,8 +272,9 @@ def make_sharded_train_step(cfg: ArchConfig, opt_cfg: OptConfig,
     ``train_step.grads(params, batch)`` gives this rank's shards of the
     data-mean gradient, without a step.
 
-    The dense and MoE families' step is tensor parallel (module
-    docstring; its ``train_step.tp`` is the ``TensorParallel``); the loss
+    The step of the families of ``SPLIT_FAMILIES`` (dense, MoE, vlm,
+    audio) is tensor parallel (module docstring; its ``train_step.tp``
+    is the ``TensorParallel``); the loss
     takes the reference's ``REPRO_SHARDED_CE`` form.  A part whose leaves
     ``spec_for`` left whole on "model" runs whole on every rank, with one
     warning when the step is made.  Peak memory of a rank in the split
@@ -446,7 +448,7 @@ def _fit(cfg, dc, opt_cfg, tc, mesh, resume, seed, log, device):
         n_rows, my_rows = specs.shard_index(b_pl, mesh)
 
         def batch_at(it):
-            local = make_batch(dc, it, shard=my_rows, n_shards=n_rows)
+            local = batch_rows(dc, it, my_rows, n_rows)
             return {k: specs.distribute_local(
                 torch.from_numpy(v).to(device), mesh, b_sh[k].placements,
                 (dc.global_batch,) + v.shape[1:]) for k, v in local.items()}

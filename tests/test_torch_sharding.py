@@ -314,33 +314,40 @@ def _reference_run(case, wide=None, n_experts: int = 0):
     if wide is not None or n_experts:
         jcfg, cfg = (W.moe_config(c, bool(wide), n_experts)
                      for c in (jcfg, cfg))
-    dc = JDataConfig(vocab=cfg.vocab, **W.DC_KW)
+    dc = JDataConfig(vocab=cfg.vocab, **W.DC_KW,
+                     embed_dim=cfg.d_model if cfg.embed_inputs else 0)
     oc = W.opt_config()
     tree = jax.tree.map(lambda t: t.float().numpy(), W.init(cfg))
     jtc = jloop.TrainConfig(microbatches=mb, compress_grads=compress)
+
+    def batch(it):
+        """The reference's batch, with the vlm's image embeddings."""
+        b = j_make_batch(dc, it)
+        if cfg.family == "vlm":
+            b["image_embeds"] = W.image_embeds(cfg, dc.global_batch, it)
+        return b
     # the reference's step jitted on a one-device mesh of Auto axes (the
     # partitioner's, which its specs are written for)
     mesh = jax.make_mesh((1, 1), ("data", "model"),
                          axis_types=(AxisType.Auto, AxisType.Auto))
     step, _, _ = jloop.make_sharded_train_step(
-        jcfg, jopt.OptConfig(**vars(oc)), jtc, mesh, j_make_batch(dc, 0),
-        donate=False)
+        jcfg, jopt.OptConfig(**vars(oc)), jtc, mesh, batch(0), donate=False)
     p = jax.tree.map(jnp.asarray, tree)
     opt = jopt.init_opt_state(p)
     err = jax.tree.map(jnp.zeros_like, p) if compress else None
     grad_fn = jax.jit(jax.grad(lambda q, b: j_loss_fn(jcfg, q, b)[0]))
-    grad = grad_fn(p, j_make_batch(dc, 0))
+    grad = grad_fn(p, batch(0))
     losses, gnorms, flips = [], [], []
     for it in range(W.TRAIN_STEPS):
         if compress:
-            flips.append(_one_flip(grad_fn, p, j_make_batch(dc, it), mb,
+            flips.append(_one_flip(grad_fn, p, batch(it), mb,
                                    dc.global_batch))
-        p, opt, err, m = step(p, opt, err, j_make_batch(dc, it))
+        p, opt, err, m = step(p, opt, err, batch(it))
         losses.append(float(m["loss"]))
         gnorms.append(float(m["gnorm"]))
     quantum = {}
     for it in range(W.TRAIN_STEPS if compress else 0):
-        b = j_make_batch(dc, it)
+        b = batch(it)
         for i in range(mb):
             rows = slice(i * dc.global_batch // mb,
                          (i + 1) * dc.global_batch // mb)
@@ -415,14 +422,18 @@ def _check_train(got, ref, flip_slack: bool = False):
 def test_split_train_step_matches_reference(case, dist_run):
     """The tensor-parallel step (``TRAIN_STEPS`` steps on 4 ranks) against
     the reference's ``make_sharded_train_step`` on one device, within the
-    sharded step's tolerances; every part ran split, except attention of
+    sharded step's tolerances: the dense family, the vlm (its cross
+    layers' gate at ``W.VLM_GATE``, image embeddings seeded) and hubert
+    (the MLP's biases drawn); every part ran split, except attention of
     smoke llama3-8b on (1, 4) (2 KV heads over 4 ranks), which ran whole
-    after one warning."""
+    after one warning, and no other warning of gathered or repeated
+    work."""
     shape, arch, wide, mb, compress = W.TP_TRAIN_CASES[case]
     got = np.load(dist_run / f"tp_train_{case}.npz")
     whole = shape == (1, 4) and not wide
     assert got["split"].tolist() == [not whole, True, True]
     assert int(got["whole_warnings"]) == int(whole)
+    assert int(got["port_warnings"]) == int(whole)
     _check_train(got, _reference_run((arch, mb, compress, 0), wide),
                  flip_slack=compress)
 
@@ -493,9 +504,14 @@ def test_split_serving_matches_unsharded(case, dist_run):
     (``TP_SERVE_POS``), then greedy split ``jit_decode`` steps across the
     cache pieces' boundaries, against the unsharded port: the same token
     streams and positions, logits within 1e-5, the caches (gathered after
-    the run) within 1e-4; each rank held only its lanes and positions of
-    the cache, and the logits stay on ("batch", "vocab")."""
-    shape, _, _, _ = W.TP_SERVE_CASES[case]
+    the run, the vlm's image K/V too) within 1e-4; each rank held only
+    its lanes and positions of the cache (the vlm's [ns, inner, ...]
+    layer dimensions whole), and the logits stay on ("batch", "vocab").
+    The vlm (its gate at ``W.VLM_GATE``) and the split dense cases warn
+    of no gathered work; smoke llama3-8b on (1, 4) warns once in
+    ``jit_prefill`` and once in ``jit_decode`` that attention runs
+    whole."""
+    shape, arch, wide, _ = W.TP_SERVE_CASES[case]
     got = json.loads((dist_run / "tp_serve.json").read_text())[case]
     assert got["tokens"] == got["want_tokens"]
     assert got["pos"] == got["want_pos"] == [
@@ -503,9 +519,63 @@ def test_split_serving_matches_unsharded(case, dist_run):
     assert got["logit_gap"] <= LOGIT_ATOL
     assert got["cache_gap"] <= 1e-4
     whole = got["whole"]
-    assert got["piece"] == [whole[0], whole[1] // shape[0],
-                            whole[2] // shape[1]] + whole[3:]
+    lead = len(whole) - 4            # the layer dimensions
+    assert got["piece"] == whole[:lead] + [whole[lead] // shape[0],
+                                           whole[lead + 1] // shape[1]] \
+        + whole[lead + 2:]
     assert got["logits_spec"] == "(Shard(dim=0), Shard(dim=1))"
+    assert got["port_warnings"] == (2 if shape == (1, 4) and not wide
+                                    else 0), arch
+
+
+def test_split_vlm_decode_collectives(dist_run):
+    """One split decode step of the vlm on (2, 2) and on (1, 4) (the
+    split serving cases, real gloo collectives): on "model", exactly 5
+    collectives a self layer (q, k and v gathered, the lse's max and the
+    merge, the attention's and the MLP's sums), 2 a cross layer (its
+    ``wo``'s and its MLP's sums: the image K/V are read on each rank's
+    KV heads, with no gather and no merge) and 1 for the embedding; on
+    (1, 4), one data rank, nothing on another group."""
+    cfg = W.smoke("llama-3.2-vision-90b")
+    ns, inner = cfg.vlm_dims
+    serve = json.loads((dist_run / "tp_serve.json").read_text())
+    seen = 0
+    for case, (shape, arch, _, _) in enumerate(W.TP_SERVE_CASES):
+        if arch != "llama-3.2-vision-90b":
+            continue
+        got = serve[case]["collectives"]
+        assert got["model"] == 5 * ns * inner + 2 * ns + 1, (shape, got)
+        if shape[0] == 1:
+            assert got["other"] == 0, (shape, got)
+        seen += 1
+    assert seen == 2
+
+
+def test_vlm_and_audio_init_sharded_params(dist_run):
+    """``init_sharded_params`` of smoke vlm and hubert on (2, 2): the
+    gathered pieces equal ``init_params``'s draw exactly; the vlm's self
+    stack keeps both layer dimensions whole on every rank and its
+    projections split (wq on heads over "model" and on d over "data"),
+    hubert's MLP splits on d_ff, its output bias only over "data"."""
+    info = json.loads((dist_run / "tp_init.json").read_text())
+    vlm, aud = (W.smoke(a) for a in ("llama-3.2-vision-90b",
+                                     "hubert-xlarge"))
+    ns, inner = vlm.vlm_dims
+    d, H, hd = vlm.d_model, vlm.n_heads, vlm.hd
+    for arch, r in info.items():
+        assert r["unequal"] == [], arch
+    pieces = info["llama-3.2-vision-90b"]["piece"]
+    assert pieces["blocks/self/attn/wq"] == [ns, inner, d // 2, H // 2, hd]
+    assert pieces["blocks/cross/attn/wq"] == [ns, d // 2, H // 2, hd]
+    assert pieces["blocks/cross/attn/gate"] == [ns]
+    assert pieces["blocks/cross/attn/q_norm"] == [ns, hd]
+    pieces = info["hubert-xlarge"]["piece"]
+    L, da, ff = aud.n_layers, aud.d_model, aud.d_ff
+    assert pieces["blocks/mlp/w_in"] == [L, da // 2, ff // 2]
+    assert pieces["blocks/mlp/b_in"] == [L, ff // 2]
+    assert pieces["blocks/mlp/b_out"] == [L, da // 2]
+    assert "embed" not in pieces and pieces["unembed"] == [aud.vocab // 2,
+                                                           da // 2]
 
 
 def test_split_collectives_are_activation_sized(dist_run):
@@ -642,11 +712,85 @@ def test_split_serving_on_a_fake_group():
         dist.destroy_process_group()
 
 
+def test_vlm_split_serving_on_a_fake_group():
+    """``chip_smoke.py`` phase 19's machinery at smoke size: rank 0 of a
+    4-rank group of the fake backend on a (1, 4) mesh, the wide smoke
+    vlm from ``init_sharded_params``: the prefill keeps this rank's
+    quarter of the self caches' positions ([ns, inner, B, W/4, KV, hd])
+    and the image K/V whole ([ns, B, T, KV, hd]); a decode step runs 5
+    collectives a self layer, 2 a cross layer and 1 for the embedding on
+    "model", nothing on other groups.  hubert's split ``jit_prefill``
+    keeps a quarter of the vocab columns of every frame.  Building the
+    steps warns of gathered parameters for xlstm (outside the split) and
+    not for the vlm or hubert."""
+    import dataclasses
+    import warnings
+
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_sharded_params
+    from repro_torch.serve.decode import jit_decode, jit_prefill
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=4)
+    try:
+        mesh = make_host_mesh(4, "cpu")
+        cfg = W.widen(W.smoke("llama-3.2-vision-90b"), True)
+        ns, inner = cfg.vlm_dims
+        T, KV, hd = cfg.n_image_tokens, cfg.n_kv_heads, cfg.hd
+        params = init_sharded_params(cfg, mesh, seed=5, device="cpu")
+        shape = ShapeConfig("fake", 32, 2, "prefill")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            pre, _ = jit_prefill(cfg, shape, mesh)
+            dec, _ = jit_decode(cfg, dataclasses.replace(shape,
+                                                         kind="decode"),
+                                mesh)
+            aud = W.widen(W.smoke("hubert-xlarge"), True)
+            enc, _ = jit_prefill(aud, ShapeConfig("fake", 12, 2, "prefill"),
+                                 mesh)
+            assert W._port_warnings(caught) == 0
+            xl = W.smoke("xlstm-125m")
+            jit_decode(xl, dataclasses.replace(shape, kind="decode"), mesh)
+            assert W._port_warnings(caught) == 1
+        prompt = {"tokens": torch.randint(0, cfg.vocab, (2, 20),
+                                          dtype=torch.int32),
+                  "image_embeds": torch.randn(2, T, cfg.d_model)}
+        b_sh = batch_shardings(prompt, mesh)
+        t_sh = batch_shardings({"tokens": prompt["tokens"][:, 0]},
+                               mesh)["tokens"]
+        logits, state = pre(params, {k: specs.distribute(v, b_sh[k])
+                                     for k, v in prompt.items()})
+        assert tuple(state.caches["k"].to_local().shape) == (
+            ns, inner, 2, 8, KV, hd)
+        assert tuple(state.caches["ik"].to_local().shape) == (ns, 2, T, KV,
+                                                              hd)
+        assert tuple(logits.to_local().shape) == (2, cfg.vocab // 4)
+        rec = CollectiveLog()
+        with rec:
+            dec(params, state, specs.distribute(
+                logits.to_local().argmax(-1).to(torch.int32), t_sh))
+        model = mesh.get_group("model").group_name
+        assert [c[1] for c in rec.calls] == [model] * (
+            5 * ns * inner + 2 * ns + 1)
+        embeds = torch.randn(2, 12, aud.d_model)
+        out = enc(init_sharded_params(aud, mesh, seed=5, device="cpu"),
+                  {"embeds": specs.distribute(embeds, batch_shardings(
+                      {"embeds": embeds}, mesh)["embeds"])})
+        assert tuple(out.to_local().shape) == (2, 12, aud.vocab // 4)
+    finally:
+        dist.destroy_process_group()
+
+
 def test_serve_launcher_mesh_host_on_cpu(capsys):
     """``launch.serve --mesh host`` on a one-rank gloo group: 3 requests
     in waves of 2 lanes, 3 greedy tokens each through ``jit_prefill`` and
-    ``jit_decode``; the engine's options are refused beside it, and
-    ``--model-parallel`` without a mesh."""
+    ``jit_decode``; the engine's options are refused beside it,
+    ``--model-parallel`` without a mesh, and the vlm (its prompts carry
+    image embeddings, which the launcher does not make)."""
     from repro_torch.launch import serve
 
     out = serve.main(["--arch", "qwen2-7b", "--smoke", "--device", "cpu",
@@ -661,6 +805,9 @@ def test_serve_launcher_mesh_host_on_cpu(capsys):
     with pytest.raises(SystemExit):
         serve.main(["--arch", "llama3-8b", "--smoke", "--device", "cpu",
                     "--model-parallel", "2"])
+    with pytest.raises(SystemExit, match="image embeddings"):
+        serve.main(["--arch", "llama-3.2-vision-90b", "--smoke", "--device",
+                    "cpu", "--mesh", "host"])
 
 
 # --- the MoE family's split: experts over "model", ranks across "data" ------

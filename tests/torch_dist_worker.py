@@ -20,11 +20,12 @@ test compares into the directory ``out``:
   step 0: each rank's logged steps and whether it stopped, and the
   steps saved;
 * ``tp_train_<i>.npz``: ``TP_TRAIN_CASES[i]``, the tensor-parallel train
-  step of a dense config on its mesh, as ``train_<i>.npz`` (with the
-  parts that ran split);
+  step of a dense, vlm or audio config on its mesh, as ``train_<i>.npz``
+  (with the parts that ran split and the port's warnings);
 * ``tp_serve.json``: ``TP_SERVE_CASES``, split prefill then decode with
   ragged positions, an idle lane and (one case) a window, against the
-  unsharded port;
+  unsharded port (the vlm's image K/V too), with the collectives of the
+  first decode step by group and the port's warnings;
 * ``comm.json``: every collective of one split train step, prefill and
   decode step (op, group, elements), recorded under a dispatch mode, and
   whether ``specs.gather_tree`` was called;
@@ -33,6 +34,8 @@ test compares into the directory ``out``:
 * ``init.json``: ``init_sharded_params`` on (2, 2) and (1, 4): the
   gathered pieces against ``init_params``, and the largest tensor an op
   made while drawing;
+* ``tp_init.json``: ``init_sharded_params`` of smoke vlm and hubert on
+  (2, 2) against ``init_params``, and the pieces' shapes;
 * ``moe_train_<i>.npz``: ``MOE_TRAIN_CASES[i]``, the split MoE step
   (experts over "model", or d_ff where E does not divide it) as
   ``train_<i>.npz``, with its mode and the warnings it raised;
@@ -88,13 +91,24 @@ TP_TRAIN_CASES = (((2, 2), "qwen2-7b", False, 1, False),
                   ((1, 4), "llama3-8b", True, 2, True),
                   ((1, 4), "qwen2-7b", True, 1, False),
                   ((1, 4), "qwen2-7b", True, 2, True),
-                  ((1, 4), "llama3-8b", False, 1, False))
+                  ((1, 4), "llama3-8b", False, 1, False),
+                  ((2, 2), "llama-3.2-vision-90b", False, 1, False),
+                  ((1, 4), "llama-3.2-vision-90b", True, 2, True),
+                  ((2, 2), "hubert-xlarge", False, 1, False),
+                  ((1, 4), "hubert-xlarge", True, 2, True))
 # (mesh, arch, wide, sliding window)
 TP_SERVE_CASES = (((2, 2), "llama3-8b", False, 0),
                   ((2, 2), "qwen2-7b", False, 0),
                   ((1, 4), "llama3-8b", True, 6),
                   ((1, 4), "qwen2-7b", True, 0),
-                  ((1, 4), "llama3-8b", False, 0))
+                  ((1, 4), "llama3-8b", False, 0),
+                  ((2, 2), "llama-3.2-vision-90b", False, 0),
+                  ((1, 4), "llama-3.2-vision-90b", True, 0))
+# the vlm's cross layers' gate in every case: at its init of 0, tanh(gate)
+# hides the cross branch
+VLM_GATE = 0.5
+# the seed of the vlm's image embeddings (the pipeline makes none)
+IMAGE_SEED = 11
 # lanes' positions after the prefill: ragged, lane 3 idle throughout
 TP_SERVE_POS = (10, 7, 3, -100)
 # the split MoE step: (mesh, arch, wide, REPRO_MOE_GROUPS, n_experts (0:
@@ -143,25 +157,49 @@ def widen(cfg, wide: bool, window: int = 0):
 
 
 def init(cfg) -> dict:
-    """``init_params(cfg, "cpu", 0)`` with the QKV biases drawn (normal,
-    0.5): at their init of zero they would not show in the outputs, and
-    bk's gradient is zero in exact arithmetic (softmax is unmoved by one
+    """``init_params(cfg, "cpu", 0)`` with the QKV biases and the audio
+    MLP's biases drawn (normal, 0.5) and the vlm's gate at ``VLM_GATE``:
+    at their init of zero they would not show in the outputs, and bk's
+    gradient is zero in exact arithmetic (softmax is unmoved by one
     shift of every key), so from zero its values after a step are
     rounding noise."""
     from repro_torch.models import init_params
     params = init_params(cfg, "cpu", seed=0)
+    rng = np.random.default_rng(12)
+    drawn = []
     if cfg.qkv_bias:
-        rng = np.random.default_rng(12)
-        for k in ("bq", "bk", "bv"):
-            b = params["blocks"]["attn"][k]
-            b.copy_(torch.from_numpy(rng.normal(0, 0.5, b.shape).astype(
-                np.float32)))
+        drawn = [params["blocks"]["attn"][k] for k in ("bq", "bk", "bv")]
+    if cfg.family == "audio":
+        drawn = [params["blocks"]["mlp"][k] for k in ("b_in", "b_out")]
+    for b in drawn:
+        b.copy_(torch.from_numpy(rng.normal(0, 0.5, b.shape).astype(
+            np.float32)))
+    if cfg.family == "vlm":
+        params["blocks"]["cross"]["attn"]["gate"].fill_(VLM_GATE)
     return params
 
 
 def data_config(cfg):
     from repro_torch.data.pipeline import DataConfig
-    return DataConfig(vocab=cfg.vocab, **DC_KW)
+    return DataConfig(vocab=cfg.vocab, **DC_KW,
+                      embed_dim=cfg.d_model if cfg.embed_inputs else 0)
+
+
+def image_embeds(cfg, rows: int, step: int) -> np.ndarray:
+    """The vlm's seeded image embeddings [rows, T, d] of a step."""
+    rng = np.random.default_rng([DC_KW["seed"], step, IMAGE_SEED])
+    return rng.standard_normal((rows, cfg.n_image_tokens, cfg.d_model),
+                               dtype=np.float32)
+
+
+def whole_batch(cfg, dc, step: int) -> dict:
+    """``make_batch(dc, step)`` with the vlm's image embeddings (either
+    package's ``make_batch``, which draw the same)."""
+    from repro_torch.data.pipeline import make_batch
+    batch = make_batch(dc, step)
+    if cfg.family == "vlm":
+        batch["image_embeds"] = image_embeds(cfg, dc.global_batch, step)
+    return batch
 
 
 def dp_tree(rank: int) -> dict:
@@ -194,11 +232,17 @@ def _mesh(shape):
     return init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
 
 
-def _batch(dc, it, b_sh, mesh):
-    from repro_torch.data.pipeline import make_batch
+def _batch(cfg, dc, it, b_sh, mesh):
+    """This rank's rows of ``whole_batch(cfg, dc, it)`` as DTensors on
+    ``b_sh``."""
+    from repro_torch.data.pipeline import batch_rows
     from repro_torch.sharding import specs
     n, idx = specs.shard_index(next(iter(b_sh.values())).placements, mesh)
-    local = make_batch(dc, it, shard=idx, n_shards=n)
+    local = batch_rows(dc, it, idx, n)
+    if cfg.family == "vlm":
+        rows = dc.global_batch // n
+        local["image_embeds"] = image_embeds(cfg, dc.global_batch, it)[
+            idx * rows:(idx + 1) * rows]
     return {k: specs.distribute_local(torch.from_numpy(v), mesh,
                                       b_sh[k].placements,
                                       (dc.global_batch,) + v.shape[1:])
@@ -225,6 +269,7 @@ def tp_train_case(i, meshes, out):
                                                         "vocab")])
     res["whole_warnings"] = np.array(sum("computes attn whole" in
                                          str(w.message) for w in caught))
+    res["port_warnings"] = np.array(_port_warnings(caught))
     if dist.get_rank() == 0:
         np.savez(os.path.join(out, f"tp_train_{i}.npz"), **res)
 
@@ -232,7 +277,6 @@ def tp_train_case(i, meshes, out):
 def _train(cfg, mb, compress, mesh):
     """``TRAIN_STEPS`` sharded steps of ``cfg`` on ``mesh`` -> (what
     ``train_<i>.npz`` holds, (params, opt, p_sh, the step))."""
-    from repro_torch.data.pipeline import make_batch
     from repro_torch.models import abstract_params_and_axes
     from repro_torch.sharding import specs
     from repro_torch.train.loop import (TrainConfig, init_sharded_state,
@@ -241,20 +285,20 @@ def _train(cfg, mb, compress, mesh):
     dc = data_config(cfg)
     tc = TrainConfig(microbatches=mb, compress_grads=compress)
     step, p_sh, b_sh = make_sharded_train_step(cfg, opt_config(), tc, mesh,
-                                               make_batch(dc, 0))
+                                               whole_batch(cfg, dc, 0))
     params = specs.distribute_tree(init(cfg), p_sh)
     opt, err = init_sharded_state(p_sh, abstract_params_and_axes(cfg)[0],
                                   compress)
     res = {}
-    g = step.grads(params, _batch(dc, 0, b_sh, mesh))
+    g = step.grads(params, _batch(cfg, dc, 0, b_sh, mesh))
     sh, shapes = flat(p_sh), {k: t.shape for k, t in flat(params).items()}
     res.update({f"grad/{k}": specs.distribute_local(
         v, mesh, sh[k].placements, shapes[k]).full_tensor().numpy()
         for k, v in flat(g).items()})
     losses, gnorms = [], []
     for it in range(TRAIN_STEPS):
-        params, opt, err, m = step(params, opt, err, _batch(dc, it, b_sh,
-                                                            mesh))
+        params, opt, err, m = step(params, opt, err, _batch(cfg, dc, it,
+                                                            b_sh, mesh))
         losses.append(float(m["loss"]))
         gnorms.append(float(m["gnorm"]))
     res.update({f"param/{k}": _full(v) for k, v in flat(params).items()})
@@ -399,10 +443,14 @@ def tp_serve_case(i, meshes):
     """Split ``jit_prefill``, the positions set to ``TP_SERVE_POS``, then
     greedy split ``jit_decode`` steps against the unsharded port with the
     same positions: tokens, the logits' largest gap, the caches gathered
-    against the unsharded ones, and each cache piece's shape."""
+    against the unsharded ones, and each cache piece's shape; the port's
+    warnings raised."""
     shape, arch, wide, window = TP_SERVE_CASES[i]
-    return _split_serve(meshes[shape], widen(smoke(arch), wide, window),
-                        SERVE_PROMPT, TP_SERVE_POS)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res = _split_serve(meshes[shape], widen(smoke(arch), wide, window),
+                           SERVE_PROMPT, TP_SERVE_POS)
+    return dict(res, port_warnings=_port_warnings(caught))
 
 
 def moe_serve_case(i, meshes):
@@ -426,7 +474,9 @@ def moe_serve_case(i, meshes):
 
 def _split_serve(mesh, cfg, prompt_len: int, pos0):
     """``tp_serve_case``'s run of ``cfg`` on ``mesh``: a prompt of
-    ``prompt_len`` tokens, the positions then set to ``pos0``."""
+    ``prompt_len`` tokens (the vlm's over seeded image embeddings), the
+    positions then set to ``pos0``; the first decode step's collectives
+    counted by group ("model" and the others)."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.models import (abstract_params_and_axes, decode_step,
                                     prefill)
@@ -442,13 +492,15 @@ def _split_serve(mesh, cfg, prompt_len: int, pos0):
         sh, kind="decode"), mesh)
     params = specs.distribute_tree(full, specs.tree_shardings(
         abstract_params_and_axes(cfg)[1], mesh, params_abs))
-    prompt = torch.from_numpy(np.random.default_rng(11).integers(
-        0, cfg.vocab, (SERVE_B, prompt_len), dtype=np.int32))
-    b_sh = batch_shardings({"tokens": prompt}, mesh)
-    logits, state = pre(params, {"tokens": specs.distribute(
-        prompt, b_sh["tokens"])})
-    want_logits, want = prefill(cfg, full, {"tokens": prompt},
-                                max_len=SERVE_LEN)
+    prompt = {"tokens": torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab, (SERVE_B, prompt_len), dtype=np.int32))}
+    if cfg.family == "vlm":
+        prompt["image_embeds"] = torch.from_numpy(image_embeds(cfg, SERVE_B,
+                                                               0))
+    b_sh = batch_shardings(prompt, mesh)
+    logits, state = pre(params, {k: specs.distribute(v, b_sh[k])
+                                 for k, v in prompt.items()})
+    want_logits, want = prefill(cfg, full, prompt, max_len=SERVE_LEN)
     want_logits = want_logits[:, -1]
     s_sh = decode_state_shardings(cfg, state_abs, mesh)
     pos = torch.tensor(pos0, dtype=torch.int32)
@@ -457,20 +509,29 @@ def _split_serve(mesh, cfg, prompt_len: int, pos0):
     t_sh = specs.NamedSharding(mesh, specs.spec_for(
         ("batch",), mesh=mesh, shape=(SERVE_B,)))
     toks, want_toks, gap = [], [], 0.0
-    for _ in range(SERVE_STEPS):
+    rec = CollectiveLog()
+    for i in range(SERVE_STEPS):
         got = logits.full_tensor()
         gap = max(gap, (got - want_logits).abs().max().item())
         nxt, want_nxt = got.argmax(-1), want_logits.argmax(-1)
         toks.append(nxt.tolist())
         want_toks.append(want_nxt.tolist())
-        logits, state = dec(params, state, specs.distribute(
-            nxt.to(torch.int32), t_sh))
+        nxt = specs.distribute(nxt.to(torch.int32), t_sh)
+        if i == 0:
+            with rec:
+                logits, state = dec(params, state, nxt)
+        else:
+            logits, state = dec(params, state, nxt)
         want_logits, want = decode_step(cfg, full, want, want_nxt)
     got = logits.full_tensor()
     gap = max(gap, (got - want_logits).abs().max().item())
     cache_gap = max((state.caches[k].full_tensor() - want.caches[k]).abs()
-                    .max().item() for k in ("k", "v"))
-    return {"tokens": toks, "want_tokens": want_toks, "logit_gap": gap,
+                    .max().item() for k in want.caches)
+    model = mesh.get_group("model").group_name
+    on_model = sum(c.group == model for c in rec.calls)
+    return {"collectives": {"model": on_model,
+                            "other": len(rec.calls) - on_model},
+            "tokens": toks, "want_tokens": want_toks, "logit_gap": gap,
             "cache_gap": cache_gap, "pos": state.pos.full_tensor().tolist(),
             "want_pos": want.pos.tolist(),
             "piece": list(state.caches["k"].to_local().shape),
@@ -513,7 +574,7 @@ def comm_case(meshes, out, rank):
             params = specs.distribute_tree(full, p_sh)
             opt, err = init_sharded_state(
                 p_sh, abstract_params_and_axes(cfg)[0], False)
-            batch = _batch(dc, 0, b_sh, mesh)
+            batch = _batch(cfg, dc, 0, b_sh, mesh)
             sh = ShapeConfig("serve", SERVE_LEN, SERVE_B, "prefill")
             pre, _ = jit_prefill(cfg, sh, mesh)
             dec, (_, state_abs, _) = jit_decode(cfg, dataclasses.replace(
@@ -585,8 +646,8 @@ def remat_case(meshes, out, rank):
         params = specs.distribute_tree(init(cfg), p_sh)
         rec = CollectiveLog()
         with rec:
-            grads[remat] = flat(step.grads(params, _batch(dc, 0, b_sh,
-                                                          mesh)))
+            grads[remat] = flat(step.grads(params, _batch(
+                cfg, dc, 0, b_sh, mesh)))
         gathers[remat] = sum(c.op.startswith("c10d._allgather_base")
                              and c.group == data for c in rec.calls)
     diff = max((grads["full"][k] - grads["none"][k]).abs().max().item()
@@ -610,6 +671,28 @@ class Sizes(TorchDispatchMode):
             if isinstance(t, torch.Tensor) and t.device.type != "meta":
                 self.shapes.add(tuple(t.shape))
         return out
+
+
+def tp_init_case(meshes, out, rank):
+    """``init_sharded_params`` of smoke vlm and hubert on (2, 2): the
+    leaves whose gathered pieces differ from ``init_params``'s, and each
+    leaf's piece and whole shape."""
+    from repro_torch.models import init_params, init_sharded_params
+
+    res = {}
+    for arch in ("llama-3.2-vision-90b", "hubert-xlarge"):
+        cfg = smoke(arch)
+        want = flat(init_params(cfg, "cpu", seed=4))
+        got = flat(init_sharded_params(cfg, meshes[(2, 2)], seed=4,
+                                       device="cpu"))
+        res[arch] = {
+            "unequal": [k for k in want if not torch.equal(
+                got[k].full_tensor(), want[k])],
+            "piece": {k: list(got[k].to_local().shape) for k in want},
+            "whole": {k: list(v.shape) for k, v in want.items()}}
+    if rank == 0:
+        with open(os.path.join(out, "tp_init.json"), "w") as f:
+            json.dump(res, f)
 
 
 def init_case(meshes, out, rank):
@@ -665,7 +748,7 @@ def moe_comm_case(meshes, out, rank):
         params = specs.distribute_tree(init(cfg), p_sh)
         opt, err = init_sharded_state(
             p_sh, abstract_params_and_axes(cfg)[0], False)
-        batch = _batch(dc, 0, b_sh, mesh)
+        batch = _batch(cfg, dc, 0, b_sh, mesh)
         sh = ShapeConfig("serve", SERVE_LEN, SERVE_B, "prefill")
         pre, _ = jit_prefill(cfg, sh, mesh)
         dec, _ = jit_decode(cfg, dataclasses.replace(sh, kind="decode"),
@@ -765,7 +848,7 @@ def gathered_case(meshes, out, rank):
             step, p_sh, b_sh = make_sharded_train_step(
                 cfg, opt_config(), TrainConfig(), mesh, make_batch(dc, 0))
             g = step.grads(specs.distribute_tree(init(cfg), p_sh),
-                           _batch(dc, 0, b_sh, mesh))
+                           _batch(cfg, dc, 0, b_sh, mesh))
             res = serve_case(GATHERED_ARCH, mesh)
     finally:
         specs.gather_tree = real
@@ -934,6 +1017,7 @@ def run(rank: int, world: int, store: str, out: str):
         comm_case(meshes, out, rank)
         remat_case(meshes, out, rank)
         init_case(meshes, out, rank)
+        tp_init_case(meshes, out, rank)
         for i in range(len(MOE_TRAIN_CASES)):
             moe_train_case(i, meshes, out)
         moe_serve = [moe_serve_case(i, meshes) for i in range(len(
