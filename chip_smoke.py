@@ -239,12 +239,14 @@ prints no result line):
    (the last position unembedded alone, as ``make_prefill_fn`` does) and
    ``decode_step``: logits and tokens bit for bit; (c)
    ``dp_mean_compressed`` through NCCL against its plain single-process
-   result, bit for bit; (d) the gathered path that the families outside
-   the split still take: hymba-1.5b at published widths on 4 of 32
-   layers, through (a)'s training run against ``make_train_step`` and
-   (b)'s served run against ``prefill`` and ``decode_step``, bit for
-   bit, with ``specs.gather_tree`` counted once a step or call and
-   ``_Layout.reduce`` once a leaf a training step; (e) the MoE family on
+   result, bit for bit; (d) the hybrid family on the split path:
+   hymba-1.5b at published widths on 4 of 32 layers (layers 0-3, a
+   global layer among them; its Mamba branch on the one rank's channels,
+   ``in_proj``'s x and z columns), through (a)'s training run under
+   ``REPRO_SHARDED_CE=1`` against ``make_train_step`` and (b)'s served
+   run against ``prefill`` (the reference's cold state) and
+   ``decode_step``, bit for bit, ``specs.gather_tree`` never called; (e)
+   the MoE family on
    the split path: granite-moe-3b-a800m at published widths on 4 of 32
    layers (every expert local to the one rank, every dispatch offset
    0), (a)'s training run under ``REPRO_SHARDED_CE=1`` and (b)'s served
@@ -255,7 +257,10 @@ prints no result line):
    layer in the prefill and once a cross layer a decode step), and
    hubert-xlarge at published widths on 4 of 48 layers, (a)'s training
    run on seeded frame embeddings, each bit for bit, ``gather_tree``
-   never called.
+   never called; (g) the ssm family on the split path: xlstm-125m at
+   published widths on 4 of 12 layers (layer 3 sLSTM, the others
+   mLSTM), (a)'s training run and (b)'s served run, bit for bit, no
+   flash launched.
 17. one rank's share of qwen2-72b on a (1, 4) mesh (after phase 16):
    rank 0 of a 4-rank group of ``torch.distributed``'s fake backend
    (``FakeStore``: every collective returns at once and moves nothing,
@@ -299,7 +304,30 @@ prints no result line):
    decode p50 and p90 against the bound of reading the rank's weights
    and caches once; then flash at the rank's self prefill, cross
    prefill and cross decode shapes (H 16/2), checked and timed as phase
-   3's rows.  Then one line of every phase's host seconds.
+   3's rows.
+20. one rank's share of each recurrent family on a (1, 4) mesh (after
+   phase 19, whose memory is freed first), as phase 17 on a fake 4-rank
+   group: hymba-1.5b (``init_sharded_params`` on the card, published
+   widths, all 32 layers, bf16), a ``jit_prefill`` of 2 x 2,048 tokens
+   into caches of 4,096 positions, then 64 ``jit_decode`` steps from the
+   reference's cold state (``pos`` 0, caches zero: only rank 0's quarter
+   of the sequence-sharded cache is written, the other ranks' all-masked
+   pieces weigh 0 in the lse merge).  Gates: the Mamba pieces hold 400
+   of the 1,600 channels and the scan takes the x and z columns of the
+   rank's channels ([0, 400) and [1600, 2000) on rank 0); attention (25
+   heads over 5 KV heads) and the 32,001-row vocabulary run whole, one
+   warning a step builder; the MLP piece holds 1,376 of 5,504 columns;
+   flash 32 times in the prefill; a decode step runs on "model" the
+   collectives ``tests/test_torch_split_recurrent.py`` counts (7 a layer
+   here: the lse's max and merge, ``in_proj``'s gather, dt/B/C's and
+   ``out_proj``'s sums, the state's gather, the MLP's sum) and none on
+   another group.  Then the same for xlstm-125m: a head of 4 a rank, all
+   12 layers, prefill 2 x 2,048, 64 steps, 2 collectives a layer and the
+   embedding's.  Prints for each peak memory by stage, parameter and
+   state bytes, prefill ms, decode p50 and p90; then flash at hymba's
+   rank prefill shape (its whole H 25/5, window 1,024), checked and
+   timed as phase 3's rows, and at PR 19's B 1 row shape beside that
+   row's time.  Then one line of every phase's host seconds.
 
 Output, in order: phase lines, one JSON ``kernels`` line (launches: the
 main path's for paged_attention_fused, remap_gather (every launch of the
@@ -312,7 +340,8 @@ phase 14's training run's for flash_attention_bwd and for flash's row
 at the training shape; a row at another family's shape counts phase
 11's, 12's or 13's run of that family, and flash's row at qwen2-72b's
 rank shape phase 17's prefill, at mixtral-8x22b's phase 18's and at
-the vlm's rank shapes phase 19's prefill and decode),
+the vlm's rank shapes phase 19's prefill and decode, at hymba's rank
+shape phase 20's prefill),
 the card's name and power limit as
 nvidia-smi reports them, and last ``{"ok": true, "device": {...}}``.
 """
@@ -4840,10 +4869,12 @@ def train_phase(torch, dev, rows, launches):
 SHARD_STEPS = 3                 # 16(a): steps of each training run
 # 16(b): lanes, prompt tokens and greedy decode steps of the served run
 SHARD_LANES, SHARD_PROMPT, SHARD_DECODE = 2, 256, 8
-# 16(d): a family outside the split, on the gathered path, and its depth;
-# 16(e): the MoE family on the split path, and its depth; 16(f): the vlm
-# (one super-block: 4 self layers and a cross layer) and the encoder
-SHARD_GATHERED, SHARD_GATHERED_LAYERS = "hymba-1.5b", 4
+# 16(d): the hybrid family and its depth (layers 0-3: a global layer and
+# three windowed ones); 16(g): the ssm family (layer 3 sLSTM); 16(e): the
+# MoE family; 16(f): the vlm (one super-block: 4 self layers and a cross
+# layer) and the encoder
+SHARD_HYBRID, SHARD_HYBRID_LAYERS = "hymba-1.5b", 4
+SHARD_SSM, SHARD_SSM_LAYERS = "xlstm-125m", 4
 SHARD_MOE, SHARD_MOE_LAYERS = "granite-moe-3b-a800m", 4
 SHARD_VLM_LAYERS, SHARD_AUDIO_LAYERS = 5, 4
 # the vlm's cross gate in 16(f) and phase 19: tanh(0.5) = 0.46 (the
@@ -4868,10 +4899,10 @@ def _env(**kw):
 
 @contextlib.contextmanager
 def _gathered_calls():
-    """Counts, by name, the calls of the gathered path's pieces in the
-    context: ``specs.gather_tree`` (the whole tree on each rank) and
-    ``train.loop._Layout.reduce`` (a gradient's data mean onto its
-    shard)."""
+    """Counts, by name, the calls in the context of
+    ``specs.gather_tree`` (the whole tree on each rank, which no split
+    step calls) and ``train.loop._Layout.reduce`` (a gradient's data
+    mean onto its shard)."""
     from repro_torch.sharding import specs
     from repro_torch.train import loop
 
@@ -4942,23 +4973,19 @@ def _shard_train_run(torch, dev, cfg, dc, oc, batches, mesh):
 
 
 def shard_train(torch, dev, mesh, arch, layers, env, label):
-    """16(a), the training halves of 16(d) and 16(f): the sharded train
-    step on a (1, 1) mesh against ``make_train_step`` under ``env`` on
-    both sides, ``arch`` at published widths on ``layers`` layers, bf16,
-    4 x 1024 tokens (an encoder's frame embeddings), AdamW, the same
-    parameters and batches, ``SHARD_STEPS`` steps each: losses, gnorms
-    and every final parameter equal bit for bit (on
-    one rank the data mean is the rank's own gradient), flash forward
-    and backward launches a step equal (one a layer); ms a step (steps 2
-    on) and peak memory of both.  The families of ``SPLIT_FAMILIES`` run
-    split (every part over the one "model" rank, every expert local and
-    every dispatch offset 0, no ``gather_tree``; the loss takes the
-    ``REPRO_SHARDED_CE`` form, which ``env`` gives the unsharded side),
-    any other family gathered (``gather_tree`` once a step,
-    ``_Layout.reduce`` once a leaf a step)."""
+    """16(a), the training halves of 16(d), 16(f) and 16(g): the sharded
+    train step on a (1, 1) mesh against ``make_train_step`` under
+    ``env`` on both sides, ``arch`` at published widths on ``layers``
+    layers, bf16, 4 x 1024 tokens (an encoder's frame embeddings), AdamW,
+    the same parameters and batches, ``SHARD_STEPS`` steps each: losses,
+    gnorms and every final parameter equal bit for bit (on one rank the
+    data mean is the rank's own gradient), flash forward and backward
+    launches a step equal (one an attention layer); ms a step (steps 2
+    on) and peak memory of both.  The step runs split (every part over
+    the one "model" rank, every expert local and every dispatch offset
+    0, no ``gather_tree``; the loss takes the ``REPRO_SHARDED_CE`` form,
+    which ``env`` gives the unsharded side)."""
     from repro_torch.data.pipeline import device_batch
-    from repro_torch.sharding.tensor_parallel import SPLIT_FAMILIES
-    from repro_torch.train.optimizer import leaves
 
     _, cfg, dc, oc = _train_configs(arch, layers)
     batches = [device_batch(dc, it, dev) for it in range(SHARD_STEPS)]
@@ -4966,26 +4993,18 @@ def shard_train(torch, dev, mesh, arch, layers, env, label):
         runs = {name: _shard_train_run(torch, dev, cfg, dc, oc, batches, m)
                 for name, m in (("unsharded", None), ("sharded", mesh))}
     (v0, ms0, l0, pk0, f0, _), (v1, ms1, l1, pk1, f1, calls) = runs.values()
-    if cfg.family in SPLIT_FAMILIES:
-        path = f"split path (parts {json.dumps(_split_parts(cfg, mesh))})"
-        _check(all(_split_parts(cfg, mesh).values())
-               and calls["gather_tree"] == 0,
-               f"{label}: parts not split or tree gathered ({path}, {calls})")
-    else:
-        n_leaves = len(leaves(_abstract_params(cfg)))
-        path = (f"gathered path (gather_tree {calls['gather_tree']} calls, "
-                f"_Layout.reduce {calls['reduce']})")
-        _check(calls["gather_tree"] == SHARD_STEPS
-               and calls["reduce"] == SHARD_STEPS * n_leaves,
-               f"{label}: {path}; want gather_tree once a step and reduce "
-               f"once for each of {n_leaves} leaves a step")
+    path = f"split path (parts {json.dumps(_split_parts(cfg, mesh))})"
+    _check(all(_split_parts(cfg, mesh).values())
+           and calls["gather_tree"] == 0,
+           f"{label}: parts not split or tree gathered ({path}, {calls})")
     worst = max((a.float() - b.float()).abs().max().item()
                 for a, b in zip(f0, f1))
-    per_step = SHARD_STEPS * cfg.n_layers
+    n_attn = _attention_layers(cfg)
+    per_step = SHARD_STEPS * n_attn
     _check(l0 == l1 and l0["flash_attention"] == per_step
            and l0["flash_attention_bwd"] == per_step,
            f"{label}: launches unsharded {l0}, sharded {l1}; want "
-           f"{cfg.n_layers} flash forward and backward a step in both")
+           f"{n_attn} flash forward and backward a step in both")
     _check(v0 == v1 and worst == 0.0,
            f"{label}: sharded (loss, gnorm) {v1} against {v0}; largest "
            f"parameter difference {worst:.3e} (want bit for bit on one rank)")
@@ -4995,8 +5014,8 @@ def shard_train(torch, dev, mesh, arch, layers, env, label):
           f"from the same parameters and batches, {path} against "
           f"make_train_step under {json.dumps(env)}; (loss, gnorm) by step "
           f"{v1} equal bit for bit, every final parameter equal "
-          f"({len(f1)} leaves); flash {per_step // SHARD_STEPS} forward and "
-          f"{per_step // SHARD_STEPS} backward launches a step in both")
+          f"({len(f1)} leaves); flash {n_attn} forward and {n_attn} "
+          f"backward launches a step in both")
     print(f"{label}: ms a step (median of steps 2-{SHARD_STEPS}; all "
           f"{[round(x, 1) for x in ms1]}) sharded {step1:.1f} against "
           f"unsharded {step0:.1f} (all {[round(x, 1) for x in ms0]}), "
@@ -5005,9 +5024,10 @@ def shard_train(torch, dev, mesh, arch, layers, env, label):
           f"card {_card_line()}")
 
 
-def _abstract_params(cfg):
-    from repro_torch.models import abstract_params_and_axes
-    return abstract_params_and_axes(cfg)[0]
+def _attention_layers(cfg) -> int:
+    """The layers that attend (and launch flash): every layer but the
+    xLSTM's."""
+    return 0 if cfg.family == "ssm" else cfg.n_layers
 
 
 def _split_of(cfg, mesh):
@@ -5031,18 +5051,17 @@ def _split_parts(cfg, mesh) -> dict:
 
 
 def shard_serve(torch, dev, mesh, arch, layers, env, label):
-    """16(b), the serving halves of 16(d) and 16(f): ``jit_prefill`` of
-    ``SHARD_LANES`` x ``SHARD_PROMPT`` tokens (the vlm's over seeded
-    image embeddings, its gates at ``SHARD_VLM_GATE``) then
-    ``SHARD_DECODE`` greedy ``jit_decode`` steps on the (1, 1) mesh,
+    """16(b), the serving halves of 16(d), 16(f) and 16(g):
+    ``jit_prefill`` of ``SHARD_LANES`` x ``SHARD_PROMPT`` tokens (the
+    vlm's over seeded image embeddings, its gates at ``SHARD_VLM_GATE``)
+    then ``SHARD_DECODE`` greedy ``jit_decode`` steps on the (1, 1) mesh,
     ``arch`` at published widths on ``layers`` layers, bf16, against
     ``prefill`` (the last position unembedded alone, as
-    ``make_prefill_fn`` does) and ``decode_step``, under ``env`` on both
-    sides: the logits at every step and the tokens equal bit for bit;
-    flash launched once a layer in each prefill (and once a vlm cross
-    layer a decode step).  The families of ``SPLIT_FAMILIES`` run split
-    (no ``gather_tree``), any other gathered (``gather_tree`` once a
-    call)."""
+    ``make_prefill_fn`` does; the recurrent families' cold state) and
+    ``decode_step``, under ``env`` on both sides: the logits at every
+    step and the tokens equal bit for bit; flash launched once an
+    attention layer in each prefill (and once a vlm cross layer a decode
+    step).  The step runs split (no ``gather_tree``)."""
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.device import torch_dtype
     from repro_torch.models import (abstract_params_and_axes, decode_step,
@@ -5050,7 +5069,6 @@ def shard_serve(torch, dev, mesh, arch, layers, env, label):
     from repro_torch.serve.decode import (batch_shardings, jit_decode,
                                           jit_prefill)
     from repro_torch.sharding import specs
-    from repro_torch.sharding.tensor_parallel import SPLIT_FAMILIES
 
     cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     shape = ShapeConfig("phase16", SHARD_PROMPT + SHARD_DECODE, SHARD_LANES,
@@ -5098,23 +5116,19 @@ def shard_serve(torch, dev, mesh, arch, layers, env, label):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _counts()
-    gathered = 0 if cfg.family in SPLIT_FAMILIES else 1 + SHARD_DECODE
-    _check(calls["gather_tree"] == gathered,
-           f"{label}: gather_tree called {calls['gather_tree']} times, "
-           f"want {gathered} ({cfg.family})")
+    _check(calls["gather_tree"] == 0,
+           f"{label}: gather_tree called {calls['gather_tree']} times")
     same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
     toks = [x.argmax(-1).tolist() for x in got]
     _check(all(same), f"{label}: logits equal by step {same}")
-    flash = cfg.n_layers + SHARD_DECODE * n_cross
+    flash = _attention_layers(cfg) + SHARD_DECODE * n_cross
     _check(launches == plain_launches and launches["flash_attention"]
            == flash, f"{label}: launches {launches}, unsharded "
            f"{plain_launches}; want flash once a layer in prefill and "
            f"{n_cross} a decode step ({flash})")
-    path = "split" if cfg.family in SPLIT_FAMILIES else \
-        f"gathered (gather_tree {calls['gather_tree']} calls)"
     print(f"{label}: jit_prefill of {SHARD_LANES} x {SHARD_PROMPT} "
           f"tokens then {SHARD_DECODE} jit_decode steps at {arch}'s "
-          f"widths, {cfg.n_layers} layers {cfg.dtype}, {path} path under "
+          f"widths, {cfg.n_layers} layers {cfg.dtype}, split path under "
           f"{json.dumps(env)}: logits equal bit for bit at every step, "
           f"tokens {toks}; launches "
           f"{json.dumps({k: v for k, v in launches.items() if v})} as "
@@ -5154,7 +5168,7 @@ def shard_dp_mean(torch, dev):
 def sharding_phase(torch, dev):
     """Phase 16: a one-rank NCCL group over a file store, the (1, 1)
     ("data", "model") mesh of ``make_host_mesh(1)``; 16(a), (b), (c),
-    (d), (e), (f); the group destroyed at the end."""
+    (d), (e), (f), (g); the group destroyed at the end."""
     import tempfile
 
     import torch.distributed as dist
@@ -5173,10 +5187,10 @@ def sharding_phase(torch, dev):
             shard_serve(torch, dev, mesh, TRAIN_ARCH, TRAIN_LAYERS, {},
                         "shard serve")
             shard_dp_mean(torch, dev)
-            shard_train(torch, dev, mesh, SHARD_GATHERED,
-                        SHARD_GATHERED_LAYERS, {}, "shard gathered train")
-            shard_serve(torch, dev, mesh, SHARD_GATHERED,
-                        SHARD_GATHERED_LAYERS, {}, "shard gathered serve")
+            shard_train(torch, dev, mesh, SHARD_HYBRID, SHARD_HYBRID_LAYERS,
+                        {"REPRO_SHARDED_CE": "1"}, "shard hybrid train")
+            shard_serve(torch, dev, mesh, SHARD_HYBRID, SHARD_HYBRID_LAYERS,
+                        {}, "shard hybrid serve")
             shard_train(torch, dev, mesh, SHARD_MOE, SHARD_MOE_LAYERS,
                         {"REPRO_SHARDED_CE": "1"}, "shard moe train")
             shard_serve(torch, dev, mesh, SHARD_MOE, SHARD_MOE_LAYERS, {},
@@ -5185,6 +5199,10 @@ def sharding_phase(torch, dev):
                         "shard vlm serve")
             shard_train(torch, dev, mesh, AUDIO_ARCH, SHARD_AUDIO_LAYERS,
                         {"REPRO_SHARDED_CE": "1"}, "shard audio train")
+            shard_train(torch, dev, mesh, SHARD_SSM, SHARD_SSM_LAYERS,
+                        {"REPRO_SHARDED_CE": "1"}, "shard ssm train")
+            shard_serve(torch, dev, mesh, SHARD_SSM, SHARD_SSM_LAYERS, {},
+                        "shard ssm serve")
         finally:
             dist.destroy_process_group()
     print(f"sharding: phase 16 took {time.perf_counter() - t0:.1f} s")
@@ -5764,6 +5782,292 @@ def vlm_share_phase(torch, dev, rows):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 20: one rank's share of each recurrent family on a (1, 4) mesh
+# ---------------------------------------------------------------------------
+
+REC_MODEL = 4
+REC_SHARE_LANES, REC_SHARE_PROMPT, REC_SHARE_LEN = 2, 2048, 4096
+REC_SHARE_DECODE = 64
+# PR 19's flash row at hymba's heads (B 1, S = T = 2048, window 1024):
+# its time on the card in ms (PERF.md, the kernel table)
+HYMBA_FLASH_PR19_MS = 0.1049
+
+
+def _rec_decode_calls(cfg, tp, seq_split: bool) -> int:
+    """The collectives a split decode step of a recurrent family runs on
+    "model" (``tests/test_torch_split_recurrent.py``'s count): xLSTM, 2 a
+    layer (the output's sum, the state's gather); hymba, per layer the
+    lse's max and merge over a sequence-split cache, q/k/v gathered and
+    wo summed where attention splits (else its leaves that
+    ``spec_for`` split gathered), ``in_proj`` gathered, dt/B/C and
+    ``out_proj`` summed, the state gathered, the MLP summed; and the
+    embedding's sum where the vocabulary splits."""
+    vocab = int(tp.split["vocab"])
+    if cfg.family == "ssm":
+        return 2 * cfg.n_layers + vocab
+    if tp.split["attn"]:
+        attn = 2
+    else:
+        attn = sum(1 for path, plan in tp.plans.items()
+                   if "/attn/" in path and any(i == tp.m
+                                               for i, _ in plan.gathers))
+    return cfg.n_layers * (2 * seq_split + attn + 4 + int(
+        tp.split["mlp"])) + vocab
+
+
+class _ScanTap:
+    """Records, while on, the width of each ``ssm_scan`` call's xz and of
+    its conv taps: the channels of x and z the Mamba branch computes."""
+
+    def __enter__(self):
+        from repro_torch.models import ssm
+
+        self.mod, self.real, self.widths = ssm, ssm.ssm_scan, set()
+
+        def tap(p, xz, cfg, tp=None):
+            self.widths.add((xz.shape[-1], p["conv_w"].shape[-1]))
+            return self.real(p, xz, cfg, tp)
+        ssm.ssm_scan = tap
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.ssm_scan = self.real
+
+
+def _rec_share(torch, dev, arch):
+    """Rank 0's share of ``arch`` (hymba-1.5b or xlstm-125m) on a
+    (1, ``REC_MODEL``) mesh of a fake group, as phase 17's; its gates
+    (the module docstring's phase 20).  Returns the flash launches of
+    its prefill."""
+    import warnings
+
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_sharded_params
+    from repro_torch.serve.decode import (batch_shardings, jit_decode,
+                                          jit_prefill)
+    from repro_torch.sharding import specs
+    from repro_torch.sharding.tensor_parallel import CollectiveLog
+    from repro_torch.train.optimizer import leaves
+
+    t0 = time.perf_counter()
+    card = _card_line()
+    cfg = get_config(arch)
+    B, S, L = REC_SHARE_LANES, REC_SHARE_PROMPT, cfg.n_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=REC_MODEL)
+    try:
+        mesh = make_host_mesh(REC_MODEL, dev)
+        tp = _split_of(cfg, mesh)
+        split = {k: v for k, v in tp.split.items() if k != "moe"}
+        t1 = time.perf_counter()
+        params = init_sharded_params(cfg, mesh, seed=5, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t1
+        stage = {"init": _peak_since(torch, base)}
+        p_bytes = sum(t.to_local().numel() * t.to_local().element_size()
+                      for t in leaves(params))
+        blocks = params["blocks"]
+        if cfg.family == "hybrid":
+            di, ff = cfg.d_model, cfg.d_ff
+            ch = tp.ssm_channels()
+            pieces = {"conv_w": tuple(blocks["ssm"]["conv_w"].to_local()
+                                      .shape),
+                      "in_proj": tuple(blocks["ssm"]["in_proj"].to_local()
+                                       .shape),
+                      "w_gate": tuple(blocks["mlp"]["w_gate"].to_local()
+                                      .shape)}
+            want_pieces = {"conv_w": (L, cfg.ssm_conv, di // REC_MODEL),
+                           "in_proj": (L, cfg.d_model, 2 * di // REC_MODEL),
+                           "w_gate": (L, cfg.d_model, ff // REC_MODEL)}
+            _check(split["ssm"] and split["mlp"] and not split["attn"]
+                   and not split["vocab"] and pieces == want_pieces
+                   and (ch.start, ch.stop) == (0, di // REC_MODEL),
+                   f"rec share {arch}: parts {split}, pieces {pieces} (want "
+                   f"{want_pieces}), channels {ch}")
+        else:
+            pieces = {k: tuple(blocks[k].to_local().shape)
+                      for k in ("m_qkv", "s_r", "m_og", "m_out")}
+            _check(all(split.values())
+                   and pieces["m_qkv"][-2] == cfg.n_heads // REC_MODEL
+                   and pieces["s_r"][1] == cfg.n_heads // REC_MODEL,
+                   f"rec share {arch}: parts {split}, pieces {pieces}")
+        shape = ShapeConfig("phase20", REC_SHARE_LEN, B, "prefill")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            pre, _ = jit_prefill(cfg, shape, mesh)
+            dec, _ = jit_decode(cfg, dataclasses.replace(shape,
+                                                         kind="decode"),
+                                mesh)
+        whole = [str(w.message) for w in caught
+                 if " whole on each of" in str(w.message)]
+        want_whole = 2 * bool(tp.whole_parts())
+        _check(len(whole) == want_whole
+               and all("attn" in w for w in whole[:want_whole]),
+               f"rec share {arch}: warnings of whole parts {whole}, want "
+               f"{want_whole} naming attn")
+        g = torch.Generator(device=dev).manual_seed(6)
+        prompt = torch.randint(0, cfg.vocab, (B, S), generator=g,
+                               device=dev, dtype=torch.int32)
+        b_sh = batch_shardings({"tokens": prompt}, mesh)["tokens"]
+        t_sh = batch_shardings({"tokens": prompt[:, 0]}, mesh)["tokens"]
+        vocab0 = tp.vocab_start
+        _counts(zero=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with _ScanTap() as scan:
+            logits, state = pre(params, {"tokens": specs.distribute(prompt,
+                                                                    b_sh)})
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t1) * 1e3
+        stage["prefill"] = _peak_since(torch, base)
+        launches = _counts(zero=True)
+        if cfg.family == "hybrid":
+            n = di // REC_MODEL
+            _check(scan.widths == {(2 * n, n)},
+                   f"rec share {arch}: the scan took (xz, conv) widths "
+                   f"{scan.widths}, want {(2 * n, n)}")
+        pos0 = state.pos.to_local().tolist()
+        state_pieces = {k: tuple(t.to_local().shape)
+                        for k, t in _paths(state.caches).items()}
+        s_bytes = sum(t.to_local().numel() * t.to_local().element_size()
+                      for t in _leaves(state.caches))
+        seq_split = "k" in state.caches and \
+            state.caches["k"].to_local().shape[2] < REC_SHARE_LEN
+        ms, rec = [], CollectiveLog()
+        for i in range(REC_SHARE_DECODE):
+            tok = (logits.to_local().argmax(-1) + vocab0).to(torch.int32)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if i == 0:
+                with rec:
+                    logits, state = dec(params, state, specs.distribute(
+                        tok, t_sh))
+            else:
+                logits, state = dec(params, state, specs.distribute(tok,
+                                                                    t_sh))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+        dec_launches = _counts()
+        stage["decode"] = _peak_since(torch, base)
+        end = state.pos.to_local().tolist()
+        model = mesh.get_group("model").group_name
+        on_model = [c for c in rec.calls if c.group == model]
+        kinds: dict = {}
+        for c in on_model:
+            op = c.op.split(".")[1]
+            kinds[op] = kinds.get(op, 0) + 1
+        wire = sum(_wire_bytes(c.op, c.nbytes, REC_MODEL) for c in on_model)
+        largest = max(max(c.nbytes) for c in on_model)
+        want_calls = _rec_decode_calls(cfg, tp, seq_split)
+        del params, state, logits
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak = max(stage.values())
+    st = sorted(ms[1:])
+    p50, p90 = st[len(st) // 2], st[int(len(st) * 0.9)]
+    n_attn = _attention_layers(cfg)
+    _check(launches["flash_attention"] == n_attn
+           and dec_launches["flash_attention"] == 0,
+           f"rec share {arch}: flash launches prefill {launches}, decode "
+           f"{dec_launches}; want {n_attn} in the prefill, none in decode")
+    _check(len(on_model) == want_calls and len(rec.calls) == want_calls,
+           f"rec share {arch}: a decode step ran {len(on_model)} "
+           f"collectives on \"model\" and {len(rec.calls) - len(on_model)} "
+           f"on other groups; want {want_calls} and none")
+    _check(pos0 == [0] * B and end == [REC_SHARE_DECODE] * B,
+           f"rec share {arch}: positions after the prefill {pos0} (want the "
+           f"cold state's 0), after the decode {end}")
+    print(f"rec share: {arch} rank 0 of a (1, {REC_MODEL}) mesh on a fake "
+          f"{REC_MODEL}-rank group (no value compared; no time includes "
+          f"communication), published widths, {L} layers, {cfg.dtype}, "
+          f"parts {json.dumps(split)}, pieces {json.dumps(pieces)}"
+          + (f", the scan on x columns [{ch.start}, {ch.stop}) and z "
+             f"columns [{di + ch.start}, {di + ch.stop}) of in_proj"
+             if cfg.family == "hybrid" else "")
+          + f", warnings of whole parts {len(whole)}: parameters of the "
+          f"rank {p_bytes / 1e9:.3f} GB (init_sharded_params "
+          f"{init_s:.1f} s), state of the rank {s_bytes / 1e9:.3f} GB "
+          f"({json.dumps(state_pieces)}), peak device memory of the rank "
+          f"{peak:.2f} GiB above the {base / 2**30:.2f} GiB held before (by "
+          f"stage {json.dumps(stage)}); card {card}")
+    print(f"rec share: {arch} prefill of {B} x {S} tokens (the cold state: "
+          f"positions {pos0}) {prefill_ms:.1f} ms with flash launched "
+          f"{launches['flash_attention']} times; decode ms a step p50 "
+          f"{p50:.2f}, p90 {p90:.2f} (steps 2-{REC_SHARE_DECODE}, positions "
+          f"0-{REC_SHARE_DECODE - 1}, synchronised, all "
+          f"{[round(x, 2) for x in ms]}); excluding communication; card "
+          f"{card}")
+    print(f"rec share: {arch} a decode step on 4 cards would run "
+          f"{len(on_model)} collectives on \"model\" ({json.dumps(kinds)}; "
+          f"{len(rec.calls) - len(on_model)} on other groups; the CPU "
+          f"test's count {want_calls}), the largest tensor {largest} bytes, "
+          f"{wire / 1e6:.3f} MB sent a rank by the ring algorithms; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches["flash_attention"]
+
+
+def rec_share_phase(torch, dev, rows):
+    """Phase 20: rank 0's share of hymba-1.5b, then of xlstm-125m, on a
+    (1, 4) mesh of a fake group (``_rec_share``); then flash at hymba's
+    rank prefill shape (the whole H 25/5 of its windowed layers), checked
+    and timed as phase 3's rows, and at PR 19's B 1 row beside that
+    row's time."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layer_flags
+
+    t0 = time.perf_counter()
+    flash = {arch: _rec_share(torch, dev, arch) for arch in RECURRENT_ARCHS}
+    cfg = get_config("hymba-1.5b")
+    H, KV, hd, w = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.sliding_window
+    S = REC_SHARE_PROMPT
+    g = torch.Generator(device=dev).manual_seed(10)
+    base_row = rows["flash_attention"]
+    for B in (REC_SHARE_LANES, 1):
+        q, k, v = (torch.randn(B, S, h, hd, generator=g, device=dev).to(
+            torch.bfloat16) for h in (H, KV, KV))
+        res = _flash_case(torch, dev, q, k, v, 0,
+                          f"at hymba-1.5b's rank shape (tp 4, B {B})",
+                          window=w)
+        if B == 1:
+            print(f"rec share: flash at PR 19's row shape (B 1, S = T = "
+                  f"{S}, H {H}/{KV}, hd {hd}, window {w}, bf16) "
+                  f"{res['ms']:.4f} ms against that row's "
+                  f"{HYMBA_FLASH_PR19_MS} ms; card {_card_line()}")
+            continue
+        row = _shape_row(
+            base_row, "hymba-1.5b", f"tensor-parallel rank (attention whole), "
+            f"B {B}, S {S}, T {S}, H {H}/{KV}, hd {hd}, causal, window {w}, "
+            f"bf16", **res)
+        # the windowed layers of phase 20's prefill (the global ones
+        # attend without a window)
+        row["launches"] = flash["hymba-1.5b"] - int(layer_flags(cfg).sum())
+        base_row["shapes"].append(row)
+        del q, k, v
+    torch.cuda.empty_cache()
+    print(f"rec share: phase 20 took {time.perf_counter() - t0:.1f} s")
+
+
+def _paths(tree, prefix: str = "") -> dict:
+    """path -> leaf of a tree of dicts."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_paths(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
         _fail("src/repro_torch not found beside chip_smoke.py")
@@ -5822,6 +6126,7 @@ def main():
     phase("17 tp share", tp_share_phase, torch, dev, rows)
     phase("18 moe share", moe_share_phase, torch, dev, rows)
     phase("19 vlm share", vlm_share_phase, torch, dev, rows)
+    phase("20 recurrent share", rec_share_phase, torch, dev, rows)
     print(f"phases: host seconds {json.dumps(seconds)}, "
           f"{sum(seconds.values()):.1f} s in all")
     for name, n in launches.items():

@@ -27,12 +27,11 @@ for the run (``--hold`` seconds longer).
 ``DeviceMesh`` over every rank instead of the engine (which stays on one
 device): the requests in waves of ``--batch`` lanes, each a
 ``serve.decode.jit_prefill`` then greedy ``jit_decode`` steps over the
-dense caches, sequence-sharded over "model".  For the dense and MoE
-families the compute splits over the N "model" ranks (heads, MLP or
-experts, and vocabulary) and each rank draws only its pieces of the
-parameters, so a model larger than one card serves on N; the hybrid
-and ssm families shard storage only and gather the parameters each
-step.  The vlm, whose steps split too (``serve.decode.jit_prefill`` and
+dense caches, sequence-sharded over "model".  The compute splits over
+the N "model" ranks (heads, MLP or experts, the hybrid's Mamba channels
+or the xLSTM's heads, and vocabulary) and each rank draws only its
+pieces of the parameters, so a model larger than one card serves on N.
+The vlm, whose steps split too (``serve.decode.jit_prefill`` and
 ``jit_decode``), is refused here: its prompts carry image embeddings,
 which the launcher does not make.  The group is torchrun's, as
 ``launch.train``'s:
@@ -124,11 +123,10 @@ def main(argv=None):
                          "rank through jit_prefill / jit_decode (greedy "
                          "waves of --batch lanes; no engine options)")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="--mesh host: ranks on the \"model\" axis; the "
-                         "dense and MoE families' heads, MLP (or experts) "
-                         "and vocabulary split over them (tensor-parallel "
-                         "compute), the hybrid and ssm families shard "
-                         "storage only")
+                    help="--mesh host: ranks on the \"model\" axis; "
+                         "heads, MLP (or experts), Mamba channels and "
+                         "vocabulary split over them (tensor-parallel "
+                         "compute)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -277,12 +275,10 @@ def _serve_sharded(args, cfg, device) -> dict:
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.train import process_group
-    from repro_torch.models import (abstract_params_and_axes, init_params,
-                                    init_sharded_params)
+    from repro_torch.models import init_sharded_params
     from repro_torch.serve.decode import (batch_shardings, jit_decode,
                                           jit_prefill)
     from repro_torch.sharding import specs
-    from repro_torch.sharding.tensor_parallel import SPLIT_FAMILIES
 
     if PROMPT_TOKENS + args.max_new - 1 > args.max_len:
         raise SystemExit(f"--max-len {args.max_len} holds no "
@@ -294,15 +290,10 @@ def _serve_sharded(args, cfg, device) -> dict:
     with process_group(device) as rank:
         mesh = make_host_mesh(args.model_parallel, device)
         shape = ShapeConfig("serve", args.max_len, args.batch, "prefill")
-        pre, (params_abs, _) = jit_prefill(cfg, shape, mesh)
+        pre, _ = jit_prefill(cfg, shape, mesh)
         dec, _ = jit_decode(cfg, dataclasses.replace(shape, kind="decode"),
                             mesh)
-        if cfg.family in SPLIT_FAMILIES:
-            params = init_sharded_params(cfg, mesh, seed=0, device=device)
-        else:
-            params = specs.distribute_tree(
-                init_params(cfg, device, seed=0), specs.tree_shardings(
-                    abstract_params_and_axes(cfg)[1], mesh, params_abs))
+        params = init_sharded_params(cfg, mesh, seed=0, device=device)
         n_tok = 0
         t0 = time.time()
         for lo in range(0, args.requests, args.batch):

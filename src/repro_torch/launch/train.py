@@ -17,13 +17,11 @@ trains on the card; ``--device cpu`` runs the plain versions.
 The process group comes from torchrun's environment (``RANK``,
 ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, ``LOCAL_RANK``); run
 without it, the launcher makes a one-rank group.  NCCL on the card, gloo
-with ``--device cpu``.  For the dense, MoE and vlm decoders and the
-audio encoder ``--model-parallel N`` splits the compute over the N
-"model" ranks (heads, MLP or experts, and vocabulary,
-``sharding/tensor_parallel.py``) and each rank draws only its own pieces
-of the parameters (``models.init_sharded_params``); the hybrid and ssm
-families shard storage only over "model" and gather every parameter on
-each rank for the step (a warning says so).  Each data rank computes its own rows; an MoE
+with ``--device cpu``.  ``--model-parallel N`` splits the compute over
+the N "model" ranks (heads, MLP or experts, the hybrid's Mamba channels
+or the xLSTM's heads, and vocabulary, ``sharding/tensor_parallel.py``)
+and each rank draws only its own pieces of the parameters
+(``models.init_sharded_params``).  Each data rank computes its own rows; an MoE
 dispatch ranks them after the earlier ranks' rows, as the reference
 routes the whole batch (``moe.moe_ffn_split``).
 """
@@ -56,11 +54,10 @@ def main(argv=None):
                     help="host: train sharded over every rank, each data "
                     "rank on its own rows of the batch")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="ranks on the mesh's \"model\" axis: the dense "
-                    "and MoE families' heads, MLP or experts, and vocabulary "
-                    "split over them (tensor-parallel compute, each rank "
-                    "drawing only its pieces); the other families shard "
-                    "storage only")
+                    help="ranks on the mesh's \"model\" axis: heads, MLP "
+                    "or experts, Mamba channels and vocabulary split over "
+                    "them (tensor-parallel compute, each rank drawing only "
+                    "its pieces)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain versions)")
     args = ap.parse_args(argv)

@@ -44,6 +44,13 @@ def stacked_init(g, n_layers: int, shape, dt, device, fan_in: int = 0, *,
     return out
 
 
+def stacked_const(n_layers: int, one: torch.Tensor, piece=None):
+    """[n_layers, *one.shape]: the constant layer ``one`` on every layer,
+    or its ``piece`` (``stacked_init``'s)."""
+    t = one if piece is None else piece(one)
+    return t.expand((n_layers,) + tuple(t.shape)).contiguous()
+
+
 def rms_norm(x, weight, eps: float):
     """RMSNorm in fp32, cast back to x's dtype BEFORE the weight multiply
     (as the reference does)."""

@@ -47,8 +47,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device, torch_dtype
-from repro_torch.sharding.tensor_parallel import (SPLIT_FAMILIES,
-                                                  _placements_without,
+from repro_torch.sharding.tensor_parallel import (_placements_without,
                                                   layer_dims)
 from repro_torch.weights import abstract_params, param_axes
 
@@ -56,11 +55,13 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from . import xlstm as xlstm_mod
-from .layers import (dense_init, gelu_mlp, rms_norm, rope_tables, stacked_init,
-                     swiglu, unembed)
+from .layers import (dense_init, gelu_mlp, rms_norm, rope_tables,
+                     stacked_const, stacked_init, swiglu, unembed)
 
 _FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
 _KV_FAMILIES = ("dense", "moe")
+# the recurrent families, whose prefill returns a cold decode state
+COLD_PREFILL = ("hybrid", "ssm")
 
 
 def check_family(cfg: ArchConfig):
@@ -117,22 +118,16 @@ def init_params(cfg: ArchConfig, device=None, seed: int = 0, *,
     = 0 and the cross branch adds nothing until the gate is set, as in
     the reference.
 
-    ``cut`` (``init_sharded_params``; the families of
-    ``SPLIT_FAMILIES``: dense, MoE, vlm and audio) maps a leaf's path to
-    a function from one layer's whole draw (or a top-level leaf's) to
-    the piece kept: the draws are the same, in the same order (the vlm's
-    ns x inner self layers one by one, then its ns cross layers), and
-    each leaf is stacked from its pieces."""
+    ``cut`` (``init_sharded_params``) maps a leaf's path to a function
+    from one layer's whole draw (or a top-level leaf's) to the piece
+    kept: the draws are the same, in the same order (the vlm's ns x
+    inner self layers one by one, then its ns cross layers), and each
+    leaf is stacked from its pieces."""
     check_family(cfg)
     device = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
-    if cut is not None and cfg.family not in SPLIT_FAMILIES:
-        raise NotImplementedError(
-            f"a cut draw covers the families {SPLIT_FAMILIES}; {cfg.name} "
-            f"is {cfg.family!r}: lay out init_params with "
-            f"specs.distribute_tree")
     keep = cut or (lambda path: (lambda t: t))
     if cfg.family == "vlm":
         ns, inner = cfg.vlm_dims
@@ -168,10 +163,8 @@ def init_sharded_params(cfg: ArchConfig, mesh, seed: int = 0,
     in fp32 as drawn, of mixtral-8x22b's [8, 6144, 16384] 3.22 GB).  A
     top-level leaf is drawn whole before its piece is cut: qwen2-72b's
     embedding tables, [152064, 8192], are 4.98 GB each in fp32 as drawn,
-    and that draw, not the prefill, sets the rank's peak memory.  The
-    families of ``SPLIT_FAMILIES`` (dense, MoE, vlm, audio); the hybrid
-    and ssm families go through
-    ``specs.distribute_tree(init_params(...), ...)``."""
+    and that draw, not the prefill, sets the rank's peak memory.  Every
+    family."""
     from repro_torch.sharding import specs
 
     params_abs, axes = abstract_params_and_axes(cfg)
@@ -234,15 +227,14 @@ def _blocks_init(cfg: ArchConfig, g, n: int, dt, device, *,
         return stacked_init(g, n, shape, dt, device, fan_in, piece=piece)
 
     def filled(name, fill, *shape):
-        if cut is None:
-            return torch.full((n,) + shape, fill, dtype=dt, device=device)
-        one = cut(prefix + name)(torch.full(shape, fill, dtype=dt,
-                                            device=device))
-        return one.expand((n,) + one.shape).contiguous()
+        return stacked_const(n, torch.full(shape, fill, dtype=dt,
+                                           device=device),
+                             cut(prefix + name) if cut is not None else None)
 
     blocks = {"norm1": filled("norm1", 1, d)}
     if cfg.family == "ssm":
-        blocks.update(xlstm_mod.xlstm_init(g, cfg, device))
+        blocks.update(xlstm_mod.xlstm_init(g, cfg, device, cut=cut,
+                                           prefix=prefix))
         return blocks
     attn_p = {"wq": stacked("attn/wq", (d, H, hd), H),
               "wk": stacked("attn/wk", (d, KV, hd), KV),
@@ -258,7 +250,8 @@ def _blocks_init(cfg: ArchConfig, g, n: int, dt, device, *,
                       k_norm=filled("attn/k_norm", 1, hd))
     blocks.update(attn=attn_p, norm2=filled("norm2", 1, d))
     if cfg.family == "hybrid":
-        blocks.update(ssm=ssm_mod.ssm_init(g, cfg, device),
+        blocks.update(ssm=ssm_mod.ssm_init(g, cfg, device, cut=cut,
+                                           prefix=prefix + "ssm/"),
                       norm_attn_out=filled("norm_attn_out", 1, d),
                       norm_ssm_out=filled("norm_ssm_out", 1, d))
     if cfg.family == "moe":
@@ -450,8 +443,8 @@ def forward(cfg: ArchConfig, params, batch, *, remat: str = "none",
     ``return_logits="last"`` unembeds the last position only (logits
     [B, 1, V]), the one a jitted prefill returns.
 
-    ``tp`` (a ``sharding.tensor_parallel.TensorParallel``; the families
-    of ``SPLIT_FAMILIES``) runs the split step on this rank's pieces of
+    ``tp`` (a ``sharding.tensor_parallel.TensorParallel``) runs the split
+    step on this rank's pieces of
     the parameters and its rows (``_forward_tp``): the logits are this
     rank's vocab columns, aux the whole batch's, and ``collect_cache``
     is not taken (``prefill`` lays the cache out)."""
@@ -557,13 +550,13 @@ def prefill(cfg: ArchConfig, params, batch, max_len: int | None = None, *,
     this as a simplification (a warm-state prefill would be a feature it
     lacks).
 
-    ``tp`` (the families of ``SPLIT_FAMILIES``, this rank's parameter
-    pieces and lanes): the split prefill (``_prefill_tp``): logits are
-    this rank's vocab columns of the last position, [B, 1, V/tp]
-    (``last`` taken), and with ``seq_split`` the caches hold this rank's
-    positions, [L, B, W / tp, KV, hd] (W = max_len, or the ring's
-    slots; the vlm's [ns, inner, B, W / tp, KV, hd], its image K/V
-    whole)."""
+    ``tp`` (this rank's parameter pieces and lanes): the split prefill
+    (``_prefill_tp``): logits are this rank's vocab columns of the last
+    position, [B, 1, V/tp] (``last`` taken), and with ``seq_split`` the
+    caches hold this rank's positions, [L, B, W / tp, KV, hd] (W =
+    max_len, or the ring's slots; the vlm's [ns, inner, B, W / tp, KV,
+    hd], its image K/V whole); the recurrent families' state is cold,
+    as without ``tp``."""
     check_family(cfg)
     x = batch["embeds"] if cfg.embed_inputs else batch["tokens"]
     if tp is not None:
@@ -573,7 +566,7 @@ def prefill(cfg: ArchConfig, params, batch, max_len: int | None = None, *,
     state = init_decode_state(cfg, B, max_len or S, device)
     pos = torch.full((B,), S, dtype=torch.int32, device=device)
     which = "last" if last else True
-    if cfg.family in ("ssm", "hybrid", "audio"):
+    if cfg.family in COLD_PREFILL + ("audio",):
         logits = forward(cfg, params, batch, return_logits=which)[0]
         if cfg.family == "audio":
             state = state._replace(pos=pos)
@@ -794,11 +787,10 @@ def decode_step(cfg: ArchConfig, params, state: DecodeState, tokens,
     step's append.  Caches update in place.  The encoder (audio) has no
     decode step, as the reference's launcher says.
 
-    ``tp`` (the decoders of ``SPLIT_FAMILIES`` over the dense caches):
-    the split step (``_decode_step_tp``) on this rank's parameter pieces
-    and lanes; with ``seq_split`` the caches hold this rank's positions
-    and are never gathered.  The logits are this rank's vocab
-    columns."""
+    ``tp`` (every decoder, over the dense caches): the split step
+    (``_decode_step_tp``) on this rank's parameter pieces and lanes; with
+    ``seq_split`` the caches hold this rank's positions and are never
+    gathered.  The logits are this rank's vocab columns."""
     check_family(cfg)
     if cfg.is_encoder:
         raise NotImplementedError(
@@ -862,16 +854,8 @@ def _vlm_decode(cfg: ArchConfig, params, x, caches, pos, backend, rope):
 
 
 # ---------------------------------------------------------------------------
-# tensor-parallel compute (sharding/tensor_parallel.py): dense, MoE, vlm
-# and audio
+# tensor-parallel compute (sharding/tensor_parallel.py): every family
 # ---------------------------------------------------------------------------
-
-def _check_tp(cfg: ArchConfig):
-    if cfg.family not in SPLIT_FAMILIES:
-        raise NotImplementedError(
-            f"tensor-parallel compute covers the families {SPLIT_FAMILIES}; "
-            f"{cfg.name} is {cfg.family!r}")
-
 
 def _ffn_tp(cfg: ArchConfig, tp, p, x, aux: bool):
     """The block's second half on this rank's pieces -> (x, aux): the
@@ -891,16 +875,72 @@ def _ffn_tp(cfg: ArchConfig, tp, p, x, aux: bool):
                               m["w_down"]), "mlp"), None
 
 
+def _ssm_branch_tp(cfg: ArchConfig, tp, p, h, state=None):
+    """The hybrid's Mamba branch on this rank's channels: x and z from
+    its columns of ``in_proj`` (``tp.ssm_columns``), the scan (or, with
+    the layer's recurrent ``state`` whole over "model", one decode step,
+    whose new state is gathered back into it), ``out_proj`` summed over
+    "model" -> [B, S, d]."""
+    xz = tp.enter(h, "ssm") @ tp.ssm_columns(p["ssm"]["in_proj"]) \
+        .to(h.dtype)
+    if state is None:
+        return tp.exit(ssm_mod.ssm_scan(p["ssm"], xz, cfg, tp), "ssm")
+    dims = ssm_mod.STATE_DIMS
+    out, st = ssm_mod.ssm_step(p["ssm"], xz, tp.own_state(state, dims,
+                                                          "ssm"), cfg, tp)
+    _store_(state, tp.gather_state(st, dims, "ssm"))
+    return tp.exit(out, "ssm")
+
+
+def _xlstm_branch_tp(tp, p, h, flag, cache=None):
+    """The xLSTM layer on this rank's heads: sLSTM where ``flag``, else
+    mLSTM, its output summed over "model"; with the layer's state
+    ``cache`` (whole over "model") one decode step, whose new state is
+    gathered back into it."""
+    h = tp.enter(h, "xlstm")
+    if cache is None:
+        branch = xlstm_mod.slstm_scan if flag else xlstm_mod.mlstm_parallel
+        return tp.exit(branch(p, h), "xlstm")
+    dims = xlstm_mod.STATE_DIMS
+    if flag:
+        out, st = xlstm_mod.slstm_step(p, h, tp.own_state(cache["s"], dims,
+                                                          "xlstm"))
+        _store_(cache["s"], tp.gather_state(st, dims, "xlstm"))
+    else:
+        out, st = xlstm_mod.mlstm_step(p, h, tp.own_state(
+            {"C": cache["mC"], "n": cache["mn"], "m": cache["mm"]}, dims,
+            "xlstm"))
+        st = tp.gather_state(st, dims, "xlstm")
+        _store_(cache, {"mC": st["C"], "mn": st["n"], "mm": st["m"]})
+    return tp.exit(out, "xlstm")
+
+
 def _block_fwd_tp(cfg: ArchConfig, tp, aux: bool, p_local, x, positions,
-                  rope, stack: str | None = None):
+                  rope, flag: bool = False, stack: str | None = None):
     """One block over the whole sequence on this rank's pieces of the
     layer (``tp.layer`` gathers them over the data axes, inside any
     remat, so a recomputing backward gathers again; ``stack`` the vlm's
     "self"): attention on this rank's heads, the MLP on its columns or
-    the MoE layer on its experts, each summed over "model".  Returns (x,
-    aux or None, (k, v) of this rank's KV heads)."""
+    the MoE layer on its experts, each summed over "model"; the hybrid's
+    attention and Mamba branch side by side (each normed after its sum,
+    ``flag`` its global layers), the xLSTM's heads (``flag`` its sLSTM
+    layers).  Returns (x, aux or None, (k, v) of this rank's KV heads or
+    None)."""
     p = tp.layer(p_local, stack)
     h = rms_norm(x, p["norm1"], cfg.rms_eps)
+    if cfg.family == "ssm":
+        return x + _xlstm_branch_tp(tp, p, h, flag), None, None
+    if cfg.family == "hybrid":
+        q, k, v = attn._qkv(p["attn"], tp.enter(h, "attn"), cfg, positions,
+                            rope)
+        out = attn.sdpa_auto(q, k, v, causal=True,
+                             window=_window(cfg, flag))
+        a = tp.exit(attn._out(out, p["attn"]["wo"]), "attn")
+        s = _ssm_branch_tp(cfg, tp, p, h)
+        x = x + rms_norm(a, p["norm_attn_out"], cfg.rms_eps) \
+            + rms_norm(s, p["norm_ssm_out"], cfg.rms_eps)
+        x, aux_l = _ffn_tp(cfg, tp, p, x, aux)
+        return x, aux_l, (k, v)
     a, kv = attn.self_attention(p["attn"], tp.enter(h, "attn"), cfg,
                                 positions=positions, causal=cfg.causal,
                                 window=cfg.sliding_window, rope=rope)
@@ -931,7 +971,7 @@ def _vlm_forward_tp(cfg: ArchConfig, tp, params, x, positions, rope,
         kvs = []
         for pj in _unstack(p_self):
             x, _, kv = _block_fwd_tp(cfg, tp, False, pj, x, positions, rope,
-                                     "self")
+                                     stack="self")
             kvs.append(kv)
         p = tp.layer(p_cross, "cross")
         ikv = attn.image_kv(p["attn"], image_embeds, cfg)
@@ -965,8 +1005,7 @@ def _forward_tp(cfg: ArchConfig, params, batch, tp, *, remat: str = "none",
     ``on_layer(i, (k, v))`` sees each layer's K/V (the vlm's: ``(s, j)``
     for i, and ``on_image`` its cross layers', ``_vlm_forward_tp``).
     The audio encoder takes ``batch["embeds"]``, with no RoPE and no
-    mask."""
-    _check_tp(cfg)
+    mask; each layer takes its ``layer_flags``."""
     if cfg.embed_inputs:
         x = _embed_inputs(cfg, params, batch)
     else:
@@ -983,8 +1022,9 @@ def _forward_tp(cfg: ArchConfig, params, batch, tp, *, remat: str = "none",
                             batch["image_embeds"], remat, on_layer, on_image)
     else:
         block = _remat(functools.partial(_block_fwd_tp, cfg, tp, aux), remat)
-        for i, p in enumerate(_unstack(params["blocks"])):
-            x, aux_l, kv = block(p, x, positions, rope)
+        for i, (p, flag) in enumerate(zip(_unstack(params["blocks"]),
+                                          layer_flags(cfg))):
+            x, aux_l, kv = block(p, x, positions, rope, bool(flag))
             if aux_l is not None:
                 total = total + aux_l
             if on_layer is not None:
@@ -1013,9 +1053,16 @@ def _prefill_tp(cfg: ArchConfig, params, batch, tp, max_len: int,
     out at its W slots (the prompt at slots 0..S-1, which is position
     mod W), and a prompt longer than the cache raises ``ValueError`` as
     ``prefill`` does.  The encoder returns the reference's unused zero
-    state with ``pos`` = S."""
+    state with ``pos`` = S; the recurrent families (``COLD_PREFILL``)
+    the split forward's last logits and a cold state (``prefill``):
+    caches of this rank's positions, the recurrent state whole over
+    "model", ``pos`` 0."""
     x = batch["embeds"] if cfg.embed_inputs else batch["tokens"]
     (B, S), device = x.shape[:2], x.device
+    if cfg.family in COLD_PREFILL:
+        logits, _ = _forward_tp(cfg, params, batch, tp, logits="last")
+        rows = max_len // tp.size if seq_split else max_len
+        return logits, init_decode_state(cfg, B, rows, device)
     max_len = _ring_cache_len(cfg, max_len)
     if S > max_len:
         raise ValueError(f"a {S}-token prompt does not fit the decode "
@@ -1052,47 +1099,72 @@ def _decode_step_tp(cfg: ArchConfig, params, state: DecodeState, tokens, tp,
     one call ([B, H, hd], [B, KV, hd]); the rank whose positions hold a
     lane's ``pos`` (in a ring of W slots, slot ``pos % W``) writes its
     row; every rank attends its own positions for all heads
-    (``DenseBackend.attend_shard``), the pieces merge by their lse
+    (``DenseBackend.attend_shard``, one mask per window: the hybrid's
+    global layers attend everything), the pieces merge by their lse
     (``tp.combine``), and each rank keeps its own heads for the
     row-split ``wo``; then the MLP or the MoE layer as in the forward:
     5 collectives a layer over a sequence-split cache.  A vlm cross
     layer attends with this rank's query heads the image K/V of its KV
     heads (``tp.own_heads`` of the whole ``ik``/``iv``): no gather and
-    no merge, 2 collectives (``wo``'s and the MLP's sums)."""
+    no merge, 2 collectives (``wo``'s and the MLP's sums).  The hybrid's
+    Mamba branch and the xLSTM step this rank's channels or heads of the
+    recurrent state and gather the new pieces back (``tp.gather_state``):
+    4 more collectives a hybrid layer (``in_proj`` gathered, dt/B/C and
+    the output summed, the state gathered), 2 an xLSTM layer (the
+    output's sum and the state).  The recurrent states advance on every
+    lane, parked ones included, as without ``tp``."""
     from .kv_backend import DenseBackend
 
-    _check_tp(cfg)
     backend = DenseBackend(cfg, state.pos.device)
     x = tp.embed(tokens[:, None], tp.leaf("embed", params["embed"]))
     pos = state.pos
-    rope = rope_tables(pos[:, None], cfg.hd, cfg.rope_theta)
     caches = state.caches
-    rows = caches["k"].shape[-3]
-    start = tp.rank * rows if seq_split else 0
-    slots = rows * tp.size if seq_split else rows
-    sw = cfg.sliding_window
-    ring = slots if 0 < slots <= sw else 0     # ``DenseBackend.is_ring``
-    # each lane's row in this rank's piece (outside it: no write)
-    at = (torch.where(pos >= 0, pos.remainder(slots), -1) if ring else pos) \
-        - start
-    # one mask for every layer: this rank's positions against each lane's
-    mask = backend.shard_mask(pos, rows, start=start, window=sw, ring=ring)
+    masks = {}
+    if "k" in caches:
+        rope = rope_tables(pos[:, None], cfg.hd, cfg.rope_theta)
+        rows = caches["k"].shape[-3]
+        start = tp.rank * rows if seq_split else 0
+        slots = rows * tp.size if seq_split else rows
+        # a ring (``DenseBackend.is_ring``) on the models whose every
+        # layer attends the window; the hybrid's per-layer window never
+        # rings
+        ring = slots if cfg.family != "hybrid" \
+            and 0 < slots <= cfg.sliding_window else 0
+        # each lane's row in this rank's piece (outside it: no write)
+        at = (torch.where(pos >= 0, pos.remainder(slots), -1) if ring
+              else pos) - start
 
-    def self_layer(x, p_local, cache, stack=None):
-        p = tp.layer(p_local, stack)
-        h = rms_norm(x, p["norm1"], cfg.rms_eps)
+    def attention(p, h, cache, window):
+        """This rank's term of the attention's sum over "model"."""
         q, k, v = tp.gather_qkv(*(t[:, 0] for t in attn._qkv(
             p["attn"], tp.enter(h, "attn"), cfg, pos[:, None], rope)))
         B, H, hd = q.shape
         KV = k.shape[1]
         backend.append(cache, k, v, at)
+        if window not in masks:
+            # this rank's positions against each lane's, once a step
+            masks[window] = backend.shard_mask(pos, rows, start=start,
+                                               window=window, ring=ring)
         out, lse = backend.attend_shard(cache, q.reshape(B, KV, H // KV, hd),
-                                        pos, mask=mask)
+                                        pos, mask=masks[window])
         if seq_split:
             out = tp.combine(out, lse)
         out = tp.own_heads(out.reshape(B, 1, H, hd))
-        return _ffn_tp(cfg, tp, p, x + tp.exit(
-            attn._out(out, p["attn"]["wo"]), "attn"), False)[0]
+        return tp.exit(attn._out(out, p["attn"]["wo"]), "attn")
+
+    def self_layer(x, p_local, cache, stack=None, flag=False):
+        p = tp.layer(p_local, stack)
+        h = rms_norm(x, p["norm1"], cfg.rms_eps)
+        if cfg.family == "ssm":
+            return x + _xlstm_branch_tp(tp, p, h, flag, cache)
+        a = attention(p, h, cache, _window(cfg, flag))
+        if cfg.family == "hybrid":
+            s = _ssm_branch_tp(cfg, tp, p, h, cache["ssm"])
+            x = x + rms_norm(a, p["norm_attn_out"], cfg.rms_eps) \
+                + rms_norm(s, p["norm_ssm_out"], cfg.rms_eps)
+        else:
+            x = x + a
+        return _ffn_tp(cfg, tp, p, x, False)[0]
 
     if cfg.family == "vlm":
         for s, (p_self, p_cross) in enumerate(zip(
@@ -1104,8 +1176,10 @@ def _decode_step_tp(cfg: ArchConfig, params, state: DecodeState, tokens, tp,
             ikv = tuple(tp.own_heads(caches[n][s]) for n in ("ik", "iv"))
             x = _cross_block_tp(cfg, tp, tp.layer(p_cross, "cross"), x, ikv)
     else:
-        for i, p_local in enumerate(_unstack(params["blocks"])):
-            x = self_layer(x, p_local, layer_params(caches, i))
+        for i, (p_local, flag) in enumerate(zip(_unstack(params["blocks"]),
+                                                layer_flags(cfg))):
+            x = self_layer(x, p_local, layer_params(caches, i),
+                           flag=bool(flag))
     x = rms_norm(x, tp.leaf("final_norm", params["final_norm"]),
                  cfg.rms_eps)
     table = _table_path(cfg)

@@ -11,6 +11,12 @@ layer stack homogeneous for its scan over layers); a per-layer flag
 ``m_out`` [d,d], ``s_w`` [d,4,H,hd], ``s_out`` [d,d] in ``cfg.dtype``;
 ``m_if`` [d,2,H], ``m_if_b`` [2,H], ``s_r`` [H,hd,4,hd] and ``s_b``
 [4,H,hd] in fp32, as the reference keeps them.
+
+Every function takes the head count from its weights, so under tensor
+parallelism (``sharding/tensor_parallel.py``, part "xlstm") it runs this
+rank's H/m heads: ``m_og``'s d/m columns are those heads' channels, and
+the output is this rank's term of the ``m_out`` / ``s_out`` sum over
+"model", which the caller takes.
 """
 
 from __future__ import annotations
@@ -23,43 +29,49 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import torch_dtype
 
-from .layers import stacked_init
+from .layers import stacked_const, stacked_init
 
 NEG_INF = -1e30
 MLSTM_CHUNK = 1024  # bounds the [B,H,C,C] intra-chunk decay matrices
 
 
-def xlstm_init(g: torch.Generator, cfg: ArchConfig, device) -> dict:
+def xlstm_init(g: torch.Generator, cfg: ArchConfig, device, *, cut=None,
+               prefix: str = "blocks/") -> dict:
     """Seeded layer-stacked parameters of both branches in the reference's
     layout and dtypes.  Projections are scaled by 1/sqrt of the
     reference's fan-in, ``shape[-2]``: d for the [d, d] matrices, H for
     ``m_qkv`` [d,3,H,hd] and ``s_w`` [d,4,H,hd]; the fp32
     gate matrices ``m_if`` and ``s_r`` by 0.02 (the reference's scale);
     the gate biases are the reference's constants (mLSTM input/forget 0/3,
-    sLSTM z/i/f/o 0/0/3/0)."""
+    sLSTM z/i/f/o 0/0/3/0).  ``cut`` (``transformer.init_params``'s)
+    keeps a piece of each layer's draw, each leaf named by its path
+    under ``prefix``: the same draws in the same order."""
     L, d, H = cfg.n_layers, cfg.d_model, cfg.n_heads
     hd = d // H
     dt = torch_dtype(cfg.dtype)
     f32 = torch.float32
 
-    def stacked(shape, dtype=dt, scale=None):
+    def piece(name):
+        return cut(prefix + name) if cut is not None else None
+
+    def stacked(name, shape, dtype=dt, scale=None):
         return stacked_init(g, L, shape, dtype, device, shape[-2],
-                            scale=scale)
+                            scale=scale, piece=piece(name))
 
-    def const(vals, shape):
+    def const(name, vals, shape):
         v = torch.tensor(vals, dtype=f32, device=device)
-        return v.reshape((1, len(vals)) + (1,) * (len(shape) - 1)) \
-            .expand((L,) + shape).contiguous()
+        one = v.reshape((len(vals),) + (1,) * (len(shape) - 1)).expand(shape)
+        return stacked_const(L, one, piece(name))
 
-    return {"m_qkv": stacked((d, 3, H, hd)),
-            "m_if": stacked((d, 2, H), f32, 0.02),
-            "m_if_b": const([0.0, 3.0], (2, H)),
-            "m_og": stacked((d, d)),
-            "m_out": stacked((d, d)),
-            "s_w": stacked((d, 4, H, hd)),
-            "s_r": stacked((H, hd, 4, hd), f32, 0.02),
-            "s_b": const([0.0, 0.0, 3.0, 0.0], (4, H, hd)),
-            "s_out": stacked((d, d))}
+    return {"m_qkv": stacked("m_qkv", (d, 3, H, hd)),
+            "m_if": stacked("m_if", (d, 2, H), f32, 0.02),
+            "m_if_b": const("m_if_b", [0.0, 3.0], (2, H)),
+            "m_og": stacked("m_og", (d, d)),
+            "m_out": stacked("m_out", (d, d)),
+            "s_w": stacked("s_w", (d, 4, H, hd)),
+            "s_r": stacked("s_r", (H, hd, 4, hd), f32, 0.02),
+            "s_b": const("s_b", [0.0, 0.0, 3.0, 0.0], (4, H, hd)),
+            "s_out": stacked("s_out", (d, d))}
 
 
 def _proj(x, w):
@@ -86,7 +98,7 @@ def mlstm_parallel(p, x):
     (C~, n~, m) (true values C~ e^m, n~ e^m); within a chunk the quadratic
     masked form.  S must be at most ``MLSTM_CHUNK`` or a multiple of it.
     Scores are taken in x's dtype, then fp32, as the reference does."""
-    B, S, d = x.shape
+    B, S, _ = x.shape
     qkv = _proj(x, p["m_qkv"])                    # [B,S,3,H,hd]
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     H, hd = q.shape[2], q.shape[3]
@@ -134,7 +146,7 @@ def mlstm_parallel(p, x):
         Cm = Cm * decay_old[..., None, None] + kv
         n = n * decay_old[..., None] + ksum
         m = m_new
-    h = torch.cat(hs, dim=1).reshape(B, S, d).to(x.dtype)
+    h = torch.cat(hs, dim=1).reshape(B, S, H * hd).to(x.dtype)
     og = torch.sigmoid(x @ p["m_og"].to(x.dtype))
     return (h * og) @ p["m_out"].to(x.dtype)
 
@@ -142,7 +154,7 @@ def mlstm_parallel(p, x):
 def mlstm_step(p, x, state):
     """x [B,1,d]; state {"C" [B,H,hd,hd], "n" [B,H,hd], "m" [B,H]} fp32 ->
     (out [B,1,d], new state)."""
-    B, _, d = x.shape
+    B = x.shape[0]
     qkv = _proj(x, p["m_qkv"])[:, 0]                 # [B,3,H,hd]
     q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
     hd = q.shape[-1]
@@ -161,7 +173,7 @@ def mlstm_step(p, x, state):
                         torch.exp(-m_new))
     h = (num / den[..., None]).to(x.dtype)
     og = torch.sigmoid(x[:, 0] @ p["m_og"].to(x.dtype))
-    out = ((h.reshape(B, d) * og) @ p["m_out"].to(x.dtype))[:, None]
+    out = ((h.reshape(B, -1) * og) @ p["m_out"].to(x.dtype))[:, None]
     return out, {"C": C, "n": n, "m": m_new}
 
 
@@ -193,7 +205,7 @@ def _s_gates(p, x):
 def slstm_scan(p, x):
     """Sequential sLSTM over the sequence, one ``_s_cell`` per token:
     x [B,S,d] -> [B,S,d]."""
-    B, S, d = x.shape
+    B, S, _ = x.shape
     H, hd = p["s_r"].shape[0], p["s_r"].shape[1]
     gates = _s_gates(p, x)
     st = slstm_state_init(B, H, hd, x.device)
@@ -201,21 +213,26 @@ def slstm_scan(p, x):
     for t in range(S):
         st = _s_cell(p, gates[:, t], st)
         hs.append(st["h"])
-    h = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
+    h = torch.stack(hs, dim=1).reshape(B, S, H * hd).to(x.dtype)
     return h @ p["s_out"].to(x.dtype)
 
 
 def slstm_step(p, x, st):
     """x [B,1,d] -> (out [B,1,d], new state)."""
-    B, _, d = x.shape
+    B = x.shape[0]
     st = _s_cell(p, _s_gates(p, x)[:, 0], st)
-    out = st["h"].reshape(B, d).to(x.dtype) @ p["s_out"].to(x.dtype)
+    out = st["h"].reshape(B, -1).to(x.dtype) @ p["s_out"].to(x.dtype)
     return out[:, None], st
 
 
 # ---------------------------------------------------------------------------
 # state
 # ---------------------------------------------------------------------------
+
+# the dimension of each leaf of a step's state (``mlstm_step``'s C, n, m;
+# ``slstm_step``'s h, c, n, m) that holds the heads
+STATE_DIMS = {"C": 1, "n": 1, "m": 1, "h": 1, "c": 1}
+
 
 def slstm_state_init(batch: int, H: int, hd: int, device) -> dict:
     def z():

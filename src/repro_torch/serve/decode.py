@@ -9,17 +9,16 @@ The sharded serving steps (``jit_decode``, ``jit_prefill``; the names
 are the reference's) run on a ``DeviceMesh``: parameters laid out by
 their logical axes, the decode state by ``decode_state_shardings`` (the
 caches' lanes over the data axes, their positions over "model"), the
-inputs by ``batch_shardings``.  For the dense, MoE and vlm decoders and
-the audio encoder they compute tensor parallel
+inputs by ``batch_shardings``.  They compute tensor parallel
 (``sharding/tensor_parallel.py``): each rank runs its heads, MLP columns
-(or experts) and vocab columns on its lanes, each layer's pieces
-gathered over the data axes only; prefill lays each layer's K/V out by
-sequence, and decode attends each rank's own positions and merges the
-pieces by their log-sum-exp, so the cache never moves (the vlm's image
-K/V stay whole over "model", as the reference lays them out, and each
-rank reads its KV heads of them).  The hybrid and ssm families gather
-the parameters, compute this rank's lanes (gathering their positions),
-and lay the outputs back out on the same shardings."""
+(or experts), Mamba channels and vocab columns on its lanes, each
+layer's pieces gathered over the data axes only; prefill lays each
+layer's K/V out by sequence, and decode attends each rank's own
+positions and merges the pieces by their log-sum-exp, so the cache never
+moves (the vlm's image K/V stay whole over "model", as the reference
+lays them out, and each rank reads its KV heads of them); the recurrent
+states stay whole over "model", each rank stepping its channels or
+heads of them and gathering the new pieces."""
 
 from __future__ import annotations
 
@@ -129,67 +128,6 @@ def batch_shardings(batch_specs: dict, mesh) -> dict:
         shape=tuple(v.shape))) for k, v in batch_specs.items()}
 
 
-class _Lanes:
-    """Which lanes this rank computes: its own piece of the batch (split
-    as ``lanes`` splits dim 0) unless the lanes do not split evenly, then
-    every lane (``moe.data_shards`` warns)."""
-
-    def __init__(self, cfg, lanes, B: int):
-        from repro_torch.models import moe
-        from repro_torch.sharding import specs
-
-        self.mesh = lanes.mesh
-        n, _ = specs.shard_index(lanes.placements, self.mesh)
-        self.shards = moe.data_shards(cfg, n, B)
-        self.local = self.shards == n
-        self.lane_pl = lanes.placements
-
-    def placements(self, batch_dim):
-        """Compute placements of a leaf whose lanes are ``batch_dim``."""
-        from torch.distributed.tensor import Replicate, Shard
-
-        return tuple(Shard(batch_dim) if self.local and batch_dim is not None
-                     and pl.is_shard() else Replicate()
-                     for pl in self.lane_pl)
-
-    def take(self, t, batch_dim):
-        """A DTensor -> this rank's lanes of it, whole otherwise."""
-        return t.redistribute(self.mesh,
-                              self.placements(batch_dim)).to_local()
-
-    def put(self, t, batch_dim, shape, sh):
-        """This rank's lanes of a result -> a DTensor on ``sh``."""
-        from repro_torch.sharding.specs import distribute_local
-
-        return distribute_local(t, self.mesh, self.placements(batch_dim),
-                                shape).redistribute(self.mesh,
-                                                    sh.placements)
-
-
-def _batch_dim(axes):
-    return axes.index("batch") if "batch" in axes else None
-
-
-def _state_io(lanes: _Lanes, s_sh, state_abs):
-    """(take, put) of a decode state: this rank's lanes (their positions
-    gathered) as plain tensors, and back onto ``s_sh``.  ``pos`` is
-    replicated but split by lane like the caches."""
-    from repro_torch.sharding.specs import map_leaves
-
-    axes = _state_axes(state_abs)
-    axes = axes._replace(pos=("batch",))
-
-    def take(state):
-        return map_leaves(lambda t, ax: lanes.take(t, _batch_dim(ax)),
-                          state, axes)
-
-    def put(state):
-        return map_leaves(
-            lambda t, ax, ab, sh: lanes.put(t, _batch_dim(ax), ab.shape, sh),
-            state, axes, state_abs, s_sh)
-    return take, put
-
-
 class _Split(NamedTuple):
     """A split serving step's layout: the ``TensorParallel``, this rank's
     lanes [lo, hi), whether the caches hold this rank's positions only,
@@ -203,25 +141,19 @@ class _Split(NamedTuple):
 
 def _split(cfg, mesh, params_abs, lanes_sh, B: int, s_sh, what: str,
            vocab_dim: int = 1):
-    """The split step on ``mesh`` (``TensorParallel``) of the families of
-    ``SPLIT_FAMILIES``, or None for the others, which gather (and warn
-    so once).  Each rank computes its own lanes; an MoE dispatch ranks
-    them after the earlier ranks' lanes (``moe.moe_ffn_split``).  The
-    caches are split by sequence when "model" shards their "seq"
-    dimension (the third from last: [L, B, S, KV, hd], the vlm's [ns,
-    inner, B, S, KV, hd]); ``s_sh`` None (the encoder) has no caches.
-    The logits' vocabulary is their dimension ``vocab_dim``."""
+    """The split step on ``mesh`` (``TensorParallel``).  Each rank
+    computes its own lanes; an MoE dispatch ranks them after the earlier
+    ranks' lanes (``moe.moe_ffn_split``).  The caches are split by
+    sequence when "model" shards their "seq" dimension (the third from
+    last: [L, B, S, KV, hd], the vlm's [ns, inner, B, S, KV, hd]);
+    ``s_sh`` None (the encoder) or without "k" (the xLSTM) has no KV
+    caches.  The logits' vocabulary is their dimension ``vocab_dim``."""
     from torch.distributed.tensor import Replicate, Shard
 
     from repro_torch.models import abstract_params_and_axes
     from repro_torch.sharding import specs
-    from repro_torch.sharding.tensor_parallel import (SPLIT_FAMILIES,
-                                                      TensorParallel,
-                                                      warn_gathered)
+    from repro_torch.sharding.tensor_parallel import TensorParallel
 
-    if cfg.family not in SPLIT_FAMILIES:
-        warn_gathered(cfg, mesh, what)
-        return None
     p_sh = specs.tree_shardings(abstract_params_and_axes(cfg)[1], mesh,
                                 params_abs)
     tp = TensorParallel(cfg, mesh, p_sh, params_abs,
@@ -229,7 +161,7 @@ def _split(cfg, mesh, params_abs, lanes_sh, B: int, s_sh, what: str,
     tp.warn_whole(what)
     lo, hi = specs.shard_range(lanes_sh.placements, mesh, B)
     seq_split = False
-    if s_sh is not None and tp.size > 1:
+    if s_sh is not None and "k" in s_sh.caches and tp.size > 1:
         k = s_sh.caches["k"]
         seq_split = k.placements[tp.m].is_shard(len(k.spec) - 3)
     logits_pl = tuple(
@@ -248,17 +180,15 @@ def jit_decode(cfg, shape, mesh):
     the state's shardings).  The state is donated, as the reference's
     is: its pieces may be updated in place.
 
-    The step of the families of ``SPLIT_FAMILIES`` is split
-    (``models.decode_step(tp=...)``): no parameter piece leaves its
-    "model" rank, and the caches are updated in place on the rank that
-    holds each position (a ring cache's slot ``pos % W``); the encoder's
-    step raises when called, as the reference's does.  The hybrid and
-    ssm families gather the parameters and this rank's lanes of the
-    caches (``moe.data_shards`` decides the lanes)."""
+    The step is split (``models.decode_step(tp=...)``): no parameter
+    piece leaves its "model" rank but the hybrid's ``in_proj``
+    (``TensorParallel.ssm_columns``), the caches are updated in place on
+    the rank that holds each position (a ring cache's slot ``pos % W``),
+    and the recurrent states in place on every rank; the encoder's step
+    raises when called, as the reference's does."""
     from repro_torch.models import (abstract_decode_state,
                                     abstract_params_and_axes)
-    from repro_torch.sharding.specs import (NamedSharding, gather_tree,
-                                            spec_for)
+    from repro_torch.sharding.specs import NamedSharding, spec_for
 
     params_abs, _ = abstract_params_and_axes(cfg)
     state_abs = abstract_decode_state(cfg, shape)
@@ -269,19 +199,8 @@ def jit_decode(cfg, shape, mesh):
     logits_sh = NamedSharding(mesh, spec_for(
         ("batch", "vocab"), mesh=mesh, shape=(B, cfg.vocab)))
     split = _split(cfg, mesh, params_abs, t_sh, B, s_sh, "jit_decode")
-    if split is not None:
-        return _split_decode(cfg, mesh, split, s_sh, logits_sh, B), (
-            params_abs, state_abs, t_abs)
-    lanes = _Lanes(cfg, t_sh, B)
-    take, put = _state_io(lanes, s_sh, state_abs)
-    fn = make_decode_fn(cfg)
-
-    def step(params, state, tokens):
-        full = gather_tree(params)
-        logits, new = fn(full, take(state), lanes.take(tokens, 0))
-        return (lanes.put(logits, 0, (B, cfg.vocab), logits_sh), put(new))
-
-    return step, (params_abs, state_abs, t_abs)
+    return _split_decode(cfg, mesh, split, s_sh, logits_sh, B), (
+        params_abs, state_abs, t_abs)
 
 
 def _split_decode(cfg, mesh, split: _Split, s_sh, logits_sh, B: int):
@@ -312,40 +231,26 @@ def jit_prefill(cfg, shape, mesh):
     ``jit_decode`` at the same shape continues them) and returns
     (last-position logits [B, vocab] over ("batch", "vocab"), the decode
     state on ``decode_state_shardings``); an encoder's step returns its
-    logits [B, S, vocab] over ("batch", None, "vocab").  The step of the
-    families of ``SPLIT_FAMILIES`` is split (``models.prefill(tp=...)``,
-    the encoder's ``models.forward(tp=...)``): each rank's K/V heads go
-    to the ranks that hold their positions, one layer at a time; the
-    hybrid and ssm families gather the parameters."""
+    logits [B, S, vocab] over ("batch", None, "vocab").  The step is
+    split (``models.prefill(tp=...)``, the encoder's
+    ``models.forward(tp=...)``): each rank's K/V heads go to the ranks
+    that hold their positions, one layer at a time; the recurrent
+    families return the reference's cold state (``pos`` 0)."""
     from repro_torch.models import (abstract_decode_state,
                                     abstract_params_and_axes, input_specs)
-    from repro_torch.sharding.specs import (NamedSharding, gather_tree,
-                                            spec_for)
+    from repro_torch.sharding.specs import NamedSharding, spec_for
 
     params_abs, _ = abstract_params_and_axes(cfg)
     specs_in = input_specs(cfg, shape)
     b_sh = batch_shardings(specs_in, mesh)
     B, S = shape.global_batch, shape.seq_len
-    lanes = _Lanes(cfg, next(iter(b_sh.values())), B)
-    fn = make_prefill_fn(cfg, shape)
-
-    def run(params, batch):
-        full = gather_tree(params)
-        return fn(full, {k: lanes.take(v, 0) for k, v in batch.items()})
-
     if cfg.is_encoder:
         out_sh = NamedSharding(mesh, spec_for(
             ("batch", None, "vocab"), mesh=mesh, shape=(B, S, cfg.vocab)))
         split = _split(cfg, mesh, params_abs, next(iter(b_sh.values())), B,
                        None, "jit_prefill", vocab_dim=2)
-        if split is not None:
-            return _split_encode(cfg, mesh, split, out_sh), (params_abs,
-                                                             specs_in)
-
-        def encode(params, batch):
-            logits = run(params, batch)
-            return lanes.put(logits, 0, (B,) + logits.shape[1:], out_sh)
-        return encode, (params_abs, specs_in)
+        return _split_encode(cfg, mesh, split, out_sh), (params_abs,
+                                                         specs_in)
 
     state_abs = abstract_decode_state(cfg, shape)
     s_sh = decode_state_shardings(cfg, state_abs, mesh)
@@ -353,15 +258,8 @@ def jit_prefill(cfg, shape, mesh):
         ("batch", "vocab"), mesh=mesh, shape=(B, cfg.vocab)))
     split = _split(cfg, mesh, params_abs, next(iter(b_sh.values())), B,
                    s_sh, "jit_prefill")
-    if split is not None:
-        return _split_prefill(cfg, mesh, split, s_sh, state_abs, logits_sh,
-                              shape), (params_abs, specs_in)
-    _, put = _state_io(lanes, s_sh, state_abs)
-
-    def step(params, batch):
-        logits, state = run(params, batch)
-        return lanes.put(logits, 0, (B, cfg.vocab), logits_sh), put(state)
-    return step, (params_abs, specs_in)
+    return _split_prefill(cfg, mesh, split, s_sh, state_abs, logits_sh,
+                          shape), (params_abs, specs_in)
 
 
 def _split_encode(cfg, mesh, split: _Split, out_sh):
@@ -385,10 +283,13 @@ def _split_encode(cfg, mesh, split: _Split, out_sh):
 def _split_prefill(cfg, mesh, split: _Split, s_sh, state_abs, logits_sh,
                    shape):
     from repro_torch.models import DecodeState, prefill
+    from repro_torch.models.transformer import COLD_PREFILL
     from repro_torch.sharding.specs import distribute_local, map_leaves
     from repro_torch.sharding.tensor_parallel import local_tree
 
     B = shape.global_batch
+    # the recurrent families' state is cold: it starts at position 0
+    cold = cfg.family in COLD_PREFILL
 
     def step(params, batch):
         local = {k: v.to_local() for k, v in batch.items()}
@@ -399,8 +300,8 @@ def _split_prefill(cfg, mesh, split: _Split, s_sh, state_abs, logits_sh,
         logits = distribute_local(logits[:, -1], mesh, split.logits_pl,
                                   (B, cfg.vocab)).redistribute(
             mesh, logits_sh.placements)
-        pos = torch.full((B,), tokens.shape[1], dtype=torch.int32,
-                         device=tokens.device)
+        pos = torch.full((B,), 0 if cold else tokens.shape[1],
+                         dtype=torch.int32, device=tokens.device)
         state = DecodeState(pos, st.caches)
         return logits, map_leaves(
             lambda t, sh, ab: distribute_local(t, mesh, sh.placements,

@@ -19,13 +19,10 @@ Parallelism mapping, as in the reference:
 The reference hands the specs to XLA's SPMD partitioner, which also
 decides where each product runs.  In the port the specs lay out storage,
 and the steps (``train.loop.make_sharded_train_step``,
-``serve.decode.jit_decode``/``jit_prefill``) decide the compute: for the
-dense, MoE and vlm decoders and the audio encoder they split it over the
-"model" axis as the specs split the leaves (heads, kv_heads, mlp,
-experts and vocab; ``sharding/tensor_parallel.py``), each layer's pieces
-gathered over the data axes only; the hybrid and ssm families gather
-the parameters into plain tensors and compute on this rank's rows of
-the batch.  ``model_group``
+``serve.decode.jit_decode``/``jit_prefill``) decide the compute: they
+split it over the "model" axis as the specs split the leaves (heads,
+kv_heads, mlp, experts and vocab; ``sharding/tensor_parallel.py``), each
+layer's pieces gathered over the data axes only.  ``model_group``
 and ``shard_range`` give a step the "model" axis and this rank's index
 range along a split dimension.  ``logical_constraint``, XLA's layout hint
 inside model code, returns its input unchanged.

@@ -1,7 +1,8 @@
 """Tensor-parallel compute over the mesh's "model" axis, with the
-parameters' "data" pieces gathered one layer at a time (FSDP), for the
-dense and MoE decoders, the vlm (its self and gated cross layers) and
-the audio encoder.
+parameters' "data" pieces gathered one layer at a time (FSDP), for every
+family: the dense and MoE decoders, the hybrid (attention beside a Mamba
+branch), the xLSTM, the vlm (its self and gated cross layers) and the
+audio encoder.
 
 The reference hands its logical-axis specs to XLA, whose partitioner
 splits the products: heads, kv_heads, mlp and vocab over "model".  Here
@@ -41,6 +42,19 @@ the same split is written out, Megatron style, over
   the experts do not split; its dispatch ranks a data rank's choices
   after the earlier data ranks' (an all-gather of [E] counts) and its
   aux loss sums the data ranks' shares (``data_sum``).
+* The hybrid's Mamba branch (part "ssm") runs this rank's channels of
+  d_inner: ``in_proj`` [d, 2 di] is one matrix whose "model" piece is
+  contiguous (x's columns on the first ranks, z's on the last), so it is
+  gathered over "model" with the layer (``_GatherModel``, whose backward
+  reduce-scatters the gradient onto the piece) and the rank takes its x
+  and z columns (``ssm_columns``); the conv, dt and A run per channel;
+  ``x_proj``'s output (dt, B and C) is summed over "model" forward and
+  backward, ``out_proj``'s after it.  The xLSTM (part "xlstm") runs this
+  rank's heads of both branches: ``m_og``'s contiguous d/m columns are
+  its heads' channels, ``m_out`` and ``s_out`` are row-split and summed.
+  Decode reads this rank's channels or heads of the recurrent state
+  (whole over "model", as the reference lays it out) and gathers the
+  new pieces back in one all-gather a layer (``gather_state``).
 
 What splits is what ``spec_for`` split: a part (attention, the MLP, the
 vocabulary) runs split only when all of its leaves shard on "model"
@@ -60,9 +74,9 @@ from typing import NamedTuple
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-# the families whose steps compute split (the others gather the tree)
-SPLIT_FAMILIES = ("dense", "moe", "vlm", "audio")
-PARTS = ("attn", "mlp", "moe", "vocab")
+# the families whose steps compute split: every family of the port
+SPLIT_FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
+PARTS = ("attn", "mlp", "moe", "vocab", "ssm", "xlstm")
 # the leaves of each part (paths under the parameter tree's root, the
 # vlm's "blocks/self/" and "blocks/cross/" read as "blocks/")
 _PART_LEAVES = {
@@ -74,6 +88,12 @@ _PART_LEAVES = {
     "moe": ("blocks/moe/router", "blocks/moe/w_gate", "blocks/moe/w_up",
             "blocks/moe/w_down"),
     "vocab": ("embed", "unembed"),
+    "ssm": tuple(f"blocks/ssm/{k}" for k in (
+        "in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias",
+        "A_log", "D", "out_proj")),
+    "xlstm": tuple(f"blocks/{k}" for k in (
+        "m_qkv", "m_if", "m_if_b", "m_og", "m_out", "s_w", "s_r", "s_b",
+        "s_out")),
 }
 # leaves whole on every rank that act on this rank's heads when attention
 # is split, so that each rank's gradient is its part of the sum over
@@ -475,6 +495,66 @@ class TensorParallel:
         n = t.shape[-2] // self.size
         return t[..., self.rank * n:(self.rank + 1) * n, :]
 
+    # -- the recurrent branches ---------------------------------------------
+
+    def ssm_channels(self) -> range:
+        """This rank's channels of the Mamba branch's d_inner (= d): its
+        columns of x in ``in_proj``, and of z d_inner further on."""
+        di = self.cfg.d_model
+        if self.size == 1 or not self.split["ssm"]:
+            return range(di)
+        n = di // self.size
+        return range(self.rank * n, (self.rank + 1) * n)
+
+    def ssm_columns(self, w: torch.Tensor) -> torch.Tensor:
+        """``in_proj``'s piece [d, 2 di/m] (gathered over the data axes)
+        -> this rank's x columns, then its z columns, [d, 2 di/m]
+        (``ssm_channels``): the matrix gathered over "model" (its
+        gradient's sum scattered back onto the piece), so the Mamba
+        branch computes the same channels of x and of z.  The matrix
+        itself where the part runs whole or on one rank."""
+        if self.group is None or not self.split["ssm"]:
+            return w
+        whole = self.gather_model(w, w.dim() - 1)
+        ch, di = self.ssm_channels(), whole.shape[-1] // 2
+        return torch.cat([whole[..., ch.start:ch.stop],
+                          whole[..., di + ch.start:di + ch.stop]], dim=-1)
+
+    def own_state(self, state: dict, dims: dict, part: str) -> dict:
+        """A layer's recurrent state, whole over "model" -> this rank's
+        channels or heads of each leaf (``dims``: leaf name -> the
+        dimension ``part`` splits), views; the whole state where the part
+        runs whole."""
+        if self.size == 1 or not self.split[part]:
+            return state
+        out = {}
+        for k, t in state.items():
+            n = t.shape[dims[k]] // self.size
+            out[k] = t.narrow(dims[k], self.rank * n, n)
+        return out
+
+    def gather_state(self, state: dict, dims: dict, part: str) -> dict:
+        """This rank's pieces of a layer's new recurrent state -> every
+        rank's, whole along ``dims`` as ``own_state`` cut them, in ONE
+        all-gather over "model" (the leaves packed in fp32, each returned
+        in its own dtype; no gradient).  Identity where the part runs
+        whole or on one rank."""
+        if self.group is None or not self.split[part]:
+            return state
+        names = list(state)
+        flat = torch.cat([state[k].detach().float().reshape(-1)
+                          for k in names])
+        every = _all_gather(flat, 0, self.group, self.size).view(
+            self.size, -1)
+        out, at = {}, 0
+        for k in names:
+            t, d = state[k], dims[k]
+            n = t.numel()
+            piece = every[:, at:at + n].reshape((self.size,) + t.shape)
+            out[k] = piece.movedim(0, d).flatten(d, d + 1).to(t.dtype)
+            at += n
+        return out
+
     # -- parameters -------------------------------------------------------
 
     def layer(self, p_local: dict, stack: str | None = None) -> dict:
@@ -617,21 +697,6 @@ class CollectiveLog(TorchDispatchMode):
                             .unbox(t).group_name
             self.calls.append(Collective(str(func), group, shapes, nbytes))
         return func(*args, **(kwargs or {}))
-
-
-def warn_gathered(cfg, mesh, what: str) -> None:
-    """One warning that ``what`` gathers the whole parameter tree on each
-    rank: a family outside the split (``SPLIT_FAMILIES``) on
-    a mesh whose "model" axis has more than one rank."""
-    from repro_torch.sharding.specs import model_group
-
-    if model_group(mesh)[1] > 1:
-        warnings.warn(
-            f"{cfg.name}: {what} gathers every parameter on each rank "
-            f"(tensor-parallel compute covers the families "
-            f"{SPLIT_FAMILIES}; "
-            f"{cfg.family!r} shards storage only over \"model\")",
-            stacklevel=3)
 
 
 def _replicate():

@@ -19,17 +19,14 @@ reaches the same parameters as an uninterrupted one.
 ``make_sharded_train_step`` is the step on a ``DeviceMesh``: every
 parameter, AdamW moment and error-feedback buffer is a DTensor laid out
 by the reference's logical-axis specs (``sharding/specs.py``), and the
-batch is split over the data axes.  For the dense, MoE and vlm
-decoders and the audio encoder the step computes tensor parallel over
-"model" (``sharding/tensor_parallel.py``): each layer's pieces are
+batch is split over the data axes.  The step computes tensor parallel
+over "model" (``sharding/tensor_parallel.py``): each layer's pieces are
 gathered over the data axes only, inside the layer loop, and each rank
-runs its own heads, MLP columns (or experts) and vocab columns on its
-rows (on a card, the flash kernels forward and backward on H/tp heads);
-each leaf's gradient is reduced to its data mean and scattered onto the
-leaf's piece as the backward leaves the layer.  The hybrid and ssm
-families gather the whole parameter tree into plain tensors, run the
-step body above on this rank's rows, and reduce-scatter the gradients
-after it.  AdamW then runs on the shards with the global norm of the
+runs its own heads, MLP columns (or experts), Mamba channels or xLSTM
+heads and vocab columns on its rows (on a card, the flash kernels
+forward and backward on H/tp heads); each leaf's gradient is reduced to
+its data mean and scattered onto the leaf's piece as the backward leaves
+the layer.  AdamW then runs on the shards with the global norm of the
 whole gradient: ZeRO-3 over the whole mesh.  ``fit`` takes ``mesh=`` to train so.
 """
 
@@ -53,9 +50,7 @@ from repro_torch.models import (abstract_params_and_axes,
                                 loss_fn)
 from repro_torch.models import moe as moe_mod
 from repro_torch.sharding import specs
-from repro_torch.sharding.tensor_parallel import (SPLIT_FAMILIES,
-                                                  TensorParallel, local_tree,
-                                                  warn_gathered)
+from repro_torch.sharding.tensor_parallel import TensorParallel, local_tree
 from repro_torch.train import compression
 from repro_torch.train.optimizer import (OptConfig, OptState, apply_updates,
                                          init_opt_state, leaves, map_tree,
@@ -272,8 +267,7 @@ def make_sharded_train_step(cfg: ArchConfig, opt_cfg: OptConfig,
     ``train_step.grads(params, batch)`` gives this rank's shards of the
     data-mean gradient, without a step.
 
-    The step of the families of ``SPLIT_FAMILIES`` (dense, MoE, vlm,
-    audio) is tensor parallel (module docstring; its ``train_step.tp``
+    The step is tensor parallel (module docstring; its ``train_step.tp``
     is the ``TensorParallel``); the loss
     takes the reference's ``REPRO_SHARDED_CE`` form.  A part whose leaves
     ``spec_for`` left whole on "model" runs whole on every rank, with one
@@ -291,9 +285,9 @@ def make_sharded_train_step(cfg: ArchConfig, opt_cfg: OptConfig,
       + 3 x R S V/tp x 4   the fp32 logits, their exponentials and their
                            gradient.
     An MoE layer's activations are its [E/tp, C, d] expert buffers (C the
-    routing group's capacity) and their [E/tp, C, ff] products.  The
-    other families compute on the whole gathered tree: P on every rank
-    besides its pieces."""
+    routing group's capacity) and their [E/tp, C, ff] products; a hybrid
+    layer's Mamba branch gathers its ``in_proj`` whole over "model"
+    (2 d di w bytes)."""
     params_abs, axes = abstract_params_and_axes(cfg)
     p_sh = specs.tree_shardings(axes, mesh, params_abs)
     b_sh = {k: specs.NamedSharding(mesh, specs.spec_for(ax, mesh=mesh))
@@ -302,31 +296,19 @@ def make_sharded_train_step(cfg: ArchConfig, opt_cfg: OptConfig,
     n_mb = tc.microbatches
     lay = _Layout(cfg, mesh, next(iter(b_sh.values())).placements,
                   B // n_mb)
-    tp = None
-    if cfg.family in SPLIT_FAMILIES:
-        tp = TensorParallel(cfg, mesh, p_sh, params_abs, reduce=lay.reduce,
-                            rows=lay.row_placements)
-        tp.warn_whole("make_sharded_train_step")
-    else:
-        warn_gathered(cfg, mesh, "make_sharded_train_step")
+    tp = TensorParallel(cfg, mesh, p_sh, params_abs, reduce=lay.reduce,
+                        rows=lay.row_placements)
+    tp.warn_whole("make_sharded_train_step")
 
     def grads(compute, rows):
-        if tp is not None:
-            return grads_of(cfg, tc, compute, rows, tp=tp)
-        loss, metrics, g = grads_of(cfg, tc, compute, rows)
-        return loss, metrics, specs.map_leaves(lay.reduce, g, p_sh)
-
-    def params_for_compute(params):
-        """The split step's pieces, or the whole gathered tree."""
-        return local_tree(params) if tp is not None \
-            else specs.gather_tree(params)
+        return grads_of(cfg, tc, compute, rows, tp=tp)
 
     def whole_batch(batch):
         """The batch's rows on every rank (tokens only: small)."""
         return {k: v.full_tensor() for k, v in batch.items()}
 
     def step(params, opt_state, err_state, batch):
-        full = params_for_compute(params)
+        full = local_tree(params)
         if n_mb == 1 and lay.local:
             rows = {k: v.to_local() for k, v in batch.items()}
         else:
@@ -369,7 +351,7 @@ def make_sharded_train_step(cfg: ArchConfig, opt_cfg: OptConfig,
     def data_mean_grads(params, batch):
         """This rank's shards of the data-mean gradient at ``params`` over
         the whole ``batch`` (one microbatch)."""
-        return grads(params_for_compute(params),
+        return grads(local_tree(params),
                      lay.rows(whole_batch(batch), 0, B))[2]
 
     step.grads = data_mean_grads
@@ -431,17 +413,12 @@ def fit(cfg: ArchConfig, dc: DataConfig, opt_cfg: OptConfig, tc: TrainConfig,
 
 
 def _fit(cfg, dc, opt_cfg, tc, mesh, resume, seed, log, device):
-    if mesh is not None and cfg.family in SPLIT_FAMILIES:
+    if mesh is not None:
         # each rank draws its own pieces: no rank holds the whole tree
         params = init_sharded_params(cfg, mesh, seed, device)
         axes = abstract_params_and_axes(cfg)[1]
-    else:
-        params, axes = init_params_and_axes(cfg, device, seed=seed)
-    if mesh is not None:
         step_fn, p_sh, b_sh = make_sharded_train_step(
             cfg, opt_cfg, tc, mesh, make_batch(dc, 0))
-        if cfg.family not in SPLIT_FAMILIES:
-            params = specs.distribute_tree(params, p_sh)
         opt_state, err_state = init_sharded_state(
             p_sh, abstract_params_and_axes(cfg)[0], tc.compress_grads)
         b_pl = next(iter(b_sh.values())).placements
@@ -454,6 +431,7 @@ def _fit(cfg, dc, opt_cfg, tc, mesh, resume, seed, log, device):
                 (dc.global_batch,) + v.shape[1:]) for k, v in local.items()}
         shardings = {"params": p_sh, "opt": opt_shardings(mesh, p_sh)}
     else:
+        params, axes = init_params_and_axes(cfg, device, seed=seed)
         opt_state = init_opt_state(params)
         err_state = (compression.init_error_state(params)
                      if tc.compress_grads else None)

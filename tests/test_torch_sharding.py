@@ -6,27 +6,22 @@ every decoder's ``decode_state_shardings`` and ``batch_shardings`` (the
 reference through ``abstract_params_and_axes``, ``abstract_decode_state``
 and ``input_specs``, nothing materialised): equal, entry for entry.
 
-The multi-rank path runs once, in 4 spawned gloo processes on the CPU
-(``tests/torch_dist_worker.py``, which imports no JAX) on a (2, 2)
+The multi-rank path runs in 4 spawned gloo processes on the CPU
+(``tests/torch_dist_worker.py``, which imports no JAX), one spawn a test
+file, each on its own xdist worker: this file's ("sharded") on a (2, 2)
 ("data", "model") mesh: the sharded train step of smoke llama3-8b and
 granite-moe against the reference's ``make_sharded_train_step`` on a
 one-device mesh (plain, and with 2 microbatches and int8 error
 feedback), a checkpoint saved on (2, 2) and restored on (4, 1), sharded
 prefill and decode against the unsharded port, and the int8 data mean
 against the reference's under ``jax.vmap(..., axis_name="data")``, and
-a sharded ``fit`` that one rank alone is told to stop.  The same spawn
-runs the tensor-parallel compute of the dense family (heads, MLP and
-vocabulary split over "model") on (2, 2) and on a (1, 4) mesh of the
-same ranks: the split train step of smoke qwen2-7b (QKV bias) and of
-smoke llama3-8b and qwen2-7b widened to 8 heads over 4 KV heads against
-the reference's step (plain, and 2 microbatches with int8 error
-feedback), smoke llama3-8b on (1, 4), whose 2 KV heads do not split over
-4 ranks (attention runs whole, with one warning); split prefill and
-decode against the unsharded port with ragged positions, an idle lane
-and a window; the collectives of a split train step, prefill and decode
-step (none on "model" moves a parameter piece or the cache, each is
-activation-sized, and ``specs.gather_tree`` is never called); and
-``init_sharded_params`` against ``init_params``.
+a sharded ``fit`` that one rank alone is told to stop.  The
+tensor-parallel compute over "model" is held by
+``test_torch_split_dense.py``, ``_vlm.py``, ``_moe.py`` and
+``_recurrent.py``, with the helpers here (``spawn_fixture``,
+``_reference_run``, ``check_split_train``, ``check_split_serve``); the
+fake-group runs of ``chip_smoke.py`` phases 17-19 and the launcher's
+mesh stay here.
 
 Tolerances, fp32 on the CPU, those of ``test_torch_train.py``'s train
 step (the ranks sum the data mean in another order than one device):
@@ -43,9 +38,9 @@ ones; the gathered caches after the split decode within 1e-4 of the
 unsharded ones; ``init_sharded_params`` exactly.
 """
 
-import math
-
+import functools
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -54,7 +49,7 @@ import pytest
 import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
-from jax.sharding import AxisType, Mesh
+from jax.sharding import AxisType, Mesh, NamedSharding, PartitionSpec
 
 import torch_dist_worker as W
 from repro.ckpt.manager import CheckpointManager as JManager
@@ -285,11 +280,18 @@ def test_moe_groups_match_reference(monkeypatch):
 
 # --- the multi-rank run ----------------------------------------------------
 
-@pytest.fixture(scope="module")
-def dist_run(tmp_path_factory):
-    out = tmp_path_factory.mktemp("dist")
-    W.spawn(str(out))
-    return out
+def spawn_fixture(group: str):
+    """A module-scoped fixture: the directory of ``W.spawn``'s run of the
+    worker's ``group``, made once for the module's tests."""
+    @pytest.fixture(scope="module")
+    def dist_run(tmp_path_factory):
+        out = tmp_path_factory.mktemp(f"dist_{group}")
+        W.spawn(str(out), group)
+        return out
+    return dist_run
+
+
+dist_run = spawn_fixture("sharded")
 
 
 def test_dp_mean_compressed_matches_reference(dist_run):
@@ -303,6 +305,34 @@ def test_dp_mean_compressed_matches_reference(dist_run):
         np.testing.assert_array_equal(got[k], w[0], err_msg=k)
 
 
+@functools.lru_cache(maxsize=None)
+def _reference_model(arch, wide, n_experts: int, env: tuple):
+    """(the reference's config, the port's, the port's init as numpy,
+    the reference's jitted gradient, its first batch's gradient) for
+    ``_reference_run``, made once a module for each config; ``env`` (the
+    values of the variables the reference reads as it traces) is part of
+    the key."""
+    jcfg, cfg = j_reduce(j_get_config(arch)), W.smoke(arch)
+    if wide is not None or n_experts:
+        jcfg, cfg = (W.moe_config(c, bool(wide), n_experts)
+                     for c in (jcfg, cfg))
+    tree = jax.tree.map(lambda t: t.float().numpy(), W.init(cfg))
+    grad_fn = jax.jit(jax.grad(lambda q, b: j_loss_fn(jcfg, q, b)[0]))
+    grad = grad_fn(jax.tree.map(jnp.asarray, tree),
+                   _reference_batch(cfg, 0))
+    return jcfg, cfg, tree, grad_fn, _flat(jax.tree.map(np.asarray, grad))
+
+
+def _reference_batch(cfg, it):
+    """The reference's batch ``it``, with the vlm's image embeddings."""
+    dc = JDataConfig(vocab=cfg.vocab, **W.DC_KW,
+                     embed_dim=cfg.d_model if cfg.embed_inputs else 0)
+    b = j_make_batch(dc, it)
+    if cfg.family == "vlm":
+        b["image_embeds"] = W.image_embeds(cfg, dc.global_batch, it)
+    return b
+
+
 def _reference_run(case, wide=None, n_experts: int = 0):
     """The reference's sharded step on a one-device mesh from the port's
     init: (losses, gnorms, final params, final error state, the first
@@ -310,38 +340,34 @@ def _reference_run(case, wide=None, n_experts: int = 0):
     both configs as ``W.widen`` does, ``n_experts`` (not 0) sets their
     experts."""
     arch, mb, compress, _ = case
-    jcfg, cfg = j_reduce(j_get_config(arch)), W.smoke(arch)
-    if wide is not None or n_experts:
-        jcfg, cfg = (W.moe_config(c, bool(wide), n_experts)
-                     for c in (jcfg, cfg))
-    dc = JDataConfig(vocab=cfg.vocab, **W.DC_KW,
-                     embed_dim=cfg.d_model if cfg.embed_inputs else 0)
+    env = tuple(os.environ.get(k) for k in ("REPRO_MOE_GROUPS",
+                                            "REPRO_SHARDED_CE"))
+    jcfg, cfg, tree, grad_fn, grad = _reference_model(arch, wide, n_experts,
+                                                      env)
+    rows = W.DC_KW["global_batch"]
     oc = W.opt_config()
-    tree = jax.tree.map(lambda t: t.float().numpy(), W.init(cfg))
     jtc = jloop.TrainConfig(microbatches=mb, compress_grads=compress)
 
     def batch(it):
-        """The reference's batch, with the vlm's image embeddings."""
-        b = j_make_batch(dc, it)
-        if cfg.family == "vlm":
-            b["image_embeds"] = W.image_embeds(cfg, dc.global_batch, it)
-        return b
+        return _reference_batch(cfg, it)
     # the reference's step jitted on a one-device mesh of Auto axes (the
     # partitioner's, which its specs are written for)
     mesh = jax.make_mesh((1, 1), ("data", "model"),
                          axis_types=(AxisType.Auto, AxisType.Auto))
-    step, _, _ = jloop.make_sharded_train_step(
+    step, p_sh, _ = jloop.make_sharded_train_step(
         jcfg, jopt.OptConfig(**vars(oc)), jtc, mesh, batch(0), donate=False)
     p = jax.tree.map(jnp.asarray, tree)
     opt = jopt.init_opt_state(p)
-    err = jax.tree.map(jnp.zeros_like, p) if compress else None
-    grad_fn = jax.jit(jax.grad(lambda q, b: j_loss_fn(jcfg, q, b)[0]))
-    grad = grad_fn(p, batch(0))
+    # the state placed as the step returns it, so that its second call
+    # reuses the first call's compilation
+    p, opt = jax.device_put((p, opt), (p_sh, jopt.OptState(
+        NamedSharding(mesh, PartitionSpec()), p_sh, p_sh)))
+    err = jax.device_put(jax.tree.map(jnp.zeros_like, p), p_sh) \
+        if compress else None
     losses, gnorms, flips = [], [], []
     for it in range(W.TRAIN_STEPS):
         if compress:
-            flips.append(_one_flip(grad_fn, p, batch(it), mb,
-                                   dc.global_batch))
+            flips.append(_one_flip(grad_fn, p, batch(it), mb, rows))
         p, opt, err, m = step(p, opt, err, batch(it))
         losses.append(float(m["loss"]))
         gnorms.append(float(m["gnorm"]))
@@ -349,15 +375,14 @@ def _reference_run(case, wide=None, n_experts: int = 0):
     for it in range(W.TRAIN_STEPS if compress else 0):
         b = batch(it)
         for i in range(mb):
-            rows = slice(i * dc.global_batch // mb,
-                         (i + 1) * dc.global_batch // mb)
+            sl = slice(i * rows // mb, (i + 1) * rows // mb)
             g = grad_fn(jax.tree.map(jnp.asarray, tree),
-                        {k: v[rows] for k, v in b.items()})
+                        {k: v[sl] for k, v in b.items()})
             for k, t in _flat(jax.tree.map(np.asarray, g)).items():
                 quantum[k] = quantum.get(k, 0.0) + 1.5 * np.abs(t).max() / 127
     return (losses, gnorms, _flat(jax.tree.map(np.asarray, p)),
             _flat(jax.tree.map(np.asarray, err)) if compress else {},
-            _flat(jax.tree.map(np.asarray, grad)), quantum, flips)
+            grad, quantum, flips)
 
 
 def _one_flip(grad_fn, p, batch, mb: int, rows: int) -> float:
@@ -416,26 +441,71 @@ def _check_train(got, ref, flip_slack: bool = False):
                 + slack * quantum.get(k, 0.0) + 1e-12, err_msg=f"{name}/{k}")
 
 
-@pytest.mark.parametrize("case", range(len(W.TP_TRAIN_CASES)),
-                         ids=["-".join(map(str, c)).replace(" ", "")
-                              for c in W.TP_TRAIN_CASES])
-def test_split_train_step_matches_reference(case, dist_run):
-    """The tensor-parallel step (``TRAIN_STEPS`` steps on 4 ranks) against
-    the reference's ``make_sharded_train_step`` on one device, within the
-    sharded step's tolerances: the dense family, the vlm (its cross
-    layers' gate at ``W.VLM_GATE``, image embeddings seeded) and hubert
-    (the MLP's biases drawn); every part ran split, except attention of
-    smoke llama3-8b on (1, 4) (2 KV heads over 4 ranks), which ran whole
+# --- the split steps' checks, shared by the test_torch_split_*.py files ----
+
+def split_cases(cases, group: str) -> dict:
+    """``pytest.mark.parametrize``'s arguments over ``group``'s cases of
+    ``W.TP_TRAIN_CASES`` or ``W.TP_SERVE_CASES`` (``W.group_cases``): the
+    cases' indices, named by their values."""
+    idx = W.group_cases(cases, group)
+    return dict(argvalues=idx, ids=["-".join(map(str, cases[i])).replace(
+        " ", "") for i in idx])
+
+
+def attn_whole(shape, arch: str, wide: bool) -> bool:
+    """Whether attention runs whole (with one warning) in a split case:
+    the smoke configs' 2 KV heads over 4 "model" ranks."""
+    return shape == (1, 4) and not wide and W.smoke(arch).family != "ssm"
+
+
+def check_split_train(case, dist_run):
+    """``test_split_train_step_matches_reference``: the tensor-parallel
+    step (``TRAIN_STEPS`` steps on 4 ranks) against the reference's
+    ``make_sharded_train_step`` on one device, within the sharded step's
+    tolerances; every part ran split, except attention where its KV heads
+    do not split over the "model" ranks (``attn_whole``), which ran whole
     after one warning, and no other warning of gathered or repeated
-    work."""
+    work, for any family."""
     shape, arch, wide, mb, compress = W.TP_TRAIN_CASES[case]
     got = np.load(dist_run / f"tp_train_{case}.npz")
-    whole = shape == (1, 4) and not wide
+    whole = attn_whole(shape, arch, wide)
     assert got["split"].tolist() == [not whole, True, True]
+    assert got["whole_parts"].tolist() == (["attn"] if whole else [])
     assert int(got["whole_warnings"]) == int(whole)
     assert int(got["port_warnings"]) == int(whole)
     _check_train(got, _reference_run((arch, mb, compress, 0), wide),
                  flip_slack=compress)
+
+
+def check_split_serve(case, dist_run) -> dict:
+    """``test_split_serving_matches_unsharded``: split ``jit_prefill``,
+    positions set ragged with lane 3 idle (``TP_SERVE_POS``), then greedy
+    split ``jit_decode`` steps across the cache pieces' boundaries,
+    against the unsharded port: the same token streams and positions,
+    logits within 1e-5, the caches (gathered after the run, the vlm's
+    image K/V and the recurrent states too) within 1e-4; each rank held
+    only its lanes and positions of the KV cache (the vlm's [ns, inner,
+    ...] layer dimensions whole), and the logits stay on ("batch",
+    "vocab").  No case warns of gathered work; where attention runs whole
+    (``attn_whole``) ``jit_prefill`` and ``jit_decode`` warn once each.
+    Returns the case's record."""
+    shape, arch, wide, _ = W.TP_SERVE_CASES[case]
+    got = json.loads((dist_run / f"tp_serve_{case}.json").read_text())
+    assert got["tokens"] == got["want_tokens"]
+    assert got["pos"] == got["want_pos"] == [
+        p + W.SERVE_STEPS for p in W.TP_SERVE_POS]
+    assert got["logit_gap"] <= LOGIT_ATOL
+    assert got["cache_gap"] <= 1e-4
+    whole = got["whole"]
+    if whole is not None:
+        lead = len(whole) - 4            # the layer dimensions
+        assert got["piece"] == whole[:lead] + [
+            whole[lead] // shape[0], whole[lead + 1] // shape[1]] \
+            + whole[lead + 2:]
+    assert got["logits_spec"] == "(Shard(dim=0), Shard(dim=1))"
+    assert got["port_warnings"] == (2 if attn_whole(shape, arch, wide)
+                                    else 0), arch
+    return got
 
 
 def test_checkpoint_restores_on_another_mesh(dist_run):
@@ -494,143 +564,6 @@ def test_preempt_on_one_rank_stops_every_rank(dist_run):
     info = json.loads((dist_run / "preempt.json").read_text())
     assert info["ranks"] == [{"steps": [0], "stopped": True}] * W.WORLD
     assert info["saved"] == [1]
-
-
-@pytest.mark.parametrize("case", range(len(W.TP_SERVE_CASES)),
-                         ids=["-".join(map(str, c)).replace(" ", "")
-                              for c in W.TP_SERVE_CASES])
-def test_split_serving_matches_unsharded(case, dist_run):
-    """Split ``jit_prefill``, positions set ragged with lane 3 idle
-    (``TP_SERVE_POS``), then greedy split ``jit_decode`` steps across the
-    cache pieces' boundaries, against the unsharded port: the same token
-    streams and positions, logits within 1e-5, the caches (gathered after
-    the run, the vlm's image K/V too) within 1e-4; each rank held only
-    its lanes and positions of the cache (the vlm's [ns, inner, ...]
-    layer dimensions whole), and the logits stay on ("batch", "vocab").
-    The vlm (its gate at ``W.VLM_GATE``) and the split dense cases warn
-    of no gathered work; smoke llama3-8b on (1, 4) warns once in
-    ``jit_prefill`` and once in ``jit_decode`` that attention runs
-    whole."""
-    shape, arch, wide, _ = W.TP_SERVE_CASES[case]
-    got = json.loads((dist_run / "tp_serve.json").read_text())[case]
-    assert got["tokens"] == got["want_tokens"]
-    assert got["pos"] == got["want_pos"] == [
-        p + W.SERVE_STEPS for p in W.TP_SERVE_POS]
-    assert got["logit_gap"] <= LOGIT_ATOL
-    assert got["cache_gap"] <= 1e-4
-    whole = got["whole"]
-    lead = len(whole) - 4            # the layer dimensions
-    assert got["piece"] == whole[:lead] + [whole[lead] // shape[0],
-                                           whole[lead + 1] // shape[1]] \
-        + whole[lead + 2:]
-    assert got["logits_spec"] == "(Shard(dim=0), Shard(dim=1))"
-    assert got["port_warnings"] == (2 if shape == (1, 4) and not wide
-                                    else 0), arch
-
-
-def test_split_vlm_decode_collectives(dist_run):
-    """One split decode step of the vlm on (2, 2) and on (1, 4) (the
-    split serving cases, real gloo collectives): on "model", exactly 5
-    collectives a self layer (q, k and v gathered, the lse's max and the
-    merge, the attention's and the MLP's sums), 2 a cross layer (its
-    ``wo``'s and its MLP's sums: the image K/V are read on each rank's
-    KV heads, with no gather and no merge) and 1 for the embedding; on
-    (1, 4), one data rank, nothing on another group."""
-    cfg = W.smoke("llama-3.2-vision-90b")
-    ns, inner = cfg.vlm_dims
-    serve = json.loads((dist_run / "tp_serve.json").read_text())
-    seen = 0
-    for case, (shape, arch, _, _) in enumerate(W.TP_SERVE_CASES):
-        if arch != "llama-3.2-vision-90b":
-            continue
-        got = serve[case]["collectives"]
-        assert got["model"] == 5 * ns * inner + 2 * ns + 1, (shape, got)
-        if shape[0] == 1:
-            assert got["other"] == 0, (shape, got)
-        seen += 1
-    assert seen == 2
-
-
-def test_vlm_and_audio_init_sharded_params(dist_run):
-    """``init_sharded_params`` of smoke vlm and hubert on (2, 2): the
-    gathered pieces equal ``init_params``'s draw exactly; the vlm's self
-    stack keeps both layer dimensions whole on every rank and its
-    projections split (wq on heads over "model" and on d over "data"),
-    hubert's MLP splits on d_ff, its output bias only over "data"."""
-    info = json.loads((dist_run / "tp_init.json").read_text())
-    vlm, aud = (W.smoke(a) for a in ("llama-3.2-vision-90b",
-                                     "hubert-xlarge"))
-    ns, inner = vlm.vlm_dims
-    d, H, hd = vlm.d_model, vlm.n_heads, vlm.hd
-    for arch, r in info.items():
-        assert r["unequal"] == [], arch
-    pieces = info["llama-3.2-vision-90b"]["piece"]
-    assert pieces["blocks/self/attn/wq"] == [ns, inner, d // 2, H // 2, hd]
-    assert pieces["blocks/cross/attn/wq"] == [ns, d // 2, H // 2, hd]
-    assert pieces["blocks/cross/attn/gate"] == [ns]
-    assert pieces["blocks/cross/attn/q_norm"] == [ns, hd]
-    pieces = info["hubert-xlarge"]["piece"]
-    L, da, ff = aud.n_layers, aud.d_model, aud.d_ff
-    assert pieces["blocks/mlp/w_in"] == [L, da // 2, ff // 2]
-    assert pieces["blocks/mlp/b_in"] == [L, ff // 2]
-    assert pieces["blocks/mlp/b_out"] == [L, da // 2]
-    assert "embed" not in pieces and pieces["unembed"] == [aud.vocab // 2,
-                                                           da // 2]
-
-
-def test_split_collectives_are_activation_sized(dist_run):
-    """Every collective on the "model" group in one split train step, one
-    prefill and one decode step (smoke llama3-8b on (2, 2), the wide one
-    on (1, 4)): there are some in each, none has a parameter piece's, a
-    parameter layer's or a cache piece's shape, and each is
-    activation-sized: [B/dp, S, d] or smaller, and in decode at most one
-    token's q, k and v ([B/dp, H + 2 KV, hd], gathered in one call) or
-    the [B/dp, H, hd + 1] merge.  ``specs.gather_tree`` is never
-    called."""
-    info = json.loads((dist_run / "comm.json").read_text())
-    assert info["gather_tree_calls"] == 0
-    for mesh in ("(2, 2)", "(1, 4)"):
-        r = info[mesh]
-        forbidden = {tuple(f) for f in r["forbidden"]}
-        for phase in ("train", "prefill", "decode"):
-            calls = r[phase]
-            assert calls, (mesh, phase)
-            for op, _, shapes, _ in calls:
-                assert not any(tuple(sh) in forbidden for sh in shapes), (
-                    mesh, phase, op, shapes)
-                assert max(math.prod(sh) for sh in shapes) <= \
-                    r["bounds"][phase], (mesh, phase, op, shapes)
-
-
-def test_split_step_remat_gathers_again(dist_run):
-    """The split step under remat "full" gives remat "none"'s data-mean
-    gradient bit for bit, and its backward gathers each layer's pieces
-    over "data" again: smoke llama3-8b's 2 layers of 9 leaves, each
-    gathered once more (18 all-gathers beyond the forward's)."""
-    info = json.loads((dist_run / "remat.json").read_text())
-    assert info["max_diff"] == 0.0
-    g = info["gathers"]
-    assert g["full"] - g["none"] == 18, g
-
-
-def test_init_sharded_params_pieces_and_sizes(dist_run):
-    """``init_sharded_params`` on (2, 2) and (1, 4): the gathered pieces
-    equal ``init_params``'s draw, and no op made a tensor larger than one
-    layer of a leaf (the embedding tables are one layer), nor one of a
-    split layer-stacked leaf's whole shape."""
-    info = json.loads((dist_run / "init.json").read_text())
-    for mesh, r in info.items():
-        assert r["unequal"] == [], mesh
-        shapes = {tuple(sh) for sh in r["shapes"]}
-        assert max(math.prod(sh) for sh in shapes) <= max(
-            r["layer"].values()), mesh
-        pieces = {tuple(p) for p in r["piece"].values()}
-        split = [k for k, w in r["whole"].items() if k.startswith("blocks/")
-                 and math.prod(r["piece"][k]) < math.prod(w)]
-        assert split, mesh
-        for k in split:
-            w = tuple(r["whole"][k])
-            assert w not in shapes or w in pieces, (mesh, k)
 
 
 def test_attend_shard_is_attend_on_the_whole_cache():
@@ -721,8 +654,8 @@ def test_vlm_split_serving_on_a_fake_group():
     collectives a self layer, 2 a cross layer and 1 for the embedding on
     "model", nothing on other groups.  hubert's split ``jit_prefill``
     keeps a quarter of the vocab columns of every frame.  Building the
-    steps warns of gathered parameters for xlstm (outside the split) and
-    not for the vlm or hubert."""
+    steps warns of no gathered or repeated work, for the vlm, hubert or
+    xlstm (which runs split, a head a rank)."""
     import dataclasses
     import warnings
 
@@ -754,8 +687,10 @@ def test_vlm_split_serving_on_a_fake_group():
                                  mesh)
             assert W._port_warnings(caught) == 0
             xl = W.smoke("xlstm-125m")
-            jit_decode(xl, dataclasses.replace(shape, kind="decode"), mesh)
-            assert W._port_warnings(caught) == 1
+            xl_dec, _ = jit_decode(xl, dataclasses.replace(shape,
+                                                           kind="decode"),
+                                   mesh)
+            assert W._port_warnings(caught) == 0
         prompt = {"tokens": torch.randint(0, cfg.vocab, (2, 20),
                                           dtype=torch.int32),
                   "image_embeds": torch.randn(2, T, cfg.d_model)}
@@ -781,6 +716,21 @@ def test_vlm_split_serving_on_a_fake_group():
                   {"embeds": specs.distribute(embeds, batch_shardings(
                       {"embeds": embeds}, mesh)["embeds"])})
         assert tuple(out.to_local().shape) == (2, 12, aud.vocab // 4)
+        # xlstm split: a head a rank, its cold state whole over "model",
+        # 2 collectives a layer (the output's sum, the state's gather)
+        xp = init_sharded_params(xl, mesh, seed=5, device="cpu")
+        assert xp["blocks"]["m_qkv"].to_local().shape[-2] == 1
+        xl_pre, _ = jit_prefill(xl, shape, mesh)
+        logits, state = xl_pre(xp, {"tokens": specs.distribute(
+            prompt["tokens"], b_sh["tokens"])})
+        assert state.pos.to_local().tolist() == [0, 0]
+        assert tuple(state.caches["mC"].to_local().shape) == (
+            xl.n_layers, 2, xl.n_heads, xl.hd, xl.hd)
+        rec = CollectiveLog()
+        with rec:
+            xl_dec(xp, state, specs.distribute(
+                logits.to_local().argmax(-1).to(torch.int32), t_sh))
+        assert [c[1] for c in rec.calls] == [model] * (2 * xl.n_layers + 1)
     finally:
         dist.destroy_process_group()
 
@@ -808,193 +758,6 @@ def test_serve_launcher_mesh_host_on_cpu(capsys):
     with pytest.raises(SystemExit, match="image embeddings"):
         serve.main(["--arch", "llama-3.2-vision-90b", "--smoke", "--device",
                     "cpu", "--mesh", "host"])
-
-
-# --- the MoE family's split: experts over "model", ranks across "data" ------
-
-@pytest.mark.parametrize("case", range(len(W.MOE_TRAIN_CASES)),
-                         ids=["-".join(map(str, c)).replace(" ", "")
-                              for c in W.MOE_TRAIN_CASES])
-def test_split_moe_train_step_matches_reference(case, dist_run,
-                                                monkeypatch):
-    """The split MoE step (``TRAIN_STEPS`` steps on 4 ranks: experts over
-    "model", each data rank on its own rows, its choices ranked after
-    the earlier ranks') against the reference's
-    ``make_sharded_train_step`` on one device, with and without
-    ``REPRO_MOE_GROUPS=2``, within the sharded step's tolerances.  Split
-    by expert where E divides the "model" size, by d_ff where only d_ff
-    does (6 experts over 4 ranks); no warning of gathered or repeated
-    work."""
-    shape, arch, wide, groups, n_exp = W.MOE_TRAIN_CASES[case]
-    monkeypatch.setenv("REPRO_MOE_GROUPS", str(groups))
-    got = np.load(dist_run / f"moe_train_{case}.npz")
-    assert str(got["mode"]) == ("mlp" if n_exp else "expert")
-    assert got["split"].tolist() == [True, True, True]
-    assert int(got["port_warnings"]) == 0
-    _check_train(got, _reference_run((arch, 1, False, 0), wide, n_exp))
-
-
-def _j_moe_dispatch(monkeypatch, jcfg, p, x, groups: int):
-    """The reference's routing of x [B, S, d] as ``moe_ffn`` groups it
-    (each group through its ``_moe_tokens``, as its vmap does): expert
-    ids, slots and kept flags in token-major order over the groups, and
-    the output."""
-    from repro.models import moe as j_moe
-
-    B, S, d = x.shape
-    G = groups if groups > 1 and B % groups == 0 else 1
-    real_top_k = jax.lax.top_k
-    seen = {}
-
-    def spy(probs, k):
-        gate, eidx = real_top_k(probs, k)
-        seen["eidx"] = np.asarray(eidx)
-        return gate, eidx
-    jp = {k: jnp.asarray(v) for k, v in p.items()}
-    out = {"eidx": [], "slot": [], "keep": [], "y": []}
-    for xg in x.reshape(G, B // G * S, d):
-        monkeypatch.setattr(jax.lax, "top_k", spy)
-        y, _ = j_moe._moe_tokens(jp, jnp.asarray(xg), jcfg)
-        monkeypatch.setattr(jax.lax, "top_k", real_top_k)
-        C = j_moe.capacity(jcfg, xg.shape[0])
-        flat = seen["eidx"].reshape(-1)
-        order = np.argsort(flat, kind="stable")
-        first = np.searchsorted(flat[order], np.arange(jcfg.n_experts))
-        pos = np.empty_like(flat)
-        pos[order] = np.arange(flat.size) - first[flat[order]]
-        keep = pos < C
-        out["eidx"].append(flat)
-        out["slot"].append(np.where(keep, flat * C + pos,
-                                    jcfg.n_experts * C))
-        out["keep"].append(keep)
-        out["y"].append(np.asarray(y))
-    return {k: np.concatenate(v) for k, v in out.items()}
-
-
-def test_split_moe_dispatch_matches_reference(dist_run, monkeypatch):
-    """``moe_ffn_split`` with each data rank on its rows, on (4, 1) and
-    (2, 2) (experts over the 2 "model" ranks there), a router biased so
-    that its first expert overflows, ``REPRO_MOE_GROUPS`` 0 (one
-    ranking across every rank) and 2 (groups across 2 ranks on (4, 1),
-    on one rank on (2, 2)): the expert ids, the kept set and the slots
-    equal the reference's ``_moe_tokens`` on the whole batch exactly, the
-    output within 1e-5 (fp32 products in another order), and some
-    choices dropped."""
-    got = np.load(dist_run / "moe_dispatch.npz")
-    jcfg = j_reduce(j_get_config("granite-moe-3b-a800m"))
-    p, x = W.moe_dispatch_inputs(W.smoke("granite-moe-3b-a800m"))
-    for groups in (0, 2):
-        want = _j_moe_dispatch(monkeypatch, jcfg, p, x, groups)
-        assert not want["keep"].all()
-        for mesh in ("4x1", "2x2"):
-            key = f"{mesh}/{groups}"
-            for name in ("eidx", "slot", "keep"):
-                np.testing.assert_array_equal(got[f"{key}/{name}"],
-                                              want[name], err_msg=key)
-            np.testing.assert_allclose(got[f"{key}/y"].reshape(-1),
-                                       want["y"].reshape(-1), rtol=0,
-                                       atol=1e-5, err_msg=key)
-
-
-@pytest.mark.parametrize("case", range(len(W.MOE_SERVE_CASES)),
-                         ids=["-".join(map(str, c)).replace(" ", "")
-                              for c in W.MOE_SERVE_CASES])
-def test_split_moe_serving_matches_unsharded(case, dist_run):
-    """Split ``jit_prefill`` and greedy ``jit_decode`` of the MoE family
-    against the unsharded port, as ``test_split_serving_matches_
-    unsharded``, with ragged positions and an idle lane; mixtral with
-    ``REPRO_WINDOW_CACHE=1`` on both sides keeps a ring of 8 slots, 8 /
-    m on each "model" rank, and decodes past it.  No warning of gathered
-    or repeated work."""
-    shape, _, _, window, ring = W.MOE_SERVE_CASES[case]
-    got = json.loads((dist_run / "moe_serve.json").read_text())[case]
-    pos0 = W.RING_POS if ring else W.TP_SERVE_POS
-    assert got["port_warnings"] == 0
-    assert got["tokens"] == got["want_tokens"]
-    assert got["pos"] == got["want_pos"] == [p + W.SERVE_STEPS
-                                             for p in pos0]
-    assert got["logit_gap"] <= LOGIT_ATOL
-    assert got["cache_gap"] <= 1e-4
-    whole = got["whole"]
-    assert whole[2] == (W.RING_WINDOW if ring else W.SERVE_LEN)
-    if ring:
-        assert max(pos0) + W.SERVE_STEPS > W.RING_WINDOW
-    assert got["piece"] == [whole[0], whole[1] // shape[0],
-                            whole[2] // shape[1]] + whole[3:]
-
-
-def test_split_moe_collectives(dist_run):
-    """Every collective of one split MoE train step, prefill and decode
-    step (smoke granite on (2, 2), the wide one on (1, 4)): on "model"
-    none has an expert leaf's piece or layer shape, each is
-    activation-sized, and the router's logits or columns are gathered
-    (E leads the gathered output) in each phase; on "data" (2 ranks) the
-    dispatch's [n, groups, E] int64 counts are gathered in each phase and
-    the aux loss's [groups, 2, E] sums all-reduced in the train step
-    only; on (1, 4), one data rank, neither runs."""
-    info = json.loads((dist_run / "moe_comm.json").read_text())
-    for mesh, r in info.items():
-        E = r["E"]
-        experts = {tuple(sh) for sh in r["experts"]}
-        for phase in ("train", "prefill", "decode"):
-            calls = r[phase]
-            model = [c for c in calls if c[1] == r["groups"]["model"]]
-            data = [c for c in calls if c[1] == r["groups"]["data"]]
-            for op, _, shapes, _ in model:
-                assert not any(tuple(sh) in experts for sh in shapes), (
-                    mesh, phase, op, shapes)
-                assert max(math.prod(sh) for sh in shapes) <= \
-                    r["bounds"][phase], (mesh, phase, op, shapes)
-            # the gathered dimension leads the output: [E, T] or [E, d]
-            assert any("allgather" in op and shapes[0][0] == E
-                       for op, _, shapes, _ in model), (mesh, phase)
-            counts = [c for c in data if "allgather" in c[0]
-                      and c[2][-1][-1] == E and c[3][-1] == 8 * math.prod(
-                          c[2][-1])]
-            shares = [c for c in data if "allreduce" in c[0]
-                      and c[2][-1][-2:] == [2, E]]
-            if mesh == "(1, 4)":
-                assert counts == shares == [], (mesh, phase)
-                continue
-            assert counts, (mesh, phase)
-            assert bool(shares) == (phase == "train"), (mesh, phase)
-
-
-def test_moe_init_sharded_params(dist_run):
-    """``init_sharded_params`` of the MoE family on (2, 2) and (1, 4):
-    the gathered pieces equal ``init_params``'s draw, each rank keeps
-    E / m experts of each expert leaf (and E / m router columns), and no
-    op made a tensor larger than one layer of a leaf."""
-    info = json.loads((dist_run / "moe_init.json").read_text())
-    cfg = W.widen(W.smoke("granite-moe-3b-a800m"), True)
-    L, d, ff, E = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.n_experts
-    for mesh, r in info.items():
-        dp, m = eval(mesh)
-        assert r["unequal"] == [], mesh
-        assert r["largest"] <= r["layer"], mesh
-        assert r["piece"]["blocks/moe/w_gate"] == [L, E // m, d // dp, ff]
-        assert r["piece"]["blocks/moe/w_down"] == [L, E // m, ff, d // dp]
-        assert r["piece"]["blocks/moe/router"] == [L, d // dp, E // m]
-
-
-def test_gathered_path_of_a_family_outside_the_split(dist_run):
-    """Smoke hymba-1.5b (the hybrid family, outside the split) on (2, 2)
-    through the gathered path: the data-mean gradient of one batch within
-    1e-4 of each leaf's max of the unsharded port's on the whole batch,
-    one ``specs.gather_tree`` a step or serving call (a gradient, a
-    prefill and ``SERVE_STEPS`` decode steps), the step's warning that it
-    gathers the tree and no whole-batch warning in serving, and the
-    served tokens and logits (within 1e-5) of the unsharded ``prefill``
-    and ``decode_step`` (whose cold state starts at position 0, as the
-    reference's)."""
-    got = json.loads((dist_run / "gathered.json").read_text())
-    assert max(got["grad_gap"].values()) <= GRAD_REL, got["grad_gap"]
-    assert got["gather_tree_calls"] == 2 + W.SERVE_STEPS
-    assert got["port_warnings"] == 1
-    assert got["whole_batch_warnings"] == 0
-    assert got["tokens"] == got["want_tokens"]
-    assert got["pos"] == got["want_pos"] == [W.SERVE_STEPS] * W.SERVE_B
-    assert got["logit_gap"] <= LOGIT_ATOL
 
 
 def test_moe_ring_split_serving_on_a_fake_group(monkeypatch):

@@ -2,10 +2,10 @@
 (``repro_torch.core.policy.access``) under every preset, in cache and
 flat mode, with epochs short enough that the tick (decay, mea's carry,
 recency's staleness, topk's ranked cut and budget) falls several times
-in a trace; and the dealloc hints, whose ``forget`` clears the tracker
-state.  ``run_many``'s counters and every trace's end state (the
-reference's through its vmapped scan, the same compiled runner
-``run_many`` calls) must be exactly equal."""
+in a trace (the dealloc hints, whose ``forget`` clears the tracker
+state, in ``test_torch_sim_dealloc.py``).  ``run_many``'s counters and
+every trace's end state (the reference's through its vmapped scan, the
+same compiled runner ``run_many`` calls) must be exactly equal."""
 
 import dataclasses
 
@@ -82,26 +82,6 @@ def test_recency_window_of_one_epoch_matches_reference():
     jpol = J.get_policy("recency", decay_shift=5, history_len=1)
     ppol = P.get_policy("recency", decay_shift=5, history_len=1)
     _assert_runs_match(_kw("mempod"), 512, policy=(jpol, ppol))
-
-
-@pytest.mark.parametrize("name", ["trimma_c", "trimma_f",
-                                  "irt_c_conventional", "irt_f_none"])
-def test_dealloc_hints_match_reference(name):
-    """Section 3.5's dealloc hints (5 % of accesses): recycled entries,
-    freed slots, forgotten tracker state, every remap-cache kind."""
-    po = _assert_runs_match(_kw(name, dealloc_hints=True), 512,
-                            dealloc=True)
-    assert po["deallocs"] > 0
-
-
-def test_dealloc_hints_forget_tracker_state_matches_reference():
-    """mea in flat mode with dealloc hints: ``forget`` clears touch and
-    ema of freed blocks between ticks."""
-    jpol = J.get_policy("mea", decay_shift=6)
-    ppol = P.get_policy("mea", decay_shift=6)
-    po = _assert_runs_match(_kw("trimma_f", dealloc_hints=True), 512,
-                            dealloc=True, policy=(jpol, ppol))
-    assert po["deallocs"] > 0
 
 
 def test_policy_sweep_through_run_many():

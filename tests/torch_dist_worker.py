@@ -1,10 +1,25 @@
 """Multi-rank checks of the port's sharding, run in spawned gloo processes
-by ``tests/test_torch_sharding.py`` (this module imports no JAX: each
-spawned process imports it afresh).
+by the sharding tests (this module imports no JAX: each spawned process
+imports it afresh).
 
-``run(rank, world, store, out)`` joins a ``world``-rank gloo group over
-the file ``store``, runs every case below, and rank 0 writes what the
-test compares into the directory ``out``:
+``run(rank, world, store, out, group)`` joins a ``world``-rank gloo group
+over the file ``store``, runs the cases of one ``GROUPS`` entry, each
+spawned by its own test file, and rank 0 writes what the test compares
+into the directory ``out``:
+
+* "sharded" (``tests/test_torch_sharding.py``): ``train_<i>.npz``,
+  ``ckpt.json``, ``serve.json``, ``dp_mean.npz``, ``preempt.json``;
+* "dense" (``tests/test_torch_split_dense.py``): the dense family's
+  ``tp_train_<i>.npz`` and ``tp_serve_<i>.json``, ``comm.json``,
+  ``remat.json``, ``init.json``;
+* "vlm" (``tests/test_torch_split_vlm.py``): the vlm's and hubert's
+  ``tp_train_<i>.npz`` and ``tp_serve_<i>.json``, ``tp_init.json``;
+* "moe" (``tests/test_torch_split_moe.py``): every ``moe_*`` file;
+* "recurrent" (``tests/test_torch_split_recurrent.py``): hymba's and
+  xlstm's ``tp_train_<i>.npz`` and ``tp_serve_<i>.json``,
+  ``rec_init.json``, ``rec_fit.json``.
+
+The files:
 
 * ``train_<i>.npz``: ``TRAIN_CASES[i]`` on a (2, 2) mesh, ``TRAIN_STEPS``
   sharded steps from ``init_params(cfg, "cpu", 0)`` on the pipeline's
@@ -20,11 +35,12 @@ test compares into the directory ``out``:
   step 0: each rank's logged steps and whether it stopped, and the
   steps saved;
 * ``tp_train_<i>.npz``: ``TP_TRAIN_CASES[i]``, the tensor-parallel train
-  step of a dense, vlm or audio config on its mesh, as ``train_<i>.npz``
+  step of a config of any family on its mesh, as ``train_<i>.npz``
   (with the parts that ran split and the port's warnings);
-* ``tp_serve.json``: ``TP_SERVE_CASES``, split prefill then decode with
-  ragged positions, an idle lane and (one case) a window, against the
-  unsharded port (the vlm's image K/V too), with the collectives of the
+* ``tp_serve_<i>.json``: ``TP_SERVE_CASES[i]``, split prefill then decode
+  with ragged positions, an idle lane and (some cases) a window, against
+  the unsharded port (the vlm's image K/V and the recurrent states too;
+  the state after the prefill as well), with the collectives of the
   first decode step by group and the port's warnings;
 * ``comm.json``: every collective of one split train step, prefill and
   decode step (op, group, elements), recorded under a dispatch mode, and
@@ -49,9 +65,10 @@ test compares into the directory ``out``:
   and decode step, and the shapes of the expert pieces;
 * ``moe_init.json``: ``init_sharded_params`` of smoke granite against
   ``init_params``;
-* ``gathered.json``: ``GATHERED_ARCH``, a family outside the split, on
-  the gathered path of (2, 2): its data-mean gradient against the
-  unsharded port's, ``serve_case``'s run, the gathered-tree calls.
+* ``rec_init.json``: ``init_sharded_params`` of smoke hymba and xlstm on
+  (2, 2) and (1, 4) against ``init_params``, and the pieces' shapes;
+* ``rec_fit.json``: ``fit(mesh=)`` of smoke hymba and xlstm on (2, 2):
+  the last step's metrics and the split step's loss by step.
 """
 
 from __future__ import annotations
@@ -95,7 +112,14 @@ TP_TRAIN_CASES = (((2, 2), "qwen2-7b", False, 1, False),
                   ((2, 2), "llama-3.2-vision-90b", False, 1, False),
                   ((1, 4), "llama-3.2-vision-90b", True, 2, True),
                   ((2, 2), "hubert-xlarge", False, 1, False),
-                  ((1, 4), "hubert-xlarge", True, 2, True))
+                  ((1, 4), "hubert-xlarge", True, 2, True),
+                  # hymba: attention split on (2, 2); on (1, 4) its 2 KV
+                  # heads run whole, and in_proj's x and z columns lie on
+                  # different ranks; xlstm by heads, 2 or 1 a rank
+                  ((2, 2), "hymba-1.5b", False, 1, False),
+                  ((1, 4), "hymba-1.5b", False, 2, True),
+                  ((2, 2), "xlstm-125m", False, 1, False),
+                  ((1, 4), "xlstm-125m", False, 2, True))
 # (mesh, arch, wide, sliding window)
 TP_SERVE_CASES = (((2, 2), "llama3-8b", False, 0),
                   ((2, 2), "qwen2-7b", False, 0),
@@ -103,7 +127,15 @@ TP_SERVE_CASES = (((2, 2), "llama3-8b", False, 0),
                   ((1, 4), "qwen2-7b", True, 0),
                   ((1, 4), "llama3-8b", False, 0),
                   ((2, 2), "llama-3.2-vision-90b", False, 0),
-                  ((1, 4), "llama-3.2-vision-90b", True, 0))
+                  ((1, 4), "llama-3.2-vision-90b", True, 0),
+                  # hymba's window on every second layer (its global
+                  # layers attend everything), attention whole on (1, 4)
+                  # unless wide
+                  ((2, 2), "hymba-1.5b", False, 6),
+                  ((1, 4), "hymba-1.5b", True, 6),
+                  ((1, 4), "hymba-1.5b", False, 6),
+                  ((2, 2), "xlstm-125m", False, 0),
+                  ((1, 4), "xlstm-125m", False, 0))
 # the vlm's cross layers' gate in every case: at its init of 0, tanh(gate)
 # hides the cross branch
 VLM_GATE = 0.5
@@ -129,11 +161,24 @@ MOE_SERVE_CASES = (((2, 2), "granite-moe-3b-a800m", False, 0, False),
                    ((2, 2), "mixtral-8x22b", False, 8, True))
 RING_WINDOW, RING_PROMPT = 8, 6
 RING_POS = (6, 5, 3, -100)
-# a family outside the split, on the gathered path
-GATHERED_ARCH = "hymba-1.5b"
+# the spawn that runs each arch's split cases
+_ARCH_GROUP = {"llama-3.2-vision-90b": "vlm", "hubert-xlarge": "vlm",
+               "hymba-1.5b": "recurrent", "xlstm-125m": "recurrent"}
 # the dispatch case: B rows of S tokens, router column 0 biased so that
 # its expert overflows (drops), REPRO_MOE_GROUPS 0 and 2
 MOE_DISPATCH_INPUT = dict(B=8, S=6, bias=6.0, seed=7)
+
+
+def case_group(arch: str) -> str:
+    """The spawn ("dense", "vlm" or "recurrent") that runs ``arch``'s
+    split cases."""
+    return _ARCH_GROUP.get(arch, "dense")
+
+
+def group_cases(cases, group: str) -> list:
+    """The indices of the split ``cases`` (``TP_TRAIN_CASES``,
+    ``TP_SERVE_CASES``) whose arch ``group`` runs."""
+    return [i for i, c in enumerate(cases) if case_group(c[1]) == group]
 
 
 def opt_config():
@@ -157,20 +202,30 @@ def widen(cfg, wide: bool, window: int = 0):
 
 
 def init(cfg) -> dict:
-    """``init_params(cfg, "cpu", 0)`` with the QKV biases and the audio
-    MLP's biases drawn (normal, 0.5) and the vlm's gate at ``VLM_GATE``:
-    at their init of zero they would not show in the outputs, and bk's
-    gradient is zero in exact arithmetic (softmax is unmoved by one
-    shift of every key), so from zero its values after a step are
-    rounding noise."""
+    """``init_params(cfg, "cpu", 0)`` with the QKV biases, the audio
+    MLP's biases and the Mamba branch's conv bias drawn (normal, 0.5) and
+    the vlm's gate at ``VLM_GATE``: at their init of zero they would not
+    show in the outputs, bk's gradient is zero in exact arithmetic
+    (softmax is unmoved by one shift of every key), so from zero its
+    values after a step are rounding noise, and a leaf at zero has no
+    scale for the parameters' tolerance, which is relative to it.  The
+    xLSTM's projections at ``weights.unit_fan_in``, as every xLSTM parity
+    test takes them: at the reference's ``m_qkv`` scale its exponential
+    gates part the two packages' gradients by more than 1e-4 unsharded
+    (``test_torch_train.py``'s ``_family_inputs``)."""
     from repro_torch.models import init_params
+    from repro_torch.weights import unit_fan_in
     params = init_params(cfg, "cpu", seed=0)
+    if cfg.family == "ssm":
+        unit_fan_in(params, cfg)
     rng = np.random.default_rng(12)
     drawn = []
     if cfg.qkv_bias:
         drawn = [params["blocks"]["attn"][k] for k in ("bq", "bk", "bv")]
     if cfg.family == "audio":
         drawn = [params["blocks"]["mlp"][k] for k in ("b_in", "b_out")]
+    if cfg.family == "hybrid":
+        drawn = [params["blocks"]["ssm"]["conv_b"]]
     for b in drawn:
         b.copy_(torch.from_numpy(rng.normal(0, 0.5, b.shape).astype(
             np.float32)))
@@ -267,6 +322,7 @@ def tp_train_case(i, meshes, out):
                                       meshes[shape])
     res["split"] = np.array([step.tp.split[p] for p in ("attn", "mlp",
                                                         "vocab")])
+    res["whole_parts"] = np.array(step.tp.whole_parts(), dtype=str)
     res["whole_warnings"] = np.array(sum("computes attn whole" in
                                          str(w.message) for w in caught))
     res["port_warnings"] = np.array(_port_warnings(caught))
@@ -274,9 +330,10 @@ def tp_train_case(i, meshes, out):
         np.savez(os.path.join(out, f"tp_train_{i}.npz"), **res)
 
 
-def _train(cfg, mb, compress, mesh):
-    """``TRAIN_STEPS`` sharded steps of ``cfg`` on ``mesh`` -> (what
-    ``train_<i>.npz`` holds, (params, opt, p_sh, the step))."""
+def _train(cfg, mb, compress, mesh, draw=None):
+    """``TRAIN_STEPS`` sharded steps of ``cfg`` on ``mesh`` from
+    ``draw(cfg)`` (default ``init``) -> (what ``train_<i>.npz`` holds,
+    (params, opt, p_sh, the step))."""
     from repro_torch.models import abstract_params_and_axes
     from repro_torch.sharding import specs
     from repro_torch.train.loop import (TrainConfig, init_sharded_state,
@@ -286,7 +343,7 @@ def _train(cfg, mb, compress, mesh):
     tc = TrainConfig(microbatches=mb, compress_grads=compress)
     step, p_sh, b_sh = make_sharded_train_step(cfg, opt_config(), tc, mesh,
                                                whole_batch(cfg, dc, 0))
-    params = specs.distribute_tree(init(cfg), p_sh)
+    params = specs.distribute_tree((draw or init)(cfg), p_sh)
     opt, err = init_sharded_state(p_sh, abstract_params_and_axes(cfg)[0],
                                   compress)
     res = {}
@@ -502,6 +559,8 @@ def _split_serve(mesh, cfg, prompt_len: int, pos0):
                                  for k, v in prompt.items()})
     want_logits, want = prefill(cfg, full, prompt, max_len=SERVE_LEN)
     want_logits = want_logits[:, -1]
+    prefill_gap = _state_gap(state, want)
+    prefill_pos = (state.pos.full_tensor().tolist(), want.pos.tolist())
     s_sh = decode_state_shardings(cfg, state_abs, mesh)
     pos = torch.tensor(pos0, dtype=torch.int32)
     state = state._replace(pos=specs.distribute(pos, s_sh.pos))
@@ -525,18 +584,31 @@ def _split_serve(mesh, cfg, prompt_len: int, pos0):
         want_logits, want = decode_step(cfg, full, want, want_nxt)
     got = logits.full_tensor()
     gap = max(gap, (got - want_logits).abs().max().item())
-    cache_gap = max((state.caches[k].full_tensor() - want.caches[k]).abs()
-                    .max().item() for k in want.caches)
     model = mesh.get_group("model").group_name
     on_model = sum(c.group == model for c in rec.calls)
+    pieces = {k: list(t.to_local().shape)
+              for k, t in flat(state.caches).items()}
+    wholes = {k: list(t.shape) for k, t in flat(state_abs.caches).items()}
     return {"collectives": {"model": on_model,
                             "other": len(rec.calls) - on_model},
+            "calls": [[c.op, "model" if c.group == model else "other",
+                       c.shapes] for c in rec.calls],
             "tokens": toks, "want_tokens": want_toks, "logit_gap": gap,
-            "cache_gap": cache_gap, "pos": state.pos.full_tensor().tolist(),
+            "cache_gap": _state_gap(state, want),
+            "prefill_gap": prefill_gap, "prefill_pos": prefill_pos,
+            "pos": state.pos.full_tensor().tolist(),
             "want_pos": want.pos.tolist(),
-            "piece": list(state.caches["k"].to_local().shape),
-            "whole": list(state_abs.caches["k"].shape),
+            "piece": pieces.get("k"), "whole": wholes.get("k"),
+            "pieces": pieces, "wholes": wholes,
             "logits_spec": str(logits.placements)}
+
+
+def _state_gap(state, want) -> float:
+    """The largest gap between a split decode state's caches, gathered,
+    and the unsharded ones, over every leaf."""
+    got = flat(state.caches)
+    return max((got[k].full_tensor().float() - v.float()).abs().max().item()
+               for k, v in flat(want.caches).items())
 
 
 def comm_case(meshes, out, rank):
@@ -821,51 +893,6 @@ def moe_init_case(meshes, out, rank):
             json.dump(res, f)
 
 
-def gathered_case(meshes, out, rank):
-    """``GATHERED_ARCH`` on (2, 2) through the gathered path: the
-    data-mean gradient of one batch against the unsharded port's on the
-    whole batch (each leaf's largest gap over its largest value), the
-    served run of ``serve_case``, the gathered-tree calls and the
-    port's warnings."""
-    from repro_torch.data.pipeline import make_batch
-    from repro_torch.sharding import specs
-    from repro_torch.train.loop import (TrainConfig, grads_of,
-                                        make_sharded_train_step)
-
-    mesh = meshes[(2, 2)]
-    cfg = smoke(GATHERED_ARCH)
-    dc = data_config(cfg)
-    calls = [0]
-    real = specs.gather_tree
-
-    def counted(tree):
-        calls[0] += 1
-        return real(tree)
-    specs.gather_tree = counted
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            step, p_sh, b_sh = make_sharded_train_step(
-                cfg, opt_config(), TrainConfig(), mesh, make_batch(dc, 0))
-            g = step.grads(specs.distribute_tree(init(cfg), p_sh),
-                           _batch(cfg, dc, 0, b_sh, mesh))
-            res = serve_case(GATHERED_ARCH, mesh)
-    finally:
-        specs.gather_tree = real
-    whole = {k: torch.from_numpy(v) for k, v in make_batch(dc, 0).items()}
-    want = flat(grads_of(cfg, TrainConfig(), init(cfg), whole)[2])
-    sh, shapes = flat(p_sh), {k: t.shape for k, t in want.items()}
-    gap = {k: ((specs.distribute_local(v, mesh, sh[k].placements, shapes[k])
-                .full_tensor() - want[k]).abs().max()
-               / want[k].abs().max().clamp_min(1e-12)).item()
-           for k, v in flat(g).items()}
-    res.update(grad_gap=gap, gather_tree_calls=calls[0],
-               port_warnings=_port_warnings(caught))
-    if rank == 0:
-        with open(os.path.join(out, "gathered.json"), "w") as f:
-            json.dump(res, f)
-
-
 def moe_config(cfg, wide: bool, n_experts: int = 0, window: int = 0):
     """``widen``, with ``n_experts`` experts when not 0; either
     package's config."""
@@ -990,62 +1017,138 @@ def dp_case(out, rank):
                  **{k: v.numpy() for k, v in got.items()})
 
 
-def run(rank: int, world: int, store: str, out: str):
+def rec_init_case(meshes, out, rank):
+    """``init_sharded_params`` of smoke hymba and xlstm on (2, 2) and
+    (1, 4): the leaves whose gathered pieces differ from
+    ``init_params``'s, and each leaf's piece and whole shape."""
+    from repro_torch.models import init_params, init_sharded_params
+
+    res = {}
+    for arch in ("hymba-1.5b", "xlstm-125m"):
+        cfg = smoke(arch)
+        want = flat(init_params(cfg, "cpu", seed=4))
+        for shape in ((2, 2), (1, 4)):
+            got = flat(init_sharded_params(cfg, meshes[shape], seed=4,
+                                           device="cpu"))
+            res[f"{arch} {shape}"] = {
+                "unequal": [k for k in want if not torch.equal(
+                    got[k].full_tensor(), want[k])],
+                "piece": {k: list(got[k].to_local().shape) for k in want},
+                "whole": {k: list(v.shape) for k, v in want.items()}}
+    if rank == 0:
+        with open(os.path.join(out, "rec_init.json"), "w") as f:
+            json.dump(res, f)
+
+
+def rec_fit_case(meshes, out, rank):
+    """``fit(mesh=)`` of smoke hymba and xlstm on (2, 2) for
+    ``TRAIN_STEPS`` steps from ``init_sharded_params`` (seed 0), and the
+    split step's run from ``init_params`` on the same batches: the last
+    step's metrics of each."""
+    from repro_torch.models import init_params
+    from repro_torch.train.loop import TrainConfig, fit
+
+    res = {}
+    for arch in ("hymba-1.5b", "xlstm-125m"):
+        cfg = smoke(arch)
+        got = fit(cfg, data_config(cfg), opt_config(),
+                  TrainConfig(steps=TRAIN_STEPS, log_every=100),
+                  mesh=meshes[(2, 2)], log=lambda line: None, device="cpu")
+        want, _ = _train(cfg, 1, False, meshes[(2, 2)],
+                         lambda c: init_params(c, "cpu", seed=0))
+        res[arch] = {"fit": got, "loss": want["loss"].tolist(),
+                     "gnorm": want["gnorm"].tolist()}
+    if rank == 0:
+        with open(os.path.join(out, "rec_fit.json"), "w") as f:
+            json.dump(res, f)
+
+
+def _split_cases(group: str, meshes, out, rank):
+    """``group``'s cases of ``TP_TRAIN_CASES`` and ``TP_SERVE_CASES``."""
+    for i in group_cases(TP_TRAIN_CASES, group):
+        tp_train_case(i, meshes, out)
+    for i in group_cases(TP_SERVE_CASES, group):
+        res = tp_serve_case(i, meshes)
+        if rank == 0:
+            with open(os.path.join(out, f"tp_serve_{i}.json"), "w") as f:
+                json.dump(res, f)
+
+
+def sharded_group(meshes, out, rank):
+    mesh = meshes[(2, 2)]
+    state = None
+    for i in range(len(TRAIN_CASES)):
+        res = train_case(i, mesh, out)
+        if i == 0:
+            state = res
+    ckpt_case(state, out, rank)
+    serve = {arch: serve_case(arch, mesh) for arch in SERVE_ARCHS}
+    if rank == 0:
+        with open(os.path.join(out, "serve.json"), "w") as f:
+            json.dump(serve, f)
+    dp_case(out, rank)
+    preempt_case(mesh, out, rank)
+
+
+def dense_group(meshes, out, rank):
+    _split_cases("dense", meshes, out, rank)
+    comm_case(meshes, out, rank)
+    remat_case(meshes, out, rank)
+    init_case(meshes, out, rank)
+
+
+def vlm_group(meshes, out, rank):
+    _split_cases("vlm", meshes, out, rank)
+    tp_init_case(meshes, out, rank)
+
+
+def moe_group(meshes, out, rank):
+    for i in range(len(MOE_TRAIN_CASES)):
+        moe_train_case(i, meshes, out)
+    moe_serve = [moe_serve_case(i, meshes) for i in range(len(
+        MOE_SERVE_CASES))]
+    if rank == 0:
+        with open(os.path.join(out, "moe_serve.json"), "w") as f:
+            json.dump(moe_serve, f)
+    moe_comm_case(meshes, out, rank)
+    moe_init_case(meshes, out, rank)
+    moe_dispatch_case(meshes, out, rank)
+
+
+def recurrent_group(meshes, out, rank):
+    _split_cases("recurrent", meshes, out, rank)
+    rec_init_case(meshes, out, rank)
+    rec_fit_case(meshes, out, rank)
+
+
+# the spawns, each run by its own test file
+GROUPS = {"sharded": sharded_group, "dense": dense_group, "vlm": vlm_group,
+          "moe": moe_group, "recurrent": recurrent_group}
+
+
+def run(rank: int, world: int, store: str, out: str, group: str):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     try:
-        mesh = _mesh((2, 2))
-        meshes = {(2, 2): mesh, (1, 4): _mesh((1, 4))}
-        state = None
-        for i in range(len(TRAIN_CASES)):
-            res = train_case(i, mesh, out)
-            if i == 0:
-                state = res
-        ckpt_case(state, out, rank)
-        serve = {arch: serve_case(arch, mesh) for arch in SERVE_ARCHS}
-        if rank == 0:
-            with open(os.path.join(out, "serve.json"), "w") as f:
-                json.dump(serve, f)
-        for i in range(len(TP_TRAIN_CASES)):
-            tp_train_case(i, meshes, out)
-        tp_serve = [tp_serve_case(i, meshes) for i in range(len(
-            TP_SERVE_CASES))]
-        if rank == 0:
-            with open(os.path.join(out, "tp_serve.json"), "w") as f:
-                json.dump(tp_serve, f)
-        comm_case(meshes, out, rank)
-        remat_case(meshes, out, rank)
-        init_case(meshes, out, rank)
-        tp_init_case(meshes, out, rank)
-        for i in range(len(MOE_TRAIN_CASES)):
-            moe_train_case(i, meshes, out)
-        moe_serve = [moe_serve_case(i, meshes) for i in range(len(
-            MOE_SERVE_CASES))]
-        if rank == 0:
-            with open(os.path.join(out, "moe_serve.json"), "w") as f:
-                json.dump(moe_serve, f)
-        moe_comm_case(meshes, out, rank)
-        moe_init_case(meshes, out, rank)
-        moe_dispatch_case(meshes, out, rank)
-        gathered_case(meshes, out, rank)
-        dp_case(out, rank)
-        preempt_case(mesh, out, rank)
+        meshes = {(2, 2): _mesh((2, 2)), (1, 4): _mesh((1, 4))}
+        GROUPS[group](meshes, out, rank)
         dist.barrier()
     finally:
         dist.destroy_process_group()
 
 
-def spawn(out: str, timeout: float = 400.0) -> None:
-    """Run ``run`` on ``WORLD`` spawned ranks; a rank's error is raised
-    here, and ranks still running at ``timeout`` seconds are killed and
-    a TimeoutError raised (a hang fails, it does not stall the suite)."""
+def spawn(out: str, group: str, timeout: float = 240.0) -> None:
+    """Run ``run`` of ``group`` on ``WORLD`` spawned ranks; a rank's error
+    is raised here, and ranks still running at ``timeout`` seconds are
+    killed and a TimeoutError raised (a hang fails, it does not stall
+    the suite)."""
     import time
 
     import torch.multiprocessing as mp
 
     ctx = mp.start_processes(run, args=(WORLD, os.path.join(out, "store"),
-                                        out),
+                                        out, group),
                              nprocs=WORLD, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
     while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
@@ -1053,5 +1156,5 @@ def spawn(out: str, timeout: float = 400.0) -> None:
             for p in ctx.processes:
                 if p.is_alive():
                     p.kill()
-            raise TimeoutError(f"{WORLD} ranks still running after "
-                               f"{timeout} s")
+            raise TimeoutError(f"{WORLD} ranks of {group!r} still running "
+                               f"after {timeout} s")
