@@ -245,22 +245,20 @@ prints no result line):
    ``in_proj``'s x and z columns), through (a)'s training run under
    ``REPRO_SHARDED_CE=1`` against ``make_train_step`` and (b)'s served
    run against ``prefill`` (the reference's cold state) and
-   ``decode_step``, bit for bit, ``specs.gather_tree`` never called; (e)
-   the MoE family on
+   ``decode_step``, bit for bit; (e) the MoE family on
    the split path: granite-moe-3b-a800m at published widths on 4 of 32
    layers (every expert local to the one rank, every dispatch offset
    0), (a)'s training run under ``REPRO_SHARDED_CE=1`` and (b)'s served
-   run, bit for bit, ``gather_tree`` never called; (f) the vlm and the
+   run, bit for bit; (f) the vlm and the
    audio encoder on the split path: llama-3.2-vision-90b at published
    widths on one super-block (4 self layers and 1 cross layer, its gate
    at 0.5, 1,601 seeded image tokens), (b)'s served run (flash once a
    layer in the prefill and once a cross layer a decode step), and
-   hubert-xlarge at published widths on 4 of 48 layers, (a)'s training
-   run on seeded frame embeddings, each bit for bit, ``gather_tree``
-   never called; (g) the ssm family on the split path: xlstm-125m at
-   published widths on 4 of 12 layers (layer 3 sLSTM, the others
-   mLSTM), (a)'s training run and (b)'s served run, bit for bit, no
-   flash launched.
+   hubert-xlarge at published widths on 4 of 48 layers, (a)'s training run
+   on seeded frame embeddings, each bit for bit; (g) the ssm family on the
+   split path: xlstm-125m at published widths on 4 of 12 layers (layer 3
+   sLSTM, the others mLSTM), (a)'s training run and (b)'s served run, bit
+   for bit, no flash launched.
 17. one rank's share of qwen2-72b on a (1, 4) mesh (after phase 16):
    rank 0 of a 4-rank group of ``torch.distributed``'s fake backend
    (``FakeStore``: every collective returns at once and moves nothing,
@@ -319,15 +317,15 @@ prints no result line):
    warning a step builder; the MLP piece holds 1,376 of 5,504 columns;
    flash 32 times in the prefill; a decode step runs on "model" the
    collectives ``tests/test_torch_split_recurrent.py`` counts (7 a layer
-   here: the lse's max and merge, ``in_proj``'s gather, dt/B/C's and
-   ``out_proj``'s sums, the state's gather, the MLP's sum) and none on
-   another group.  Then the same for xlstm-125m: a head of 4 a rank, all
-   12 layers, prefill 2 x 2,048, 64 steps, 2 collectives a layer and the
-   embedding's.  Prints for each peak memory by stage, parameter and
-   state bytes, prefill ms, decode p50 and p90; then flash at hymba's
-   rank prefill shape (its whole H 25/5, window 1,024), checked and
-   timed as phase 3's rows, and at PR 19's B 1 row shape beside that
-   row's time.  Then one line of every phase's host seconds.
+   here: the lse's max and merge, the gather of ``in_proj``'s products with
+   each rank's piece, dt/B/C's and ``out_proj``'s sums, the state's gather,
+   the MLP's sum) and none on another group.  Then the same for xlstm-125m:
+   a head of 4 a rank, all 12 layers, prefill 2 x 2,048, 64 steps, 2
+   collectives a layer and the embedding's.  Prints for each peak memory by
+   stage, parameter and state bytes, prefill ms, decode p50 and p90; then
+   flash at hymba's rank prefill shape (its whole H 25/5, window 1,024),
+   checked and timed as phase 3's rows, and at PR 19's B 1 row shape beside
+   that row's time.  Then one line of every phase's host seconds.
 
 Output, in order: phase lines, one JSON ``kernels`` line (launches: the
 main path's for paged_attention_fused, remap_gather (every launch of the
@@ -4897,38 +4895,12 @@ def _env(**kw):
                 os.environ[k] = v
 
 
-@contextlib.contextmanager
-def _gathered_calls():
-    """Counts, by name, the calls in the context of
-    ``specs.gather_tree`` (the whole tree on each rank, which no split
-    step calls) and ``train.loop._Layout.reduce`` (a gradient's data
-    mean onto its shard)."""
-    from repro_torch.sharding import specs
-    from repro_torch.train import loop
-
-    n = {"gather_tree": 0, "reduce": 0}
-    real = (specs.gather_tree, loop._Layout.reduce)
-
-    def gather_tree(*a, **kw):
-        n["gather_tree"] += 1
-        return real[0](*a, **kw)
-
-    def reduce(*a, **kw):
-        n["reduce"] += 1
-        return real[1](*a, **kw)
-    specs.gather_tree, loop._Layout.reduce = gather_tree, reduce
-    try:
-        yield n
-    finally:
-        specs.gather_tree, loop._Layout.reduce = real
-
-
 def _shard_train_run(torch, dev, cfg, dc, oc, batches, mesh):
     """``SHARD_STEPS`` steps of ``make_train_step`` (``mesh`` None) or of
     ``make_sharded_train_step`` on ``mesh`` from ``init_params(cfg, dev,
     1)``: (loss and gnorm by step, host ms by step (each ends in a read of
     the loss), the wrappers' launches, peak device GiB, the final
-    parameters on the host, the gathered path's calls)."""
+    parameters on the host)."""
     from repro_torch.data.pipeline import make_batch
     from repro_torch.models import abstract_params_and_axes, init_params
     from repro_torch.sharding import specs
@@ -4941,27 +4913,26 @@ def _shard_train_run(torch, dev, cfg, dc, oc, batches, mesh):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, dev, seed=1)
-    with _gathered_calls() as calls:
-        if mesh is None:
-            step = make_train_step(cfg, oc, TrainConfig())
-            opt, err = init_opt_state(params), None
-            feed = lambda b: b  # noqa: E731
-        else:
-            step, p_sh, b_sh = make_sharded_train_step(
-                cfg, oc, TrainConfig(), mesh, make_batch(dc, 0))
-            params = specs.distribute_tree(params, p_sh)
-            opt, err = init_sharded_state(
-                p_sh, abstract_params_and_axes(cfg)[0], False)
-            feed = lambda b: {k: specs.distribute(v, b_sh[k])  # noqa: E731
-                              for k, v in b.items()}
-        _counts(zero=True)
-        vals, ms = [], []
-        for b in batches:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            params, opt, err, m = step(params, opt, err, feed(b))
-            vals.append((m["loss"].item(), m["gnorm"].item()))
-            ms.append((time.perf_counter() - t0) * 1e3)
+    if mesh is None:
+        step = make_train_step(cfg, oc, TrainConfig())
+        opt, err = init_opt_state(params), None
+        feed = lambda b: b  # noqa: E731
+    else:
+        step, p_sh, b_sh = make_sharded_train_step(
+            cfg, oc, TrainConfig(), mesh, make_batch(dc, 0))
+        params = specs.distribute_tree(params, p_sh)
+        opt, err = init_sharded_state(
+            p_sh, abstract_params_and_axes(cfg)[0], False)
+        feed = lambda b: {k: specs.distribute(v, b_sh[k])  # noqa: E731
+                          for k, v in b.items()}
+    _counts(zero=True)
+    vals, ms = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, err, m = step(params, opt, err, feed(b))
+        vals.append((m["loss"].item(), m["gnorm"].item()))
+        ms.append((time.perf_counter() - t0) * 1e3)
     launches = _counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     final = [(p if mesh is None else p.full_tensor()).cpu()
@@ -4969,7 +4940,7 @@ def _shard_train_run(torch, dev, cfg, dc, oc, batches, mesh):
     del params, opt, m
     gc.collect()
     torch.cuda.empty_cache()
-    return vals, ms, launches, peak, final, dict(calls)
+    return vals, ms, launches, peak, final
 
 
 def shard_train(torch, dev, mesh, arch, layers, env, label):
@@ -4983,7 +4954,7 @@ def shard_train(torch, dev, mesh, arch, layers, env, label):
     launches a step equal (one an attention layer); ms a step (steps 2
     on) and peak memory of both.  The step runs split (every part over
     the one "model" rank, every expert local and every dispatch offset
-    0, no ``gather_tree``; the loss takes the ``REPRO_SHARDED_CE`` form,
+    0; the loss takes the ``REPRO_SHARDED_CE`` form,
     which ``env`` gives the unsharded side)."""
     from repro_torch.data.pipeline import device_batch
 
@@ -4992,11 +4963,10 @@ def shard_train(torch, dev, mesh, arch, layers, env, label):
     with _env(**env):
         runs = {name: _shard_train_run(torch, dev, cfg, dc, oc, batches, m)
                 for name, m in (("unsharded", None), ("sharded", mesh))}
-    (v0, ms0, l0, pk0, f0, _), (v1, ms1, l1, pk1, f1, calls) = runs.values()
+    (v0, ms0, l0, pk0, f0), (v1, ms1, l1, pk1, f1) = runs.values()
     path = f"split path (parts {json.dumps(_split_parts(cfg, mesh))})"
-    _check(all(_split_parts(cfg, mesh).values())
-           and calls["gather_tree"] == 0,
-           f"{label}: parts not split or tree gathered ({path}, {calls})")
+    _check(all(_split_parts(cfg, mesh).values()),
+           f"{label}: parts not split ({path})")
     worst = max((a.float() - b.float()).abs().max().item()
                 for a, b in zip(f0, f1))
     n_attn = _attention_layers(cfg)
@@ -5061,7 +5031,7 @@ def shard_serve(torch, dev, mesh, arch, layers, env, label):
     ``decode_step``, under ``env`` on both sides: the logits at every
     step and the tokens equal bit for bit; flash launched once an
     attention layer in each prefill (and once a vlm cross layer a decode
-    step).  The step runs split (no ``gather_tree``)."""
+    step)."""
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.device import torch_dtype
     from repro_torch.models import (abstract_params_and_axes, decode_step,
@@ -5085,7 +5055,7 @@ def shard_serve(torch, dev, mesh, arch, layers, env, label):
         prompt["image_embeds"] = torch.randn(
             (SHARD_LANES, cfg.n_image_tokens, cfg.d_model), generator=g,
             device=dev).to(torch_dtype(cfg.dtype))
-    with _env(**env), _gathered_calls() as calls:
+    with _env(**env):
         _counts(zero=True)
         want, state = prefill(cfg, params, prompt, max_len=shape.seq_len,
                               last=True)
@@ -5116,8 +5086,6 @@ def shard_serve(torch, dev, mesh, arch, layers, env, label):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _counts()
-    _check(calls["gather_tree"] == 0,
-           f"{label}: gather_tree called {calls['gather_tree']} times")
     same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
     toks = [x.argmax(-1).tolist() for x in got]
     _check(all(same), f"{label}: logits equal by step {same}")
@@ -5798,11 +5766,11 @@ def _rec_decode_calls(cfg, tp, seq_split: bool) -> int:
     """The collectives a split decode step of a recurrent family runs on
     "model" (``tests/test_torch_split_recurrent.py``'s count): xLSTM, 2 a
     layer (the output's sum, the state's gather); hymba, per layer the
-    lse's max and merge over a sequence-split cache, q/k/v gathered and
-    wo summed where attention splits (else its leaves that
-    ``spec_for`` split gathered), ``in_proj`` gathered, dt/B/C and
-    ``out_proj`` summed, the state gathered, the MLP summed; and the
-    embedding's sum where the vocabulary splits."""
+    lse's max and merge over a sequence-split cache, q/k/v gathered and wo
+    summed where attention splits (else its leaves that ``spec_for`` split
+    gathered), ``in_proj``'s products with each rank's piece gathered,
+    dt/B/C and ``out_proj`` summed, the state gathered, the MLP summed; and
+    the embedding's sum where the vocabulary splits."""
     vocab = int(tp.split["vocab"])
     if cfg.family == "ssm":
         return 2 * cfg.n_layers + vocab

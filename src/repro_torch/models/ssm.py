@@ -12,7 +12,7 @@ in fp32, as the reference keeps them.  d_inner == d_model.
 Under tensor parallelism (``sharding/tensor_parallel.py``, part "ssm")
 ``ssm_scan`` and ``ssm_step`` run on this rank's channels of d_inner:
 ``p`` holds its pieces of the per-channel leaves, ``xz`` its x and z
-channels (``TensorParallel.ssm_columns``), the state its channels, and
+channels (``TensorParallel.ssm_in``), the state its channels, and
 ``tp`` sums ``x_proj``'s output over "model"; the caller sums the
 output's ``out_proj`` terms.
 """

@@ -876,13 +876,12 @@ def _ffn_tp(cfg: ArchConfig, tp, p, x, aux: bool):
 
 
 def _ssm_branch_tp(cfg: ArchConfig, tp, p, h, state=None):
-    """The hybrid's Mamba branch on this rank's channels: x and z from
-    its columns of ``in_proj`` (``tp.ssm_columns``), the scan (or, with
+    """The hybrid's Mamba branch on this rank's channels: x and z of
+    them (``tp.ssm_in``), the scan (or, with
     the layer's recurrent ``state`` whole over "model", one decode step,
     whose new state is gathered back into it), ``out_proj`` summed over
     "model" -> [B, S, d]."""
-    xz = tp.enter(h, "ssm") @ tp.ssm_columns(p["ssm"]["in_proj"]) \
-        .to(h.dtype)
+    xz = tp.ssm_in(tp.enter(h, "ssm"), p["ssm"]["in_proj"])
     if state is None:
         return tp.exit(ssm_mod.ssm_scan(p["ssm"], xz, cfg, tp), "ssm")
     dims = ssm_mod.STATE_DIMS

@@ -181,11 +181,11 @@ def jit_decode(cfg, shape, mesh):
     is: its pieces may be updated in place.
 
     The step is split (``models.decode_step(tp=...)``): no parameter
-    piece leaves its "model" rank but the hybrid's ``in_proj``
-    (``TensorParallel.ssm_columns``), the caches are updated in place on
-    the rank that holds each position (a ring cache's slot ``pos % W``),
-    and the recurrent states in place on every rank; the encoder's step
-    raises when called, as the reference's does."""
+    piece leaves its "model" rank (the hybrid's ``in_proj`` products
+    are exchanged, ``TensorParallel.ssm_in``), the caches are updated in
+    place on the rank that holds each position (a ring cache's slot
+    ``pos % W``), and the recurrent states in place on every rank; the
+    encoder's step raises when called, as the reference's does."""
     from repro_torch.models import (abstract_decode_state,
                                     abstract_params_and_axes)
     from repro_torch.sharding.specs import NamedSharding, spec_for

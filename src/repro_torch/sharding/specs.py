@@ -283,11 +283,6 @@ def distribute_tree(tree, shardings):
     return map_leaves(lambda t, sh: distribute(t, sh), tree, shardings)
 
 
-def gather_tree(tree):
-    """Every DTensor leaf gathered into a plain tensor (a collective)."""
-    return map_leaves(lambda t: t.full_tensor(), tree)
-
-
 def shard_index(placements, mesh, dim: int = 0) -> tuple[int, int]:
     """(how many pieces ``dim`` is split into, which piece this rank
     holds) under ``placements``."""

@@ -47,7 +47,9 @@ the same split is written out, Megatron style, over
   contiguous (x's columns on the first ranks, z's on the last), so it is
   gathered over "model" with the layer (``_GatherModel``, whose backward
   reduce-scatters the gradient onto the piece) and the rank takes its x
-  and z columns (``ssm_columns``); the conv, dt and A run per channel;
+  and z columns (``ssm_columns``); a decode step instead gathers the
+  products of the input with each rank's piece (``ssm_in``); the conv,
+  dt and A run per channel;
   ``x_proj``'s output (dt, B and C) is summed over "model" forward and
   backward, ``out_proj``'s after it.  The xLSTM (part "xlstm") runs this
   rank's heads of both branches: ``m_og``'s contiguous d/m columns are
@@ -74,8 +76,6 @@ from typing import NamedTuple
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-# the families whose steps compute split: every family of the port
-SPLIT_FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
 PARTS = ("attn", "mlp", "moe", "vocab", "ssm", "xlstm")
 # the leaves of each part (paths under the parameter tree's root, the
 # vlm's "blocks/self/" and "blocks/cross/" read as "blocks/")
@@ -519,6 +519,25 @@ class TensorParallel:
         ch, di = self.ssm_channels(), whole.shape[-1] // 2
         return torch.cat([whole[..., ch.start:ch.stop],
                           whole[..., di + ch.start:di + ch.stop]], dim=-1)
+
+    def ssm_in(self, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``h`` [..., d] times ``in_proj`` -> x and z of this rank's
+        channels [..., 2 di/m].  Where a gradient flows, or where the
+        tokens outnumber d (a prefill), through ``ssm_columns``: the
+        matrix gathered.  Otherwise (a decode step) ``h`` times the
+        rank's own piece, the products' columns all-gathered over
+        "model" and this rank's taken: [tokens, 2 di] moved in place of
+        the [d, 2 di] matrix."""
+        tokens = h.numel() // h.shape[-1]
+        if (self.group is None or not self.split["ssm"]
+                or tokens >= h.shape[-1] or (torch.is_grad_enabled() and (
+                    h.requires_grad or w.requires_grad))):
+            return h @ self.ssm_columns(w).to(h.dtype)
+        every = _all_gather(h @ w.to(h.dtype), h.dim() - 1, self.group,
+                            self.size)
+        ch, di = self.ssm_channels(), every.shape[-1] // 2
+        return torch.cat([every[..., ch.start:ch.stop],
+                          every[..., di + ch.start:di + ch.stop]], dim=-1)
 
     def own_state(self, state: dict, dims: dict, part: str) -> dict:
         """A layer's recurrent state, whole over "model" -> this rank's

@@ -46,6 +46,7 @@ from repro_torch.models import (decode_step, forward, forward_chunk,
 from repro_torch.models.kv_backend import TieredBackend
 from repro_torch.serve.engine import Engine, EngineConfig
 from repro_torch.weights import _expected_leaves, from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCH, VLM = "hubert-xlarge", "llama-3.2-vision-90b"
 ATOL = 1e-4

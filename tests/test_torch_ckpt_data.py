@@ -38,6 +38,7 @@ from repro_torch.train import compression
 from repro_torch.train.optimizer import (OptConfig, OptState, apply_updates,
                                          global_norm, init_opt_state,
                                          schedule)
+from torch_threads import one_torch_thread  # noqa: F401
 
 DATA = (dict(vocab=512, seq_len=64, global_batch=8, seed=11),
         dict(vocab=128256, seq_len=33, global_batch=4, seed=3,

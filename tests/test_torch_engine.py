@@ -28,6 +28,7 @@ from repro_torch.models import init_params
 from repro_torch.serve import engine as t_engine
 from repro_torch.serve.engine import Engine, EngineConfig, Request
 from repro_torch.weights import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 LOGITS_ATOL = 1e-4

@@ -25,6 +25,7 @@ from repro_torch.obs import ObsConfig
 from repro_torch.obs.flight import FlightConfig
 from repro_torch.serve.engine import Engine, EngineConfig, Request
 from repro_torch.serve.sched import TenantConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 TENANTS = (TenantConfig("interactive", weight=2, policy="on_demand"),
            TenantConfig("batch", weight=1))

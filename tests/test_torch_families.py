@@ -42,6 +42,7 @@ from repro_torch.models import (decode_step, forward, forward_chunk,
                                 init_chunk_buffers, init_params)
 from repro_torch.models.kv_backend import DenseBackend, TieredBackend
 from repro_torch.weights import from_jax_params, unit_fan_in
+from torch_threads import one_torch_thread  # noqa: F401
 
 GROUPS = {"qwen2-7b": 7, "qwen2-72b": 8, "codeqwen1.5-7b": 1,
           "granite-moe-3b-a800m": 3, "mixtral-8x22b": 6}

@@ -27,6 +27,7 @@ from test_torch_families import (ATOL, B, MAX_LEN, MOE, PAGE, PREFILLS,
                                  _models, _tokens, check_decode,
                                  check_forward, check_forward_chunk,
                                  decode_cases)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("arch", MOE)

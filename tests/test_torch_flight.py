@@ -40,6 +40,7 @@ from repro_torch.serve import engine as t_engine
 from repro_torch.serve.engine import Engine, EngineConfig, Request
 from repro_torch.serve.sched import TenantConfig
 from test_torch_engine import LOGITS_ATOL, _models
+from torch_threads import one_torch_thread  # noqa: F401
 
 # ---------------------------------------------------------------------------
 # ring ops: the same batches through both rings

@@ -56,6 +56,7 @@ from repro_torch.serve.engine import (Engine, EngineConfig, Request,
 from repro_torch.serve.sched import TenantConfig
 from repro_torch.tiered import kvcache as tk
 from repro_torch.weights import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-4
 EC = dict(batch=2, max_len=48, backend="tiered", page_tokens=8,

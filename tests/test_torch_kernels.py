@@ -36,6 +36,7 @@ from repro_torch.kernels.remap_gather.ref import (FAST_TO_SLOW, SLOW_TO_FAST,
                                                   remap_gather_ref,
                                                   remap_replay_ref)
 from repro_torch.tiered import kvcache as t_kvcache
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def fused_inputs(B=3, K=2, KV=2, G=3, hd=16, P=8, NP=6, F=5, seed=0,

@@ -17,6 +17,7 @@ from repro.core.policy import get_policy as j_get_policy
 from repro.tiered import kvcache as jk
 from repro_torch.core.policy import get_policy as t_get_policy
 from repro_torch.tiered import kvcache as tk
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _jit(fn, **kw):

@@ -16,6 +16,7 @@ from repro_torch.core.policy import get_policy as t_get_policy
 from repro_torch.tiered import kvcache as tk
 from test_torch_kvcache import (J_APPEND, J_RELEASE, J_SCHED,
                                 _assert_state_equal, _filled, _jit)
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the reference's lookup geometry (tests/test_tiered_kv.py), cached and
 # uncached (the legacy translate-every-call mode)

@@ -19,6 +19,7 @@ from repro_torch.core.policy import scheduler as t_sched
 from repro_torch.core.policy import trackers as t_track
 from repro_torch.core.remap import irt as t_irt
 from repro_torch.core.remap import rcache as t_rc
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(x, dtype=None):

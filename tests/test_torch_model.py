@@ -29,6 +29,7 @@ from repro_torch.models import (decode_step, forward, forward_chunk,
 from repro_torch.models.kv_backend import DenseBackend, TieredBackend
 from repro_torch.tiered import kvcache as tk
 from repro_torch.weights import from_jax_params, unit_fan_in
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, MAX_LEN, PAGE, STEPS = 2, 64, 8, 24
 PREFILLS = ((0, 5), (1, 13), (0, 9))      # (lane, ctx len); third at step 12

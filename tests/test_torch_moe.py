@@ -27,6 +27,7 @@ from repro.models import moe as j_moe
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.models import init_params, moe
 from repro_torch.weights import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "granite-moe-3b-a800m"
 T_BATCH, T_SEQ = 3, 16          # 48 tokens

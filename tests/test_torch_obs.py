@@ -40,6 +40,7 @@ from repro_torch.serve import tiered as srv
 from repro_torch.serve.engine import Request
 from repro_torch.serve.sched import TenantBook, TenantConfig
 from repro_torch.tiered import kvcache as tk
+from torch_threads import one_torch_thread  # noqa: F401
 
 # ---------------------------------------------------------------------------
 # registry

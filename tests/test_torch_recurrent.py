@@ -51,6 +51,7 @@ from repro_torch.serve.engine import Engine, EngineConfig
 from repro_torch.tiered import kvcache as tk
 from repro_torch.weights import (_expected_leaves, from_jax_params,
                                  unit_fan_in)
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ("hymba-1.5b", "xlstm-125m")
 ATOL, STATE_ATOL = 1e-4, 1e-5

@@ -37,6 +37,7 @@ from repro_torch.models import decode_step, init_params, prefill
 from repro_torch.models.kv_backend import TieredBackend
 from repro_torch.serve.engine import Engine, EngineConfig
 from repro_torch.weights import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "mixtral-8x22b"
 MAX_LEN, STEPS = 32, 24

@@ -36,6 +36,7 @@ from repro_torch.serve.sched import (ChunkedScheduler, GreedyScheduler,
                                      split_slots)
 from repro_torch.tiered import kvcache as tk
 from repro_torch.weights import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 LOGITS_ATOL = 1e-4
 

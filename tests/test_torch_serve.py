@@ -28,6 +28,7 @@ from repro_torch.serve import tiered as srv
 from repro_torch.serve.decode import make_tiered_decode_step
 from repro_torch.serve.engine import TieredServer
 from repro_torch.tiered import kvcache as tk
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 # the reference's server geometry (tests/test_engine.py::_tiered_cfg)

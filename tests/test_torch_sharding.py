@@ -78,6 +78,7 @@ from repro_torch.sharding import specs
 from repro_torch.sharding.tensor_parallel import CollectiveLog
 from repro_torch.train.loop import TrainConfig, grads_of
 from repro_torch.weights import from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 LOSS_ATOL, GRAD_REL, STEP_REL = 1e-5, 1e-4, 1e-6
 LOGIT_ATOL = 1e-5

@@ -18,6 +18,7 @@ import repro_torch.core as P
 from repro_torch.core import simulator as p_sim
 from repro_torch.core.remap import rcache as p_rc
 from repro_torch.obs import metrics as p_metrics
+from torch_threads import one_torch_thread  # noqa: F401
 
 GEOM = dict(fast_total_blocks=256, ratio=8, n_sets=4)
 

@@ -10,6 +10,7 @@ import repro.core as J
 import repro_torch.core as P
 from test_torch_sim import _kw
 from test_torch_sim_policy import _assert_runs_match
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("name", ["trimma_c", "trimma_f",

@@ -12,6 +12,7 @@ import pytest
 
 import repro_torch.core as P
 from repro_torch.core import simulator as p_sim
+from torch_threads import one_torch_thread  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 

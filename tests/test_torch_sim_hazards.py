@@ -19,6 +19,7 @@ from repro_torch.core import simulator as p_sim
 from repro_torch.kernels.sim_scan.ops import sim_scan_op
 from repro_torch.kernels.sim_scan.ref import sim_scan_ref
 import sim_hazards as hz
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _counts(label, pm):

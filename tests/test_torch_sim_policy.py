@@ -5,27 +5,29 @@ recency's staleness, topk's ranked cut and budget) falls several times
 in a trace (the dealloc hints, whose ``forget`` clears the tracker
 state, in ``test_torch_sim_dealloc.py``).  ``run_many``'s counters and
 every trace's end state (the reference's through its vmapped scan, the
-same compiled runner ``run_many`` calls) must be exactly equal."""
+same compiled runner ``run_many`` calls; the port's the state its own
+``run_many`` scanned to) must be exactly equal."""
 
 import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 import repro.core as J
 from repro.core import simulator as j_sim
 import repro_torch.core as P
 from repro_torch.core import simulator as p_sim
 from repro_torch.core.policy import access as p_access
-from repro_torch.kernels.sim_scan.ops import sim_scan_op
 from test_torch_sim import GEOM, _eq, _kw, _traces
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _assert_runs_match(kw, length, dealloc=False, policy=None):
     """run_many on two traces, then both end states, against the
-    reference; ``policy`` a (reference, port) pair of PolicyConfigs."""
+    reference; ``policy`` a (reference, port) pair of PolicyConfigs.
+    The port's end state is the one its ``run_many`` computed (the scan
+    ``simulator._scan`` returned to it), not a second scan."""
     jkw, pkw = dict(kw), dict(kw)
     if policy is not None:
         jkw["policy"], pkw["policy"] = policy
@@ -35,17 +37,25 @@ def _assert_runs_match(kw, length, dealloc=False, policy=None):
     if deallocs is None:
         deallocs = np.zeros(blocks.shape, bool)
     jm = j_sim.run_many(jcfg, J.HBM3_DDR5, blocks, writes, deallocs)
-    pm = p_sim.run_many(pcfg, P.HBM3_DDR5, blocks, writes, deallocs,
-                        device="cpu")
+    scanned, real = [], p_sim._scan
+
+    def kept(*a, **kw):
+        scanned.append(real(*a, **kw))
+        return scanned[-1]
+    p_sim._scan = kept
+    try:
+        pm = p_sim.run_many(pcfg, P.HBM3_DDR5, blocks, writes, deallocs,
+                            device="cpu")
+    finally:
+        p_sim._scan = real
+    assert len(scanned) == 1
     for t, (a, b) in enumerate(zip(jm, pm)):
         for c in list(j_sim.COUNTERS) + ["metadata_blocks"]:
             assert a[c] == b[c], (t, c)
     runner, _ = j_sim._compiled_many(jcfg, J.HBM3_DDR5)
     jst = runner(jnp.asarray(blocks, jnp.int32), jnp.asarray(writes),
                  jnp.asarray(deallocs))
-    pst = p_sim.init_state(pcfg, P.make_geometry(pcfg), len(blocks), "cpu")
-    sim_scan_op(pcfg, P.HBM3_DDR5, pst, torch.as_tensor(blocks),
-                torch.as_tensor(writes), torch.as_tensor(deallocs))
+    pst = scanned[0][0]
     counters = list(p_sim.COUNTERS)
     assert set(jst) == (set(pst) - {"counters"}) | set(counters)
     for k, v in jst.items():

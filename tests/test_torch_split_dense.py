@@ -9,10 +9,10 @@ split over 4 ranks (attention runs whole, with one warning); split
 prefill and decode against the unsharded port with ragged positions, an
 idle lane and a window; the collectives of a split train step, prefill
 and decode step (none on "model" moves a parameter piece or the cache,
-each is activation-sized, and ``specs.gather_tree`` is never called);
-``init_sharded_params`` against ``init_params``.  Tolerances: those of
-``test_torch_sharding.py`` (its ``check_split_train`` and
-``check_split_serve``); ``init_sharded_params`` exactly.
+and each is activation-sized); ``init_sharded_params`` against
+``init_params``.  Tolerances: those of ``test_torch_sharding.py`` (its
+``check_split_train`` and ``check_split_serve``); ``init_sharded_params``
+exactly.
 """
 
 import json
@@ -23,6 +23,7 @@ import pytest
 import torch_dist_worker as W
 from test_torch_sharding import (check_split_serve, check_split_train,
                                  spawn_fixture, split_cases)
+from torch_threads import one_torch_thread  # noqa: F401
 
 dist_run = spawn_fixture("dense")
 
@@ -51,10 +52,8 @@ def test_split_collectives_are_activation_sized(dist_run):
     parameter layer's or a cache piece's shape, and each is
     activation-sized: [B/dp, S, d] or smaller, and in decode at most one
     token's q, k and v ([B/dp, H + 2 KV, hd], gathered in one call) or
-    the [B/dp, H, hd + 1] merge.  ``specs.gather_tree`` is never
-    called."""
+    the [B/dp, H, hd + 1] merge."""
     info = json.loads((dist_run / "comm.json").read_text())
-    assert info["gather_tree_calls"] == 0
     for mesh in ("(2, 2)", "(1, 4)"):
         r = info[mesh]
         forbidden = {tuple(f) for f in r["forbidden"]}

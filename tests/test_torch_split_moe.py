@@ -24,6 +24,7 @@ from repro.configs import get_config as j_get_config
 from repro.configs import reduce_for_smoke as j_reduce
 from test_torch_sharding import (LOGIT_ATOL, _check_train, _reference_run,
                                  spawn_fixture)
+from torch_threads import one_torch_thread  # noqa: F401
 
 dist_run = spawn_fixture("moe")
 

@@ -4,16 +4,16 @@ spawn of 4 gloo ranks (``tests/torch_dist_worker.py``) on (2, 2) and on
 a (1, 4) mesh of the same ranks.
 
 hymba-1.5b (family "hybrid") splits its Mamba branch over d_inner: each
-rank runs its channels of x and z (``in_proj`` gathered over "model", its
-x and z columns taken), dt, B and C summed over "model", ``out_proj``
-row-split; attention splits by heads where its KV heads divide the
-"model" ranks (smoke on (2, 2), widened on (1, 4)) and runs whole with a
-warning where they do not (smoke on (1, 4)); the MLP on d_ff, the
-vocabulary.  xlstm-125m (family "ssm") splits both branches by heads,
-2 or 1 a rank.  The split train step against the reference's
-``make_sharded_train_step``; split prefill (the reference's cold state)
-and decode (hymba's window of 6 on every second layer) against the
-unsharded port, the recurrent states gathered and compared; a decode
+rank runs its channels of x and z (``in_proj`` gathered over "model", its x
+and z columns taken; in decode its products with each rank's piece), dt, B
+and C summed over "model", ``out_proj`` row-split; attention splits by
+heads where its KV heads divide the "model" ranks (smoke on (2, 2), widened
+on (1, 4)) and runs whole with a warning where they do not (smoke on
+(1, 4)); the MLP on d_ff, the vocabulary.  xlstm-125m (family "ssm") splits
+both branches by heads, 2 or 1 a rank.  The split train step against the
+reference's ``make_sharded_train_step``; split prefill (the reference's
+cold state) and decode (hymba's window of 6 on every second layer) against
+the unsharded port, the recurrent states gathered and compared; a decode
 step's collectives counted exactly; ``init_sharded_params`` against
 ``init_params``; ``fit(mesh=)`` against the split step; the launchers'
 ``--mesh host``.
@@ -33,6 +33,7 @@ import torch_dist_worker as W
 from test_torch_sharding import (attn_whole, check_split_serve,
                                  check_split_train, spawn_fixture,
                                  split_cases)
+from torch_threads import one_torch_thread  # noqa: F401
 
 dist_run = spawn_fixture("recurrent")
 
@@ -91,9 +92,9 @@ def _want_calls(shape, arch, wide) -> dict:
         cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads, cfg.n_heads))
     di = cfg.d_model // m
     # each layer: q, k and v gathered (attention split), the lse's max
-    # and the merge, wo's sum (split); in_proj gathered, dt/B/C summed,
-    # out_proj summed, the state (h and conv) gathered; the MLP's sum;
-    # and the embedding's sum
+    # and the merge, wo's sum (split); in_proj's products gathered,
+    # dt/B/C summed, out_proj summed, the state (h and conv) gathered;
+    # the MLP's sum; and the embedding's sum
     return {"allgather": L * (int(split) + 2 + whole),
             "allreduce": L * (2 + int(split) + 3) + 1,
             "state": [B * (di * cfg.ssm_state + (cfg.ssm_conv - 1) * di)]}
@@ -105,8 +106,9 @@ def test_split_recurrent_decode_collectives(dist_run):
     all-gathers and all-reduces ``_want_calls`` counts (hymba 7 a layer
     with attention whole, and its wq and wo gathered, 9 split; xlstm 2 a
     layer; and the embedding's sum), the recurrent state gathered in ONE
-    all-gather a layer of its packed fp32 pieces; on (1, 4), one data
-    rank, nothing on another group."""
+    all-gather a layer of its packed fp32 pieces, no piece of hymba's
+    ``in_proj`` moved; on (1, 4), one data rank, nothing on another
+    group."""
     seen = 0
     for case in W.group_cases(W.TP_SERVE_CASES, "recurrent"):
         shape, arch, wide, _ = W.TP_SERVE_CASES[case]
@@ -122,6 +124,11 @@ def test_split_recurrent_decode_collectives(dist_run):
         state = sorted({shapes[-1][0] for op, _, shapes in model
                         if "allgather" in op and len(shapes[-1]) == 1})
         assert state == want["state"], (case, state, want)
+        # no piece of in_proj [d, 2 di/m] leaves its rank: its products
+        # with the tokens are gathered
+        d = W.widen(W.smoke(arch), wide).d_model
+        piece = {(d, 2 * d // shape[1]), (2 * d // shape[1], d)}
+        assert not [c for c in model if tuple(c[2][-1]) in piece], case
         if shape[0] == 1:
             assert got["collectives"]["other"] == 0, case
         seen += 1

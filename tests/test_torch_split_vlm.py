@@ -16,6 +16,7 @@ import pytest
 import torch_dist_worker as W
 from test_torch_sharding import (check_split_serve, check_split_train,
                                  spawn_fixture, split_cases)
+from torch_threads import one_torch_thread  # noqa: F401
 
 dist_run = spawn_fixture("vlm")
 

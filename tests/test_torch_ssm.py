@@ -22,6 +22,7 @@ from repro.configs import get_config as j_get_config
 from repro.configs import reduce_for_smoke as j_reduce
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.models import ssm
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "hymba-1.5b"
 

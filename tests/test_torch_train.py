@@ -42,6 +42,7 @@ from repro_torch.train.loop import (TrainConfig, fit, grads_of,
                                     make_train_step)
 from repro_torch.train.optimizer import OptConfig, init_opt_state
 from repro_torch.weights import from_jax_params, unit_fan_in
+from torch_threads import one_torch_thread  # noqa: F401
 
 FAMILIES = ("llama3-8b", "granite-moe-3b-a800m", "hymba-1.5b", "xlstm-125m",
             "llama-3.2-vision-90b", "hubert-xlarge")

@@ -35,6 +35,7 @@ from repro_torch.models import (decode_step, forward, init_decode_state,
                                 init_params, prefill)
 from repro_torch.models import attention as attn
 from repro_torch.weights import _expected_leaves, from_jax_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "llama-3.2-vision-90b"
 ATOL = 1e-4

@@ -21,6 +21,7 @@ import torch
 import repro.models.xlstm as j_x
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.models import xlstm
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "xlstm-125m"
 

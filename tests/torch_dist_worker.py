@@ -43,8 +43,7 @@ The files:
   the state after the prefill as well), with the collectives of the
   first decode step by group and the port's warnings;
 * ``comm.json``: every collective of one split train step, prefill and
-  decode step (op, group, elements), recorded under a dispatch mode, and
-  whether ``specs.gather_tree`` was called;
+  decode step (op, group, elements), recorded under a dispatch mode;
 * ``remat.json``: the split step's gradient under remat "full"
   against "none", and the all-gathers each ran on "data";
 * ``init.json``: ``init_sharded_params`` on (2, 2) and (1, 4): the
@@ -613,10 +612,9 @@ def _state_gap(state, want) -> float:
 
 def comm_case(meshes, out, rank):
     """Under ``CollectiveLog``: one split train step, a prefill and a decode
-    step of smoke llama3-8b on (2, 2) and of the wide one on (1, 4), with
-    ``specs.gather_tree`` counted; the collectives on "model" and the
-    shapes no such collective may have (every parameter leaf's piece,
-    layer and whole, and the caches')."""
+    step of smoke llama3-8b on (2, 2) and of the wide one on (1, 4): the
+    collectives on "model" and the shapes no such collective may have
+    (every parameter leaf's piece, layer and whole, and the caches')."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.data.pipeline import make_batch
     from repro_torch.models import (abstract_params_and_axes, init_params)
@@ -627,71 +625,60 @@ def comm_case(meshes, out, rank):
                                         make_sharded_train_step)
 
     res = {}
-    calls = [0]
-    real = specs.gather_tree
-
-    def counted(tree):
-        calls[0] += 1
-        return real(tree)
-    specs.gather_tree = counted
-    try:
-        for shape, wide in (((2, 2), False), ((1, 4), True)):
-            mesh = meshes[shape]
-            cfg = widen(smoke("llama3-8b"), wide)
-            # 24 tokens: no activation shares a shape with a parameter
-            dc = dataclasses.replace(data_config(cfg), seq_len=24)
-            step, p_sh, b_sh = make_sharded_train_step(
-                cfg, opt_config(), TrainConfig(), mesh, make_batch(dc, 0))
-            full = init_params(cfg, "cpu", seed=0)
-            params = specs.distribute_tree(full, p_sh)
-            opt, err = init_sharded_state(
-                p_sh, abstract_params_and_axes(cfg)[0], False)
-            batch = _batch(cfg, dc, 0, b_sh, mesh)
-            sh = ShapeConfig("serve", SERVE_LEN, SERVE_B, "prefill")
-            pre, _ = jit_prefill(cfg, sh, mesh)
-            dec, (_, state_abs, _) = jit_decode(cfg, dataclasses.replace(
-                sh, kind="decode"), mesh)
-            prompt = torch.zeros((SERVE_B, SERVE_PROMPT), dtype=torch.int32)
-            tokens = torch.zeros((SERVE_B,), dtype=torch.int32)
-            bs = batch_shardings({"tokens": prompt}, mesh)["tokens"]
-            ts = batch_shardings({"tokens": tokens}, mesh)["tokens"]
-            recs = {}
-            for phase in ("train", "prefill", "decode"):
-                rec = CollectiveLog()
-                with rec:
-                    if phase == "train":
-                        step(params, opt, err, batch)
-                    elif phase == "prefill":
-                        _, state = pre(params, {"tokens": specs.distribute(
-                            prompt, bs)})
-                    else:
-                        dec(params, state, specs.distribute(tokens, ts))
-                recs[phase] = rec.calls
-            model = mesh.get_group("model").group_name
-            pieces = set()
-            for t in flat(params).values():
-                pieces.add(tuple(t.to_local().shape))
-                pieces.add(tuple(t.to_local().shape[1:]))
-                pieces.add(tuple(t.shape))
-                pieces.add(tuple(t.shape[1:]))
-            for t in flat(state.caches).values():
-                pieces.add(tuple(t.to_local().shape))
-                pieces.add(tuple(t.to_local().shape[1:]))
-            res[str(shape)] = {
-                ph: [c for c in calls_ if c[1] == model]
-                for ph, calls_ in recs.items()}
-            res[str(shape)]["n_all"] = {ph: len(c) for ph, c in recs.items()}
-            res[str(shape)]["forbidden"] = sorted(map(list, pieces))
-            res[str(shape)]["bounds"] = {
-                "train": dc.global_batch // shape[0] * dc.seq_len
-                * cfg.d_model,
-                "prefill": SERVE_B // shape[0] * SERVE_LEN * cfg.d_model,
-                "decode": SERVE_B // shape[0] * max(
-                    cfg.d_model, (cfg.n_heads + 2 * cfg.n_kv_heads)
-                    * cfg.hd, cfg.n_heads * (cfg.hd + 1))}
-    finally:
-        specs.gather_tree = real
-    res["gather_tree_calls"] = calls[0]
+    for shape, wide in (((2, 2), False), ((1, 4), True)):
+        mesh = meshes[shape]
+        cfg = widen(smoke("llama3-8b"), wide)
+        # 24 tokens: no activation shares a shape with a parameter
+        dc = dataclasses.replace(data_config(cfg), seq_len=24)
+        step, p_sh, b_sh = make_sharded_train_step(
+            cfg, opt_config(), TrainConfig(), mesh, make_batch(dc, 0))
+        full = init_params(cfg, "cpu", seed=0)
+        params = specs.distribute_tree(full, p_sh)
+        opt, err = init_sharded_state(
+            p_sh, abstract_params_and_axes(cfg)[0], False)
+        batch = _batch(cfg, dc, 0, b_sh, mesh)
+        sh = ShapeConfig("serve", SERVE_LEN, SERVE_B, "prefill")
+        pre, _ = jit_prefill(cfg, sh, mesh)
+        dec, (_, state_abs, _) = jit_decode(cfg, dataclasses.replace(
+            sh, kind="decode"), mesh)
+        prompt = torch.zeros((SERVE_B, SERVE_PROMPT), dtype=torch.int32)
+        tokens = torch.zeros((SERVE_B,), dtype=torch.int32)
+        bs = batch_shardings({"tokens": prompt}, mesh)["tokens"]
+        ts = batch_shardings({"tokens": tokens}, mesh)["tokens"]
+        recs = {}
+        for phase in ("train", "prefill", "decode"):
+            rec = CollectiveLog()
+            with rec:
+                if phase == "train":
+                    step(params, opt, err, batch)
+                elif phase == "prefill":
+                    _, state = pre(params, {"tokens": specs.distribute(
+                        prompt, bs)})
+                else:
+                    dec(params, state, specs.distribute(tokens, ts))
+            recs[phase] = rec.calls
+        model = mesh.get_group("model").group_name
+        pieces = set()
+        for t in flat(params).values():
+            pieces.add(tuple(t.to_local().shape))
+            pieces.add(tuple(t.to_local().shape[1:]))
+            pieces.add(tuple(t.shape))
+            pieces.add(tuple(t.shape[1:]))
+        for t in flat(state.caches).values():
+            pieces.add(tuple(t.to_local().shape))
+            pieces.add(tuple(t.to_local().shape[1:]))
+        res[str(shape)] = {
+            ph: [c for c in calls_ if c[1] == model]
+            for ph, calls_ in recs.items()}
+        res[str(shape)]["n_all"] = {ph: len(c) for ph, c in recs.items()}
+        res[str(shape)]["forbidden"] = sorted(map(list, pieces))
+        res[str(shape)]["bounds"] = {
+            "train": dc.global_batch // shape[0] * dc.seq_len
+            * cfg.d_model,
+            "prefill": SERVE_B // shape[0] * SERVE_LEN * cfg.d_model,
+            "decode": SERVE_B // shape[0] * max(
+                cfg.d_model, (cfg.n_heads + 2 * cfg.n_kv_heads)
+                * cfg.hd, cfg.n_heads * (cfg.hd + 1))}
     if rank == 0:
         with open(os.path.join(out, "comm.json"), "w") as f:
             json.dump(res, f)
