@@ -5200,6 +5200,108 @@ def _peak_since(torch, base: int) -> float:
     return round(peak, 2)
 
 
+# each rank share's peak device memory by stage (GiB above what its phase
+# found held) before the residual stream split by sequence, from the
+# parent version's run on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md,
+# section 5); printed beside this run's
+EARLIER_STAGES = {
+    "qwen2-72b": {"init": 40.24, "prefill": 38.65, "decode": 37.52},
+    "mixtral-8x22b": {"init": 69.8, "prefill": 69.47, "decode": 66.55},
+    "llama-3.2-vision-90b": {"init": 46.21, "prefill": 44.12,
+                             "decode": 43.64},
+    "hymba-1.5b": {"init": 1.27, "prefill": 1.5, "decode": 1.35},
+    "xlstm-125m": {"init": 0.27, "prefill": 0.14, "decode": 0.13}}
+# the collectives a rank share's decode step runs on "model" (gated: the
+# sequence split leaves decode as it was)
+DECODE_CALLS = {"qwen2-72b": 401, "mixtral-8x22b": 337,
+                "llama-3.2-vision-90b": 441, "hymba-1.5b": 224,
+                "xlstm-125m": 25}
+
+
+class _ResidualTap:
+    """Records, while on, the shape of the residual stream entering every
+    split block (``transformer._block_fwd_tp``, called with (cfg, tp,
+    aux, sp, layer pieces, x, ...)): a Python call a layer, no device
+    work."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+
+        self.mod, self.real = transformer, transformer._block_fwd_tp
+        self.shapes = []
+
+        def tap(*a, **kw):
+            self.shapes.append(tuple(a[5].shape))
+            return self.real(*a, **kw)
+        transformer._block_fwd_tp = tap
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._block_fwd_tp = self.real
+
+
+def _prefill_calls(torch, pre, params, batch, model: str) -> dict:
+    """A second, untimed run of the prefill step ``pre`` under
+    ``CollectiveLog`` (its outputs dropped): its collectives on the group
+    named ``model`` by kind, each kind's count and largest tensor in
+    bytes, and the count on other groups."""
+    from repro_torch.sharding.tensor_parallel import CollectiveLog
+
+    rec = CollectiveLog()
+    with rec:
+        out = pre(params, batch)
+    torch.cuda.synchronize()
+    del out
+    kinds: dict = {}
+    for c in rec.calls:
+        if c.group == model:
+            op = c.op.split(".")[1]
+            n, big = kinds.get(op, (0, 0))
+            kinds[op] = (n + 1, max(big, max(c.nbytes)))
+    return {"model": {k: {"calls": n, "largest_bytes": big}
+                      for k, (n, big) in sorted(kinds.items())},
+            "other": len(rec.calls) - sum(n for n, _ in kinds.values())}
+
+
+def _seq_split_gates(label: str, arch: str, shapes: list, want: tuple,
+                     m: int, layers: int, calls: dict, stage: dict,
+                     decode_calls: int, card: str) -> None:
+    """The sequence split's gates on a rank share's prefill: the residual
+    entering each of its ``layers`` split blocks is this rank's rows
+    ``want`` ([B/dp, S/m, d], m "model" ranks); its collectives on
+    "model" include
+    reduce-scatters, and no all-reduce there is as large as the whole
+    residual [B/dp, S, d] (the sums over "model" between the products
+    are reduce-scatters); nothing runs on another group; the decode step
+    runs ``DECODE_CALLS[arch]`` collectives on "model".  Prints the
+    prefill's collectives and the peak by stage beside
+    ``EARLIER_STAGES``."""
+    B, rows, d = want
+    whole = B * rows * m * d * 2                    # bf16 [B/dp, S, d]
+    kinds = calls["model"]
+    rs = sum(v["calls"] for k, v in kinds.items() if "reduce_scatter" in k)
+    ar = max((v["largest_bytes"] for k, v in kinds.items()
+              if "allreduce" in k), default=0)
+    _check(len(shapes) == layers and set(shapes) == {want},
+           f"{label}: the residual entering the {len(shapes)} blocks of the "
+           f"prefill was {sorted(set(shapes))}; want {layers} of {want}")
+    _check(rs > 0 and ar < whole and calls["other"] == 0,
+           f"{label}: the prefill's collectives {json.dumps(calls)}: want "
+           f"reduce-scatters, no all-reduce of the whole residual "
+           f"({whole} bytes) and none on another group")
+    _check(decode_calls == DECODE_CALLS[arch],
+           f"{label}: a decode step ran {decode_calls} collectives on "
+           f"\"model\"; want {DECODE_CALLS[arch]}")
+    print(f"{label}: sequence split: the residual entering each of the "
+          f"{layers} blocks of the prefill is the rank's rows {list(want)} "
+          f"([B/dp, S/m, d]); the prefill's collectives on \"model\" "
+          f"{json.dumps(calls['model'])} ({calls['other']} on other "
+          f"groups); peak device memory by stage {json.dumps(stage)} "
+          f"against {json.dumps(EARLIER_STAGES[arch])} before the split "
+          f"(GiB); the decode step's {decode_calls} collectives held; card "
+          f"{card}")
+
+
 def tp_share_phase(torch, dev, rows):
     """Phase 17: rank 0's share of qwen2-72b on a (1, 4) ("data",
     "model") mesh, a fake 4-rank group (module docstring): parameters by
@@ -5256,8 +5358,9 @@ def tp_share_phase(torch, dev, rows):
         _counts(zero=True)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        logits, state = pre(params, {"tokens": specs.distribute(prompt,
-                                                                b_sh)})
+        with _ResidualTap() as resid:
+            logits, state = pre(params, {"tokens": specs.distribute(
+                prompt, b_sh)})
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t1) * 1e3
         stage["prefill"] = _peak_since(torch, base)
@@ -5293,11 +5396,18 @@ def tp_share_phase(torch, dev, rows):
             kinds[op] = kinds.get(op, 0) + 1
         wire = sum(_wire_bytes(c.op, c.nbytes, TP_MODEL) for c in on_model)
         largest = max(max(c.nbytes) for c in on_model)
-        del params, state, logits
+        del state, logits
+        calls = _prefill_calls(torch, pre, params, {
+            "tokens": specs.distribute(prompt, b_sh)}, model)
+        del params
     finally:
         dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
+    _seq_split_gates("tp share", TP_ARCH, resid.shapes,
+                     (TP_LANES, TP_PROMPT // TP_MODEL, cfg.d_model),
+                     TP_MODEL, cfg.n_layers, calls, stage, len(on_model),
+                     card)
     st = sorted(ms[1:])
     p50, p90 = st[len(st) // 2], st[int(len(st) * 0.9)]
     bound_ms = p_bytes / HBM_BYTES_PER_S * 1e3
@@ -5433,8 +5543,9 @@ def moe_share_phase(torch, dev, rows):
             caps.clear()
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            logits, state = pre(params, {"tokens": specs.distribute(
-                prompt, b_sh)})
+            with _ResidualTap() as resid:
+                logits, state = pre(params, {"tokens": specs.distribute(
+                    prompt, b_sh)})
             torch.cuda.synchronize()
             prefill_ms = (time.perf_counter() - t1) * 1e3
             stage["prefill"] = _peak_since(torch, base)
@@ -5475,12 +5586,20 @@ def moe_share_phase(torch, dev, rows):
             wire = sum(_wire_bytes(c.op, c.nbytes, MOE_MODEL)
                        for c in on_model)
             largest = max(max(c.nbytes) for c in on_model)
-            del params, state, logits
+            del state, logits
+            n_caps = len(caps)
+            calls = _prefill_calls(torch, pre, params, {
+                "tokens": specs.distribute(prompt, b_sh)}, model)
+            del caps[n_caps:], params
     finally:
         moe.dispatch = real
         dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
+    _seq_split_gates("moe share", MOE_ARCH, resid.shapes,
+                     (MOE_LANES, MOE_PROMPT // MOE_MODEL, cfg.d_model),
+                     MOE_MODEL, cfg.n_layers, calls, stage, len(on_model),
+                     card)
     peak = max(stage.values())
     st = sorted(ms[1:])
     p50, p90 = st[len(st) // 2], st[int(len(st) * 0.9)]
@@ -5625,7 +5744,7 @@ def vlm_share_phase(torch, dev, rows):
         _counts(zero=True)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        with _CrossTap() as cross:
+        with _CrossTap() as cross, _ResidualTap() as resid:
             logits, state = pre(params, {k: specs.distribute(v, b_sh[k])
                                          for k, v in prompt.items()})
         torch.cuda.synchronize()
@@ -5666,11 +5785,18 @@ def vlm_share_phase(torch, dev, rows):
             kinds[op] = kinds.get(op, 0) + 1
         wire = sum(_wire_bytes(c.op, c.nbytes, VLM_MODEL) for c in on_model)
         largest = max(max(c.nbytes) for c in on_model)
-        del params, state, logits, prompt
+        del state, logits
+        calls = _prefill_calls(torch, pre, params, {
+            k: specs.distribute(v, b_sh[k]) for k, v in prompt.items()},
+            model)
+        del params, prompt
     finally:
         dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
+    _seq_split_gates("vlm share", VLM_ARCH, resid.shapes,
+                     (B, S // VLM_MODEL, cfg.d_model), VLM_MODEL,
+                     ns * inner, calls, stage, len(on_model), card)
     peak = max(stage.values())
     st = sorted(ms[1:])
     p50, p90 = st[len(st) // 2], st[int(len(st) * 0.9)]
@@ -5891,7 +6017,7 @@ def _rec_share(torch, dev, arch):
         _counts(zero=True)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        with _ScanTap() as scan:
+        with _ScanTap() as scan, _ResidualTap() as resid:
             logits, state = pre(params, {"tokens": specs.distribute(prompt,
                                                                     b_sh)})
         torch.cuda.synchronize()
@@ -5936,11 +6062,21 @@ def _rec_share(torch, dev, arch):
         wire = sum(_wire_bytes(c.op, c.nbytes, REC_MODEL) for c in on_model)
         largest = max(max(c.nbytes) for c in on_model)
         want_calls = _rec_decode_calls(cfg, tp, seq_split)
-        del params, state, logits
+        del state, logits
+        calls = _prefill_calls(torch, pre, params, {
+            "tokens": specs.distribute(prompt, b_sh)}, model)
+        del params
     finally:
         dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
+    _seq_split_gates(f"rec share {arch}", arch, resid.shapes,
+                     (B, S // REC_MODEL, cfg.d_model), REC_MODEL, L, calls,
+                     stage, len(on_model), card)
+    if arch == "hymba-1.5b":
+        _check(f"{wire / 1e6:.3f}" == "7.417",
+               f"rec share {arch}: a decode step would send "
+               f"{wire / 1e6:.3f} MB a rank; want 7.417")
     peak = max(stage.values())
     st = sorted(ms[1:])
     p50, p90 = st[len(st) // 2], st[int(len(st) * 0.9)]

@@ -205,7 +205,8 @@ def _router_logits(p, h, tp):
     return h.float() @ tp.gather_model(p["router"], -1)
 
 
-def moe_ffn_split(p, x, cfg: ArchConfig, tp, *, aux: bool = True):
+def moe_ffn_split(p, x, cfg: ArchConfig, tp, *, aux: bool = True,
+                  sp: bool = False):
     """``moe_ffn`` on this rank's rows x [Bl, S, d] and this rank's piece
     of the layer ``p``, with ``tp`` a ``TensorParallel`` of mode
     ``tp.moe_mode``: "expert" (this rank's E/m experts), "mlp" (every
@@ -213,6 +214,21 @@ def moe_ffn_split(p, x, cfg: ArchConfig, tp, *, aux: bool = True):
     [Bl, S, d], summed over "model", and with ``aux`` the load-balancing
     loss, or None); split by expert, aux holds this rank's experts'
     terms only (``tp.moe_aux`` sums them over "model").
+
+    With ``sp`` (the stream split by sequence) ``x`` is this rank's rows
+    [Bl, S/m, d]: they are all-gathered first, so the dispatch ranks the
+    choices of every token of the sequence as without it, and ``y``
+    comes back as this rank's rows of the sum, reduce-scattered.  By
+    d_ff column ("mlp") the sum over "model" then runs on the combined
+    [Bl, S, d] output, where without ``sp`` it runs on the [E, C, d]
+    products: the combine is linear in the products, the reduce-scatter
+    moves [Bl, S, d] in place of all-reducing [E, C, d], and each rank's
+    gradient stays its own columns' share, router included (the router
+    computes on ``Partial``), where cutting a whole combined output
+    would hand every rank the whole router gradient, to be summed m
+    times over the gathered rows.  For the same reason aux holds this
+    rank's share of the experts in every mode (E/m of them, the last
+    ranks one fewer where E does not divide), summed over "model".
 
     The values are the reference's on the whole batch: ``tp.rows`` = (n,
     i) says that the call's n Bl rows lie over n data ranks in rank
@@ -229,7 +245,8 @@ def moe_ffn_split(p, x, cfg: ArchConfig, tp, *, aux: bool = True):
     holds the whole aux).  Where every group lies on one rank (one data
     rank, or G a multiple of n dividing the rows) nothing crosses data
     ranks and aux is the rank's groups' mean."""
-    Bl, S, d = x.shape
+    h = tp.enter(x, "moe", sp)                 # into the experts
+    Bl, S, d = h.shape
     E, K = cfg.n_experts, cfg.top_k
     E_l, e0 = tp.moe_experts
     n, idx = tp.rows
@@ -239,8 +256,7 @@ def moe_ffn_split(p, x, cfg: ArchConfig, tp, *, aux: bool = True):
     local = n == 1 or Bl % B_group == 0
     cap = capacity(cfg, B_group * S)
     experts = torch.arange(E, device=x.device)
-    h = tp.enter(x, "moe")                     # into the experts
-    hr = h if tp.moe_mode == "expert" else x   # into the router
+    hr = h if tp.moe_mode == "expert" or sp else x   # into the router
     routed = []
     for g, a, b in _segments(Bl, n, idx, B_group):
         probs, gate, eidx = _gates(_router_logits(
@@ -255,7 +271,8 @@ def moe_ffn_split(p, x, cfg: ArchConfig, tp, *, aux: bool = True):
         every = tp.data_gather(counts)             # [n, groups, E]
         offsets = {g: every[:idx, g].sum(0) for g, *_ in routed}
     # by d_ff column every expert's product is a partial sum over "model"
-    reduce = (lambda t: tp.exit(t, "moe")) if tp.moe_mode == "mlp" else None
+    reduce = (lambda t: tp.exit(t, "moe")) if tp.moe_mode == "mlp" \
+        and not sp else None
     ys = []
     for g, a, b, probs, gate, eidx in routed:
         slot, keep = dispatch(eidx, E, cap, offsets.get(g))
@@ -266,12 +283,17 @@ def moe_ffn_split(p, x, cfg: ArchConfig, tp, *, aux: bool = True):
         ys.append(_experts(p, h[a:b].reshape(-1, d), gate, slot, keep, cap,
                            E_l, reduce))
     y = torch.cat(ys) if len(ys) > 1 else ys[0]
-    if tp.moe_mode == "expert":
-        y = tp.exit(y, "moe")
-    y = y.view(Bl, S, d)
+    if sp:
+        y = tp.exit(y.view(Bl, S, d), "moe", sp)
+    else:
+        if tp.moe_mode == "expert":
+            y = tp.exit(y, "moe")
+        y = y.view(Bl, S, d)
     if not aux:
         return y, None
     own = slice(e0, e0 + E_l)
+    if sp and tp.moe_mode != "expert":
+        own = slice(tp.rank * E // tp.size, (tp.rank + 1) * E // tp.size)
     if local:
         auxs = []
         for *_, probs, _, eidx in routed:

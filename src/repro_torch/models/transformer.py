@@ -857,33 +857,37 @@ def _vlm_decode(cfg: ArchConfig, params, x, caches, pos, backend, rope):
 # tensor-parallel compute (sharding/tensor_parallel.py): every family
 # ---------------------------------------------------------------------------
 
-def _ffn_tp(cfg: ArchConfig, tp, p, x, aux: bool):
+def _ffn_tp(cfg: ArchConfig, tp, p, x, aux: bool, sp: bool = False):
     """The block's second half on this rank's pieces -> (x, aux): the
     MLP on this rank's columns, or the MoE layer on this rank's experts
     (``moe.moe_ffn_split``; aux its load-balancing terms when ``aux``),
     summed over "model"; the audio MLP's output bias added once, after
-    the sum."""
+    the sum.  With ``sp`` ``x`` is this rank's rows of the sequence: the
+    norm runs on them, they are gathered before the products and the
+    sum is reduce-scattered back onto them."""
     h2 = rms_norm(x, p["norm2"], cfg.rms_eps)
     if cfg.family == "moe":
-        y, a = moe_mod.moe_ffn_split(p["moe"], h2, cfg, tp, aux=aux)
+        y, a = moe_mod.moe_ffn_split(p["moe"], h2, cfg, tp, aux=aux, sp=sp)
         return x + y, a
     m = p["mlp"]
     if cfg.family == "audio":
-        y = gelu_mlp(tp.enter(h2, "mlp"), m["w_in"], m["b_in"], m["w_out"])
-        return x + (tp.exit(y, "mlp") + m["b_out"]), None
-    return x + tp.exit(swiglu(tp.enter(h2, "mlp"), m["w_gate"], m["w_up"],
-                              m["w_down"]), "mlp"), None
+        y = gelu_mlp(tp.enter(h2, "mlp", sp), m["w_in"], m["b_in"],
+                     m["w_out"])
+        return x + (tp.exit(y, "mlp", sp) + m["b_out"]), None
+    return x + tp.exit(swiglu(tp.enter(h2, "mlp", sp), m["w_gate"],
+                              m["w_up"], m["w_down"]), "mlp", sp), None
 
 
-def _ssm_branch_tp(cfg: ArchConfig, tp, p, h, state=None):
-    """The hybrid's Mamba branch on this rank's channels: x and z of
-    them (``tp.ssm_in``), the scan (or, with
-    the layer's recurrent ``state`` whole over "model", one decode step,
-    whose new state is gathered back into it), ``out_proj`` summed over
-    "model" -> [B, S, d]."""
-    xz = tp.ssm_in(tp.enter(h, "ssm"), p["ssm"]["in_proj"])
+def _ssm_branch_tp(cfg: ArchConfig, tp, p, h, state=None, sp: bool = False):
+    """The hybrid's Mamba branch on this rank's channels, from ``h``
+    past ``tp.enter`` (the whole sequence): x and z of them
+    (``tp.ssm_in``), the scan (or, with the layer's recurrent ``state``
+    whole over "model", one decode step, whose new state is gathered back
+    into it), ``out_proj`` summed over "model" -> [B, S, d] (with ``sp``
+    reduce-scattered: this rank's rows)."""
+    xz = tp.ssm_in(h, p["ssm"]["in_proj"])
     if state is None:
-        return tp.exit(ssm_mod.ssm_scan(p["ssm"], xz, cfg, tp), "ssm")
+        return tp.exit(ssm_mod.ssm_scan(p["ssm"], xz, cfg, tp), "ssm", sp)
     dims = ssm_mod.STATE_DIMS
     out, st = ssm_mod.ssm_step(p["ssm"], xz, tp.own_state(state, dims,
                                                           "ssm"), cfg, tp)
@@ -891,15 +895,16 @@ def _ssm_branch_tp(cfg: ArchConfig, tp, p, h, state=None):
     return tp.exit(out, "ssm")
 
 
-def _xlstm_branch_tp(tp, p, h, flag, cache=None):
+def _xlstm_branch_tp(tp, p, h, flag, cache=None, sp: bool = False):
     """The xLSTM layer on this rank's heads: sLSTM where ``flag``, else
     mLSTM, its output summed over "model"; with the layer's state
     ``cache`` (whole over "model") one decode step, whose new state is
-    gathered back into it."""
-    h = tp.enter(h, "xlstm")
+    gathered back into it.  With ``sp`` ``h`` is this rank's rows,
+    gathered for the scan, and the sum is reduce-scattered."""
+    h = tp.enter(h, "xlstm", sp)
     if cache is None:
         branch = xlstm_mod.slstm_scan if flag else xlstm_mod.mlstm_parallel
-        return tp.exit(branch(p, h), "xlstm")
+        return tp.exit(branch(p, h), "xlstm", sp)
     dims = xlstm_mod.STATE_DIMS
     if flag:
         out, st = xlstm_mod.slstm_step(p, h, tp.own_state(cache["s"], dims,
@@ -914,8 +919,9 @@ def _xlstm_branch_tp(tp, p, h, flag, cache=None):
     return tp.exit(out, "xlstm")
 
 
-def _block_fwd_tp(cfg: ArchConfig, tp, aux: bool, p_local, x, positions,
-                  rope, flag: bool = False, stack: str | None = None):
+def _block_fwd_tp(cfg: ArchConfig, tp, aux: bool, sp: bool, p_local, x,
+                  positions, rope, flag: bool = False,
+                  stack: str | None = None):
     """One block over the whole sequence on this rank's pieces of the
     layer (``tp.layer`` gathers them over the data axes, inside any
     remat, so a recomputing backward gathers again; ``stack`` the vlm's
@@ -923,58 +929,65 @@ def _block_fwd_tp(cfg: ArchConfig, tp, aux: bool, p_local, x, positions,
     the MoE layer on its experts, each summed over "model"; the hybrid's
     attention and Mamba branch side by side (each normed after its sum,
     ``flag`` its global layers), the xLSTM's heads (``flag`` its sLSTM
-    layers).  Returns (x, aux or None, (k, v) of this rank's KV heads or
-    None)."""
-    p = tp.layer(p_local, stack)
+    layers).  With ``sp`` (``TensorParallel.splits_sequence``) ``x`` is
+    this rank's rows [B, S/m, d]: the norms and residual adds run on
+    them, one all-gather feeds each half's products (both hybrid
+    branches share one) and the sums are reduce-scattered back.  Returns
+    (x, aux or None, (k, v) of this rank's KV heads over the whole
+    sequence, or None)."""
+    p = tp.layer(p_local, stack, sp)
     h = rms_norm(x, p["norm1"], cfg.rms_eps)
     if cfg.family == "ssm":
-        return x + _xlstm_branch_tp(tp, p, h, flag), None, None
+        return x + _xlstm_branch_tp(tp, p, h, flag, sp=sp), None, None
     if cfg.family == "hybrid":
-        q, k, v = attn._qkv(p["attn"], tp.enter(h, "attn"), cfg, positions,
-                            rope)
+        ha = tp.enter(h, "attn", sp)
+        q, k, v = attn._qkv(p["attn"], ha, cfg, positions, rope)
         out = attn.sdpa_auto(q, k, v, causal=True,
                              window=_window(cfg, flag))
-        a = tp.exit(attn._out(out, p["attn"]["wo"]), "attn")
-        s = _ssm_branch_tp(cfg, tp, p, h)
+        a = tp.exit(attn._out(out, p["attn"]["wo"]), "attn", sp)
+        s = _ssm_branch_tp(cfg, tp, p, ha if sp else tp.enter(h, "ssm"),
+                           sp=sp)
         x = x + rms_norm(a, p["norm_attn_out"], cfg.rms_eps) \
             + rms_norm(s, p["norm_ssm_out"], cfg.rms_eps)
-        x, aux_l = _ffn_tp(cfg, tp, p, x, aux)
+        x, aux_l = _ffn_tp(cfg, tp, p, x, aux, sp)
         return x, aux_l, (k, v)
-    a, kv = attn.self_attention(p["attn"], tp.enter(h, "attn"), cfg,
+    a, kv = attn.self_attention(p["attn"], tp.enter(h, "attn", sp), cfg,
                                 positions=positions, causal=cfg.causal,
                                 window=cfg.sliding_window, rope=rope)
-    x, aux_l = _ffn_tp(cfg, tp, p, x + tp.exit(a, "attn"), aux)
+    x, aux_l = _ffn_tp(cfg, tp, p, x + tp.exit(a, "attn", sp), aux, sp)
     return x, aux_l, kv
 
 
-def _cross_block_tp(cfg: ArchConfig, tp, p, x, ikv):
+def _cross_block_tp(cfg: ArchConfig, tp, p, x, ikv, sp: bool = False):
     """One gated cross-attention layer on this rank's pieces ``p``
     (gathered): q of this rank's heads against ``ikv``, the image K/V of
-    its KV heads, ``wo`` summed over "model", then the MLP."""
+    its KV heads, ``wo`` summed over "model", then the MLP; with ``sp``
+    on this rank's rows, as ``_block_fwd_tp``."""
     h = rms_norm(x, p["norm1"], cfg.rms_eps)
-    a = attn.cross_attention(p["attn"], tp.enter(h, "attn"), ikv, cfg)
-    return _ffn_tp(cfg, tp, p, x + tp.exit(a, "attn"), False)[0]
+    a = attn.cross_attention(p["attn"], tp.enter(h, "attn", sp), ikv, cfg)
+    return _ffn_tp(cfg, tp, p, x + tp.exit(a, "attn", sp), False, sp)[0]
 
 
 def _vlm_forward_tp(cfg: ArchConfig, tp, params, x, positions, rope,
-                    image_embeds, remat: str, on_layer, on_image):
+                    image_embeds, remat: str, on_layer, on_image, sp: bool):
     """The split super-block loop (``_vlm_forward`` on this rank's
     pieces): the self layers as the dense family's; each cross layer
     computes the image K/V of this rank's KV heads (``attn.image_kv``)
     and attends them with its query heads.  ``on_layer((s, j), (k, v))``
     sees each self layer's K/V and ``on_image(s, (ik, iv))`` each cross
-    layer's image K/V; ``remat`` wraps each super-block."""
+    layer's image K/V; ``remat`` wraps each super-block; ``sp`` as
+    ``_block_fwd_tp``'s (the image K/V never split by sequence)."""
     _check_image_dtype(image_embeds, x)
 
     def super_block(p_self, p_cross, x):
         kvs = []
         for pj in _unstack(p_self):
-            x, _, kv = _block_fwd_tp(cfg, tp, False, pj, x, positions, rope,
-                                     stack="self")
+            x, _, kv = _block_fwd_tp(cfg, tp, False, sp, pj, x, positions,
+                                     rope, stack="self")
             kvs.append(kv)
-        p = tp.layer(p_cross, "cross")
+        p = tp.layer(p_cross, "cross", sp)
         ikv = attn.image_kv(p["attn"], image_embeds, cfg)
-        return _cross_block_tp(cfg, tp, p, x, ikv), kvs, ikv
+        return _cross_block_tp(cfg, tp, p, x, ikv, sp), kvs, ikv
 
     run = _remat(super_block, remat)
     for s, (p_self, p_cross) in enumerate(zip(
@@ -1004,12 +1017,20 @@ def _forward_tp(cfg: ArchConfig, params, batch, tp, *, remat: str = "none",
     ``on_layer(i, (k, v))`` sees each layer's K/V (the vlm's: ``(s, j)``
     for i, and ``on_image`` its cross layers', ``_vlm_forward_tp``).
     The audio encoder takes ``batch["embeds"]``, with no RoPE and no
-    mask; each layer takes its ``layer_flags``."""
+    mask; each layer takes its ``layer_flags``.  Where the stream splits
+    by sequence (``tp.splits_sequence``) each rank embeds its own S/m
+    rows and keeps them between the split products; the final norm runs
+    on them and the unembedding gathers them (``tp.unembed``: with
+    ``logits="last"`` only the last position, which the last "model"
+    rank holds)."""
+    inp = batch["embeds"] if cfg.embed_inputs else batch["tokens"]
+    B, S = inp.shape[:2]
+    sp = tp.splits_sequence(B, S)
     if cfg.embed_inputs:
-        x = _embed_inputs(cfg, params, batch)
+        x = _embed_inputs(cfg, params, {
+            "embeds": tp.own_rows(inp) if sp else inp})
     else:
-        x = tp.embed(batch["tokens"], tp.leaf("embed", params["embed"]))
-    B, S = x.shape[:2]
+        x = tp.embed(inp, tp.leaf("embed", params["embed"], sp), sp)
     positions = rope = None           # the encoder: no RoPE
     if cfg.causal:
         positions = torch.arange(S, dtype=torch.int32,
@@ -1018,9 +1039,11 @@ def _forward_tp(cfg: ArchConfig, params, batch, tp, *, remat: str = "none",
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "vlm":
         x = _vlm_forward_tp(cfg, tp, params, x, positions, rope,
-                            batch["image_embeds"], remat, on_layer, on_image)
+                            batch["image_embeds"], remat, on_layer, on_image,
+                            sp)
     else:
-        block = _remat(functools.partial(_block_fwd_tp, cfg, tp, aux), remat)
+        block = _remat(functools.partial(_block_fwd_tp, cfg, tp, aux, sp),
+                       remat)
         for i, (p, flag) in enumerate(zip(_unstack(params["blocks"]),
                                           layer_flags(cfg))):
             x, aux_l, kv = block(p, x, positions, rope, bool(flag))
@@ -1028,16 +1051,16 @@ def _forward_tp(cfg: ArchConfig, params, batch, tp, *, remat: str = "none",
                 total = total + aux_l
             if on_layer is not None:
                 on_layer(i, kv)
-    total = tp.moe_aux(total) if aux else None
+    total = tp.moe_aux(total, sp) if aux else None
     if not logits:
         return None, total
     if logits == "last":
         x = x[:, -1:]
-    x = rms_norm(x, tp.leaf("final_norm", params["final_norm"]),
+    x = rms_norm(x, tp.leaf("final_norm", params["final_norm"], sp),
                  cfg.rms_eps)
     table = _table_path(cfg)
-    return unembed(tp.enter(x, "vocab"), tp.leaf(table, params[table])), \
-        total
+    return tp.unembed(x, tp.leaf(table, params[table], sp), sp,
+                      last=logits == "last"), total
 
 
 def _prefill_tp(cfg: ArchConfig, params, batch, tp, max_len: int,
@@ -1051,7 +1074,9 @@ def _prefill_tp(cfg: ArchConfig, params, batch, tp, max_len: int,
     logits are [B, 1, V/tp].  A ring cache (``_ring_cache_len``) is laid
     out at its W slots (the prompt at slots 0..S-1, which is position
     mod W), and a prompt longer than the cache raises ``ValueError`` as
-    ``prefill`` does.  The encoder returns the reference's unused zero
+    ``prefill`` does.  Under the sequence split (``_forward_tp``) each
+    layer's K/V come from its gathered input, so they cover the whole
+    prompt as without it.  The encoder returns the reference's unused zero
     state with ``pos`` = S; the recurrent families (``COLD_PREFILL``)
     the split forward's last logits and a cold state (``prefill``):
     caches of this rank's positions, the recurrent state whole over
@@ -1158,7 +1183,7 @@ def _decode_step_tp(cfg: ArchConfig, params, state: DecodeState, tokens, tp,
             return x + _xlstm_branch_tp(tp, p, h, flag, cache)
         a = attention(p, h, cache, _window(cfg, flag))
         if cfg.family == "hybrid":
-            s = _ssm_branch_tp(cfg, tp, p, h, cache["ssm"])
+            s = _ssm_branch_tp(cfg, tp, p, tp.enter(h, "ssm"), cache["ssm"])
             x = x + rms_norm(a, p["norm_attn_out"], cfg.rms_eps) \
                 + rms_norm(s, p["norm_ssm_out"], cfg.rms_eps)
         else:

@@ -235,7 +235,11 @@ def jit_prefill(cfg, shape, mesh):
     split (``models.prefill(tp=...)``, the encoder's
     ``models.forward(tp=...)``): each rank's K/V heads go to the ranks
     that hold their positions, one layer at a time; the recurrent
-    families return the reference's cold state (``pos`` 0)."""
+    families return the reference's cold state (``pos`` 0).  Where the
+    prompt's length divides the "model" size a rank holds its own S/m
+    rows of the residual stream between the split products, [B/dp, S/m,
+    d] (``TensorParallel.splits_sequence``), and the gathered input of
+    each layer's products, [B/dp, S, d], only while they run."""
     from repro_torch.models import (abstract_decode_state,
                                     abstract_params_and_axes, input_specs)
     from repro_torch.sharding.specs import NamedSharding, spec_for

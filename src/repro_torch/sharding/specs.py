@@ -14,7 +14,9 @@ Parallelism mapping, as in the reference:
   embed    -> "data"            parameters, moments and error buffers
                                  sharded over data (ZeRO-3 storage)
   heads/mlp/vocab/kv/expert -> "model"
-  seq      -> "model"           the decode caches' sequence dimension
+  seq      -> "model"           the decode caches' sequence dimension,
+                                 and the residual stream's between the
+                                 split products (tensor_parallel.py)
 
 The reference hands the specs to XLA's SPMD partitioner, which also
 decides where each product runs.  In the port the specs lay out storage,
@@ -181,7 +183,13 @@ def placements_for(spec: tuple, mesh) -> tuple:
 
 def logical_constraint(x, logical_axes: tuple[str | None, ...]):
     """XLA's layout hint in the reference; the port's steps lay tensors
-    out themselves, so this returns ``x`` unchanged."""
+    out themselves, so this returns ``x`` unchanged.  The reference's one
+    constraint that moves compute, the residual stream's ("batch", "seq",
+    "embed_act") with "seq" on "model", is the split step's sequence
+    split: ``TensorParallel.splits_sequence`` decides it by ``spec_for``
+    as the reference does, and ``enter``/``exit`` gather and
+    reduce-scatter the rows around each split product
+    (``sharding/tensor_parallel.py``)."""
     del logical_axes
     return x
 

@@ -9,11 +9,30 @@ splits the products: heads, kv_heads, mlp and vocab over "model".  Here
 the same split is written out, Megatron style, over
 ``mesh.get_group("model")``:
 
-* ``copy_to_model`` before a column-split product (wq/wk/wv, w_gate/w_up,
-  the unembedding): identity forward, all-reduce backward;
-  ``reduce_from_model`` after a row-split product (wo, w_down, the
-  embedding's rows): all-reduce forward, identity backward.  Both are
-  ``torch.autograd.Function``s over plain ``torch.distributed`` calls.
+* The residual stream splits by sequence (Megatron's sequence
+  parallelism) wherever the reference's ``spec_for(("batch", "seq",
+  "embed_act"))`` puts "model" on its sequence (``splits_sequence``: S a
+  multiple of the "model" size): between the split products a rank holds
+  its own S/m rows, [B/dp, S/m, d], and runs the norms and residual adds
+  on them.  Before a column-split product (wq/wk/wv, w_gate/w_up, the
+  MoE layer, the Mamba and xLSTM inputs, the unembedding) the normed rows
+  are all-gathered along the sequence (``_GatherModel``: the backward
+  reduce-scatters); after a row-split product (wo, w_down, the
+  embedding's vocab rows) the sum over "model" is a reduce-scatter along
+  the sequence (``_ScatterModel``: the backward all-gathers).  A part
+  that runs whole takes the same gather and keeps its rows of the whole
+  output (a slice).  Every rank's gradient then covers its own rows'
+  terms of the loss only, so every leaf that is not split on "model"
+  (the norms, hubert's ``b_out``, a whole part's leaves) computes on
+  ``Partial`` there and the data mean sums it (``LeafPlan``).  The
+  unembedding keeps only the rows for its backward and gathers them
+  again (``_RowsUnembed``).  Decode (one token a lane) and a sequence
+  that does not divide never split:
+* there ``copy_to_model`` (``enter``) goes before a column-split
+  product: identity forward, all-reduce backward; ``reduce_from_model``
+  (``exit``) after a row-split product: all-reduce forward, identity
+  backward.  All are ``torch.autograd.Function``s over plain
+  ``torch.distributed`` calls.
 * ``TensorParallel.layer`` gathers one layer's parameter pieces over the
   mesh dims other than "model" (``_Gather``: an all-gather forward; its
   backward is ``train.loop._Layout.reduce``, the data mean
@@ -125,15 +144,19 @@ def layer_dims(path: str) -> int:
 
 def _reduce_scatter(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     """The sum over ``n`` ranks of ``t``, each rank keeping its own of
-    ``n`` equal pieces along ``dim``: NCCL's reduce-scatter, or an
-    all-reduce and a slice where the backend has none (gloo)."""
+    ``n`` equal pieces along ``dim``: the backend's reduce-scatter (NCCL,
+    the fake group), or an all-reduce and a slice on gloo, which has
+    none."""
     import torch.distributed as dist
 
     x = t.movedim(dim, 0).contiguous()
-    if dist.get_backend(group) == "nccl":
+    if dist.get_backend(group) != "gloo":
         out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
                           dtype=x.dtype, device=x.device)
-        dist.reduce_scatter_tensor(out, x, group=group)
+        # reduce_scatter_single is the newer name (as all_gather_single)
+        scatter = getattr(dist, "reduce_scatter_single", None) \
+            or dist.reduce_scatter_tensor
+        scatter(out, x, group=group)
     else:
         dist.all_reduce(x, group=group)
         out = x.chunk(n)[dist.get_rank(group)]
@@ -208,6 +231,71 @@ class _GatherModel(torch.autograd.Function):
             None
 
 
+class _ScatterModel(torch.autograd.Function):
+    """The sum over "model", each rank keeping its own piece along
+    ``dim`` (reduce-scatter); backward: the pieces' gradients
+    all-gathered, since every rank's term of the sum takes the whole
+    gradient of it (the mirror of ``_GatherModel``)."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group, n):
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        return _reduce_scatter(t, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.group, ctx.n), None, None, None
+
+
+class _RowsUnembed(torch.autograd.Function):
+    """This rank's rows of the normed stream [B, S/m, d] (of its last
+    position, [B, 1, d], with ``last``) -> the logits of every row (of
+    the stream's last position, which the last rank holds), fp32: the
+    rows all-gathered along the sequence, then ``layers.unembed``.  The
+    backward keeps only the rows and gathers them again for the table's
+    gradient, where autograd would keep the gathered [B, S, d].  With
+    the vocabulary split the rank's logits are its vocab columns, and
+    the rows' gradient is reduce-scattered back; with it whole every
+    rank computes every logit, and only this rank's rows' terms flow
+    back (the table then computes on ``Partial``)."""
+
+    @staticmethod
+    def _gathered(x, tp, last):
+        """Every rank's rows, or with ``last`` the stream's last one."""
+        xg = _all_gather(x, 1, tp.group, tp.size)
+        return xg[:, -1:] if last else xg
+
+    @staticmethod
+    def forward(ctx, x, table, tp, last):
+        from repro_torch.models.layers import unembed
+
+        ctx.tp, ctx.last = tp, last
+        ctx.save_for_backward(x, table)
+        return unembed(_RowsUnembed._gathered(x, tp, last), table)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, table = ctx.saved_tensors
+        tp, last = ctx.tp, ctx.last
+        t32 = table.float()
+        if tp.split["vocab"]:
+            xg = _RowsUnembed._gathered(x, tp, last)
+            gt = g.flatten(0, 1).T @ xg.float().flatten(0, 1)
+            gx = g @ t32
+            if last:            # the gathered rows but the last: no term
+                gx = torch.cat([gx.new_zeros(
+                    (gx.shape[0], tp.size - 1, gx.shape[2])), gx], dim=1)
+            gx = _reduce_scatter(gx, 1, tp.group, tp.size)
+        else:
+            if last:
+                own = g if tp.rank == tp.size - 1 else torch.zeros_like(g)
+            else:
+                own = tp.own_rows(g)
+            gt = own.flatten(0, 1).T @ x.float().flatten(0, 1)
+            gx = own @ t32
+        return gx.to(x.dtype), gt.to(table.dtype), None, None
+
+
 class _SumOver(torch.autograd.Function):
     """All-reduce (sum) over a group, forward and backward: every rank's
     loss holds the sum, so each rank's input takes the sum of every
@@ -256,7 +344,8 @@ class LeafPlan:
     step: ``gathers`` (mesh dim, tensor dim) all-gathered before use,
     minor mesh dim first; ``compute`` the placements of the tensor the
     layer computes with (``Partial`` on "model" for a leaf whose
-    gradient is a partial sum there, ``_MODEL_PARTIAL``); ``placements``
+    gradient is a partial sum there: ``_MODEL_PARTIAL``, and under the
+    sequence split every leaf not split on "model"); ``placements``
     the leaf's own; ``shape`` the layer's global shape."""
     mesh: object
     gathers: tuple
@@ -334,6 +423,11 @@ class TensorParallel:
     computes every row); an MoE dispatch ranks across them
     (``moe.moe_ffn_split``).
 
+    ``plans``/``block_plans`` are the leaves' ``LeafPlan``s for the
+    unsplit stream, ``sp_plans``/``sp_block_plans`` for the stream split
+    by sequence (``splits_sequence``), where every leaf not split on
+    "model" computes on ``Partial`` there.
+
     The MoE part (``moe_mode``) follows ``spec_for``, which puts "model"
     on the experts when E divides its size, else on d_ff when that
     divides: "expert" (this rank's experts, ``moe_experts`` = (E/m, the
@@ -366,31 +460,42 @@ class TensorParallel:
             if self.moe_mode == "expert":
                 lo, hi = shard_range(pl, mesh, cfg.n_experts)
                 self.moe_experts = (hi - lo, lo)
-        plans = {}
-        for path, s in sh.items():
+        self.moe = "blocks/moe/w_gate" in sh
+
+        def plan(path, sp: bool) -> LeafPlan:
             lead = layer_dims(path)
-            pl = _placements_without(s.placements, lead)
-            shape = tuple(abs_[path].shape)[lead:]
+            pl = _placements_without(sh[path].placements, lead)
             part = _part_of(path)
             keep = part is not None and self.split[part]
-            partial = path in _MODEL_PARTIAL and self.size > 1 \
-                and self.split["attn"]
+            # the leaf's gradient on a rank is its part of the sum over
+            # "model": it acts on this rank's heads, or (under the
+            # sequence split) on this rank's rows
+            partial = self.size > 1 and (sp or (
+                path in _MODEL_PARTIAL and self.split["attn"]))
             compute, gathers = [], []
             for i, p in enumerate(pl):
                 if p.is_shard() and mesh.size(i) > 1 \
                         and not (i == self.m and keep):
                     gathers.append((i, p.dim))
-                    compute.append(_replicate())
-                elif i == self.m and partial:
+                    compute.append(_partial() if i == self.m and partial
+                                   else _replicate())
+                elif i == self.m and partial and not p.is_shard():
                     compute.append(_partial())
                 else:
                     compute.append(p)
-            plans[path] = LeafPlan(mesh, tuple(reversed(gathers)),
-                                   tuple(compute), pl, shape)
-        self.plans = plans
-        self.block_plans = _nest_like(p_sh["blocks"], {
-            k[len("blocks/"):]: v for k, v in plans.items()
-            if k.startswith("blocks/")})
+            return LeafPlan(mesh, tuple(reversed(gathers)), tuple(compute),
+                            pl, tuple(abs_[path].shape)[lead:])
+
+        def blocks(plans):
+            return _nest_like(p_sh["blocks"], {
+                k[len("blocks/"):]: v for k, v in plans.items()
+                if k.startswith("blocks/")})
+        # the plans of the unsplit stream, and (sp) of the stream split by
+        # sequence
+        self.plans = {path: plan(path, False) for path in sh}
+        self.sp_plans = {path: plan(path, True) for path in sh}
+        self.block_plans = blocks(self.plans)
+        self.sp_block_plans = blocks(self.sp_plans)
         # this rank's vocab rows [start, start + rows) of the tables
         self.vocab_start, end = (0, cfg.vocab)
         if self.split["vocab"]:
@@ -416,17 +521,59 @@ class TensorParallel:
                 f"left a leaf of each unsplit), gathering their leaves",
                 stacklevel=3)
 
+    # -- the sequence split -------------------------------------------------
+
+    def splits_sequence(self, B: int, S: int) -> bool:
+        """Whether a [B, S, d] residual stream of this rank's B rows
+        splits by sequence over "model" (module docstring): where the
+        reference's ``spec_for(("batch", "seq", "embed_act"))`` of the
+        whole batch puts "model" on the sequence, on more than one
+        rank."""
+        from repro_torch.sharding.specs import spec_for
+
+        if self.group is None:
+            return False
+        seq = spec_for(("batch", "seq", "embed_act"), mesh=self.mesh,
+                       shape=(B * self.rows[0], S, self.cfg.d_model))[1]
+        return "model" in ((seq,) if isinstance(seq, str) else (seq or ()))
+
+    def own_rows(self, t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's rows of ``t`` along the sequence ``dim`` (a view):
+        piece ``rank`` of ``size`` equal pieces."""
+        n = t.shape[dim] // self.size
+        return t.narrow(dim, self.rank * n, n)
+
     # -- the collectives over "model" -----------------------------------------
 
-    def enter(self, x, part: str):
-        """Before a column-split product of ``part``."""
-        if self.group is None or not self.split[part]:
+    def enter(self, x, part: str, sp: bool = False):
+        """Before a column-split product of ``part``: identity forward,
+        the gradient all-reduced over "model".  With ``sp`` (the stream
+        split by sequence) this rank's rows [B, S/m, d] all-gathered along
+        the sequence, the gradient reduce-scattered back: for a part that
+        runs whole too, whose every rank then computes the whole
+        sequence."""
+        if self.group is None:
+            return x
+        if sp:
+            return _GatherModel.apply(x, 1, self.group, self.size)
+        if not self.split[part]:
             return x
         return _CopyToModel.apply(x, self.group)
 
-    def exit(self, y, part: str):
-        """After a row-split product of ``part``: the sum over ranks."""
-        if self.group is None or not self.split[part]:
+    def exit(self, y, part: str, sp: bool = False):
+        """After a row-split product of ``part``: the sum over ranks.
+        With ``sp`` the sum reduce-scattered along the sequence (this
+        rank's rows of it; the gradient all-gathered back), or, where
+        ``part`` runs whole, this rank's rows of its whole output (a
+        slice: the gradient covers those rows only, and the part's leaves
+        compute on ``Partial``)."""
+        if self.group is None:
+            return y
+        if sp:
+            if self.split[part]:
+                return _ScatterModel.apply(y, 1, self.group, self.size)
+            return self.own_rows(y)
+        if not self.split[part]:
             return y
         return _ReduceFromModel.apply(y, self.group)
 
@@ -437,10 +584,12 @@ class TensorParallel:
             return t
         return _GatherModel.apply(t, dim, self.group, self.size)
 
-    def moe_aux(self, aux):
+    def moe_aux(self, aux, sp: bool = False):
         """The MoE loss's terms summed over "model" when each rank holds
-        its own experts' (``moe.moe_ffn_split``), identity backward."""
-        if self.group is None or self.moe_mode != "expert" or aux is None:
+        its own experts' (``moe.moe_ffn_split``: split by expert, or any
+        mode under the sequence split ``sp``), identity backward."""
+        if self.group is None or aux is None or not self.moe or (
+                self.moe_mode != "expert" and not sp):
             return aux
         return _ReduceFromModel.apply(aux.reshape(1), self.group)[0]
 
@@ -576,16 +725,20 @@ class TensorParallel:
 
     # -- parameters -------------------------------------------------------
 
-    def layer(self, p_local: dict, stack: str | None = None) -> dict:
+    def layer(self, p_local: dict, stack: str | None = None,
+              sp: bool = False) -> dict:
         """One layer's pieces (views of the stacked local leaves) -> the
         tensors the layer computes with; ``stack`` names the vlm's
-        "self" or "cross" stack."""
-        plans = self.block_plans if stack is None else self.block_plans[stack]
-        return _map2(self._take, p_local, plans)
+        "self" or "cross" stack, ``sp`` takes the plans of the stream
+        split by sequence."""
+        plans = self.sp_block_plans if sp else self.block_plans
+        return _map2(self._take, p_local,
+                     plans if stack is None else plans[stack])
 
-    def leaf(self, path: str, local: torch.Tensor) -> torch.Tensor:
+    def leaf(self, path: str, local: torch.Tensor,
+             sp: bool = False) -> torch.Tensor:
         """A top-level leaf's piece -> the tensor the step computes with."""
-        return self._take(local, self.plans[path])
+        return self._take(local, (self.sp_plans if sp else self.plans)[path])
 
     def _take(self, local, plan):
         if not plan.gathers and not local.requires_grad:
@@ -602,17 +755,35 @@ class TensorParallel:
 
     # -- the vocabulary -----------------------------------------------------
 
-    def embed(self, tokens: torch.Tensor, table: torch.Tensor):
+    def embed(self, tokens: torch.Tensor, table: torch.Tensor,
+              sp: bool = False):
         """Embedding rows of ``tokens`` from this rank's vocab rows of
-        ``table`` (zero for the others), summed over "model"."""
+        ``table`` (zero for the others), summed over "model" (with ``sp``
+        reduce-scattered: this rank's rows of the sequence); with the
+        vocabulary whole, the table's rows of the tokens (with ``sp``, of
+        this rank's tokens only)."""
         import torch.nn.functional as F
 
         if self.group is None or not self.split["vocab"]:
-            return F.embedding(tokens.long(), table)
+            return F.embedding((self.own_rows(tokens) if sp
+                                else tokens).long(), table)
         v0 = self.vocab_start
         ok = (tokens >= v0) & (tokens < v0 + self.vocab_rows)
         rows = F.embedding(torch.where(ok, tokens - v0, 0).long(), table)
-        return self.exit(rows * ok[..., None].to(rows.dtype), "vocab")
+        return self.exit(rows * ok[..., None].to(rows.dtype), "vocab", sp)
+
+    def unembed(self, x: torch.Tensor, table: torch.Tensor,
+                sp: bool = False, last: bool = False):
+        """The normed stream -> this rank's vocab columns of the logits
+        (every column where the vocabulary runs whole), fp32.  With
+        ``sp`` ``x`` is this rank's rows (with ``last`` its last row) and
+        the logits are every row's (the stream's last position's), by
+        ``_RowsUnembed``."""
+        from repro_torch.models.layers import unembed
+
+        if sp:
+            return _RowsUnembed.apply(x, table, self, last)
+        return unembed(self.enter(x, "vocab"), table)
 
     def cross_entropy(self, logits: torch.Tensor, labels: torch.Tensor):
         """(ce, z) of the reference's ``REPRO_SHARDED_CE`` form from this

@@ -893,6 +893,18 @@ def admit_pages_stacked(cfg: TieredConfig, sts: TieredState, seq, length,
     return admit_pages_stacked_desc(cfg, sts, seq, length, n_pages, err)[0]
 
 
+def prefill_tokens(cfg: TieredConfig, st: TieredState, seq, k, v,
+                   length=None) -> TieredState:
+    """``prefill_tokens_stacked`` on a single-layer store: tokens ``[0,
+    length)`` of sequence ``seq`` into its slow homes in one pass, k, v
+    [S, KV, hd] (padding past ``length`` skipped page-wise; more pages
+    than a sequence holds raise ``ValueError``).  Pools update in place.
+    Precondition: the sequence's pages map to identity (freshly
+    released)."""
+    return _unstack(prefill_tokens_stacked(cfg, _one_layer(st), seq,
+                                           k[None], v[None], length), st)
+
+
 def admit_pages(cfg: TieredConfig, st: TieredState, seq, length,
                 n_pages: int) -> TieredState:
     """``admit_pages_stacked`` on a single-layer store."""

@@ -268,7 +268,9 @@ def make_sharded_train_step(cfg: ArchConfig, opt_cfg: OptConfig,
     data-mean gradient, without a step.
 
     The step is tensor parallel (module docstring; its ``train_step.tp``
-    is the ``TensorParallel``); the loss
+    is the ``TensorParallel``): where the sequence divides the "model"
+    size a rank holds its own S/m rows of the residual stream between the
+    split products, [B/dp, S/m, d], and runs the norms on them; the loss
     takes the reference's ``REPRO_SHARDED_CE`` form.  A part whose leaves
     ``spec_for`` left whole on "model" runs whole on every rank, with one
     warning when the step is made.  Peak memory of a rank in the split
@@ -280,8 +282,12 @@ def make_sharded_train_step(cfg: ArchConfig, opt_cfg: OptConfig,
       + P_l/tp             one layer's pieces gathered over data
       + L x A              what autograd keeps of each layer: with remat
                            "none" its activations at H/tp heads and ff/tp
-                           columns and its gathered weights P_l/tp; with
-                           remat "full" its input, R S d w
+                           columns, its gathered input R S d w and its
+                           gathered weights P_l/tp; with remat "full" its
+                           input, this rank's rows of the residual, R S d
+                           w / tp where S splits over "model" (the
+                           sequence split, ``TensorParallel.
+                           splits_sequence``), else R S d w
       + 3 x R S V/tp x 4   the fp32 logits, their exponentials and their
                            gradient.
     An MoE layer's activations are its [E/tp, C, d] expert buffers (C the

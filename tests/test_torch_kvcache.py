@@ -321,3 +321,37 @@ def test_chunk_ingest_after_admission_routes_to_fast():
     out_ref, _ = srv.attend(tcfg, ref, q, sl)
     out_adm, _ = srv.attend(tcfg, st, q, sl)
     assert torch.equal(out_ref, out_adm)
+
+
+def test_prefill_tokens_unstacked_exact():
+    """The unstacked ``prefill_tokens`` against the reference's on the
+    inputs of ``tests/test_tiered_kv.py``'s batched-ingest test: a
+    21-token prompt over pages of 16 (a partial last page) padded by 7
+    rows of ones past ``length``, into every sequence of a seeded store;
+    every state leaf bit for bit after each sequence, and the same
+    ``ValueError`` for a prompt of more pages than a sequence holds."""
+    geom = dict(GEOM, page_tokens=16, head_dim=32, migrate_threshold=2)
+    jcfg = jk.TieredConfig(**geom)
+    tcfg = tk.TieredConfig(**geom)
+    js, ts = _filled(jcfg, tcfg, 21)
+    L, pad = 21, 7
+    rng = np.random.default_rng(13)
+    k = rng.normal(size=(L, geom["n_kv_heads"], geom["head_dim"])).astype(
+        np.float32)
+    v = rng.normal(size=k.shape).astype(np.float32)
+    kp = np.concatenate([k, np.ones((pad,) + k.shape[1:], np.float32)])
+    vp = np.concatenate([v, np.ones((pad,) + v.shape[1:], np.float32)])
+    for seq in range(geom["n_seqs"]):
+        js = jk.prefill_tokens(jcfg, js, seq, jnp.asarray(kp),
+                               jnp.asarray(vp), length=L)
+        ts = tk.prefill_tokens(tcfg, ts, seq, torch.from_numpy(kp),
+                               torch.from_numpy(vp), length=L)
+        _assert_state_equal(js, ts, where=f"seq {seq}")
+    big = np.zeros((geom["max_pages_per_seq"] * 16 + 1,) + k.shape[1:],
+                   np.float32)
+    with pytest.raises(ValueError) as jerr:
+        jk.prefill_tokens(jcfg, js, 0, jnp.asarray(big), jnp.asarray(big))
+    with pytest.raises(ValueError) as terr:
+        tk.prefill_tokens(tcfg, ts, 0, torch.from_numpy(big),
+                          torch.from_numpy(big))
+    assert str(terr.value) == str(jerr.value)

@@ -478,6 +478,40 @@ def check_split_train(case, dist_run):
                  flip_slack=compress)
 
 
+def sp_cases(group: str) -> dict:
+    """``pytest.mark.parametrize``'s arguments over ``W.SP_CASES[group]``,
+    named by their values."""
+    cases = W.SP_CASES[group]
+    return dict(argvalues=range(len(cases)), ids=["-".join(map(str, c))
+                                                  .replace(" ", "")
+                                                  for c in cases])
+
+
+def check_sequence_split(group: str, case: int, dist_run) -> dict:
+    """The split step under remat "full" at ``W.SP_CASES[group][case]``'s
+    sequence length S (``sp_<group>.json``): where S divides the "model"
+    size m the stream split by sequence, the residual entering every
+    block is this rank's [B/dp, S/m, d] rows and no activation [B/dp, ..,
+    d] saved for the backward is larger; elsewhere both are [B/dp, S,
+    d].  Either way the split forward's logits are within LOGIT_ATOL of
+    the unsharded port's on the whole batch, the loss within LOSS_ATOL
+    and every leaf's data-mean gradient within GRAD_REL of its largest
+    value (``check_split_train``'s tolerances).  Returns the record."""
+    shape, arch, _, _, _, S = W.SP_CASES[group][case]
+    r = json.loads((dist_run / f"sp_{group}.json").read_text())[case]
+    m, rows = shape[1], W.DC_KW["global_batch"] // shape[0]
+    assert r["sp"] == (S % m == 0)
+    want = [rows, S // m if r["sp"] else S, W.smoke(arch).d_model]
+    assert r["rows"] == rows
+    assert r["residual"] == [want]
+    assert r["saved"] == want
+    assert r["logit_gap"] <= LOGIT_ATOL
+    assert abs(r["loss"] - r["want_loss"]) <= LOSS_ATOL
+    for k, gap in r["grad_gap"].items():
+        assert gap <= GRAD_REL * r["grad_scale"][k] + 1e-12, (k, gap)
+    return r
+
+
 def check_split_serve(case, dist_run) -> dict:
     """``test_split_serving_matches_unsharded``: split ``jit_prefill``,
     positions set ragged with lane 3 idle (``TP_SERVE_POS``), then greedy

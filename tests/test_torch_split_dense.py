@@ -21,8 +21,9 @@ import math
 import pytest
 
 import torch_dist_worker as W
-from test_torch_sharding import (check_split_serve, check_split_train,
-                                 spawn_fixture, split_cases)
+from test_torch_sharding import (check_sequence_split, check_split_serve,
+                                 check_split_train, sp_cases, spawn_fixture,
+                                 split_cases)
 from torch_threads import one_torch_thread  # noqa: F401
 
 dist_run = spawn_fixture("dense")
@@ -43,6 +44,21 @@ def test_split_serving_matches_unsharded(case, dist_run):
     (``test_torch_sharding.check_split_serve``), one case with a
     6-token window."""
     check_split_serve(case, dist_run)
+
+
+@pytest.mark.parametrize("case", **sp_cases("dense"))
+def test_sequence_split_residual_and_gradient(case, dist_run):
+    """The residual stream splits by sequence over "model" where its 16
+    tokens divide the "model" size (smoke llama3-8b on (2, 2), widened on
+    (1, 4), with attention whole on (1, 4), and with a vocabulary of 514
+    that runs whole) and not at 18 tokens on (1, 4): the residual and
+    the saved activations are [B/dp, S/m, d] or [B/dp, S, d], and the
+    forward and gradient match the unsharded port
+    (``test_torch_sharding.check_sequence_split``)."""
+    r = check_sequence_split("dense", case, dist_run)
+    shape, _, wide, _, vocab, _ = W.SP_CASES["dense"][case]
+    assert r["split"]["attn"] == (wide or shape == (2, 2))
+    assert r["split"]["vocab"] == (vocab == 0)
 
 
 def test_split_collectives_are_activation_sized(dist_run):

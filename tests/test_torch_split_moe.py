@@ -23,6 +23,7 @@ import torch_dist_worker as W
 from repro.configs import get_config as j_get_config
 from repro.configs import reduce_for_smoke as j_reduce
 from test_torch_sharding import (LOGIT_ATOL, _check_train, _reference_run,
+                                 check_sequence_split, sp_cases,
                                  spawn_fixture)
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -49,6 +50,19 @@ def test_split_moe_train_step_matches_reference(case, dist_run,
     assert got["split"].tolist() == [True, True, True]
     assert int(got["port_warnings"]) == 0
     _check_train(got, _reference_run((arch, 1, False, 0), wide, n_exp))
+
+
+@pytest.mark.parametrize("case", **sp_cases("moe"))
+def test_sequence_split_moe_by_column(case, dist_run):
+    """The MoE layer by d_ff column ("mlp": 6 experts over 4 "model"
+    ranks, smoke granite widened on (1, 4)) under the sequence split:
+    the rows gathered before the dispatch, the sum over "model" moved
+    after the combine as a reduce-scatter, the router and this rank's
+    share of the aux terms on ``Partial``; the residual and saved
+    activations [B/dp, S/m, d], forward and gradient against the
+    unsharded port (``test_torch_sharding.check_sequence_split``)."""
+    r = check_sequence_split("moe", case, dist_run)
+    assert r["mode"] == "mlp" and r["split"]["moe"]
 
 
 def _j_moe_dispatch(monkeypatch, jcfg, p, x, groups: int):

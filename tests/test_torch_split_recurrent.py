@@ -30,9 +30,9 @@ import numpy as np
 import pytest
 
 import torch_dist_worker as W
-from test_torch_sharding import (attn_whole, check_split_serve,
-                                 check_split_train, spawn_fixture,
-                                 split_cases)
+from test_torch_sharding import (attn_whole, check_sequence_split,
+                                 check_split_serve, check_split_train,
+                                 sp_cases, spawn_fixture, split_cases)
 from torch_threads import one_torch_thread  # noqa: F401
 
 dist_run = spawn_fixture("recurrent")
@@ -48,6 +48,18 @@ def test_split_train_step_matches_reference(case, dist_run):
     ``in_proj`` on different ranks; xlstm on (2, 2) and (1, 4); no
     warning of gathered work."""
     check_split_train(case, dist_run)
+
+
+@pytest.mark.parametrize("case", **sp_cases("recurrent"))
+def test_sequence_split_hybrid(case, dist_run):
+    """hymba on (1, 4) under the sequence split: attention whole (its 2
+    KV heads) beside the Mamba branch on this rank's channels, both fed
+    by one gather of the normed rows, attention's rows cut from its
+    whole output; the residual and saved activations [B/dp, S/m, d],
+    forward and gradient against the unsharded port
+    (``test_torch_sharding.check_sequence_split``)."""
+    r = check_sequence_split("recurrent", case, dist_run)
+    assert not r["split"]["attn"] and r["split"]["ssm"]
 
 
 @pytest.mark.parametrize("case", **split_cases(W.TP_SERVE_CASES,

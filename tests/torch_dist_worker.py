@@ -17,7 +17,8 @@ into the directory ``out``:
 * "moe" (``tests/test_torch_split_moe.py``): every ``moe_*`` file;
 * "recurrent" (``tests/test_torch_split_recurrent.py``): hymba's and
   xlstm's ``tp_train_<i>.npz`` and ``tp_serve_<i>.json``,
-  ``rec_init.json``, ``rec_fit.json``.
+  ``rec_init.json``, ``rec_fit.json``;
+* "dense", "moe" and "recurrent" each also write ``sp_<group>.json``.
 
 The files:
 
@@ -67,7 +68,13 @@ The files:
 * ``rec_init.json``: ``init_sharded_params`` of smoke hymba and xlstm on
   (2, 2) and (1, 4) against ``init_params``, and the pieces' shapes;
 * ``rec_fit.json``: ``fit(mesh=)`` of smoke hymba and xlstm on (2, 2):
-  the last step's metrics and the split step's loss by step.
+  the last step's metrics and the split step's loss by step;
+* ``sp_<group>.json``: ``SP_CASES[group]``, the split step under remat
+  "full" at a sequence length that splits over "model" or not: whether
+  it split, the residual's shape entering every block, the largest
+  activation [B/dp, .., d] saved for the backward, and the split
+  forward's logits, loss and data-mean gradient (gathered) against the
+  unsharded port's on the whole batch.
 """
 
 from __future__ import annotations
@@ -160,6 +167,19 @@ MOE_SERVE_CASES = (((2, 2), "granite-moe-3b-a800m", False, 0, False),
                    ((2, 2), "mixtral-8x22b", False, 8, True))
 RING_WINDOW, RING_PROMPT = 8, 6
 RING_POS = (6, 5, 3, -100)
+# the sequence split's cases, by spawn: (mesh, arch, wide, n_experts (0:
+# the config's), vocab (0: the config's), seq_len).  16 tokens split over
+# "model" on (2, 2) and (1, 4), 18 do not on (1, 4); smoke llama3-8b on
+# (1, 4) runs attention whole, granite with 6 experts splits by d_ff
+# ("mlp"), hymba on (1, 4) runs attention whole beside a split Mamba
+# branch (one gather feeds both), and a vocabulary of 514 runs whole
+SP_CASES = {"dense": (((2, 2), "llama3-8b", False, 0, 0, 16),
+                      ((1, 4), "llama3-8b", True, 0, 0, 16),
+                      ((1, 4), "llama3-8b", False, 0, 0, 16),
+                      ((1, 4), "llama3-8b", True, 0, 514, 16),
+                      ((1, 4), "llama3-8b", True, 0, 0, 18)),
+            "moe": (((1, 4), "granite-moe-3b-a800m", True, 6, 0, 16),),
+            "recurrent": (((1, 4), "hymba-1.5b", False, 0, 0, 16),)}
 # the spawn that runs each arch's split cases
 _ARCH_GROUP = {"llama-3.2-vision-90b": "vlm", "hubert-xlarge": "vlm",
                "hymba-1.5b": "recurrent", "xlstm-125m": "recurrent"}
@@ -1050,6 +1070,95 @@ def rec_fit_case(meshes, out, rank):
             json.dump(res, f)
 
 
+def sp_case(group: str, meshes, out, rank):
+    """``SP_CASES[group]``: each case's split step (remat "full") on one
+    batch of its sequence length, recording the residual entering every
+    block (``transformer._block_fwd_tp`` wrapped) and every activation
+    saved for the backward (``saved_tensors_hooks``), then the split
+    forward's logits and loss and the step's data-mean gradient against
+    the unsharded port's (``REPRO_SHARDED_CE=1``, the split step's form)
+    on the whole batch."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import forward, loss_fn, transformer
+    from repro_torch.sharding import specs
+    from repro_torch.sharding.tensor_parallel import local_tree
+    from repro_torch.train.loop import (TrainConfig, grads_of,
+                                        make_sharded_train_step)
+
+    os.environ["REPRO_SHARDED_CE"] = "1"
+    res = []
+    for shape, arch, wide, n_exp, vocab, seq in SP_CASES[group]:
+        mesh = meshes[shape]
+        cfg = moe_config(smoke(arch), wide, n_exp)
+        if vocab:
+            cfg = dataclasses.replace(cfg, vocab=vocab)
+        dc = dataclasses.replace(data_config(cfg), seq_len=seq)
+        tc = TrainConfig(remat="full")
+        whole = whole_batch(cfg, dc, 0)
+        step, p_sh, b_sh = make_sharded_train_step(cfg, opt_config(), tc,
+                                                   mesh, whole)
+        full = init(cfg)
+        params = specs.distribute_tree(full, p_sh)
+        batch = _batch(cfg, dc, 0, b_sh, mesh)
+        rows = {k: v.to_local() for k, v in batch.items()}
+        B = rows["tokens"].shape[0]
+        residual, saved = set(), []
+        real = transformer._block_fwd_tp
+
+        def spy(*a, **kw):
+            residual.add(tuple(a[5].shape))       # (cfg, tp, aux, sp, p, x)
+            return real(*a, **kw)
+
+        def pack(t):
+            if t.dim() == 3 and t.shape[0] == B \
+                    and t.shape[-1] == cfg.d_model:
+                saved.append(tuple(t.shape))
+            return t
+        transformer._block_fwd_tp = spy
+        try:
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                g = step.grads(params, batch)
+        finally:
+            transformer._block_fwd_tp = real
+        sh = flat(p_sh)
+        shapes = {k: t.shape for k, t in flat(params).items()}
+        got = {k: specs.distribute_local(v, mesh, sh[k].placements,
+                                         shapes[k]).full_tensor()
+               for k, v in flat(g).items()}
+        with torch.no_grad():
+            logits = forward(cfg, local_tree(params), rows, tp=step.tp)[0]
+            loss = loss_fn(cfg, local_tree(params), rows, tp=step.tp)[0]
+        every = torch.stack([loss.reshape(())])
+        dist.all_reduce(every)           # each data rank's loss, m times
+        glob = (dc.global_batch, seq, cfg.vocab)
+        logits = specs.distribute_local(logits, mesh, specs.placements_for(
+            specs.spec_for(("batch", None, "vocab"), mesh=mesh, shape=glob),
+            mesh), glob).full_tensor()
+        wb = {k: torch.from_numpy(v) for k, v in whole.items()}
+        want_loss, _, want = grads_of(cfg, TrainConfig(), full, wb)
+        with torch.no_grad():
+            want_logits = forward(cfg, full, wb)[0]
+        want = flat(want)
+        res.append({
+            "sp": step.tp.splits_sequence(B, seq), "rows": B,
+            "residual": sorted(map(list, residual)),
+            "saved": list(max(saved, key=math.prod)) if saved else None,
+            "logit_gap": (logits - want_logits).abs().max().item(),
+            "loss": float(every[0]) / dist.get_world_size(),
+            "want_loss": float(want_loss),
+            "grad_gap": {k: (got[k].float() - want[k].float()).abs().max()
+                         .item() for k in want},
+            "grad_scale": {k: want[k].float().abs().max().item()
+                           for k in want},
+            "split": {p: step.tp.split[p] for p in ("attn", "mlp", "moe",
+                                                    "vocab", "ssm")},
+            "mode": str(step.tp.moe_mode)})
+    os.environ.pop("REPRO_SHARDED_CE")
+    if rank == 0:
+        with open(os.path.join(out, f"sp_{group}.json"), "w") as f:
+            json.dump(res, f)
+
+
 def _split_cases(group: str, meshes, out, rank):
     """``group``'s cases of ``TP_TRAIN_CASES`` and ``TP_SERVE_CASES``."""
     for i in group_cases(TP_TRAIN_CASES, group):
@@ -1079,6 +1188,7 @@ def sharded_group(meshes, out, rank):
 
 def dense_group(meshes, out, rank):
     _split_cases("dense", meshes, out, rank)
+    sp_case("dense", meshes, out, rank)
     comm_case(meshes, out, rank)
     remat_case(meshes, out, rank)
     init_case(meshes, out, rank)
@@ -1100,12 +1210,14 @@ def moe_group(meshes, out, rank):
     moe_comm_case(meshes, out, rank)
     moe_init_case(meshes, out, rank)
     moe_dispatch_case(meshes, out, rank)
+    sp_case("moe", meshes, out, rank)
 
 
 def recurrent_group(meshes, out, rank):
     _split_cases("recurrent", meshes, out, rank)
     rec_init_case(meshes, out, rank)
     rec_fit_case(meshes, out, rank)
+    sp_case("recurrent", meshes, out, rank)
 
 
 # the spawns, each run by its own test file
