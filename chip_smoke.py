@@ -325,7 +325,24 @@ prints no result line):
    stage, parameter and state bytes, prefill ms, decode p50 and p90; then
    flash at hymba's rank prefill shape (its whole H 25/5, window 1,024),
    checked and timed as phase 3's rows, and at PR 19's B 1 row shape beside
-   that row's time.  Then one line of every phase's host seconds.
+   that row's time.
+21. the dry run (``repro_torch.launch.dryrun``) against the card: (a)
+   each rank share of phases 17-20 reckoned by ``run_step`` on fake
+   "cuda" tensors (``FakeTensorMode``) over a fake (1, 4) group, at the
+   same shapes (its prefill, then one decode step), and held against
+   what those phases measured: parameter and cache bytes equal to the
+   byte; the prefill's collectives on "model" by kind, count and largest
+   tensor equal; a decode step's collectives on "model" equal (401, 337,
+   441, 224, 25); flash's fake calls equal to its launches (prefill and
+   a decode step); each reckoned stage peak (the step's arguments plus
+   its temporaries at dispatch, 512-byte blocks) within 3 % (at least
+   16 MiB) of the measured prefill and decode stage peaks, in bytes;
+   (b) ``run_cell`` on the 16x16 production mesh (256 fake ranks) for
+   one cell a family: llama3-8b train_4k, mixtral-8x22b decode_32k,
+   llama-3.2-vision-90b prefill_32k, hymba-1.5b long_500k and
+   hubert-xlarge train_4k, each ``status`` "ok", printed with its peak,
+   ``fits``, FLOPs, bytes, collective bytes and dominant roofline term.
+   Then one line of every phase's host seconds.
 
 Output, in order: phase lines, one JSON ``kernels`` line (launches: the
 main path's for paged_attention_fused, remap_gather (every launch of the
@@ -1239,6 +1256,40 @@ FAMILY_FLASH = (("granite-moe-3b-a800m", 24, 8, 64, 2048, 0),
                 ("hymba-1.5b", 25, 5, 64, 2048, 1024))
 
 
+FLASH_HOST_CALLS = 2000
+
+
+def _flash_host_cost(torch, dev, fa_ops) -> dict:
+    """Host microseconds a call of flash's forward through its operator
+    (``torch.ops.repro_torch.flash_fwd``, what the model calls) and of
+    the launch it wraps (``ops._launch``), at a shape whose kernel takes
+    a few microseconds (B 1, S = T = 16, H 1, hd 64, bf16):
+    ``FLASH_HOST_CALLS`` calls queued, then one synchronise, in the order
+    op, launch, op, launch; the faster block of each."""
+    q = torch.randn(1, 16, 1, 64, device=dev).to(torch.bfloat16)
+    fns = {"op": lambda: torch.ops.repro_torch.flash_fwd.default(
+               q, q, q, True, 0, 0),
+           "launch": lambda: fa_ops._launch(q, q, q, True, 0, 0, False)}
+    times = {k: [] for k in fns}
+    for _ in range(2):
+        for name, fn in fns.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(FLASH_HOST_CALLS):
+                fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) / FLASH_HOST_CALLS
+                               * 1e6)
+    out = {k: round(sorted(v)[0], 2) for k, v in times.items()}
+    out["added"] = round(out["op"] - out["launch"], 2)
+    print(f"kernel flash_attention host cost a call: through the operator "
+          f"{out['op']} us, the bare launch {out['launch']} us "
+          f"(the faster of two blocks of {FLASH_HOST_CALLS} calls each; all "
+          f"{json.dumps(times)}); card {_card_line()}")
+    return out
+
+
 def flash_rows(torch, dev):
     """flash_attention at the main path's shapes (B=1, H=32, KV=8, hd=128,
     bf16): the one-shot causal prefill S = T = 2048, and a 256-row chunk at
@@ -1292,6 +1343,7 @@ def flash_rows(torch, dev):
                f"flash_attention fp32 smoke {kw} error {e} > 1e-4")
         print(f"kernel flash_attention fp32 smoke {kw}: max_abs_err {e:.3e} "
               f"(tol 1e-4)")
+    host_us = _flash_host_cost(torch, dev, fa_ops)
     torch.cuda.empty_cache()
     row = dict(name="flash_attention", route="cuda",
                source="src/repro_torch/kernels/flash_attention/csrc/"
@@ -1299,6 +1351,7 @@ def flash_rows(torch, dev):
                replaces="src/repro/kernels/flash_attention/flash_attention.py"
                         ":70", **res["chunk"])
     row["one_shot"] = res["one-shot"]
+    row["op_host_us"] = host_us
     row["shapes"] = []
     for i, (arch, H, KV, hd, T, window) in enumerate(FAMILY_FLASH):
         g.manual_seed(33 + i)
@@ -5192,12 +5245,26 @@ def _wire_bytes(op: str, sizes: list, n: int) -> float:
     return (2 if "allreduce" in op else 1) * (n - 1) / n * big
 
 
-def _peak_since(torch, base: int) -> float:
-    """GiB allocated at the peak since the last reset, above ``base``
+def _peak_bytes_since(torch, base: int) -> int:
+    """Bytes allocated at the peak since the last reset, above ``base``
     bytes; the peak is reset for the next stage."""
-    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    peak = torch.cuda.max_memory_allocated() - base
     torch.cuda.reset_peak_memory_stats()
-    return round(peak, 2)
+    return peak
+
+
+def _peak_since(torch, base: int) -> float:
+    """``_peak_bytes_since`` in GiB, rounded to 0.01."""
+    return round(_peak_bytes_since(torch, base) / 2**30, 2)
+
+
+def _stage_peak(torch, base: int, stage: dict, exact: dict,
+                name: str) -> None:
+    """A rank share's peak at stage ``name``: in bytes in ``exact``
+    (phase 21 holds its reckoning against it) and in GiB, rounded, in
+    ``stage`` (printed)."""
+    exact[name] = _peak_bytes_since(torch, base)
+    stage[name] = round(exact[name] / 2**30, 2)
 
 
 # each rank share's peak device memory by stage (GiB above what its phase
@@ -5216,6 +5283,25 @@ EARLIER_STAGES = {
 DECODE_CALLS = {"qwen2-72b": 401, "mixtral-8x22b": 337,
                 "llama-3.2-vision-90b": 441, "hymba-1.5b": 224,
                 "xlstm-125m": 25}
+
+
+# what phases 17-20 measured of each rank share, for phase 21's reckoning
+SHARES: dict = {}
+
+
+def _keep_share(arch, shape, prompt, env, p_bytes, c_bytes, stage, calls,
+                decode_calls, flash_prefill, flash_decode):
+    """Record a rank share's measurements for phase 21: the prefill's
+    ``ShapeConfig`` and prompt length, the environment it ran under, the
+    parameter and cache bytes, the prefill and decode stage peaks in
+    bytes (``_stage_peak``'s ``exact``), the prefill's collectives
+    (``_prefill_calls``), a decode step's collectives on "model", and
+    flash's launches in the prefill and a decode step."""
+    SHARES[arch] = dict(shape=shape, prompt=prompt, env=env,
+                        p_bytes=p_bytes, c_bytes=c_bytes, stage=dict(stage),
+                        calls=calls, decode_calls=decode_calls,
+                        flash_prefill=flash_prefill,
+                        flash_decode=flash_decode)
 
 
 class _ResidualTap:
@@ -5246,21 +5332,16 @@ def _prefill_calls(torch, pre, params, batch, model: str) -> dict:
     named ``model`` by kind, each kind's count and largest tensor in
     bytes, and the count on other groups."""
     from repro_torch.sharding.tensor_parallel import CollectiveLog
+    from repro_torch.utils.step_analysis import calls_by_group
 
     rec = CollectiveLog()
     with rec:
         out = pre(params, batch)
     torch.cuda.synchronize()
     del out
-    kinds: dict = {}
-    for c in rec.calls:
-        if c.group == model:
-            op = c.op.split(".")[1]
-            n, big = kinds.get(op, (0, 0))
-            kinds[op] = (n + 1, max(big, max(c.nbytes)))
-    return {"model": {k: {"calls": n, "largest_bytes": big}
-                      for k, (n, big) in sorted(kinds.items())},
-            "other": len(rec.calls) - sum(n for n, _ in kinds.values())}
+    kinds = dict(sorted(calls_by_group(rec.calls).get(model, {}).items()))
+    return {"model": kinds, "other": len(rec.calls) - sum(
+        v["calls"] for v in kinds.values())}
 
 
 def _seq_split_gates(label: str, arch: str, shapes: list, want: tuple,
@@ -5342,7 +5423,7 @@ def tp_share_phase(torch, dev, rows):
         params = init_sharded_params(cfg, mesh, seed=5, device=dev)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t1
-        stage = {"init": _peak_since(torch, base)}
+        stage, exact = {"init": _peak_since(torch, base)}, {}
         p_bytes = sum(t.to_local().numel() * t.to_local().element_size()
                       for t in leaves(params))
         shape = ShapeConfig("phase17", TP_LEN, TP_LANES, "prefill")
@@ -5363,7 +5444,7 @@ def tp_share_phase(torch, dev, rows):
                 prompt, b_sh)})
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t1) * 1e3
-        stage["prefill"] = _peak_since(torch, base)
+        _stage_peak(torch, base, stage, exact, "prefill")
         launches = _counts(zero=True)
         piece = tuple(state.caches["k"].to_local().shape)
         want = (cfg.n_layers, TP_LANES, TP_LEN // TP_MODEL, cfg.n_kv_heads,
@@ -5386,7 +5467,7 @@ def tp_share_phase(torch, dev, rows):
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t1) * 1e3)
         dec_launches = _counts()
-        stage["decode"] = _peak_since(torch, base)
+        _stage_peak(torch, base, stage, exact, "decode")
         peak = max(stage.values())
         model = mesh.get_group("model").group_name
         on_model = [c for c in rec.calls if c.group == model]
@@ -5404,6 +5485,9 @@ def tp_share_phase(torch, dev, rows):
         dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
+    _keep_share(TP_ARCH, shape, TP_PROMPT, {}, p_bytes, c_bytes, exact, calls,
+                len(on_model), launches["flash_attention"],
+                dec_launches["flash_attention"] / TP_DECODE)
     _seq_split_gates("tp share", TP_ARCH, resid.shapes,
                      (TP_LANES, TP_PROMPT // TP_MODEL, cfg.d_model),
                      TP_MODEL, cfg.n_layers, calls, stage, len(on_model),
@@ -5521,7 +5605,7 @@ def moe_share_phase(torch, dev, rows):
             params = init_sharded_params(cfg, mesh, seed=5, device=dev)
             torch.cuda.synchronize()
             init_s = time.perf_counter() - t1
-            stage = {"init": _peak_since(torch, base)}
+            stage, exact = {"init": _peak_since(torch, base)}, {}
             p_bytes = sum(t.to_local().numel() * t.to_local().element_size()
                           for t in leaves(params))
             e_bytes = sum(t.to_local().numel() * t.to_local().element_size()
@@ -5548,7 +5632,7 @@ def moe_share_phase(torch, dev, rows):
                     prompt, b_sh)})
             torch.cuda.synchronize()
             prefill_ms = (time.perf_counter() - t1) * 1e3
-            stage["prefill"] = _peak_since(torch, base)
+            _stage_peak(torch, base, stage, exact, "prefill")
             launches = _counts(zero=True)
             pre_caps = list(caps)
             caps.clear()
@@ -5575,7 +5659,7 @@ def moe_share_phase(torch, dev, rows):
                 torch.cuda.synchronize()
                 ms.append((time.perf_counter() - t1) * 1e3)
             dec_launches = _counts()
-            stage["decode"] = _peak_since(torch, base)
+            _stage_peak(torch, base, stage, exact, "decode")
             end = int(state.pos.to_local().max())
             model = mesh.get_group("model").group_name
             on_model = [c for c in rec.calls if c.group == model]
@@ -5596,6 +5680,10 @@ def moe_share_phase(torch, dev, rows):
         dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
+    _keep_share(MOE_ARCH, shape, MOE_PROMPT, {"REPRO_WINDOW_CACHE": "1"},
+                p_bytes, c_bytes, exact, calls, len(on_model),
+                launches["flash_attention"],
+                dec_launches["flash_attention"] / MOE_DECODE)
     _seq_split_gates("moe share", MOE_ARCH, resid.shapes,
                      (MOE_LANES, MOE_PROMPT // MOE_MODEL, cfg.d_model),
                      MOE_MODEL, cfg.n_layers, calls, stage, len(on_model),
@@ -5724,7 +5812,7 @@ def vlm_share_phase(torch, dev, rows):
             SHARD_VLM_GATE)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t1
-        stage = {"init": _peak_since(torch, base)}
+        stage, exact = {"init": _peak_since(torch, base)}, {}
         p_bytes = sum(t.to_local().numel() * t.to_local().element_size()
                       for t in leaves(params))
         shape = ShapeConfig("phase19", VLM_SHARE_LEN, B, "prefill")
@@ -5749,7 +5837,7 @@ def vlm_share_phase(torch, dev, rows):
                                          for k, v in prompt.items()})
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t1) * 1e3
-        stage["prefill"] = _peak_since(torch, base)
+        _stage_peak(torch, base, stage, exact, "prefill")
         launches = _counts(zero=True)
         pieces = {k: tuple(t.to_local().shape)
                   for k, t in state.caches.items()}
@@ -5775,7 +5863,7 @@ def vlm_share_phase(torch, dev, rows):
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t1) * 1e3)
         dec_launches = _counts()
-        stage["decode"] = _peak_since(torch, base)
+        _stage_peak(torch, base, stage, exact, "decode")
         end = int(state.pos.to_local().max())
         model = mesh.get_group("model").group_name
         on_model = [c for c in rec.calls if c.group == model]
@@ -5794,6 +5882,9 @@ def vlm_share_phase(torch, dev, rows):
         dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
+    _keep_share(VLM_ARCH, shape, S, {}, p_bytes, sum(c_bytes.values()), exact,
+                calls, len(on_model), launches["flash_attention"],
+                dec_launches["flash_attention"] / VLM_SHARE_DECODE)
     _seq_split_gates("vlm share", VLM_ARCH, resid.shapes,
                      (B, S // VLM_MODEL, cfg.d_model), VLM_MODEL,
                      ns * inner, calls, stage, len(on_model), card)
@@ -5966,7 +6057,7 @@ def _rec_share(torch, dev, arch):
         params = init_sharded_params(cfg, mesh, seed=5, device=dev)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t1
-        stage = {"init": _peak_since(torch, base)}
+        stage, exact = {"init": _peak_since(torch, base)}, {}
         p_bytes = sum(t.to_local().numel() * t.to_local().element_size()
                       for t in leaves(params))
         blocks = params["blocks"]
@@ -6022,7 +6113,7 @@ def _rec_share(torch, dev, arch):
                                                                     b_sh)})
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t1) * 1e3
-        stage["prefill"] = _peak_since(torch, base)
+        _stage_peak(torch, base, stage, exact, "prefill")
         launches = _counts(zero=True)
         if cfg.family == "hybrid":
             n = di // REC_MODEL
@@ -6051,7 +6142,7 @@ def _rec_share(torch, dev, arch):
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t1) * 1e3)
         dec_launches = _counts()
-        stage["decode"] = _peak_since(torch, base)
+        _stage_peak(torch, base, stage, exact, "decode")
         end = state.pos.to_local().tolist()
         model = mesh.get_group("model").group_name
         on_model = [c for c in rec.calls if c.group == model]
@@ -6070,6 +6161,9 @@ def _rec_share(torch, dev, arch):
         dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
+    _keep_share(arch, shape, S, {}, p_bytes, s_bytes, exact, calls,
+                len(on_model), launches["flash_attention"],
+                dec_launches["flash_attention"] / REC_SHARE_DECODE)
     _seq_split_gates(f"rec share {arch}", arch, resid.shapes,
                      (B, S // REC_MODEL, cfg.d_model), REC_MODEL, L, calls,
                      stage, len(on_model), card)
@@ -6162,6 +6256,124 @@ def rec_share_phase(torch, dev, rows):
     print(f"rec share: phase 20 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the dry run against the card
+# ---------------------------------------------------------------------------
+
+# the reckoned stage peak's tolerance against the measured one (bytes)
+DRYRUN_PEAK_FRAC, DRYRUN_PEAK_MIN = 0.03, 16 * 2**20
+# one production cell a family, on the 16x16 mesh
+DRYRUN_CELLS = (("llama3-8b", "train_4k"), ("mixtral-8x22b", "decode_32k"),
+                ("llama-3.2-vision-90b", "prefill_32k"),
+                ("hymba-1.5b", "long_500k"), ("hubert-xlarge", "train_4k"))
+
+
+def _gib(n: int) -> float:
+    return n / 2**30
+
+
+def _share_reckoning(torch, dev, arch, m: dict) -> dict:
+    """Phase 21(a) for one rank share: ``run_step`` of its prefill and of
+    one decode step on fake "cuda" tensors over a fake (1, 4) group, held
+    against phases 17-20's measurements ``m`` (``_keep_share``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import run_step
+    from repro_torch.sharding.specs import MeshShape
+
+    cfg = get_config(arch)
+    mesh = MeshShape((1, 4), ("data", "model"))
+    with _env(**m["env"]):
+        pre = run_step(cfg, m["shape"], mesh, device=dev,
+                       prompt_len=m["prompt"])
+        dec = run_step(cfg, dataclasses.replace(m["shape"], kind="decode"),
+                       mesh, device=dev)
+    label = f"dryrun share {arch}"
+    model = pre["calls"].get("model", {})
+    other = sum(v["calls"] for ax, ops in pre["calls"].items()
+                if ax != "model" for v in ops.values())
+    dec_model = sum(v["calls"] for v in dec["calls"].get("model",
+                                                          {}).values())
+    flash = (pre["ops"].get("repro_torch.flash_fwd", 0),
+             dec["ops"].get("repro_torch.flash_fwd", 0))
+    _check(pre["parts"]["params"] == m["p_bytes"]
+           and pre["caches"] == m["c_bytes"],
+           f"{label}: reckoned parameter and cache bytes "
+           f"{pre['parts']['params']}, {pre['caches']}; measured "
+           f"{m['p_bytes']}, {m['c_bytes']}")
+    _check(model == m["calls"]["model"] and other == m["calls"]["other"],
+           f"{label}: reckoned prefill collectives on \"model\" "
+           f"{json.dumps(model)} ({other} elsewhere); measured "
+           f"{json.dumps(m['calls'])}")
+    _check(dec_model == m["decode_calls"],
+           f"{label}: reckoned {dec_model} collectives a decode step on "
+           f"\"model\"; measured {m['decode_calls']}")
+    _check(flash == (m["flash_prefill"], m["flash_decode"]),
+           f"{label}: flash's fake calls (prefill, a decode step) {flash}; "
+           f"launches measured {(m['flash_prefill'], m['flash_decode'])}")
+    peaks = {"prefill": pre["memory"]["peak_bytes"],
+             "decode": dec["memory"]["peak_bytes"]}
+    for stage, reck in peaks.items():
+        meas = m["stage"][stage]
+        tol = max(DRYRUN_PEAK_FRAC * meas, DRYRUN_PEAK_MIN)
+        _check(abs(reck - meas) <= tol,
+               f"{label}: reckoned {stage} peak {reck} bytes, measured "
+               f"{meas} (tolerance {tol:.0f})")
+    print(f"{label}: reckoned against measured (rank 0 of (1, 4), fake "
+          f"\"cuda\" tensors; held): parameters {pre['parts']['params']} "
+          f"bytes, caches {pre['caches']} bytes (equal); prefill "
+          f"collectives on \"model\" {json.dumps(model)} (equal); decode "
+          f"step {dec_model} collectives (equal); flash {flash[0]} calls in "
+          f"the prefill and {flash[1]} a decode step (equal); peak GiB "
+          f"prefill {_gib(peaks['prefill']):.4f} against "
+          f"{_gib(m['stage']['prefill']):.4f}, decode "
+          f"{_gib(peaks['decode']):.4f} against "
+          f"{_gib(m['stage']['decode']):.4f} (bytes {json.dumps(peaks)} "
+          f"against {json.dumps(m['stage'])}; held within 3 %, at least "
+          f"16 MiB) "
+          f"(arguments {_gib(pre['memory']['argument_size_in_bytes']):.3f} "
+          f"+ temp {_gib(pre['memory']['temp_size_in_bytes']):.3f}; "
+          f"{_gib(dec['memory']['argument_size_in_bytes']):.3f} + "
+          f"{_gib(dec['memory']['temp_size_in_bytes']):.3f}); traced in "
+          f"{pre['trace_s']} + {dec['trace_s']} s")
+    return {"arch": arch, "prefill": pre, "decode": dec, "measured": {
+        k: v for k, v in m.items() if k not in ("shape", "env")}}
+
+
+def dryrun_phase(torch, dev):
+    """Phase 21 (module docstring): (a) the rank shares of phases 17-20
+    reckoned and held against their measurements, (b) one production
+    cell a family on 16x16.  Writes every record to
+    ``dryrun_results/phase21.json`` (gitignored)."""
+    from repro_torch.launch.dryrun import run_cell
+
+    t0 = time.perf_counter()
+    card = _card_line()
+    _check(set(SHARES) == {TP_ARCH, MOE_ARCH, VLM_ARCH, *RECURRENT_ARCHS},
+           f"dryrun: rank shares measured {sorted(SHARES)}")
+    out = {"shares": [_share_reckoning(torch, dev, arch, m)
+                      for arch, m in SHARES.items()], "cells": []}
+    for arch, shape in DRYRUN_CELLS:
+        rec = run_cell(arch, shape, False, device=dev)
+        _check(rec["status"] == "ok", f"dryrun: {arch} x {shape}: {rec}")
+        out["cells"].append(rec)
+        mem, coll = rec["memory"], rec["collectives"]
+        print(f"dryrun cell: {arch} x {shape} on 16x16 (rank 0 of 256, fake "
+              f"\"cuda\" tensors): status ok, arguments "
+              f"{_gib(mem['argument_size_in_bytes']):.2f} GiB, peak "
+              f"{_gib(mem['peak_bytes']):.2f} GiB, fits {rec['fits']}, "
+              f"FLOPs {rec['cost']['flops']:.4e}, bytes "
+              f"{rec['cost']['bytes']:.4e}, collective bytes "
+              f"{coll['total_bytes']:.4e} ({json.dumps(coll['by_axis_bytes'])}),"
+              f" dominant {rec['roofline']['dominant']} "
+              f"({rec['roofline']['bound_s'] * 1e3:.2f} ms), flash "
+              f"{json.dumps(rec['ops'])}, traced in {rec['trace_s']} s; "
+              f"card {card}")
+    path = ROOT / "dryrun_results" / "phase21.json"
+    path.parent.mkdir(exist_ok=True)
+    path.write_text(json.dumps(out, indent=1, default=str))
+    print(f"dryrun: phase 21 took {time.perf_counter() - t0:.1f} s")
+
+
 def _paths(tree, prefix: str = "") -> dict:
     """path -> leaf of a tree of dicts."""
     if isinstance(tree, dict):
@@ -6231,6 +6443,7 @@ def main():
     phase("18 moe share", moe_share_phase, torch, dev, rows)
     phase("19 vlm share", vlm_share_phase, torch, dev, rows)
     phase("20 recurrent share", rec_share_phase, torch, dev, rows)
+    phase("21 dry run", dryrun_phase, torch, dev)
     print(f"phases: host seconds {json.dumps(seconds)}, "
           f"{sum(seconds.values()):.1f} s in all")
     for name, n in launches.items():

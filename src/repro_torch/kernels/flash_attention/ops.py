@@ -10,6 +10,14 @@ the call goes through ``FlashAttention``, whose forward also keeps each
 row's log-sum-exp for the backward; otherwise nothing is kept.
 ``launches`` counts forward kernel launches and ``bwd_launches``
 backward ones (reset them by assignment).
+
+The launches are ``torch.library`` operators (``repro_torch::flash_fwd``,
+``flash_fwd_lse`` and ``flash_bwd``, each with a "CUDA" and a "Meta"
+kernel): a real tensor on a card runs the kernel; a fake one
+(``FakeTensorMode``, as the dry run traces a step) reaches the "Meta"
+kernel, which gives its outputs' shapes and never builds the library, and
+``FlopCounterMode`` counts each call as the plain version computes it,
+every S x T product in full (``_fwd_flops``, ``_bwd_flops``).
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -92,23 +101,26 @@ def _plain(q, k, v, causal, window, q_offset):
 
 
 def _on_card(q, k, v, q_offset):
-    """Check the call, and return q, k, v contiguous."""
+    """Check the call, and return q, k, v contiguous: both the kernel's
+    launch and a fake call see the same tensors."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check(q, k, v, q_offset)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def _aligned(q, k, v):
     if k.data_ptr() % 16 or v.data_ptr() % 16 or q.data_ptr() % 4:
         raise ValueError("flash_attention: k and v must be 16-byte aligned "
                          "and q 4-byte aligned (the kernel copies 16-byte "
                          "rows of K and V)")
-    return q, k, v
 
 
-def _forward(q, k, v, causal, window, q_offset, *, with_lse: bool):
-    """The kernel's launch -> (out, lse [B,H,S] fp32 or None, (q, k, v)
-    as launched, contiguous)."""
+def _launch(q, k, v, causal, window, q_offset, with_lse):
+    """The forward kernel's launch on contiguous q, k, v -> (out, lse
+    [B,H,S] fp32 or None)."""
     global launches
-    q, k, v = _on_card(q, k, v, q_offset)
+    _aligned(q, k, v)
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -122,6 +134,45 @@ def _forward(q, k, v, causal, window, q_offset, *, with_lse: bool):
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {rc}")
     launches += 1
+    return out, lse
+
+
+# the launches as operators: "CUDA" runs the kernel, "Meta" (what a fake
+# tensor dispatches to) gives the outputs' shapes alone
+_lib = torch.library.Library("repro_torch", "DEF")
+_lib.define("flash_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int window, int q_offset) -> Tensor")
+_lib.define("flash_fwd_lse(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int window, int q_offset) -> (Tensor, Tensor)")
+_lib.define("flash_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor do, "
+            "Tensor lse, bool causal, int window, int q_offset) -> "
+            "(Tensor, Tensor, Tensor)")
+
+
+def _fwd_meta(q, k, v, causal, window, q_offset):
+    return torch.empty_like(q)
+
+
+def _fwd_lse_meta(q, k, v, causal, window, q_offset):
+    B, S, H, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, H, S), dtype=torch.float32)
+
+
+_lib.impl("flash_fwd", lambda *a: _launch(*a, False)[0], "CUDA")
+_lib.impl("flash_fwd", _fwd_meta, "Meta")
+_lib.impl("flash_fwd_lse", lambda *a: _launch(*a, True), "CUDA")
+_lib.impl("flash_fwd_lse", _fwd_lse_meta, "Meta")
+
+
+def _forward(q, k, v, causal, window, q_offset, *, with_lse: bool):
+    """The kernel's launch -> (out, lse [B,H,S] fp32 or None, (q, k, v)
+    as launched, contiguous)."""
+    q, k, v = _on_card(q, k, v, q_offset)
+    args = (q, k, v, bool(causal), int(window), int(q_offset))
+    if with_lse:
+        out, lse = torch.ops.repro_torch.flash_fwd_lse.default(*args)
+    else:
+        out, lse = torch.ops.repro_torch.flash_fwd.default(*args), None
     return out, lse, (q, k, v)
 
 
@@ -132,7 +183,6 @@ def flash_attention_bwd_op(q, k, v, o, do, lse, *, causal: bool = True,
     dtype) and the forward's row log-sum-exps ``lse`` [B,H,S] fp32 ->
     (dq, dk, dv) in the inputs' layouts and dtype.  The CPU runs
     ``attention_bwd_ref``; a card the kernel."""
-    global bwd_launches
     q_offset = int(q_offset)
     if q.device.type == "cpu":
         t = lambda x: x.transpose(1, 2)  # noqa: E731
@@ -146,14 +196,23 @@ def flash_attention_bwd_op(q, k, v, o, do, lse, *, causal: bool = True,
             raise ValueError(f"flash_attention_bwd: {name} must be "
                              f"{tuple(q.shape)} {q.dtype} on {q.device}")
     B, S, H, hd = q.shape
-    T, KV = k.shape[1], k.shape[2]
     if lse.shape != (B, H, S) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd: lse must be [{B}, {H}, {S}] "
                          f"fp32")
-    o, do, lse = o.contiguous(), do.contiguous(), lse.contiguous()
+    return torch.ops.repro_torch.flash_bwd.default(
+        q, k, v, o.contiguous(), do.contiguous(), lse.contiguous(),
+        bool(causal), int(window), q_offset)
+
+
+def _bwd_launch(q, k, v, o, do, lse, causal, window, q_offset):
+    """The backward kernel's launch on contiguous inputs."""
+    global bwd_launches
+    _aligned(q, k, v)
     if q.data_ptr() % 16 or do.data_ptr() % 16:
         raise ValueError("flash_attention_bwd: q and do must be 16-byte "
                          "aligned (the kernel copies 16-byte rows of them)")
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     rowdot = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     rc = _build.load("flash_attention_bwd", _bind_bwd)(
@@ -165,6 +224,34 @@ def flash_attention_bwd_op(q, k, v, o, do, lse, *, causal: bool = True,
                            f"{rc}")
     bwd_launches += 1
     return dq, dk, dv
+
+
+def _bwd_meta(q, k, v, o, do, lse, causal, window, q_offset):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+_lib.impl("flash_bwd", _bwd_launch, "CUDA")
+_lib.impl("flash_bwd", _bwd_meta, "Meta")
+
+
+def _products(q_shape, k_shape) -> int:
+    """2 B H S T hd: one S x T product over every head, as the plain
+    version takes it (the masked pairs included)."""
+    B, S, H, hd = q_shape
+    return 2 * B * H * S * k_shape[1] * hd
+
+
+@register_flop_formula([torch.ops.repro_torch.flash_fwd,
+                        torch.ops.repro_torch.flash_fwd_lse])
+def _fwd_flops(q_shape, k_shape, *args, **kwargs) -> int:
+    """Scores and the weighted sum of V: two products."""
+    return 2 * _products(q_shape, k_shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_bwd)
+def _bwd_flops(q_shape, k_shape, *args, **kwargs) -> int:
+    """The scores again, dV, dP, dQ and dK: five products."""
+    return 5 * _products(q_shape, k_shape)
 
 
 class FlashAttention(torch.autograd.Function):
